@@ -1,0 +1,217 @@
+"""Per-video test-time scoring with grid batching and shape bucketing: the
+counterpart of anomalyclip_tpu/eval/evaluator.py (:37-329).
+
+The host lays a video's flat (n, s, l) frame stream out as ``s`` independent
+(num_segments x seg_length) grids, pads the grid batch up to a bucket size and
+scores it on the device; padded grids are sliced off before the inverse layout.
+The numpy halves (bucketing, layout, stride expansion, softmax) are copies of
+the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from anomalyclip_tpu.data.dataset import TestItem
+from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
+from anomalyclip_tpu_torch.models.selector import BNState, selector_test
+from anomalyclip_tpu_torch.models.temporal import temporal_scores
+from anomalyclip_tpu_torch.numerics import matmul_precision_for
+
+DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+# one static chunk for every frame-encoding call: the model's own
+ENCODE_CHUNK = AnomalyCLIP.ENCODE_CHUNK
+
+
+def bucket_size(g: int, buckets: Tuple[int, ...]) -> int:
+    for b in buckets:
+        if g <= b:
+            return b
+    top = buckets[-1]
+    return ((g + top - 1) // top) * top
+
+
+def pad_to_bucket(
+    grids: np.ndarray, buckets: Tuple[int, ...] = DEFAULT_BUCKETS
+) -> Tuple[np.ndarray, int]:
+    """Zero-pad the grid batch up to its bucket size -> (padded grids, true g)."""
+    g = grids.shape[0]
+    gb = bucket_size(g, buckets)
+    if gb != g:
+        pad = np.zeros((gb - g,) + grids.shape[1:], dtype=grids.dtype)
+        grids = np.concatenate([grids, pad], axis=0)
+    return grids, g
+
+
+def encode_frames_chunked(
+    encode: Callable[[torch.Tensor], torch.Tensor],
+    frames: np.ndarray,
+    device,
+    chunk: int = ENCODE_CHUNK,
+) -> np.ndarray:
+    """CLIP-encode (N, H, W, 3) frames in calls of exactly ``chunk`` frames, the
+    last one padded by repeating its first frame -> (N, D) float32. uint8 frames
+    go to the device as uint8 and are normalized there. bf16 features widen to
+    float32 exactly."""
+    outs = []
+    for i in range(0, len(frames), chunk):
+        part = frames[i : i + chunk]
+        pad = chunk - len(part)
+        if pad:
+            part = np.concatenate([part, np.repeat(part[:1], pad, axis=0)])
+        out = encode(torch.from_numpy(np.ascontiguousarray(part)).to(device))
+        out = out.float().cpu().numpy()
+        outs.append(out[: len(out) - pad] if pad else out)
+    return np.concatenate(outs)
+
+
+class GridScorer:
+    """Scores batches of (n, l, D) grids on one device with fixed parameters
+    (already on ``device``). The text features are computed once, here;
+    ``score_grids`` runs the selector and the temporal model on a bucket-padded
+    grid batch. ``encode_calls`` counts the image-tower calls of
+    ``encode_frames_np``, one per chunk."""
+
+    def __init__(
+        self,
+        model: AnomalyCLIP,
+        frozen,
+        trainable,
+        bn_state: BNState,
+        ncentroid,
+        buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
+        device="cpu",
+    ):
+        self.model = model
+        self.buckets = buckets
+        self.device = torch.device(device)
+        with torch.no_grad():
+            self.text_features = model.text_features(frozen, trainable)
+        self._frozen = frozen
+        self._temporal = trainable["temporal"]
+        self._bn_state = bn_state
+        self._ncentroid = torch.as_tensor(ncentroid, dtype=torch.float32, device=self.device)
+        self.encode_calls = 0
+
+    def _score(self, grids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """grids: (G, n, l, D) -> (similarity (G*n*l, C-1), scores (G*n*l,))"""
+        model = self.model
+        with torch.no_grad(), matmul_precision_for(model.cfg.dtype):
+            flat = grids.reshape(-1, grids.shape[-1])
+            similarity = selector_test(
+                flat, self.text_features, self._ncentroid, self._bn_state, model.selector_cfg
+            )
+            features = model._temporal_input(flat, similarity, self._ncentroid)
+            scores = temporal_scores(
+                features, self._temporal, model.temporal_cfg, segment_size=1, test_mode=False
+            ).reshape(-1)
+            return similarity, scores
+
+    def encode_frames_np(self, frames: np.ndarray) -> np.ndarray:
+        """CLIP-encode raw frames (N, H, W, 3) -> (N, D) in static-shape chunks."""
+
+        def encode(part: torch.Tensor) -> torch.Tensor:
+            self.encode_calls += 1
+            return self.model.encode_frames(self._frozen, part)
+
+        return encode_frames_chunked(encode, frames, self.device)
+
+    def score_grids(self, grids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Pad the grid batch to a bucket, score, trim."""
+        grids, g = pad_to_bucket(grids, self.buckets)
+        similarity, scores = self._score(torch.from_numpy(grids).to(self.device))
+        n_l = grids.shape[1] * grids.shape[2]
+        return (
+            similarity.cpu().numpy()[: g * n_l],
+            scores.cpu().numpy()[: g * n_l],
+        )
+
+
+@dataclasses.dataclass
+class VideoScores:
+    similarity: np.ndarray  # (T, C-1) frame-rate, trimmed to true length
+    scores: np.ndarray  # (T,)
+    class_probs: np.ndarray  # (T, C-1) softmax(similarity) * scores
+    frame_labels: np.ndarray  # (T,)
+    video_label: int
+    path: str
+    start_frame: int = 0  # file id of score index 0
+
+
+def score_sampled_features(
+    feats: np.ndarray,
+    segment_size: int,
+    num_segments: int,
+    seg_length: int,
+    stride: int,
+    num_labels: int,
+    score_grids: Callable[[np.ndarray], Tuple[np.ndarray, np.ndarray]],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side half of per-video scoring: grid layout, crop consensus, stride
+    expansion, trim, softmax. ``feats`` is (ncrops, n*s*l, D). Returns
+    (similarity (T, C-1), scores (T,), class_probs)."""
+    ncrops, t, d = feats.shape
+    n, l, s = num_segments, seg_length, segment_size
+    if t != n * s * l:
+        raise ValueError(f"features of length {t} are not {n}*{s}*{l}")
+
+    # (ncrops, n, s, l, D) -> (ncrops*s, n, l, D): grids in (crop-major, s) order
+    grids = (
+        feats.reshape(ncrops, n, s, l, d).transpose(0, 2, 1, 3, 4).reshape(ncrops * s, n, l, d)
+    )
+    similarity, scores = score_grids(grids)
+
+    # invert to the flat (ncrops, n, s, l) frame order
+    c_abn = similarity.shape[-1]
+    sim = (
+        similarity.reshape(ncrops, s, n, l, c_abn)
+        .transpose(0, 2, 1, 3, 4)
+        .reshape(ncrops, t, c_abn)
+    )
+    sc = scores.reshape(ncrops, s, n, l).transpose(0, 2, 1, 3).reshape(ncrops, t)
+    # multicrop consensus: the mean over crops (the identity for one crop)
+    sim = sim.mean(axis=0)
+    sc = sc.mean(axis=0)
+
+    # frame-rate expansion by stride, then trim the padding
+    sim = np.repeat(sim, stride, axis=0)[:num_labels]
+    sc = np.repeat(sc, stride, axis=0)[:num_labels]
+
+    # softmax over classes, joint probs
+    e = np.exp(sim - sim.max(axis=1, keepdims=True))
+    class_probs = (e / e.sum(axis=1, keepdims=True)) * sc[:, None]
+    return sim, sc, class_probs
+
+
+def score_video(item: TestItem, scorer: GridScorer, model: AnomalyCLIP) -> VideoScores:
+    """Score one test video: encode frames if given frames, then the grids."""
+    cfg = model.cfg
+    feats = item.features  # (ncrops, n*s*l, D) or frames (ncrops, n*s*l, H, W, 3)
+    if feats.ndim == 5:
+        ncrops, t = feats.shape[:2]
+        flat = feats.reshape((-1,) + feats.shape[2:])
+        feats = scorer.encode_frames_np(flat).reshape(ncrops, t, -1)
+
+    sim, sc, class_probs = score_sampled_features(
+        feats,
+        item.segment_size,
+        cfg.num_segments,
+        cfg.seg_length,
+        cfg.stride,
+        len(item.frame_labels),
+        scorer.score_grids,
+    )
+    return VideoScores(
+        similarity=sim,
+        scores=sc,
+        class_probs=class_probs,
+        frame_labels=np.asarray(item.frame_labels),
+        video_label=item.video_label,
+        path=item.path,
+        start_frame=getattr(item, "start_frame", 0),
+    )
