@@ -10,11 +10,14 @@ with ``frozen/``, ``trainable/``, ``bn/`` and ``clip_cfg/`` keys, as in
 - temporal conv kernels go from HWIO to OIHW, the layout ``F.conv2d`` takes;
 - everything else keeps its layout: ``qkv_w`` stays (D, 3D) so the hot path is
   ``x @ w``, and ``patch_embed`` stays (3*p*p, width) in its channel-major order.
+
+The trainable tree arrives as leaves that require grad (``as_trainable``); the
+frozen tree and the BN state as plain tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -73,7 +76,7 @@ def state_from_flat(
     flat: Mapping[str, np.ndarray], device="cpu"
 ) -> Tuple[Dict[str, Any], Dict[str, Any], BNState, CLIPConfig]:
     """A flat treeio dictionary (tiny_state.npz layout) ->
-    (frozen, trainable, bn_state, clip_cfg)."""
+    (frozen, trainable, bn_state, clip_cfg), the trainable leaves requiring grad."""
 
     def sub(prefix):
         return unflatten_tree(
@@ -84,16 +87,34 @@ def state_from_flat(
     bn = BNState(mean=_tensor(flat["bn/mean"], device), var=_tensor(flat["bn/var"], device))
     return (
         params_from_jax(sub("frozen/"), device),
-        params_from_jax(sub("trainable/"), device),
+        as_trainable(params_from_jax(sub("trainable/"), device)),
         bn,
         clip_cfg,
     )
 
 
+def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
+    """``fn`` over every tensor of a tree of dictionaries and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The tensors of a tree, in the order ``tree_map`` visits them."""
+    leaves: list = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
 def tree_to(tree: Any, device) -> Any:
     """Move every tensor of a parameter tree to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def as_trainable(tree: Any) -> Any:
+    """Copies of every tensor as fp32 leaves that require grad, for the
+    optimizer to update in place; the caller's tensors are left as they are."""
+    return tree_map(lambda t: t.detach().float().clone().requires_grad_(True), tree)

@@ -1,10 +1,11 @@
-"""The AnomalyCLIP composite model, test mode: CLIP features -> text-driven
-direction scores -> axial temporal scores. The counterpart of
-anomalyclip_tpu/models/anomaly_clip.py (forward_test and the pieces it runs).
+"""The AnomalyCLIP composite model: CLIP features -> text-driven direction
+scores -> MIL selection -> axial temporal scores. The counterpart of
+anomalyclip_tpu/models/anomaly_clip.py (forward_train, forward_test and the
+pieces they run).
 
-Parameters are split as in the JAX package: ``frozen`` ({"clip": CLIP params}),
-``trainable`` ({"prompt_ctx", "text_projection", "temporal"}) and the selector's
-``BNState``. The training forward is not ported yet.
+Parameters are split as in the JAX package: ``frozen`` ({"clip": CLIP params},
+never requiring grad), ``trainable`` ({"prompt_ctx", "text_projection",
+"temporal"}, the leaves the optimizer updates) and the selector's ``BNState``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,7 +28,12 @@ from anomalyclip_tpu_torch.models.prompt_learner import (
     build_prompt_spec,
     init_prompt_params,
 )
-from anomalyclip_tpu_torch.models.selector import BNState, SelectorConfig, selector_test
+from anomalyclip_tpu_torch.models.selector import (
+    BNState,
+    SelectorConfig,
+    selector_test,
+    selector_train,
+)
 from anomalyclip_tpu_torch.models.temporal import (
     TemporalConfig,
     init_temporal_params,
@@ -80,9 +86,20 @@ class AnomalyCLIPConfig:
         return _DTYPES[self.compute_dtype]
 
 
+class TrainOutput(NamedTuple):
+    """Training forward outputs."""
+
+    logits: torch.Tensor  # (b*n*l, C-1)
+    logits_topk: torch.Tensor  # (b*k*l, C-1)
+    scores: torch.Tensor  # (b*n*l,)
+    idx_topk_abn: torch.Tensor
+    idx_topk_nor: torch.Tensor
+    idx_bottomk_abn: torch.Tensor
+
+
 class AnomalyCLIP:
-    """Static model description (configs, prompt spec, classnames) and the test
-    forward as functions over the parameter trees."""
+    """Static model description (configs, prompt spec, classnames) and the
+    forwards as functions over the parameter trees."""
 
     # frames per image-encoder call (anomaly_clip.py:221)
     ENCODE_CHUNK = 256
@@ -185,6 +202,47 @@ class AnomalyCLIP:
         if self.cfg.concat_features:
             return torch.cat([similarity, recentered], dim=-1)
         return recentered
+
+    def forward_train(
+        self,
+        frozen: Params,
+        trainable: Params,
+        bn_state: BNState,
+        image_features: torch.Tensor,
+        labels: torch.Tensor,
+        ncentroid: torch.Tensor,
+        gen: torch.Generator,
+    ) -> Tuple[TrainOutput, BNState]:
+        """Training forward, differentiable in ``trainable``.
+
+        image_features: (b, t=n*l, D) CLIP features, abnormal half first, or
+        (b, t, H, W, 3) frames when load_from_features is False (encoded by the
+        frozen tower, without gradient); labels: (b,). ``gen`` draws the
+        selector's segment-dropout masks."""
+        with matmul_precision_for(self.cfg.dtype):
+            if not self.cfg.load_from_features:
+                b, t = image_features.shape[:2]
+                frames = image_features.reshape((-1,) + tuple(image_features.shape[2:]))
+                image_features = self.encode_frames(frozen, frames).reshape(b, t, -1)
+
+            flat = image_features.reshape(-1, image_features.shape[-1])
+            text_features = self.text_features(frozen, trainable)
+            selection, new_bn = selector_train(
+                flat, text_features, labels, ncentroid, bn_state, gen, self.selector_cfg
+            )
+            features = self._temporal_input(flat, selection.logits, ncentroid)
+            scores = temporal_scores(
+                features, trainable["temporal"], self.temporal_cfg, test_mode=False
+            ).reshape(-1)
+            output = TrainOutput(
+                logits=selection.logits,
+                logits_topk=selection.logits_topk,
+                scores=scores,
+                idx_topk_abn=selection.idx_topk_abn,
+                idx_topk_nor=selection.idx_topk_nor,
+                idx_bottomk_abn=selection.idx_bottomk_abn,
+            )
+            return output, new_bn
 
     def forward_test(
         self,

@@ -1,6 +1,7 @@
-"""Importing every module of the port loads none of jax, yaml, regex, cv2 or PIL:
-the machine with the card has none of them. Checked in a fresh interpreter,
-since this test process has jax loaded already (tests/conftest.py)."""
+"""Importing every module of the port loads none of jax, yaml, regex, cv2, PIL or
+optax: the machine with the card has none of them (or, for jax and optax, the
+port must not rely on them). Checked in a fresh interpreter, since this test
+process has jax loaded already (tests/conftest.py)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "yaml", "regex", "cv2", "PIL")
+FORBIDDEN = ("jax", "yaml", "regex", "cv2", "PIL", "optax")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -37,11 +38,14 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.models.anomaly_clip",
         "anomalyclip_tpu_torch.models.clip.model",
         "anomalyclip_tpu_torch.models.clip.tokenizer",
+        "anomalyclip_tpu_torch.models.losses",
         "anomalyclip_tpu_torch.models.prompt_learner",
         "anomalyclip_tpu_torch.models.selector",
         "anomalyclip_tpu_torch.models.temporal",
         "anomalyclip_tpu_torch.ops.attention",
         "anomalyclip_tpu_torch.ops.build",
+        "anomalyclip_tpu_torch.train.module",
+        "anomalyclip_tpu_torch.train.optim",
         "anomalyclip_tpu_torch.utils.treeio",
     }
     assert expected <= set(report["modules"])

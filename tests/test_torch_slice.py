@@ -195,8 +195,9 @@ def test_tiny_state_through_convert():
     )
     conv = trainable["temporal"]["layers"][0]["ff1"]["conv1_w"]
     np.testing.assert_array_equal(
-        conv.permute(2, 3, 1, 0).numpy(), flat["trainable/temporal/layers/0/ff1/conv1_w"]
+        conv.detach().permute(2, 3, 1, 0).numpy(), flat["trainable/temporal/layers/0/ff1/conv1_w"]
     )
+    assert conv.requires_grad and conv.is_leaf and not blocks[1]["attn"]["qkv_w"].requires_grad
     np.testing.assert_array_equal(bn.var.numpy(), flat["bn/var"])
 
     # the synthetic experiment's net settings the state was trained under
