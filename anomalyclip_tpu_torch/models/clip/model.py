@@ -9,8 +9,8 @@ hot path is ``x @ w``.
 
 Numerics follow the JAX package: LayerNorm in fp32 returning the input dtype,
 QuickGELU, products in ``compute_dtype`` with the block weights cast to the
-activation dtype, and attention through the fused CUDA kernel
-(ops/attention.py: fused_mha_qkv) on the card.
+activation dtype, and attention through the CUDA kernel that
+``attention_rung`` picks for the shape (ops/attention.py) on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +22,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
-from anomalyclip_tpu_torch.ops.attention import fused_mha_qkv
+from anomalyclip_tpu_torch.ops.attention import (
+    H100_SMEM_OPTIN,
+    fused_attention,
+    fused_mha_qkv,
+    fused_mha_qtile,
+    mha_smem_bytes,
+    smem_limit,
+)
 
 Params = Dict[str, Any]
 
@@ -61,6 +68,25 @@ class CLIPConfig:
         return CLIPConfig()
 
     @staticmethod
+    def vit_b32() -> "CLIPConfig":
+        return CLIPConfig(vision_patch_size=32)
+
+    @staticmethod
+    def vit_l14() -> "CLIPConfig":
+        return CLIPConfig(
+            embed_dim=768,
+            vision_layers=24,
+            vision_width=1024,
+            vision_patch_size=14,
+            transformer_width=768,
+            transformer_heads=12,
+        )
+
+    @staticmethod
+    def vit_l14_336() -> "CLIPConfig":
+        return dataclasses.replace(CLIPConfig.vit_l14(), image_resolution=336)
+
+    @staticmethod
     def tiny(vocab_size: int = 49408) -> "CLIPConfig":
         """A small stand-in config for tests."""
         return CLIPConfig(
@@ -96,13 +122,63 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def attention_core(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(dh)) v over (B, H, L, Dh); fp32 softmax either way."""
+    return fused_attention(q, k, v, causal)
+
+
+def attention_rung(
+    b: int, l: int, d: int, num_heads: int, itemsize: int, causal: bool,
+    smem: int = H100_SMEM_OPTIN,
+) -> str:
+    """The kernel dispatch ladder (the JAX package's ``attention_rung``,
+    model.py:242-260), with the card's limits in place of the TPU's: "mha"
+    (``fused_mha_qkv``) where its kernel's shared memory fits ``smem`` bytes,
+    "qtile" (``fused_mha_qtile``) for non-causal shapes where that kernel's
+    fits (the same kernel with K and V staged in the operand type, not fp32),
+    "core" (``attention_core``, which routes on to the flash kernel) otherwise.
+    A pure function of the shape, so the CPU runs the card's rungs."""
+    if d % num_heads == 0:
+        dh = d // num_heads
+        if mha_smem_bytes(l, dh) <= smem:
+            return "mha"
+        if not causal and mha_smem_bytes(l, dh, itemsize) <= smem:
+            return "qtile"
+    return "core"
+
+
+def _attention_apply_rung(rung: str, qkv: torch.Tensor, num_heads: int, causal: bool):
+    """Run the "mha" or "core" rung over a packed (B, L, 3D) qkv projection."""
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    if rung == "mha":
+        return fused_mha_qkv(qkv, num_heads, causal)
+
+    def split_heads(t):
+        return t.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
+
+    q, k, v = (split_heads(t) for t in qkv.split(d, dim=-1))
+    out = attention_core(q, k, v, causal)
+    return out.transpose(1, 2).reshape(b, l, d)
+
+
 def multi_head_attention(
     x: torch.Tensor, attn: Params, num_heads: int, causal: bool = False
 ) -> torch.Tensor:
-    """MHA over (B, L, D): one packed qkv projection, the fused kernel, the out
-    projection."""
-    qkv = x @ attn["qkv_w"] + attn["qkv_b"]
-    out = fused_mha_qkv(qkv, num_heads, causal)
+    """MHA over (B, L, D): the qkv projection, the rung ``attention_rung`` picks,
+    the out projection. The qtile rung projects q and the packed k|v as two
+    GEMMs straight from x, as the JAX package does (model.py:227-235)."""
+    b, l, d = x.shape
+    rung = attention_rung(b, l, d, num_heads, x.element_size(), causal, smem_limit(x.device))
+    if rung == "qtile":
+        q = x @ attn["qkv_w"][:, :d] + attn["qkv_b"][:d]
+        kv = x @ attn["qkv_w"][:, d:] + attn["qkv_b"][d:]
+        out = fused_mha_qtile(q, kv, num_heads)
+    else:
+        qkv = x @ attn["qkv_w"] + attn["qkv_b"]
+        out = _attention_apply_rung(rung, qkv, num_heads, causal)
     return out @ attn["out_w"] + attn["out_b"]
 
 

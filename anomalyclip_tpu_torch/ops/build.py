@@ -3,9 +3,10 @@
 The sources under ``ops/csrc/`` have a plain C interface, so they compile in
 seconds with ``nvcc`` alone (no PyTorch headers): one ``nvcc -c`` per source,
 all started together, then one link into a shared library under
-``<repo>/build/kernels/``. The library's name carries a hash of the sources and
-flags: a changed source builds a new library at its first use, and an unchanged
-one is loaded as it is. Nothing is built when this module is imported.
+``<repo>/build/kernels/``. The library's name carries a hash of the sources, the
+header they share and the flags: a changed source builds a new library at its
+first use, and an unchanged one is loaded as it is. Nothing is built when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "mha.cu", CSRC / "mha_bwd.cu")
+SOURCES = (CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu")
+HEADERS = (CSRC / "attention_common.cuh",)  # included by every source
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,7 +40,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libacl_kernels-{digest.hexdigest()[:16]}.so"
@@ -100,4 +102,12 @@ def load_library() -> ctypes.CDLL:
     lib.acl_mha_qkv_bwd.restype = i
     lib.acl_mha_bld_bwd.argtypes = [i, p, i, i, p, i, i, p, i, i, p, i, i, p, p, p, i, i, i, i, i, f, p]
     lib.acl_mha_bld_bwd.restype = i
+    lib.acl_mha_qtile_smem_bytes.argtypes = [i, i, i]
+    lib.acl_mha_qtile_smem_bytes.restype = ctypes.c_size_t
+    lib.acl_flash_smem_bytes.argtypes = [i, i]
+    lib.acl_flash_smem_bytes.restype = ctypes.c_size_t
+    lib.acl_mha_qtile_fwd.argtypes = [i, p, i, i, p, i, i, p, i, i, i, i, f, p]
+    lib.acl_mha_qtile_fwd.restype = i
+    lib.acl_flash_fwd.argtypes = [i, p, i, i, p, i, i, p, i, i, p, p, i, i, i, f, p]
+    lib.acl_flash_fwd.restype = i
     return lib

@@ -1,20 +1,27 @@
 // Whole-row multi-head attention for Hopper (sm_90a), fp32 and bf16.
 //
-// Two C entries, one kernel:
+// Three C entries, one kernel:
 //
-//   acl_mha_qkv_fwd  replaces _mha_qkv_kernel / fused_mha_qkv
-//                    (anomalyclip_tpu/ops/pallas/attention.py:423-466): attention
-//                    from one packed (B, L, 3D) qkv, lane order q|k|v, heads split
-//                    inside the kernel, optional causal mask. Serves the CLIP image
-//                    tower (L=197, 12 heads, dh 64) and the causal text tower
-//                    (L=77, 8 heads, dh 64).
-//   acl_mha_bld_fwd  replaces _mha_bld_kernel / fused_mha_bld
-//                    (attention.py:88-96, 386): the same function from separate
-//                    (B, L, D) q, k, v. Serves the temporal model's axial attention
-//                    (L=32 and L=16, 8 heads, dh 32), where k and v are the two
-//                    halves of one (B, L, 2D) projection.
+//   acl_mha_qkv_fwd    replaces _mha_qkv_kernel / fused_mha_qkv
+//                      (anomalyclip_tpu/ops/pallas/attention.py:423-466): attention
+//                      from one packed (B, L, 3D) qkv, lane order q|k|v, heads split
+//                      inside the kernel, optional causal mask. Serves the CLIP image
+//                      tower (L=197, 12 heads, dh 64) and the causal text towers
+//                      (L=77, 8 or 12 heads, dh 64).
+//   acl_mha_bld_fwd    replaces _mha_bld_kernel / fused_mha_bld
+//                      (attention.py:88-96, 386): the same function from separate
+//                      (B, L, D) q, k, v. Serves the temporal model's axial attention
+//                      (L=32 and L=16, 8 heads, dh 32), where k and v are the two
+//                      halves of one (B, L, 2D) projection, and fused_attention's
+//                      whole-block branch (attention.py:1089-1093) with the heads
+//                      folded into the batch.
+//   acl_mha_qtile_fwd  replaces _mha_qtile_kernel / fused_mha_qtile
+//                      (attention.py:525-532, 604, 626): non-causal attention of q
+//                      (B, L, D) against a packed k|v (B, L, 2D). Serves the
+//                      ViT-L/14@336px image tower in bf16 (B=256, L=577, 16 heads,
+//                      dh 64), past what fp32 staging fits.
 //
-// Both read the head slices of their operands in place through element strides:
+// All read the head slices of their operands in place through element strides:
 // no split, transpose or copy of q, k or v is made before the launch.
 //
 // What it computes is _attend_head (attention.py:68-85): fp32 scores, scaled, the
@@ -23,79 +30,50 @@
 // fp32 accumulation, and the normalising divide done on the output row.
 //
 // Design. One block per (batch entry, head, 64-query-row tile), 8 warps. The block
-// stages that head's K and V for the whole sequence in dynamic shared memory as
-// fp32 (at L=197, dh=64: 101 KB, above the 48 KB static limit, hence the
-// cudaFuncSetAttribute below). Each warp then owns one query row at a time: the
-// row of q sits in registers, lane j computes the scores of keys j, j+32, ...,
-// the max and the sum are warp shuffles, the exponent row goes to the warp's
-// slice of shared memory, and in the P.V product lane t owns output columns
-// t, t+32. K rows are padded to dh+1 floats so that the 32 lanes of a warp,
-// reading 32 different keys at the same column, hit 32 different banks.
+// stages that head's K and V for the whole sequence in dynamic shared memory, so
+// each block computes complete softmax rows and needs no rescaling (what the TPU
+// kernels do with their resident K|V block). Each warp then owns one query row at
+// a time: the row of q sits in registers, lane j computes the scores of keys j,
+// j+32, ..., the max and the sum are warp shuffles, the exponent row goes to the
+// warp's slice of shared memory, and in the P.V product lane t owns output
+// columns t, t+32. K rows are padded by one 32-bit word so that the 32 lanes of a
+// warp, reading 32 different keys at the same column, hit 32 different banks.
+//
+// The staging type S is the one difference between the entries. K1 and K2 stage
+// K and V as fp32 (at L=197, dh=64: 101 KB, above the 48 KB static limit, hence
+// the opt-in below); that fits L <= 420 at dh 64 in the 227 KB a block may have.
+// K6 stages them in the operand type: in bf16 at L=577, dh 64 that is 150 KB plus
+// 18 KB of fp32 exponent rows, which fits where fp32 staging (311 KB) does not.
+// In fp32 the two are one instantiation; an fp32 shape too long for it takes the
+// flash kernel (mha_long.cu) instead.
 //
 // What bounds it on the card. At the image tower's shape the two products are
 // 2 * 2 * L^2 * dh = 9.9 MFLOP per (batch, head), about 30 GFLOP a layer at 256
 // frames, done here on the fp32 CUDA cores, not the tensor cores. Every
 // multiply-add reads one operand from shared memory (the other is in a
-// register), so shared-memory bandwidth, not the FMA rate or device memory,
-// is the limit: device memory sees each K and V tile once per query tile
-// (4 times at L=197), about 1.2 GB a layer in fp32. Moving the products onto
-// wgmma with bf16 tiles and keeping P in registers is later work; this version
-// is the simple one whose results are checked against the plain PyTorch
-// formulation.
+// register), so shared-memory bandwidth (and in bf16 staging the conversions to
+// fp32), not the FMA rate or device memory, is the limit: device memory sees each
+// K and V tile once per query tile (4 times at L=197), about 1.2 GB a layer in
+// fp32. Moving the products onto wgmma with bf16 tiles and keeping P in
+// registers is later work; this version is the simple one whose results are
+// checked against the plain PyTorch formulation.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 64;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// P is cast to v's type before the P.V product, as the TPU kernel does.
-__device__ __forceinline__ float round_like(float x, float) { return x; }
-__device__ __forceinline__ float round_like(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-struct Operand {
-  const void* ptr;   // element (batch 0, row 0, column 0) of head 0
-  int64_t batch_stride;
-  int64_t row_stride;  // columns are contiguous; head h starts at column h * DH
-};
-
-template <typename T, int DH>
+template <typename T, typename S, int DH>
 __global__ void __launch_bounds__(kThreads)
 mha_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out, int L, int H,
                int causal, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;                      // L x (DH + 1)
-  float* vs = ks + L * (DH + 1);         // L x DH
-  float* ps = vs + L * DH;               // kWarps x L   exponent rows
-  float* qs = ps + kWarps * L;           // kWarps x DH  query rows
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int KP = padded<S>(DH);
+  S* ks = reinterpret_cast<S*>(smem);                 // L x KP
+  S* vs = ks + L * KP;                                // L x DH
+  float* ps = reinterpret_cast<float*>(vs + L * DH);  // kWarps x L   exponent rows
+  float* qs = ps + kWarps * L;                        // kWarps x DH  query rows
 
   const int b = blockIdx.x;  // x: the one grid dimension not capped at 65535
   const int h = blockIdx.y;
@@ -110,14 +88,14 @@ mha_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out, int L, int 
 
   for (int i = threadIdx.x; i < L * DH; i += kThreads) {
     const int r = i / DH, c = i % DH;
-    ks[r * (DH + 1) + c] = to_float(kp[r * k.row_stride + c]);
-    vs[r * DH + c] = to_float(vp[r * v.row_stride + c]);
+    ks[r * KP + c] = stage<S>(kp[r * k.row_stride + c]);
+    vs[r * DH + c] = stage<S>(vp[r * v.row_stride + c]);
   }
   __syncthreads();
 
   float* prow = ps + warp * L;
   float* qrow = qs + warp * DH;
-  const int row_end = min(L, (tile + 1) * kRowsPerBlock);
+  const int row_end = min(L, (tile + 1) * kRowsPerBlock);  // the last tile may be ragged
   for (int row = tile * kRowsPerBlock + warp; row < row_end; row += kWarps) {
     for (int c = lane; c < DH; c += 32) qrow[c] = to_float(qp[row * q.row_stride + c]);
     __syncwarp();
@@ -127,11 +105,7 @@ mha_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out, int L, int 
 
     float m = kNegInf;
     for (int j = lane; j < L; j += 32) {
-      float s = 0.f;
-      const float* kr = ks + j * (DH + 1);
-#pragma unroll
-      for (int c = 0; c < DH; ++c) s = fmaf(qr[c], kr[c], s);
-      s *= scale;
+      float s = dot_row<S, DH>(qr, ks + j * KP) * scale;
       if (causal && j > row) s = kNegInf;
       prow[j] = s;
       m = fmaxf(m, s);
@@ -153,7 +127,8 @@ mha_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out, int L, int 
     for (int j = 0; j < L; ++j) {
       const float p = prow[j];
 #pragma unroll
-      for (int t = 0; t < DH / 32; ++t) acc[t] = fmaf(p, vs[j * DH + lane + 32 * t], acc[t]);
+      for (int t = 0; t < DH / 32; ++t)
+        acc[t] = fmaf(p, to_float(vs[j * DH + lane + 32 * t]), acc[t]);
     }
 #pragma unroll
     for (int t = 0; t < DH / 32; ++t)
@@ -162,45 +137,39 @@ mha_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out, int L, int 
   }
 }
 
+template <typename S>
 size_t smem_bytes(int L, int dh) {
-  return sizeof(float) * ((size_t)L * (dh + 1) + (size_t)L * dh + (size_t)kWarps * L +
-                          (size_t)kWarps * dh);
+  return sizeof(S) * ((size_t)L * padded<S>(dh) + (size_t)L * dh) +
+         sizeof(float) * ((size_t)kWarps * L + (size_t)kWarps * dh);
 }
 
-template <typename T, int DH>
+template <typename T, typename S, int DH>
 cudaError_t launch_typed(Operand q, Operand k, Operand v, void* out, int B, int L, int H,
                          int causal, float scale, cudaStream_t stream) {
   static bool attribute_set = false;
-  const size_t smem = smem_bytes(L, DH);
-  if (!attribute_set) {
-    // allow dynamic shared memory up to the card's opt-in limit, once
-    int device = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(mha_fwd_kernel<T, DH>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return err;
-    attribute_set = true;
-  }
+  cudaError_t err = allow_optin_smem(mha_fwd_kernel<T, S, DH>, &attribute_set);
+  if (err != cudaSuccess) return err;
   dim3 grid(B, H, (L + kRowsPerBlock - 1) / kRowsPerBlock);
-  mha_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  mha_fwd_kernel<T, S, DH><<<grid, kThreads, smem_bytes<S>(L, DH), stream>>>(
       q, k, v, static_cast<T*>(out), L, H, causal, scale);
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dh: 32 or 64.
+// dtype: 0 = float32, 1 = bfloat16. dh: 32 or 64. K and V are staged as fp32
+// (kStageFp32) or in the operand type.
+template <bool kStageFp32>
 cudaError_t launch(int dtype, Operand q, Operand k, Operand v, void* out, int B, int L,
                    int H, int dh, int causal, float scale, cudaStream_t stream) {
+  using BF = __nv_bfloat16;
+  using SB = std::conditional_t<kStageFp32, float, BF>;
   if (dtype == 0 && dh == 32)
-    return launch_typed<float, 32>(q, k, v, out, B, L, H, causal, scale, stream);
+    return launch_typed<float, float, 32>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 0 && dh == 64)
-    return launch_typed<float, 64>(q, k, v, out, B, L, H, causal, scale, stream);
+    return launch_typed<float, float, 64>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 1 && dh == 32)
-    return launch_typed<__nv_bfloat16, 32>(q, k, v, out, B, L, H, causal, scale, stream);
+    return launch_typed<BF, SB, 32>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 1 && dh == 64)
-    return launch_typed<__nv_bfloat16, 64>(q, k, v, out, B, L, H, causal, scale, stream);
+    return launch_typed<BF, SB, 64>(q, k, v, out, B, L, H, causal, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -208,8 +177,14 @@ cudaError_t launch(int dtype, Operand q, Operand k, Operand v, void* out, int B,
 
 extern "C" {
 
-// Shared-memory bytes one block needs, so the caller can refuse a shape early.
-size_t acl_mha_smem_bytes(int L, int dh) { return smem_bytes(L, dh); }
+// Shared-memory bytes one block needs, so the caller can refuse a shape early:
+// K1 and K2 stage as fp32, K6 in the operand type (dtype: 0 = float32,
+// 1 = bfloat16).
+size_t acl_mha_smem_bytes(int L, int dh) { return smem_bytes<float>(L, dh); }
+
+size_t acl_mha_qtile_smem_bytes(int L, int dh, int dtype) {
+  return dtype == 0 ? smem_bytes<float>(L, dh) : smem_bytes<__nv_bfloat16>(L, dh);
+}
 
 // K1. qkv: (B, L, 3D) with element strides (batch_stride, row_stride, 1);
 // out: contiguous (B, L, D), D = H * dh.
@@ -221,8 +196,8 @@ int acl_mha_qkv_fwd(int dtype, const void* qkv, int batch_stride, int row_stride
   Operand q{base, batch_stride, row_stride};
   Operand k{base + esize * D, batch_stride, row_stride};
   Operand v{base + esize * 2 * D, batch_stride, row_stride};
-  return (int)launch(dtype, q, k, v, out, B, L, H, dh, causal, scale,
-                     static_cast<cudaStream_t>(stream));
+  return (int)launch<true>(dtype, q, k, v, out, B, L, H, dh, causal, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // K2. q, k, v: (B, L, D) each with its own element strides (last stride 1);
@@ -233,8 +208,21 @@ int acl_mha_bld_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* k,
   Operand qo{q, q_bs, q_rs};
   Operand ko{k, k_bs, k_rs};
   Operand vo{v, v_bs, v_rs};
-  return (int)launch(dtype, qo, ko, vo, out, B, L, H, dh, causal, scale,
-                     static_cast<cudaStream_t>(stream));
+  return (int)launch<true>(dtype, qo, ko, vo, out, B, L, H, dh, causal, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K6. q: (B, L, D) and kv: (B, L, 2D), lane order k|v, each with element strides
+// (batch_stride, row_stride, 1); out: contiguous (B, L, D). Non-causal.
+int acl_mha_qtile_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* kv, int kv_bs,
+                      int kv_rs, void* out, int B, int L, int H, int dh, float scale,
+                      void* stream) {
+  const size_t esize = dtype == 0 ? 4 : 2;
+  Operand qo{q, q_bs, q_rs};
+  Operand ko{kv, kv_bs, kv_rs};
+  Operand vo{static_cast<const char*>(kv) + esize * H * dh, kv_bs, kv_rs};
+  return (int)launch<false>(dtype, qo, ko, vo, out, B, L, H, dh, /*causal=*/0, scale,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

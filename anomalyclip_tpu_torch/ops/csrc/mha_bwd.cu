@@ -47,51 +47,9 @@
 // Shared memory grows as L^2: at dh=64 a head fits up to about L=117, so an
 // unfrozen ViT (L=197) is refused by the wrapper, not launched.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
-
-// The helpers below repeat mha.cu's: each source compiles on its own, and the
-// package ships the .cu files alone.
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// dS and P are cast to the operand type before the second-stage products, as
-// the TPU kernel does: a no-op in fp32, a bf16 rounding in bf16.
-__device__ __forceinline__ float round_like(float x, float) { return x; }
-__device__ __forceinline__ float round_like(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-struct Operand {
-  const void* ptr;  // element (batch 0, row 0, column 0) of head 0
-  int64_t batch_stride;
-  int64_t row_stride;  // columns are contiguous; head h starts at column h * DH
-};
 
 struct Output {
   void* ptr;
@@ -215,18 +173,8 @@ cudaError_t launch_typed(Operand q, Operand k, Operand v, Operand g, Output dq, 
                          Output dv, int B, int L, int H, int causal, float scale,
                          cudaStream_t stream) {
   static bool attribute_set = false;
-  if (!attribute_set) {
-    // allow dynamic shared memory up to the card's opt-in limit, once
-    int device = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(mha_bwd_kernel<T, DH>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return err;
-    attribute_set = true;
-  }
+  cudaError_t err = allow_optin_smem(mha_bwd_kernel<T, DH>, &attribute_set);
+  if (err != cudaSuccess) return err;
   dim3 grid(B, H);
   mha_bwd_kernel<T, DH><<<grid, kThreads, smem_bytes(L, DH), stream>>>(
       q, k, v, g, dq, dk, dv, L, causal, scale);

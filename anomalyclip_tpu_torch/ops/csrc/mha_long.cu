@@ -1,0 +1,192 @@
+// Attention over long sequences for Hopper (sm_90a), fp32 and bf16, forward only.
+//
+// One C entry, one kernel:
+//
+//   acl_flash_fwd  replaces _flash_kernel / flash_attention_heads
+//                  (anomalyclip_tpu/ops/pallas/attention.py:800-854, 885, 1056):
+//                  KV-blocked online-softmax attention over per-head (N, L, dh) q,
+//                  k, v, read in place through element strides, with the
+//                  log-sum-exp per row written on request. Serves the
+//                  ViT-L/14@336px image tower in fp32 (N = 256 x 16, L=577, dh 64),
+//                  where fused_attention (attention.py:1121-1135) routes it: there
+//                  the whole-row kernel of mha.cu fits neither with fp32 nor, in
+//                  fp32, with operand-type staging.
+//
+// What it computes is what _flash_kernel computes, block by block: per KV block
+// of kBlockKV keys, m_new = max(m, rowmax(s)), alpha = exp(m - m_new), p =
+// exp(s - m_new) cast to the operand type before the P.V product (the sum takes
+// p unrounded), acc = acc * alpha + p.V, l = l * alpha + rowsum(p); one divide at
+// the end; lse = m + log(l). Keys past L are masked to -1e30 and the V rows past
+// L are zeroed, since 0 * garbage in the padding would still poison acc.
+//
+// Design: one block per (n, 64-query-row tile), 8 warps. The tile's q rows are
+// staged once as fp32; each KV block is staged in the operand type, K rows padded
+// by one 32-bit word; a warp owns query rows warp, warp + 8, ... and keeps each
+// row's running max, sum and fp32 accumulator in shared memory between KV blocks.
+// Shared memory is independent of L: at dh 64 about 101 KB in fp32 (two blocks
+// per SM) and 69 KB in bf16.
+//
+// What bounds it: 2 * 2 * L^2 * dh FLOP per (n) on the fp32 CUDA cores with one
+// shared-memory operand per multiply-add; device memory sees K and V once per
+// query tile (10 times at L=577), about 12 GB per call at the fp32 tower shape,
+// a few ms of the call against tens of ms of arithmetic. Tensor cores are later
+// work.
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kBlockKV = 128;  // keys per KV block
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
+                 float* __restrict__ lse, int L, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int KP = padded<T>(DH);
+  T* ks = reinterpret_cast<T*>(smem);                   // kBlockKV x KP
+  T* vs = ks + kBlockKV * KP;                           // kBlockKV x DH
+  float* ps = reinterpret_cast<float*>(vs + kBlockKV * DH);  // kWarps x kBlockKV
+  float* qs = ps + kWarps * kBlockKV;                   // kRowsPerBlock x DH, fp32
+  float* accs = qs + kRowsPerBlock * DH;                // kRowsPerBlock x DH, fp32
+  float* ms = accs + kRowsPerBlock * DH;                // running max per row
+  float* ls = ms + kRowsPerBlock;                       // running sum per row
+
+  const int n = blockIdx.x;  // x: the one grid dimension not capped at 65535
+  const int row0 = blockIdx.y * kRowsPerBlock;
+  const int rows = min(kRowsPerBlock, L - row0);  // the last tile is ragged
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  const T* qp = static_cast<const T*>(q.ptr) + n * q.batch_stride;
+  const T* kp = static_cast<const T*>(k.ptr) + n * k.batch_stride;
+  const T* vp = static_cast<const T*>(v.ptr) + n * v.batch_stride;
+
+  for (int i = threadIdx.x; i < kRowsPerBlock * DH; i += kThreads) {
+    const int r = i / DH, c = i % DH;
+    qs[i] = r < rows ? to_float(qp[(row0 + r) * q.row_stride + c]) : 0.f;
+    accs[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < kRowsPerBlock; i += kThreads) {
+    ms[i] = kNegInf;
+    ls[i] = 0.f;
+  }
+
+  float* prow = ps + warp * kBlockKV;
+  for (int kv0 = 0; kv0 < L; kv0 += kBlockKV) {
+    const int nkv = min(kBlockKV, L - kv0);
+    __syncthreads();  // every warp is done with the previous block
+    for (int i = threadIdx.x; i < kBlockKV * DH; i += kThreads) {
+      const int r = i / DH, c = i % DH;
+      const bool live = r < nkv;
+      ks[r * KP + c] = live ? kp[(kv0 + r) * k.row_stride + c] : from_float<T>(0.f);
+      vs[r * DH + c] = live ? vp[(kv0 + r) * v.row_stride + c] : from_float<T>(0.f);
+    }
+    __syncthreads();
+
+    for (int r = warp; r < rows; r += kWarps) {
+      float qr[DH];
+#pragma unroll
+      for (int c = 0; c < DH; ++c) qr[c] = qs[r * DH + c];
+
+      float blk_max = kNegInf;
+#pragma unroll
+      for (int j = lane; j < kBlockKV; j += 32) {
+        const float s = j < nkv ? dot_row<T, DH>(qr, ks + j * KP) * scale : kNegInf;
+        prow[j] = s;
+        blk_max = fmaxf(blk_max, s);
+      }
+      blk_max = warp_max(blk_max);
+      const float m_old = ms[r];
+      const float m_new = fmaxf(m_old, blk_max);
+      const float alpha = expf(m_old - m_new);
+
+      float psum = 0.f;
+#pragma unroll
+      for (int j = lane; j < kBlockKV; j += 32) {
+        const float p = expf(prow[j] - m_new);  // 0 at the masked keys
+        psum += p;
+        prow[j] = round_like(p, T());
+      }
+      psum = warp_sum(psum);
+      __syncwarp();
+
+      float acc[DH / 32];
+#pragma unroll
+      for (int t = 0; t < DH / 32; ++t) acc[t] = accs[r * DH + lane + 32 * t] * alpha;
+      for (int j = 0; j < nkv; ++j) {
+        const float p = prow[j];
+#pragma unroll
+        for (int t = 0; t < DH / 32; ++t)
+          acc[t] = fmaf(p, to_float(vs[j * DH + lane + 32 * t]), acc[t]);
+      }
+#pragma unroll
+      for (int t = 0; t < DH / 32; ++t) accs[r * DH + lane + 32 * t] = acc[t];
+      __syncwarp();  // all lanes have read ms[r] and prow before they change
+      if (lane == 0) {
+        ms[r] = m_new;
+        ls[r] = ls[r] * alpha + psum;
+      }
+      __syncwarp();
+    }
+  }
+
+  T* op = out + ((int64_t)n * L + row0) * DH;
+  for (int r = warp; r < rows; r += kWarps) {
+    const float denom = ls[r];
+#pragma unroll
+    for (int t = 0; t < DH / 32; ++t)
+      op[(int64_t)r * DH + lane + 32 * t] = from_float<T>(accs[r * DH + lane + 32 * t] / denom);
+    if (lse != nullptr && lane == 0) lse[(int64_t)n * L + row0 + r] = ms[r] + logf(denom);
+  }
+}
+
+template <typename T>
+size_t flash_smem_bytes(int dh) {
+  return sizeof(T) * ((size_t)kBlockKV * padded<T>(dh) + (size_t)kBlockKV * dh) +
+         sizeof(float) * ((size_t)kWarps * kBlockKV + 2 * (size_t)kRowsPerBlock * dh +
+                          2 * (size_t)kRowsPerBlock);
+}
+
+template <typename T, int DH>
+cudaError_t launch_flash(Operand q, Operand k, Operand v, void* out, float* lse, int N, int L,
+                         float scale, cudaStream_t stream) {
+  static bool attribute_set = false;
+  cudaError_t err = allow_optin_smem(flash_fwd_kernel<T, DH>, &attribute_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N, (L + kRowsPerBlock - 1) / kRowsPerBlock);
+  flash_fwd_kernel<T, DH><<<grid, kThreads, flash_smem_bytes<T>(DH), stream>>>(
+      q, k, v, static_cast<T*>(out), lse, L, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared-memory bytes one block needs, so the caller can refuse a shape early.
+// dtype: 0 = float32, 1 = bfloat16.
+size_t acl_flash_smem_bytes(int dh, int dtype) {
+  return dtype == 0 ? flash_smem_bytes<float>(dh) : flash_smem_bytes<__nv_bfloat16>(dh);
+}
+
+// K8. q, k, v: (N, L, dh) each with its own element strides (last stride 1);
+// out: contiguous (N, L, dh); lse: contiguous (N, L) fp32, or null.
+int acl_flash_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* k, int k_bs,
+                  int k_rs, const void* v, int v_bs, int v_rs, void* out, void* lse, int N,
+                  int L, int dh, float scale, void* stream) {
+  Operand qo{q, q_bs, q_rs};
+  Operand ko{k, k_bs, k_rs};
+  Operand vo{v, v_bs, v_rs};
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && dh == 32) return (int)launch_flash<float, 32>(qo, ko, vo, out, l, N, L, scale, s);
+  if (dtype == 0 && dh == 64) return (int)launch_flash<float, 64>(qo, ko, vo, out, l, N, L, scale, s);
+  if (dtype == 1 && dh == 32)
+    return (int)launch_flash<__nv_bfloat16, 32>(qo, ko, vo, out, l, N, L, scale, s);
+  if (dtype == 1 && dh == 64)
+    return (int)launch_flash<__nv_bfloat16, 64>(qo, ko, vo, out, l, N, L, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -6,10 +6,14 @@ Phases, each ending in torch.cuda.synchronize(); any failure raises and the
 script exits non-zero without printing a result:
 
 1. device: require CUDA and print the card's name and power limit;
-2. build: compile the CUDA kernels from the repository's sources;
+2. build: compile the CUDA kernels from the repository's sources, and hold the
+   library's shared-memory sizes against the Python formulas the dispatch
+   ladder uses;
 3. kernels: each forward kernel against its plain PyTorch version at the main
-   paths' shapes, fp32 within 1e-5 and bf16 within 5e-2 (absolute), with median
-   times;
+   paths' shapes (K1 and K2 at the ViT-B/16 and ViT-L/14 shapes; K6, K8 with
+   its log-sum-exp, and K5's flash branch at the ViT-L/14@336px tower's
+   shapes; K5's whole-block kernel at ViT-B/16's heads, causal and not), fp32
+   within 1e-5 and bf16 within 5e-2 (absolute), with median times;
 3b. backward kernels: K3 and K4 against their plain backwards at the training
    step's shapes, fp32 within 1e-5 and bf16 within 5e-2 of max|ref|, with
    median times;
@@ -26,15 +30,24 @@ script exits non-zero without printing a result:
    are checked, and the same steps under the plain attention must agree: step
    1's loss terms and gradients within 1e-4 of each leaf's max, the 3-step
    losses at rtol 5e-4, the BN state within 1e-5;
+4c. ViT-L/14@336px: the UCF-Crime model with the ViT-L/14@336px tower at full
+   width from seeded weights scores one synthetic 200-frame video (one grid,
+   two encode calls of 256 frames) in fp32, through the core rung into the
+   flash kernel, and in bf16, through the q-tiled kernel; each run's launch
+   counts are checked, and each is held against the same call with the plain
+   attention (fp32 within 1e-4, bf16 within BF16_SLICE_TOL, absolute);
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
-   700-frame video on the host clock, then one under torch.profiler, and the
-   same for one warm training step: device time against wall time, time by
-   class of kernel and the top kernels, printed and written as JSON to
-   OUT.json.
+   700-frame video on the host clock, then one under torch.profiler, the same
+   for one warm training step, and one warm call of the ViT-L/14@336px video
+   per dtype: device time against wall time, time by class of kernel and the
+   top kernels, printed and written as JSON to OUT.json.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launch counts (the scoring and training runs together),
-errors and times.
+kernels with their launch counts (the scoring, training and ViT-L/14@336px
+runs together), errors and times. fused_attention's own kernel, the
+whole-block one, is on none of these paths (its shapes there take K1, K6 or,
+through its flash branch, K8), so its count is 0; its error and times are
+phase 3's.
 """
 
 from __future__ import annotations
@@ -64,19 +77,28 @@ KERNEL_SOURCE = {
     "fused_mha_bld": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
     "mha_qkv_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
     "mha_bld_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
+    "fused_mha_qtile": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
+    "flash_attention_heads": "anomalyclip_tpu_torch/ops/csrc/mha_long.cu",
+    # its whole-block kernel: acl_mha_bld_fwd with the heads folded
+    "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
 }
 REPLACES = {
     "fused_mha_qkv": "anomalyclip_tpu/ops/pallas/attention.py:423",
     "fused_mha_bld": "anomalyclip_tpu/ops/pallas/attention.py:88",
     "mha_qkv_bwd": "anomalyclip_tpu/ops/pallas/attention.py:291",
     "mha_bld_bwd": "anomalyclip_tpu/ops/pallas/attention.py:273",
+    "fused_mha_qtile": "anomalyclip_tpu/ops/pallas/attention.py:525",
+    "flash_attention_heads": "anomalyclip_tpu/ops/pallas/attention.py:800",
+    "fused_attention": "anomalyclip_tpu/ops/pallas/attention.py:1089",
 }
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 FP32_SLICE_TOL = 1e-4
 # the plain attention rounds as the kernel does, so the two bf16 passes differ
-# only by summation order (about 3.4e-2 after the twelve bf16 layers); bf16
-# against fp32 differs by about 6.0e-2, which this limit rejects
+# only by summation order (about 3.4e-2 after ViT-B/16's twelve bf16 layers,
+# 3.2e-2 after ViT-L/14@336px's 24); bf16 against fp32 differs by about 6.0e-2
+# and 7.9e-2, which this limit rejects (NVIDIA H100 80GB HBM3, 700 W)
 BF16_SLICE_TOL = 5e-2
+L14_VIDEO_FRAMES = 200  # one 32x16-frame grid: 512 frames, two encode calls
 
 # UCF-Crime training (anomalyclip_tpu/configs/model/anomaly_clip_ucfcrime.yaml,
 # configs/data/ucfcrime.yaml): batch 64 = 32 abnormal + 32 normal videos
@@ -105,11 +127,28 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from anomalyclip_tpu_torch.ops import attention as A
     from anomalyclip_tpu_torch.ops import build
 
     start = time.perf_counter()
-    build.load_library()
+    lib = build.load_library()
     print(f"[build] {build.library_path().name}: {time.perf_counter() - start:.2f} s")
+    # the ladder and the wrappers decide from the Python formulas; the kernels
+    # launch with their own: the two must agree at every shape of the paths
+    checked = 0
+    for l in (16, 32, 50, 77, 197, 257, 400, 577):
+        for dh in (32, 64):
+            require(lib.acl_mha_smem_bytes(l, dh) == A.mha_smem_bytes(l, dh), f"mha smem at {l, dh}")
+            require(lib.acl_mha_bwd_smem_bytes(l, dh) == A.mha_bwd_smem_bytes(l, dh),
+                    f"mha_bwd smem at {l, dh}")
+            for code, itemsize in ((0, 4), (1, 2)):
+                require(lib.acl_mha_qtile_smem_bytes(l, dh, code) == A.mha_smem_bytes(l, dh, itemsize),
+                        f"qtile smem at {l, dh, itemsize}")
+                require(lib.acl_flash_smem_bytes(dh, code) == A.flash_smem_bytes(dh, itemsize),
+                        f"flash smem at {dh, itemsize}")
+            checked += 1
+    print(f"[build] shared-memory formulas: library and Python agree at {checked} (L, dh) "
+          f"pairs; card limit {A.smem_limit(torch.device('cuda'))} B per block")
     torch.cuda.synchronize()
 
 
@@ -127,51 +166,98 @@ def median_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+FP32, BF16 = (torch.float32,), (torch.bfloat16,)
+BOTH = FP32 + BF16
+
+
 def phase_kernels() -> dict:
-    """Each kernel against its plain version -> {name: fp32 max error, times}."""
+    """Each kernel against its plain version -> {name: max error and times at
+    the shapes and in the dtype its path runs}."""
     from anomalyclip_tpu_torch.ops.attention import (
+        flash_attention_heads,
+        flash_attention_reference,
+        fused_attention,
+        fused_attention_reference,
         fused_mha_bld,
         fused_mha_qkv,
+        fused_mha_qtile,
         mha_bld_reference,
         mha_qkv_reference,
+        mha_qtile_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # (entry, shape, heads, causal, make input, kernel, plain, dtypes checked,
+    #  the dtypes whose numbers go into the kernels line: the path's)
     cases = []
-    for b, l, d, h, causal in ((256, 197, 768, 12, False), (14, 77, 512, 8, True)):
-        qkv = torch.randn(b, l, 3 * d, device="cuda", generator=gen)
+    for b, l, d, h, causal in ((256, 197, 768, 12, False), (14, 77, 512, 8, True),
+                               (14, 77, 768, 12, True)):  # the ViT-L/14 text tower
         cases.append((
-            "fused_mha_qkv", (b, l, 3 * d), h, causal, qkv,
+            "fused_mha_qkv", (b, l, 3 * d), h, causal, (b, l, 3 * d),
             lambda t, h=h, c=causal: fused_mha_qkv(t, h, c),
-            lambda t, h=h, c=causal: mha_qkv_reference(t, h, c),
+            lambda t, h=h, c=causal: mha_qkv_reference(t, h, c), BOTH, FP32,
         ))
     for b, l, d, h in ((64, 32, 256, 8), (128, 16, 256, 8)):
-        qkv = torch.randn(b, l, 3 * d, device="cuda", generator=gen)  # q | k v
-        cases.append((
-            "fused_mha_bld", (b, l, d), h, False, qkv,
+        cases.append((  # q | k v
+            "fused_mha_bld", (b, l, d), h, False, (b, l, 3 * d),
             lambda t, h=h, d=d: fused_mha_bld(t[..., :d], t[..., d:2 * d], t[..., 2 * d:], h),
             lambda t, h=h, d=d: mha_bld_reference(t[..., :d], t[..., d:2 * d], t[..., 2 * d:], h),
+            BOTH, FP32,
         ))
+    # K6: the ViT-L/14@336px tower's bf16 shape (q and k|v from one tensor, as
+    # the ladder's two GEMMs leave them), and an fp32 shape whose K and V fit
+    for b, l, dtypes, path in ((256, 577, BF16, BF16), (64, 400, FP32, ())):
+        cases.append((
+            "fused_mha_qtile", (b, l, 1024), 16, False, (b, l, 3 * 1024),
+            lambda t: fused_mha_qtile(t[..., :1024], t[..., 1024:], 16),
+            lambda t: mha_qtile_reference(t[..., :1024], t[..., 1024:], 16), dtypes, path,
+        ))
+    # K8 at the shape fused_attention hands it in the fp32 tower, with the lse
+    cases.append((
+        "flash_attention_heads", (4096, 577, 64), 1, False, (3, 4096, 577, 64),
+        lambda t: flash_attention_heads(t[0], t[1], t[2], save_lse=True),
+        lambda t: flash_attention_reference(t[0], t[1], t[2], save_lse=True), BOTH, FP32,
+    ))
+    # K5: its whole-block kernel at ViT-B/16 heads, causal and not (on no path:
+    # the kernels line reports these, in fp32), and its flash branch at the fp32
+    # tower's split heads (strided views of one qkv), which launches K8
+    for causal in (False, True):
+        cases.append((
+            "fused_attention", (256, 12, 197, 64), 12, causal, (3, 256, 12, 197, 64),
+            lambda t, c=causal: fused_attention(t[0], t[1], t[2], c),
+            lambda t, c=causal: fused_attention_reference(t[0], t[1], t[2], c), BOTH, FP32,
+        ))
+    cases.append((
+        "fused_attention", (256, 16, 577, 64), 16, False, (256, 577, 3, 16, 64),
+        lambda t: fused_attention(*t.permute(2, 0, 3, 1, 4)),
+        lambda t: fused_attention_reference(*t.permute(2, 0, 3, 1, 4)), BOTH, (),
+    ))
 
     report = {}
-    for name, shape, heads, causal, x32, kernel, plain in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, shape, heads, causal, in_shape, kernel, plain, dtypes, path in cases:
+        x32 = torch.randn(in_shape, device="cuda", generator=gen)
+        for dtype in dtypes:
             x = x32.to(dtype)
             got, want = kernel(x), plain(x)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
             tol = TOLERANCE[dtype]
-            torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+            for a, b in pairs:
+                torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+            del got, want, pairs
             ms, plain_ms = median_ms(lambda: kernel(x)), median_ms(lambda: plain(x))
             print(f"[kernels] {name} {shape} heads={heads} causal={causal} "
                   f"{str(dtype).split('.')[-1]}: max|err| {err:.3e} (tol {tol:g}), "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             entry = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-            if dtype == torch.float32:
-                # the path runs fp32: one call at each of its shapes, summed
+            if dtype in path:
+                # one call at each of the path's shapes, summed
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 entry["ms"] += ms
                 entry["plain_ms"] += plain_ms
+        del x32, x
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return report
 
@@ -232,16 +318,19 @@ def phase_bwd_kernels() -> dict:
     return report
 
 
-def build_ucf_model(device: str, compute_dtype: str = "float32", load_from_features: bool = False):
-    """UCF-Crime ViT-B/16 at full width from the port's seeded init."""
+def build_ucf_model(device: str, compute_dtype: str = "float32", load_from_features: bool = False,
+                    arch: str = "ViT-B/16"):
+    """UCF-Crime at full width from the port's seeded init, with the ViT-B/16
+    or the ViT-L/14@336px CLIP tower."""
     from anomalyclip_tpu_torch.convert import tree_to
     from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP, AnomalyCLIPConfig
     from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, init_clip_params
     from anomalyclip_tpu_torch.models.selector import BNState
 
     gen = torch.Generator().manual_seed(SEED)
-    clip_cfg = CLIPConfig.vit_b16()
+    clip_cfg = {"ViT-B/16": CLIPConfig.vit_b16, "ViT-L/14@336px": CLIPConfig.vit_l14_336}[arch]()
     cfg = AnomalyCLIPConfig(
+        arch=arch,
         labels_file=str(ROOT / "anomalyclip_tpu" / "labels" / "ucf_labels.csv"),
         emb_size=256, depth=1, heads=8, num_segments=32, seg_length=16,
         concat_features=False, normal_id=NORMAL_ID, stride=1, ncrops=1,
@@ -322,12 +411,11 @@ def phase_slice() -> dict:
     chunks = sum(-(-g * grid_frames // model.ENCODE_CHUNK) for g in VIDEO_GRIDS.values())
     require(predictor.scorer.encode_calls == chunks,
             f"encode calls {predictor.scorer.encode_calls}, expected {chunks}")
-    expected = {
+    expected = dict.fromkeys(launch_counts, 0)  # no backward; L=197 takes the mha rung
+    expected.update({
         "fused_mha_qkv": clip_cfg.transformer_layers + clip_cfg.vision_layers * chunks,
         "fused_mha_bld": 2 * cfg.depth * len(VIDEO_FRAMES),
-        "mha_qkv_bwd": 0,  # scoring runs no backward
-        "mha_bld_bwd": 0,
-    }
+    })
     print(f"[slice] launches {launches}, expected {expected} ({chunks} encode calls)")
     require(launches == expected, f"launches {launches}, expected {expected}")
 
@@ -456,7 +544,7 @@ def phase_train() -> dict:
     text_layers, depth = model.clip_cfg.transformer_layers, model.cfg.depth
     per_step = {"fused_mha_qkv": text_layers, "mha_qkv_bwd": text_layers,
                 "fused_mha_bld": 2 * depth, "mha_bld_bwd": 2 * depth}
-    expected = {k: TRAIN_STEPS * per_step[k] for k in launch_counts}
+    expected = {k: TRAIN_STEPS * per_step.get(k, 0) for k in launch_counts}
     print(f"[train] launches {launches}, expected {expected}")
     require(launches == expected, f"launches {launches}, expected {expected}")
 
@@ -498,10 +586,89 @@ def phase_train() -> dict:
     return launches
 
 
+def l14_video() -> np.ndarray:
+    return np.random.default_rng(SEED + 2).integers(
+        0, 256, (1, L14_VIDEO_FRAMES, 336, 336, 3), dtype=np.uint8
+    )
+
+
+def phase_l14() -> dict:
+    """UCF-Crime scoring with the ViT-L/14@336px tower, fp32 then bf16 -> the
+    kernel launch counts of each run."""
+    from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
+    from anomalyclip_tpu_torch.ops.attention import (
+        attention_impl,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from anomalyclip_tpu_torch.predict import Predictor
+
+    start = time.perf_counter()
+    model, frozen, trainable, bn_state, ncentroid = build_ucf_model("cuda", arch="ViT-L/14@336px")
+    n_abn = len(model.classnames) - 1
+    frames = l14_video()
+    torch.cuda.synchronize()
+    print(f"[l14] model and video ready: {time.perf_counter() - start:.2f} s")
+    cfg, clip_cfg = model.cfg, model.clip_cfg
+    chunks = -(-cfg.num_segments * cfg.seg_length // model.ENCODE_CHUNK)  # one grid
+    text, vision, temporal = clip_cfg.transformer_layers, clip_cfg.vision_layers * chunks, 2 * cfg.depth
+    # fp32: L=577 fits neither K1 nor K6 in fp32, so every vision layer takes the
+    # core rung: fused_attention, which routes it on to the flash kernel and
+    # launches no kernel of its own
+    expected = {
+        "float32": {"fused_mha_qkv": text, "fused_mha_bld": temporal,
+                    "flash_attention_heads": vision},
+        "bfloat16": {"fused_mha_qkv": text, "fused_mha_bld": temporal, "fused_mha_qtile": vision},
+    }
+    launches, outputs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        m = AnomalyCLIP(dataclasses.replace(cfg, compute_dtype=dtype), clip_cfg,
+                        model.classnames, model.prompt_spec)
+        # the main path: counters from zero, predictor built, the video scored
+        reset_launch_counts()
+        start = time.perf_counter()
+        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda")
+        vs, result = predictor.score_frames(frames)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches[dtype] = dict(launch_counts)
+        check_video(vs, result, L14_VIDEO_FRAMES, n_abn)
+        require(predictor.scorer.encode_calls == chunks,
+                f"encode calls {predictor.scorer.encode_calls}, expected {chunks}")
+        want = {k: expected[dtype].get(k, 0) for k in launch_counts}
+        print(f"[l14] {dtype} video {L14_VIDEO_FRAMES} frames ({chunks} encode calls): "
+              f"{seconds:.3f} s with the predictor's set-up, "
+              f"{L14_VIDEO_FRAMES / seconds:.1f} frames/s; launches {launches[dtype]}")
+        require(launches[dtype] == want, f"{dtype} launches {launches[dtype]}, expected {want}")
+
+        start = time.perf_counter()
+        with attention_impl("reference"):
+            ref = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda")
+            ref_vs, _ = ref.score_frames(frames)
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - start
+        outputs[dtype] = vs
+        gap = max(float(np.abs(getattr(vs, n) - getattr(ref_vs, n)).max())
+                  for n in ("scores", "similarity", "class_probs"))
+        limit = FP32_SLICE_TOL if dtype == "float32" else BF16_SLICE_TOL
+        drift = "" if dtype == "float32" else "; bf16 vs fp32 max|diff| {:.3e} (not asserted)".format(
+            max(float(np.abs(getattr(vs, n) - getattr(outputs["float32"], n)).max())
+                for n in ("scores", "similarity", "class_probs")))
+        print(f"[l14] {dtype}: plain attention {plain_seconds:.3f} s; kernels vs plain "
+              f"max|diff| {gap:.3e} (limit {limit:g}){drift}")
+        assert_videos_close(vs, ref_vs, limit, f"ViT-L/14@336px {dtype} kernel vs plain")
+        del predictor, ref
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return launches
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_fwd_kernel" in low:
         return "attention (mha.cu)"
+    if "flash_fwd_kernel" in low:
+        return "attention (mha_long.cu)"
     if "mha_bwd_kernel" in low:
         return "attention backward (mha_bwd.cu)"
     if low.startswith(("memcpy", "memset")):
@@ -515,14 +682,14 @@ def kernel_class(name: str) -> str:
     return "elementwise and reductions"
 
 
-def profile_call(fn, top: int = 15) -> dict:
-    """Three warm calls of fn on the host clock, then one under torch.profiler."""
+def profile_call(fn, top: int = 15, warm: int = 3) -> dict:
+    """``warm`` warm calls of fn on the host clock, then one under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(3):
+    for _ in range(warm):
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -607,6 +774,19 @@ def phase_profile(out: Path, smi: str) -> None:
 
     results["train_step_float32"] = profile_call(step)
     print_profile("fp32 train step, batch 64", results["train_step_float32"])
+    del model, frozen, trainable, predictor, m, train_model, state, holder
+    torch.cuda.empty_cache()
+
+    # one warm ViT-L/14@336px scoring call of the 200-frame video per dtype
+    model, frozen, trainable, bn_state, ncentroid = build_ucf_model("cuda", arch="ViT-L/14@336px")
+    frames = l14_video()
+    for dtype in ("float32", "bfloat16"):
+        m = AnomalyCLIP(dataclasses.replace(model.cfg, compute_dtype=dtype),
+                        model.clip_cfg, model.classnames, model.prompt_spec)
+        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda")
+        key = f"l14_336_{dtype}"
+        results[key] = profile_call(lambda: predictor.score_frames(frames), warm=1)
+        print_profile(f"ViT-L/14@336px {dtype} {L14_VIDEO_FRAMES} frames", results[key])
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1))
     print(f"[profile] wrote {out}")
@@ -616,8 +796,8 @@ def phase_profile(out: Path, smi: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", type=Path, metavar="OUT.json",
-                        help="also profile one warm 700-frame call per dtype and one "
-                             "warm training step")
+                        help="also profile one warm 700-frame call per dtype, one "
+                             "warm training step and one warm ViT-L/14@336px call per dtype")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -625,12 +805,22 @@ def main() -> int:
     report.update(phase_bwd_kernels())
     slice_launches = phase_slice()
     train_launches = phase_train()
+    l14_launches = phase_l14()
     if args.profile:
         phase_profile(args.profile, smi)
-    # each path ran its kernels: the forwards on both, the backwards on training
+    # each path ran its kernels: the forwards on both, the backwards on training,
+    # the flash kernel through fused_attention's routing in the fp32
+    # ViT-L/14@336px tower, the q-tiled kernel in the bf16 one
     require(all(slice_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld")),
             f"a kernel of the scoring path was never launched: {slice_launches}")
-    require(all(n > 0 for n in train_launches.values()),
+    l14_paths = {"float32": ("fused_mha_qkv", "fused_mha_bld", "flash_attention_heads"),
+                 "bfloat16": ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile")}
+    for dtype, names in l14_paths.items():
+        require(all(l14_launches[dtype][k] > 0 for k in names),
+                f"a kernel of the {dtype} ViT-L/14@336px path was never launched: "
+                f"{l14_launches[dtype]}")
+    require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld",
+                                                "mha_qkv_bwd", "mha_bld_bwd")),
             f"a kernel of the training path was never launched: {train_launches}")
     kernels = [
         {
@@ -638,12 +828,14 @@ def main() -> int:
             "route": "cuda",
             "source": KERNEL_SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": slice_launches[name] + train_launches[name],
+            "launches": slice_launches[name] + train_launches[name]
+            + sum(run[name] for run in l14_launches.values()),
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
         }
-        for name in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd")
+        for name in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                     "fused_mha_qtile", "flash_attention_heads", "fused_attention")
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -130,6 +130,42 @@ def test_score_frames_matches_jax(tiny_pair, t_raw, grids):
     assert result["video_anomaly_score"] == pytest.approx(float(theirs.scores.max()), abs=ATOL)
 
 
+def test_score_frames_l14_336_shape_matches_jax():
+    """The ViT-L/14@336px sequence (336 px, patch 14: L=577) at a narrow width:
+    the image tower takes the core rung into the flash entry (fp32), which runs
+    its KV-blocked plain version here. One grid of 16 frames, one 256-frame
+    encode call (the chunk pads by repetition)."""
+    labels = Path(tempfile.mkdtemp()) / "labels.csv"
+    labels.write_text("id,name\n0,Abuse\n1,Arson\n2,Normal\n3,Robbery\n4,Shooting\n")
+    net = dict(
+        labels_file=str(labels), emb_size=64, depth=1, heads=2, num_segments=4,
+        seg_length=4, normal_id=2, load_from_features=False,
+    )
+    clip_cfg = jclip.CLIPConfig(
+        embed_dim=64, image_resolution=336, vision_layers=2, vision_width=128,
+        vision_patch_size=14, transformer_width=64, transformer_heads=4, transformer_layers=2,
+    )
+    jmodel, jfrozen = jac.AnomalyCLIP.build(
+        jac.AnomalyCLIPConfig(**net), jclip.init_clip_params(jax.random.PRNGKey(2), clip_cfg), clip_cfg
+    )
+    jtrainable, _ = jmodel.init_trainable(jax.random.PRNGKey(3), jfrozen)
+    rng = np.random.default_rng(1)
+    jbn = JBNState(
+        mean=jnp.asarray(0.1 * rng.standard_normal(4), jnp.float32),
+        var=jnp.asarray(rng.uniform(0.5, 2.0, 4), jnp.float32),
+    )
+    ncentroid = (0.1 * rng.standard_normal(clip_cfg.embed_dim)).astype(np.float32)
+    jmodel, jscorer, predictor = _build_pair(net, jfrozen, jtrainable, jbn, clip_cfg, ncentroid)
+    assert (clip_cfg.grid_size**2 + 1, clip_cfg.vision_width // 64) == (577, 2)
+
+    raw = rng.integers(0, 256, (1, 12, 336, 336, 3), dtype=np.uint8)
+    theirs, segment_size = _jax_score(jmodel, jscorer, raw)
+    ours, result = predictor.score_frames(raw)
+    assert segment_size == 1 and predictor.scorer.encode_calls == 1
+    _assert_same(ours, theirs)
+    assert ours.scores.shape == (12,) and result["num_frames"] == 12
+
+
 def test_text_features_match_jax(tiny_pair):
     np.testing.assert_allclose(
         tiny_pair.predictor.scorer.text_features.numpy(),

@@ -22,6 +22,7 @@ Same numpy inputs, same converted weights, both packages:
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -46,8 +47,23 @@ from anomalyclip_tpu_torch.models import losses as tloss
 from anomalyclip_tpu_torch.models import selector as tsel
 from anomalyclip_tpu_torch.train import module as tmod
 from anomalyclip_tpu_torch.train import optim as toptim
-from tests.helpers.golden_inputs import train_forward_inputs, trajectory_batches
-from tests.helpers.synthetic_run import synthetic_cfg
+
+
+def _load_helper(name: str):
+    """tests/helpers/<name>.py loaded by its path: an installed package named
+    ``tests`` may shadow this repository's, so the helpers are not imported
+    through it."""
+    path = Path(__file__).resolve().parent / "helpers" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_test_torch_train_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_golden_inputs = _load_helper("golden_inputs")
+train_forward_inputs = _golden_inputs.train_forward_inputs
+trajectory_batches = _golden_inputs.trajectory_batches
+synthetic_cfg = _load_helper("synthetic_run").synthetic_cfg
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden"
