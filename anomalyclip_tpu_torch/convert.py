@@ -12,7 +12,10 @@ with ``frozen/``, ``trainable/``, ``bn/`` and ``clip_cfg/`` keys, as in
   ``x @ w``, and ``patch_embed`` stays (3*p*p, width) in its channel-major order.
 
 The trainable tree arrives as leaves that require grad (``as_trainable``); the
-frozen tree and the BN state as plain tensors.
+frozen tree and the BN state as plain tensors. ``clip_params_require_grad``
+makes one tower of the CLIP parameters differentiable, and ``tree_to_jax`` maps
+a tree of the port's (its gradients, say) back to the JAX layout, so that both
+packages' gradients can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -118,3 +121,39 @@ def as_trainable(tree: Any) -> Any:
     """Copies of every tensor as fp32 leaves that require grad, for the
     optimizer to update in place; the caller's tensors are left as they are."""
     return tree_map(lambda t: t.detach().float().clone().requires_grad_(True), tree)
+
+
+def clip_params_require_grad(params: Dict[str, Any], tower: str = "visual") -> Dict[str, Any]:
+    """The CLIP parameters with every tensor of ``tower`` ("visual" or "text")
+    replaced by an fp32 leaf that requires grad; the rest is shared as it is."""
+    return {**params, tower: as_trainable(params[tower])}
+
+
+def tree_from_leaves(tree: Any, leaves) -> Any:
+    """A tree shaped as ``tree`` holding ``leaves`` in the order ``tree_leaves``
+    gives them: e.g. the gradients ``torch.autograd.grad`` returns for
+    ``tree_leaves(tree)``, as a tree again."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def tree_to_jax(node: Any, key: str = "") -> Any:
+    """The inverse of ``params_from_jax``, to numpy: every ``blocks`` list
+    stacked on a leading layer axis again, conv kernels back to HWIO."""
+    if isinstance(node, dict):
+        return {k: tree_to_jax(v, k) for k, v in node.items()}
+    if isinstance(node, list):
+        items = [tree_to_jax(v) for v in node]
+        if key != "blocks":
+            return items
+
+        def stack(parts):
+            if isinstance(parts[0], dict):
+                return {k: stack([p[k] for p in parts]) for k in parts[0]}
+            return np.stack(parts)
+
+        return stack(items)
+    t = node.detach().float().cpu()
+    if key in ("conv1_w", "conv2_w"):
+        t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    return t.numpy()

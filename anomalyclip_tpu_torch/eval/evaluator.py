@@ -16,7 +16,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from anomalyclip_tpu.data.dataset import TestItem
+from anomalyclip_tpu_torch.data.dataset import TestItem
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
 from anomalyclip_tpu_torch.models.selector import BNState, selector_test
 from anomalyclip_tpu_torch.models.temporal import temporal_scores

@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from anomalyclip_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
 from anomalyclip_tpu_torch.ops.attention import (
     H100_SMEM_OPTIN,
@@ -225,8 +226,6 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 def normalize_frames_on_device(images: torch.Tensor) -> torch.Tensor:
     """uint8 RGB (..., H, W, 3) -> CLIP-normalized fp32, with the JAX package's op
     order: (x / 255 - mean) / std."""
-    from anomalyclip_tpu.data.transforms import CLIP_MEAN, CLIP_STD
-
     mean = torch.as_tensor(CLIP_MEAN, device=images.device)
     std = torch.as_tensor(CLIP_STD, device=images.device)
     return (images.float() / 255.0 - mean) / std

@@ -11,22 +11,23 @@ Five entries, the counterparts of the JAX package's Pallas kernels
   :88-96, 386). The temporal model's axial attention. Its gradient is
   ``_mha_bld_bwd_kernel`` (:273-288, 340-358): dq, dk, dv.
 - ``fused_mha_qtile``: non-causal q (B, L, D) against a packed k|v (B, L, 2D)
-  (``_mha_qtile_kernel``, :525-532, 626). The ViT-L/14@336px tower in bf16.
+  (``_mha_qtile_kernel``, :525-532, 626). The ViT-L/14@336px tower in bf16. Its
+  gradient is ``_mha_qtile_bwd_kernel`` (:646-708): dq and a packed dk|dv.
 - ``flash_attention_heads``: KV-blocked online softmax over per-head (N, L, dh)
-  (``_flash_kernel``, :800-854, 1056), optionally with the log-sum-exp.
+  (``_flash_kernel``, :800-854, 1056), optionally with the log-sum-exp. Its
+  gradient is ``_flash_dq_kernel`` and ``_flash_dkv_kernel`` (:904-993), with P
+  rebuilt from the saved log-sum-exp.
 - ``fused_attention``: per-head (B, H, L, Dh) (``_attn_kernel``, :1089-1093,
   1152), routed as ``_fused_attention_impl`` routes (:1121-1135). The
-  ViT-L/14@336px tower in fp32 enters here and goes on to the flash kernel.
+  ViT-L/14@336px tower in fp32 enters here and goes on to the flash kernel. Its
+  gradient is the whole-block backward with the heads folded (:1171-1181).
 
 The forwards compute the function of ``_attend_head`` (:68-85): fp32 scores, a
 row-max-subtracted fp32 softmax, masked entries at ``NEG_INF``. The backwards
 compute the exact softmax VJP of ``_mha_bwd_head`` (:244-270), scores recomputed
 from q and k. Each entry is a ``torch.autograd.Function``: on a CUDA tensor each
 direction launches its kernel (ops/csrc/*.cu, built by ops/build.py) or raises;
-on a CPU tensor both run the plain versions. The last three entries serve
-inference only: on the kernel path their backward raises, since the backward
-kernels (K7, K9, K10) are not ported yet; their plain versions are
-differentiable as they are.
+on a CPU tensor both run the plain versions.
 ``attention_impl("reference")`` makes the wrappers run the plain versions on the
 card too, so that tests and the chip smoke run can hold the kernels against
 them. The choice is read when the forward runs and kept for its backward, which
@@ -34,10 +35,13 @@ autograd runs on another thread.
 
 Which kernel fits a shape is a matter of shared memory. The formulas of what a
 block of each kernel needs live here (K1, K2 and K6 share one whole-row kernel
-and one formula, with K and V staged as fp32 or in the operand type), one source of truth for the wrappers'
-checks and for the dispatch ladder (models/clip/model.py: ``attention_rung``);
-the library reports its own (``acl_*_smem_bytes``), and the chip smoke run holds
-the two against each other.
+and one formula, with K and V staged as fp32 or in the operand type), one
+source of truth for the wrappers' checks, for the dispatch ladder
+(models/clip/model.py: ``attention_rung``) and
+for the backward's routing (``attention_bwd_route``: the whole-head kernel of
+mha_bwd.cu where its L x L tiles fit, the KV-blocked pair of mha_blocked_bwd.cu
+past it); the library reports its own (``acl_*_smem_bytes``), and the chip smoke
+run holds the two against each other.
 """
 
 from __future__ import annotations
@@ -55,11 +59,14 @@ from anomalyclip_tpu_torch.ops.build import load_library
 NEG_INF = -1e30
 
 # kernel launches per entry since the last reset_launch_counts(), each counted
-# where its kernel launches: "fused_attention" counts its whole-block kernel;
-# its flash branch launches K8, which counts under "flash_attention_heads".
+# where its kernel launches: "fused_attention" counts its whole-block kernel in
+# either direction; its flash branch launches K8, which counts under
+# "flash_attention_heads", and that entry's backward under "flash_dq" and
+# "flash_dkv". A backward entry counts once whichever kernel its route takes.
 launch_counts = {
     "fused_mha_qkv": 0, "fused_mha_bld": 0, "mha_qkv_bwd": 0, "mha_bld_bwd": 0,
     "fused_mha_qtile": 0, "flash_attention_heads": 0, "fused_attention": 0,
+    "mha_qtile_bwd": 0, "flash_dq": 0, "flash_dkv": 0,
 }
 
 _IMPL = contextvars.ContextVar("attention_impl", default="kernel")
@@ -174,6 +181,16 @@ def mha_qtile_reference(q, kv, num_heads: int) -> torch.Tensor:
     return mha_bld_reference(q, kv[..., :d], kv[..., d:], num_heads)
 
 
+def mha_qtile_bwd_reference(q, kv, g, num_heads: int) -> tuple:
+    """(dq (B, L, D), dkv (B, L, 2D)) of ``mha_qtile_reference`` for its output
+    gradient g, rounded as ``_mha_qtile_bwd_kernel`` (:646-708) rounds: P
+    normalised in fp32, delta = rowsum(P o dP), dS cast to q's type and P to v's
+    before the second-stage products (``attention_bwd_reference``)."""
+    d = q.shape[-1]
+    dq, dk, dv = mha_bld_bwd_reference(q, kv[..., :d], kv[..., d:], g, num_heads)
+    return dq, torch.cat([dk, dv], dim=-1)
+
+
 def fused_attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
     """``fused_attention``'s whole-block kernel (:1089-1093) over (B, H, L, Dh)."""
     return attention_reference(q, k, v, causal)
@@ -211,9 +228,54 @@ def flash_attention_reference(q, k, v, save_lse: bool = False):
     return out
 
 
+def flash_delta(g, out) -> torch.Tensor:
+    """rowsum(g o out) in fp32, (N, L): the flash backward's delta, one
+    elementwise pass outside the kernels, as ``_flash_bwd_impl`` (:1013-1016)."""
+    return (g.float() * out.float()).sum(dim=-1)
+
+
+def _flash_p_and_ds(q, k, v, g, lse, delta) -> tuple:
+    """fp32 (P, dS, g) of the flash backward from the (N, L) fp32 log-sum-exp and
+    delta: P = exp(s - lse), not renormalised; dS = P o (dP - delta) * scale,
+    rounded to q's type."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    g = g.to(q.dtype).float()
+    scores = torch.einsum("nqd,nkd->nqk", q.float(), k.float()) * scale
+    p = torch.exp(scores - lse.unsqueeze(-1))
+    dp = torch.einsum("nqd,nkd->nqk", g, v.float())
+    return p, (p * (dp - delta.unsqueeze(-1)) * scale).to(q.dtype).float(), g
+
+
+def flash_dq_reference(q, k, v, g, lse, delta) -> torch.Tensor:
+    """``_flash_dq_kernel`` (:904-940) over per-head (N, L, dh): dq = dS K, dS
+    cast to q's type first, summed in fp32."""
+    _, ds, _ = _flash_p_and_ds(q, k, v, g, lse, delta)
+    return torch.einsum("nqk,nkd->nqd", ds, k.float()).to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, g, lse, delta) -> tuple:
+    """``_flash_dkv_kernel`` (:943-993): dk = dS^T q and dv = P^T g, dS cast to
+    q's type and P to v's type first, summed in fp32."""
+    p, ds, g = _flash_p_and_ds(q, k, v, g, lse, delta)
+    dk = torch.einsum("nqk,nqd->nkd", ds, q.float())
+    dv = torch.einsum("nqk,nqd->nkd", p.to(v.dtype).float(), g)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, g, lse, out) -> tuple:
+    """(dq, dk, dv) of ``flash_attention_reference`` as ``_flash_bwd`` (:1076-1078)
+    computes them: g cast to q's type first, delta = rowsum(g o out) in fp32
+    from the *rounded* output, then the dq pass and the dk, dv pass. In bf16
+    this differs from ``attention_bwd_reference``, which takes delta from
+    P o dP."""
+    g = g.to(q.dtype)
+    delta = flash_delta(g, out)
+    return (flash_dq_reference(q, k, v, g, lse, delta), *flash_dkv_reference(q, k, v, g, lse, delta))
+
+
 # ---------------------------------------------------------------------------
 # Shared memory per block of each kernel, in bytes: the same formulas as the
-# kernels' own smem_bytes (mha.cu, mha_bwd.cu, mha_long.cu)
+# kernels' own smem_bytes (mha.cu, mha_bwd.cu, mha_long.cu, mha_blocked_bwd.cu)
 # ---------------------------------------------------------------------------
 
 _KERNEL_WARPS = 8
@@ -243,6 +305,44 @@ def flash_smem_bytes(dh: int, itemsize: int) -> int:
     sum per row. Independent of L."""
     kv = itemsize * (FLASH_BLOCK_KV * (dh + 4 // itemsize) + FLASH_BLOCK_KV * dh)
     return kv + 4 * (_KERNEL_WARPS * FLASH_BLOCK_KV + 2 * _KERNEL_ROWS * dh + 2 * _KERNEL_ROWS)
+
+
+# keys per KV block of the blocked backward kernels (mha_blocked_bwd.cu: kBwdKV)
+BWD_BLOCK_KV = 64
+
+
+def blocked_bwd_smem_bytes(dh: int, itemsize: int) -> int:
+    """K7, K9, K10 and the long shapes of K3, K4 and K5's backward
+    (mha_blocked_bwd.cu), either kernel: fp32 q and g rows, the P and dS tiles,
+    the tile's row statistics, one KV block in the operand type with K and V
+    both padded. Independent of L."""
+    tiles = 2 * _KERNEL_ROWS * dh + 2 * _KERNEL_ROWS * BWD_BLOCK_KV + 3 * _KERNEL_ROWS
+    return 4 * tiles + itemsize * 2 * BWD_BLOCK_KV * (dh + 4 // itemsize)
+
+
+def attention_bwd_route(
+    l: int, dh: int, itemsize: int, causal: bool, smem: int = H100_SMEM_OPTIN
+) -> str:
+    """Which kernel the whole-block backward entries (K3, K4, and K5's backward)
+    launch at sequence length ``l`` and head dim ``dh``, given ``smem`` bytes of
+    shared memory a block: "whole" (mha_bwd.cu) where its L x L tiles fit,
+    "blocked" (mha_blocked_bwd.cu, with the row statistics recomputed) for
+    non-causal shapes past it. A causal shape past it raises, as the forward
+    does: no supported model has one (the causal text towers are L=77). A pure
+    function of the shape, so a CPU test holds it."""
+    if mha_bwd_smem_bytes(l, dh) <= smem:
+        return "whole"
+    if not causal and blocked_bwd_smem_bytes(dh, itemsize) <= smem:
+        return "blocked"
+    blocked = (
+        "the KV-blocked backward is non-causal" if causal
+        else f"the KV-blocked backward needs {blocked_bwd_smem_bytes(dh, itemsize)} B"
+    )
+    raise ValueError(
+        f"attention backward: {'causal ' if causal else ''}shape (L={l}, dh={dh}) needs "
+        f"{mha_bwd_smem_bytes(l, dh)} B of shared memory per block for the whole-block "
+        f"kernel, the card gives {smem}, and {blocked}"
+    )
 
 
 @functools.lru_cache(maxsize=None)
@@ -373,41 +473,129 @@ def mha_bld_fwd_kernel(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
     return out
 
 
+def _heads_view(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, H*dh) -> its (B, H, L, dh) view, no copy (``t`` may itself be a
+    column slice of a packed projection)."""
+    return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads)).transpose(1, 2)
+
+
+def _blocked_args(name: str, tensors) -> tuple:
+    """(B, H, L, dh) views -> the pointer and (batch, head, row) stride arrays
+    ``acl_blocked_dq`` and ``acl_blocked_dkv`` take."""
+    ptrs, strides = [], []
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}: the last dimension must be contiguous")
+        ptrs.append(t.data_ptr())
+        strides.extend(t.stride()[:3])
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * len(strides))(*strides)
+
+
+def _check_blocked(name: str, q, k, v, g) -> None:
+    """Raise on what the KV-blocked backward kernels do not take."""
+    _check_bld(name, q, k, v)
+    b, h, l, dh = q.shape
+    itemsize = q.element_size()
+    _check_kernel_shape(name, q, dh, 1, lambda dh: blocked_bwd_smem_bytes(dh, itemsize))
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(
+            f"{name}: gradient {tuple(g.shape)} {g.dtype} for q {tuple(q.shape)} {q.dtype}"
+        )
+    if h > 65535 or l > _INT_MAX:
+        raise ValueError(f"{name}: shape {tuple(q.shape)} is beyond the launch grid")
+
+
+def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool) -> None:
+    """Launch ``acl_blocked_dq`` over (B, H, L, dh) views for entry ``name``; the
+    (B, H, L) fp32 statistics m, l, delta are written when ``recompute``, else
+    read (l may be None: then 1). Counts nothing."""
+    b, h, seq, dh = q.shape
+    ptrs, strides = _blocked_args(name, (q, k, v, g, dq))
+    ptr = ctypes.c_void_p
+    err = load_library().acl_blocked_dq(
+        _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
+        ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()), int(recompute),
+        b, h, seq, dh, 1.0 / math.sqrt(dh), _stream(q),
+    )
+    _raise_on_error(name, err)
+
+
+def _launch_blocked_dkv(name: str, q, k, v, g, dk, dv, m, l, delta) -> None:
+    """Launch ``acl_blocked_dkv`` over (B, H, L, dh) views for entry ``name``,
+    reading the statistics. Counts nothing."""
+    b, h, seq, dh = q.shape
+    ptrs, strides = _blocked_args(name, (q, k, v, g, dk, dv))
+    ptr = ctypes.c_void_p
+    err = load_library().acl_blocked_dkv(
+        _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
+        ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()),
+        b, h, seq, dh, 1.0 / math.sqrt(dh), _stream(q),
+    )
+    _raise_on_error(name, err)
+
+
+def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv) -> None:
+    """The KV-blocked backward with the row statistics rebuilt by the dq pass
+    (row max, row sum, delta = rowsum(P o dP): the whole-block backwards'
+    rounding) and handed to the dkv pass, all over (B, H, L, dh) views; the
+    gradients are written into dq, dk, dv. Counts nothing."""
+    _check_blocked(name, q, k, v, g)
+    b, h, l, _ = q.shape
+    m, row_sum, delta = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)
+    _launch_blocked_dq(name, q, k, v, g, dq, m, row_sum, delta, recompute=True)
+    _launch_blocked_dkv(name, q, k, v, g, dk, dv, m, row_sum, delta)
+
+
+def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int, causal: bool) -> str:
+    """``attention_bwd_route`` for a kernel launch, after the dtype and head-dim
+    checks every backward kernel shares."""
+    _check_kernel_shape(name, t, d, num_heads, lambda dh: 0)
+    return attention_bwd_route(l, d // num_heads, t.element_size(), causal, smem_limit(t.device))
+
+
 def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
-    """K3: launch ``acl_mha_qkv_bwd`` -> the packed (B, L, 3D) dqkv."""
+    """K3: the packed (B, L, 3D) dqkv, from ``acl_mha_qkv_bwd`` where the
+    whole-head kernel's shared memory fits, else from the KV-blocked pair."""
     b, l, d3 = qkv.shape
     d = d3 // 3
-    dh = _check_kernel_shape(
-        "mha_qkv_bwd", qkv, d, num_heads, lambda dh: mha_bwd_smem_bytes(l, dh)
-    )
-    bs, rs = _strides("mha_qkv_bwd", qkv, qkv.shape)
+    route = _bwd_route("mha_qkv_bwd", qkv, l, d, num_heads, causal)
     if g.shape != (b, l, d) or g.device != qkv.device:
         raise ValueError(f"mha_qkv_bwd: gradient {tuple(g.shape)} for qkv {tuple(qkv.shape)}")
     g = g.to(qkv.dtype).contiguous()
     dqkv = torch.empty((b, l, d3), dtype=qkv.dtype, device=qkv.device)
-    ptr = ctypes.c_void_p
-    err = load_library().acl_mha_qkv_bwd(
-        _DTYPE_CODES[qkv.dtype], ptr(qkv.data_ptr()), bs, rs, ptr(g.data_ptr()),
-        ptr(dqkv.data_ptr()), b, l, num_heads, dh, int(causal), 1.0 / math.sqrt(dh),
-        _stream(qkv),
-    )
-    _raise_on_error("mha_qkv_bwd", err)
+    if route == "blocked":
+        views = [_heads_view(t, num_heads) for t in (*_unpack_qkv(qkv), g, *_unpack_qkv(dqkv))]
+        _blocked_bwd_recompute("mha_qkv_bwd", *views)
+    else:
+        dh = d // num_heads
+        bs, rs = _strides("mha_qkv_bwd", qkv, qkv.shape)
+        ptr = ctypes.c_void_p
+        err = load_library().acl_mha_qkv_bwd(
+            _DTYPE_CODES[qkv.dtype], ptr(qkv.data_ptr()), bs, rs, ptr(g.data_ptr()),
+            ptr(dqkv.data_ptr()), b, l, num_heads, dh, int(causal), 1.0 / math.sqrt(dh),
+            _stream(qkv),
+        )
+        _raise_on_error("mha_qkv_bwd", err)
     launch_counts["mha_qkv_bwd"] += 1
     return dqkv
 
 
-def mha_bld_bwd_kernel(q, k, v, g, num_heads: int, causal: bool) -> tuple:
-    """K4: launch ``acl_mha_bld_bwd`` -> (dq, dk, dv), each (B, L, D)."""
-    _check_bld("mha_bld_bwd", q, k, v)
+def _launch_mha_bld_bwd(name: str, q, k, v, g, num_heads: int, causal: bool) -> tuple:
+    """(dq, dk, dv), each (B, L, D), for entry ``name``: ``acl_mha_bld_bwd``
+    where the whole-head kernel's shared memory fits, else the KV-blocked pair;
+    q, k, v are read in place. Counts nothing."""
+    _check_bld(name, q, k, v)
     b, l, d = q.shape
-    dh = _check_kernel_shape(
-        "mha_bld_bwd", q, d, num_heads, lambda dh: mha_bwd_smem_bytes(l, dh)
-    )
+    route = _bwd_route(name, q, l, d, num_heads, causal)
     if g.shape != q.shape or g.device != q.device:
-        raise ValueError(f"mha_bld_bwd: gradient {tuple(g.shape)} for q {tuple(q.shape)}")
+        raise ValueError(f"{name}: gradient {tuple(g.shape)} for q {tuple(q.shape)}")
     g = g.to(q.dtype).contiguous()
-    strides = [_strides("mha_bld_bwd", t, q.shape) for t in (q, k, v, g)]
     dq, dk, dv = (torch.empty((b, l, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    if route == "blocked":
+        _blocked_bwd_recompute(name, *(_heads_view(t, num_heads) for t in (q, k, v, g, dq, dk, dv)))
+        return dq, dk, dv
+    dh = d // num_heads
+    strides = [_strides(name, t, q.shape) for t in (q, k, v, g)]
     ptr = ctypes.c_void_p
     err = load_library().acl_mha_bld_bwd(
         _DTYPE_CODES[q.dtype],
@@ -418,9 +606,97 @@ def mha_bld_bwd_kernel(q, k, v, g, num_heads: int, causal: bool) -> tuple:
         ptr(dq.data_ptr()), ptr(dk.data_ptr()), ptr(dv.data_ptr()),
         b, l, num_heads, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
     )
-    _raise_on_error("mha_bld_bwd", err)
-    launch_counts["mha_bld_bwd"] += 1
+    _raise_on_error(name, err)
     return dq, dk, dv
+
+
+def mha_bld_bwd_kernel(q, k, v, g, num_heads: int, causal: bool) -> tuple:
+    """K4: (dq, dk, dv), each (B, L, D)."""
+    grads = _launch_mha_bld_bwd("mha_bld_bwd", q, k, v, g, num_heads, causal)
+    launch_counts["mha_bld_bwd"] += 1
+    return grads
+
+
+def fused_attention_bwd_kernel(q, k, v, g, causal: bool) -> tuple:
+    """K5's whole-block backward over (B, H, L, Dh): K4's kernel with the heads
+    folded into the batch (``_fused_attention_bwd``, :1171-1181) where its
+    shared memory fits, else the KV-blocked pair on the four-dimensional views
+    as they are."""
+    b, h, l, dh = q.shape
+    route = _bwd_route("fused_attention", q, l, dh, 1, causal)
+    if route == "blocked":
+        g = g.to(q.dtype).contiguous()
+        grads = tuple(torch.empty((b, h, l, dh), dtype=q.dtype, device=q.device) for _ in range(3))
+        _blocked_bwd_recompute("fused_attention", q, k, v, g, *grads)
+    else:
+        folded = [t.reshape(b * h, l, dh) for t in (q, k, v, g)]
+        grads = _launch_mha_bld_bwd("fused_attention", *folded, 1, causal)
+        grads = tuple(t.reshape(b, h, l, dh) for t in grads)
+    launch_counts["fused_attention"] += 1
+    return grads
+
+
+def mha_qtile_bwd_kernel(q, kv, g, num_heads: int) -> tuple:
+    """K7: launch the KV-blocked pair with the row statistics recomputed ->
+    (dq (B, L, D), dkv (B, L, 2D)); q and the two halves of kv are read in
+    place and the two halves of dkv written in place."""
+    b, l, d = q.shape
+    if kv.shape != (b, l, 2 * d) or kv.dtype != q.dtype or kv.device != q.device:
+        raise ValueError(
+            f"mha_qtile_bwd: kv {tuple(kv.shape)} {kv.dtype} for q {tuple(q.shape)} {q.dtype}"
+        )
+    _check_kernel_shape("mha_qtile_bwd", q, d, num_heads, lambda dh: 0)
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"mha_qtile_bwd: gradient {tuple(g.shape)} for q {tuple(q.shape)}")
+    g = g.to(q.dtype).contiguous()
+    dq = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
+    dkv = torch.empty((b, l, 2 * d), dtype=q.dtype, device=q.device)
+    tensors = (q, kv[..., :d], kv[..., d:], g, dq, dkv[..., :d], dkv[..., d:])
+    _blocked_bwd_recompute("mha_qtile_bwd", *(_heads_view(t, num_heads) for t in tensors))
+    launch_counts["mha_qtile_bwd"] += 1
+    return dq, dkv
+
+
+def _flash_bwd_views(q, k, v, g, lse, delta) -> tuple:
+    """The (N, 1, L, dh) views and (N, 1, L) statistics the blocked kernels take."""
+    n, l, dh = q.shape
+    if lse.shape != (n, l) or delta.shape != (n, l):
+        raise ValueError(
+            f"flash backward: lse {tuple(lse.shape)} and delta {tuple(delta.shape)} for q {tuple(q.shape)}"
+        )
+    views = [t.unsqueeze(1) for t in (q, k, v, g.to(q.dtype).contiguous())]
+    return views, lse.float().contiguous(), delta.float().contiguous()
+
+
+def flash_dq_kernel(q, k, v, g, lse, delta) -> torch.Tensor:
+    """K9: launch ``acl_blocked_dq`` with the given statistics over per-head
+    (N, L, dh) -> dq (N, L, dh)."""
+    views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
+    _check_blocked("flash_dq", *views)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_blocked_dq("flash_dq", *views, dq.unsqueeze(1), lse, None, delta, recompute=False)
+    launch_counts["flash_dq"] += 1
+    return dq
+
+
+def flash_dkv_kernel(q, k, v, g, lse, delta) -> tuple:
+    """K10: launch ``acl_blocked_dkv`` with the given statistics over per-head
+    (N, L, dh) -> (dk, dv), each (N, L, dh)."""
+    views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
+    _check_blocked("flash_dkv", *views)
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    _launch_blocked_dkv("flash_dkv", *views, dk.unsqueeze(1), dv.unsqueeze(1), lse, None, delta)
+    launch_counts["flash_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_kernel(q, k, v, g, lse, out) -> tuple:
+    """K9 and K10: (dq, dk, dv) over per-head (N, L, dh) from the forward's
+    saved log-sum-exp and output."""
+    g = g.to(q.dtype).contiguous()
+    delta = flash_delta(g, out)
+    dq = flash_dq_kernel(q, k, v, g, lse, delta)
+    return (dq, *flash_dkv_kernel(q, k, v, g, lse, delta))
 
 
 def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
@@ -550,47 +826,96 @@ def fused_mha_bld(
     return _MhaBld.apply(q, k, v, num_heads, causal)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """A forward kernel whose backward kernel is not ported yet: the gradient
-    raises instead of flowing silently past a ctypes launch."""
+class _MhaQtile(torch.autograd.Function):
+    """K6 forward, K7 backward; saves q and kv, as ``_mha_qtile_fwd`` (:642-643):
+    the backward rebuilds the softmax rows from them."""
 
     @staticmethod
-    def forward(ctx, launch, missing, *tensors):
-        ctx.missing = missing
-        return launch(*tensors)
+    def forward(ctx, q, kv, num_heads):
+        ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, kv)
+        if ctx.reference:
+            return mha_qtile_reference(q, kv, num_heads)
+        return mha_qtile_fwd_kernel(q, kv, num_heads)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            f"{ctx.missing} is not ported yet: the kernel path of this entry is "
-            "forward-only (its plain version under attention_impl('reference') "
-            "is differentiable)"
-        )
+    def backward(ctx, g):
+        q, kv = ctx.saved_tensors
+        if ctx.reference:
+            dq, dkv = mha_qtile_bwd_reference(q, kv, g, ctx.num_heads)
+        else:
+            dq, dkv = mha_qtile_bwd_kernel(q, kv, g, ctx.num_heads)
+        return dq, dkv, None
+
+
+class _FlashHeads(torch.autograd.Function):
+    """K8 forward, K9 and K10 backward. When a gradient is needed the forward
+    runs with the log-sum-exp and saves q, k, v, lse and the output, as
+    ``_flash_fwd`` (:1071-1073). -> (out, lse); lse is None when neither the
+    caller nor the backward needs it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, save_lse):
+        ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
+        needs_grad = any(ctx.needs_input_grad[:3])
+        forward = flash_attention_reference if ctx.reference else flash_fwd_kernel
+        if not (save_lse or needs_grad):
+            return forward(q, k, v, False), None
+        out, lse = forward(q, k, v, True)
+        if needs_grad:
+            ctx.save_for_backward(q, k, v, lse, out)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _):
+        q, k, v, lse, out = ctx.saved_tensors
+        if ctx.reference:
+            grads = flash_attention_bwd_reference(q, k, v, g, lse, out)
+        else:
+            grads = flash_bwd_kernel(q, k, v, g, lse, out)
+        return (*grads, None)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K5's whole-block forward (K2's kernel, heads folded) and its backward
+    (K4's kernel, heads folded, or the KV-blocked pair); saves q, k, v, as
+    ``_fused_attention_fwd`` (:1167-1168)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if ctx.reference:
+            return fused_attention_reference(q, k, v, causal)
+        return fused_attention_fwd_kernel(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        if ctx.reference:
+            grads = attention_bwd_reference(q, k, v, g, ctx.causal)
+        else:
+            grads = fused_attention_bwd_kernel(q, k, v, g, ctx.causal)
+        return (*grads, None)
 
 
 def fused_mha_qtile(q: torch.Tensor, kv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Non-causal attention of q (B, L, D) against the packed k|v (B, L, 2D) ->
-    (B, L, D), K and V of each head resident in the kernel's shared memory.
-    Forward-only on the card (its backward, K7, is not ported yet)."""
-    if _use_reference(q):
-        return mha_qtile_reference(q, kv, num_heads)
-    return _ForwardOnly.apply(
-        lambda q_, kv_: mha_qtile_fwd_kernel(q_, kv_, num_heads),
-        "K7 (the q-tiled backward, _mha_qtile_bwd_kernel)", q, kv,
-    )
+    (B, L, D), K and V of each head resident in the kernel's shared memory. The
+    gradient is dq and one packed (B, L, 2D) dk|dv."""
+    return _MhaQtile.apply(q, kv, num_heads)
 
 
 def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_lse: bool = False):
     """Attention over per-head (N, L, dh) q, k, v with KV-blocked online softmax
     (shared memory independent of L) -> out (N, L, dh), or (out, lse) with the
-    (N, L) fp32 log-sum-exp. Non-causal. Forward-only on the card (its
-    backward, K9 and K10, is not ported yet)."""
-    if _use_reference(q):
-        return flash_attention_reference(q, k, v, save_lse)
-    return _ForwardOnly.apply(
-        lambda *t: flash_fwd_kernel(*t, save_lse),
-        "K9 and K10 (the flash backward, _flash_dq_kernel and _flash_dkv_kernel)", q, k, v,
-    )
+    (N, L) fp32 log-sum-exp. Non-causal. Differentiable in q, k, v (not through
+    lse): the backward rebuilds P from the saved log-sum-exp."""
+    out, lse = _FlashHeads.apply(q, k, v, save_lse)
+    return (out, lse) if save_lse else out
 
 
 def fused_attention(
@@ -600,21 +925,14 @@ def fused_attention(
     ``_fused_attention_impl`` (:1121-1135) routes, with the card's limits:
 
     - the whole-block kernel (K2's, heads folded into the batch) where its
-      shared memory fits the card;
-    - else, for non-causal shapes, ``flash_attention_heads`` (K8);
+      shared memory fits the card; its backward is ``attention_bwd_route``'s;
+    - else, for non-causal shapes, ``flash_attention_heads`` (K8, and K9 and
+      K10 in the backward);
     - else the plain version on the CPU; on the card it raises: no kernel takes
-      a causal shape past the whole-block kernel, and no supported model has one.
-
-    Forward-only on the card (the whole-block backward, K4 with the heads
-    folded, is not joined to it yet)."""
+      a causal shape past the whole-block kernel, and no supported model has one."""
     b, h, l, dh = q.shape
     if mha_smem_bytes(l, dh) <= smem_limit(q.device):
-        if _use_reference(q):
-            return fused_attention_reference(q, k, v, causal)
-        return _ForwardOnly.apply(
-            lambda *t: fused_attention_fwd_kernel(*t, causal),
-            "fused_attention's backward (K4 with the heads folded)", q, k, v,
-        )
+        return _FusedAttention.apply(q, k, v, causal)
     if not causal:
         out = flash_attention_heads(*(t.reshape(b * h, l, dh) for t in (q, k, v)))
         return out.reshape(b, h, l, dh)

@@ -21,7 +21,9 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu")
+SOURCES = (
+    CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu", CSRC / "mha_blocked_bwd.cu",
+)
 HEADERS = (CSRC / "attention_common.cuh",)  # included by every source
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -110,4 +112,11 @@ def load_library() -> ctypes.CDLL:
     lib.acl_mha_qtile_fwd.restype = i
     lib.acl_flash_fwd.argtypes = [i, p, i, i, p, i, i, p, i, i, p, p, i, i, i, f, p]
     lib.acl_flash_fwd.restype = i
+    ptrs, strides = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)
+    lib.acl_blocked_bwd_smem_bytes.argtypes = [i, i]
+    lib.acl_blocked_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.acl_blocked_dq.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, i, f, p]
+    lib.acl_blocked_dq.restype = i
+    lib.acl_blocked_dkv.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, f, p]
+    lib.acl_blocked_dkv.restype = i
     return lib

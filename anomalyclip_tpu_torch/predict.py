@@ -16,8 +16,8 @@ from typing import Tuple
 
 import numpy as np
 
-from anomalyclip_tpu.data.dataset import TestItem
-from anomalyclip_tpu.data.sampling import gather_frame_indices, test_start_indices
+from anomalyclip_tpu_torch.data.dataset import TestItem
+from anomalyclip_tpu_torch.data.sampling import gather_frame_indices, test_start_indices
 from anomalyclip_tpu_torch.eval.evaluator import GridScorer, VideoScores, score_video
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
 from anomalyclip_tpu_torch.models.selector import BNState

@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from anomalyclip_tpu.data.loader import TrainBatch  # shared with the JAX package (numpy only)
+from anomalyclip_tpu_torch.data.loader import TrainBatch
 from anomalyclip_tpu_torch.convert import as_trainable
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
 from anomalyclip_tpu_torch.models.losses import LossConfig, LossTerms, compute_loss

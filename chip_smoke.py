@@ -17,6 +17,15 @@ script exits non-zero without printing a result:
 3b. backward kernels: K3 and K4 against their plain backwards at the training
    step's shapes, fp32 within 1e-5 and bf16 within 5e-2 of max|ref|, with
    median times;
+3c. long backward kernels, the same limits: K7 at the ViT-L/14@336px shape
+   (q, g (32, 577, 1024), kv (32, 577, 2048), 16 heads); K9 and K10 at
+   (512, 577, 64) and at the ragged (8, 1100, 64), with the log-sum-exp and
+   the output of K8; K3's entry at (32, 197, 2304), 12 heads, and
+   ``fused_attention``'s backward at (32, 12, 197, 64), both past the
+   whole-head kernel's shared memory and so on the KV-blocked pair (the
+   causal case must raise: no kernel takes it); autograd through
+   ``fused_attention`` at (32, 16, 577, 64) against its plain path; and the
+   parity checks of ``anomalyclip_tpu_torch.scripts.bench_attn_bwd``;
 4. slice: the UCF-Crime ViT-B/16 model at full width from seeded weights scores
    three synthetic uint8 videos (about 200, 700 and 1600 frames) through
    ``Predictor.score_frames`` in fp32; the kernel launch counts of that run are
@@ -36,15 +45,34 @@ script exits non-zero without printing a result:
    flash kernel, and in bf16, through the q-tiled kernel; each run's launch
    counts are checked, and each is held against the same call with the plain
    attention (fp32 within 1e-4, bf16 within BF16_SLICE_TOL, absolute);
+4d. the image tower's gradient: ``encode_image`` on 32 seeded uint8 frames at
+   full ViT-L/14@336px width and depth, loss sum(features^2),
+   ``torch.autograd.grad`` w.r.t. every visual leaf, in bf16 (the qtile rung:
+   24 K6 and 24 K7 launches) and in fp32 (the core rung: 24 K8, 24 K9 and 24
+   K10); the launch counts are checked exactly and the gradients held against
+   the same call with the plain attention (fp32 within 1e-4 of each leaf's
+   max, bf16 within BF16_GRAD_TOL); then the same at ViT-B/16 width and
+   depth, batch 32, fp32 (K1 forward, K3's entry backward on its blocked
+   route);
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
-   for one warm training step, and one warm call of the ViT-L/14@336px video
-   per dtype: device time against wall time, time by class of kernel and the
+   for one warm training step, one warm call of the ViT-L/14@336px video
+   per dtype and one warm step of the ViT-L/14@336px tower's gradient per
+   dtype: device time against wall time, time by class of kernel and the
    top kernels, printed and written as JSON to OUT.json.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launch counts (the scoring, training and ViT-L/14@336px
-runs together), errors and times. fused_attention's own kernel, the
+kernels with their launch counts (the scoring, training, ViT-L/14@336px and
+gradient runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
+``torch.nn.functional.scaled_dot_product_attention`` for the same function
+(forward for a forward kernel; forward and backward through autograd for a
+backward kernel, with ``library_fwd_ms`` beside it), timed here and used
+nowhere in the port, and ``bound_ms`` the least the card could take: the
+larger of the operations (4 L^2 dh per batch entry and head forward, 10
+backward, 6 and 8 for the two flash passes, half when causal) over 989 TFLOP/s
+for bf16 operands or 67 TFLOP/s for fp32, and the bytes (each input read and
+each output written once) over 3.35 TB/s. fused_attention's own kernel, the
 whole-block one, is on none of these paths (its shapes there take K1, K6 or,
 through its flash branch, K8), so its count is 0; its error and times are
 phase 3's.
@@ -81,6 +109,9 @@ KERNEL_SOURCE = {
     "flash_attention_heads": "anomalyclip_tpu_torch/ops/csrc/mha_long.cu",
     # its whole-block kernel: acl_mha_bld_fwd with the heads folded
     "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
+    "mha_qtile_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
+    "flash_dq": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
+    "flash_dkv": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
 }
 REPLACES = {
     "fused_mha_qkv": "anomalyclip_tpu/ops/pallas/attention.py:423",
@@ -90,6 +121,9 @@ REPLACES = {
     "fused_mha_qtile": "anomalyclip_tpu/ops/pallas/attention.py:525",
     "flash_attention_heads": "anomalyclip_tpu/ops/pallas/attention.py:800",
     "fused_attention": "anomalyclip_tpu/ops/pallas/attention.py:1089",
+    "mha_qtile_bwd": "anomalyclip_tpu/ops/pallas/attention.py:646",
+    "flash_dq": "anomalyclip_tpu/ops/pallas/attention.py:904",
+    "flash_dkv": "anomalyclip_tpu/ops/pallas/attention.py:943",
 }
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 FP32_SLICE_TOL = 1e-4
@@ -99,6 +133,14 @@ FP32_SLICE_TOL = 1e-4
 # and 7.9e-2, which this limit rejects (NVIDIA H100 80GB HBM3, 700 W)
 BF16_SLICE_TOL = 5e-2
 L14_VIDEO_FRAMES = 200  # one 32x16-frame grid: 512 frames, two encode calls
+GRAD_BATCH = 32  # frames per step of the image tower's gradient
+FP32_GRAD_TOL = 1e-4  # of each leaf's max |gradient|
+# of each leaf's max |gradient|: the kernel path and the plain path round alike
+# and differ by summation order, amplified through 24 bf16 layers each way
+BF16_GRAD_TOL = 5e-2
+# the card's published peaks (NVIDIA H100 SXM, dense): what bound_ms is taken against
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES_PER_S = 3.35e12
 
 # UCF-Crime training (anomalyclip_tpu/configs/model/anomaly_clip_ucfcrime.yaml,
 # configs/data/ucfcrime.yaml): batch 64 = 32 abnormal + 32 normal videos
@@ -146,33 +188,138 @@ def phase_build() -> None:
                         f"qtile smem at {l, dh, itemsize}")
                 require(lib.acl_flash_smem_bytes(dh, code) == A.flash_smem_bytes(dh, itemsize),
                         f"flash smem at {dh, itemsize}")
+                require(lib.acl_blocked_bwd_smem_bytes(dh, code)
+                        == A.blocked_bwd_smem_bytes(dh, itemsize),
+                        f"blocked backward smem at {dh, itemsize}")
             checked += 1
     print(f"[build] shared-memory formulas: library and Python agree at {checked} (L, dh) "
           f"pairs; card limit {A.smem_limit(torch.device('cuda'))} B per block")
     torch.cuda.synchronize()
 
 
-def median_ms(fn, reps: int = 30) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 FP32, BF16 = (torch.float32,), (torch.bfloat16,)
 BOTH = FP32 + BF16
+# multiply-adds x 2 per (batch entry, head, query, key, column), and tensors of
+# B x H x L x dh elements read or written, by kind of kernel
+ATTENTION_WORK = {"fwd": (4, 4), "bwd": (10, 7), "dq": (6, 5), "dkv": (8, 6)}
 
 
-def phase_kernels() -> dict:
-    """Each kernel against its plain version -> {name: max error and times at
-    the shapes and in the dtype its path runs}."""
+def attention_bound(kind: str, dims: tuple, dtype, causal: bool = False, stats: int = 0) -> tuple:
+    """The least time the card could take for one attention call of ``kind`` over
+    dims = (B, H, L, dh) -> (ms, "operations" or "bytes"): its operations (half
+    when causal) over the peak rate for the operand type, or its bytes over the
+    memory rate, each input read once and each output written once; ``stats``
+    counts fp32 (B, H, L) row statistics read or written."""
+    b, h, l, dh = dims
+    per_pair, tensors = ATTENTION_WORK[kind]
+    flops = per_pair * b * h * l * l * dh * (0.5 if causal else 1.0)
+    nbytes = dtype.itemsize * tensors * b * h * l * dh + 4 * stats * b * h * l
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def packed_heads(t: torch.Tensor, parts: int, heads: int) -> tuple:
+    """(B, L, parts * H * dh), lane order part-major -> ``parts`` (B, H, L, dh) views."""
+    b, l, width = t.shape
+    return tuple(t.view(b, l, parts, heads, width // (parts * heads)).permute(2, 0, 3, 1, 4))
+
+
+def sdpa(q, k, v, causal: bool = False) -> torch.Tensor:
+    """The library call the kernels are timed beside, over (B, H, L, dh)."""
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+def sdpa_backward(q, k, v, g, causal: bool = False, wrt=(0, 1, 2)) -> tuple:
+    """The library's forward and backward through autograd -> the gradients of
+    the ``wrt`` of (q, k, v) for the output gradient g."""
+    leaves = [t.detach().requires_grad_(i in wrt) for i, t in enumerate((q, k, v))]
+    return torch.autograd.grad(sdpa(*leaves, causal), [leaves[i] for i in wrt], g)
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel at one shape: how its input is made and cut, the kernel, its
+    plain version, the library call on the same inputs, and its work."""
+
+    name: str  # the entry of the kernels line
+    shape: tuple  # printed
+    in_shape: object  # fp32 tensors are drawn at this shape, or list of shapes, and cast
+    kernel: object  # f(x) -> tensor or tuple; x the tensor, or the list of tensors
+    plain: object
+    heads: object  # f(x) -> the (B, H, L, dh) views (q, k, v[, g]) the library call takes
+    prepare: object = None  # f(x) -> x with what the kernel needs besides, made once
+    kind: str = "fwd"  # of ATTENTION_WORK
+    causal: bool = False
+    stats: int = 0  # fp32 row statistics read or written
+    wrt: tuple = (0, 1, 2)  # a backward kernel's gradients, of (q, k, v)
+    dtypes: tuple = BOTH  # checked
+    path: tuple = FP32  # the dtypes whose numbers go into the kernels line
+    relative: bool = False  # the tolerance is of max|ref| (the backwards) or absolute
+
+
+def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
+    """Each case's kernel against its plain version, with the median times of
+    the kernel, the plain version and the library call, and the bound; the
+    path's dtypes are summed into ``report[name]``."""
+    from anomalyclip_tpu_torch.scripts.bench_attn_bwd import median_ms
+
+    for case in cases:
+        several = isinstance(case.in_shape, list)
+        x32 = [torch.randn(shape, device="cuda", generator=gen)
+               for shape in (case.in_shape if several else [case.in_shape])]
+        for dtype in case.dtypes:
+            x = [t.to(dtype) for t in x32] if several else x32[0].to(dtype)
+            if case.prepare is not None:
+                x = case.prepare(x)
+            got, want = case.kernel(x), case.plain(x)
+            torch.cuda.synchronize()
+            got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            scale = max(b.float().abs().max().item() for b in want) if case.relative else 1.0
+            tol = TOLERANCE[dtype] * scale
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+            del got, want
+            ms, plain_ms = median_ms(lambda: case.kernel(x)), median_ms(lambda: case.plain(x))
+            views = case.heads(x)
+            dims = tuple(views[0].shape)
+            if case.kind == "fwd":
+                fwd_ms = library_ms = median_ms(lambda: sdpa(*views, case.causal))
+                beside = f"sdpa {library_ms:.4f} ms"
+            else:
+                fwd_ms = median_ms(lambda: sdpa(*views[:3], case.causal))
+                library_ms = median_ms(lambda: sdpa_backward(*views, case.causal, case.wrt))
+                beside = f"sdpa forward+backward {library_ms:.4f} ms (forward {fwd_ms:.4f})"
+            bound_ms, bound_by = attention_bound(case.kind, dims, dtype, case.causal, case.stats)
+            print(f"[{tag}] {case.name} {case.shape} as {dims} causal={case.causal} "
+                  f"{str(dtype).split('.')[-1]}: max|err| {err:.3e} (tol {tol:.3e}), "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            entry = report.setdefault(case.name, {
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "library_fwd_ms": None if case.kind == "fwd" else 0.0, "bound_ms": 0.0,
+                "bound_by": bound_by, "largest_bound": 0.0,
+            })
+            if dtype in case.path:
+                # one call at each of the path's shapes, summed
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                entry["ms"] += ms
+                entry["plain_ms"] += plain_ms
+                entry["library_ms"] += library_ms
+                entry["bound_ms"] += bound_ms
+                if case.kind != "fwd":
+                    entry["library_fwd_ms"] += fwd_ms
+                if bound_ms > entry["largest_bound"]:  # what bounds the largest share
+                    entry["largest_bound"], entry["bound_by"] = bound_ms, bound_by
+            del views
+        del x32, x
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def phase_kernels(report: dict) -> None:
+    """Each forward kernel against its plain version at the shapes and in the
+    dtype its path runs."""
     from anomalyclip_tpu_torch.ops.attention import (
         flash_attention_heads,
         flash_attention_reference,
@@ -186,84 +333,59 @@ def phase_kernels() -> dict:
         mha_qtile_reference,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # (entry, shape, heads, causal, make input, kernel, plain, dtypes checked,
-    #  the dtypes whose numbers go into the kernels line: the path's)
     cases = []
     for b, l, d, h, causal in ((256, 197, 768, 12, False), (14, 77, 512, 8, True),
                                (14, 77, 768, 12, True)):  # the ViT-L/14 text tower
-        cases.append((
-            "fused_mha_qkv", (b, l, 3 * d), h, causal, (b, l, 3 * d),
+        cases.append(Case(
+            "fused_mha_qkv", (b, l, 3 * d), (b, l, 3 * d),
             lambda t, h=h, c=causal: fused_mha_qkv(t, h, c),
-            lambda t, h=h, c=causal: mha_qkv_reference(t, h, c), BOTH, FP32,
+            lambda t, h=h, c=causal: mha_qkv_reference(t, h, c),
+            lambda t, h=h: packed_heads(t, 3, h), causal=causal,
         ))
     for b, l, d, h in ((64, 32, 256, 8), (128, 16, 256, 8)):
-        cases.append((  # q | k v
-            "fused_mha_bld", (b, l, d), h, False, (b, l, 3 * d),
+        cases.append(Case(  # q | k v
+            "fused_mha_bld", (b, l, d), (b, l, 3 * d),
             lambda t, h=h, d=d: fused_mha_bld(t[..., :d], t[..., d:2 * d], t[..., 2 * d:], h),
             lambda t, h=h, d=d: mha_bld_reference(t[..., :d], t[..., d:2 * d], t[..., 2 * d:], h),
-            BOTH, FP32,
+            lambda t, h=h: packed_heads(t, 3, h),
         ))
     # K6: the ViT-L/14@336px tower's bf16 shape (q and k|v from one tensor, as
     # the ladder's two GEMMs leave them), and an fp32 shape whose K and V fit
     for b, l, dtypes, path in ((256, 577, BF16, BF16), (64, 400, FP32, ())):
-        cases.append((
-            "fused_mha_qtile", (b, l, 1024), 16, False, (b, l, 3 * 1024),
+        cases.append(Case(
+            "fused_mha_qtile", (b, l, 1024), (b, l, 3 * 1024),
             lambda t: fused_mha_qtile(t[..., :1024], t[..., 1024:], 16),
-            lambda t: mha_qtile_reference(t[..., :1024], t[..., 1024:], 16), dtypes, path,
+            lambda t: mha_qtile_reference(t[..., :1024], t[..., 1024:], 16),
+            lambda t: packed_heads(t, 3, 16), dtypes=dtypes, path=path,
         ))
     # K8 at the shape fused_attention hands it in the fp32 tower, with the lse
-    cases.append((
-        "flash_attention_heads", (4096, 577, 64), 1, False, (3, 4096, 577, 64),
+    cases.append(Case(
+        "flash_attention_heads", (4096, 577, 64), (3, 4096, 577, 64),
         lambda t: flash_attention_heads(t[0], t[1], t[2], save_lse=True),
-        lambda t: flash_attention_reference(t[0], t[1], t[2], save_lse=True), BOTH, FP32,
+        lambda t: flash_attention_reference(t[0], t[1], t[2], save_lse=True),
+        lambda t: tuple(t[:, :, None]), stats=1,
     ))
     # K5: its whole-block kernel at ViT-B/16 heads, causal and not (on no path:
     # the kernels line reports these, in fp32), and its flash branch at the fp32
     # tower's split heads (strided views of one qkv), which launches K8
     for causal in (False, True):
-        cases.append((
-            "fused_attention", (256, 12, 197, 64), 12, causal, (3, 256, 12, 197, 64),
+        cases.append(Case(
+            "fused_attention", (256, 12, 197, 64), (3, 256, 12, 197, 64),
             lambda t, c=causal: fused_attention(t[0], t[1], t[2], c),
-            lambda t, c=causal: fused_attention_reference(t[0], t[1], t[2], c), BOTH, FP32,
+            lambda t, c=causal: fused_attention_reference(t[0], t[1], t[2], c),
+            tuple, causal=causal,
         ))
-    cases.append((
-        "fused_attention", (256, 16, 577, 64), 16, False, (256, 577, 3, 16, 64),
+    cases.append(Case(
+        "fused_attention", (256, 16, 577, 64), (256, 577, 3, 16, 64),
         lambda t: fused_attention(*t.permute(2, 0, 3, 1, 4)),
-        lambda t: fused_attention_reference(*t.permute(2, 0, 3, 1, 4)), BOTH, (),
+        lambda t: fused_attention_reference(*t.permute(2, 0, 3, 1, 4)),
+        lambda t: tuple(t.permute(2, 0, 3, 1, 4)), path=(),
     ))
-
-    report = {}
-    for name, shape, heads, causal, in_shape, kernel, plain, dtypes, path in cases:
-        x32 = torch.randn(in_shape, device="cuda", generator=gen)
-        for dtype in dtypes:
-            x = x32.to(dtype)
-            got, want = kernel(x), plain(x)
-            torch.cuda.synchronize()
-            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-            err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
-            tol = TOLERANCE[dtype]
-            for a, b in pairs:
-                torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
-            del got, want, pairs
-            ms, plain_ms = median_ms(lambda: kernel(x)), median_ms(lambda: plain(x))
-            print(f"[kernels] {name} {shape} heads={heads} causal={causal} "
-                  f"{str(dtype).split('.')[-1]}: max|err| {err:.3e} (tol {tol:g}), "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            entry = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-            if dtype in path:
-                # one call at each of the path's shapes, summed
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                entry["ms"] += ms
-                entry["plain_ms"] += plain_ms
-        del x32, x
-        torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    return report
+    run_cases("kernels", cases, report, torch.Generator(device="cuda").manual_seed(SEED))
 
 
-def phase_bwd_kernels() -> dict:
-    """K3 and K4 against their plain backwards -> {name: fp32 max error, times}."""
+def phase_bwd_kernels(report: dict) -> None:
+    """K3 and K4 against their plain backwards at the training step's shapes."""
     from anomalyclip_tpu_torch.ops.attention import (
         mha_bld_bwd_kernel,
         mha_bld_bwd_reference,
@@ -271,51 +393,137 @@ def phase_bwd_kernels() -> dict:
         mha_qkv_bwd_reference,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    cases = []
-    # the text tower's backward: (14, 77, 1536), 8 heads, causal
-    qkv = torch.randn(14, 77, 3 * 512, device="cuda", generator=gen)
-    g = torch.randn(14, 77, 512, device="cuda", generator=gen)
-    cases.append((
-        "mha_qkv_bwd", (14, 77, 3 * 512), True, (qkv, g),
-        lambda t, g: (mha_qkv_bwd_kernel(t, g, 8, True),),
-        lambda t, g: (mha_qkv_bwd_reference(t, g, 8, True),),
-    ))
+    # the text tower's backward: qkv (14, 77, 1536) and g, 8 heads, causal
+    cases = [Case(
+        "mha_qkv_bwd", (14, 77, 3 * 512), [(14, 77, 3 * 512), (14, 77, 512)],
+        lambda t: mha_qkv_bwd_kernel(*t, 8, True), lambda t: mha_qkv_bwd_reference(*t, 8, True),
+        lambda t: (*packed_heads(t[0], 3, 8), *packed_heads(t[1], 1, 8)),
+        kind="bwd", causal=True, relative=True,
+    )]
     # the temporal model's backward along segments and along frames, k and v
-    # the two halves of one kv
+    # the two halves of one kv: t = q | k v, g
     for b, l in ((1024, 32), (2048, 16)):
-        qkv = torch.randn(b, l, 3 * 256, device="cuda", generator=gen)  # q | k v
-        g = torch.randn(b, l, 256, device="cuda", generator=gen)
-        cases.append((
-            "mha_bld_bwd", (b, l, 256), False, (qkv, g),
-            lambda t, g: mha_bld_bwd_kernel(t[..., :256], t[..., 256:512], t[..., 512:], g, 8, False),
-            lambda t, g: mha_bld_bwd_reference(t[..., :256], t[..., 256:512], t[..., 512:], g, 8),
+        cases.append(Case(
+            "mha_bld_bwd", (b, l, 256), [(b, l, 3 * 256), (b, l, 256)],
+            lambda t: mha_bld_bwd_kernel(*t[0].split(256, dim=-1), t[1], 8, False),
+            lambda t: mha_bld_bwd_reference(*t[0].split(256, dim=-1), t[1], 8),
+            lambda t: (*packed_heads(t[0], 3, 8), *packed_heads(t[1], 1, 8)),
+            kind="bwd", relative=True,
         ))
+    run_cases("bwd kernels", cases, report, torch.Generator(device="cuda").manual_seed(SEED + 1))
 
-    report = {}
-    for name, shape, causal, inputs32, kernel, plain in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            x, g = (t.to(dtype) for t in inputs32)
-            got, want = kernel(x, g), plain(x, g)
-            torch.cuda.synchronize()
-            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-            scale = max(b.float().abs().max().item() for b in want)
-            tol = TOLERANCE[dtype] * scale
-            for a, b in zip(got, want):
-                torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
-            ms, plain_ms = median_ms(lambda: kernel(x, g)), median_ms(lambda: plain(x, g))
-            print(f"[bwd kernels] {name} {shape} heads=8 causal={causal} "
-                  f"{str(dtype).split('.')[-1]}: max|err| {err:.3e} (tol {tol:.3e} = "
-                  f"{TOLERANCE[dtype]:g} x max|ref| {scale:.3e}), "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            entry = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-            if dtype == torch.float32:
-                # the step runs fp32: one call at each of its shapes, summed
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                entry["ms"] += ms
-                entry["plain_ms"] += plain_ms
+
+def phase_long_bwd_kernels(report: dict) -> None:
+    """K7, K9 and K10 against their plain backwards, the whole-block backward
+    entries on their KV-blocked route, and the parity checks of the backward
+    benchmark script."""
+    from anomalyclip_tpu_torch.ops import attention as A
+    from anomalyclip_tpu_torch.scripts import bench_attn_bwd as bench
+
+    limit = A.smem_limit(torch.device("cuda"))
+    cases = []
+    # K7 at the ViT-L/14@336px tower's shape: t = q, kv, g; the bf16 tower is
+    # its path
+    cases.append(Case(
+        "mha_qtile_bwd", (32, 577, 1024), [(32, 577, 1024), (32, 577, 2048), (32, 577, 1024)],
+        lambda t: A.mha_qtile_bwd_kernel(*t, 16), lambda t: A.mha_qtile_bwd_reference(*t, 16),
+        lambda t: (*packed_heads(t[0], 1, 16), *packed_heads(t[1], 2, 16), *packed_heads(t[2], 1, 16)),
+        kind="bwd", path=BF16, relative=True,
+    ))
+
+    # K9 and K10 with the log-sum-exp and the output of K8, at the fp32 tower's
+    # per-head shape (its path) and ragged on both axes: t = q, k, v, g, then
+    # lse and delta
+    def with_stats(t):
+        out, lse = A.flash_attention_heads(t[0], t[1], t[2], save_lse=True)
+        return [*t, lse, A.flash_delta(t[3], out)]
+
+    for shape, path in (((512, 577, 64), FP32), ((8, 1100, 64), ())):
+        for name, kernel, plain, kind, wrt in (
+            ("flash_dq", A.flash_dq_kernel, A.flash_dq_reference, "dq", (0,)),
+            ("flash_dkv", A.flash_dkv_kernel, A.flash_dkv_reference, "dkv", (1, 2)),
+        ):
+            cases.append(Case(
+                name, shape, [shape] * 4, lambda t, f=kernel: f(*t), lambda t, f=plain: f(*t),
+                lambda t: tuple(u[:, None] for u in t[:4]), prepare=with_stats,
+                kind=kind, stats=2, wrt=wrt, path=path, relative=True,
+            ))
+    # the whole-block backward entries past the whole-head kernel's shared
+    # memory, on no path of the supported model (printed, not in the kernels
+    # line): K3's entry at the ViT-B/16 tower's shape, K5's backward on views
+    route = A.attention_bwd_route(197, 64, 4, False, limit)
+    print(f"[long bwd] whole-block backward at L=197, dh 64: route {route!r} "
+          f"(whole-head kernel {A.mha_bwd_smem_bytes(197, 64)} B, blocked pair "
+          f"{A.blocked_bwd_smem_bytes(64, 4)} B, card {limit} B)")
+    require(route == "blocked", f"route {route}")
+    cases.append(Case(
+        "mha_qkv_bwd at L=197", (32, 197, 3 * 768), [(32, 197, 3 * 768), (32, 197, 768)],
+        lambda t: A.mha_qkv_bwd_kernel(*t, 12, False), lambda t: A.mha_qkv_bwd_reference(*t, 12, False),
+        lambda t: (*packed_heads(t[0], 3, 12), *packed_heads(t[1], 1, 12)),
+        kind="bwd", path=(), relative=True,
+    ))
+    cases.append(Case(
+        "fused_attention backward", (32, 12, 197, 64), (32, 197, 4, 12, 64),
+        lambda t: A.fused_attention_bwd_kernel(*t.permute(2, 0, 3, 1, 4), False),
+        lambda t: A.attention_bwd_reference(*t.permute(2, 0, 3, 1, 4), False),
+        lambda t: tuple(t.permute(2, 0, 3, 1, 4)), kind="bwd", path=(), relative=True,
+    ))
+    scratch = {}
+    run_cases("long bwd", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED + 3))
+    report.update({k: v for k, v in scratch.items() if k in KERNEL_SOURCE})
+
+    # a causal shape past the whole-head kernel: no kernel takes it, and the
+    # entry says so instead of launching
+    q = torch.randn(2, 12, 197, 64, device="cuda", requires_grad=True)
+    out = A.fused_attention(q, q, q, True)
+    try:
+        out.sum().backward()
+    except ValueError as exc:
+        print(f"[long bwd] fused_attention backward, causal (2, 12, 197, 64): raises: {exc}")
+    else:
+        raise AssertionError("a causal backward past the whole-head kernel did not raise")
+
+    # autograd through fused_attention at the fp32 tower's split heads (K8, then
+    # K9 and K10) against its plain path
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    packed = torch.randn(32, 577, 3, 16, 64, device="cuda", generator=gen)
+    for dtype in BOTH:
+        views = list(packed.to(dtype).permute(2, 0, 3, 1, 4))
+        step = lambda: bench.grad_step(A.fused_attention, views)  # noqa: E731
+        A.reset_launch_counts()
+        got = step()
+        counts = dict(A.launch_counts)
+        with A.attention_impl("reference"):
+            want = step()
+        torch.cuda.synchronize()
+        err = bench.rel_err(got, want)
+        require(counts == {k: int(k in ("flash_attention_heads", "flash_dq", "flash_dkv"))
+                           for k in counts}, f"fused_attention autograd launches {counts}")
+        require(err <= TOLERANCE[dtype], f"fused_attention gradients {err:.3e}")
+        kernel_ms, plain_ms = bench.timed_pair(step, step, 10)
+        print(f"[long bwd] fused_attention forward+backward (32, 16, 577, 64) "
+              f"{str(dtype).split('.')[-1]}: gradients max|err| / max|ref| {err:.3e} "
+              f"(tol {TOLERANCE[dtype]:g}), kernels {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
+        del views, got, want
+    del packed
+    torch.cuda.empty_cache()
+
+    # the backward benchmark script's parity checks (fp32, 2e-5 of max|ref|; the
+    # flash backward against float64)
+    for label, b, l, d, h, causal in bench.SHAPES:
+        err = bench.whole_block_parity(b, l, d, h, causal, "cuda")
+        require(err < bench.PARITY_LIMIT, f"{label}: backward parity {err:.2e}")
+        print(f"[long bwd] parity, {label} (B={b} L={l} D={d}): {err:.1e} "
+              f"({A.attention_bwd_route(l, d // h, 4, causal, limit)})")
+    err = bench.qtile_parity(*bench.QTILE_SHAPE, "cuda")
+    require(err < bench.PARITY_LIMIT, f"qtile backward parity {err:.2e}")
+    print(f"[long bwd] parity, qtile {bench.QTILE_SHAPE}: {err:.1e}")
+    flash = bench.flash_parity_f64("cuda")
+    bench.check_flash_parity(flash)
+    print("[long bwd] parity, flash " + str(bench.FLASH_PARITY_SHAPE) + " vs float64: "
+          + ", ".join(f"{n} {ours:.2e} (plain VJP {plain:.2e})" for n, (ours, plain) in flash.items()))
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return report
 
 
 def build_ucf_model(device: str, compute_dtype: str = "float32", load_from_features: bool = False,
@@ -663,6 +871,105 @@ def phase_l14() -> dict:
     return launches
 
 
+def tower_gradient_setup(arch: str):
+    """Seeded CLIP weights of ``arch`` on the card, the visual tower's as leaves
+    that require grad, and GRAD_BATCH seeded uint8 frames -> (config, the visual
+    leaves, one forward+backward step as f(dtype) -> their gradients)."""
+    from anomalyclip_tpu_torch.convert import clip_params_require_grad, tree_leaves, tree_to
+    from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, encode_image, init_clip_params
+
+    cfg = {"ViT-B/16": CLIPConfig.vit_b16, "ViT-L/14@336px": CLIPConfig.vit_l14_336}[arch]()
+    params = init_clip_params(torch.Generator().manual_seed(SEED), cfg)
+    params = clip_params_require_grad(tree_to(params, "cuda"))
+    leaves = tree_leaves(params["visual"])
+    res = cfg.image_resolution
+    frames = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, 256, (GRAD_BATCH, res, res, 3), dtype=np.uint8)).to("cuda")
+
+    def step(dtype):
+        features = encode_image(params, cfg, frames, dtype)
+        require(features.shape == (GRAD_BATCH, cfg.embed_dim), f"features {features.shape}")
+        return torch.autograd.grad((features.float() ** 2).sum(), leaves)
+
+    return cfg, leaves, step
+
+
+def timed(fn) -> tuple:
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - start
+
+
+def worst_leaf_gap(got, want) -> float:
+    """max over the leaves of max|got - want| / max|want|; every gradient finite
+    and not all zero."""
+    worst = 0.0
+    for ours, theirs in zip(got, want):
+        top = theirs.abs().max().item()
+        require(bool(torch.isfinite(ours).all()) and ours.shape == theirs.shape,
+                "a gradient is not finite or has the wrong shape")
+        require(top > 0, "a visual leaf got no gradient")
+        worst = max(worst, (ours - theirs).abs().max().item() / top)
+    return worst
+
+
+def phase_tower_gradient() -> dict:
+    """The gradient through the CLIP image tower on every rung of the ladder ->
+    the kernel launch counts of each run."""
+    from anomalyclip_tpu_torch.ops.attention import (
+        attention_impl,
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    runs = (
+        ("ViT-L/14@336px", torch.bfloat16, BF16_GRAD_TOL,
+         lambda n: {"fused_mha_qtile": n, "mha_qtile_bwd": n}),
+        ("ViT-L/14@336px", torch.float32, FP32_GRAD_TOL,
+         lambda n: {"flash_attention_heads": n, "flash_dq": n, "flash_dkv": n}),
+        ("ViT-B/16", torch.float32, FP32_GRAD_TOL,
+         lambda n: {"fused_mha_qkv": n, "mha_qkv_bwd": n}),
+    )
+    launches, built = {}, (None, None)
+    for arch, dtype, limit, expect in runs:
+        if built[0] != arch:
+            del built
+            torch.cuda.empty_cache()
+            start = time.perf_counter()
+            built = (arch, tower_gradient_setup(arch))
+            print(f"[grad] {arch} weights and {GRAD_BATCH} frames ready: "
+                  f"{time.perf_counter() - start:.2f} s")
+        cfg, leaves, step = built[1]
+        name = f"{arch} {str(dtype).split('.')[-1]}"
+        # the main path: counters from zero, one step, counters read
+        reset_launch_counts()
+        got, first_s = timed(lambda: step(dtype))
+        launches[name] = dict(launch_counts)
+        want_counts = {k: expect(cfg.vision_layers).get(k, 0) for k in launch_counts}
+        require(launches[name] == want_counts, f"{name} launches {launches[name]}, expected {want_counts}")
+        torch.cuda.reset_peak_memory_stats()
+        _, warm_s = timed(lambda: step(dtype))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with attention_impl("reference"):
+            want, _ = timed(lambda: step(dtype))
+            again, plain_s = timed(lambda: step(dtype))
+        gap = worst_leaf_gap(got, want)
+        plain_gap = worst_leaf_gap(again, want)
+        print(f"[grad] {name}, batch {GRAD_BATCH}, {len(leaves)} visual leaves: forward+backward "
+              f"{first_s:.3f} s first, {warm_s:.3f} s warm ({GRAD_BATCH / warm_s:.1f} frames/s), "
+              f"plain attention {plain_s:.3f} s warm; peak memory {peak_gb:.2f} GB; "
+              f"launches {({k: v for k, v in launches[name].items() if v})}")
+        print(f"[grad] {name}: kernels vs plain attention, worst leaf max|diff| / max|grad| "
+              f"{gap:.3e} (limit {limit:g}); two plain passes differ by {plain_gap:.3e}")
+        require(gap <= limit, f"{name} gradients: {gap:.3e} > {limit:g}")
+        del got, want, again
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return launches
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_fwd_kernel" in low:
@@ -671,6 +978,8 @@ def kernel_class(name: str) -> str:
         return "attention (mha_long.cu)"
     if "mha_bwd_kernel" in low:
         return "attention backward (mha_bwd.cu)"
+    if "blocked_dq_kernel" in low or "blocked_dkv_kernel" in low:
+        return "attention backward (mha_blocked_bwd.cu)"
     if low.startswith(("memcpy", "memset")):
         return "copies"
     # cuDNN's convolutions, with the FFT passes, the complex GEMMs they call
@@ -787,6 +1096,15 @@ def phase_profile(out: Path, smi: str) -> None:
         key = f"l14_336_{dtype}"
         results[key] = profile_call(lambda: predictor.score_frames(frames), warm=1)
         print_profile(f"ViT-L/14@336px {dtype} {L14_VIDEO_FRAMES} frames", results[key])
+    del model, frozen, trainable, predictor, m
+    torch.cuda.empty_cache()
+
+    # one warm forward+backward step of the ViT-L/14@336px tower per dtype
+    _, _, step = tower_gradient_setup("ViT-L/14@336px")
+    for dtype in (torch.float32, torch.bfloat16):
+        key = f"l14_336_gradient_{str(dtype).split('.')[-1]}"
+        results[key] = profile_call(lambda: step(dtype), warm=1)
+        print_profile(f"ViT-L/14@336px gradient {key.rsplit('_', 1)[-1]} batch {GRAD_BATCH}", results[key])
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1))
     print(f"[profile] wrote {out}")
@@ -796,21 +1114,26 @@ def phase_profile(out: Path, smi: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", type=Path, metavar="OUT.json",
-                        help="also profile one warm 700-frame call per dtype, one "
-                             "warm training step and one warm ViT-L/14@336px call per dtype")
+                        help="also profile one warm 700-frame call per dtype, one warm "
+                             "training step, one warm ViT-L/14@336px call per dtype and "
+                             "one warm step of its tower's gradient per dtype")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
-    report = phase_kernels()
-    report.update(phase_bwd_kernels())
+    report = {}
+    phase_kernels(report)
+    phase_bwd_kernels(report)
+    phase_long_bwd_kernels(report)
     slice_launches = phase_slice()
     train_launches = phase_train()
     l14_launches = phase_l14()
+    grad_launches = phase_tower_gradient()
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
     # the flash kernel through fused_attention's routing in the fp32
-    # ViT-L/14@336px tower, the q-tiled kernel in the bf16 one
+    # ViT-L/14@336px tower, the q-tiled kernel in the bf16 one, and each one's
+    # backward in the tower's gradient
     require(all(slice_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld")),
             f"a kernel of the scoring path was never launched: {slice_launches}")
     l14_paths = {"float32": ("fused_mha_qkv", "fused_mha_bld", "flash_attention_heads"),
@@ -822,20 +1145,30 @@ def main() -> int:
     require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld",
                                                 "mha_qkv_bwd", "mha_bld_bwd")),
             f"a kernel of the training path was never launched: {train_launches}")
+    grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd"),
+                  "ViT-L/14@336px float32": ("flash_attention_heads", "flash_dq", "flash_dkv"),
+                  "ViT-B/16 float32": ("fused_mha_qkv", "mha_qkv_bwd")}
+    for run, names in grad_paths.items():
+        require(all(grad_launches[run][k] > 0 for k in names),
+                f"a kernel of the {run} gradient path was never launched: {grad_launches[run]}")
+    all_runs = [slice_launches, train_launches, *l14_launches.values(), *grad_launches.values()]
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": KERNEL_SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": slice_launches[name] + train_launches[name]
-            + sum(run[name] for run in l14_launches.values()),
+            "launches": sum(run[name] for run in all_runs),
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
+            "bound_ms": report[name]["bound_ms"],
+            "bound_by": report[name]["bound_by"],
+            "library_ms": report[name]["library_ms"],
+            "sdpa_ms": report[name]["library_ms"],
+            "library_fwd_ms": report[name]["library_fwd_ms"],
         }
-        for name in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
-                     "fused_mha_qtile", "flash_attention_heads", "fused_attention")
+        for name in KERNEL_SOURCE
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -156,7 +156,8 @@ def test_cpu_wrappers_count_no_launches():
     assert x.grad is not None and x.grad.shape == x.shape
     assert tattn.launch_counts == dict.fromkeys(
         ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
-         "fused_mha_qtile", "flash_attention_heads", "fused_attention"), 0
+         "fused_mha_qtile", "flash_attention_heads", "fused_attention",
+         "mha_qtile_bwd", "flash_dq", "flash_dkv"), 0
     )
 
 
@@ -320,10 +321,11 @@ def test_bwd_kernels_reject_unsupported_shapes(cuda):
     qkv = torch.zeros(2, 10, 3 * 48, device=cuda)
     with pytest.raises(ValueError, match=r"\(2, 10, 144\)"):
         tattn.mha_qkv_bwd_kernel(qkv, torch.zeros(2, 10, 48, device=cuda), 1, False)
-    # an unfrozen ViT's L=197 at dh 64 needs more shared memory than a block has
+    # a causal L=197 at dh 64 needs more shared memory than a block has, and the
+    # KV-blocked kernels that take the non-causal shape are non-causal
     qkv = torch.zeros(2, 197, 3 * 768, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        tattn.mha_qkv_bwd_kernel(qkv, torch.zeros(2, 197, 768, device=cuda), 12, False)
+        tattn.mha_qkv_bwd_kernel(qkv, torch.zeros(2, 197, 768, device=cuda), 12, True)
     q = torch.zeros(2, 200, 64, device=cuda)
-    with pytest.raises(ValueError, match=r"\(2, 200, 64\)"):
-        tattn.mha_bld_bwd_kernel(q, q, q, q, 1, False)
+    with pytest.raises(ValueError, match=r"L=200, dh=64"):
+        tattn.mha_bld_bwd_kernel(q, q, q, q, 1, True)

@@ -1,7 +1,10 @@
-"""Importing every module of the port loads none of jax, yaml, regex, cv2, PIL or
-optax: the machine with the card has none of them (or, for jax and optax, the
-port must not rely on them). Checked in a fresh interpreter, since this test
-process has jax loaded already (tests/conftest.py)."""
+"""Importing every module of the port, or ``chip_smoke``, loads none of jax, yaml,
+regex, cv2, PIL or optax, and nothing of the JAX package ``anomalyclip_tpu``: the
+machine with the card has none of them (or, for jax and optax, the port must
+not rely on them), and the port keeps its own copy of what it needs from the
+JAX package, even from its modules that import no JAX. Checked in a fresh
+interpreter, since this test process has jax loaded already
+(tests/conftest.py)."""
 
 from __future__ import annotations
 
@@ -11,7 +14,13 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "yaml", "regex", "cv2", "PIL", "optax")
+# by exact module name: "anomalyclip_tpu" is a prefix of the port's own name
+FORBIDDEN = ("jax", "yaml", "regex", "cv2", "PIL", "optax", "anomalyclip_tpu")
+
+_REPORT = """
+print(json.dumps({"modules": names, "loaded": sorted(
+    m for m in %r if m in sys.modules)}))
+""" % (FORBIDDEN,)
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -19,21 +28,33 @@ import anomalyclip_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(json.dumps({"modules": names, "loaded": sorted(
-    m for m in %r if m in sys.modules)}))
-""" % (FORBIDDEN,)
+""" + _REPORT
+
+_SMOKE_PROBE = """
+import json, sys
+import chip_smoke
+names = ["chip_smoke"]
+""" + _REPORT
+
+
+def _run(probe: str) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def test_port_imports_no_jax_yaml_regex_cv2_pil():
-    proc = subprocess.run(
-        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
-    )
-    assert proc.returncode == 0, proc.stderr
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    report = _run(_PROBE)
     expected = {
         "anomalyclip_tpu_torch.convert",
         "anomalyclip_tpu_torch.numerics",
         "anomalyclip_tpu_torch.predict",
+        "anomalyclip_tpu_torch.data.dataset",
+        "anomalyclip_tpu_torch.data.loader",
+        "anomalyclip_tpu_torch.data.sampling",
+        "anomalyclip_tpu_torch.data.transforms",
         "anomalyclip_tpu_torch.eval.evaluator",
         "anomalyclip_tpu_torch.models.anomaly_clip",
         "anomalyclip_tpu_torch.models.clip.model",
@@ -44,9 +65,42 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.models.temporal",
         "anomalyclip_tpu_torch.ops.attention",
         "anomalyclip_tpu_torch.ops.build",
+        "anomalyclip_tpu_torch.scripts.bench_attn_bwd",
         "anomalyclip_tpu_torch.train.module",
         "anomalyclip_tpu_torch.train.optim",
         "anomalyclip_tpu_torch.utils.treeio",
     }
     assert expected <= set(report["modules"])
     assert report["loaded"] == [], report["loaded"]
+
+
+def test_chip_smoke_imports_no_jax_and_nothing_of_the_jax_package():
+    report = _run(_SMOKE_PROBE)
+    assert report["loaded"] == [], report["loaded"]
+
+
+def test_the_ports_data_copies_equal_the_jax_packages():
+    """The copies under anomalyclip_tpu_torch/data hold what the JAX package's
+    modules hold: fields, constants and results."""
+    import numpy as np
+
+    from anomalyclip_tpu.data import dataset, loader, sampling, transforms
+    from anomalyclip_tpu_torch.data import dataset as tdataset
+    from anomalyclip_tpu_torch.data import loader as tloader
+    from anomalyclip_tpu_torch.data import sampling as tsampling
+    from anomalyclip_tpu_torch.data import transforms as ttransforms
+
+    assert tdataset.TestItem._fields == dataset.TestItem._fields
+    assert tdataset.TestItem._field_defaults == dataset.TestItem._field_defaults
+    assert tloader.TrainBatch._fields == loader.TrainBatch._fields
+    np.testing.assert_array_equal(ttransforms.CLIP_MEAN, transforms.CLIP_MEAN)
+    np.testing.assert_array_equal(ttransforms.CLIP_STD, transforms.CLIP_STD)
+    for t_raw in (10, 45, 300, 700):
+        ours = tsampling.test_start_indices(t_raw, 4, 4, 2)
+        theirs = sampling.test_start_indices(t_raw, 4, 4, 2)
+        np.testing.assert_array_equal(ours[0], theirs[0])
+        assert ours[1] == theirs[1]
+        np.testing.assert_array_equal(
+            tsampling.gather_frame_indices(ours[0], 4, 2, t_raw),
+            sampling.gather_frame_indices(theirs[0], 4, 2, t_raw),
+        )

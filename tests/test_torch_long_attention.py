@@ -9,11 +9,12 @@ fp32 at rtol 1e-5 / atol 1e-5 * max|ref| and bf16 at 5e-2. The ladder
 (``attention_rung``) must pick the JAX package's rung under
 ``attention_impl("pallas")`` at every supported tower shape, and a tower at
 L=577 must take the q-tiled entry in bf16 and the core rung into the flash
-entry in fp32. The kernel path of the three new entries is forward-only: its
-backward raises. The ``gpu`` cases hold each new kernel against its plain
-version on the card; like tests/test_torch_attention.py, this module imports
-JAX only in the CPU cases, so ``python -m pytest --noconftest -m gpu`` runs them
-without JAX.
+entry in fp32. With the kernel path forced, each entry's backward goes through
+its backward launch once (the backward kernels themselves are held in
+tests/test_torch_long_attention_bwd.py). The ``gpu`` cases hold each forward
+kernel against its plain version on the card; like
+tests/test_torch_attention.py, this module imports JAX only in the CPU cases,
+so ``python -m pytest --noconftest -m gpu`` runs them without JAX.
 """
 
 from __future__ import annotations
@@ -267,7 +268,7 @@ def test_encode_image_at_l577_matches_jax(jax_side):
 
 
 # ---------------------------------------------------------------------------
-# gradients: the plain versions are differentiable, the kernel path is not yet
+# gradients: through the plain versions on the CPU, through the launches on the kernel path
 # ---------------------------------------------------------------------------
 
 
@@ -311,20 +312,42 @@ def test_flash_plain_grad_matches_jax(jax_side):
         np.testing.assert_allclose(ours.numpy(), theirs, rtol=FP32_TOL, atol=FP32_TOL * np.abs(theirs).max())
 
 
-@pytest.mark.parametrize("index,missing", [(0, "K7"), (1, "K9 and K10"), (2, "K4")])
-def test_kernel_path_backward_raises(monkeypatch, index, missing):
+@pytest.mark.parametrize(
+    "index,launches",
+    [(0, ("mha_qtile_bwd_kernel",)), (1, ("flash_dq_kernel", "flash_dkv_kernel")),
+     (2, ("fused_attention_bwd_kernel",))],
+)
+def test_kernel_path_backward_raises(monkeypatch, index, launches):
     """With the kernel path forced (the launches replaced by the plain
-    versions, which a CPU tensor needs), the forward runs and the backward
-    raises, naming the backward kernel still to port."""
+    versions, which a CPU tensor needs), the backward no longer raises: it
+    calls each of the entry's backward launches once, and the gradient is the
+    plain path's."""
+    name, call, inputs = _new_entry_calls()[index]
+    want = torch.autograd.grad((call(*inputs) ** 2).sum(), inputs)
+
+    calls = []
+
+    def counted(launch, plain):
+        def wrapper(*args):
+            calls.append(launch)
+            return plain(*args)
+
+        monkeypatch.setattr(tattn, launch, wrapper)
+
     monkeypatch.setattr(tattn, "_use_reference", lambda t: False)
     monkeypatch.setattr(tattn, "mha_qtile_fwd_kernel", tattn.mha_qtile_reference)
     monkeypatch.setattr(tattn, "flash_fwd_kernel", tattn.flash_attention_reference)
     monkeypatch.setattr(tattn, "fused_attention_fwd_kernel", tattn.fused_attention_reference)
-    name, call, inputs = _new_entry_calls()[index]
+    counted("mha_qtile_bwd_kernel", tattn.mha_qtile_bwd_reference)
+    counted("fused_attention_bwd_kernel", tattn.attention_bwd_reference)
+    counted("flash_dq_kernel", tattn.flash_dq_reference)
+    counted("flash_dkv_kernel", tattn.flash_dkv_reference)
     out = call(*inputs)
     assert out.requires_grad
-    with pytest.raises(NotImplementedError, match=missing):
-        out.sum().backward()
+    got = torch.autograd.grad((out**2).sum(), inputs)
+    assert tuple(calls) == launches
+    for ours, theirs in zip(got, want):
+        torch.testing.assert_close(ours, theirs, rtol=0, atol=FP32_TOL * theirs.abs().max().item())
 
 
 # ---------------------------------------------------------------------------
@@ -414,15 +437,3 @@ def test_long_kernels_reject_what_they_do_not_take(cuda):
         tattn.fused_attention(*torch.zeros(3, 1, 2, 577, 64, device=cuda), True)
     with tattn.attention_impl("reference"):
         assert tattn.fused_attention(*torch.zeros(3, 1, 2, 577, 64, device=cuda), True).shape == (1, 2, 577, 64)
-
-
-@pytest.mark.gpu
-def test_kernel_backward_raises_on_the_card(cuda):
-    q = torch.randn(2, 577, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    kv = torch.randn(2, 577, 256, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    out = tattn.fused_mha_qtile(q, kv, 2)
-    with pytest.raises(NotImplementedError, match="K7"):
-        out.float().sum().backward()
-    q, k, v = torch.randn(3, 4, 577, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K9 and K10"):
-        tattn.flash_attention_heads(q, k, v).sum().backward()

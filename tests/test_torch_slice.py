@@ -257,3 +257,72 @@ def test_tiny_state_through_convert():
     theirs, _ = _jax_score(jmodel, jscorer, feats)
     ours, _ = predictor.score_frames(feats)
     _assert_same(ours, theirs)
+
+
+# ---------------------------------------------------------------------------
+# the gradient through the image tower
+# ---------------------------------------------------------------------------
+
+# fp32: rtol and atol of each leaf's max |gradient|. bf16: the two packages round
+# the stream at different places (measured here: up to 2.4e-2 of a leaf's max
+# after two layers each way), so the limit is absolute, of each leaf's max.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+_L577_CFG = dict(
+    embed_dim=64, image_resolution=336, vision_layers=2, vision_width=128,
+    vision_patch_size=14, transformer_width=64, transformer_heads=4, transformer_layers=2,
+)
+
+
+@pytest.mark.parametrize(
+    "cfg_kwargs,dtype_name,rung",
+    [
+        (_L577_CFG, "float32", "core"),  # fused_attention -> the flash entry and its backward
+        (_L577_CFG, "bfloat16", "qtile"),  # q and k|v as two GEMMs, the q-tiled backward
+        (None, "float32", "mha"),  # the tiny ViT-B config: the packed qkv entry
+    ],
+)
+def test_image_tower_gradient_matches_jax(cfg_kwargs, dtype_name, rung):
+    """d sum(encode_image(...)^2) / d every visual leaf against jax.grad of the
+    JAX ``encode_image`` on the same weights through convert.py."""
+    from anomalyclip_tpu_torch.models.clip import model as tclip
+
+    jcfg = jclip.CLIPConfig.tiny() if cfg_kwargs is None else jclip.CLIPConfig(**cfg_kwargs)
+    tcfg = CLIPConfig(**{f.name: getattr(jcfg, f.name) for f in jcfg.__dataclass_fields__.values()})
+    jdtype, tdtype = {"float32": (jnp.float32, torch.float32),
+                      "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype_name]
+    length = tcfg.grid_size**2 + 1
+    assert tclip.attention_rung(2, length, tcfg.vision_width, tcfg.vision_heads,
+                                tdtype.itemsize, False) == rung
+
+    jparams = jclip.init_clip_params(jax.random.PRNGKey(4), jcfg)
+    res = jcfg.image_resolution
+    frames = np.random.default_rng(4).integers(0, 256, (2, res, res, 3), dtype=np.uint8)
+
+    def jloss(visual):
+        out = jclip.encode_image({**jparams, "visual": visual}, jcfg, jnp.asarray(frames), jdtype)
+        return (out.astype(jnp.float32) ** 2).sum()
+
+    want = _np_tree(jax.grad(jloss)(jparams["visual"]))
+
+    tparams = convert.clip_params_require_grad(convert.params_from_jax(_np_tree(jparams)))
+    leaves = convert.tree_leaves(tparams["visual"])
+    assert all(t.requires_grad and t.dtype == torch.float32 for t in leaves)
+    out = tclip.encode_image(tparams, tcfg, torch.from_numpy(frames), tdtype)
+    grads = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+    got = convert.tree_to_jax(convert.tree_from_leaves(tparams["visual"], grads))
+
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    tol = GRAD_TOL[dtype_name]
+    worst = {}
+
+    def check(path, ours, theirs):
+        top = float(np.abs(theirs).max())
+        assert ours.shape == theirs.shape and ours.dtype == np.float32 and top > 0, path
+        worst[jax.tree_util.keystr(path)] = float(np.abs(ours - theirs).max()) / top
+        rtol = tol if dtype_name == "float32" else 0
+        np.testing.assert_allclose(ours, theirs, rtol=rtol, atol=tol * top,
+                                   err_msg=jax.tree_util.keystr(path))
+
+    jax.tree_util.tree_map_with_path(check, got, want)
+    assert len(worst) == len(jax.tree_util.tree_leaves(want))  # blocks count once, stacked
