@@ -65,18 +65,18 @@ def _unstack_blocks(blocks: Mapping, device) -> list:
     return [take(blocks, i) for i in range(depth(blocks))]
 
 
-def params_from_jax(tree: Mapping, device="cpu") -> Dict[str, Any]:
+def params_from_jax(tree: Mapping, device="cuda") -> Dict[str, Any]:
     """Any JAX parameter tree of the package (CLIP params, ``frozen``,
     ``trainable``) -> the port's tree of fp32 tensors on ``device``."""
     return _tree(tree, device)
 
 
-def bn_state_from_jax(bn_state, device="cpu") -> BNState:
+def bn_state_from_jax(bn_state, device="cuda") -> BNState:
     return BNState(mean=_tensor(bn_state.mean, device), var=_tensor(bn_state.var, device))
 
 
 def state_from_flat(
-    flat: Mapping[str, np.ndarray], device="cpu"
+    flat: Mapping[str, np.ndarray], device="cuda"
 ) -> Tuple[Dict[str, Any], Dict[str, Any], BNState, CLIPConfig]:
     """A flat treeio dictionary (tiny_state.npz layout) ->
     (frozen, trainable, bn_state, clip_cfg), the trainable leaves requiring grad."""

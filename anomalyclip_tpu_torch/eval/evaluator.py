@@ -16,6 +16,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from anomalyclip_tpu_torch.convert import tree_leaves
 from anomalyclip_tpu_torch.data.dataset import TestItem
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
 from anomalyclip_tpu_torch.models.selector import BNState, selector_test
@@ -71,8 +72,10 @@ def encode_frames_chunked(
 
 
 class GridScorer:
-    """Scores batches of (n, l, D) grids on one device with fixed parameters
-    (already on ``device``). The text features are computed once, here;
+    """Scores batches of (n, l, D) grids on one device with fixed parameters,
+    which must already be on ``device`` (the card unless the caller asks for
+    the CPU): a tree on another device raises, with both named. The text
+    features are computed once, here;
     ``score_grids`` runs the selector and the temporal model on a bucket-padded
     grid batch. ``encode_calls`` counts the image-tower calls of
     ``encode_frames_np``, one per chunk."""
@@ -85,11 +88,20 @@ class GridScorer:
         bn_state: BNState,
         ncentroid,
         buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-        device="cpu",
+        device="cuda",
     ):
         self.model = model
         self.buckets = buckets
         self.device = torch.device(device)
+        for name, tree in (("frozen", frozen), ("trainable", trainable), ("bn_state", list(bn_state))):
+            for leaf in tree_leaves(tree):
+                if leaf.device.type != self.device.type or (
+                    self.device.index is not None and leaf.device.index != self.device.index
+                ):
+                    raise ValueError(
+                        f"GridScorer: device is {self.device}, but the {name} parameters are on "
+                        f"{leaf.device}; move them (convert.tree_to) or pass device={str(leaf.device)!r}"
+                    )
         with torch.no_grad():
             self.text_features = model.text_features(frozen, trainable)
         self._frozen = frozen

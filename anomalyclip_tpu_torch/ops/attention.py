@@ -42,6 +42,10 @@ for the backward's routing (``attention_bwd_route``: the whole-head kernel of
 mha_bwd.cu where its L x L tiles fit, the KV-blocked pair of mha_blocked_bwd.cu
 past it); the library reports its own (``acl_*_smem_bytes``), and the chip smoke
 run holds the two against each other.
+
+The kernels that the measurement scripts launch themselves (other tilings of
+the whole-row kernel, KV parts, head pairs, no softmax) are in
+ops/attention_probes.py.
 """
 
 from __future__ import annotations
@@ -200,9 +204,9 @@ def fused_attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
 FLASH_BLOCK_KV = 128
 
 
-def flash_attention_reference(q, k, v, save_lse: bool = False):
+def flash_attention_reference(q, k, v, save_lse: bool = False, block: int = FLASH_BLOCK_KV):
     """``_flash_kernel`` (:800-854) over per-head (N, L, dh): per KV block of
-    ``FLASH_BLOCK_KV`` keys the running max, the rescale alpha = exp(m_old -
+    ``block`` keys (K8's ``FLASH_BLOCK_KV``) the running max, the rescale alpha = exp(m_old -
     m_new), p = exp(s - m_new) cast to v's type before the P.V product and
     summed unrounded, one divide at the end. The block size decides where bf16
     rounds: it is the CUDA kernel's (the Pallas kernel's is 512). -> out, or
@@ -213,8 +217,8 @@ def flash_attention_reference(q, k, v, save_lse: bool = False):
     m = torch.full((n, l, 1), NEG_INF, dtype=torch.float32, device=q.device)
     denom = torch.zeros((n, l, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((n, l, dh), dtype=torch.float32, device=q.device)
-    for start in range(0, l, FLASH_BLOCK_KV):
-        kb, vb = k[:, start : start + FLASH_BLOCK_KV], v[:, start : start + FLASH_BLOCK_KV]
+    for start in range(0, l, block):
+        kb, vb = k[:, start : start + block], v[:, start : start + block]
         s = torch.einsum("nqd,nkd->nqk", qf, kb.float()) * scale
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -286,12 +290,13 @@ _KERNEL_ROWS = 64  # query rows per block of the forward kernels
 H100_SMEM_OPTIN = 232_448
 
 
-def mha_smem_bytes(l: int, dh: int, itemsize: int = 4) -> int:
+def mha_smem_bytes(l: int, dh: int, itemsize: int = 4, warps: int = _KERNEL_WARPS) -> int:
     """The whole-row kernel (mha.cu): K (padded by one 32-bit word) and V of the
     head staged in ``itemsize``-byte elements, the warps' fp32 exponent rows and
-    query rows. K1 and K2 stage as fp32 (the default); K6 in the operand type."""
+    query rows. K1 and K2 stage as fp32 (the default); K6 in the operand type.
+    ``warps`` other than the kernels' eight: the probes (ops/attention_probes.py)."""
     kv = itemsize * (l * (dh + 4 // itemsize) + l * dh)
-    return kv + 4 * _KERNEL_WARPS * (l + dh)
+    return kv + 4 * warps * (l + dh)
 
 
 def mha_bwd_smem_bytes(l: int, dh: int) -> int:
@@ -365,6 +370,9 @@ def smem_limit(device: torch.device) -> int:
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+# the whole-row forward (mha.cu) and the whole-head backward (mha_bwd.cu) also
+# take 16: the temporal model at emb 128 with 8 heads
+_WHOLE_HEAD_DIMS = (16, 32, 64)
 _INT_MAX = 2**31 - 1
 
 
@@ -376,17 +384,19 @@ def _use_reference(t: torch.Tensor) -> bool:
     return _IMPL.get() == "reference"
 
 
-def _check_kernel_shape(name: str, t: torch.Tensor, d: int, num_heads: int, smem_need) -> int:
+def _check_kernel_shape(
+    name: str, t: torch.Tensor, d: int, num_heads: int, smem_need, head_dims=_HEAD_DIMS
+) -> int:
     """Raise, with the shape, on what the CUDA kernel does not take -> head dim.
     ``smem_need(dh)`` is the shared memory one block needs at this shape."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, not {t.device}")
     if t.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {t.dtype} not supported (float32, bfloat16)")
-    if d % num_heads or d // num_heads not in _HEAD_DIMS:
+    if d % num_heads or d // num_heads not in head_dims:
         raise ValueError(
             f"{name}: shape {tuple(t.shape)} with {num_heads} heads gives head dim "
-            f"{d / num_heads:g}; the kernel takes {_HEAD_DIMS}"
+            f"{d / num_heads:g}; the kernel takes {head_dims}"
         )
     dh = d // num_heads
     need, have = smem_need(dh), smem_limit(t.device)
@@ -431,7 +441,7 @@ def mha_qkv_fwd_kernel(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch
     b, l, d3 = qkv.shape
     d = d3 // 3
     dh = _check_kernel_shape(
-        "fused_mha_qkv", qkv, d, num_heads, lambda dh: mha_smem_bytes(l, dh)
+        "fused_mha_qkv", qkv, d, num_heads, lambda dh: mha_smem_bytes(l, dh), _WHOLE_HEAD_DIMS
     )
     bs, rs = _strides("fused_mha_qkv", qkv, qkv.shape)
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
@@ -450,7 +460,9 @@ def _launch_mha_bld(name: str, q, k, v, num_heads: int, causal: bool) -> torch.T
     read in place. Counts nothing."""
     _check_bld(name, q, k, v)
     b, l, d = q.shape
-    dh = _check_kernel_shape(name, q, d, num_heads, lambda dh: mha_smem_bytes(l, dh))
+    dh = _check_kernel_shape(
+        name, q, d, num_heads, lambda dh: mha_smem_bytes(l, dh), _WHOLE_HEAD_DIMS
+    )
     strides = [_strides(name, t, q.shape) for t in (q, k, v)]
     out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     ptr = ctypes.c_void_p
@@ -549,7 +561,7 @@ def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv) -> None:
 def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int, causal: bool) -> str:
     """``attention_bwd_route`` for a kernel launch, after the dtype and head-dim
     checks every backward kernel shares."""
-    _check_kernel_shape(name, t, d, num_heads, lambda dh: 0)
+    _check_kernel_shape(name, t, d, num_heads, lambda dh: 0, _WHOLE_HEAD_DIMS)
     return attention_bwd_route(l, d // num_heads, t.element_size(), causal, smem_limit(t.device))
 
 
@@ -709,7 +721,8 @@ def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
         )
     itemsize = q.element_size()
     dh = _check_kernel_shape(
-        "fused_mha_qtile", q, d, num_heads, lambda dh: mha_smem_bytes(l, dh, itemsize)
+        "fused_mha_qtile", q, d, num_heads, lambda dh: mha_smem_bytes(l, dh, itemsize),
+        _WHOLE_HEAD_DIMS,
     )
     q_strides = _strides("fused_mha_qtile", q, q.shape)
     kv_strides = _strides("fused_mha_qtile", kv, kv.shape)

@@ -23,6 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu", CSRC / "mha_blocked_bwd.cu",
+    CSRC / "mha_probe.cu",
 )
 HEADERS = (CSRC / "attention_common.cuh",)  # included by every source
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -119,4 +120,25 @@ def load_library() -> ctypes.CDLL:
     lib.acl_blocked_dq.restype = i
     lib.acl_blocked_dkv.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, f, p]
     lib.acl_blocked_dkv.restype = i
+    # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
+    # pointer and 64-bit batch and row strides
+    s, z = ctypes.c_int64, ctypes.c_size_t
+    lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]
+    lib.acl_probe_smem_bytes.restype = z
+    lib.acl_probe_blocks_per_sm.argtypes = [i, i, i, i, i, z]
+    lib.acl_probe_blocks_per_sm.restype = i
+    lib.acl_probe_qkv_fwd.argtypes = [i, i, i, i, p, s, s, p, i, i, i, i, i, f, p]
+    lib.acl_probe_qkv_fwd.restype = i
+    lib.acl_probe_qtile_fwd.argtypes = [i, i, i, i, p, s, s, p, s, s, p, i, i, i, i, f, p]
+    lib.acl_probe_qtile_fwd.restype = i
+    lib.acl_probe_nosoftmax_fwd.argtypes = lib.acl_probe_qtile_fwd.argtypes
+    lib.acl_probe_nosoftmax_fwd.restype = i
+    lib.acl_probe_bld_fwd.argtypes = [i, i, i, i, p, s, s, p, s, s, p, s, s, p, i, i, i, i, i, f, p]
+    lib.acl_probe_bld_fwd.restype = i
+    lib.acl_parts_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.acl_parts_smem_bytes.restype = z
+    lib.acl_parts_blocks_per_sm.argtypes = [i, i, i, i, z]
+    lib.acl_parts_blocks_per_sm.restype = i
+    lib.acl_mha_parts_fwd.argtypes = [i, i, i, i, i, p, s, s, p, s, s, p, s, s, p, i, i, i, i, f, p]
+    lib.acl_mha_parts_fwd.restype = i
     return lib

@@ -36,7 +36,8 @@
 // a time: the row of q sits in registers, lane j computes the scores of keys j,
 // j+32, ..., the max and the sum are warp shuffles, the exponent row goes to the
 // warp's slice of shared memory, and in the P.V product lane t owns output
-// columns t, t+32. K rows are padded by one 32-bit word so that the 32 lanes of a
+// columns t, t+32 (at head dim 16, which the temporal model has at emb 128 with
+// 8 heads, the upper half of the lanes owns none). K rows are padded by one 32-bit word so that the 32 lanes of a
 // warp, reading 32 different keys at the same column, hit 32 different banks.
 //
 // The staging type S is the one difference between the entries. K1 and K2 stage
@@ -121,18 +122,21 @@ mha_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out, int L, int 
     denom = warp_sum(denom);
     __syncwarp();
 
-    float acc[DH / 32];
+    constexpr int COLS = (DH + 31) / 32;  // output columns a lane owns
+    // a constant where DH is a multiple of 32: every lane owns COLS columns
+    const bool owns = DH % 32 == 0 || lane < DH;
+    float acc[COLS];
 #pragma unroll
-    for (int t = 0; t < DH / 32; ++t) acc[t] = 0.f;
+    for (int t = 0; t < COLS; ++t) acc[t] = 0.f;
     for (int j = 0; j < L; ++j) {
       const float p = prow[j];
 #pragma unroll
-      for (int t = 0; t < DH / 32; ++t)
-        acc[t] = fmaf(p, to_float(vs[j * DH + lane + 32 * t]), acc[t]);
+      for (int t = 0; t < COLS; ++t)
+        if (owns) acc[t] = fmaf(p, to_float(vs[j * DH + lane + 32 * t]), acc[t]);
     }
 #pragma unroll
-    for (int t = 0; t < DH / 32; ++t)
-      op[(int64_t)row * H * DH + lane + 32 * t] = from_float<T>(acc[t] / denom);
+    for (int t = 0; t < COLS; ++t)
+      if (owns) op[(int64_t)row * H * DH + lane + 32 * t] = from_float<T>(acc[t] / denom);
     __syncwarp();
   }
 }
@@ -155,13 +159,17 @@ cudaError_t launch_typed(Operand q, Operand k, Operand v, void* out, int B, int 
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dh: 32 or 64. K and V are staged as fp32
+// dtype: 0 = float32, 1 = bfloat16. dh: 16, 32 or 64. K and V are staged as fp32
 // (kStageFp32) or in the operand type.
 template <bool kStageFp32>
 cudaError_t launch(int dtype, Operand q, Operand k, Operand v, void* out, int B, int L,
                    int H, int dh, int causal, float scale, cudaStream_t stream) {
   using BF = __nv_bfloat16;
   using SB = std::conditional_t<kStageFp32, float, BF>;
+  if (dtype == 0 && dh == 16)
+    return launch_typed<float, float, 16>(q, k, v, out, B, L, H, causal, scale, stream);
+  if (dtype == 1 && dh == 16)
+    return launch_typed<BF, SB, 16>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 0 && dh == 32)
     return launch_typed<float, float, 32>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 0 && dh == 64)

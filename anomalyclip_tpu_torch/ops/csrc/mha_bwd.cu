@@ -181,10 +181,15 @@ cudaError_t launch_typed(Operand q, Operand k, Operand v, Operand g, Output dq, 
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dh: 32 or 64.
+// dtype: 0 = float32, 1 = bfloat16. dh: 16, 32 or 64.
 cudaError_t launch(int dtype, Operand q, Operand k, Operand v, Operand g, Output dq, Output dk,
                    Output dv, int B, int L, int H, int dh, int causal, float scale,
                    cudaStream_t stream) {
+  if (dtype == 0 && dh == 16)
+    return launch_typed<float, 16>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale, stream);
+  if (dtype == 1 && dh == 16)
+    return launch_typed<__nv_bfloat16, 16>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale,
+                                           stream);
   if (dtype == 0 && dh == 32)
     return launch_typed<float, 32>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale, stream);
   if (dtype == 0 && dh == 64)

@@ -33,7 +33,7 @@ class Predictor:
         trainable,
         bn_state: BNState,
         ncentroid,
-        device="cpu",
+        device="cuda",
     ):
         self.model = model
         self.scorer = GridScorer(model, frozen, trainable, bn_state, ncentroid, device=device)

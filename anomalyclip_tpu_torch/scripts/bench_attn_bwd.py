@@ -25,13 +25,12 @@ from __future__ import annotations
 
 import argparse
 import math
-import statistics
-import subprocess
 
 import numpy as np
 import torch
 
 from anomalyclip_tpu_torch.ops import attention as A
+from anomalyclip_tpu_torch.scripts._bench_util import announce_device, median_ms
 
 # (label, b, l, d, heads, causal): the gradient-consuming shapes
 SHAPES = [
@@ -45,22 +44,6 @@ FLASH_PARITY_SHAPE = (8, 1100, 64)  # ragged q and kv tilings on both axes
 FLASH_TIMED_SHAPE = (64, 2048, 64)
 PARITY_LIMIT = 2e-5  # fp32, of max|ref|
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-
-
-def median_ms(fn, reps: int = 30) -> float:
-    """Median time of ``fn`` on the current CUDA device over ``reps`` calls, by
-    CUDA events, after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def rel_err(got, want) -> float:
@@ -218,7 +201,7 @@ def bench_flash(iters: int, dtype_name: str, device) -> None:
           flush=True)
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--dtype", default="bf16", choices=list(DTYPES))
@@ -228,17 +211,8 @@ def main() -> None:
                     help="only the KV-blocked flash backward (long shapes)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu: the plain versions at batch 2, parity only, no times")
-    args = ap.parse_args()
-    if args.device == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("bench_attn_bwd: no CUDA device (--device cpu checks the plain versions)")
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
-        print(f"# device: {smi}", flush=True)
-    else:
-        print("# device: cpu (plain versions; no times)", flush=True)
+    args = ap.parse_args(argv)
+    announce_device("bench_attn_bwd", args.device, "plain versions; no times")
     if args.qtile:
         bench_qtile(args.iters, args.dtype, args.device)
     elif args.flash:

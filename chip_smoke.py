@@ -26,6 +26,13 @@ script exits non-zero without printing a result:
    causal case must raise: no kernel takes it); autograd through
    ``fused_attention`` at (32, 16, 577, 64) against its plain path; and the
    parity checks of ``anomalyclip_tpu_torch.scripts.bench_attn_bwd``;
+3d. probe kernels (ops/csrc/mha_probe.cu), fp32 within 1e-5 and bf16 within 5e-2
+   of max|ref|, with median times: the tile probe at the ViT-L/14@336px layer's
+   shape (32, 577, 1024), 16 heads, on its three layouts and at K6's own and two
+   other tilings (fp32, whose K and V do not fit at 577 keys, at L=360; the
+   whole-row layout at L=400), ``twopass``, ``pair`` and ``nosoftmax`` there,
+   ``probe_qkv_gb``'s four shapes, and a refusal that must raise (``whole`` at
+   L=577 with fp32 staging);
 4. slice: the UCF-Crime ViT-B/16 model at full width from seeded weights scores
    three synthetic uint8 videos (about 200, 700 and 1600 frames) through
    ``Predictor.score_frames`` in fp32; the kernel launch counts of that run are
@@ -54,6 +61,15 @@ script exits non-zero without printing a result:
    max, bf16 within BF16_GRAD_TOL); then the same at ViT-B/16 width and
    depth, batch 32, fp32 (K1 forward, K3's entry backward on its blocked
    route);
+4e. the probe and measurement scripts, each through its ``main`` with the launch
+   counts of its run checked exactly: ``bench_attn_l14 --check`` with its default
+   variants at (32, 577, 1024) in bf16 and at ``--seq 576``, and ``whole`` and
+   ``pair`` at ``--seq 400``; ``probe_qkv_gb`` and ``probe_qtile_vmem`` at a few
+   configurations; ``bench_attn_l14 --tower`` at full ViT-L/14@336px width and
+   depth, batch 32, bf16 (24 K6 launches a forward under the fused kernels, none
+   under identity and plain attention); ``validate_pickgb`` and
+   ``validate_qtile_config`` to their exit codes; ``bench_eval``,
+   ``bench_latency --path both`` and ``bench_train_step`` at their default sizes;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one warm training step, one warm call of the ViT-L/14@336px video
@@ -62,8 +78,8 @@ script exits non-zero without printing a result:
    top kernels, printed and written as JSON to OUT.json.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launch counts (the scoring, training, ViT-L/14@336px and
-gradient runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+kernels with their launch counts (the scoring, training, ViT-L/14@336px,
+gradient and script runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -75,7 +91,10 @@ for bf16 operands or 67 TFLOP/s for fp32, and the bytes (each input read and
 each output written once) over 3.35 TB/s. fused_attention's own kernel, the
 whole-block one, is on none of these paths (its shapes there take K1, K6 or,
 through its flash branch, K8), so its count is 0; its error and times are
-phase 3's.
+phase 3's. The six probe wrappers' numbers are phase 3d's at (32, 577, 1024) in
+bf16 (``probe_mha_qkv``: its four shapes summed; ``probe_mha_whole``: L=400) and
+their counts phase 4e's; ``nosoftmax_mha`` computes no function the library has,
+so its ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -112,6 +131,17 @@ KERNEL_SOURCE = {
     "mha_qtile_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
     "flash_dq": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
     "flash_dkv": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
+}
+PROBE_SOURCE = "anomalyclip_tpu_torch/ops/csrc/mha_probe.cu"
+# probe wrapper -> the pallas_call sites of the JAX package's scripts it replaces
+PROBE_REPLACES = {
+    "probe_mha_qkv": ["scripts/probe_qkv_gb.py:51"],
+    "probe_mha_qtile": ["scripts/probe_qtile_vmem.py:34", "scripts/bench_attn_l14.py:83",
+                        "scripts/bench_attn_l14.py:201"],
+    "probe_mha_whole": ["scripts/bench_attn_l14.py:179"],
+    "twopass_mha": ["scripts/bench_attn_l14.py:150"],
+    "pair_mha": ["scripts/bench_attn_l14.py:238"],
+    "nosoftmax_mha": ["scripts/bench_attn_l14.py:279"],
 }
 REPLACES = {
     "fused_mha_qkv": "anomalyclip_tpu/ops/pallas/attention.py:423",
@@ -153,6 +183,7 @@ TRAIN_STEPS = 3
 TRAIN_GRAD_TOL = 1e-4  # of each leaf's max |gradient|
 TRAIN_LOSS_RTOL = 5e-4
 TRAIN_BN_TOL = 1e-5
+SCRIPT_ITERS = 10  # timed calls per variant or shape in the scripts of phase 4e
 
 
 def phase_device() -> str:
@@ -192,6 +223,21 @@ def phase_build() -> None:
                         == A.blocked_bwd_smem_bytes(dh, itemsize),
                         f"blocked backward smem at {dh, itemsize}")
             checked += 1
+    from anomalyclip_tpu_torch.ops import attention_probes as P
+
+    for l, rows, parts in ((577, 64, 2), (577, 120, 4), (400, 128, 1), (77, 32, 3)):
+        part = P.kv_part_length(l, parts)
+        for warps in P.PROBE_WARPS:
+            for code, itemsize in ((0, 4), (1, 2)):
+                for stage in {4, itemsize}:
+                    require(lib.acl_probe_smem_bytes(l, 64, stage, warps)
+                            == A.mha_smem_bytes(l, 64, stage, warps),
+                            f"probe smem at {l, stage, warps}")
+                for heads in (1, 2):
+                    require(lib.acl_parts_smem_bytes(rows, part, 64, code, warps, heads)
+                            == P.parts_smem_bytes(rows, part, 64, itemsize, warps, heads),
+                            f"parts smem at {rows, part, itemsize, warps, heads}")
+        checked += 1
     print(f"[build] shared-memory formulas: library and Python agree at {checked} (L, dh) "
           f"pairs; card limit {A.smem_limit(torch.device('cuda'))} B per block")
     torch.cuda.synchronize()
@@ -255,13 +301,14 @@ class Case:
     dtypes: tuple = BOTH  # checked
     path: tuple = FP32  # the dtypes whose numbers go into the kernels line
     relative: bool = False  # the tolerance is of max|ref| (the backwards) or absolute
+    library: bool = True  # the library has a call for the same function
 
 
 def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
     """Each case's kernel against its plain version, with the median times of
     the kernel, the plain version and the library call, and the bound; the
     path's dtypes are summed into ``report[name]``."""
-    from anomalyclip_tpu_torch.scripts.bench_attn_bwd import median_ms
+    from anomalyclip_tpu_torch.scripts._bench_util import median_ms
 
     for case in cases:
         several = isinstance(case.in_shape, list)
@@ -283,7 +330,10 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
             ms, plain_ms = median_ms(lambda: case.kernel(x)), median_ms(lambda: case.plain(x))
             views = case.heads(x)
             dims = tuple(views[0].shape)
-            if case.kind == "fwd":
+            if not case.library:
+                fwd_ms = library_ms = None
+                beside = "no library call computes this"
+            elif case.kind == "fwd":
                 fwd_ms = library_ms = median_ms(lambda: sdpa(*views, case.causal))
                 beside = f"sdpa {library_ms:.4f} ms"
             else:
@@ -296,7 +346,8 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, "
                   f"bound {bound_ms:.4f} ms ({bound_by})")
             entry = report.setdefault(case.name, {
-                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0 if case.library else None,
                 "library_fwd_ms": None if case.kind == "fwd" else 0.0, "bound_ms": 0.0,
                 "bound_by": bound_by, "largest_bound": 0.0,
             })
@@ -305,7 +356,8 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 entry["ms"] += ms
                 entry["plain_ms"] += plain_ms
-                entry["library_ms"] += library_ms
+                if case.library:
+                    entry["library_ms"] += library_ms
                 entry["bound_ms"] += bound_ms
                 if case.kind != "fwd":
                     entry["library_fwd_ms"] += fwd_ms
@@ -381,7 +433,17 @@ def phase_kernels(report: dict) -> None:
         lambda t: fused_attention_reference(*t.permute(2, 0, 3, 1, 4)),
         lambda t: tuple(t.permute(2, 0, 3, 1, 4)), path=(),
     ))
-    run_cases("kernels", cases, report, torch.Generator(device="cuda").manual_seed(SEED))
+    # K2 at head dim 16, the temporal model at emb 128 with 8 heads (bench_eval's
+    # size; on no model path: printed, not in the kernels line)
+    cases.append(Case(
+        "fused_mha_bld at dh 16", (1024, 32, 128), (1024, 32, 3 * 128),
+        lambda t: fused_mha_bld(t[..., :128], t[..., 128:256], t[..., 256:], 8),
+        lambda t: mha_bld_reference(t[..., :128], t[..., 128:256], t[..., 256:], 8),
+        lambda t: packed_heads(t, 3, 8), path=(),
+    ))
+    scratch = {}
+    run_cases("kernels", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED))
+    report.update({k: v for k, v in scratch.items() if k in KERNEL_SOURCE})
 
 
 def phase_bwd_kernels(report: dict) -> None:
@@ -970,10 +1032,169 @@ def phase_tower_gradient() -> dict:
     return launches
 
 
+def phase_probe_kernels(report: dict) -> None:
+    """The probe kernels against their plain versions: the tile probe on its
+    three layouts and at three tilings, twopass, pair and nosoftmax at the
+    ViT-L/14@336px layer's shape, and probe_qkv_gb's four shapes."""
+    from anomalyclip_tpu_torch.ops import attention as A
+    from anomalyclip_tpu_torch.ops import attention_probes as P
+    from anomalyclip_tpu_torch.scripts.probe_qkv_gb import SHAPES as QKV_SHAPES
+
+    d, h = 1024, 16
+
+    def qkv_views(t):
+        return t[..., :d], t[..., d:]
+
+    def l14_case(name, l, kernel, plain, dtypes, path, **extra):
+        """A case on q and k|v as views of one (32, l, 3 * 1024) projection."""
+        return Case(name, (32, l, d), (32, l, 3 * d), lambda t: kernel(*qkv_views(t)),
+                    lambda t: plain(*qkv_views(t)), lambda t: packed_heads(t, 3, h),
+                    dtypes=dtypes, path=path, relative=True, **extra)
+
+    cases = []
+    # the tile probe on K6's layout: K6's own tiling, an even cut of 577 and more
+    # warps; K and V of 577 keys fit as bf16 only, so fp32 runs at L=360, which
+    # fits at 16 warps too
+    for rows, warps in ((64, 8), (145, 8), (128, 16)):
+        path = BF16 if (rows, warps) == (64, 8) else ()
+        for l, dtypes in ((577, BF16), (360, FP32)):
+            cases.append(l14_case(
+                "probe_mha_qtile", l,
+                lambda q, kv, r=rows, w=warps: P.probe_mha_qtile(q, kv, h, rows=r, warps=w),
+                lambda q, kv: A.mha_qtile_reference(q, kv, h), dtypes, path))
+            cases.append(l14_case(
+                "nosoftmax_mha", l,
+                lambda q, kv, r=rows, w=warps: P.nosoftmax_mha(q, kv, h, rows=r, warps=w),
+                lambda q, kv: P.nosoftmax_reference(q, kv, h), dtypes, path, library=False))
+    # the whole-row layout, no q tiling, K and V as fp32: the longest it runs at
+    cases.append(l14_case(
+        "probe_mha_whole", 400,
+        lambda q, kv: P.probe_mha_whole(q, kv[..., :d], kv[..., d:], h),
+        lambda q, kv: A.mha_bld_reference(q, kv[..., :d], kv[..., d:], h), BOTH, BF16))
+    cases.append(l14_case(
+        "twopass_mha", 577, lambda q, kv: P.twopass_mha(q, kv, h),
+        lambda q, kv: P.parts_reference(q, kv, h, 2), BOTH, BF16))
+    cases.append(l14_case(
+        "pair_mha", 577, lambda q, kv: P.pair_mha(q, kv, h),
+        lambda q, kv: P.parts_reference(q, kv, h, P.pair_parts(q)), BOTH, BF16))
+    # the packed layout at probe_qkv_gb's shapes, K1's own tiling and another
+    for b, l, width, heads, causal in QKV_SHAPES.values():
+        for rows, warps, stage_fp32 in ((64, 8, True), (128, 16, False)):
+            cases.append(Case(
+                "probe_mha_qkv", (b, l, 3 * width), (b, l, 3 * width),
+                lambda t, n=heads, c=causal, r=rows, w=warps, f=stage_fp32: P.probe_mha_qkv(
+                    t, n, c, rows=r, warps=w, stage_fp32=f),
+                lambda t, n=heads, c=causal: A.mha_qkv_reference(t, n, c),
+                lambda t, n=heads: packed_heads(t, 3, n), causal=causal,
+                path=BF16 if stage_fp32 else (), relative=True,
+            ))
+    scratch = {}
+    run_cases("probe kernels", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED + 6))
+    report.update({k: v for k, v in scratch.items() if k in PROBE_REPLACES})
+
+    # the one failure that is a probe's result: K and V of 577 keys as fp32 do
+    # not fit a block, and the wrapper says so with the sizes before any launch
+    q = torch.zeros(1, 577, 3 * d, device="cuda", dtype=torch.bfloat16)
+    P.reset_launch_counts()
+    try:
+        P.probe_mha_whole(q[..., :d], q[..., d:2 * d], q[..., 2 * d:], h)
+    except P.ProbeDoesNotFit as exc:
+        print(f"[probe kernels] whole at L=577 with fp32 staging: raises: {exc}")
+        require(exc.need == A.mha_smem_bytes(577, 64) and not any(P.launch_counts.values()),
+                f"refusal sizes {exc.need}, launches {P.launch_counts}")
+    else:
+        raise AssertionError("whole at L=577 with fp32 staging did not raise")
+    for what, blocks in (
+        ("K6's tiling", P.probe_blocks_per_sm(torch.bfloat16, 577, 8, False)),
+        ("twopass", P.parts_blocks_per_sm(torch.bfloat16, 64, P.kv_part_length(577, 2), 8, 1)),
+        ("pair", P.parts_blocks_per_sm(torch.bfloat16, 64, P.kv_part_length(577, 2), 8, 2)),
+    ):
+        print(f"[probe kernels] blocks one SM holds at L=577 in bf16, {what}: {blocks}")
+    torch.cuda.synchronize()
+
+
+def run_script(name: str, argv: list, expected: dict) -> dict:
+    """One script of the port through its ``main``, the launch counts set to 0
+    just before and read just after -> the counts, which must be ``expected``
+    (entries not named: 0)."""
+    import importlib
+
+    from anomalyclip_tpu_torch.ops import attention as A
+    from anomalyclip_tpu_torch.ops import attention_probes as P
+
+    module = importlib.import_module(f"anomalyclip_tpu_torch.scripts.{name}")
+    print(f"[scripts] {name} {' '.join(argv)}", flush=True)
+    A.reset_launch_counts()
+    P.reset_launch_counts()
+    start = time.perf_counter()
+    try:
+        module.main(argv)
+    except SystemExit as exc:  # the validate scripts exit with their verdict
+        require(exc.code in (0, None), f"{name} exited with {exc.code}")
+    torch.cuda.synchronize()
+    counts = {**A.launch_counts, **P.launch_counts}
+    want = {k: expected.get(k, 0) for k in counts}
+    print(f"[scripts] {name}: {time.perf_counter() - start:.1f} s, launches "
+          f"{({k: v for k, v in counts.items() if v})}", flush=True)
+    require(counts == want, f"{name} launches {counts}, expected {want}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_scripts() -> list:
+    """The probe and measurement scripts on the card -> the launch counts of
+    each run. A function a script checks and times is called once, once more
+    to warm and ``--iters`` times."""
+    n = SCRIPT_ITERS
+    calls = n + 2
+    it = ["--iters", str(n)]
+    runs = []
+    # the isolated variants at the ViT-L/14@336px layer's shape and its aligned
+    # neighbour, then the two that need a length whose K and V fit otherwise
+    defaults = {"fused_mha_qtile": calls, "probe_mha_qtile": calls, "twopass_mha": calls,
+                "nosoftmax_mha": calls}
+    runs.append(run_script("bench_attn_l14", ["--check", *it], defaults))
+    runs.append(run_script("bench_attn_l14", ["--check", "--seq", "576", *it], defaults))
+    runs.append(run_script("bench_attn_l14", ["--check", "--seq", "400", "--variants", "whole,pair", *it],
+                           {"probe_mha_whole": calls, "pair_mha": calls}))
+    runs.append(run_script("probe_qkv_gb", ["b16", "bf16", "64,8", "128,16", "64,8,op", *it],
+                           {"probe_mha_qkv": 3 * calls}))
+    runs.append(run_script("probe_qkv_gb", ["text", "bf16", "64,8", *it], {"probe_mha_qkv": calls}))
+    runs.append(run_script("probe_qtile_vmem", ["145,8", "128,16", *it], {"probe_mha_qtile": 2 * calls}))
+    # the whole tower: --iters 15 gives 5 timed forwards after a checked and a
+    # warm one; 24 layers each under the fused kernels, no launch under the
+    # identity and the plain attention
+    runs.append(run_script("bench_attn_l14", ["--tower", "--iters", "15"], {"fused_mha_qtile": 24 * 7}))
+    # K1 at its five shapes and K6 past its envelope (the refused call launches
+    # nothing); K6 once and K8 three times in the checks, then both timed
+    runs.append(run_script("validate_pickgb", it, {"fused_mha_qkv": 5 * calls, "fused_mha_qtile": calls}))
+    runs.append(run_script("validate_qtile_config", it,
+                           {"fused_mha_qtile": 1 + (n + 1), "flash_attention_heads": 3 + (n + 1)}))
+    # 12 text layers when the scorer is built; two axial attentions a scoring call
+    runs.append(run_script("bench_eval", it, {"fused_mha_qkv": 12, "fused_mha_bld": 2 * calls}))
+    # features: four sizes; frames: 512 and 1024 frames in encode calls of 256
+    # through the 12 vision layers, timed over max(4, iters // 4) calls
+    frame_calls = 2 + max(4, n // 4)
+    runs.append(run_script("bench_latency", ["--path", "both", *it], {
+        "fused_mha_qkv": 12 + frame_calls * 12 * (2 + 4),
+        "fused_mha_bld": 2 * (4 * calls + 2 * frame_calls),
+    }))
+    # a first step and four timed ones: 2048 frames in 8 encode calls, the text
+    # tower forward and backward, the temporal model's two axes each way
+    steps = 5
+    runs.append(run_script("bench_train_step", [], {
+        "fused_mha_qkv": steps * (8 * 12 + 12), "mha_qkv_bwd": steps * 12,
+        "fused_mha_bld": steps * 2, "mha_bld_bwd": steps * 2,
+    }))
+    return runs
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_fwd_kernel" in low:
         return "attention (mha.cu)"
+    if "probe_kernel" in low or "parts_kernel" in low:
+        return "attention (mha_probe.cu)"
     if "flash_fwd_kernel" in low:
         return "attention (mha_long.cu)"
     if "mha_bwd_kernel" in low:
@@ -1124,10 +1345,12 @@ def main() -> int:
     phase_kernels(report)
     phase_bwd_kernels(report)
     phase_long_bwd_kernels(report)
+    phase_probe_kernels(report)
     slice_launches = phase_slice()
     train_launches = phase_train()
     l14_launches = phase_l14()
     grad_launches = phase_tower_gradient()
+    script_launches = phase_scripts()
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -1151,14 +1374,24 @@ def main() -> int:
     for run, names in grad_paths.items():
         require(all(grad_launches[run][k] > 0 for k in names),
                 f"a kernel of the {run} gradient path was never launched: {grad_launches[run]}")
-    all_runs = [slice_launches, train_launches, *l14_launches.values(), *grad_launches.values()]
+    # and the scripts' path ran every probe kernel and, again, K1-K4, K6 and K8
+    script_totals = {k: sum(run[k] for run in script_launches) for k in script_launches[0]}
+    script_path = (*PROBE_REPLACES, "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                   "fused_mha_qtile", "flash_attention_heads")
+    require(all(script_totals[k] > 0 for k in script_path),
+            f"a kernel of the scripts' path was never launched: {script_totals}")
+    all_runs = [slice_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
+                *script_launches]
+    sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
+    replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE[name],
-            "replaces": REPLACES[name],
-            "launches": sum(run[name] for run in all_runs),
+            "source": sources[name],
+            "replaces": replaces[name],
+            "also_replaces": PROBE_REPLACES.get(name, [None])[1:],
+            "launches": sum(run.get(name, 0) for run in all_runs),
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
@@ -1168,7 +1401,7 @@ def main() -> int:
             "sdpa_ms": report[name]["library_ms"],
             "library_fwd_ms": report[name]["library_fwd_ms"],
         }
-        for name in KERNEL_SOURCE
+        for name in sources
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -201,9 +201,9 @@ def test_mha_qkv_kernel_matches_plain(cuda, dtype, tol, b, l, d, heads, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
-@pytest.mark.parametrize("b,l", [(64, 32), (128, 16)])
-def test_mha_bld_kernel_matches_plain(cuda, dtype, tol, b, l):
-    d, heads = 256, 8
+@pytest.mark.parametrize("b,l,d", [(64, 32, 256), (128, 16, 256), (1024, 32, 128)])  # dh 32, 32, 16
+def test_mha_bld_kernel_matches_plain(cuda, dtype, tol, b, l, d):
+    heads = 8
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(b, l, d, device=cuda, generator=gen).to(dtype)
     kv = torch.randn(b, l, 2 * d, device=cuda, generator=gen).to(dtype)
@@ -258,10 +258,10 @@ def test_mha_qkv_bwd_kernel_matches_plain(cuda, dtype, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
-@pytest.mark.parametrize("b,l", [(1024, 32), (2048, 16)])
-def test_mha_bld_bwd_kernel_matches_plain(cuda, dtype, tol, b, l):
+@pytest.mark.parametrize("b,l,d", [(1024, 32, 256), (2048, 16, 256), (2048, 16, 128)])  # dh 32, 32, 16
+def test_mha_bld_bwd_kernel_matches_plain(cuda, dtype, tol, b, l, d):
     """K4 at the temporal model's shapes, k and v the halves of one kv."""
-    d, heads = 256, 8
+    heads = 8
     gen = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(b, l, d, device=cuda, generator=gen).to(dtype)
     kv = torch.randn(b, l, 2 * d, device=cuda, generator=gen).to(dtype)

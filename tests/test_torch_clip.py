@@ -33,7 +33,7 @@ def _np_tree(tree):
 def tiny():
     cfg = jclip.CLIPConfig.tiny()
     params = jclip.init_clip_params(jax.random.PRNGKey(3), cfg)
-    return cfg, params, convert.params_from_jax(_np_tree(params)), tclip.CLIPConfig.tiny()
+    return cfg, params, convert.params_from_jax(_np_tree(params), device="cpu"), tclip.CLIPConfig.tiny()
 
 
 def test_encode_image_tiny(tiny):
@@ -93,7 +93,9 @@ def test_bf16_encode_stays_close_to_jax(tiny):
 def test_seeded_init_matches_jax_layout():
     """The port's own init draws the JAX init's shapes and distributions."""
     jcfg = jclip.CLIPConfig.tiny()
-    want = convert.params_from_jax(_np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), jcfg)))
+    want = convert.params_from_jax(
+        _np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), jcfg)), device="cpu"
+    )
     got = tclip.init_clip_params(torch.Generator().manual_seed(0), tclip.CLIPConfig.tiny())
 
     def walk(a, b, path=""):
@@ -118,7 +120,9 @@ def test_vit_b16_matches_golden_features():
     with np.load(GOLDEN / "clip_b16.npz") as data:
         golden = {k: data[k] for k in data.files}
     cfg = jclip.CLIPConfig.vit_b16()
-    params = convert.params_from_jax(_np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), cfg)))
+    params = convert.params_from_jax(
+        _np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), cfg)), device="cpu"
+    )
     tcfg = tclip.CLIPConfig.vit_b16()
     img = tclip.encode_image(params, tcfg, torch.from_numpy(golden["image_u8"])).numpy()
     txt = tclip.encode_text(params, tcfg, torch.from_numpy(golden["text_ids"])).numpy()

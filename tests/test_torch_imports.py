@@ -64,8 +64,19 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.models.selector",
         "anomalyclip_tpu_torch.models.temporal",
         "anomalyclip_tpu_torch.ops.attention",
+        "anomalyclip_tpu_torch.ops.attention_probes",
         "anomalyclip_tpu_torch.ops.build",
+        "anomalyclip_tpu_torch.scripts._bench_models",
+        "anomalyclip_tpu_torch.scripts._bench_util",
         "anomalyclip_tpu_torch.scripts.bench_attn_bwd",
+        "anomalyclip_tpu_torch.scripts.bench_attn_l14",
+        "anomalyclip_tpu_torch.scripts.bench_eval",
+        "anomalyclip_tpu_torch.scripts.bench_latency",
+        "anomalyclip_tpu_torch.scripts.bench_train_step",
+        "anomalyclip_tpu_torch.scripts.probe_qkv_gb",
+        "anomalyclip_tpu_torch.scripts.probe_qtile_vmem",
+        "anomalyclip_tpu_torch.scripts.validate_pickgb",
+        "anomalyclip_tpu_torch.scripts.validate_qtile_config",
         "anomalyclip_tpu_torch.train.module",
         "anomalyclip_tpu_torch.train.optim",
         "anomalyclip_tpu_torch.utils.treeio",

@@ -260,7 +260,7 @@ def test_encode_image_at_l577_matches_jax(jax_side):
 
     jcfg = jclip.CLIPConfig(**{f: getattr(_l577_config(), f) for f in _l577_config().__dataclass_fields__})
     jparams = jclip.init_clip_params(jax.random.PRNGKey(5), jcfg)
-    tparams = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     frames = np.random.default_rng(5).integers(0, 256, (2, 336, 336, 3), dtype=np.uint8)
     want = np.asarray(jclip.encode_image(jparams, jcfg, jax.numpy.asarray(frames)))
     got = tclip.encode_image(tparams, _l577_config(), torch.from_numpy(frames)).numpy()

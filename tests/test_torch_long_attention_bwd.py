@@ -307,7 +307,9 @@ def numpy_kernels(monkeypatch):
     fake = NumpyBlockedKernels()
     monkeypatch.setattr(tattn, "load_library", lambda: fake)
     monkeypatch.setattr(tattn, "_stream", lambda t: None)
-    monkeypatch.setattr(tattn, "_check_kernel_shape", lambda name, t, d, h, smem: d // h)
+    monkeypatch.setattr(
+        tattn, "_check_kernel_shape", lambda name, t, d, h, smem, head_dims=None: d // h
+    )
     tattn.reset_launch_counts()
     return fake
 

@@ -74,7 +74,7 @@ def _temporal_pair(input_size, emb, depth, heads, n, l, seed):
     jcfg, tcfg = jtemp.TemporalConfig(**kw), ttemp.TemporalConfig(**kw)
     jparams = jtemp.init_temporal_params(jax.random.PRNGKey(seed), jcfg)
     tparams = convert.params_from_jax(
-        {"temporal": jax.tree_util.tree_map(np.asarray, jparams)}
+        {"temporal": jax.tree_util.tree_map(np.asarray, jparams)}, device="cpu"
     )["temporal"]
     return jcfg, jparams, tcfg, tparams
 

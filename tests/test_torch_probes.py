@@ -1,0 +1,704 @@
+"""The port's attention probes and measurement scripts against the JAX package's.
+
+On the CPU the probe wrappers run their plain PyTorch versions. Held here:
+
+- each plain version against the Pallas body that the JAX script launches, in
+  interpret mode: the JAX scripts (scripts/bench_attn_l14.py, probe_qkv_gb.py,
+  probe_qtile_vmem.py) are loaded by file path and left as they are; their
+  module globals are set small (B=2, D=128, two heads of 64; L stays 577, and
+  576 for the aligned case) and ``pallas_call`` is wrapped to drop the TPU
+  compiler parameters and run in interpret mode. fp32 within 1e-5 and bf16
+  within 5e-2, absolute (anomalyclip_tpu/ops/pallas/attention.py:22-25);
+- the KV-part plain version against the whole-row one, and its short last part;
+- the Python of each wrapper (shape checks, views and strides, counters, the
+  refusals with their sizes) with the library replaced by a numpy version of
+  its entries that reads and writes through the pointers it is given;
+- the shared-memory formulas at the scripts' shapes and the rung each
+  ``validate_*`` shape takes;
+- the tower ablation at the tiny width against the JAX package's three towers on
+  converted weights, and that the patched attention is put back;
+- every script with ``--device cpu``: it runs to the end and prints no times;
+- the entry points' device defaults.
+
+The ``gpu`` cases hold each new kernel against its plain version on the card
+and import no JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib
+import importlib.util
+import inspect
+import math
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from anomalyclip_tpu_torch.models.clip import model as tclip
+from anomalyclip_tpu_torch.ops import attention as tattn
+from anomalyclip_tpu_torch.ops import attention_probes as probes
+from anomalyclip_tpu_torch.scripts import bench_attn_l14 as tbench
+from anomalyclip_tpu_torch.scripts import validate_pickgb, validate_qtile_config
+
+ROOT = Path(__file__).resolve().parents[1]
+FP32_TOL, BF16_TOL = 1e-5, 5e-2
+TOL = {"float32": FP32_TOL, "bfloat16": BF16_TOL}
+TDTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+B, D, H = 2, 128, 2  # the small globals both sides run at: two heads of 64
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """(jax, the JAX package's Pallas attention module), JAX on the CPU."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_platforms", "cpu")
+    from anomalyclip_tpu.ops.pallas import attention
+
+    return jax, attention
+
+
+@pytest.fixture
+def interpret_mode(jax_side, monkeypatch):
+    """Every ``pallas_call`` runs in interpret mode, without the TPU's compiler
+    parameters: the scripts' own calls pass neither."""
+    from jax.experimental import pallas as pl
+
+    real = pl.pallas_call
+
+    def interpreted(*args, compiler_params=None, interpret=None, **kwargs):
+        return real(*args, interpret=True, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", interpreted)
+
+
+def _load_script(name: str):
+    """A script of the JAX package as a module, by file path, untouched."""
+    spec = importlib.util.spec_from_file_location(f"jax_script_{name}", ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    path = list(sys.path)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        sys.path[:] = path  # the scripts put the repository root in front
+    return module
+
+
+def _small(module, l: int):
+    module.B, module.D, module.H, module.L = B, D, H, l
+    module.DH, module.SCALE = D // H, 1.0 / math.sqrt(D // H)
+    return module
+
+
+def _inputs(rng, shapes, dtype_name, scale=1.0):
+    """Seeded numpy inputs, rounded to the dtype once -> (jax arrays, torch tensors)."""
+    import jax.numpy as jnp
+
+    arrays = [(rng.standard_normal(s) * scale).astype(np.float32) for s in shapes]
+    jdtype = jnp.float32 if dtype_name == "float32" else jnp.bfloat16
+    return ([jnp.asarray(a, jdtype) for a in arrays],
+            [torch.from_numpy(a).to(TDTYPE[dtype_name]) for a in arrays])
+
+
+def _close(got, want, dtype_name, what=""):
+    got = got.detach().float().numpy()
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL[dtype_name], err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions against the JAX scripts' Pallas bodies in interpret mode
+# ---------------------------------------------------------------------------
+
+# variant -> its plain version as f(q, kv), and whether a block's shared memory
+# fits at L=577 in (fp32, bf16): K and V of a head resident in fp32 do not
+VARIANTS = {
+    "qtile-lq120": (lambda q, kv: tattn.mha_qtile_reference(q, kv, H), (False, True)),
+    "qtilegb2-lq128": (lambda q, kv: tattn.mha_qtile_reference(q, kv, H), (False, True)),
+    "twopass-gb2": (lambda q, kv: probes.parts_reference(q, kv, H, 2), (True, True)),
+    "whole-gb1": (lambda q, kv: tattn.mha_bld_reference(q, kv[..., :D], kv[..., D:], H), (False, False)),
+    "pair-gb2": (lambda q, kv: probes.parts_reference(q, kv, H, probes.pair_parts(q)), (True, True)),
+    "nosoftmax": (lambda q, kv: probes.nosoftmax_reference(q, kv, H), (False, True)),
+}
+
+
+@pytest.mark.parametrize("dtype_name", list(TOL))
+@pytest.mark.parametrize("l", [577, 576])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variant_plain_matches_the_jax_scripts_pallas_body(
+    jax_side, interpret_mode, monkeypatch, variant, l, dtype_name
+):
+    jbench = _small(_load_script("bench_attn_l14"), l)
+    monkeypatch.setattr(tbench, "H", H)
+    monkeypatch.setattr(tbench, "D", D)
+    # nosoftmax has no normalisation: its output grows with the inputs, so it
+    # gets the script's own input scale, under which the absolute limits hold
+    scale = 0.02 if variant == "nosoftmax" else 1.0
+    (jq, jkv), (q, kv) = _inputs(np.random.default_rng(30), [(B, l, D), (B, l, 2 * D)], dtype_name, scale)
+    plain, fits = VARIANTS[variant]
+    got = plain(q, kv)
+    assert got.dtype == q.dtype
+    _close(got, jbench.make_variant(variant)(jq, jkv), dtype_name, variant)
+    # the port's variant of that name: on the CPU its plain version, or, where a
+    # block would not fit the card, the refusal with the sizes (as the TPU
+    # variant fails in its compiler)
+    ours = tbench.make_variant(variant)
+    if fits[dtype_name == "bfloat16"]:
+        assert torch.equal(ours.run(q, kv), got)
+    else:
+        with pytest.raises(probes.ProbeDoesNotFit, match=r"needs \d+ B .* given 232448 B"):
+            ours.run(q, kv)
+
+
+@pytest.mark.parametrize("dtype_name", list(TOL))
+def test_whole_variant_runs_where_it_fits(jax_side, interpret_mode, monkeypatch, dtype_name):
+    """``whole`` at a ``--seq`` whose K and V fit as fp32."""
+    l = 400
+    jbench = _small(_load_script("bench_attn_l14"), l)
+    monkeypatch.setattr(tbench, "H", H)
+    monkeypatch.setattr(tbench, "D", D)
+    (jq, jkv), (q, kv) = _inputs(np.random.default_rng(31), [(B, l, D), (B, l, 2 * D)], dtype_name)
+    _close(tbench.make_variant("whole-gb1").run(q, kv), jbench.make_variant("whole-gb1")(jq, jkv),
+           dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", list(TOL))
+@pytest.mark.parametrize("l,causal", [(197, False), (77, True)])
+def test_probe_qkv_plain_matches_the_jax_probe(jax_side, interpret_mode, l, causal, dtype_name):
+    jprobe = _load_script("probe_qkv_gb")
+    (jqkv,), (qkv,) = _inputs(np.random.default_rng(32), [(B, l, 3 * D)], dtype_name)
+    for limit in (None, jprobe.LIMIT):
+        want = jprobe.make(B, l, D, H, 2, limit, causal)(jqkv)
+        got = probes.probe_mha_qkv(qkv, H, causal, rows=32, warps=4)
+        _close(got, want, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", list(TOL))
+@pytest.mark.parametrize("gb,lq", [(2, 120), (1, 128)])
+def test_probe_qtile_plain_matches_the_jax_probe(jax_side, interpret_mode, gb, lq, dtype_name):
+    jprobe = _small(_load_script("probe_qtile_vmem"), 577)
+    (jq, jkv), (q, kv) = _inputs(np.random.default_rng(33), [(B, 577, D), (B, 577, 2 * D)], dtype_name)
+    if dtype_name == "float32":
+        # K and V of 577 keys in the operand type fit as bf16 only
+        with pytest.raises(probes.ProbeDoesNotFit, match="staged in 4 B"):
+            probes.probe_mha_qtile(q, kv, H, rows=lq, warps=4 * gb)
+        got = tattn.mha_qtile_reference(q, kv, H)
+    else:
+        got = probes.probe_mha_qtile(q, kv, H, rows=lq, warps=4 * gb)
+    _close(got, jprobe.make(gb, lq)(jq, jkv), dtype_name)
+
+
+@pytest.mark.parametrize("l,parts", [(577, 2), (100, 3), (64, 1), (130, 4)])
+def test_parts_plain_is_the_whole_row_function_in_fp32(l, parts):
+    """The same function in another order; the last part is short whenever L is
+    not a multiple of the part length (577 = 289 + 288, 100 = 34 + 34 + 32)."""
+    rng = np.random.default_rng(34)
+    q = torch.from_numpy(rng.standard_normal((2, l, D)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, l, 2 * D)).astype(np.float32))
+    want = tattn.mha_qtile_reference(q, kv, H)
+    torch.testing.assert_close(probes.parts_reference(q, kv, H, parts), want, rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(probes.twopass_mha(q, kv, H, parts=parts), want, rtol=0, atol=FP32_TOL)
+    # a tail of keys that the parts must not see: the answer ignores what lies
+    # past L in a longer buffer
+    longer = torch.cat([kv, torch.full((2, 7, 2 * D), 1e4)], dim=1)[:, :l]
+    assert torch.equal(probes.parts_reference(q, longer, H, parts), probes.parts_reference(q, kv, H, parts))
+
+
+def test_parts_plain_rounds_like_the_kernel_in_bf16():
+    """p is rounded against the running max of its part, so the bf16 answer is
+    not the whole-row plain version's to the bit, and is within the tolerance."""
+    rng = np.random.default_rng(35)
+    q = torch.from_numpy(rng.standard_normal((2, 300, D)).astype(np.float32)).bfloat16()
+    kv = torch.from_numpy(rng.standard_normal((2, 300, 2 * D)).astype(np.float32)).bfloat16()
+    whole, parts = tattn.mha_qtile_reference(q, kv, H), probes.parts_reference(q, kv, H, 2)
+    assert not torch.equal(whole, parts)
+    torch.testing.assert_close(parts.float(), whole.float(), rtol=0, atol=BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' Python, the library replaced by numpy
+# ---------------------------------------------------------------------------
+
+
+class NumpyProbeKernels:
+    """The C entries of ops/csrc/mha_probe.cu in numpy (fp32 only): the kernels'
+    arithmetic without their tiling, reading and writing through the raw
+    pointers and (batch, row) element strides the wrappers pass, so that a wrong
+    view, stride or argument order shows."""
+
+    def __init__(self):
+        self.calls = []
+
+    @staticmethod
+    def _view(address, bs, rs, shape):
+        b, l, d = shape
+        span = 1 + (b - 1) * bs + (l - 1) * rs + (d - 1)
+        flat = np.ctypeslib.as_array(ctypes.cast(address, ctypes.POINTER(ctypes.c_float)), (span,))
+        return np.lib.stride_tricks.as_strided(flat, shape, (4 * bs, 4 * rs, 4))
+
+    @staticmethod
+    def _attend(q, k, v, heads, causal, scale, softmax=True):
+        b, l, d = q.shape
+        qh, kh, vh = (t.reshape(b, l, heads, d // heads).transpose(0, 2, 1, 3) for t in (q, k, v))
+        s = np.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+        if causal:
+            s = np.where(np.tril(np.ones((l, l), bool)), s, -1e30)
+        if softmax:
+            s = np.exp(s - s.max(axis=-1, keepdims=True))
+            s = s / s.sum(axis=-1, keepdims=True)
+        return np.einsum("bhqk,bhkd->bhqd", s, vh).transpose(0, 2, 1, 3).reshape(b, l, d)
+
+    def _out(self, out, shape):
+        return self._view(out, shape[1] * shape[2], shape[2], shape)
+
+    def acl_probe_qkv_fwd(self, dtype, stage, rows, warps, qkv, bs, rs, out, b, l, h, dh, causal,
+                          scale, stream):
+        assert dtype == 0
+        self.calls.append(("qkv", stage, rows, warps))
+        d = h * dh
+        x = self._view(qkv, bs, rs, (b, l, 3 * d))
+        self._out(out, (b, l, d))[...] = self._attend(
+            x[..., :d], x[..., d:2 * d], x[..., 2 * d:], h, causal, scale)
+        return 0
+
+    def _qtile(self, tag, softmax, dtype, stage, rows, warps, q, q_bs, q_rs, kv, kv_bs, kv_rs, out,
+               b, l, h, dh, scale, stream):
+        assert dtype == 0
+        self.calls.append((tag, stage, rows, warps))
+        d = h * dh
+        qv, kvv = self._view(q, q_bs, q_rs, (b, l, d)), self._view(kv, kv_bs, kv_rs, (b, l, 2 * d))
+        self._out(out, (b, l, d))[...] = self._attend(
+            qv, kvv[..., :d], kvv[..., d:], h, False, scale, softmax)
+        return 0
+
+    def acl_probe_qtile_fwd(self, *args):
+        return self._qtile("qtile", True, *args)
+
+    def acl_probe_nosoftmax_fwd(self, *args):
+        return self._qtile("nosoftmax", False, *args)
+
+    def acl_probe_bld_fwd(self, dtype, stage, rows, warps, q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs,
+                          v_rs, out, b, l, h, dh, causal, scale, stream):
+        assert dtype == 0
+        self.calls.append(("bld", stage, rows, warps))
+        d = h * dh
+        views = [self._view(p, bs, rs, (b, l, d))
+                 for p, bs, rs in ((q, q_bs, q_rs), (k, k_bs, k_rs), (v, v_bs, v_rs))]
+        self._out(out, (b, l, d))[...] = self._attend(*views, h, causal, scale)
+        return 0
+
+    def acl_mha_parts_fwd(self, dtype, hpb, rows, warps, part, q, q_bs, q_rs, k, k_bs, k_rs, v,
+                          v_bs, v_rs, out, b, l, h, dh, scale, stream):
+        assert dtype == 0 and h % hpb == 0
+        self.calls.append(("parts", hpb, rows, warps, part))
+        d = h * dh
+        views = [self._view(p, bs, rs, (b, l, d))
+                 for p, bs, rs in ((q, q_bs, q_rs), (k, k_bs, k_rs), (v, v_bs, v_rs))]
+        self._out(out, (b, l, d))[...] = self._attend(*views, h, False, scale)
+        return 0
+
+
+@pytest.fixture
+def numpy_kernels(monkeypatch):
+    """The kernel launches on CPU tensors: the library in numpy; the reference
+    branch, the device check and the stream lookup out of the way."""
+    fake = NumpyProbeKernels()
+    monkeypatch.setattr(probes, "load_library", lambda: fake)
+    monkeypatch.setattr(tattn, "_use_reference", lambda t: False)
+    monkeypatch.setattr(tattn, "_stream", lambda t: None)
+    real_check = probes._check
+    monkeypatch.setattr(probes, "_check", lambda name, t, *args: real_check(name, _AsCuda(t), *args))
+    probes.reset_launch_counts()
+    return fake
+
+
+class _AsCuda:
+    """A CPU tensor that says it is on the card, for the wrappers' shape checks."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda")
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _randn(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def _counts(**expected):
+    return {k: expected.get(k, 0) for k in probes.launch_counts}
+
+
+def test_tile_probe_wrappers_read_views_in_place_and_count(numpy_kernels):
+    rng = np.random.default_rng(40)
+    x = _randn(rng, 2, 150, 3 * D)
+    got = probes.probe_mha_qkv(x, H, True, rows=32, warps=16)
+    torch.testing.assert_close(got, tattn.mha_qkv_reference(x, H, True), rtol=0, atol=FP32_TOL)
+    # q and kv as column slices of the packed projection, as the qtile rung has them
+    q, kv = x[..., :D], x[..., D:]
+    got = probes.probe_mha_qtile(q, kv, H, rows=73, warps=4)
+    torch.testing.assert_close(got, tattn.mha_qtile_reference(q, kv, H), rtol=0, atol=FP32_TOL)
+    got, want = probes.nosoftmax_mha(q, kv, H, rows=128), probes.nosoftmax_reference(q, kv, H)
+    torch.testing.assert_close(got, want, rtol=0, atol=FP32_TOL * want.abs().max().item())
+    got = probes.probe_mha_whole(q, kv[..., :D], kv[..., D:], H, warps=4)
+    torch.testing.assert_close(got, tattn.mha_bld_reference(q, kv[..., :D], kv[..., D:], H),
+                               rtol=0, atol=FP32_TOL)
+    # staging: K1 and K2 as fp32, K6 and nosoftmax in the operand type; whole: L rows
+    assert numpy_kernels.calls == [("qkv", 1, 32, 16), ("qtile", 0, 73, 4), ("nosoftmax", 0, 128, 8),
+                                   ("bld", 1, 150, 4)]
+    assert probes.launch_counts == _counts(probe_mha_qkv=1, probe_mha_qtile=1, nosoftmax_mha=1,
+                                           probe_mha_whole=1)
+
+
+def test_parts_wrappers_cut_the_keys_and_count(numpy_kernels):
+    rng = np.random.default_rng(41)
+    x = _randn(rng, 2, 577, 3 * D)
+    q, kv = x[..., :D], x[..., D:]
+    want = tattn.mha_qtile_reference(q, kv, H)
+    torch.testing.assert_close(probes.twopass_mha(q, kv, H), want, rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(probes.twopass_mha(q, kv, H, parts=3, rows=32, warps=16), want,
+                               rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(probes.pair_mha(q, kv, H), want, rtol=0, atol=FP32_TOL)
+    # twopass: ceil(577 / 2) and ceil(577 / 3) keys a part, one head a block; pair
+    # in fp32: four parts of 145 keys are the fewest that fit two heads
+    assert numpy_kernels.calls == [("parts", 1, 64, 8, 289), ("parts", 1, 32, 16, 193),
+                                   ("parts", 2, 64, 8, 145)]
+    assert probes.launch_counts == _counts(twopass_mha=2, pair_mha=1)
+
+
+def test_probe_refusals_name_the_sizes(numpy_kernels):
+    q, kv = torch.zeros(2, 577, D), torch.zeros(2, 577, 2 * D)
+    with pytest.raises(probes.ProbeDoesNotFit, match="needs 318244 B of shared memory per block, given 232448 B"):
+        probes.probe_mha_whole(q, kv[..., :D], kv[..., D:], H)
+    with pytest.raises(probes.ProbeDoesNotFit, match="given 49152 B") as info:
+        probes.probe_mha_qkv(torch.zeros(2, 197, 3 * D), H, smem_cap=probes.SMEM_DEFAULT)
+    assert (info.value.need, info.value.have) == (tattn.mha_smem_bytes(197, 64), 49152)
+    with pytest.raises(probes.ProbeDoesNotFit, match="2 KV parts of 289 keys"):
+        probes.twopass_mha(q, kv, H, rows=512)
+    with pytest.raises(probes.ProbeDoesNotFit):
+        probes.pair_mha(q, kv, H, rows=1024)
+    assert numpy_kernels.calls == [] and probes.launch_counts == _counts()
+    # what the kernels do not take
+    with pytest.raises(ValueError, match="the probes take 64"):
+        probes.probe_mha_qtile(torch.zeros(2, 50, 64), torch.zeros(2, 50, 128), 2)
+    with pytest.raises(ValueError, match="5 warps per block"):
+        probes.probe_mha_qtile(torch.zeros(2, 50, D), torch.zeros(2, 50, 2 * D), H, warps=5)
+    with pytest.raises(ValueError, match="kv .* for q"):
+        probes.twopass_mha(q, kv[:, :100], H)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        base = torch.zeros(2, 50, 2 * D + 2)
+        probes.twopass_mha(torch.zeros(2, 50, D), base[..., 1:-1], H)
+    with pytest.raises(ValueError, match="do not split into groups of 2"):
+        probes.pair_mha(torch.zeros(2, 50, 3 * 64), torch.zeros(2, 50, 6 * 64), 3)
+
+
+def test_probes_on_the_cpu_run_the_plain_versions_and_count_nothing():
+    probes.reset_launch_counts()
+    rng = np.random.default_rng(42)
+    q, kv = _randn(rng, 2, 90, D), _randn(rng, 2, 90, 2 * D)
+    assert torch.equal(probes.probe_mha_qtile(q, kv, H, rows=32, warps=16), tattn.mha_qtile_reference(q, kv, H))
+    assert torch.equal(probes.nosoftmax_mha(q, kv, H), probes.nosoftmax_reference(q, kv, H))
+    assert torch.equal(probes.pair_mha(q, kv, H), probes.parts_reference(q, kv, H, 1))
+    assert probes.launch_counts == _counts()
+
+
+# ---------------------------------------------------------------------------
+# formulas and rungs, as pure functions
+# ---------------------------------------------------------------------------
+
+
+def test_shared_memory_formulas_at_the_scripts_shapes():
+    # the whole-row kernel at K6's shape: 150 KB of K and V as bf16, fp32 rows per warp
+    assert tattn.mha_smem_bytes(577, 64, 2, 8) == 170_532
+    assert tattn.mha_smem_bytes(577, 64, 2, 16) == 170_532 + 8 * 4 * (577 + 64)
+    assert tattn.mha_smem_bytes(577, 64, 4, 8) == 318_244  # whole: does not fit
+    assert tattn.mha_smem_bytes(197, 64, 4, 4) == tattn.mha_smem_bytes(197, 64) - 4 * 4 * (197 + 64)
+    # twopass at L=577 in bf16: two blocks fit an SM's 227 KB where K6 fits one
+    assert probes.kv_part_length(577, 2) == 289
+    twopass = probes.parts_smem_bytes(64, 289, 64, 2, 8, 1)
+    assert twopass == 103_332 and 2 * twopass <= tattn.H100_SMEM_OPTIN < 2 * 170_532
+    # pair: both heads' halves in bf16 fit one block; in fp32 four parts are needed
+    assert probes.parts_smem_bytes(64, 289, 64, 2, 8, 2) == 194_212
+    assert probes.fewest_parts(577, 64, 64, 2, 8, 2, tattn.H100_SMEM_OPTIN) == 2
+    assert probes.fewest_parts(577, 64, 64, 4, 8, 2, tattn.H100_SMEM_OPTIN) == 4
+    assert probes.fewest_parts(197, 64, 64, 2, 8, 2, tattn.H100_SMEM_OPTIN) == 1
+    with pytest.raises(probes.ProbeDoesNotFit):
+        probes.fewest_parts(577, 64, 64, 2, 8, 2, 20_000)
+
+
+def test_the_rung_each_validate_shape_takes():
+    smem = tattn.H100_SMEM_OPTIN
+    assert validate_pickgb.longest_mha_length(smem) == 420
+    assert tattn.mha_smem_bytes(420, 64) <= smem < tattn.mha_smem_bytes(421, 64)
+    for b, l, d, h, causal, _ in validate_pickgb.SHAPES:
+        assert tclip.attention_rung(b, l, d, h, 2, causal) == "mha"
+    (_, top, *_), (_, past, *_) = validate_pickgb.envelope_shapes(smem)
+    assert tclip.attention_rung(32, top, 1024, 16, 2, False) == "mha"
+    assert tclip.attention_rung(32, past, 1024, 16, 2, False) == "qtile"
+    assert validate_qtile_config.longest_qtile_length(64, smem) == 789
+    rungs = [tclip.attention_rung(b, l, d, h, 2, False) for b, l, d, h in validate_qtile_config.SHAPES]
+    assert rungs == ["qtile", "core", "core", "core"]
+
+
+# ---------------------------------------------------------------------------
+# the tower ablation
+# ---------------------------------------------------------------------------
+
+
+def test_tower_ablation_matches_the_jax_towers(jax_side):
+    """The tiny image tower under the fused, identity and plain attention on
+    converted weights, against the JAX package's tower under the same three
+    (its identity attention is the JAX script's)."""
+    jax, _ = jax_side
+    import jax.numpy as jnp
+
+    from anomalyclip_tpu.models.clip import model as jclip
+    from anomalyclip_tpu_torch import convert
+
+    jcfg, tcfg = jclip.CLIPConfig.tiny(), tclip.CLIPConfig.tiny()
+    jparams = jclip.init_clip_params(jax.random.PRNGKey(0), jcfg)
+    tparams = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    frames = np.random.default_rng(50).standard_normal((3, 32, 32, 3)).astype(np.float32)
+
+    def identity_mha(x, attn, num_heads, causal=False):  # scripts/bench_attn_l14.py:332-335
+        d = x.shape[-1]
+        qkv = x @ attn["qkv_w"] + attn["qkv_b"]
+        return qkv[..., 2 * d:] @ attn["out_w"] + attn["out_b"]
+
+    def jax_tower(mode):
+        if mode == "identity":
+            real = jclip.multi_head_attention
+            jclip.multi_head_attention = identity_mha
+            try:
+                return np.asarray(jclip.encode_image(jparams, jcfg, jnp.asarray(frames)))
+            finally:
+                jclip.multi_head_attention = real
+        if mode == "plain":
+            with jclip.attention_impl("xla"):
+                return np.asarray(jclip.encode_image(jparams, jcfg, jnp.asarray(frames)))
+        return np.asarray(jclip.encode_image(jparams, jcfg, jnp.asarray(frames)))
+
+    features = {}
+    for mode in ("fused", "identity", "plain"):
+        with tbench.tower_attention(mode):
+            features[mode] = tclip.encode_image(tparams, tcfg, torch.from_numpy(frames)).numpy()
+        np.testing.assert_allclose(features[mode], jax_tower(mode), rtol=1e-4, atol=1e-4, err_msg=mode)
+    assert np.abs(features["identity"] - features["fused"]).max() > 1e-3  # another function
+
+
+def test_identity_attention_keeps_both_projections_on_the_qtile_rung():
+    """At a qtile-rung shape v is the second half of the packed k|v GEMM."""
+    rng = np.random.default_rng(51)
+    d = 64
+    x = _randn(rng, 1, 577, d).bfloat16()
+    attn = {"qkv_w": _randn(rng, d, 3 * d).bfloat16(), "qkv_b": _randn(rng, 3 * d).bfloat16(),
+            "out_w": _randn(rng, d, d).bfloat16(), "out_b": _randn(rng, d).bfloat16()}
+    assert tclip.attention_rung(1, 577, d, 1, 2, False) == "qtile"
+    want = (x @ attn["qkv_w"][:, 2 * d:] + attn["qkv_b"][2 * d:]) @ attn["out_w"] + attn["out_b"]
+    torch.testing.assert_close(tbench.identity_mha(x, attn, 1).float(), want.float(), rtol=0, atol=BF16_TOL)
+
+
+def test_tower_attention_is_put_back_after_an_exception():
+    real = tclip.multi_head_attention
+    with pytest.raises(RuntimeError, match="inside"):
+        with tbench.tower_attention("identity"):
+            assert tclip.multi_head_attention is tbench.identity_mha
+            raise RuntimeError("inside")
+    assert tclip.multi_head_attention is real
+    with pytest.raises(ValueError, match="not fused, identity or plain"):
+        with tbench.tower_attention("xla"):
+            pass
+
+
+# ---------------------------------------------------------------------------
+# the scripts on the CPU
+# ---------------------------------------------------------------------------
+
+_SCRIPTS = [
+    ("bench_eval", []),
+    ("bench_latency", ["--path", "both"]),
+    ("bench_train_step", []),
+    ("bench_attn_l14", ["--check", "--variants",
+                        "qtile,qtile-lq120,twopass,nosoftmax,plain,whole,pair-gb2,qtilegb4-lq73"]),
+    ("bench_attn_l14", ["--check", "--seq", "400", "--variants", "whole-gb1,pair,nosoftmaxgb1-lq32"]),
+    ("bench_attn_l14", ["--tower"]),
+    ("probe_qkv_gb", ["text", "fp32"]),
+    ("probe_qkv_gb", ["b16", "bf16", "32,4", "64,16,op"]),
+    ("probe_qtile_vmem", ["73,8", "145,16"]),
+    ("validate_pickgb", []),
+    ("validate_qtile_config", []),
+    ("bench_attn_bwd", ["--qtile"]),
+]
+
+
+@pytest.mark.parametrize("script,argv", _SCRIPTS, ids=[f"{s}{i}" for i, (s, _) in enumerate(_SCRIPTS)])
+def test_script_runs_to_the_end_on_the_cpu_and_prints_no_times(script, argv, capsys):
+    module = importlib.import_module(f"anomalyclip_tpu_torch.scripts.{script}")
+    try:
+        module.main([*argv, "--device", "cpu"])
+    except SystemExit as exc:  # the validate scripts exit with their verdict
+        assert exc.code == 0
+    out = capsys.readouterr().out
+    assert out.startswith("# device: cpu")
+    assert " ms" not in out and "fps" not in out and "FAIL" not in out
+    if script == "bench_attn_l14" and "whole" in " ".join(argv) and "--seq" not in argv:
+        assert "whole              does not fit: needs 318244 B" in out
+
+
+def test_an_unknown_variant_or_group_ends_the_script():
+    for name in ("foo", "qtile-xx3", "twopass-gb3", "whole-lq64"):
+        with pytest.raises(SystemExit):
+            tbench.make_variant(name)
+
+
+def test_a_script_without_a_card_says_so(monkeypatch):
+    from anomalyclip_tpu_torch.scripts import _bench_util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match=r"bench_eval: no CUDA device \(--device cpu"):
+        _bench_util.announce_device("bench_eval", "cuda", "something smaller")
+
+
+# ---------------------------------------------------------------------------
+# the entry points run on the card unless asked for the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_entry_points_default_to_the_card():
+    from anomalyclip_tpu_torch import convert
+    from anomalyclip_tpu_torch.eval.evaluator import GridScorer
+    from anomalyclip_tpu_torch.predict import Predictor
+
+    for fn in (Predictor.__init__, GridScorer.__init__, convert.params_from_jax,
+               convert.bn_state_from_jax, convert.state_from_flat):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_grid_scorer_refuses_parameters_on_another_device():
+    from anomalyclip_tpu_torch.eval.evaluator import GridScorer
+    from anomalyclip_tpu_torch.scripts._bench_models import build_model
+
+    model, frozen, trainable, bn_state = build_model("cpu", False, emb_size=32, depth=1, heads=2,
+                                                     normal_id=3)
+    with pytest.raises(ValueError, match=r"device is meta, but the frozen parameters are on cpu"):
+        GridScorer(model, frozen, trainable, bn_state, np.zeros(64, np.float32), device="meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="device is cuda, but the frozen parameters are on cpu"):
+            GridScorer(model, frozen, trainable, bn_state, np.zeros(64, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+_GPU_DTYPES = [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)]
+
+
+def _gpu_inputs(cuda, b, l, d, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, l, 3 * d, device=cuda, generator=gen).to(dtype)
+    return x, x[..., :d], x[..., d:]
+
+
+def _gpu_close(got, want, tol):
+    torch.cuda.synchronize()
+    top = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * max(top, 1.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
+@pytest.mark.parametrize("rows,warps,stage_fp32", [(64, 8, True), (32, 4, True), (128, 16, False), (73, 8, False)])
+@pytest.mark.parametrize("b,l,d,heads,causal", [(8, 197, 768, 12, False), (8, 77, 512, 8, True)])
+def test_probe_qkv_kernel_matches_plain(cuda, dtype, tol, rows, warps, stage_fp32, b, l, d, heads, causal):
+    x, _, _ = _gpu_inputs(cuda, b, l, d, dtype)
+    probes.reset_launch_counts()
+    got = probes.probe_mha_qkv(x, heads, causal, rows=rows, warps=warps, stage_fp32=stage_fp32)
+    assert probes.launch_counts == _counts(probe_mha_qkv=1)
+    _gpu_close(got, tattn.mha_qkv_reference(x, heads, causal), tol)
+    assert probes.probe_blocks_per_sm(dtype, l, warps, stage_fp32) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,warps", [(64, 8), (73, 4), (145, 16), (577, 8)])
+def test_probe_qtile_and_nosoftmax_kernels_match_plain_at_the_l14_shape(cuda, rows, warps):
+    """bf16 at L=577 (fp32 does not fit there), the tiling free; fp32 at L=360,
+    which fits at 16 warps too."""
+    _, q, kv = _gpu_inputs(cuda, 4, 577, 1024, torch.bfloat16)
+    probes.reset_launch_counts()
+    _gpu_close(probes.probe_mha_qtile(q, kv, 16, rows=rows, warps=warps),
+               tattn.mha_qtile_reference(q, kv, 16), BF16_TOL)
+    _gpu_close(probes.nosoftmax_mha(q, kv, 16, rows=rows, warps=warps),
+               probes.nosoftmax_reference(q, kv, 16), BF16_TOL)
+    _, q, kv = _gpu_inputs(cuda, 4, 360, 1024, torch.float32)
+    _gpu_close(probes.probe_mha_qtile(q, kv, 16, rows=rows, warps=warps),
+               tattn.mha_qtile_reference(q, kv, 16), FP32_TOL)
+    _gpu_close(probes.nosoftmax_mha(q, kv, 16, rows=rows, warps=warps),
+               probes.nosoftmax_reference(q, kv, 16), FP32_TOL)
+    assert probes.launch_counts == _counts(probe_mha_qtile=2, nosoftmax_mha=2)
+    with pytest.raises(probes.ProbeDoesNotFit):
+        probes.probe_mha_qtile(*_gpu_inputs(cuda, 1, 577, 1024, torch.float32)[1:], 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
+@pytest.mark.parametrize("warps", [4, 8, 16])
+def test_probe_whole_kernel_matches_plain(cuda, dtype, tol, warps):
+    _, q, kv = _gpu_inputs(cuda, 4, 360, 1024, dtype)
+    k, v = kv[..., :1024], kv[..., 1024:]
+    probes.reset_launch_counts()
+    _gpu_close(probes.probe_mha_whole(q, k, v, 16, warps=warps), tattn.mha_bld_reference(q, k, v, 16), tol)
+    _gpu_close(probes.probe_mha_whole(q, k, v, 16, True, warps=warps),
+               tattn.mha_bld_reference(q, k, v, 16, True), tol)
+    assert probes.launch_counts == _counts(probe_mha_whole=2)
+    with pytest.raises(probes.ProbeDoesNotFit, match="given 232448 B"):
+        _, q, kv = _gpu_inputs(cuda, 1, 577, 1024, dtype)
+        probes.probe_mha_whole(q, kv[..., :1024], kv[..., 1024:], 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
+@pytest.mark.parametrize("l,parts,rows,warps", [(577, 2, 64, 8), (577, 3, 32, 16), (130, 4, 128, 4), (64, 1, 64, 8)])
+def test_twopass_kernel_matches_plain(cuda, dtype, tol, l, parts, rows, warps):
+    _, q, kv = _gpu_inputs(cuda, 4, l, 1024, dtype, seed=1)
+    probes.reset_launch_counts()
+    got = probes.twopass_mha(q, kv, 16, parts=parts, rows=rows, warps=warps)
+    assert probes.launch_counts == _counts(twopass_mha=1)
+    _gpu_close(got, probes.parts_reference(q, kv, 16, parts), tol)
+    part = probes.kv_part_length(l, parts)
+    assert probes.parts_blocks_per_sm(dtype, rows, part, warps, 1) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
+@pytest.mark.parametrize("l,rows,warps", [(577, 64, 8), (577, 120, 16), (197, 64, 4), (50, 16, 8)])
+def test_pair_kernel_matches_plain(cuda, dtype, tol, l, rows, warps):
+    _, q, kv = _gpu_inputs(cuda, 4, l, 1024, dtype, seed=2)
+    probes.reset_launch_counts()
+    got = probes.pair_mha(q, kv, 16, rows=rows, warps=warps)
+    assert probes.launch_counts == _counts(pair_mha=1)
+    _gpu_close(got, probes.parts_reference(q, kv, 16, probes.pair_parts(q, rows, warps)), tol)
+
+
+@pytest.mark.gpu
+def test_probes_under_the_reference_impl_launch_nothing_on_the_card(cuda):
+    _, q, kv = _gpu_inputs(cuda, 2, 100, 128, torch.float32)
+    probes.reset_launch_counts()
+    with tattn.attention_impl("reference"):
+        assert torch.equal(probes.twopass_mha(q, kv, 2), probes.parts_reference(q, kv, 2, 2))
+        assert torch.equal(probes.probe_mha_qtile(q, kv, 2), tattn.mha_qtile_reference(q, kv, 2))
+    assert probes.launch_counts == _counts()

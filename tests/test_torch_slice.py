@@ -66,11 +66,11 @@ def _build_pair(net_kwargs, jfrozen, jtrainable, jbn, jclip_cfg, ncentroid):
     tclip_cfg = CLIPConfig(
         **{f.name: getattr(jclip_cfg, f.name) for f in jclip_cfg.__dataclass_fields__.values()}
     )
-    frozen = convert.params_from_jax(_np_tree(jfrozen))
+    frozen = convert.params_from_jax(_np_tree(jfrozen), device="cpu")
     tmodel, frozen = tac.AnomalyCLIP.build(tac.AnomalyCLIPConfig(**net_kwargs), frozen["clip"], tclip_cfg)
     predictor = Predictor(
-        tmodel, frozen, convert.params_from_jax(_np_tree(jtrainable)),
-        convert.bn_state_from_jax(jbn), ncentroid,
+        tmodel, frozen, convert.params_from_jax(_np_tree(jtrainable), device="cpu"),
+        convert.bn_state_from_jax(jbn, device="cpu"), ncentroid, device="cpu",
     )
     return jmodel, jscorer, predictor
 
@@ -183,9 +183,9 @@ def test_forward_test_matches_jax(tiny_pair):
         segment_size=2,
     )
     got_sim, got_sc = tiny_pair.predictor.model.forward_test(
-        convert.params_from_jax(_np_tree(jfrozen)),
-        convert.params_from_jax(_np_tree(jtrainable)),
-        convert.bn_state_from_jax(jbn),
+        convert.params_from_jax(_np_tree(jfrozen), device="cpu"),
+        convert.params_from_jax(_np_tree(jtrainable), device="cpu"),
+        convert.bn_state_from_jax(jbn, device="cpu"),
         torch.from_numpy(frames),
         torch.from_numpy(tiny_pair.ncentroid),
         segment_size=2,
@@ -222,7 +222,7 @@ def test_tiny_state_through_convert():
     port's layout and scores a feature video as the JAX package does."""
     with np.load(ROOT / "tests" / "golden" / "tiny_state.npz") as data:
         flat = {k: data[k] for k in data.files}
-    frozen, trainable, bn, clip_cfg = convert.state_from_flat(flat)
+    frozen, trainable, bn, clip_cfg = convert.state_from_flat(flat, device="cpu")
 
     blocks = frozen["clip"]["visual"]["blocks"]
     assert isinstance(blocks, list) and len(blocks) == clip_cfg.vision_layers
@@ -305,7 +305,7 @@ def test_image_tower_gradient_matches_jax(cfg_kwargs, dtype_name, rung):
 
     want = _np_tree(jax.grad(jloss)(jparams["visual"]))
 
-    tparams = convert.clip_params_require_grad(convert.params_from_jax(_np_tree(jparams)))
+    tparams = convert.clip_params_require_grad(convert.params_from_jax(_np_tree(jparams), device="cpu"))
     leaves = convert.tree_leaves(tparams["visual"])
     assert all(t.requires_grad and t.dtype == torch.float32 for t in leaves)
     out = tclip.encode_image(tparams, tcfg, torch.from_numpy(frames), tdtype)

@@ -106,7 +106,7 @@ def tiny(tmp_path_factory):
     """The golden tiny state in both packages, with the golden fixture's config."""
     cfg = synthetic_cfg(tmp_path_factory.mktemp("torch_train"), *OVERRIDES)
     flat = _load("tiny_state.npz")
-    frozen, trainable, bn, clip_cfg = convert.state_from_flat(flat)
+    frozen, trainable, bn, clip_cfg = convert.state_from_flat(flat, device="cpu")
     net = _fields(tac.AnomalyCLIPConfig, cfg.model.net)
     model, frozen = tac.AnomalyCLIP.build(tac.AnomalyCLIPConfig(**net), frozen["clip"], clip_cfg)
 
@@ -335,11 +335,11 @@ def test_forward_train_from_frames_matches_jax(tmp_path):
     def np_tree(t):
         return jax.tree_util.tree_map(np.asarray, t)
 
-    frozen = convert.params_from_jax(np_tree(jfrozen))
+    frozen = convert.params_from_jax(np_tree(jfrozen), device="cpu")
     tclip_cfg = tac.CLIPConfig(**dataclasses.asdict(clip_cfg))
     model, frozen = tac.AnomalyCLIP.build(tac.AnomalyCLIPConfig(**net), frozen["clip"], tclip_cfg)
     got, got_bn = model.forward_train(
-        frozen, convert.as_trainable(convert.params_from_jax(np_tree(jtrainable))),
+        frozen, convert.as_trainable(convert.params_from_jax(np_tree(jtrainable), device="cpu")),
         tsel.BNState.create(3), torch.from_numpy(frames),
         torch.from_numpy(labels), torch.from_numpy(ncentroid), torch.Generator(),
     )
