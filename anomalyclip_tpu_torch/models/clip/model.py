@@ -28,7 +28,7 @@ from anomalyclip_tpu_torch.ops.attention import (
     fused_attention,
     fused_mha_qkv,
     fused_mha_qtile,
-    mha_smem_bytes,
+    mha_kernel_eligible,
     smem_limit,
 )
 
@@ -130,6 +130,10 @@ def attention_core(
     return fused_attention(q, k, v, causal)
 
 
+# the operand types the kernels take, by the itemsize the ladder is asked with
+_ITEMSIZE_DTYPE = {4: torch.float32, 2: torch.bfloat16}
+
+
 def attention_rung(
     b: int, l: int, d: int, num_heads: int, itemsize: int, causal: bool,
     smem: int = H100_SMEM_OPTIN,
@@ -140,13 +144,14 @@ def attention_rung(
     "qtile" (``fused_mha_qtile``) for non-causal shapes where that kernel's
     fits (the same kernel with K and V staged in the operand type, not fp32),
     "core" (``attention_core``, which routes on to the flash kernel) otherwise.
-    A pure function of the shape, so the CPU runs the card's rungs."""
-    if d % num_heads == 0:
-        dh = d // num_heads
-        if mha_smem_bytes(l, dh) <= smem:
-            return "mha"
-        if not causal and mha_smem_bytes(l, dh, itemsize) <= smem:
-            return "qtile"
+    Each fit is ``mha_kernel_eligible``: the operand type and the head dim must
+    be ones the kernels are instantiated for, as well. A pure function of the
+    shape, so the CPU runs the card's rungs."""
+    dtype = _ITEMSIZE_DTYPE.get(itemsize)
+    if mha_kernel_eligible(l, d, num_heads, dtype, smem):
+        return "mha"
+    if not causal and mha_kernel_eligible(l, d, num_heads, dtype, smem, itemsize):
+        return "qtile"
     return "core"
 
 

@@ -14,13 +14,15 @@ Five entries, the counterparts of the JAX package's Pallas kernels
   (``_mha_qtile_kernel``, :525-532, 626). The ViT-L/14@336px tower in bf16. Its
   gradient is ``_mha_qtile_bwd_kernel`` (:646-708): dq and a packed dk|dv.
 - ``flash_attention_heads``: KV-blocked online softmax over per-head (N, L, dh)
-  (``_flash_kernel``, :800-854, 1056), optionally with the log-sum-exp. Its
-  gradient is ``_flash_dq_kernel`` and ``_flash_dkv_kernel`` (:904-993), with P
-  rebuilt from the saved log-sum-exp.
+  (``_flash_kernel``, :800-854, 1056), optionally with the log-sum-exp, and here
+  with an optional causal mask. Its gradient is ``_flash_dq_kernel`` and
+  ``_flash_dkv_kernel`` (:904-993), with P rebuilt from the saved log-sum-exp.
 - ``fused_attention``: per-head (B, H, L, Dh) (``_attn_kernel``, :1089-1093,
   1152), routed as ``_fused_attention_impl`` routes (:1121-1135). The
-  ViT-L/14@336px tower in fp32 enters here and goes on to the flash kernel. Its
-  gradient is the whole-block backward with the heads folded (:1171-1181).
+  ViT-L/14@336px tower in fp32 enters here and goes on to the flash kernel, as
+  does a causal shape too long for the whole-block kernel, which the reference
+  sends to its XLA formulation (:1135). Its gradient is the whole-block backward
+  with the heads folded (:1171-1181).
 
 The forwards compute the function of ``_attend_head`` (:68-85): fp32 scores, a
 row-max-subtracted fp32 softmax, masked entries at ``NEG_INF``. The backwards
@@ -30,18 +32,44 @@ direction launches its kernel (ops/csrc/*.cu, built by ops/build.py) or raises;
 on a CPU tensor both run the plain versions.
 ``attention_impl("reference")`` makes the wrappers run the plain versions on the
 card too, so that tests and the chip smoke run can hold the kernels against
-them. The choice is read when the forward runs and kept for its backward, which
-autograd runs on another thread.
+them; outside any such scope the environment variable ``ANOMALYCLIP_ATTN_IMPL``
+(``kernel`` | ``reference``) chooses. The choice is read when the forward runs
+and kept for its backward, which autograd runs on another thread.
 
-Which kernel fits a shape is a matter of shared memory. The formulas of what a
-block of each kernel needs live here (K1, K2 and K6 share one whole-row kernel
-and one formula, with K and V staged as fp32 or in the operand type), one
-source of truth for the wrappers' checks, for the dispatch ladder
-(models/clip/model.py: ``attention_rung``) and
-for the backward's routing (``attention_bwd_route``: the whole-head kernel of
+Which kernel serves which operands. ``fused_mha_qkv`` and ``fused_mha_qtile``
+launch one of two kernels, chosen by the wrapper from the operand type and the
+head dim before the launch: in bf16 at head dim 64 the tensor-core kernel of
+mha_tc.cu (``mma.sync`` products, P in registers, K and V in blocks of
+``MHA_TC_BLOCK_KV`` keys with online softmax: every CLIP tower in bf16; its
+operands must be readable in 16-byte pieces, or the wrapper raises); otherwise
+the whole-row CUDA-core kernel of mha.cu, which also serves ``fused_mha_bld``
+and ``fused_attention``'s whole-block branch in either type (fp32 stays off the
+tensor cores: TF32 is off for checkpoint parity).
+``route_counts["mha_tc"]`` says which a run took. Their plain versions have the
+two forms to match (``block=None``: whole rows; ``block``: KV-blocked), because
+in bf16 a plain version must round P where its kernel rounds it; the entries'
+reference branch runs the form of the kernel the operands would launch
+(``reference_block``).
+
+Which kernel fits a shape is a matter of shared memory and of what is
+instantiated: fp32 and bf16, head dims 8, 16, 32 and 64, causal or not, at any
+length, so that every shape of the supported models, the reference's tiny test
+model (head dim 8) included, has a kernel in both directions. The formulas of
+what a block of each kernel needs live here (K1, K2 and K6 share the whole-row
+formula, with K and V staged as fp32 or in the operand type, and go on
+admitting shapes by it in bf16 too, where the tensor-core kernel's own need no
+longer depends on L: the ladder, the scripts and the launch counts are written
+to those limits); the library reports its own (``acl_*_smem_bytes``), and the
+chip smoke run holds the two against each other. ``kernel_refusal`` is the one
+statement of what a kernel takes: ``mha_kernel_eligible`` (the counterpart of
+the JAX package's ``mha_eligible``, which the dispatch ladder
+(models/clip/model.py: ``attention_rung``) and ``fused_attention`` ask to route
+between kernels) and ``attention_bwd_route`` (the whole-head kernel of
 mha_bwd.cu where its L x L tiles fit, the KV-blocked pair of mha_blocked_bwd.cu
-past it); the library reports its own (``acl_*_smem_bytes``), and the chip smoke
-run holds the two against each other.
+past it) are derived from it, and the wrappers raise its sentence. A wrapper on
+a CUDA tensor launches or raises: no route computes the plain version on the
+card unless the caller chose it, and no failure is ever caught to choose a
+route.
 
 The kernels that the measurement scripts launch themselves (other tilings of
 the whole-row kernel, KV parts, head pairs, no softmax) are in
@@ -55,6 +83,7 @@ import contextvars
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
@@ -73,19 +102,29 @@ launch_counts = {
     "mha_qtile_bwd": 0, "flash_dq": 0, "flash_dkv": 0,
 }
 
-_IMPL = contextvars.ContextVar("attention_impl", default="kernel")
+# beside them, which kernel the launches of fused_mha_qkv and fused_mha_qtile
+# took since the last reset_launch_counts(): "mha_tc" counts those of the
+# tensor-core kernel (mha_tc.cu) rather than the CUDA-core one (mha.cu)
+route_counts = {"mha_tc": 0}
+
+IMPL_ENV = "ANOMALYCLIP_ATTN_IMPL"
+_IMPLS = ("kernel", "reference")
+_IMPL = contextvars.ContextVar("attention_impl", default=None)  # None: no scope open
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 @contextlib.contextmanager
 def attention_impl(impl: str):
     """Scoped choice of what the wrappers run on a CUDA tensor: "kernel" (the
-    default) or "reference" (the plain PyTorch version)."""
-    if impl not in ("kernel", "reference"):
+    default) or "reference" (the plain PyTorch version). It wins over the
+    environment variable ``ANOMALYCLIP_ATTN_IMPL``, which holds the same two
+    words and is read where no scope is open."""
+    if impl not in _IMPLS:
         raise ValueError(f"attention_impl must be 'kernel' or 'reference', not {impl!r}")
     token = _IMPL.set(impl)
     try:
@@ -156,13 +195,19 @@ def _unpack_qkv(qkv: torch.Tensor) -> tuple:
     return qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
 
 
-def mha_bld_reference(q, k, v, num_heads: int, causal: bool = False) -> torch.Tensor:
+def mha_bld_reference(q, k, v, num_heads: int, causal: bool = False, block=None) -> torch.Tensor:
+    """Attention over (B, L, D) q, k, v: whole rows (``attention_reference``), or
+    with ``block`` keys per KV block and online softmax
+    (``attention_blocked_reference``), which is where the tensor-core kernel
+    rounds in bf16."""
     heads = [_split_heads(t, num_heads) for t in (q, k, v)]
-    return _merge_heads(attention_reference(*heads, causal))
+    if block is None:
+        return _merge_heads(attention_reference(*heads, causal))
+    return _merge_heads(attention_blocked_reference(*heads, causal, block))
 
 
-def mha_qkv_reference(qkv, num_heads: int, causal: bool = False) -> torch.Tensor:
-    return mha_bld_reference(*_unpack_qkv(qkv), num_heads, causal)
+def mha_qkv_reference(qkv, num_heads: int, causal: bool = False, block=None) -> torch.Tensor:
+    return mha_bld_reference(*_unpack_qkv(qkv), num_heads, causal, block)
 
 
 def mha_bld_bwd_reference(q, k, v, g, num_heads: int, causal: bool = False) -> tuple:
@@ -178,11 +223,12 @@ def mha_qkv_bwd_reference(qkv, g, num_heads: int, causal: bool = False) -> torch
     return torch.cat(mha_bld_bwd_reference(*_unpack_qkv(qkv), g, num_heads, causal), dim=-1)
 
 
-def mha_qtile_reference(q, kv, num_heads: int) -> torch.Tensor:
+def mha_qtile_reference(q, kv, num_heads: int, block=None) -> torch.Tensor:
     """``_mha_qtile_kernel`` (:525-532): non-causal attention of q (B, L, D)
-    against the packed k|v (B, L, 2D), rounded as ``_attend_head`` rounds."""
+    against the packed k|v (B, L, 2D), rounded as ``_attend_head`` rounds, or,
+    given ``block``, per KV block as the tensor-core kernel rounds."""
     d = q.shape[-1]
-    return mha_bld_reference(q, kv[..., :d], kv[..., d:], num_heads)
+    return mha_bld_reference(q, kv[..., :d], kv[..., d:], num_heads, False, block)
 
 
 def mha_qtile_bwd_reference(q, kv, g, num_heads: int) -> tuple:
@@ -204,32 +250,65 @@ def fused_attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
 FLASH_BLOCK_KV = 128
 
 
-def flash_attention_reference(q, k, v, save_lse: bool = False, block: int = FLASH_BLOCK_KV):
+def flash_attention_reference(
+    q, k, v, save_lse: bool = False, block: int = FLASH_BLOCK_KV, causal: bool = False
+):
     """``_flash_kernel`` (:800-854) over per-head (N, L, dh): per KV block of
     ``block`` keys (K8's ``FLASH_BLOCK_KV``) the running max, the rescale alpha = exp(m_old -
     m_new), p = exp(s - m_new) cast to v's type before the P.V product and
     summed unrounded, one divide at the end. The block size decides where bf16
-    rounds: it is the CUDA kernel's (the Pallas kernel's is 512). -> out, or
+    rounds: it is the CUDA kernel's (the Pallas kernel's is 512). ``causal``
+    sets the entries above the diagonal to NEG_INF before the max. -> out, or
     (out, lse) with lse = m + log(sum) as a plain (N, L) fp32 tensor."""
-    n, l, dh = q.shape
-    scale = 1.0 / math.sqrt(dh)
-    qf = q.float()
-    m = torch.full((n, l, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    denom = torch.zeros((n, l, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((n, l, dh), dtype=torch.float32, device=q.device)
-    for start in range(0, l, block):
-        kb, vb = k[:, start : start + block], v[:, start : start + block]
-        s = torch.einsum("nqd,nkd->nqk", qf, kb.float()) * scale
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        acc = acc * alpha + torch.einsum("nqk,nkd->nqd", p.to(v.dtype).float(), vb.float())
-        denom = denom * alpha + p.sum(dim=-1, keepdim=True)
-        m = m_new
+    acc, denom, m = _online_softmax(q, k, v, causal, block)
     out = (acc / denom).to(q.dtype)
     if save_lse:
         return out, (m + torch.log(denom)).squeeze(-1)
     return out
+
+
+def _online_softmax(q, k, v, causal: bool, block: int) -> tuple:
+    """The KV-blocked sweep over (..., L, dh) q, k, v -> fp32 (accumulator
+    (..., L, dh), sum (..., L, 1), max (..., L, 1)): per block of ``block`` keys
+    the running max, alpha = exp(m_old - m_new) on the accumulator and the sum, p
+    = exp(s - m_new) summed unrounded and cast to v's type before P.V; causal
+    entries at NEG_INF before the max."""
+    l, dh = q.shape[-2:]
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.float()
+    m = torch.full((*q.shape[:-1], 1), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    rows = torch.arange(l, device=q.device)[:, None]
+    for start in range(0, l, block):
+        kb, vb = k[..., start : start + block, :], v[..., start : start + block, :]
+        s = torch.einsum("...qd,...kd->...qk", qf, kb.float()) * scale
+        if causal:
+            keys = torch.arange(start, start + kb.shape[-2], device=q.device)[None, :]
+            s = s.masked_fill(keys > rows, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        acc = acc * alpha + torch.einsum("...qk,...kd->...qd", p.to(v.dtype).float(), vb.float())
+        denom = denom * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return acc, denom, m
+
+
+# keys per KV block of the tensor-core kernel (mha_tc.cu: kTcKV)
+MHA_TC_BLOCK_KV = 64
+
+
+def attention_blocked_reference(
+    q, k, v, causal: bool = False, block: int = MHA_TC_BLOCK_KV
+) -> torch.Tensor:
+    """``attention_reference``'s function over (B, H, L, Dh) with the arithmetic
+    of ``flash_attention_reference`` (``_online_softmax``) and the causal mask,
+    one divide at the end. In fp32 it is the whole-row function to the rounding
+    of the sums' order; in bf16 it rounds p against each block's running max, as
+    the tensor-core kernel does."""
+    acc, denom, _ = _online_softmax(q, k, v, causal, block)
+    return (acc / denom).to(q.dtype)
 
 
 def flash_delta(g, out) -> torch.Tensor:
@@ -238,35 +317,35 @@ def flash_delta(g, out) -> torch.Tensor:
     return (g.float() * out.float()).sum(dim=-1)
 
 
-def _flash_p_and_ds(q, k, v, g, lse, delta) -> tuple:
+def _flash_p_and_ds(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
     """fp32 (P, dS, g) of the flash backward from the (N, L) fp32 log-sum-exp and
-    delta: P = exp(s - lse), not renormalised; dS = P o (dP - delta) * scale,
-    rounded to q's type."""
+    delta: P = exp(s - lse), not renormalised, 0 above the diagonal when
+    ``causal``; dS = P o (dP - delta) * scale, rounded to q's type."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     g = g.to(q.dtype).float()
-    scores = torch.einsum("nqd,nkd->nqk", q.float(), k.float()) * scale
+    scores = _masked_scores(q.unsqueeze(0), k.unsqueeze(0), causal).squeeze(0)
     p = torch.exp(scores - lse.unsqueeze(-1))
     dp = torch.einsum("nqd,nkd->nqk", g, v.float())
     return p, (p * (dp - delta.unsqueeze(-1)) * scale).to(q.dtype).float(), g
 
 
-def flash_dq_reference(q, k, v, g, lse, delta) -> torch.Tensor:
+def flash_dq_reference(q, k, v, g, lse, delta, causal: bool = False) -> torch.Tensor:
     """``_flash_dq_kernel`` (:904-940) over per-head (N, L, dh): dq = dS K, dS
     cast to q's type first, summed in fp32."""
-    _, ds, _ = _flash_p_and_ds(q, k, v, g, lse, delta)
+    _, ds, _ = _flash_p_and_ds(q, k, v, g, lse, delta, causal)
     return torch.einsum("nqk,nkd->nqd", ds, k.float()).to(q.dtype)
 
 
-def flash_dkv_reference(q, k, v, g, lse, delta) -> tuple:
+def flash_dkv_reference(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
     """``_flash_dkv_kernel`` (:943-993): dk = dS^T q and dv = P^T g, dS cast to
     q's type and P to v's type first, summed in fp32."""
-    p, ds, g = _flash_p_and_ds(q, k, v, g, lse, delta)
+    p, ds, g = _flash_p_and_ds(q, k, v, g, lse, delta, causal)
     dk = torch.einsum("nqk,nqd->nkd", ds, q.float())
     dv = torch.einsum("nqk,nqd->nkd", p.to(v.dtype).float(), g)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_reference(q, k, v, g, lse, out) -> tuple:
+def flash_attention_bwd_reference(q, k, v, g, lse, out, causal: bool = False) -> tuple:
     """(dq, dk, dv) of ``flash_attention_reference`` as ``_flash_bwd`` (:1076-1078)
     computes them: g cast to q's type first, delta = rowsum(g o out) in fp32
     from the *rounded* output, then the dq pass and the dk, dv pass. In bf16
@@ -274,7 +353,8 @@ def flash_attention_bwd_reference(q, k, v, g, lse, out) -> tuple:
     P o dP."""
     g = g.to(q.dtype)
     delta = flash_delta(g, out)
-    return (flash_dq_reference(q, k, v, g, lse, delta), *flash_dkv_reference(q, k, v, g, lse, delta))
+    return (flash_dq_reference(q, k, v, g, lse, delta, causal),
+            *flash_dkv_reference(q, k, v, g, lse, delta, causal))
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +362,11 @@ def flash_attention_bwd_reference(q, k, v, g, lse, out) -> tuple:
 # kernels' own smem_bytes (mha.cu, mha_bwd.cu, mha_long.cu, mha_blocked_bwd.cu)
 # ---------------------------------------------------------------------------
 
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims the CUDA-core kernels are instantiated for, every one of them:
+# 64 and 32 are the CLIP towers and the temporal model, 16 and 8 the temporal
+# model at emb 128 with 8 heads and at emb 32 with 4 (the reference's tiny model)
+_HEAD_DIMS = (8, 16, 32, 64)
 _KERNEL_WARPS = 8
 _KERNEL_ROWS = 64  # query rows per block of the forward kernels
 # what an H100 gives one block (cudaDevAttrMaxSharedMemoryPerBlockOptin); the
@@ -325,29 +410,72 @@ def blocked_bwd_smem_bytes(dh: int, itemsize: int) -> int:
     return 4 * tiles + itemsize * 2 * BWD_BLOCK_KV * (dh + 4 // itemsize)
 
 
-def attention_bwd_route(
-    l: int, dh: int, itemsize: int, causal: bool, smem: int = H100_SMEM_OPTIN
-) -> str:
+MHA_TC_HEAD_DIM = 64  # the one head dim the tensor-core kernel is instantiated for
+_MHA_TC_ROWS = 64  # query rows per block: 4 warps of 16 rows (mha_tc.cu: kTcWarps)
+_MHA_TC_STAGES = 2  # KV blocks in flight
+_MHA_TC_PAD = 8  # bf16 elements of padding per staged row
+
+
+def mha_tc_smem_bytes(dh: int = MHA_TC_HEAD_DIM) -> int:
+    """The tensor-core kernel (mha_tc.cu): the q tile and two stages of one KV
+    block each of K and V, bf16 rows padded by 16 bytes. Independent of L."""
+    return 2 * (dh + _MHA_TC_PAD) * (_MHA_TC_ROWS + 2 * _MHA_TC_STAGES * MHA_TC_BLOCK_KV)
+
+
+def mha_tc_eligible(dtype: torch.dtype, dh: int) -> bool:
+    """Whether K1 and K6 launch the tensor-core kernel for this operand type and
+    head dim, or the CUDA-core kernel of mha.cu. Also decides which plain
+    version rounds like the kernel: the KV-blocked one where this says yes."""
+    return dtype == torch.bfloat16 and dh == MHA_TC_HEAD_DIM
+
+
+def kernel_refusal(dtype: torch.dtype, d: int, num_heads: int, smem_need, smem: int):
+    """Why a kernel whose block needs ``smem_need(dh)`` bytes of shared memory
+    does not take ``num_heads`` heads over ``d`` columns of ``dtype`` on a card
+    that gives a block ``smem`` bytes: the rest of a sentence, or None where it
+    does. The one statement of the card's limits (an operand type and a head dim
+    that are instantiated, the block's shared memory): the eligibility
+    functions ask whether it is None, the wrappers raise it."""
+    if dtype not in _DTYPE_CODES:
+        return f"has dtype {dtype}; the kernels take float32 and bfloat16"
+    if d % num_heads or d // num_heads not in _HEAD_DIMS:
+        return (f"with {num_heads} heads gives head dim {d / num_heads:g}; the kernels take "
+                f"{_HEAD_DIMS}")
+    need = smem_need(d // num_heads)
+    if need > smem:
+        return f"needs {need} B of shared memory per block, the card gives {smem}"
+    return None
+
+
+def mha_kernel_eligible(
+    l: int, d: int, num_heads: int, dtype: torch.dtype, smem: int = H100_SMEM_OPTIN,
+    staged_itemsize: int = 4,
+) -> bool:
+    """Whether the whole-row forward kernels (K1, K2, K5's whole-block branch;
+    K6 with ``staged_itemsize`` the operand's) take this shape on the card: the
+    counterpart of the JAX package's ``mha_eligible`` (attention.py:178-187) with
+    the card's limits in place of the TPU's (``kernel_refusal``), the head's K
+    and V within ``smem`` bytes. A pure function of the shape: the dispatch
+    ladder and ``fused_attention`` ask it before the call, to choose between
+    this kernel and the KV-blocked one."""
+    return kernel_refusal(
+        dtype, d, num_heads, lambda dh: mha_smem_bytes(l, dh, staged_itemsize), smem
+    ) is None
+
+
+def attention_bwd_route(l: int, dh: int, itemsize: int, smem: int = H100_SMEM_OPTIN):
     """Which kernel the whole-block backward entries (K3, K4, and K5's backward)
-    launch at sequence length ``l`` and head dim ``dh``, given ``smem`` bytes of
-    shared memory a block: "whole" (mha_bwd.cu) where its L x L tiles fit,
-    "blocked" (mha_blocked_bwd.cu, with the row statistics recomputed) for
-    non-causal shapes past it. A causal shape past it raises, as the forward
-    does: no supported model has one (the causal text towers are L=77). A pure
-    function of the shape, so a CPU test holds it."""
+    launch at sequence length ``l`` and head dim ``dh``, causal or not, given
+    ``smem`` bytes of shared memory a block: "whole" (mha_bwd.cu) where its
+    L x L tiles fit, "blocked" (mha_blocked_bwd.cu, with the row statistics
+    recomputed) past it, None where a card gives a block too little for either
+    (the wrapper then raises). A pure function of the shape, so a CPU test
+    holds it."""
     if mha_bwd_smem_bytes(l, dh) <= smem:
         return "whole"
-    if not causal and blocked_bwd_smem_bytes(dh, itemsize) <= smem:
+    if blocked_bwd_smem_bytes(dh, itemsize) <= smem:
         return "blocked"
-    blocked = (
-        "the KV-blocked backward is non-causal" if causal
-        else f"the KV-blocked backward needs {blocked_bwd_smem_bytes(dh, itemsize)} B"
-    )
-    raise ValueError(
-        f"attention backward: {'causal ' if causal else ''}shape (L={l}, dh={dh}) needs "
-        f"{mha_bwd_smem_bytes(l, dh)} B of shared memory per block for the whole-block "
-        f"kernel, the card gives {smem}, and {blocked}"
-    )
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -368,12 +496,18 @@ def smem_limit(device: torch.device) -> int:
 # raises on anything else, and counts its launches
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
-# the whole-row forward (mha.cu) and the whole-head backward (mha_bwd.cu) also
-# take 16: the temporal model at emb 128 with 8 heads
-_WHOLE_HEAD_DIMS = (16, 32, 64)
 _INT_MAX = 2**31 - 1
+
+
+def current_impl() -> str:
+    """What the wrappers run on a CUDA tensor now: the innermost open
+    ``attention_impl`` scope, else ``ANOMALYCLIP_ATTN_IMPL``, else "kernel"."""
+    impl = _IMPL.get()
+    if impl is None:
+        impl = os.environ.get(IMPL_ENV, "kernel")
+        if impl not in _IMPLS:
+            raise ValueError(f"{IMPL_ENV} must be 'kernel' or 'reference', not {impl!r}")
+    return impl
 
 
 def _use_reference(t: torch.Tensor) -> bool:
@@ -381,31 +515,19 @@ def _use_reference(t: torch.Tensor) -> bool:
         return True
     if t.device.type != "cuda":
         raise ValueError(f"fused attention takes CPU or CUDA tensors, not {t.device}")
-    return _IMPL.get() == "reference"
+    return current_impl() == "reference"
 
 
-def _check_kernel_shape(
-    name: str, t: torch.Tensor, d: int, num_heads: int, smem_need, head_dims=_HEAD_DIMS
-) -> int:
-    """Raise, with the shape, on what the CUDA kernel does not take -> head dim.
-    ``smem_need(dh)`` is the shared memory one block needs at this shape."""
+def _check_kernel_shape(name: str, t: torch.Tensor, d: int, num_heads: int, smem_need) -> int:
+    """Raise, with the shape, on what the CUDA kernel does not take
+    (``kernel_refusal``) -> head dim. ``smem_need(dh)`` is the shared memory one
+    block needs at this shape."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, not {t.device}")
-    if t.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {t.dtype} not supported (float32, bfloat16)")
-    if d % num_heads or d // num_heads not in head_dims:
-        raise ValueError(
-            f"{name}: shape {tuple(t.shape)} with {num_heads} heads gives head dim "
-            f"{d / num_heads:g}; the kernel takes {head_dims}"
-        )
-    dh = d // num_heads
-    need, have = smem_need(dh), smem_limit(t.device)
-    if need > have:
-        raise ValueError(
-            f"{name}: shape {tuple(t.shape)} needs {need} B of shared memory per block, "
-            f"the card gives {have}"
-        )
-    return dh
+    refusal = kernel_refusal(t.dtype, d, num_heads, smem_need, smem_limit(t.device))
+    if refusal is not None:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} {refusal}")
+    return d // num_heads
 
 
 def _strides(name: str, t: torch.Tensor, shape) -> tuple:
@@ -436,22 +558,50 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _check_tc(name: str, out: torch.Tensor, num_heads: int, *operands: torch.Tensor) -> None:
+    """Raise on what the tensor-core kernel (mha_tc.cu) does not take: an operand
+    that cannot be read in 16-byte pieces (base address, batch and row strides),
+    a grid or a card too small for it."""
+    for t in operands:
+        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(
+                f"{name}: the tensor-core kernel reads bf16 operands in 16-byte pieces; "
+                f"shape {tuple(t.shape)} with strides {tuple(t.stride())} at offset "
+                f"{t.storage_offset()} is not aligned to them"
+            )
+    b, l = out.shape[:2]
+    if b * num_heads * -(-l // _MHA_TC_ROWS) > _INT_MAX:
+        raise ValueError(f"{name}: shape {tuple(out.shape)} is beyond the launch grid")
+    need, have = mha_tc_smem_bytes(out.shape[-1] // num_heads), smem_limit(out.device)
+    if need > have:
+        raise ValueError(f"{name}: the tensor-core kernel needs {need} B of shared memory "
+                         f"per block, the card gives {have}")
+
+
 def mha_qkv_fwd_kernel(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
-    """K1: launch ``acl_mha_qkv_fwd`` -> (B, L, D)."""
+    """K1: launch ``acl_mha_qkv_tc_fwd`` (bf16 at head dim 64) or
+    ``acl_mha_qkv_fwd`` (everything else) -> (B, L, D)."""
     b, l, d3 = qkv.shape
     d = d3 // 3
-    dh = _check_kernel_shape(
-        "fused_mha_qkv", qkv, d, num_heads, lambda dh: mha_smem_bytes(l, dh), _WHOLE_HEAD_DIMS
-    )
+    dh = _check_kernel_shape("fused_mha_qkv", qkv, d, num_heads, lambda dh: mha_smem_bytes(l, dh))
     bs, rs = _strides("fused_mha_qkv", qkv, qkv.shape)
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
-    err = load_library().acl_mha_qkv_fwd(
-        _DTYPE_CODES[qkv.dtype], ctypes.c_void_p(qkv.data_ptr()), bs, rs,
-        ctypes.c_void_p(out.data_ptr()), b, l, num_heads, dh, int(causal),
-        1.0 / math.sqrt(dh), _stream(qkv),
-    )
+    ptr = ctypes.c_void_p
+    tensor_cores = mha_tc_eligible(qkv.dtype, dh)
+    if tensor_cores:
+        _check_tc("fused_mha_qkv", out, num_heads, qkv)
+        err = load_library().acl_mha_qkv_tc_fwd(
+            ptr(qkv.data_ptr()), bs, rs, ptr(out.data_ptr()), b, l, num_heads, dh, int(causal),
+            1.0 / math.sqrt(dh), _stream(qkv),
+        )
+    else:
+        err = load_library().acl_mha_qkv_fwd(
+            _DTYPE_CODES[qkv.dtype], ptr(qkv.data_ptr()), bs, rs, ptr(out.data_ptr()),
+            b, l, num_heads, dh, int(causal), 1.0 / math.sqrt(dh), _stream(qkv),
+        )
     _raise_on_error("fused_mha_qkv", err)
     launch_counts["fused_mha_qkv"] += 1
+    route_counts["mha_tc"] += tensor_cores
     return out
 
 
@@ -460,9 +610,7 @@ def _launch_mha_bld(name: str, q, k, v, num_heads: int, causal: bool) -> torch.T
     read in place. Counts nothing."""
     _check_bld(name, q, k, v)
     b, l, d = q.shape
-    dh = _check_kernel_shape(
-        name, q, d, num_heads, lambda dh: mha_smem_bytes(l, dh), _WHOLE_HEAD_DIMS
-    )
+    dh = _check_kernel_shape(name, q, d, num_heads, lambda dh: mha_smem_bytes(l, dh))
     strides = [_strides(name, t, q.shape) for t in (q, k, v)]
     out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     ptr = ctypes.c_void_p
@@ -517,7 +665,7 @@ def _check_blocked(name: str, q, k, v, g) -> None:
         raise ValueError(f"{name}: shape {tuple(q.shape)} is beyond the launch grid")
 
 
-def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool) -> None:
+def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool, causal: bool) -> None:
     """Launch ``acl_blocked_dq`` over (B, H, L, dh) views for entry ``name``; the
     (B, H, L) fp32 statistics m, l, delta are written when ``recompute``, else
     read (l may be None: then 1). Counts nothing."""
@@ -527,12 +675,12 @@ def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool) 
     err = load_library().acl_blocked_dq(
         _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
         ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()), int(recompute),
-        b, h, seq, dh, 1.0 / math.sqrt(dh), _stream(q),
+        b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
     )
     _raise_on_error(name, err)
 
 
-def _launch_blocked_dkv(name: str, q, k, v, g, dk, dv, m, l, delta) -> None:
+def _launch_blocked_dkv(name: str, q, k, v, g, dk, dv, m, l, delta, causal: bool) -> None:
     """Launch ``acl_blocked_dkv`` over (B, H, L, dh) views for entry ``name``,
     reading the statistics. Counts nothing."""
     b, h, seq, dh = q.shape
@@ -541,12 +689,12 @@ def _launch_blocked_dkv(name: str, q, k, v, g, dk, dv, m, l, delta) -> None:
     err = load_library().acl_blocked_dkv(
         _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
         ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()),
-        b, h, seq, dh, 1.0 / math.sqrt(dh), _stream(q),
+        b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
     )
     _raise_on_error(name, err)
 
 
-def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv) -> None:
+def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv, causal: bool = False) -> None:
     """The KV-blocked backward with the row statistics rebuilt by the dq pass
     (row max, row sum, delta = rowsum(P o dP): the whole-block backwards'
     rounding) and handed to the dkv pass, all over (B, H, L, dh) views; the
@@ -554,15 +702,22 @@ def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv) -> None:
     _check_blocked(name, q, k, v, g)
     b, h, l, _ = q.shape
     m, row_sum, delta = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)
-    _launch_blocked_dq(name, q, k, v, g, dq, m, row_sum, delta, recompute=True)
-    _launch_blocked_dkv(name, q, k, v, g, dk, dv, m, row_sum, delta)
+    _launch_blocked_dq(name, q, k, v, g, dq, m, row_sum, delta, True, causal)
+    _launch_blocked_dkv(name, q, k, v, g, dk, dv, m, row_sum, delta, causal)
 
 
-def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int, causal: bool) -> str:
+def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int) -> str:
     """``attention_bwd_route`` for a kernel launch, after the dtype and head-dim
-    checks every backward kernel shares."""
-    _check_kernel_shape(name, t, d, num_heads, lambda dh: 0, _WHOLE_HEAD_DIMS)
-    return attention_bwd_route(l, d // num_heads, t.element_size(), causal, smem_limit(t.device))
+    checks every backward kernel shares; raises where it has no kernel."""
+    dh = _check_kernel_shape(name, t, d, num_heads, lambda dh: 0)
+    route = attention_bwd_route(l, dh, t.element_size(), smem_limit(t.device))
+    if route is None:
+        raise ValueError(
+            f"{name}: shape {tuple(t.shape)} needs {mha_bwd_smem_bytes(l, dh)} B of shared memory "
+            f"per block for the whole-head backward or {blocked_bwd_smem_bytes(dh, t.element_size())} "
+            f"B for the KV-blocked one, the card gives {smem_limit(t.device)}"
+        )
+    return route
 
 
 def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
@@ -570,14 +725,14 @@ def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
     whole-head kernel's shared memory fits, else from the KV-blocked pair."""
     b, l, d3 = qkv.shape
     d = d3 // 3
-    route = _bwd_route("mha_qkv_bwd", qkv, l, d, num_heads, causal)
+    route = _bwd_route("mha_qkv_bwd", qkv, l, d, num_heads)
     if g.shape != (b, l, d) or g.device != qkv.device:
         raise ValueError(f"mha_qkv_bwd: gradient {tuple(g.shape)} for qkv {tuple(qkv.shape)}")
     g = g.to(qkv.dtype).contiguous()
     dqkv = torch.empty((b, l, d3), dtype=qkv.dtype, device=qkv.device)
     if route == "blocked":
         views = [_heads_view(t, num_heads) for t in (*_unpack_qkv(qkv), g, *_unpack_qkv(dqkv))]
-        _blocked_bwd_recompute("mha_qkv_bwd", *views)
+        _blocked_bwd_recompute("mha_qkv_bwd", *views, causal)
     else:
         dh = d // num_heads
         bs, rs = _strides("mha_qkv_bwd", qkv, qkv.shape)
@@ -598,13 +753,14 @@ def _launch_mha_bld_bwd(name: str, q, k, v, g, num_heads: int, causal: bool) -> 
     q, k, v are read in place. Counts nothing."""
     _check_bld(name, q, k, v)
     b, l, d = q.shape
-    route = _bwd_route(name, q, l, d, num_heads, causal)
+    route = _bwd_route(name, q, l, d, num_heads)
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"{name}: gradient {tuple(g.shape)} for q {tuple(q.shape)}")
     g = g.to(q.dtype).contiguous()
     dq, dk, dv = (torch.empty((b, l, d), dtype=q.dtype, device=q.device) for _ in range(3))
     if route == "blocked":
-        _blocked_bwd_recompute(name, *(_heads_view(t, num_heads) for t in (q, k, v, g, dq, dk, dv)))
+        views = [_heads_view(t, num_heads) for t in (q, k, v, g, dq, dk, dv)]
+        _blocked_bwd_recompute(name, *views, causal)
         return dq, dk, dv
     dh = d // num_heads
     strides = [_strides(name, t, q.shape) for t in (q, k, v, g)]
@@ -635,11 +791,11 @@ def fused_attention_bwd_kernel(q, k, v, g, causal: bool) -> tuple:
     shared memory fits, else the KV-blocked pair on the four-dimensional views
     as they are."""
     b, h, l, dh = q.shape
-    route = _bwd_route("fused_attention", q, l, dh, 1, causal)
+    route = _bwd_route("fused_attention", q, l, dh, 1)
     if route == "blocked":
         g = g.to(q.dtype).contiguous()
         grads = tuple(torch.empty((b, h, l, dh), dtype=q.dtype, device=q.device) for _ in range(3))
-        _blocked_bwd_recompute("fused_attention", q, k, v, g, *grads)
+        _blocked_bwd_recompute("fused_attention", q, k, v, g, *grads, causal)
     else:
         folded = [t.reshape(b * h, l, dh) for t in (q, k, v, g)]
         grads = _launch_mha_bld_bwd("fused_attention", *folded, 1, causal)
@@ -680,40 +836,42 @@ def _flash_bwd_views(q, k, v, g, lse, delta) -> tuple:
     return views, lse.float().contiguous(), delta.float().contiguous()
 
 
-def flash_dq_kernel(q, k, v, g, lse, delta) -> torch.Tensor:
+def flash_dq_kernel(q, k, v, g, lse, delta, causal: bool = False) -> torch.Tensor:
     """K9: launch ``acl_blocked_dq`` with the given statistics over per-head
     (N, L, dh) -> dq (N, L, dh)."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
     _check_blocked("flash_dq", *views)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_blocked_dq("flash_dq", *views, dq.unsqueeze(1), lse, None, delta, recompute=False)
+    _launch_blocked_dq("flash_dq", *views, dq.unsqueeze(1), lse, None, delta, False, causal)
     launch_counts["flash_dq"] += 1
     return dq
 
 
-def flash_dkv_kernel(q, k, v, g, lse, delta) -> tuple:
+def flash_dkv_kernel(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
     """K10: launch ``acl_blocked_dkv`` with the given statistics over per-head
     (N, L, dh) -> (dk, dv), each (N, L, dh)."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
     _check_blocked("flash_dkv", *views)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    _launch_blocked_dkv("flash_dkv", *views, dk.unsqueeze(1), dv.unsqueeze(1), lse, None, delta)
+    _launch_blocked_dkv("flash_dkv", *views, dk.unsqueeze(1), dv.unsqueeze(1), lse, None, delta, causal)
     launch_counts["flash_dkv"] += 1
     return dk, dv
 
 
-def flash_bwd_kernel(q, k, v, g, lse, out) -> tuple:
+def flash_bwd_kernel(q, k, v, g, lse, out, causal: bool = False) -> tuple:
     """K9 and K10: (dq, dk, dv) over per-head (N, L, dh) from the forward's
     saved log-sum-exp and output."""
     g = g.to(q.dtype).contiguous()
     delta = flash_delta(g, out)
-    dq = flash_dq_kernel(q, k, v, g, lse, delta)
-    return (dq, *flash_dkv_kernel(q, k, v, g, lse, delta))
+    dq = flash_dq_kernel(q, k, v, g, lse, delta, causal)
+    return (dq, *flash_dkv_kernel(q, k, v, g, lse, delta, causal))
 
 
 def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
-    """K6: launch ``acl_mha_qtile_fwd`` (K1's kernel with K and V staged in the
-    operand type) -> (B, L, D); q and the two halves of kv are read in place."""
+    """K6: launch ``acl_mha_qtile_tc_fwd`` (bf16 at head dim 64) or
+    ``acl_mha_qtile_fwd`` (everything else: the CUDA-core kernel with K and V
+    staged in the operand type) -> (B, L, D); q and the two halves of kv are
+    read in place."""
     b, l, d = q.shape
     if kv.shape != (b, l, 2 * d) or kv.dtype != q.dtype or kv.device != q.device:
         raise ValueError(
@@ -721,23 +879,32 @@ def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
         )
     itemsize = q.element_size()
     dh = _check_kernel_shape(
-        "fused_mha_qtile", q, d, num_heads, lambda dh: mha_smem_bytes(l, dh, itemsize),
-        _WHOLE_HEAD_DIMS,
+        "fused_mha_qtile", q, d, num_heads, lambda dh: mha_smem_bytes(l, dh, itemsize)
     )
     q_strides = _strides("fused_mha_qtile", q, q.shape)
     kv_strides = _strides("fused_mha_qtile", kv, kv.shape)
     out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     ptr = ctypes.c_void_p
-    err = load_library().acl_mha_qtile_fwd(
-        _DTYPE_CODES[q.dtype], ptr(q.data_ptr()), *q_strides, ptr(kv.data_ptr()), *kv_strides,
-        ptr(out.data_ptr()), b, l, num_heads, dh, 1.0 / math.sqrt(dh), _stream(q),
-    )
+    tensor_cores = mha_tc_eligible(q.dtype, dh)
+    if tensor_cores:
+        _check_tc("fused_mha_qtile", out, num_heads, q, kv)
+        err = load_library().acl_mha_qtile_tc_fwd(
+            ptr(q.data_ptr()), *q_strides, ptr(kv.data_ptr()), *kv_strides,
+            ptr(out.data_ptr()), b, l, num_heads, dh, 1.0 / math.sqrt(dh), _stream(q),
+        )
+    else:
+        err = load_library().acl_mha_qtile_fwd(
+            _DTYPE_CODES[q.dtype], ptr(q.data_ptr()), *q_strides, ptr(kv.data_ptr()),
+            *kv_strides, ptr(out.data_ptr()), b, l, num_heads, dh, 1.0 / math.sqrt(dh),
+            _stream(q),
+        )
     _raise_on_error("fused_mha_qtile", err)
     launch_counts["fused_mha_qtile"] += 1
+    route_counts["mha_tc"] += tensor_cores
     return out
 
 
-def flash_fwd_kernel(q, k, v, save_lse: bool):
+def flash_fwd_kernel(q, k, v, save_lse: bool, causal: bool = False):
     """K8: launch ``acl_flash_fwd`` over (N, L, dh) -> out (N, L, dh), or (out,
     lse) with the (N, L) fp32 log-sum-exp; q, k, v are read in place."""
     _check_bld("flash_attention_heads", q, k, v)
@@ -756,7 +923,7 @@ def flash_fwd_kernel(q, k, v, save_lse: bool):
         ptr(k.data_ptr()), *strides[1],
         ptr(v.data_ptr()), *strides[2],
         ptr(out.data_ptr()), ptr(lse.data_ptr() if save_lse else None),
-        n, l, dh, 1.0 / math.sqrt(dh), _stream(q),
+        n, l, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
     )
     _raise_on_error("flash_attention_heads", err)
     launch_counts["flash_attention_heads"] += 1
@@ -778,6 +945,13 @@ def fused_attention_fwd_kernel(q, k, v, causal: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def reference_block(dtype: torch.dtype, dh: int):
+    """The ``block`` of the plain version that rounds like the kernel K1 and K6
+    launch for this operand type and head dim: the tensor-core kernel's KV
+    block, or None (whole rows) for the CUDA-core kernel."""
+    return MHA_TC_BLOCK_KV if mha_tc_eligible(dtype, dh) else None
+
+
 class _MhaQkv(torch.autograd.Function):
     """K1 forward, K3 backward; saves only qkv, as ``_mha_qkv_fwd`` (:479-480)."""
 
@@ -787,7 +961,8 @@ class _MhaQkv(torch.autograd.Function):
         ctx.num_heads, ctx.causal = num_heads, causal
         ctx.save_for_backward(qkv)
         if ctx.reference:
-            return mha_qkv_reference(qkv, num_heads, causal)
+            block = reference_block(qkv.dtype, qkv.shape[-1] // 3 // num_heads)
+            return mha_qkv_reference(qkv, num_heads, causal, block)
         return mha_qkv_fwd_kernel(qkv, num_heads, causal)
 
     @staticmethod
@@ -849,7 +1024,8 @@ class _MhaQtile(torch.autograd.Function):
         ctx.num_heads = num_heads
         ctx.save_for_backward(q, kv)
         if ctx.reference:
-            return mha_qtile_reference(q, kv, num_heads)
+            block = reference_block(q.dtype, q.shape[-1] // num_heads)
+            return mha_qtile_reference(q, kv, num_heads, block)
         return mha_qtile_fwd_kernel(q, kv, num_heads)
 
     @staticmethod
@@ -869,10 +1045,14 @@ class _FlashHeads(torch.autograd.Function):
     caller nor the backward needs it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, save_lse):
+    def forward(ctx, q, k, v, save_lse, causal):
         ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
+        ctx.causal = causal
         needs_grad = any(ctx.needs_input_grad[:3])
-        forward = flash_attention_reference if ctx.reference else flash_fwd_kernel
+        if ctx.reference:
+            forward = functools.partial(flash_attention_reference, causal=causal)
+        else:
+            forward = functools.partial(flash_fwd_kernel, causal=causal)
         if not (save_lse or needs_grad):
             return forward(q, k, v, False), None
         out, lse = forward(q, k, v, True)
@@ -885,10 +1065,10 @@ class _FlashHeads(torch.autograd.Function):
     def backward(ctx, g, _):
         q, k, v, lse, out = ctx.saved_tensors
         if ctx.reference:
-            grads = flash_attention_bwd_reference(q, k, v, g, lse, out)
+            grads = flash_attention_bwd_reference(q, k, v, g, lse, out, ctx.causal)
         else:
-            grads = flash_bwd_kernel(q, k, v, g, lse, out)
-        return (*grads, None)
+            grads = flash_bwd_kernel(q, k, v, g, lse, out, ctx.causal)
+        return (*grads, None, None)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -922,12 +1102,15 @@ def fused_mha_qtile(q: torch.Tensor, kv: torch.Tensor, num_heads: int) -> torch.
     return _MhaQtile.apply(q, kv, num_heads)
 
 
-def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_lse: bool = False):
+def flash_attention_heads(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_lse: bool = False, causal: bool = False
+):
     """Attention over per-head (N, L, dh) q, k, v with KV-blocked online softmax
     (shared memory independent of L) -> out (N, L, dh), or (out, lse) with the
-    (N, L) fp32 log-sum-exp. Non-causal. Differentiable in q, k, v (not through
-    lse): the backward rebuilds P from the saved log-sum-exp."""
-    out, lse = _FlashHeads.apply(q, k, v, save_lse)
+    (N, L) fp32 log-sum-exp. The reference's is non-causal; ``causal`` is for the
+    shapes its router sends to the XLA formulation. Differentiable in q, k, v
+    (not through lse): the backward rebuilds P from the saved log-sum-exp."""
+    out, lse = _FlashHeads.apply(q, k, v, save_lse, causal)
     return (out, lse) if save_lse else out
 
 
@@ -937,22 +1120,18 @@ def fused_attention(
     """Attention over per-head (B, H, L, Dh) -> (B, H, L, Dh), routed as
     ``_fused_attention_impl`` (:1121-1135) routes, with the card's limits:
 
-    - the whole-block kernel (K2's, heads folded into the batch) where its
-      shared memory fits the card; its backward is ``attention_bwd_route``'s;
-    - else, for non-causal shapes, ``flash_attention_heads`` (K8, and K9 and
-      K10 in the backward);
-    - else the plain version on the CPU; on the card it raises: no kernel takes
-      a causal shape past the whole-block kernel, and no supported model has one."""
+    - the whole-block kernel (K2's, heads folded into the batch) where it takes
+      the shape (``mha_kernel_eligible``); its backward is
+      ``attention_bwd_route``'s;
+    - else ``flash_attention_heads`` (K8, and K9 and K10 in the backward), with
+      the causal mask where asked: the reference's second branch and, for a
+      causal shape, the kernel in place of its third (``_xla_attention``, :1135,
+      :1195).
+
+    The branch is chosen from the shape before any launch; what neither kernel
+    takes (an operand type or a head dim that is not instantiated) raises."""
     b, h, l, dh = q.shape
-    if mha_smem_bytes(l, dh) <= smem_limit(q.device):
+    if mha_kernel_eligible(l, dh, 1, q.dtype, smem_limit(q.device)):
         return _FusedAttention.apply(q, k, v, causal)
-    if not causal:
-        out = flash_attention_heads(*(t.reshape(b * h, l, dh) for t in (q, k, v)))
-        return out.reshape(b, h, l, dh)
-    if _use_reference(q):
-        return fused_attention_reference(q, k, v, causal)
-    raise ValueError(
-        f"fused_attention: causal shape {tuple(q.shape)} needs {mha_smem_bytes(l, dh)} B of "
-        f"shared memory per block for the whole-block kernel, the card gives "
-        f"{smem_limit(q.device)}, and the flash kernel is non-causal"
-    )
+    out = flash_attention_heads(*(t.reshape(b * h, l, dh) for t in (q, k, v)), causal=causal)
+    return out.reshape(b, h, l, dh)

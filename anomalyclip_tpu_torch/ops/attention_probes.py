@@ -30,10 +30,16 @@ opt-in, 232,448 B with it on an H100. A configuration whose formula exceeds the
 cap raises ``ProbeDoesNotFit`` with both sizes before anything is launched (the
 card's form of a VMEM overflow), on the CPU too, against the H100's limit.
 
+The probes tile the whole-row CUDA-core body (ops/csrc/mha.cu), which the
+production entries run in fp32 and below head dim 64; in bf16 at head dim 64
+those launch the tensor-core kernel of ops/csrc/mha_tc.cu instead, so "K6's own
+tiling" below is that of the CUDA-core kernel. The probes stay as the
+counterparts of the JAX scripts' own kernels.
+
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor, or
 under ``attention_impl("reference")``, it runs its plain version, rounded where
-the kernel rounds. The tile probes' plain versions are the production ones
-(tiling does not change the function); ``twopass`` and ``pair`` round P against
+the kernel rounds. The tile probes' plain versions are the production entries'
+whole-row ones (tiling does not change the function); ``twopass`` and ``pair`` round P against
 the running max of each KV part and have their own, as has ``nosoftmax``.
 """
 

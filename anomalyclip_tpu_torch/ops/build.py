@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu", CSRC / "mha_blocked_bwd.cu",
-    CSRC / "mha_probe.cu",
+    CSRC / "mha_probe.cu", CSRC / "mha_tc.cu",
 )
 HEADERS = (CSRC / "attention_common.cuh",)  # included by every source
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -111,18 +111,28 @@ def load_library() -> ctypes.CDLL:
     lib.acl_flash_smem_bytes.restype = ctypes.c_size_t
     lib.acl_mha_qtile_fwd.argtypes = [i, p, i, i, p, i, i, p, i, i, i, i, f, p]
     lib.acl_mha_qtile_fwd.restype = i
-    lib.acl_flash_fwd.argtypes = [i, p, i, i, p, i, i, p, i, i, p, p, i, i, i, f, p]
+    lib.acl_flash_fwd.argtypes = [i, p, i, i, p, i, i, p, i, i, p, p, i, i, i, i, f, p]
     lib.acl_flash_fwd.restype = i
     ptrs, strides = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)
     lib.acl_blocked_bwd_smem_bytes.argtypes = [i, i]
     lib.acl_blocked_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.acl_blocked_dq.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, i, f, p]
+    lib.acl_blocked_dq.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, i, i, f, p]
     lib.acl_blocked_dq.restype = i
-    lib.acl_blocked_dkv.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, f, p]
+    lib.acl_blocked_dkv.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, i, f, p]
     lib.acl_blocked_dkv.restype = i
+    s, z = ctypes.c_int64, ctypes.c_size_t
+    # the tensor-core kernel (mha_tc.cu): per operand a pointer and 64-bit batch
+    # and row strides
+    lib.acl_mha_tc_smem_bytes.argtypes = [i]
+    lib.acl_mha_tc_smem_bytes.restype = z
+    lib.acl_mha_tc_blocks_per_sm.argtypes = [i]
+    lib.acl_mha_tc_blocks_per_sm.restype = i
+    lib.acl_mha_qkv_tc_fwd.argtypes = [p, s, s, p, i, i, i, i, i, f, p]
+    lib.acl_mha_qkv_tc_fwd.restype = i
+    lib.acl_mha_qtile_tc_fwd.argtypes = [p, s, s, p, s, s, p, i, i, i, i, f, p]
+    lib.acl_mha_qtile_tc_fwd.restype = i
     # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
     # pointer and 64-bit batch and row strides
-    s, z = ctypes.c_int64, ctypes.c_size_t
     lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]
     lib.acl_probe_smem_bytes.restype = z
     lib.acl_probe_blocks_per_sm.argtypes = [i, i, i, i, i, z]

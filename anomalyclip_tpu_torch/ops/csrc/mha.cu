@@ -1,4 +1,12 @@
-// Whole-row multi-head attention for Hopper (sm_90a), fp32 and bf16.
+// Whole-row multi-head attention for Hopper (sm_90a) on the CUDA cores, fp32 and
+// bf16.
+//
+// Which kernel serves which operands: in bf16 at head dim 64 fused_mha_qkv and
+// fused_mha_qtile launch the tensor-core kernel of mha_tc.cu (every CLIP tower
+// in bf16); the wrappers (ops/attention.py) choose before the launch. This
+// kernel serves the rest: all of fp32 (TF32 is off for checkpoint parity, so the
+// fp32 products stay on the CUDA cores), fused_mha_bld and fused_attention's
+// whole-block branch in either type, and bf16 at head dims 8, 16 and 32.
 //
 // Three C entries, one kernel:
 //
@@ -7,7 +15,7 @@
 //                      from one packed (B, L, 3D) qkv, lane order q|k|v, heads split
 //                      inside the kernel, optional causal mask. Serves the CLIP image
 //                      tower (L=197, 12 heads, dh 64) and the causal text towers
-//                      (L=77, 8 or 12 heads, dh 64).
+//                      (L=77, 8 or 12 heads, dh 64) in fp32.
 //   acl_mha_bld_fwd    replaces _mha_bld_kernel / fused_mha_bld
 //                      (attention.py:88-96, 386): the same function from separate
 //                      (B, L, D) q, k, v. Serves the temporal model's axial attention
@@ -17,9 +25,10 @@
 //                      folded into the batch.
 //   acl_mha_qtile_fwd  replaces _mha_qtile_kernel / fused_mha_qtile
 //                      (attention.py:525-532, 604, 626): non-causal attention of q
-//                      (B, L, D) against a packed k|v (B, L, 2D). Serves the
-//                      ViT-L/14@336px image tower in bf16 (B=256, L=577, 16 heads,
-//                      dh 64), past what fp32 staging fits.
+//                      (B, L, D) against a packed k|v (B, L, 2D): fp32 shapes whose
+//                      K and V fit (L <= 420 at dh 64), and bf16 below head dim 64.
+//                      (The ViT-L/14@336px tower in bf16, the entry's one path
+//                      shape, takes mha_tc.cu.)
 //
 // All read the head slices of their operands in place through element strides:
 // no split, transpose or copy of q, k or v is made before the launch.
@@ -36,9 +45,10 @@
 // a time: the row of q sits in registers, lane j computes the scores of keys j,
 // j+32, ..., the max and the sum are warp shuffles, the exponent row goes to the
 // warp's slice of shared memory, and in the P.V product lane t owns output
-// columns t, t+32 (at head dim 16, which the temporal model has at emb 128 with
-// 8 heads, the upper half of the lanes owns none). K rows are padded by one 32-bit word so that the 32 lanes of a
-// warp, reading 32 different keys at the same column, hit 32 different banks.
+// columns t, t+32 (at head dims 16 and 8, which the temporal model has at emb 128
+// with 8 heads and at emb 32 with 4, the upper lanes own none). K rows are padded
+// by one 32-bit word so that the 32 lanes of a warp, reading 32 different keys at
+// the same column, hit 32 different banks.
 //
 // The staging type S is the one difference between the entries. K1 and K2 stage
 // K and V as fp32 (at L=197, dh=64: 101 KB, above the 48 KB static limit, hence
@@ -55,9 +65,11 @@
 // register), so shared-memory bandwidth (and in bf16 staging the conversions to
 // fp32), not the FMA rate or device memory, is the limit: device memory sees each
 // K and V tile once per query tile (4 times at L=197), about 1.2 GB a layer in
-// fp32. Moving the products onto wgmma with bf16 tiles and keeping P in
-// registers is later work; this version is the simple one whose results are
-// checked against the plain PyTorch formulation.
+// fp32. For bf16 the products moved onto the tensor cores, with P kept in
+// registers and K and V in blocks, in mha_tc.cu (39.9 -> 1.7 ms at (256, 577,
+// 1024), 2.94 -> 0.25 ms at (256, 197, 2304), NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md); this version stays the simple one for fp32, whose results are checked
+// against the plain PyTorch formulation.
 
 #include <type_traits>
 
@@ -159,13 +171,17 @@ cudaError_t launch_typed(Operand q, Operand k, Operand v, void* out, int B, int 
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dh: 16, 32 or 64. K and V are staged as fp32
+// dtype: 0 = float32, 1 = bfloat16. dh: 8, 16, 32 or 64. K and V are staged as fp32
 // (kStageFp32) or in the operand type.
 template <bool kStageFp32>
 cudaError_t launch(int dtype, Operand q, Operand k, Operand v, void* out, int B, int L,
                    int H, int dh, int causal, float scale, cudaStream_t stream) {
   using BF = __nv_bfloat16;
   using SB = std::conditional_t<kStageFp32, float, BF>;
+  if (dtype == 0 && dh == 8)
+    return launch_typed<float, float, 8>(q, k, v, out, B, L, H, causal, scale, stream);
+  if (dtype == 1 && dh == 8)
+    return launch_typed<BF, SB, 8>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 0 && dh == 16)
     return launch_typed<float, float, 16>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 1 && dh == 16)

@@ -1,4 +1,5 @@
-// KV-blocked attention backward for Hopper (sm_90a), fp32 and bf16, non-causal.
+// KV-blocked attention backward for Hopper (sm_90a), fp32 and bf16, with an
+// optional causal mask.
 //
 // Two C entries, two kernels, which together replace three TPU kernels of
 // anomalyclip_tpu/ops/pallas/attention.py and widen two ported ones:
@@ -13,8 +14,8 @@
 // The whole-head backward of mha_bwd.cu holds L x L tiles of P and dS in shared
 // memory and stops near L=117 at dh 64; the entries that own it (the packed qkv
 // backward, the (B, L, D) backward, fused_attention's backward) send longer
-// non-causal shapes here with their own strides, as the TPU package's
-// whole-block backward takes L=197.
+// shapes here with their own strides, as the TPU package's whole-block backward
+// takes L=197.
 //
 // Every operand is read in place through (batch, head, row) element strides, so
 // one pair of kernels serves q (B, L, D) with a packed k|v (B, L, 2D), a packed
@@ -22,7 +23,8 @@
 // (B, H, L, Dh) views, and the gradients are written straight into their packed
 // layouts: no split, transpose or copy on either side of the launch.
 //
-// What it computes, per (batch, head): S = Q K^T * scale, keys past L at -1e30;
+// What it computes, per (batch, head): S = Q K^T * scale, keys past L (and, under
+// the causal mask, above the diagonal) at -1e30, so that P and dS are 0 there;
 // P = exp(S - m) / l; dP = G V^T; dS = P o (dP - delta) * scale rounded to the
 // operand type; dQ = dS K, dK = dS^T Q, dV = round(P)^T G, every product summed in
 // fp32 and stored in the operand type. The row statistics (m, l, delta) arrive in
@@ -51,6 +53,12 @@
 //        thread owns one column of 16 keys at dh 64). Rows past L in the last q
 //        tile are staged as zeros and their P and dS forced to 0.
 //
+// Under the causal mask the dq pass stops at the KV block of its tile's last row
+// and the dkv pass starts at the q tile of its block's first key: q tiles and KV
+// blocks are both 64 wide and aligned, so every row of a visited tile sees the
+// first key of every visited block, and the online max of the statistics sweep
+// never meets a block it is wholly masked out of.
+//
 // Both build the 64 x 64 tile of P and dS the same way (score_tile): a lane owns
 // one key, holds its K row (then its V row) in registers, and walks 16 query rows
 // reading q (then g) as 16-byte broadcasts, four multiply-adds per shared-memory
@@ -71,6 +79,8 @@ namespace {
 
 constexpr int kBwdKV = 64;                                    // keys per KV block
 constexpr int kTileWarpRows = kRowsPerBlock / (kWarps / 2);   // 16 rows per warp in score_tile
+constexpr int kNoDiag = 1 << 30;                              // score_tile's diag without a mask
+static_assert(kBwdKV == kRowsPerBlock, "the causal block ranges take q tiles and KV blocks aligned");
 
 struct Strided {
   void* ptr;  // element (batch 0, head 0, row 0, column 0); columns are contiguous
@@ -187,8 +197,12 @@ __device__ __forceinline__ float dot_bcast(const float* row, const float* reg) {
 //   RAW:  ps = scaled scores with the keys past L at -1e30, dss = dP;
 //   else: ps = P rounded to the operand type, dss = dS rounded to the operand
 //         type, both 0 in the rows past L and at the keys past L.
+// ``diag``: the tile's first row minus the block's first key under the causal
+// mask (key j is masked for row r where j > r + diag), else a value no key
+// exceeds.
 template <typename T, int DH, bool RAW>
-__device__ __forceinline__ void score_tile(const Smem<T, DH>& sm, int rows, int nkv, float scale) {
+__device__ __forceinline__ void score_tile(const Smem<T, DH>& sm, int rows, int nkv, int diag,
+                                           float scale) {
   constexpr int KP = Smem<T, DH>::KP;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -205,11 +219,12 @@ __device__ __forceinline__ void score_tile(const Smem<T, DH>& sm, int rows, int 
   for (int e = 0; e < kTileWarpRows; ++e) {
     const int r = r0 + e;
     const float dp = dot_bcast<DH>(sm.gs + r * DH, reg);
+    const bool seen = key_live && j <= r + diag;
     if (RAW) {
-      sm.ps[r * kBwdKV + j] = key_live ? s[e] : kNegInf;
+      sm.ps[r * kBwdKV + j] = seen ? s[e] : kNegInf;
       sm.dss[r * kBwdKV + j] = dp;
     } else {
-      const float p = (key_live && r < rows) ? expf(s[e] - sm.ms[r]) / sm.ls[r] : 0.f;
+      const float p = (seen && r < rows) ? expf(s[e] - sm.ms[r]) / sm.ls[r] : 0.f;
       sm.ps[r * kBwdKV + j] = round_like(p, T());
       sm.dss[r * kBwdKV + j] = round_like(p * (dp - sm.deltas[r]) * scale, T());
     }
@@ -219,7 +234,7 @@ __device__ __forceinline__ void score_tile(const Smem<T, DH>& sm, int rows, int 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 2)
 blocked_dq_kernel(Strided q, Strided k, Strided v, Strided g, Strided dq, float* m, float* l,
-                  float* delta, int recompute, int L, int H, float scale) {
+                  float* delta, int recompute, int L, int H, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<T, DH> sm(smem);
   constexpr int KP = Smem<T, DH>::KP;
@@ -234,6 +249,7 @@ blocked_dq_kernel(Strided q, Strided k, Strided v, Strided g, Strided dq, float*
   const T* kp = head_base<const T>(k, b, h);
   const T* vp = head_base<const T>(v, b, h);
   const int64_t first = ((int64_t)b * H + h) * L + row0;  // of this tile's statistics
+  const int kv_end = causal ? min(L, row0 + rows) : L;    // the blocks past it are all masked
 
   stage_qg<T, DH>(sm, head_base<const T>(q, b, h), q.row_stride, head_base<const T>(g, b, h),
                   g.row_stride, row0, rows);
@@ -245,12 +261,12 @@ blocked_dq_kernel(Strided q, Strided k, Strided v, Strided g, Strided dq, float*
       sm.ls[i] = 0.f;
       sm.deltas[i] = 0.f;
     }
-    for (int kv0 = 0; kv0 < L; kv0 += kBwdKV) {
+    for (int kv0 = 0; kv0 < kv_end; kv0 += kBwdKV) {
       const int nkv = min(kBwdKV, L - kv0);
       __syncthreads();  // every warp is done with the previous block
       stage_kv<T, DH>(sm, kp, k.row_stride, vp, v.row_stride, kv0, nkv);
       __syncthreads();
-      score_tile<T, DH, true>(sm, rows, nkv, scale);
+      score_tile<T, DH, true>(sm, rows, nkv, causal ? row0 - kv0 : kNoDiag, scale);
       __syncthreads();
       for (int r = warp; r < kRowsPerBlock; r += kWarps) {
         const float s0 = sm.ps[r * kBwdKV + lane], s1 = sm.ps[r * kBwdKV + lane + 32];
@@ -289,12 +305,12 @@ blocked_dq_kernel(Strided q, Strided k, Strided v, Strided g, Strided dq, float*
   float acc[RPT];
 #pragma unroll
   for (int e = 0; e < RPT; ++e) acc[e] = 0.f;
-  for (int kv0 = 0; kv0 < L; kv0 += kBwdKV) {
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kBwdKV) {
     const int nkv = min(kBwdKV, L - kv0);
     __syncthreads();
     stage_kv<T, DH>(sm, kp, k.row_stride, vp, v.row_stride, kv0, nkv);
     __syncthreads();
-    score_tile<T, DH, false>(sm, rows, nkv, scale);
+    score_tile<T, DH, false>(sm, rows, nkv, causal ? row0 - kv0 : kNoDiag, scale);
     __syncthreads();
     for (int j0 = 0; j0 < kBwdKV; j0 += 4) {
       float kk[4];
@@ -321,7 +337,8 @@ blocked_dq_kernel(Strided q, Strided k, Strided v, Strided g, Strided dq, float*
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 2)
 blocked_dkv_kernel(Strided q, Strided k, Strided v, Strided g, Strided dk, Strided dv,
-                   const float* m, const float* l, const float* delta, int L, int H, float scale) {
+                   const float* m, const float* l, const float* delta, int L, int H, int causal,
+                   float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<T, DH> sm(smem);
   constexpr int KPT = kBwdKV * DH / kThreads;  // keys a thread owns, at one column
@@ -343,29 +360,38 @@ blocked_dkv_kernel(Strided q, Strided k, Strided v, Strided g, Strided dk, Strid
   float acc_k[KPT], acc_v[KPT];
 #pragma unroll
   for (int e = 0; e < KPT; ++e) acc_k[e] = acc_v[e] = 0.f;
-  for (int row0 = 0; row0 < L; row0 += kRowsPerBlock) {
+  // under the causal mask the q tiles before the block's own see none of its keys
+  for (int row0 = causal ? kv0 : 0; row0 < L; row0 += kRowsPerBlock) {
     const int rows = min(kRowsPerBlock, L - row0);
     __syncthreads();  // every warp is done with the previous tile
     stage_qg<T, DH>(sm, qp, q.row_stride, gp, g.row_stride, row0, rows);
     stage_stats<T, DH>(sm, m, l, delta, first + row0, rows);
     __syncthreads();
-    score_tile<T, DH, false>(sm, rows, nkv, scale);
+    score_tile<T, DH, false>(sm, rows, nkv, causal ? row0 - kv0 : kNoDiag, scale);
     __syncthreads();
     for (int r = 0; r < rows; ++r) {
       const float qv = sm.qs[r * DH + c];
       const float gv = sm.gs[r * DH + c];
+      if constexpr (KPT % 4 == 0) {
 #pragma unroll
-      for (int e = 0; e < KPT; e += 4) {
-        const float4 d = *reinterpret_cast<const float4*>(sm.dss + r * kBwdKV + jg + e);
-        const float4 p = *reinterpret_cast<const float4*>(sm.ps + r * kBwdKV + jg + e);
-        acc_k[e] = fmaf(d.x, qv, acc_k[e]);
-        acc_k[e + 1] = fmaf(d.y, qv, acc_k[e + 1]);
-        acc_k[e + 2] = fmaf(d.z, qv, acc_k[e + 2]);
-        acc_k[e + 3] = fmaf(d.w, qv, acc_k[e + 3]);
-        acc_v[e] = fmaf(p.x, gv, acc_v[e]);
-        acc_v[e + 1] = fmaf(p.y, gv, acc_v[e + 1]);
-        acc_v[e + 2] = fmaf(p.z, gv, acc_v[e + 2]);
-        acc_v[e + 3] = fmaf(p.w, gv, acc_v[e + 3]);
+        for (int e = 0; e < KPT; e += 4) {
+          const float4 d = *reinterpret_cast<const float4*>(sm.dss + r * kBwdKV + jg + e);
+          const float4 p = *reinterpret_cast<const float4*>(sm.ps + r * kBwdKV + jg + e);
+          acc_k[e] = fmaf(d.x, qv, acc_k[e]);
+          acc_k[e + 1] = fmaf(d.y, qv, acc_k[e + 1]);
+          acc_k[e + 2] = fmaf(d.z, qv, acc_k[e + 2]);
+          acc_k[e + 3] = fmaf(d.w, qv, acc_k[e + 3]);
+          acc_v[e] = fmaf(p.x, gv, acc_v[e]);
+          acc_v[e + 1] = fmaf(p.y, gv, acc_v[e + 1]);
+          acc_v[e + 2] = fmaf(p.z, gv, acc_v[e + 2]);
+          acc_v[e + 3] = fmaf(p.w, gv, acc_v[e + 3]);
+        }
+      } else {  // head dim 8: two keys a thread
+#pragma unroll
+        for (int e = 0; e < KPT; ++e) {
+          acc_k[e] = fmaf(sm.dss[r * kBwdKV + jg + e], qv, acc_k[e]);
+          acc_v[e] = fmaf(sm.ps[r * kBwdKV + jg + e], gv, acc_v[e]);
+        }
       }
     }
   }
@@ -383,25 +409,25 @@ blocked_dkv_kernel(Strided q, Strided k, Strided v, Strided g, Strided dk, Strid
 
 template <typename T, int DH>
 cudaError_t launch_dq(const Strided* t, float* m, float* l, float* delta, int recompute, int B,
-                      int H, int L, float scale, cudaStream_t stream) {
+                      int H, int L, int causal, float scale, cudaStream_t stream) {
   static bool attribute_set = false;
   cudaError_t err = allow_optin_smem(blocked_dq_kernel<T, DH>, &attribute_set);
   if (err != cudaSuccess) return err;
   dim3 grid(B, H, (L + kRowsPerBlock - 1) / kRowsPerBlock);
   blocked_dq_kernel<T, DH><<<grid, kThreads, smem_bytes<T>(DH), stream>>>(
-      t[0], t[1], t[2], t[3], t[4], m, l, delta, recompute, L, H, scale);
+      t[0], t[1], t[2], t[3], t[4], m, l, delta, recompute, L, H, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch_dkv(const Strided* t, const float* m, const float* l, const float* delta, int B,
-                       int H, int L, float scale, cudaStream_t stream) {
+                       int H, int L, int causal, float scale, cudaStream_t stream) {
   static bool attribute_set = false;
   cudaError_t err = allow_optin_smem(blocked_dkv_kernel<T, DH>, &attribute_set);
   if (err != cudaSuccess) return err;
   dim3 grid(B, H, (L + kBwdKV - 1) / kBwdKV);
   blocked_dkv_kernel<T, DH><<<grid, kThreads, smem_bytes<T>(DH), stream>>>(
-      t[0], t[1], t[2], t[3], t[4], t[5], m, l, delta, L, H, scale);
+      t[0], t[1], t[2], t[3], t[4], t[5], m, l, delta, L, H, causal, scale);
   return cudaGetLastError();
 }
 
@@ -425,9 +451,10 @@ size_t acl_blocked_bwd_smem_bytes(int dh, int dtype) {
 // head, row) element strides in ``strides`` (last stride 1). m, l, delta:
 // contiguous (B, H, L) fp32. recompute = 0: they are read, and l may be null
 // (then 1: m is a log-sum-exp); recompute = 1: they are written, for the dkv pass.
+// dh: 8, 16, 32 or 64.
 int acl_blocked_dq(int dtype, void* const* ptrs, const int64_t* strides, void* m, void* l,
-                   void* delta, int recompute, int B, int H, int L, int dh, float scale,
-                   void* stream) {
+                   void* delta, int recompute, int B, int H, int L, int dh, int causal,
+                   float scale, void* stream) {
   Strided t[5];
   gather(t, ptrs, strides, 5);
   float* mf = static_cast<float*>(m);
@@ -436,22 +463,26 @@ int acl_blocked_dq(int dtype, void* const* ptrs, const int64_t* strides, void* m
   if (recompute && lf == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
-  if (dtype == 0 && dh == 32)
-    return (int)launch_dq<float, 32>(t, mf, lf, df, recompute, B, H, L, scale, s);
-  if (dtype == 0 && dh == 64)
-    return (int)launch_dq<float, 64>(t, mf, lf, df, recompute, B, H, L, scale, s);
-  if (dtype == 1 && dh == 32)
-    return (int)launch_dq<BF, 32>(t, mf, lf, df, recompute, B, H, L, scale, s);
-  if (dtype == 1 && dh == 64)
-    return (int)launch_dq<BF, 64>(t, mf, lf, df, recompute, B, H, L, scale, s);
+#define ACL_DQ_CASE(CODE, T, DH)  \
+  if (dtype == CODE && dh == DH) \
+    return (int)launch_dq<T, DH>(t, mf, lf, df, recompute, B, H, L, causal, scale, s);
+  ACL_DQ_CASE(0, float, 8)
+  ACL_DQ_CASE(0, float, 16)
+  ACL_DQ_CASE(0, float, 32)
+  ACL_DQ_CASE(0, float, 64)
+  ACL_DQ_CASE(1, BF, 8)
+  ACL_DQ_CASE(1, BF, 16)
+  ACL_DQ_CASE(1, BF, 32)
+  ACL_DQ_CASE(1, BF, 64)
+#undef ACL_DQ_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 // The dk, dv pass. ptrs: q, k, v, g, dk, dv, as above; m, l (or null), delta are
 // read.
 int acl_blocked_dkv(int dtype, void* const* ptrs, const int64_t* strides, const void* m,
-                    const void* l, const void* delta, int B, int H, int L, int dh, float scale,
-                    void* stream) {
+                    const void* l, const void* delta, int B, int H, int L, int dh, int causal,
+                    float scale, void* stream) {
   Strided t[6];
   gather(t, ptrs, strides, 6);
   const float* mf = static_cast<const float*>(m);
@@ -459,10 +490,18 @@ int acl_blocked_dkv(int dtype, void* const* ptrs, const int64_t* strides, const 
   const float* df = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
-  if (dtype == 0 && dh == 32) return (int)launch_dkv<float, 32>(t, mf, lf, df, B, H, L, scale, s);
-  if (dtype == 0 && dh == 64) return (int)launch_dkv<float, 64>(t, mf, lf, df, B, H, L, scale, s);
-  if (dtype == 1 && dh == 32) return (int)launch_dkv<BF, 32>(t, mf, lf, df, B, H, L, scale, s);
-  if (dtype == 1 && dh == 64) return (int)launch_dkv<BF, 64>(t, mf, lf, df, B, H, L, scale, s);
+#define ACL_DKV_CASE(CODE, T, DH) \
+  if (dtype == CODE && dh == DH) \
+    return (int)launch_dkv<T, DH>(t, mf, lf, df, B, H, L, causal, scale, s);
+  ACL_DKV_CASE(0, float, 8)
+  ACL_DKV_CASE(0, float, 16)
+  ACL_DKV_CASE(0, float, 32)
+  ACL_DKV_CASE(0, float, 64)
+  ACL_DKV_CASE(1, BF, 8)
+  ACL_DKV_CASE(1, BF, 16)
+  ACL_DKV_CASE(1, BF, 32)
+  ACL_DKV_CASE(1, BF, 64)
+#undef ACL_DKV_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,8 +44,9 @@
 // block per SM at 125 KB each; at L=32 and L=16 it is thousands of small blocks.
 // Tensor cores, occupancy and splitting the text heads are later work; this
 // version is the simple one checked against the plain PyTorch formulation.
-// Shared memory grows as L^2: at dh=64 a head fits up to about L=117, so an
-// unfrozen ViT (L=197) is refused by the wrapper, not launched.
+// Shared memory grows as L^2: at dh=64 a head fits up to about L=117; a longer
+// one (an unfrozen ViT, L=197) goes to the KV-blocked pair of mha_blocked_bwd.cu,
+// causal or not, which the wrapper decides from the shape.
 
 #include "attention_common.cuh"
 
@@ -181,10 +182,15 @@ cudaError_t launch_typed(Operand q, Operand k, Operand v, Operand g, Output dq, 
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dh: 16, 32 or 64.
+// dtype: 0 = float32, 1 = bfloat16. dh: 8, 16, 32 or 64.
 cudaError_t launch(int dtype, Operand q, Operand k, Operand v, Operand g, Output dq, Output dk,
                    Output dv, int B, int L, int H, int dh, int causal, float scale,
                    cudaStream_t stream) {
+  if (dtype == 0 && dh == 8)
+    return launch_typed<float, 8>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale, stream);
+  if (dtype == 1 && dh == 8)
+    return launch_typed<__nv_bfloat16, 8>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale,
+                                          stream);
   if (dtype == 0 && dh == 16)
     return launch_typed<float, 16>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale, stream);
   if (dtype == 1 && dh == 16)

@@ -10,19 +10,28 @@
 //                  ViT-L/14@336px image tower in fp32 (N = 256 x 16, L=577, dh 64),
 //                  where fused_attention (attention.py:1121-1135) routes it: there
 //                  the whole-row kernel of mha.cu fits neither with fp32 nor, in
-//                  fp32, with operand-type staging.
+//                  fp32, with operand-type staging. With the causal mask it also
+//                  serves what that router sends to the XLA formulation (:1135):
+//                  a causal shape too long for the whole-row kernel.
 //
 // What it computes is what _flash_kernel computes, block by block: per KV block
 // of kBlockKV keys, m_new = max(m, rowmax(s)), alpha = exp(m - m_new), p =
 // exp(s - m_new) cast to the operand type before the P.V product (the sum takes
 // p unrounded), acc = acc * alpha + p.V, l = l * alpha + rowsum(p); one divide at
 // the end; lse = m + log(l). Keys past L are masked to -1e30 and the V rows past
-// L are zeroed, since 0 * garbage in the padding would still poison acc.
+// L are zeroed, since 0 * garbage in the padding would still poison acc. Under
+// the causal mask the keys above the diagonal are at -1e30 as well, and the KV
+// loop ends at the tile's last row: a KV block starts at a multiple of 128 and a
+// q tile at a multiple of 64, so in every block the loop visits each row of the
+// tile sees the block's first key, and no row meets a block it is masked out of
+// before it has a real maximum.
 //
 // Design: one block per (n, 64-query-row tile), 8 warps. The tile's q rows are
 // staged once as fp32; each KV block is staged in the operand type, K rows padded
 // by one 32-bit word; a warp owns query rows warp, warp + 8, ... and keeps each
-// row's running max, sum and fp32 accumulator in shared memory between KV blocks.
+// row's running max, sum and fp32 accumulator in shared memory between KV blocks;
+// in the P.V product lane t owns output columns t, t+32 (below head dim 32 the
+// upper lanes own none).
 // Shared memory is independent of L: at dh 64 about 101 KB in fp32 (two blocks
 // per SM) and 69 KB in bf16.
 //
@@ -41,7 +50,7 @@ constexpr int kBlockKV = 128;  // keys per KV block
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
-                 float* __restrict__ lse, int L, float scale) {
+                 float* __restrict__ lse, int L, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int KP = padded<T>(DH);
   T* ks = reinterpret_cast<T*>(smem);                   // kBlockKV x KP
@@ -72,8 +81,12 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
     ls[i] = 0.f;
   }
 
+  constexpr int COLS = (DH + 31) / 32;  // output columns a lane owns
+  // a constant where DH is a multiple of 32: every lane owns COLS columns
+  const bool owns = DH % 32 == 0 || lane < DH;
+  const int kv_end = causal ? min(L, row0 + rows) : L;  // the blocks past it are all masked
   float* prow = ps + warp * kBlockKV;
-  for (int kv0 = 0; kv0 < L; kv0 += kBlockKV) {
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlockKV) {
     const int nkv = min(kBlockKV, L - kv0);
     __syncthreads();  // every warp is done with the previous block
     for (int i = threadIdx.x; i < kBlockKV * DH; i += kThreads) {
@@ -92,7 +105,8 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
       float blk_max = kNegInf;
 #pragma unroll
       for (int j = lane; j < kBlockKV; j += 32) {
-        const float s = j < nkv ? dot_row<T, DH>(qr, ks + j * KP) * scale : kNegInf;
+        const bool live = j < nkv && !(causal && kv0 + j > row0 + r);
+        const float s = live ? dot_row<T, DH>(qr, ks + j * KP) * scale : kNegInf;
         prow[j] = s;
         blk_max = fmaxf(blk_max, s);
       }
@@ -111,17 +125,18 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
       psum = warp_sum(psum);
       __syncwarp();
 
-      float acc[DH / 32];
+      float acc[COLS];
 #pragma unroll
-      for (int t = 0; t < DH / 32; ++t) acc[t] = accs[r * DH + lane + 32 * t] * alpha;
+      for (int t = 0; t < COLS; ++t) acc[t] = owns ? accs[r * DH + lane + 32 * t] * alpha : 0.f;
       for (int j = 0; j < nkv; ++j) {
         const float p = prow[j];
 #pragma unroll
-        for (int t = 0; t < DH / 32; ++t)
-          acc[t] = fmaf(p, to_float(vs[j * DH + lane + 32 * t]), acc[t]);
+        for (int t = 0; t < COLS; ++t)
+          if (owns) acc[t] = fmaf(p, to_float(vs[j * DH + lane + 32 * t]), acc[t]);
       }
 #pragma unroll
-      for (int t = 0; t < DH / 32; ++t) accs[r * DH + lane + 32 * t] = acc[t];
+      for (int t = 0; t < COLS; ++t)
+        if (owns) accs[r * DH + lane + 32 * t] = acc[t];
       __syncwarp();  // all lanes have read ms[r] and prow before they change
       if (lane == 0) {
         ms[r] = m_new;
@@ -135,8 +150,9 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
   for (int r = warp; r < rows; r += kWarps) {
     const float denom = ls[r];
 #pragma unroll
-    for (int t = 0; t < DH / 32; ++t)
-      op[(int64_t)r * DH + lane + 32 * t] = from_float<T>(accs[r * DH + lane + 32 * t] / denom);
+    for (int t = 0; t < COLS; ++t)
+      if (owns)
+        op[(int64_t)r * DH + lane + 32 * t] = from_float<T>(accs[r * DH + lane + 32 * t] / denom);
     if (lse != nullptr && lane == 0) lse[(int64_t)n * L + row0 + r] = ms[r] + logf(denom);
   }
 }
@@ -150,13 +166,13 @@ size_t flash_smem_bytes(int dh) {
 
 template <typename T, int DH>
 cudaError_t launch_flash(Operand q, Operand k, Operand v, void* out, float* lse, int N, int L,
-                         float scale, cudaStream_t stream) {
+                         int causal, float scale, cudaStream_t stream) {
   static bool attribute_set = false;
   cudaError_t err = allow_optin_smem(flash_fwd_kernel<T, DH>, &attribute_set);
   if (err != cudaSuccess) return err;
   dim3 grid(N, (L + kRowsPerBlock - 1) / kRowsPerBlock);
   flash_fwd_kernel<T, DH><<<grid, kThreads, flash_smem_bytes<T>(DH), stream>>>(
-      q, k, v, static_cast<T*>(out), lse, L, scale);
+      q, k, v, static_cast<T*>(out), lse, L, causal, scale);
   return cudaGetLastError();
 }
 
@@ -171,21 +187,29 @@ size_t acl_flash_smem_bytes(int dh, int dtype) {
 }
 
 // K8. q, k, v: (N, L, dh) each with its own element strides (last stride 1);
-// out: contiguous (N, L, dh); lse: contiguous (N, L) fp32, or null.
+// out: contiguous (N, L, dh); lse: contiguous (N, L) fp32, or null. dh: 8, 16, 32
+// or 64.
 int acl_flash_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* k, int k_bs,
                   int k_rs, const void* v, int v_bs, int v_rs, void* out, void* lse, int N,
-                  int L, int dh, float scale, void* stream) {
+                  int L, int dh, int causal, float scale, void* stream) {
   Operand qo{q, q_bs, q_rs};
   Operand ko{k, k_bs, k_rs};
   Operand vo{v, v_bs, v_rs};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && dh == 32) return (int)launch_flash<float, 32>(qo, ko, vo, out, l, N, L, scale, s);
-  if (dtype == 0 && dh == 64) return (int)launch_flash<float, 64>(qo, ko, vo, out, l, N, L, scale, s);
-  if (dtype == 1 && dh == 32)
-    return (int)launch_flash<__nv_bfloat16, 32>(qo, ko, vo, out, l, N, L, scale, s);
-  if (dtype == 1 && dh == 64)
-    return (int)launch_flash<__nv_bfloat16, 64>(qo, ko, vo, out, l, N, L, scale, s);
+  using BF = __nv_bfloat16;
+#define ACL_FLASH_CASE(CODE, T, DH) \
+  if (dtype == CODE && dh == DH)    \
+    return (int)launch_flash<T, DH>(qo, ko, vo, out, l, N, L, causal, scale, s);
+  ACL_FLASH_CASE(0, float, 8)
+  ACL_FLASH_CASE(0, float, 16)
+  ACL_FLASH_CASE(0, float, 32)
+  ACL_FLASH_CASE(0, float, 64)
+  ACL_FLASH_CASE(1, BF, 8)
+  ACL_FLASH_CASE(1, BF, 16)
+  ACL_FLASH_CASE(1, BF, 32)
+  ACL_FLASH_CASE(1, BF, 64)
+#undef ACL_FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }
 

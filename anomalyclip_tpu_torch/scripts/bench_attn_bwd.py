@@ -148,7 +148,7 @@ def bench_whole_block(iters: int, dtype_name: str, device) -> None:
         b = b if on_card else min(b, 2)
         err = whole_block_parity(b, l, d, h, causal, device)
         assert err < PARITY_LIMIT, f"{label}: backward parity {err:.2e}"
-        route = A.attention_bwd_route(l, d // h, 4, causal, A.smem_limit(torch.device(device)))
+        route = A.attention_bwd_route(l, d // h, 4, A.smem_limit(torch.device(device)))
         print(f"{label:22s} (B={b:4d} L={l} D={d}): fp32 parity {err:.1e} ({route})", flush=True)
         if not on_card:
             continue

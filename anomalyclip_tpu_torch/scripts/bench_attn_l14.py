@@ -6,10 +6,14 @@
     python -m anomalyclip_tpu_torch.scripts.bench_attn_l14 --tower [--arch l14|l14@336]
 
 The counterpart of the JAX package's scripts/bench_attn_l14.py, variant names
-kept. On the card ``fused_mha_qtile`` (K6) runs one block per batch entry, head
-and 64-row q tile, 8 warps, K and V of the head resident in shared memory as
-bf16 (150 KB at L=577, so one block on an SM); 577 is prime, so the tenth q tile
-of a head holds one row and stages the whole head all the same. What the TPU's
+kept. On the card ``fused_mha_qtile`` (K6) launches, in bf16, the tensor-core
+kernel of ops/csrc/mha_tc.cu (K and V in 64-key blocks, shared memory
+independent of L). Every other variant is a tiling of the whole-row CUDA-core
+kernel that K6 launched before it and that fp32 still runs (ops/csrc/mha.cu):
+one block per batch entry, head and 64-row q tile, 8 warps, K and V of the head
+resident in shared memory as bf16 (150 KB at L=577, so one block on an SM); 577
+is prime, so the tenth q tile of a head holds one row and stages the whole head
+all the same. What the TPU's
 axes became: ``lq<N>`` is N query rows per block (64 where not given); ``gb<g>``,
 the batch group, is 4 g warps per block (g 1, 2 or 4; 8 warps where not given):
 on the TPU it sets how many query rows a program holds at a time, which here is

@@ -1,0 +1,143 @@
+"""Time the tensor-core kernel behind K1 and K6 at the CLIP towers' shapes.
+
+    python -m anomalyclip_tpu_torch.scripts.bench_mha_tc [only ...] [--iters N] [--sass]
+        [--device cpu]
+
+``fused_mha_qkv`` and ``fused_mha_qtile`` launch one kernel in bf16 at head dim
+64 (ops/csrc/mha_tc.cu). For each tower's per-layer shape, in bf16 on seeded
+normal inputs, a line gives max|diff| against the KV-blocked plain version
+(which must stay under 1.5e-2, twice the largest gap measured), the median time
+and the TFLOP/s it amounts to, beside ``scaled_dot_product_attention`` on the same views (a
+yardstick: the port never calls it) and the least the card could take (the
+larger of 4 L^2 dh operations a head over 989 TFLOP/s and the operands and the
+output once over 3.35 TB/s); before them, the bytes of shared memory a block
+takes and the blocks one SM holds. ``only``: substrings of the shape tags.
+
+``--sass`` adds the opcode mix of the kernel, read from
+``cuobjdump -sass`` of the built library: the opcodes of the whole kernel and of
+its KV loop (from the loop's barrier to its backward branch, the mask of a
+ragged block included), which is what the tensor-core operations (HMMA) have to
+be dispatched among.
+
+``--device cpu`` runs the entries' plain versions (the KV-blocked form) at batch
+2, holds them against the whole-row form, and prints no times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import torch
+
+from anomalyclip_tpu_torch.ops import attention as A
+from anomalyclip_tpu_torch.ops import build
+from anomalyclip_tpu_torch.scripts._bench_util import announce_device, median_ms
+
+# tag, B, L, D, heads, causal, the entry
+SHAPES = [
+    ("ViT-B/16 vision", 256, 197, 768, 12, False, "qkv"),
+    ("ViT-L/14 vision", 64, 257, 1024, 16, False, "qkv"),
+    ("ViT-B/32 vision", 512, 50, 768, 12, False, "qkv"),
+    ("text tower, causal", 256, 77, 512, 8, True, "qkv"),
+    ("ViT-L/14@336px vision", 256, 577, 1024, 16, False, "qtile"),
+    ("ViT-L/14@336px vision, batch 32", 32, 577, 1024, 16, False, "qtile"),
+]
+PARITY_LIMIT = 0.015  # the kernel against the KV-blocked plain version
+WHOLE_ROW_LIMIT = 0.05  # the KV-blocked plain version against the whole-row one, on the CPU
+PEAK_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12  # NVIDIA H100 SXM: dense bf16, HBM3
+
+
+def run(entry: str, x: torch.Tensor, d: int, heads: int, causal: bool) -> torch.Tensor:
+    """One call of the entry's kernel wrapper on the packed (B, L, 3D) x; K6 takes
+    q and k|v as its column slices, as the qtile rung over a packed projection."""
+    if entry == "qkv":
+        return A.mha_qkv_fwd_kernel(x, heads, causal)
+    return A.mha_qtile_fwd_kernel(x[..., :d], x[..., d:], heads)
+
+
+def plain(x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    """The KV-blocked plain version: for K6 the same function of the packed x."""
+    return A.mha_qkv_reference(x, heads, causal, A.MHA_TC_BLOCK_KV)
+
+
+def sdpa(x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    b, l, width = x.shape
+    q, k, v = x.view(b, l, 3, heads, width // (3 * heads)).permute(2, 0, 3, 1, 4)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+def sass_mix(kernel: str) -> tuple:
+    """(opcode counts of the whole kernel, of its main loop) for the function of
+    the built library whose mangled name contains ``kernel``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    body = next(f for f in text.split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
+    code = []  # (address, opcode, branch target or None)
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;", body):
+        target = re.search(r"\bBRA\b[^;]*\b0x([0-9a-f]+)", m.group(0))
+        code.append((int(m.group(1), 16), m.group(2), int(target.group(1), 16) if target else None))
+    barrier = next(a for a, op, _ in code if op == "BAR")
+    # the KV loop: the last backward branch over the barrier, back to its target
+    start, end = max(((t, a) for a, op, t in code if t is not None and t <= barrier < a),
+                     key=lambda loop: loop[1])
+    whole = collections.Counter(op for _, op, _ in code)
+    loop = collections.Counter(op for a, op, _ in code if start <= a <= end)
+    return whole, loop
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("only", nargs="*", help="substrings of the shape tags to run")
+    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--sass", action="store_true", help="the kernel's opcode mix (cuobjdump)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cpu: the plain versions at batch 2, no times")
+    args = ap.parse_args(argv)
+    on_card = announce_device("bench_mha_tc", args.device, "plain versions at batch 2; no times")
+    if on_card:
+        dh = A.MHA_TC_HEAD_DIM
+        print(f"head dim {dh}: {A.mha_tc_smem_bytes(dh)} B/block, "
+              f"{build.load_library().acl_mha_tc_blocks_per_sm(dh)} blocks/SM", flush=True)
+    for tag, b, l, d, heads, causal, entry in SHAPES:
+        if args.only and not any(s in tag for s in args.only):
+            continue
+        b = b if on_card else 2
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((b, l, 3 * d)).astype(np.float32))
+        x = x.to(device=args.device, dtype=torch.bfloat16)
+        if not on_card:
+            # the entry runs the KV-blocked plain version: held against the whole-row one
+            fused = (A.fused_mha_qkv(x, heads, causal) if entry == "qkv"
+                     else A.fused_mha_qtile(x[..., :d], x[..., d:], heads))
+            err = (fused.float() - A.mha_qkv_reference(x, heads, causal).float()).abs().max().item()
+            if not err < WHOLE_ROW_LIMIT:
+                raise AssertionError(f"{tag}: max|diff| {err} against the whole-row plain version")
+            print(f"{tag} (B={b}, L={l}, D={d}, H={heads}): max|diff|={err:.2e}", flush=True)
+            continue
+        want = plain(x, heads, causal).float()
+        dh = d // heads
+        flops = 4 * b * heads * l * l * dh * (0.5 if causal else 1.0)
+        bound_ms = max(flops / PEAK_FLOPS, 2 * 4 * b * l * d / PEAK_BYTES_PER_S) * 1e3
+        sdpa_ms = median_ms(lambda: sdpa(x, heads, causal), args.iters)
+        err = (run(entry, x, d, heads, causal).float() - want).abs().max().item()
+        if not err < PARITY_LIMIT:
+            raise AssertionError(f"{tag}: max|diff| {err} against the plain version")
+        ms = median_ms(lambda: run(entry, x, d, heads, causal), args.iters)
+        print(f"{tag} (B={b}, L={l}, D={d}, H={heads}): {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms"
+              f"  max|diff|={err:.2e}", flush=True)
+    if args.sass and on_card:
+        whole, loop = sass_mix(f"mha_tc_kernelILi{A.MHA_TC_HEAD_DIM}E")
+        for what, mix in (("kernel", whole), ("KV loop", loop)):
+            top = ", ".join(f"{op} {n}" for op, n in mix.most_common(12))
+            print(f"sass, {what}: {sum(mix.values())} operations: {top}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

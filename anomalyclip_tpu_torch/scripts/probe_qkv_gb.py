@@ -5,8 +5,10 @@
 
 The counterpart of the JAX package's scripts/probe_qkv_gb.py, which relaunches
 ``_mha_qkv_kernel`` at other batch groups ``gb`` under the default and a raised
-VMEM cap. On the card the kernel behind ``fused_mha_qkv`` (ops/csrc/mha.cu) runs
-64 query rows and 8 warps a block with K and V of the head staged as fp32; the
+VMEM cap. On the card the whole-row CUDA-core kernel behind ``fused_mha_qkv``
+(ops/csrc/mha.cu: fp32 and head dim 16 today; bf16 at head dim 64 went on to
+the tensor-core kernel of mha_tc.cu) runs 64 query rows and 8 warps a block
+with K and V of the head staged as fp32; the
 probe (``probe_mha_qkv``, ops/csrc/mha_probe.cu) frees those three. What the
 TPU's axes became: ``gb``, the rows a program holds at a time, is the warps per
 block; the VMEM cap is the dynamic shared memory a block may ask for, 49,152 B
@@ -38,7 +40,7 @@ SHAPES = {
 }
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 PARITY_LIMIT = {"fp32": 1e-5, "bf16": 5e-2}  # absolute
-# rows, warps, K and V staged as fp32 (K1's way): the first is the shipped tiling
+# rows, warps, K and V staged as fp32 (K1's way): the first is mha.cu's own tiling
 DEFAULT_CONFIGS = [(64, 8, True)] + [
     (rows, warps, True) for rows in (32, 64, 128) for warps in P.PROBE_WARPS if (rows, warps) != (64, 8)
 ] + [(64, 8, False)]
@@ -89,7 +91,7 @@ def main(argv=None) -> None:
     b, l, d, heads, causal = SHAPES[args.shape]
     b = b if on_card else 2
     dtype = DTYPES[args.dtype]
-    print(f"shape B={b} L={l} D={d} H={heads} causal={causal} dtype={args.dtype}; shipped: rows=64 "
+    print(f"shape B={b} L={l} D={d} H={heads} causal={causal} dtype={args.dtype}; mha.cu's own: rows=64 "
           f"warps=8 stage=fp32; parity limit {PARITY_LIMIT[args.dtype]:g} (printed, not asserted)",
           flush=True)
     gen = torch.Generator(device=args.device).manual_seed(0)

@@ -6,7 +6,9 @@
 The counterpart of the JAX package's scripts/probe_qtile_vmem.py, which
 relaunches ``_mha_qtile_kernel`` at batch groups ``gb`` x q-tile lengths ``lq``
 under a raised VMEM cap at the ViT-L/14@336px per-layer shape (32, 577, 1024),
-16 heads, bf16. On the card ``fused_mha_qtile``'s kernel runs 64 query rows and
+16 heads, bf16. On the card the whole-row CUDA-core kernel behind
+``fused_mha_qtile`` (ops/csrc/mha.cu: fp32 and head dim 16 today; bf16 at head
+dim 64 went on to the tensor-core kernel of mha_tc.cu) runs 64 query rows and
 8 warps a block, K and V of the head resident as bf16; 577 is prime, so its
 tenth q tile holds one row and still stages the whole head. The probe
 (``probe_mha_qtile``) sweeps ``lq`` as the rows per block (73 and 145 cut 577
@@ -50,7 +52,7 @@ def main(argv=None) -> None:
     on_card = announce_device("probe_qtile_vmem", args.device, "the plain version at batch 2; no times")
     q, kv = inputs(B if on_card else 2, L, args.device)
     want = A.mha_qtile_reference(q, kv, H).float()
-    print(f"shape B={q.shape[0]} L={L} D={D} H={H} bf16; shipped: rows=64 warps=8", flush=True)
+    print(f"shape B={q.shape[0]} L={L} D={D} H={H} bf16; mha.cu's own: rows=64 warps=8", flush=True)
     configs = [tuple(int(x) for x in c.split(",")) for c in args.configs] or DEFAULT_CONFIGS
     for rows, warps in configs:
         tag = f"rows={rows} warps={warps}"

@@ -6,14 +6,23 @@ Phases, each ending in torch.cuda.synchronize(); any failure raises and the
 script exits non-zero without printing a result:
 
 1. device: require CUDA and print the card's name and power limit;
-2. build: compile the CUDA kernels from the repository's sources, and hold the
+2. build: compile the CUDA kernels from the repository's sources, hold the
    library's shared-memory sizes against the Python formulas the dispatch
-   ladder uses;
+   ladder uses, and print how many blocks of the tensor-core kernel one SM
+   holds (four blocks of four warps are what its design counts on);
 3. kernels: each forward kernel against its plain PyTorch version at the main
    paths' shapes (K1 and K2 at the ViT-B/16 and ViT-L/14 shapes; K6, K8 with
    its log-sum-exp, and K5's flash branch at the ViT-L/14@336px tower's
-   shapes; K5's whole-block kernel at ViT-B/16's heads, causal and not), fp32
-   within 1e-5 and bf16 within 5e-2 (absolute), with median times;
+   shapes; K5's whole-block kernel at ViT-B/16's heads, causal and not; K8
+   with the causal mask and at head dims 8 and 16), fp32 within 1e-5 and bf16
+   within 5e-2 (absolute), with median times. In bf16 at head dim 64 K1 and
+   K6 launch the tensor-core kernel (ops/csrc/mha_tc.cu), held within 1.5e-2
+   (twice the largest gap measured) of the KV-blocked plain version that
+   rounds where it rounds: at (256, 197, 2304) 12 heads, the causal
+   (14, 77, 1536) 8 heads and (14, 77, 2304) 12 heads, (64, 257, 3072) 16
+   heads, q (256, 577, 1024) with kv (256, 577, 2048) 16 heads, and at L = 1,
+   63, 64, 65, 129 at batch 3, causal and not; the launches that took it are
+   counted exactly;
 3b. backward kernels: K3 and K4 against their plain backwards at the training
    step's shapes, fp32 within 1e-5 and bf16 within 5e-2 of max|ref|, with
    median times;
@@ -22,10 +31,17 @@ script exits non-zero without printing a result:
    (512, 577, 64) and at the ragged (8, 1100, 64), with the log-sum-exp and
    the output of K8; K3's entry at (32, 197, 2304), 12 heads, and
    ``fused_attention``'s backward at (32, 12, 197, 64), both past the
-   whole-head kernel's shared memory and so on the KV-blocked pair (the
-   causal case must raise: no kernel takes it); autograd through
+   whole-head kernel's shared memory and so on the KV-blocked pair, causal
+   and not; K9 and K10 with the mask and at head dim 16; autograd through
    ``fused_attention`` at (32, 16, 577, 64) against its plain path; and the
    parity checks of ``anomalyclip_tpu_torch.scripts.bench_attn_bwd``;
+3e. the shapes the reference computes by its XLA formulation, here on kernels:
+   the temporal model at head dim 8 (emb 32, 4 heads), ``fused_attention`` at
+   head dim 8, ``fused_mha_bld`` at head dim 16 and L=200 (its backward on
+   the KV-blocked pair), ``fused_attention`` causal at L=500 and head dim 64
+   (K8, K9 and K10 with the mask), and the causal backwards at L=197 (the
+   KV-blocked pair with the mask); forward and backward, the launches counted
+   exactly, each within 1e-5 of the same call with the plain versions chosen;
 3d. probe kernels (ops/csrc/mha_probe.cu), fp32 within 1e-5 and bf16 within 5e-2
    of max|ref|, with median times: the tile probe at the ViT-L/14@336px layer's
    shape (32, 577, 1024), 16 heads, on its three layouts and at K6's own and two
@@ -37,8 +53,10 @@ script exits non-zero without printing a result:
    three synthetic uint8 videos (about 200, 700 and 1600 frames) through
    ``Predictor.score_frames`` in fp32; the kernel launch counts of that run are
    checked; the 700-frame video is held against the same call with the plain
-   attention (fp32 within 1e-4, absolute), and a bf16 pass against its own
-   plain-attention pass (within BF16_SLICE_TOL, absolute);
+   attention (fp32 within 1e-4, absolute), and a bf16 pass, whose launch
+   counts are checked too, against its own plain-attention pass (within
+   BF16_SLICE_TOL, absolute). Here and in 4b-4e every K1 and K6 launch of a
+   bf16 run must have taken the tensor-core kernel and none of an fp32 run;
 4b. training: the UCF-Crime training step from features at full width in fp32
    (batch 64: 32 abnormal and 32 normal videos of 512 x 512-d features), three
    steps through ``fit_steps`` with one step per epoch, so that epoch 0 trains
@@ -68,8 +86,12 @@ script exits non-zero without printing a result:
    configurations; ``bench_attn_l14 --tower`` at full ViT-L/14@336px width and
    depth, batch 32, bf16 (24 K6 launches a forward under the fused kernels, none
    under identity and plain attention); ``validate_pickgb`` and
-   ``validate_qtile_config`` to their exit codes; ``bench_eval``,
-   ``bench_latency --path both`` and ``bench_train_step`` at their default sizes;
+   ``validate_qtile_config`` to their exit codes; ``bench_mha_tc --sass`` (the
+   tensor-core kernel at the towers' shapes, and its opcode mix);
+   ``probe_bf16_drift`` at one seed and 8 frames (the ViT-L/14@336px tower by
+   layer under the kernels and under three plain forms); ``bench_eval``,
+   ``bench_latency --path both`` and ``bench_train_step`` at their default
+   sizes;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one warm training step, one warm call of the ViT-L/14@336px video
@@ -91,7 +113,10 @@ for bf16 operands or 67 TFLOP/s for fp32, and the bytes (each input read and
 each output written once) over 3.35 TB/s. fused_attention's own kernel, the
 whole-block one, is on none of these paths (its shapes there take K1, K6 or,
 through its flash branch, K8), so its count is 0; its error and times are
-phase 3's. The six probe wrappers' numbers are phase 3d's at (32, 577, 1024) in
+phase 3's. ``mha_tc`` is the tensor-core kernel that K1 and K6 launch in bf16:
+its count is ``route_counts["mha_tc"]`` over the same runs, its numbers the sums
+over the bf16 scoring paths' four shapes (phase 3); ``fused_mha_qtile``'s
+numbers are that kernel's too, at its one path shape. The six probe wrappers' numbers are phase 3d's at (32, 577, 1024) in
 bf16 (``probe_mha_qkv``: its four shapes summed; ``probe_mha_whole``: L=400) and
 their counts phase 4e's; ``nosoftmax_mha`` computes no function the library has,
 so its ``library_ms`` is null.
@@ -124,13 +149,17 @@ KERNEL_SOURCE = {
     "fused_mha_bld": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
     "mha_qkv_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
     "mha_bld_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
-    "fused_mha_qtile": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
+    # on its path, the bf16 ViT-L/14@336px tower, the tensor-core kernel
+    "fused_mha_qtile": "anomalyclip_tpu_torch/ops/csrc/mha_tc.cu",
     "flash_attention_heads": "anomalyclip_tpu_torch/ops/csrc/mha_long.cu",
     # its whole-block kernel: acl_mha_bld_fwd with the heads folded
     "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
     "mha_qtile_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
     "flash_dq": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
     "flash_dkv": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
+    # the kernel K1 and K6 launch in bf16 at head dim 64, counted by
+    # route_counts["mha_tc"]
+    "mha_tc": "anomalyclip_tpu_torch/ops/csrc/mha_tc.cu",
 }
 PROBE_SOURCE = "anomalyclip_tpu_torch/ops/csrc/mha_probe.cu"
 # probe wrapper -> the pallas_call sites of the JAX package's scripts it replaces
@@ -154,8 +183,15 @@ REPLACES = {
     "mha_qtile_bwd": "anomalyclip_tpu/ops/pallas/attention.py:646",
     "flash_dq": "anomalyclip_tpu/ops/pallas/attention.py:904",
     "flash_dkv": "anomalyclip_tpu/ops/pallas/attention.py:943",
+    "mha_tc": "anomalyclip_tpu/ops/pallas/attention.py:423",
 }
+MHA_TC_ALSO_REPLACES = ["anomalyclip_tpu/ops/pallas/attention.py:525"]
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+# the tensor-core kernel against its KV-blocked plain version (absolute): twice
+# the largest gap measured over the towers' shapes, 7.8e-3. The outputs of randn
+# inputs at L=577 have a standard deviation near 7e-2, so the bf16 tolerance of
+# the older kernels would pass a dropped key there
+TC_TOLERANCE = 1.5e-2
 FP32_SLICE_TOL = 1e-4
 # the plain attention rounds as the kernel does, so the two bf16 passes differ
 # only by summation order (about 3.4e-2 after ViT-B/16's twelve bf16 layers,
@@ -183,6 +219,7 @@ TRAIN_STEPS = 3
 TRAIN_GRAD_TOL = 1e-4  # of each leaf's max |gradient|
 TRAIN_LOSS_RTOL = 5e-4
 TRAIN_BN_TOL = 1e-5
+CASE_CALLS = 32  # of a kernel in run_cases: one checked, one to warm, 30 timed
 SCRIPT_ITERS = 10  # timed calls per variant or shape in the scripts of phase 4e
 
 
@@ -223,6 +260,24 @@ def phase_build() -> None:
                         == A.blocked_bwd_smem_bytes(dh, itemsize),
                         f"blocked backward smem at {dh, itemsize}")
             checked += 1
+    for dh in (8, 16):  # the small head dims: every formula at the tiny models' lengths
+        for l in (4, 16, 200):
+            require(lib.acl_mha_smem_bytes(l, dh) == A.mha_smem_bytes(l, dh), f"mha smem at {l, dh}")
+            require(lib.acl_mha_bwd_smem_bytes(l, dh) == A.mha_bwd_smem_bytes(l, dh),
+                    f"mha_bwd smem at {l, dh}")
+        for code, itemsize in ((0, 4), (1, 2)):
+            require(lib.acl_flash_smem_bytes(dh, code) == A.flash_smem_bytes(dh, itemsize),
+                    f"flash smem at {dh, itemsize}")
+            require(lib.acl_blocked_bwd_smem_bytes(dh, code) == A.blocked_bwd_smem_bytes(dh, itemsize),
+                    f"blocked backward smem at {dh, itemsize}")
+        checked += 1
+    dh = A.MHA_TC_HEAD_DIM
+    require(lib.acl_mha_tc_smem_bytes(dh) == A.mha_tc_smem_bytes(dh), "tensor-core kernel smem")
+    blocks = lib.acl_mha_tc_blocks_per_sm(dh)
+    require(blocks >= 4, f"tensor-core kernel: {blocks} blocks an SM")
+    print(f"[build] tensor-core kernel, head dim {dh}: {A.mha_tc_smem_bytes(dh)} B a block, "
+          f"{blocks} blocks of 4 warps an SM")
+    checked += 1
     from anomalyclip_tpu_torch.ops import attention_probes as P
 
     for l, rows, parts in ((577, 64, 2), (577, 120, 4), (400, 128, 1), (77, 32, 3)):
@@ -302,6 +357,7 @@ class Case:
     path: tuple = FP32  # the dtypes whose numbers go into the kernels line
     relative: bool = False  # the tolerance is of max|ref| (the backwards) or absolute
     library: bool = True  # the library has a call for the same function
+    tensor_cores: bool = False  # in bf16 the tensor-core kernel runs: held to TC_TOLERANCE
 
 
 def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
@@ -323,7 +379,8 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
             got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
             scale = max(b.float().abs().max().item() for b in want) if case.relative else 1.0
-            tol = TOLERANCE[dtype] * scale
+            tight = case.tensor_cores and dtype == torch.bfloat16
+            tol = (TC_TOLERANCE if tight else TOLERANCE[dtype]) * scale
             for a, b in zip(got, want):
                 torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
             del got, want
@@ -372,6 +429,7 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
 def phase_kernels(report: dict) -> None:
     """Each forward kernel against its plain version at the shapes and in the
     dtype its path runs."""
+    from anomalyclip_tpu_torch.ops import attention as A
     from anomalyclip_tpu_torch.ops.attention import (
         flash_attention_heads,
         flash_attention_reference,
@@ -383,7 +441,19 @@ def phase_kernels(report: dict) -> None:
         mha_bld_reference,
         mha_qkv_reference,
         mha_qtile_reference,
+        reference_block,
+        reset_launch_counts,
+        route_counts,
     )
+
+    # K1 and K6 against the plain version that rounds like the kernel the
+    # operand type takes: whole rows in fp32 (mha.cu), KV blocks in bf16 at head
+    # dim 64 (mha_tc.cu)
+    def qkv_plain(t, h, causal):
+        return mha_qkv_reference(t, h, causal, reference_block(t.dtype, t.shape[-1] // 3 // h))
+
+    def qtile_plain(t, d, h):
+        return mha_qtile_reference(t[..., :d], t[..., d:], h, reference_block(t.dtype, d // h))
 
     cases = []
     for b, l, d, h, causal in ((256, 197, 768, 12, False), (14, 77, 512, 8, True),
@@ -391,8 +461,45 @@ def phase_kernels(report: dict) -> None:
         cases.append(Case(
             "fused_mha_qkv", (b, l, 3 * d), (b, l, 3 * d),
             lambda t, h=h, c=causal: fused_mha_qkv(t, h, c),
-            lambda t, h=h, c=causal: mha_qkv_reference(t, h, c),
-            lambda t, h=h: packed_heads(t, 3, h), causal=causal,
+            lambda t, h=h, c=causal: qkv_plain(t, h, c),
+            lambda t, h=h: packed_heads(t, 3, h), causal=causal, tensor_cores=True,
+        ))
+    # the tensor-core kernel in bf16 through both entries: the image towers
+    # (ViT-B/16, ViT-L/14), the causal text towers, the ViT-L/14@336px tower's q
+    # and k|v; its own line of the kernels list sums the four shapes of the
+    # scoring paths (ViT-L/14 at 224 px is printed only); then the ragged edges
+    # at a small batch, causal and not
+    for b, l, d, h, causal, path in (
+        (256, 197, 768, 12, False, BF16), (14, 77, 512, 8, True, BF16),
+        (14, 77, 768, 12, True, BF16), (64, 257, 1024, 16, False, ()),
+    ):
+        cases.append(Case(
+            "mha_tc", (b, l, 3 * d), (b, l, 3 * d),
+            lambda t, h=h, c=causal: fused_mha_qkv(t, h, c),
+            lambda t, h=h, c=causal: qkv_plain(t, h, c),
+            lambda t, h=h: packed_heads(t, 3, h), causal=causal, dtypes=BF16, path=path,
+            tensor_cores=True,
+        ))
+    cases.append(Case(
+        "mha_tc", (256, 577, 1024), (256, 577, 3 * 1024),
+        lambda t: fused_mha_qtile(t[..., :1024], t[..., 1024:], 16),
+        lambda t: qtile_plain(t, 1024, 16),
+        lambda t: packed_heads(t, 3, 16), dtypes=BF16, path=BF16, tensor_cores=True,
+    ))
+    for l in (1, 63, 64, 65, 129):
+        for causal in (False, True):
+            cases.append(Case(
+                "mha_tc ragged", (3, l, 3 * 128), (3, l, 3 * 128),
+                lambda t, c=causal: A.mha_qkv_fwd_kernel(t, 2, c),
+                lambda t, c=causal: qkv_plain(t, 2, c),
+                lambda t: packed_heads(t, 3, 2), causal=causal, dtypes=BF16, path=(),
+                tensor_cores=True,
+            ))
+        cases.append(Case(
+            "mha_tc ragged", (3, l, 128), (3, l, 3 * 128),
+            lambda t: A.mha_qtile_fwd_kernel(t[..., :128], t[..., 128:], 2),
+            lambda t: qtile_plain(t, 128, 2),
+            lambda t: packed_heads(t, 3, 2), dtypes=BF16, path=(), tensor_cores=True,
         ))
     for b, l, d, h in ((64, 32, 256, 8), (128, 16, 256, 8)):
         cases.append(Case(  # q | k v
@@ -407,8 +514,8 @@ def phase_kernels(report: dict) -> None:
         cases.append(Case(
             "fused_mha_qtile", (b, l, 1024), (b, l, 3 * 1024),
             lambda t: fused_mha_qtile(t[..., :1024], t[..., 1024:], 16),
-            lambda t: mha_qtile_reference(t[..., :1024], t[..., 1024:], 16),
-            lambda t: packed_heads(t, 3, 16), dtypes=dtypes, path=path,
+            lambda t: qtile_plain(t, 1024, 16),
+            lambda t: packed_heads(t, 3, 16), dtypes=dtypes, path=path, tensor_cores=True,
         ))
     # K8 at the shape fused_attention hands it in the fp32 tower, with the lse
     cases.append(Case(
@@ -417,6 +524,15 @@ def phase_kernels(report: dict) -> None:
         lambda t: flash_attention_reference(t[0], t[1], t[2], save_lse=True),
         lambda t: tuple(t[:, :, None]), stats=1,
     ))
+    # K8 with the causal mask, ragged on both axes, and at the small head dims
+    # (on no path of the supported models: printed, not in the kernels line)
+    for n, l, dh, causal in ((512, 500, 64, True), (64, 333, 16, False), (64, 333, 8, True)):
+        cases.append(Case(
+            f"flash_attention_heads at dh {dh}", (n, l, dh), (3, n, l, dh),
+            lambda t, c=causal: flash_attention_heads(t[0], t[1], t[2], save_lse=True, causal=c),
+            lambda t, c=causal: flash_attention_reference(t[0], t[1], t[2], save_lse=True, causal=c),
+            lambda t: tuple(t[:, :, None]), causal=causal, stats=1, path=(),
+        ))
     # K5: its whole-block kernel at ViT-B/16 heads, causal and not (on no path:
     # the kernels line reports these, in fp32), and its flash branch at the fp32
     # tower's split heads (strided views of one qkv), which launches K8
@@ -442,8 +558,17 @@ def phase_kernels(report: dict) -> None:
         lambda t: packed_heads(t, 3, 8), path=(),
     ))
     scratch = {}
+    reset_launch_counts()
     run_cases("kernels", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED))
     report.update({k: v for k, v in scratch.items() if k in KERNEL_SOURCE})
+    # every bf16 case of K1 and K6 above is at head dim 64: each of their launches
+    # took the tensor-core kernel, and no fp32 one did
+    bf16_cases = sum(c.name.startswith(("mha_tc", "fused_mha_q")) and torch.bfloat16 in c.dtypes
+                     for c in cases)
+    require(route_counts["mha_tc"] == CASE_CALLS * bf16_cases,
+            f"tensor-core launches {route_counts} over {bf16_cases} bf16 cases of K1 and K6")
+    print(f"[kernels] {route_counts['mha_tc']} launches of the tensor-core kernel over "
+          f"{bf16_cases} bf16 cases of K1 and K6; none in fp32")
 
 
 def phase_bwd_kernels(report: dict) -> None:
@@ -496,34 +621,41 @@ def phase_long_bwd_kernels(report: dict) -> None:
     # K9 and K10 with the log-sum-exp and the output of K8, at the fp32 tower's
     # per-head shape (its path) and ragged on both axes: t = q, k, v, g, then
     # lse and delta
-    def with_stats(t):
-        out, lse = A.flash_attention_heads(t[0], t[1], t[2], save_lse=True)
+    def with_stats(t, causal=False):
+        out, lse = A.flash_attention_heads(t[0], t[1], t[2], save_lse=True, causal=causal)
         return [*t, lse, A.flash_delta(t[3], out)]
 
-    for shape, path in (((512, 577, 64), FP32), ((8, 1100, 64), ())):
+    # the path's shape, a ragged one, and (on no path: printed only) the mask and
+    # head dim 16
+    for shape, causal, path in (((512, 577, 64), False, FP32), ((8, 1100, 64), False, ()),
+                                ((64, 500, 64), True, ()), ((64, 333, 16), True, ())):
         for name, kernel, plain, kind, wrt in (
             ("flash_dq", A.flash_dq_kernel, A.flash_dq_reference, "dq", (0,)),
             ("flash_dkv", A.flash_dkv_kernel, A.flash_dkv_reference, "dkv", (1, 2)),
         ):
             cases.append(Case(
-                name, shape, [shape] * 4, lambda t, f=kernel: f(*t), lambda t, f=plain: f(*t),
-                lambda t: tuple(u[:, None] for u in t[:4]), prepare=with_stats,
-                kind=kind, stats=2, wrt=wrt, path=path, relative=True,
+                name, shape, [shape] * 4,
+                lambda t, f=kernel, c=causal: f(*t, c), lambda t, f=plain, c=causal: f(*t, c),
+                lambda t: tuple(u[:, None] for u in t[:4]),
+                prepare=lambda t, c=causal: with_stats(t, c),
+                kind=kind, causal=causal, stats=2, wrt=wrt, path=path, relative=True,
             ))
     # the whole-block backward entries past the whole-head kernel's shared
     # memory, on no path of the supported model (printed, not in the kernels
     # line): K3's entry at the ViT-B/16 tower's shape, K5's backward on views
-    route = A.attention_bwd_route(197, 64, 4, False, limit)
+    route = A.attention_bwd_route(197, 64, 4, limit)
     print(f"[long bwd] whole-block backward at L=197, dh 64: route {route!r} "
           f"(whole-head kernel {A.mha_bwd_smem_bytes(197, 64)} B, blocked pair "
           f"{A.blocked_bwd_smem_bytes(64, 4)} B, card {limit} B)")
     require(route == "blocked", f"route {route}")
-    cases.append(Case(
-        "mha_qkv_bwd at L=197", (32, 197, 3 * 768), [(32, 197, 3 * 768), (32, 197, 768)],
-        lambda t: A.mha_qkv_bwd_kernel(*t, 12, False), lambda t: A.mha_qkv_bwd_reference(*t, 12, False),
-        lambda t: (*packed_heads(t[0], 3, 12), *packed_heads(t[1], 1, 12)),
-        kind="bwd", path=(), relative=True,
-    ))
+    for causal in (False, True):
+        cases.append(Case(
+            "mha_qkv_bwd at L=197", (32, 197, 3 * 768), [(32, 197, 3 * 768), (32, 197, 768)],
+            lambda t, c=causal: A.mha_qkv_bwd_kernel(*t, 12, c),
+            lambda t, c=causal: A.mha_qkv_bwd_reference(*t, 12, c),
+            lambda t: (*packed_heads(t[0], 3, 12), *packed_heads(t[1], 1, 12)),
+            kind="bwd", causal=causal, path=(), relative=True,
+        ))
     cases.append(Case(
         "fused_attention backward", (32, 12, 197, 64), (32, 197, 4, 12, 64),
         lambda t: A.fused_attention_bwd_kernel(*t.permute(2, 0, 3, 1, 4), False),
@@ -533,17 +665,6 @@ def phase_long_bwd_kernels(report: dict) -> None:
     scratch = {}
     run_cases("long bwd", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED + 3))
     report.update({k: v for k, v in scratch.items() if k in KERNEL_SOURCE})
-
-    # a causal shape past the whole-head kernel: no kernel takes it, and the
-    # entry says so instead of launching
-    q = torch.randn(2, 12, 197, 64, device="cuda", requires_grad=True)
-    out = A.fused_attention(q, q, q, True)
-    try:
-        out.sum().backward()
-    except ValueError as exc:
-        print(f"[long bwd] fused_attention backward, causal (2, 12, 197, 64): raises: {exc}")
-    else:
-        raise AssertionError("a causal backward past the whole-head kernel did not raise")
 
     # autograd through fused_attention at the fp32 tower's split heads (K8, then
     # K9 and K10) against its plain path
@@ -576,7 +697,7 @@ def phase_long_bwd_kernels(report: dict) -> None:
         err = bench.whole_block_parity(b, l, d, h, causal, "cuda")
         require(err < bench.PARITY_LIMIT, f"{label}: backward parity {err:.2e}")
         print(f"[long bwd] parity, {label} (B={b} L={l} D={d}): {err:.1e} "
-              f"({A.attention_bwd_route(l, d // h, 4, causal, limit)})")
+              f"({A.attention_bwd_route(l, d // h, 4, limit)})")
     err = bench.qtile_parity(*bench.QTILE_SHAPE, "cuda")
     require(err < bench.PARITY_LIMIT, f"qtile backward parity {err:.2e}")
     print(f"[long bwd] parity, qtile {bench.QTILE_SHAPE}: {err:.1e}")
@@ -585,6 +706,86 @@ def phase_long_bwd_kernels(report: dict) -> None:
     print("[long bwd] parity, flash " + str(bench.FLASH_PARITY_SHAPE) + " vs float64: "
           + ", ".join(f"{n} {ours:.2e} (plain VJP {plain:.2e})" for n, (ours, plain) in flash.items()))
     torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def phase_small_and_causal() -> None:
+    """The shapes the reference computes by its XLA formulation (head dims its
+    kernels do not take, causal shapes past its whole-block kernel), here on
+    kernels in both directions: each against the same call under
+    ``attention_impl("reference")``, with its launches counted exactly."""
+    from anomalyclip_tpu_torch.models import temporal as T
+    from anomalyclip_tpu_torch.models.clip.model import attention_rung
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).requires_grad_(True)
+
+    def both_ways(tag, fn, leaves, launches):
+        """fn's value and gradients with the kernels chosen and with the plain
+        versions chosen; the first run's counts must be the given ones."""
+        def run():
+            out = fn()
+            return (out, *torch.autograd.grad((out.float() ** 2).sum(), leaves))
+
+        A.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        counts = dict(A.launch_counts)
+        with A.attention_impl("reference"):
+            want = run()
+        torch.cuda.synchronize()
+        require(counts == {k: launches.get(k, 0) for k in counts}, f"{tag}: launches {counts}")
+        require(dict(A.launch_counts) == counts, f"{tag}: the plain run launched a kernel")
+        require_routes(tag, 0)
+        worst = 0.0
+        for ours, theirs in zip(got, want):
+            top = theirs.abs().max().item()
+            require(bool(torch.isfinite(ours).all()) and top > 0, f"{tag}: not finite or all zero")
+            worst = max(worst, (ours - theirs).abs().max().item() / top)
+        require(worst <= TOLERANCE[torch.float32], f"{tag}: {worst:.3e} from the plain version")
+        print(f"[small and causal] {tag}: launches {({k: v for k, v in counts.items() if v})}; "
+              f"value and gradients within {worst:.3e} of the plain version's max "
+              f"(tol {TOLERANCE[torch.float32]:g})")
+
+    # head dim 8: the tiny temporal model (emb 32, 4 heads), forward and backward
+    cfg = T.TemporalConfig(input_size=32, emb_size=32, depth=1, heads=4, dim_heads=8,
+                           num_segments=4, seg_length=4)
+    params = T.init_temporal_params(torch.Generator().manual_seed(SEED), cfg)
+    from anomalyclip_tpu_torch.convert import tree_leaves, tree_to
+
+    params = tree_to(params, "cuda")
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    features = randn(3 * 16, 32)
+    both_ways("temporal model at head dim 8", lambda: T.temporal_scores(features, params, cfg),
+              [features, *leaves], {"fused_mha_bld": 2 * cfg.depth, "mha_bld_bwd": 2 * cfg.depth})
+    q8 = randn(3, 2, 40, 8)
+    both_ways("fused_attention at head dim 8", lambda: A.fused_attention(q8, q8, q8), [q8],
+              {"fused_attention": 2})
+    # head dim 16 past the whole-head backward kernel: K2 forward, the KV-blocked pair
+    x16 = randn(2, 200, 3 * 32)
+    require(A.attention_bwd_route(200, 16, 4, A.smem_limit(torch.device("cuda"))) == "blocked",
+            "backward route at head dim 16, L=200")
+    both_ways("fused_mha_bld at head dim 16, L=200",
+              lambda: A.fused_mha_bld(x16[..., :32], x16[..., 32:64], x16[..., 64:], 2),
+              [x16], {"fused_mha_bld": 1, "mha_bld_bwd": 1})
+    # causal, L=500 at head dim 64: past the whole-block kernel; the ladder sends
+    # it to the core rung, which goes on to the flash kernel with the mask
+    require(attention_rung(2, 500, 256, 4, 4, True, A.smem_limit(torch.device("cuda"))) == "core",
+            "rung of causal L=500")
+    q, k, v = randn(2, 4, 500, 64), randn(2, 4, 500, 64), randn(2, 4, 500, 64)
+    both_ways("fused_attention, causal L=500 at head dim 64",
+              lambda: A.fused_attention(q, k, v, True), [q, k, v],
+              {"flash_attention_heads": 1, "flash_dq": 1, "flash_dkv": 1})
+    # causal, L=197: the whole-row forward, the KV-blocked pair with the mask
+    qkv = randn(2, 197, 3 * 128)
+    both_ways("fused_mha_qkv, causal L=197", lambda: A.fused_mha_qkv(qkv, 2, True), [qkv],
+              {"fused_mha_qkv": 1, "mha_qkv_bwd": 1})
+    q197 = randn(2, 12, 197, 64)
+    both_ways("fused_attention, causal L=197", lambda: A.fused_attention(q197, q197, q197, True),
+              [q197], {"fused_attention": 2})
     torch.cuda.synchronize()
 
 
@@ -623,6 +824,17 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def require_routes(what: str, tensor_core: int) -> dict:
+    """The route counts of the run just made: ``tensor_core`` launches of K1 and
+    K6 took the tensor-core kernel (all of them in bf16 at head dim 64, none in
+    fp32) -> the counts."""
+    from anomalyclip_tpu_torch.ops.attention import route_counts
+
+    routes = dict(route_counts)
+    require(routes == {"mha_tc": tensor_core}, f"{what}: routes {routes}, expected {tensor_core}")
+    return routes
+
+
 def check_video(vs, result, t_raw: int, n_abn: int) -> None:
     require(vs.scores.shape == (t_raw,), f"scores shape {vs.scores.shape}")
     require(vs.similarity.shape == (t_raw, n_abn), f"similarity shape {vs.similarity.shape}")
@@ -644,7 +856,7 @@ def assert_videos_close(a, b, atol: float, what: str) -> float:
     return worst
 
 
-def phase_slice() -> dict:
+def phase_slice() -> tuple:
     from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
     from anomalyclip_tpu_torch.ops.attention import (
         attention_impl,
@@ -688,6 +900,7 @@ def phase_slice() -> dict:
     })
     print(f"[slice] launches {launches}, expected {expected} ({chunks} encode calls)")
     require(launches == expected, f"launches {launches}, expected {expected}")
+    launches.update(require_routes("fp32 scoring", 0))
 
     with attention_impl("reference"):
         ref_predictor = Predictor(model, frozen, trainable, bn_state, ncentroid, device="cuda")
@@ -699,11 +912,24 @@ def phase_slice() -> dict:
 
     cfg16 = dataclasses.replace(model.cfg, compute_dtype="bfloat16")
     model16 = AnomalyCLIP(cfg16, model.clip_cfg, model.classnames, model.prompt_spec)
+    # the bf16 path: counters from zero, predictor built, one video scored; every
+    # K1 launch, text and image tower, takes the tensor-core kernel
+    reset_launch_counts()
     pred16 = Predictor(model16, frozen, trainable, bn_state, ncentroid, device="cuda")
     start = time.perf_counter()
     vs16, res16 = pred16.score_frames(videos[CHECK_VIDEO])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
+    launches16 = dict(launch_counts)
+    chunks16 = -(-VIDEO_GRIDS[CHECK_VIDEO] * grid_frames // model.ENCODE_CHUNK)
+    expected16 = dict.fromkeys(launch_counts, 0)
+    expected16.update({
+        "fused_mha_qkv": clip_cfg.transformer_layers + clip_cfg.vision_layers * chunks16,
+        "fused_mha_bld": 2 * cfg.depth,
+    })
+    require(launches16 == expected16, f"bf16 launches {launches16}, expected {expected16}")
+    launches16.update(require_routes("bf16 scoring", expected16["fused_mha_qkv"]))
+    print(f"[slice] bf16 launches {launches16}")
     check_video(vs16, res16, CHECK_VIDEO, n_abn)
     print(f"[slice] bf16 video {CHECK_VIDEO} frames: {seconds:.3f} s, "
           f"{CHECK_VIDEO / seconds:.1f} frames/s")
@@ -719,7 +945,7 @@ def phase_slice() -> dict:
     print(f"[slice] bf16 {CHECK_VIDEO} frames, kernels vs plain attention: max|diff| {err16:.3e} "
           f"(limit {BF16_SLICE_TOL:g}); bf16 vs fp32 max|diff| {drift:.3e} (not asserted)")
     torch.cuda.synchronize()
-    return launches
+    return launches, launches16
 
 
 def make_train_batches(rng: np.random.Generator, dim: int) -> list:
@@ -817,6 +1043,7 @@ def phase_train() -> dict:
     expected = {k: TRAIN_STEPS * per_step.get(k, 0) for k in launch_counts}
     print(f"[train] launches {launches}, expected {expected}")
     require(launches == expected, f"launches {launches}, expected {expected}")
+    launches.update(require_routes("fp32 training", 0))
 
     require(all(np.isfinite(t).all() for t in run.terms), f"non-finite loss terms {run.terms}")
     require(run.moved[0] == 0.0, f"epoch 0 trains at lr 0, but the weights moved {run.moved[0]}")
@@ -910,6 +1137,8 @@ def phase_l14() -> dict:
               f"{seconds:.3f} s with the predictor's set-up, "
               f"{L14_VIDEO_FRAMES / seconds:.1f} frames/s; launches {launches[dtype]}")
         require(launches[dtype] == want, f"{dtype} launches {launches[dtype]}, expected {want}")
+        launches[dtype].update(require_routes(
+            f"ViT-L/14@336px {dtype} scoring", (text + vision) * (dtype == "bfloat16")))
 
         start = time.perf_counter()
         with attention_impl("reference"):
@@ -1011,6 +1240,8 @@ def phase_tower_gradient() -> dict:
         launches[name] = dict(launch_counts)
         want_counts = {k: expect(cfg.vision_layers).get(k, 0) for k in launch_counts}
         require(launches[name] == want_counts, f"{name} launches {launches[name]}, expected {want_counts}")
+        launches[name].update(require_routes(
+            f"{name} gradient", cfg.vision_layers * (dtype == torch.bfloat16)))
         torch.cuda.reset_peak_memory_stats()
         _, warm_s = timed(lambda: step(dtype))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1132,7 +1363,7 @@ def run_script(name: str, argv: list, expected: dict) -> dict:
     except SystemExit as exc:  # the validate scripts exit with their verdict
         require(exc.code in (0, None), f"{name} exited with {exc.code}")
     torch.cuda.synchronize()
-    counts = {**A.launch_counts, **P.launch_counts}
+    counts = {**A.launch_counts, **A.route_counts, **P.launch_counts}
     want = {k: expected.get(k, 0) for k in counts}
     print(f"[scripts] {name}: {time.perf_counter() - start:.1f} s, launches "
           f"{({k: v for k, v in counts.items() if v})}", flush=True)
@@ -1144,15 +1375,16 @@ def run_script(name: str, argv: list, expected: dict) -> dict:
 def phase_scripts() -> list:
     """The probe and measurement scripts on the card -> the launch counts of
     each run. A function a script checks and times is called once, once more
-    to warm and ``--iters`` times."""
+    to warm and ``--iters`` times. The scripts that run in bf16 launch the
+    tensor-core kernel for every K1 and K6 call ("mha_tc")."""
     n = SCRIPT_ITERS
     calls = n + 2
     it = ["--iters", str(n)]
     runs = []
     # the isolated variants at the ViT-L/14@336px layer's shape and its aligned
     # neighbour, then the two that need a length whose K and V fit otherwise
-    defaults = {"fused_mha_qtile": calls, "probe_mha_qtile": calls, "twopass_mha": calls,
-                "nosoftmax_mha": calls}
+    defaults = {"fused_mha_qtile": calls, "mha_tc": calls, "probe_mha_qtile": calls,
+                "twopass_mha": calls, "nosoftmax_mha": calls}
     runs.append(run_script("bench_attn_l14", ["--check", *it], defaults))
     runs.append(run_script("bench_attn_l14", ["--check", "--seq", "576", *it], defaults))
     runs.append(run_script("bench_attn_l14", ["--check", "--seq", "400", "--variants", "whole,pair", *it],
@@ -1164,12 +1396,24 @@ def phase_scripts() -> list:
     # the whole tower: --iters 15 gives 5 timed forwards after a checked and a
     # warm one; 24 layers each under the fused kernels, no launch under the
     # identity and the plain attention
-    runs.append(run_script("bench_attn_l14", ["--tower", "--iters", "15"], {"fused_mha_qtile": 24 * 7}))
+    runs.append(run_script("bench_attn_l14", ["--tower", "--iters", "15"],
+                           {"fused_mha_qtile": 24 * 7, "mha_tc": 24 * 7}))
     # K1 at its five shapes and K6 past its envelope (the refused call launches
     # nothing); K6 once and K8 three times in the checks, then both timed
-    runs.append(run_script("validate_pickgb", it, {"fused_mha_qkv": 5 * calls, "fused_mha_qtile": calls}))
+    runs.append(run_script("validate_pickgb", it, {"fused_mha_qkv": 5 * calls, "fused_mha_qtile": calls,
+                                                   "mha_tc": 6 * calls}))
     runs.append(run_script("validate_qtile_config", it,
-                           {"fused_mha_qtile": 1 + (n + 1), "flash_attention_heads": 3 + (n + 1)}))
+                           {"fused_mha_qtile": 1 + (n + 1), "mha_tc": 1 + (n + 1),
+                            "flash_attention_heads": 3 + (n + 1)}))
+    # the tensor-core kernel at the towers' six shapes (four through K1, two
+    # through K6), each checked, warmed and timed, with the kernel's opcode mix
+    # read from the built library
+    runs.append(run_script("bench_mha_tc", ["--sass", *it], {
+        "fused_mha_qkv": 4 * calls, "fused_mha_qtile": 2 * calls, "mha_tc": 6 * calls}))
+    # the ViT-L/14@336px tower by layer under the kernels and three plain forms:
+    # 24 K6 launches along the kernel run and 24 for its local gaps
+    runs.append(run_script("probe_bf16_drift", ["--seeds", "1", "--frames", "8"],
+                           {"fused_mha_qtile": 48, "mha_tc": 48}))
     # 12 text layers when the scorer is built; two axial attentions a scoring call
     runs.append(run_script("bench_eval", it, {"fused_mha_qkv": 12, "fused_mha_bld": 2 * calls}))
     # features: four sizes; frames: 512 and 1024 frames in encode calls of 256
@@ -1177,13 +1421,15 @@ def phase_scripts() -> list:
     frame_calls = 2 + max(4, n // 4)
     runs.append(run_script("bench_latency", ["--path", "both", *it], {
         "fused_mha_qkv": 12 + frame_calls * 12 * (2 + 4),
+        "mha_tc": 12 + frame_calls * 12 * (2 + 4),
         "fused_mha_bld": 2 * (4 * calls + 2 * frame_calls),
     }))
     # a first step and four timed ones: 2048 frames in 8 encode calls, the text
     # tower forward and backward, the temporal model's two axes each way
     steps = 5
     runs.append(run_script("bench_train_step", [], {
-        "fused_mha_qkv": steps * (8 * 12 + 12), "mha_qkv_bwd": steps * 12,
+        "fused_mha_qkv": steps * (8 * 12 + 12), "mha_tc": steps * (8 * 12 + 12),
+        "mha_qkv_bwd": steps * 12,
         "fused_mha_bld": steps * 2, "mha_bld_bwd": steps * 2,
     }))
     return runs
@@ -1191,6 +1437,8 @@ def phase_scripts() -> list:
 
 def kernel_class(name: str) -> str:
     low = name.lower()
+    if "mha_tc_kernel" in low:
+        return "attention (mha_tc.cu)"
     if "mha_fwd_kernel" in low:
         return "attention (mha.cu)"
     if "probe_kernel" in low or "parts_kernel" in low:
@@ -1345,8 +1593,9 @@ def main() -> int:
     phase_kernels(report)
     phase_bwd_kernels(report)
     phase_long_bwd_kernels(report)
+    phase_small_and_causal()
     phase_probe_kernels(report)
-    slice_launches = phase_slice()
+    slice_launches, slice16_launches = phase_slice()
     train_launches = phase_train()
     l14_launches = phase_l14()
     grad_launches = phase_tower_gradient()
@@ -1359,8 +1608,10 @@ def main() -> int:
     # backward in the tower's gradient
     require(all(slice_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld")),
             f"a kernel of the scoring path was never launched: {slice_launches}")
+    require(all(slice16_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tc")),
+            f"a kernel of the bf16 scoring path was never launched: {slice16_launches}")
     l14_paths = {"float32": ("fused_mha_qkv", "fused_mha_bld", "flash_attention_heads"),
-                 "bfloat16": ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile")}
+                 "bfloat16": ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile", "mha_tc")}
     for dtype, names in l14_paths.items():
         require(all(l14_launches[dtype][k] > 0 for k in names),
                 f"a kernel of the {dtype} ViT-L/14@336px path was never launched: "
@@ -1368,7 +1619,7 @@ def main() -> int:
     require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld",
                                                 "mha_qkv_bwd", "mha_bld_bwd")),
             f"a kernel of the training path was never launched: {train_launches}")
-    grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd"),
+    grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd", "mha_tc"),
                   "ViT-L/14@336px float32": ("flash_attention_heads", "flash_dq", "flash_dkv"),
                   "ViT-B/16 float32": ("fused_mha_qkv", "mha_qkv_bwd")}
     for run, names in grad_paths.items():
@@ -1377,10 +1628,10 @@ def main() -> int:
     # and the scripts' path ran every probe kernel and, again, K1-K4, K6 and K8
     script_totals = {k: sum(run[k] for run in script_launches) for k in script_launches[0]}
     script_path = (*PROBE_REPLACES, "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
-                   "fused_mha_qtile", "flash_attention_heads")
+                   "fused_mha_qtile", "flash_attention_heads", "mha_tc")
     require(all(script_totals[k] > 0 for k in script_path),
             f"a kernel of the scripts' path was never launched: {script_totals}")
-    all_runs = [slice_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
+    all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
                 *script_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
@@ -1390,7 +1641,8 @@ def main() -> int:
             "route": "cuda",
             "source": sources[name],
             "replaces": replaces[name],
-            "also_replaces": PROBE_REPLACES.get(name, [None])[1:],
+            "also_replaces": (MHA_TC_ALSO_REPLACES if name == "mha_tc"
+                              else PROBE_REPLACES.get(name, [None])[1:]),
             "launches": sum(run.get(name, 0) for run in all_runs),
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],

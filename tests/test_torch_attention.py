@@ -321,11 +321,15 @@ def test_bwd_kernels_reject_unsupported_shapes(cuda):
     qkv = torch.zeros(2, 10, 3 * 48, device=cuda)
     with pytest.raises(ValueError, match=r"\(2, 10, 144\)"):
         tattn.mha_qkv_bwd_kernel(qkv, torch.zeros(2, 10, 48, device=cuda), 1, False)
-    # a causal L=197 at dh 64 needs more shared memory than a block has, and the
-    # KV-blocked kernels that take the non-causal shape are non-causal
-    qkv = torch.zeros(2, 197, 3 * 768, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        tattn.mha_qkv_bwd_kernel(qkv, torch.zeros(2, 197, 768, device=cuda), 12, True)
-    q = torch.zeros(2, 200, 64, device=cuda)
-    with pytest.raises(ValueError, match=r"L=200, dh=64"):
-        tattn.mha_bld_bwd_kernel(q, q, q, q, 1, True)
+    # a causal L=197 at dh 64 needs more shared memory than the whole-head kernel
+    # has: the KV-blocked pair takes it with the mask
+    qkv = torch.randn(2, 197, 3 * 768, device=cuda)
+    g = torch.randn(2, 197, 768, device=cuda)
+    _bwd_close(tattn.mha_qkv_bwd_kernel(qkv, g, 12, True), tattn.mha_qkv_bwd_reference(qkv, g, 12, True),
+               FP32_TOL)
+    q = torch.randn(2, 200, 64, device=cuda)
+    for ours, theirs in zip(tattn.mha_bld_bwd_kernel(q, q, q, q, 1, True),
+                            tattn.mha_bld_bwd_reference(q, q, q, q, 1, True)):
+        _bwd_close(ours, theirs, FP32_TOL)
+    with pytest.raises(ValueError, match="float16"):
+        tattn.mha_bld_bwd_kernel(q.half(), q.half(), q.half(), q.half(), 1, True)

@@ -72,7 +72,9 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.scripts.bench_attn_l14",
         "anomalyclip_tpu_torch.scripts.bench_eval",
         "anomalyclip_tpu_torch.scripts.bench_latency",
+        "anomalyclip_tpu_torch.scripts.bench_mha_tc",
         "anomalyclip_tpu_torch.scripts.bench_train_step",
+        "anomalyclip_tpu_torch.scripts.probe_bf16_drift",
         "anomalyclip_tpu_torch.scripts.probe_qkv_gb",
         "anomalyclip_tpu_torch.scripts.probe_qtile_vmem",
         "anomalyclip_tpu_torch.scripts.validate_pickgb",

@@ -114,7 +114,7 @@ def test_flash_plain_rounds_per_kv_block(jax_side, monkeypatch):
         ((2, 4, 77, 64), True, "whole"),
         ((2, 4, 197, 64), False, "whole"),
         ((1, 2, 577, 64), False, "flash"),  # past the whole-block kernel's shared memory
-        ((1, 2, 577, 64), True, "plain"),  # causal past it: the plain version on the CPU
+        ((1, 2, 577, 64), True, "flash"),  # causal past it: the flash entry with the mask
     ],
 )
 def test_fused_attention_plain_matches_pallas(jax_side, monkeypatch, shape, causal, route, dtype_name):
@@ -432,8 +432,14 @@ def test_long_kernels_reject_what_they_do_not_take(cuda):
         tattn.fused_mha_qtile(q, torch.zeros(2, 577, 256, device=cuda), 2)
     with pytest.raises(ValueError, match=r"\(2, 10, 48\)"):
         tattn.flash_attention_heads(*torch.zeros(3, 2, 10, 48, device=cuda))
-    # no kernel takes a causal shape past the whole-block kernel
-    with pytest.raises(ValueError, match=r"causal shape \(1, 2, 577, 64\)"):
-        tattn.fused_attention(*torch.zeros(3, 1, 2, 577, 64, device=cuda), True)
+    # the whole-block kernel's wrapper refuses a causal shape past its shared
+    # memory; the entry, which chooses by shape before the call, launches the
+    # flash kernel with the mask
+    with pytest.raises(ValueError, match="shared memory"):
+        tattn.fused_attention_fwd_kernel(*torch.zeros(3, 1, 2, 577, 64, device=cuda), True)
+    tattn.reset_launch_counts()
+    assert tattn.fused_attention(*torch.zeros(3, 1, 2, 577, 64, device=cuda), True).shape == (1, 2, 577, 64)
+    assert tattn.launch_counts["flash_attention_heads"] == 1
     with tattn.attention_impl("reference"):
         assert tattn.fused_attention(*torch.zeros(3, 1, 2, 577, 64, device=cuda), True).shape == (1, 2, 577, 64)
+    assert sum(tattn.launch_counts.values()) == 1

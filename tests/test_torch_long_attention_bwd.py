@@ -213,26 +213,27 @@ def test_flash_lse_is_not_differentiated():
         (197, 64, 2, False, "blocked"),
         (577, 64, 4, False, "blocked"),  # the ViT-L/14@336px tower
         (2048, 32, 2, False, "blocked"),
+        (197, 64, 4, True, "blocked"),  # causal past the whole-head kernel: the pair masks
+        (200, 16, 4, False, "blocked"),  # the small head dims past it
+        (300, 8, 2, True, "blocked"),
     ],
 )
 def test_backward_route(l, dh, itemsize, causal, route):
-    assert tattn.attention_bwd_route(l, dh, itemsize, causal) == route
-    assert tattn.attention_bwd_route(l, dh, itemsize, causal, tattn.smem_limit(torch.device("cpu"))) == route
+    """The route follows the shared memory alone: both kernels take the mask."""
+    assert tattn.attention_bwd_route(l, dh, itemsize) == route
+    assert tattn.attention_bwd_route(l, dh, itemsize, tattn.smem_limit(torch.device("cpu"))) == route
 
 
 def test_backward_route_follows_the_shared_memory_limit():
     # K3 at the text shape needs 127,512 B; the blocked pair 99,584 B in fp32 at dh 64
     assert tattn.mha_bwd_smem_bytes(77, 64) == 127_512
     assert tattn.blocked_bwd_smem_bytes(64, 4) == 99_584 and tattn.blocked_bwd_smem_bytes(64, 2) == 83_200
-    assert tattn.attention_bwd_route(77, 64, 4, False, smem=120_000) == "blocked"
-    # a causal shape past the whole-head kernel: no kernel takes it
-    with pytest.raises(ValueError, match=r"causal shape \(L=197, dh=64\) needs 515352 B.*232448"):
-        tattn.attention_bwd_route(197, 64, 4, True)
-    with pytest.raises(ValueError, match="the card gives 120000"):
-        tattn.attention_bwd_route(77, 64, 4, True, smem=120_000)
-    # nor, on a card with too little shared memory, a non-causal one
-    with pytest.raises(ValueError, match="KV-blocked backward needs 99584 B"):
-        tattn.attention_bwd_route(197, 64, 4, False, smem=90_000)
+    assert tattn.attention_bwd_route(77, 64, 4, smem=120_000) == "blocked"
+    assert tattn.mha_bwd_smem_bytes(197, 64) == 515_352
+    # on a card with too little shared memory for either kernel there is no
+    # route, and the wrapper raises with what each needs
+    assert tattn.attention_bwd_route(197, 64, 4, smem=90_000) is None
+    assert tattn.attention_bwd_route(197, 64, 2, smem=90_000) == "blocked"
 
 
 # ---------------------------------------------------------------------------
@@ -268,33 +269,40 @@ class NumpyBlockedKernels:
         return np.ctypeslib.as_array(ctypes.cast(pointer, ctypes.POINTER(ctypes.c_float)), shape)
 
     @staticmethod
-    def _p_and_ds(q, k, v, g, m, l, delta, scale):
+    def _scores(q, k, causal, scale):
         s = np.einsum("bhqd,bhkd->bhqk", q, k) * scale
+        seq = q.shape[2]
+        return np.where(np.tril(np.ones((seq, seq), bool)), s, -1e30) if causal else s
+
+    @classmethod
+    def _p_and_ds(cls, q, k, v, g, m, l, delta, causal, scale):
+        s = cls._scores(q, k, causal, scale)
         p = np.exp(s - m[..., None]) / (1.0 if l is None else l[..., None])
         dp = np.einsum("bhqd,bhkd->bhqk", g, v)
         return p, p * (dp - delta[..., None]) * scale
 
-    def acl_blocked_dq(self, dtype, ptrs, strides, m, l, delta, recompute, b, h, seq, dh, scale, stream):
+    def acl_blocked_dq(self, dtype, ptrs, strides, m, l, delta, recompute, b, h, seq, dh, causal, scale,
+                       stream):
         assert dtype == 0
-        self.calls.append("dq")
+        self.calls.append("dq causal" if causal else "dq")
         q, k, v, g, dq = self._operands(ptrs, strides, 5, (b, h, seq, dh))
         m, l, delta = (self._stat(t, (b, h, seq)) for t in (m, l, delta))
         if recompute:
-            s = np.einsum("bhqd,bhkd->bhqk", q, k) * scale
+            s = self._scores(q, k, causal, scale)
             m[...] = s.max(axis=-1)
             e = np.exp(s - m[..., None])
             l[...] = e.sum(axis=-1)
             delta[...] = (e / l[..., None] * np.einsum("bhqd,bhkd->bhqk", g, v)).sum(axis=-1)
-        _, ds = self._p_and_ds(q, k, v, g, m, l, delta, scale)
+        _, ds = self._p_and_ds(q, k, v, g, m, l, delta, causal, scale)
         dq[...] = np.einsum("bhqk,bhkd->bhqd", ds, k)
         return 0
 
-    def acl_blocked_dkv(self, dtype, ptrs, strides, m, l, delta, b, h, seq, dh, scale, stream):
+    def acl_blocked_dkv(self, dtype, ptrs, strides, m, l, delta, b, h, seq, dh, causal, scale, stream):
         assert dtype == 0
-        self.calls.append("dkv")
+        self.calls.append("dkv causal" if causal else "dkv")
         q, k, v, g, dk, dv = self._operands(ptrs, strides, 6, (b, h, seq, dh))
         m, l, delta = (self._stat(t, (b, h, seq)) for t in (m, l, delta))
-        p, ds = self._p_and_ds(q, k, v, g, m, l, delta, scale)
+        p, ds = self._p_and_ds(q, k, v, g, m, l, delta, causal, scale)
         dk[...] = np.einsum("bhqk,bhqd->bhkd", ds, q)
         dv[...] = np.einsum("bhqk,bhqd->bhkd", p, g)
         return 0
@@ -308,7 +316,7 @@ def numpy_kernels(monkeypatch):
     monkeypatch.setattr(tattn, "load_library", lambda: fake)
     monkeypatch.setattr(tattn, "_stream", lambda t: None)
     monkeypatch.setattr(
-        tattn, "_check_kernel_shape", lambda name, t, d, h, smem, head_dims=None: d // h
+        tattn, "_check_kernel_shape", lambda name, t, d, h, smem: d // h
     )
     tattn.reset_launch_counts()
     return fake
@@ -350,8 +358,11 @@ def test_qkv_bwd_wrapper_takes_the_blocked_route(numpy_kernels):
     _all_close([got], [tattn.mha_qkv_bwd_reference(qkv, g, 2, False)])
     assert numpy_kernels.calls == ["dq", "dkv"]
     assert tattn.launch_counts == _counts(mha_qkv_bwd=1)
-    with pytest.raises(ValueError, match="KV-blocked backward is non-causal"):
-        tattn.mha_qkv_bwd_kernel(qkv, g, 2, True)
+    # the same route with the causal mask handed on to both passes
+    got = tattn.mha_qkv_bwd_kernel(qkv, g, 2, True)
+    _all_close([got], [tattn.mha_qkv_bwd_reference(qkv, g, 2, True)])
+    assert numpy_kernels.calls[2:] == ["dq causal", "dkv causal"]
+    assert tattn.launch_counts == _counts(mha_qkv_bwd=2)
 
 
 def test_bld_bwd_wrapper_takes_the_blocked_route(numpy_kernels):
@@ -388,6 +399,13 @@ def test_flash_bwd_wrapper_hands_over_the_saved_statistics(numpy_kernels):
     _all_close(got, tattn.flash_attention_bwd_reference(q, k, v, g, lse, out))
     assert numpy_kernels.calls == ["dq", "dkv"]
     assert tattn.launch_counts == _counts(flash_dq=1, flash_dkv=1)
+    # with the causal mask: the forward's statistics are the masked rows'
+    out, lse = tattn.flash_attention_reference(q, k, v, save_lse=True, causal=True)
+    got = tattn.flash_bwd_kernel(q, k, v, g, lse, out, True)
+    _all_close(got, tattn.flash_attention_bwd_reference(q, k, v, g, lse, out, True))
+    whole = tattn.attention_bwd_reference(*(t.unsqueeze(0) for t in (q, k, v, g)), True)
+    _all_close(got, [t.squeeze(0) for t in whole])
+    assert numpy_kernels.calls[2:] == ["dq causal", "dkv causal"]
 
 
 # ---------------------------------------------------------------------------
@@ -497,10 +515,21 @@ def test_autograd_through_the_long_entries_on_the_card(cuda):
 
 @pytest.mark.gpu
 def test_causal_backward_past_the_whole_head_kernel_raises_on_the_card(cuda):
-    qkv = torch.zeros(2, 197, 3 * 128, device=cuda)
-    with pytest.raises(ValueError, match="KV-blocked backward is non-causal"):
-        tattn.mha_qkv_bwd_kernel(qkv, torch.zeros(2, 197, 128, device=cuda), 2, True)
-    q = torch.randn(1, 2, 197, 64, device=cuda, requires_grad=True)
-    out = tattn.fused_attention(q, q, q, True)  # the forward fits
-    with pytest.raises(ValueError, match="causal shape"):
-        out.sum().backward()
+    """It raised while the KV-blocked pair had no mask; now both directions of a
+    causal shape past the whole-head kernel launch, and only what no kernel is
+    instantiated for raises."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(2, 197, 3 * 128, device=cuda, generator=gen)
+    g = torch.randn(2, 197, 128, device=cuda, generator=gen)
+    tattn.reset_launch_counts()
+    _gpu_close([tattn.mha_qkv_bwd_kernel(qkv, g, 2, True)],
+               [tattn.mha_qkv_bwd_reference(qkv, g, 2, True)], FP32_TOL)
+    q = torch.randn(1, 2, 197, 64, device=cuda, generator=gen).requires_grad_(True)
+    out = tattn.fused_attention(q, q, q, True)  # the forward fits the whole-block kernel
+    (got,) = torch.autograd.grad(out.sum(), q)
+    torch.cuda.synchronize()
+    assert tattn.launch_counts == _counts(mha_qkv_bwd=1, fused_attention=2)
+    want = sum(tattn.attention_bwd_reference(q, q, q, torch.ones_like(q), True))
+    _gpu_close([got], [want], FP32_TOL)
+    with pytest.raises(ValueError, match="head dim 128"):
+        tattn.mha_qkv_bwd_kernel(torch.zeros(2, 197, 3 * 128, device=cuda), g, 1, True)

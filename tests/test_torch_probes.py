@@ -534,6 +534,9 @@ _SCRIPTS = [
     ("validate_pickgb", []),
     ("validate_qtile_config", []),
     ("bench_attn_bwd", ["--qtile"]),
+    ("bench_mha_tc", []),
+    ("bench_mha_tc", ["text", "--sass"]),
+    ("probe_bf16_drift", ["--seeds", "1"]),
 ]
 
 
