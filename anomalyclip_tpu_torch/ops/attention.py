@@ -45,7 +45,12 @@ operands must be readable in 16-byte pieces, or the wrapper raises); otherwise
 the whole-row CUDA-core kernel of mha.cu, which also serves ``fused_mha_bld``
 and ``fused_attention``'s whole-block branch in either type (fp32 stays off the
 tensor cores: TF32 is off for checkpoint parity).
-``route_counts["mha_tc"]`` says which a run took. Their plain versions have the
+The KV-blocked backward pair is two kernels in the same way: in bf16 at head
+dim 64 every caller of it (K7, K9, K10, and K3, K4 and K5's backward past the
+whole-head kernel) launches the tensor-core pair of mha_tc_bwd.cu, with the same
+demand on its operands, and otherwise the CUDA-core pair of mha_blocked_bwd.cu.
+Both compute one function, so the plain backwards have one form.
+``route_counts`` says which kernels a run took. K1's and K6's plain versions have the
 two forms to match (``block=None``: whole rows; ``block``: KV-blocked), because
 in bf16 a plain version must round P where its kernel rounds it; the entries'
 reference branch runs the form of the kernel the operands would launch
@@ -102,10 +107,14 @@ launch_counts = {
     "mha_qtile_bwd": 0, "flash_dq": 0, "flash_dkv": 0,
 }
 
-# beside them, which kernel the launches of fused_mha_qkv and fused_mha_qtile
-# took since the last reset_launch_counts(): "mha_tc" counts those of the
-# tensor-core kernel (mha_tc.cu) rather than the CUDA-core one (mha.cu)
-route_counts = {"mha_tc": 0}
+# beside them, which kernels the launches took since the last
+# reset_launch_counts(): "mha_tc" counts the launches of fused_mha_qkv and
+# fused_mha_qtile that took the tensor-core kernel (mha_tc.cu) rather than the
+# CUDA-core one (mha.cu); "blocked_bwd_tc" the backward entries' launches (K7, K9,
+# K10, the KV-blocked route of K3, K4 and K5's backward) that took the
+# tensor-core pair (mha_tc_bwd.cu) rather than the CUDA-core one
+# (mha_blocked_bwd.cu), one for each count of ``launch_counts``
+route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0}
 
 IMPL_ENV = "ANOMALYCLIP_ATTN_IMPL"
 _IMPLS = ("kernel", "reference")
@@ -359,7 +368,8 @@ def flash_attention_bwd_reference(q, k, v, g, lse, out, causal: bool = False) ->
 
 # ---------------------------------------------------------------------------
 # Shared memory per block of each kernel, in bytes: the same formulas as the
-# kernels' own smem_bytes (mha.cu, mha_bwd.cu, mha_long.cu, mha_blocked_bwd.cu)
+# kernels' own smem_bytes (mha.cu, mha_bwd.cu, mha_long.cu, mha_blocked_bwd.cu,
+# mha_tc.cu, mha_tc_bwd.cu)
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -424,9 +434,24 @@ def mha_tc_smem_bytes(dh: int = MHA_TC_HEAD_DIM) -> int:
 
 def mha_tc_eligible(dtype: torch.dtype, dh: int) -> bool:
     """Whether K1 and K6 launch the tensor-core kernel for this operand type and
-    head dim, or the CUDA-core kernel of mha.cu. Also decides which plain
-    version rounds like the kernel: the KV-blocked one where this says yes."""
+    head dim, or the CUDA-core kernel of mha.cu, and whether the KV-blocked
+    backward is the tensor-core pair of mha_tc_bwd.cu or the CUDA-core pair of
+    mha_blocked_bwd.cu. For K1 and K6 it also decides which plain version rounds
+    like the kernel: the KV-blocked one where this says yes."""
     return dtype == torch.bfloat16 and dh == MHA_TC_HEAD_DIM
+
+
+BWD_TC_PASSES = {"dq": 0, "dkv": 1}  # the library's codes for the pair's two kernels
+
+
+def blocked_bwd_tc_smem_bytes(dh: int = MHA_TC_HEAD_DIM, kernel: str = "dkv") -> int:
+    """The tensor-core backward pair (mha_tc_bwd.cu), bf16 rows padded by 16
+    bytes: the dq kernel holds the q and g tiles and two stages of one KV block
+    each of K and V; the dkv kernel the K and V block, two stages of one q and
+    one g tile, and with each stage the tile's fp32 log-sum-exp and delta.
+    Independent of L."""
+    tiles = 2 * (dh + _MHA_TC_PAD) * (2 + 2 * _MHA_TC_STAGES) * BWD_BLOCK_KV
+    return tiles + (4 * 2 * _MHA_TC_STAGES * BWD_BLOCK_KV if BWD_TC_PASSES[kernel] else 0)
 
 
 def kernel_refusal(dtype: torch.dtype, d: int, num_heads: int, smem_need, smem: int):
@@ -558,17 +583,23 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _check_tc(name: str, out: torch.Tensor, num_heads: int, *operands: torch.Tensor) -> None:
-    """Raise on what the tensor-core kernel (mha_tc.cu) does not take: an operand
-    that cannot be read in 16-byte pieces (base address, batch and row strides),
-    a grid or a card too small for it."""
+def _check_16_byte_pieces(name: str, *operands: torch.Tensor) -> None:
+    """Raise on a bf16 operand a tensor-core kernel cannot read in 16-byte
+    pieces: its base address and every stride but the last."""
     for t in operands:
-        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
             raise ValueError(
                 f"{name}: the tensor-core kernel reads bf16 operands in 16-byte pieces; "
                 f"shape {tuple(t.shape)} with strides {tuple(t.stride())} at offset "
                 f"{t.storage_offset()} is not aligned to them"
             )
+
+
+def _check_tc(name: str, out: torch.Tensor, num_heads: int, *operands: torch.Tensor) -> None:
+    """Raise on what the tensor-core kernel (mha_tc.cu) does not take: an operand
+    that cannot be read in 16-byte pieces (base address, batch and row strides),
+    a grid or a card too small for it."""
+    _check_16_byte_pieces(name, *operands)
     b, l = out.shape[:2]
     if b * num_heads * -(-l // _MHA_TC_ROWS) > _INT_MAX:
         raise ValueError(f"{name}: shape {tuple(out.shape)} is beyond the launch grid")
@@ -641,7 +672,7 @@ def _heads_view(t: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def _blocked_args(name: str, tensors) -> tuple:
     """(B, H, L, dh) views -> the pointer and (batch, head, row) stride arrays
-    ``acl_blocked_dq`` and ``acl_blocked_dkv`` take."""
+    the entries of either KV-blocked backward pair take."""
     ptrs, strides = [], []
     for t in tensors:
         if t.stride(-1) != 1:
@@ -651,59 +682,94 @@ def _blocked_args(name: str, tensors) -> tuple:
     return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * len(strides))(*strides)
 
 
-def _check_blocked(name: str, q, k, v, g) -> None:
-    """Raise on what the KV-blocked backward kernels do not take."""
+def _check_blocked(name: str, q, k, v, g) -> bool:
+    """Raise on what the KV-blocked backward kernels do not take -> whether the
+    pair these operands launch is the tensor-core one (``mha_tc_eligible``)."""
     _check_bld(name, q, k, v)
     b, h, l, dh = q.shape
     itemsize = q.element_size()
-    _check_kernel_shape(name, q, dh, 1, lambda dh: blocked_bwd_smem_bytes(dh, itemsize))
+    tensor_cores = mha_tc_eligible(q.dtype, dh)
+    need = blocked_bwd_tc_smem_bytes if tensor_cores else (
+        lambda dh: blocked_bwd_smem_bytes(dh, itemsize))
+    _check_kernel_shape(name, q, dh, 1, need)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(
             f"{name}: gradient {tuple(g.shape)} {g.dtype} for q {tuple(q.shape)} {q.dtype}"
         )
-    if h > 65535 or l > _INT_MAX:
+    # the CUDA-core pair has the heads on a grid axis of 65535; the tensor-core
+    # pair one block per (batch, head, tile) on the first
+    if l > _INT_MAX or (b * h * -(-l // BWD_BLOCK_KV) > _INT_MAX if tensor_cores else h > 65535):
         raise ValueError(f"{name}: shape {tuple(q.shape)} is beyond the launch grid")
+    return tensor_cores
 
 
 def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool, causal: bool) -> None:
-    """Launch ``acl_blocked_dq`` over (B, H, L, dh) views for entry ``name``; the
-    (B, H, L) fp32 statistics m, l, delta are written when ``recompute``, else
-    read (l may be None: then 1). Counts nothing."""
+    """Launch the dq pass over (B, H, L, dh) views for entry ``name``, after
+    ``_check_blocked``. ``acl_blocked_dq`` (mha_blocked_bwd.cu): the (B, H, L)
+    fp32 statistics m, l, delta are written when ``recompute``, else read (l may
+    be None: then 1). ``acl_blocked_dq_tc`` (mha_tc_bwd.cu, bf16 at head dim
+    64): l is None and m is the log-sum-exp, written with delta when
+    ``recompute``, else read. Counts nothing."""
     b, h, seq, dh = q.shape
     ptrs, strides = _blocked_args(name, (q, k, v, g, dq))
     ptr = ctypes.c_void_p
-    err = load_library().acl_blocked_dq(
-        _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
-        ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()), int(recompute),
-        b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
-    )
+    if mha_tc_eligible(q.dtype, dh):
+        if l is not None:
+            raise ValueError(f"{name}: the tensor-core pair takes the log-sum-exp, not m and l")
+        _check_16_byte_pieces(name, q, k, v, g, dq)
+        err = load_library().acl_blocked_dq_tc(
+            ptrs, strides, ptr(m.data_ptr()), ptr(delta.data_ptr()), int(recompute),
+            b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
+        )
+    else:
+        err = load_library().acl_blocked_dq(
+            _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
+            ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()), int(recompute),
+            b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
+        )
     _raise_on_error(name, err)
 
 
 def _launch_blocked_dkv(name: str, q, k, v, g, dk, dv, m, l, delta, causal: bool) -> None:
-    """Launch ``acl_blocked_dkv`` over (B, H, L, dh) views for entry ``name``,
-    reading the statistics. Counts nothing."""
+    """Launch the dk, dv pass over (B, H, L, dh) views for entry ``name``, after
+    ``_check_blocked``, reading the statistics as the dq pass of the same pair
+    takes them: ``acl_blocked_dkv``, or ``acl_blocked_dkv_tc`` in bf16 at head
+    dim 64. Counts nothing."""
     b, h, seq, dh = q.shape
     ptrs, strides = _blocked_args(name, (q, k, v, g, dk, dv))
     ptr = ctypes.c_void_p
-    err = load_library().acl_blocked_dkv(
-        _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
-        ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()),
-        b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
-    )
+    if mha_tc_eligible(q.dtype, dh):
+        if l is not None:
+            raise ValueError(f"{name}: the tensor-core pair takes the log-sum-exp, not m and l")
+        _check_16_byte_pieces(name, q, k, v, g, dk, dv)
+        err = load_library().acl_blocked_dkv_tc(
+            ptrs, strides, ptr(m.data_ptr()), ptr(delta.data_ptr()),
+            b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
+        )
+    else:
+        err = load_library().acl_blocked_dkv(
+            _DTYPE_CODES[q.dtype], ptrs, strides, ptr(m.data_ptr()),
+            ptr(None if l is None else l.data_ptr()), ptr(delta.data_ptr()),
+            b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
+        )
     _raise_on_error(name, err)
 
 
-def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv, causal: bool = False) -> None:
+def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv, causal: bool = False) -> bool:
     """The KV-blocked backward with the row statistics rebuilt by the dq pass
-    (row max, row sum, delta = rowsum(P o dP): the whole-block backwards'
-    rounding) and handed to the dkv pass, all over (B, H, L, dh) views; the
-    gradients are written into dq, dk, dv. Counts nothing."""
-    _check_blocked(name, q, k, v, g)
+    (delta = rowsum(P o dP) with P normalised in fp32: the whole-block
+    backwards' rounding) and handed to the dkv pass, all over (B, H, L, dh)
+    views; the gradients are written into dq, dk, dv. The CUDA-core pair hands
+    over the row max, the row sum and delta; the tensor-core pair the
+    log-sum-exp and delta. Counts nothing -> whether it took the tensor-core
+    pair."""
+    tensor_cores = _check_blocked(name, q, k, v, g)
     b, h, l, _ = q.shape
-    m, row_sum, delta = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)
+    stats = torch.empty((2 if tensor_cores else 3, b, h, l), dtype=torch.float32, device=q.device)
+    m, row_sum, delta = stats[0], (None if tensor_cores else stats[1]), stats[-1]
     _launch_blocked_dq(name, q, k, v, g, dq, m, row_sum, delta, True, causal)
     _launch_blocked_dkv(name, q, k, v, g, dk, dv, m, row_sum, delta, causal)
+    return tensor_cores
 
 
 def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int) -> str:
@@ -732,7 +798,7 @@ def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
     dqkv = torch.empty((b, l, d3), dtype=qkv.dtype, device=qkv.device)
     if route == "blocked":
         views = [_heads_view(t, num_heads) for t in (*_unpack_qkv(qkv), g, *_unpack_qkv(dqkv))]
-        _blocked_bwd_recompute("mha_qkv_bwd", *views, causal)
+        route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute("mha_qkv_bwd", *views, causal)
     else:
         dh = d // num_heads
         bs, rs = _strides("mha_qkv_bwd", qkv, qkv.shape)
@@ -750,7 +816,7 @@ def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
 def _launch_mha_bld_bwd(name: str, q, k, v, g, num_heads: int, causal: bool) -> tuple:
     """(dq, dk, dv), each (B, L, D), for entry ``name``: ``acl_mha_bld_bwd``
     where the whole-head kernel's shared memory fits, else the KV-blocked pair;
-    q, k, v are read in place. Counts nothing."""
+    q, k, v are read in place. Counts no launch, only the pair's route."""
     _check_bld(name, q, k, v)
     b, l, d = q.shape
     route = _bwd_route(name, q, l, d, num_heads)
@@ -760,7 +826,7 @@ def _launch_mha_bld_bwd(name: str, q, k, v, g, num_heads: int, causal: bool) -> 
     dq, dk, dv = (torch.empty((b, l, d), dtype=q.dtype, device=q.device) for _ in range(3))
     if route == "blocked":
         views = [_heads_view(t, num_heads) for t in (q, k, v, g, dq, dk, dv)]
-        _blocked_bwd_recompute(name, *views, causal)
+        route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute(name, *views, causal)
         return dq, dk, dv
     dh = d // num_heads
     strides = [_strides(name, t, q.shape) for t in (q, k, v, g)]
@@ -795,7 +861,8 @@ def fused_attention_bwd_kernel(q, k, v, g, causal: bool) -> tuple:
     if route == "blocked":
         g = g.to(q.dtype).contiguous()
         grads = tuple(torch.empty((b, h, l, dh), dtype=q.dtype, device=q.device) for _ in range(3))
-        _blocked_bwd_recompute("fused_attention", q, k, v, g, *grads, causal)
+        route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute(
+            "fused_attention", q, k, v, g, *grads, causal)
     else:
         folded = [t.reshape(b * h, l, dh) for t in (q, k, v, g)]
         grads = _launch_mha_bld_bwd("fused_attention", *folded, 1, causal)
@@ -805,7 +872,8 @@ def fused_attention_bwd_kernel(q, k, v, g, causal: bool) -> tuple:
 
 
 def mha_qtile_bwd_kernel(q, kv, g, num_heads: int) -> tuple:
-    """K7: launch the KV-blocked pair with the row statistics recomputed ->
+    """K7: launch the KV-blocked pair (the tensor-core one in bf16 at head dim
+    64) with the row statistics recomputed ->
     (dq (B, L, D), dkv (B, L, 2D)); q and the two halves of kv are read in
     place and the two halves of dkv written in place."""
     b, l, d = q.shape
@@ -820,7 +888,8 @@ def mha_qtile_bwd_kernel(q, kv, g, num_heads: int) -> tuple:
     dq = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     dkv = torch.empty((b, l, 2 * d), dtype=q.dtype, device=q.device)
     tensors = (q, kv[..., :d], kv[..., d:], g, dq, dkv[..., :d], dkv[..., d:])
-    _blocked_bwd_recompute("mha_qtile_bwd", *(_heads_view(t, num_heads) for t in tensors))
+    route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute(
+        "mha_qtile_bwd", *(_heads_view(t, num_heads) for t in tensors))
     launch_counts["mha_qtile_bwd"] += 1
     return dq, dkv
 
@@ -837,24 +906,27 @@ def _flash_bwd_views(q, k, v, g, lse, delta) -> tuple:
 
 
 def flash_dq_kernel(q, k, v, g, lse, delta, causal: bool = False) -> torch.Tensor:
-    """K9: launch ``acl_blocked_dq`` with the given statistics over per-head
-    (N, L, dh) -> dq (N, L, dh)."""
+    """K9: launch ``acl_blocked_dq`` (``acl_blocked_dq_tc`` in bf16 at head dim
+    64) with the given statistics over per-head (N, L, dh) -> dq (N, L, dh)."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
-    _check_blocked("flash_dq", *views)
+    tensor_cores = _check_blocked("flash_dq", *views)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_blocked_dq("flash_dq", *views, dq.unsqueeze(1), lse, None, delta, False, causal)
     launch_counts["flash_dq"] += 1
+    route_counts["blocked_bwd_tc"] += tensor_cores
     return dq
 
 
 def flash_dkv_kernel(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
-    """K10: launch ``acl_blocked_dkv`` with the given statistics over per-head
-    (N, L, dh) -> (dk, dv), each (N, L, dh)."""
+    """K10: launch ``acl_blocked_dkv`` (``acl_blocked_dkv_tc`` in bf16 at head
+    dim 64) with the given statistics over per-head (N, L, dh) -> (dk, dv), each
+    (N, L, dh)."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
-    _check_blocked("flash_dkv", *views)
+    tensor_cores = _check_blocked("flash_dkv", *views)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     _launch_blocked_dkv("flash_dkv", *views, dk.unsqueeze(1), dv.unsqueeze(1), lse, None, delta, causal)
     launch_counts["flash_dkv"] += 1
+    route_counts["blocked_bwd_tc"] += tensor_cores
     return dk, dv
 
 

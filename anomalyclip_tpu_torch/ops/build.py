@@ -23,9 +23,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu", CSRC / "mha_blocked_bwd.cu",
-    CSRC / "mha_probe.cu", CSRC / "mha_tc.cu",
+    CSRC / "mha_probe.cu", CSRC / "mha_tc.cu", CSRC / "mha_tc_bwd.cu",
 )
-HEADERS = (CSRC / "attention_common.cuh",)  # included by every source
+# attention_common.cuh is included by every source, tensor_core.cuh by the two
+# tensor-core ones
+HEADERS = (CSRC / "attention_common.cuh", CSRC / "tensor_core.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -131,6 +133,16 @@ def load_library() -> ctypes.CDLL:
     lib.acl_mha_qkv_tc_fwd.restype = i
     lib.acl_mha_qtile_tc_fwd.argtypes = [p, s, s, p, s, s, p, i, i, i, i, f, p]
     lib.acl_mha_qtile_tc_fwd.restype = i
+    # the tensor-core backward pair (mha_tc_bwd.cu): the arguments of
+    # acl_blocked_dq and acl_blocked_dkv without the dtype and the row sum
+    lib.acl_blocked_bwd_tc_smem_bytes.argtypes = [i, i]
+    lib.acl_blocked_bwd_tc_smem_bytes.restype = z
+    lib.acl_blocked_bwd_tc_blocks_per_sm.argtypes = [i, i]
+    lib.acl_blocked_bwd_tc_blocks_per_sm.restype = i
+    lib.acl_blocked_dq_tc.argtypes = [ptrs, strides, p, p, i, i, i, i, i, i, f, p]
+    lib.acl_blocked_dq_tc.restype = i
+    lib.acl_blocked_dkv_tc.argtypes = [ptrs, strides, p, p, i, i, i, i, i, f, p]
+    lib.acl_blocked_dkv_tc.restype = i
     # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
     # pointer and 64-bit batch and row strides
     lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]

@@ -1,5 +1,5 @@
-// KV-blocked attention backward for Hopper (sm_90a), fp32 and bf16, with an
-// optional causal mask.
+// KV-blocked attention backward for Hopper (sm_90a) on the CUDA cores, fp32 and
+// bf16, with an optional causal mask.
 //
 // Two C entries, two kernels, which together replace three TPU kernels of
 // anomalyclip_tpu/ops/pallas/attention.py and widen two ported ones:
@@ -69,9 +69,11 @@
 // on the fp32 CUDA cores; this design does nine (S and dP are rebuilt by the dkv
 // pass, and once more by the statistics sweep), and shared-memory bandwidth, not
 // device memory, is the limit: device memory sees K and V once per q tile and q, g
-// once per KV block (10 times each at L=577). Tensor cores (wgmma with bf16
-// tiles) and sharing S and dP between the passes are later work; this version is
-// the simple one checked against the plain PyTorch formulation.
+// once per KV block (10 times each at L=577). This pair serves fp32 (which stays
+// off the tensor cores: TF32 is off for checkpoint parity) and bf16 at head dims
+// 8, 16 and 32. In bf16 at head dim 64 the wrappers launch the tensor-core pair
+// of mha_tc_bwd.cu instead, which computes the same function with the same two
+// passes; sharing S and dP between the passes is later work.
 
 #include "attention_common.cuh"
 
@@ -451,7 +453,7 @@ size_t acl_blocked_bwd_smem_bytes(int dh, int dtype) {
 // head, row) element strides in ``strides`` (last stride 1). m, l, delta:
 // contiguous (B, H, L) fp32. recompute = 0: they are read, and l may be null
 // (then 1: m is a log-sum-exp); recompute = 1: they are written, for the dkv pass.
-// dh: 8, 16, 32 or 64.
+// dh: 8, 16, 32 or 64 in fp32; 8, 16 or 32 in bf16.
 int acl_blocked_dq(int dtype, void* const* ptrs, const int64_t* strides, void* m, void* l,
                    void* delta, int recompute, int B, int H, int L, int dh, int causal,
                    float scale, void* stream) {
@@ -472,8 +474,7 @@ int acl_blocked_dq(int dtype, void* const* ptrs, const int64_t* strides, void* m
   ACL_DQ_CASE(0, float, 64)
   ACL_DQ_CASE(1, BF, 8)
   ACL_DQ_CASE(1, BF, 16)
-  ACL_DQ_CASE(1, BF, 32)
-  ACL_DQ_CASE(1, BF, 64)
+  ACL_DQ_CASE(1, BF, 32)  // bf16 at head dim 64 is mha_tc_bwd.cu's
 #undef ACL_DQ_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -499,8 +500,7 @@ int acl_blocked_dkv(int dtype, void* const* ptrs, const int64_t* strides, const 
   ACL_DKV_CASE(0, float, 64)
   ACL_DKV_CASE(1, BF, 8)
   ACL_DKV_CASE(1, BF, 16)
-  ACL_DKV_CASE(1, BF, 32)
-  ACL_DKV_CASE(1, BF, 64)
+  ACL_DKV_CASE(1, BF, 32)  // bf16 at head dim 64 is mha_tc_bwd.cu's
 #undef ACL_DKV_CASE
   return (int)cudaErrorInvalidValue;
 }

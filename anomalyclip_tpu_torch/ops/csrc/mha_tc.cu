@@ -77,82 +77,13 @@
 //   memory, so it is written in 16-byte rows.
 
 #include "attention_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTcWarps = 4;   // warps per block, each owning 16 query rows
 constexpr int kTcKV = 64;     // keys per KV block
-constexpr int kTcPad = 8;     // bf16 elements of padding per staged row: 16 bytes
 constexpr int kTcStages = 2;  // KV blocks in flight
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when src_bytes is 0.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats rounded to bf16, the first in the low half: one fragment register.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A thread's share of staging ROWS rows of DH bf16 elements into rows of pitch
-// DH + kTcPad: the block's threads cover THREADS / (DH / 8) rows a pass, 16
-// bytes a thread, and this thread copies its piece of each pass. dst and src
-// are its piece of the first pass (row `row`), pass_stride the elements between
-// passes in src; rows from `valid` on are zeroed and their source is not read.
-// The addresses are the caller's, computed once, so a pass is one copy and one
-// compare.
-template <int DH, int ROWS, int THREADS>
-__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src, int64_t pass_stride,
-                                           int row, int valid) {
-  constexpr int PASS = THREADS / (DH / 8), PITCH = DH + kTcPad;
-  static_assert(ROWS % PASS == 0, "the threads must tile the rows");
-#pragma unroll
-  for (int j = 0; j < ROWS / PASS; ++j)
-    cp_async16(dst + j * PASS * PITCH * (int)sizeof(bf16), src + j * pass_stride,
-               row + j * PASS < valid ? 16 : 0);
-}
 
 // One block: kTcWarps warps, each owning one tile of 16 query rows; compiled to
 // 128 registers a thread, so that sixteen warps share an SM.

@@ -16,7 +16,11 @@ list and its parity limits:
   ground truth, no noisier than twice the plain version; timed at (64, 2048, 64).
 
 Each is followed by the forward+backward time of the kernel path and of the
-plain path (CUDA events, median of ``--iters`` steps) in ``--dtype``. It runs on
+plain path (CUDA events, median of ``--iters`` steps) in ``--dtype``, and names
+the source of the backward kernel that serves the shape in that type: the
+whole-head kernel of mha_bwd.cu, the tensor-core KV-blocked pair of
+mha_tc_bwd.cu (bf16 at head dim 64) or the CUDA-core pair of
+mha_blocked_bwd.cu. It runs on
 the card; ``--device cpu`` runs the plain versions at batch 2 for the parity
 checks alone and prints no times.
 """
@@ -44,6 +48,15 @@ FLASH_PARITY_SHAPE = (8, 1100, 64)  # ragged q and kv tilings on both axes
 FLASH_TIMED_SHAPE = (64, 2048, 64)
 PARITY_LIMIT = 2e-5  # fp32, of max|ref|
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def served_by(dtype: torch.dtype, dh: int, route: str = "blocked") -> str:
+    """The source of the backward kernel a shape launches on the card, from its
+    route (``attention_bwd_route``; K7, K9 and K10 have the blocked one alone),
+    operand type and head dim."""
+    if route == "whole":
+        return "mha_bwd.cu"
+    return "mha_tc_bwd.cu" if A.mha_tc_eligible(dtype, dh) else "mha_blocked_bwd.cu"
 
 
 def rel_err(got, want) -> float:
@@ -149,16 +162,19 @@ def bench_whole_block(iters: int, dtype_name: str, device) -> None:
         err = whole_block_parity(b, l, d, h, causal, device)
         assert err < PARITY_LIMIT, f"{label}: backward parity {err:.2e}"
         route = A.attention_bwd_route(l, d // h, 4, A.smem_limit(torch.device(device)))
-        print(f"{label:22s} (B={b:4d} L={l} D={d}): fp32 parity {err:.1e} ({route})", flush=True)
+        dtype = DTYPES[dtype_name]
+        print(f"{label:22s} (B={b:4d} L={l} D={d}): fp32 parity {err:.1e} ({route}: "
+              f"{served_by(torch.float32, d // h, route)}; in {dtype_name} "
+              f"{served_by(dtype, d // h, route)})", flush=True)
         if not on_card:
             continue
         gen = _gen(device, 1)
-        inputs = [_randn(gen, (b, l, d), device, DTYPES[dtype_name]) for _ in range(3)]
+        inputs = [_randn(gen, (b, l, d), device, dtype) for _ in range(3)]
         step = lambda: grad_step(lambda q, k, v: A.fused_mha_bld(q, k, v, h, causal), inputs)  # noqa: E731
         kernel_ms, plain_ms = timed_pair(step, step, iters)
         print(f"{label:22s} (B={b:4d} L={l} D={d} {dtype_name}): fwd+bwd kernels "
-              f"{kernel_ms:7.3f} ms  vs plain {plain_ms:7.3f} ms ({plain_ms / kernel_ms:4.2f}x)",
-              flush=True)
+              f"{kernel_ms:7.3f} ms  vs plain {plain_ms:7.3f} ms ({plain_ms / kernel_ms:4.2f}x), "
+              f"backward by {served_by(dtype, d // h, route)}", flush=True)
 
 
 def bench_qtile(iters: int, dtype_name: str, device) -> None:
@@ -167,10 +183,12 @@ def bench_qtile(iters: int, dtype_name: str, device) -> None:
     b = b if on_card else 2
     err = qtile_parity(b, l, d, h, device)
     assert err < PARITY_LIMIT, f"qtile backward parity {err:.2e}"
-    print(f"qtile L/14@336        (B={b} L={l} D={d}): fp32 parity {err:.1e}", flush=True)
+    dtype = DTYPES[dtype_name]
+    print(f"qtile L/14@336        (B={b} L={l} D={d}): fp32 parity {err:.1e} "
+          f"({served_by(torch.float32, d // h)}; in {dtype_name} {served_by(dtype, d // h)})",
+          flush=True)
     if not on_card:
         return
-    dtype = DTYPES[dtype_name]
     if A.mha_smem_bytes(l, d // h, dtype.itemsize) > A.smem_limit(torch.device(device)):
         print(f"qtile L/14@336        (B={b} L={l} D={d} {dtype_name}): the forward kernel does "
               f"not fit this shape in {dtype_name}; backward checked, step not timed", flush=True)
@@ -180,20 +198,24 @@ def bench_qtile(iters: int, dtype_name: str, device) -> None:
     step = lambda: grad_step(lambda q, kv: A.fused_mha_qtile(q, kv, h), inputs)  # noqa: E731
     kernel_ms, plain_ms = timed_pair(step, step, iters)
     print(f"qtile L/14@336        (B={b} L={l} D={d} {dtype_name}): fwd+bwd kernels "
-          f"{kernel_ms:7.3f} ms  vs plain {plain_ms:7.3f} ms ({plain_ms / kernel_ms:4.2f}x)",
-          flush=True)
+          f"{kernel_ms:7.3f} ms  vs plain {plain_ms:7.3f} ms ({plain_ms / kernel_ms:4.2f}x), "
+          f"backward by {served_by(dtype, d // h)}", flush=True)
 
 
 def bench_flash(iters: int, dtype_name: str, device) -> None:
     report = flash_parity_f64(device)
     check_flash_parity(report)
+    dtype = DTYPES[dtype_name]
     for name, (ours, plain) in report.items():
         print(f"flash {name}: vs-f64 {ours:.2e} (plain VJP vs-f64 {plain:.2e})", flush=True)
+    n, l, dh = FLASH_TIMED_SHAPE
+    print(f"flash backward at head dim {FLASH_PARITY_SHAPE[2]} in fp32: "
+          f"{served_by(torch.float32, FLASH_PARITY_SHAPE[2])}; at head dim {dh} in {dtype_name}: "
+          f"{served_by(dtype, dh)}", flush=True)
     if torch.device(device).type != "cuda":
         return
-    n, l, dh = FLASH_TIMED_SHAPE
     gen = _gen(device, 1)
-    inputs = [_randn(gen, (n, l, dh), device, DTYPES[dtype_name]) for _ in range(3)]
+    inputs = [_randn(gen, (n, l, dh), device, dtype) for _ in range(3)]
     step = lambda: grad_step(A.flash_attention_heads, inputs)  # noqa: E731
     kernel_ms, plain_ms = timed_pair(step, step, iters)
     print(f"flash long-L          (N={n} L={l} dh={dh} {dtype_name}): fwd+bwd kernels "

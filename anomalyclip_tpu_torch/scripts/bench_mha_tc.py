@@ -1,4 +1,4 @@
-"""Time the tensor-core kernel behind K1 and K6 at the CLIP towers' shapes.
+"""Time the tensor-core kernels, forward and backward, at the CLIP towers' shapes.
 
     python -m anomalyclip_tpu_torch.scripts.bench_mha_tc [only ...] [--iters N] [--sass]
         [--device cpu]
@@ -13,11 +13,20 @@ larger of 4 L^2 dh operations a head over 989 TFLOP/s and the operands and the
 output once over 3.35 TB/s); before them, the bytes of shared memory a block
 takes and the blocks one SM holds. ``only``: substrings of the shape tags.
 
-``--sass`` adds the opcode mix of the kernel, read from
-``cuobjdump -sass`` of the built library: the opcodes of the whole kernel and of
-its KV loop (from the loop's barrier to its backward branch, the mask of a
-ragged block included), which is what the tensor-core operations (HMMA) have to
-be dispatched among.
+A second line a shape gives the backward: the KV-blocked pair of
+ops/csrc/mha_tc_bwd.cu through the entry that owns the shape (K3's entry for a
+packed qkv, K7 for q against k|v), its max|diff| over max|ref| against the plain
+backward on the first ``PARITY_BATCH`` batch entries (within 2e-2), its time,
+``scaled_dot_product_attention`` forward and backward through autograd, and the
+bound (10 L^2 dh operations a head, seven tensors once). A shape short enough
+for the whole-head backward of mha_bwd.cu is not the pair's and is named so.
+
+``--sass`` adds the opcode mix of each kernel, read from ``cuobjdump -sass`` of
+the built library: the opcodes of the whole kernel and of its main loops (each
+from its barrier to its backward branch, the mask of a ragged block included:
+the forward's KV loop, the dq kernel's statistics and gradient sweeps, the dkv
+kernel's sweep over the q tiles), which is what the tensor-core operations
+(HMMA) have to be dispatched among.
 
 ``--device cpu`` runs the entries' plain versions (the KV-blocked form) at batch
 2, holds them against the whole-row form, and prints no times.
@@ -27,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import re
 import shutil
 import subprocess
@@ -48,6 +58,8 @@ SHAPES = [
     ("ViT-L/14@336px vision, batch 32", 32, 577, 1024, 16, False, "qtile"),
 ]
 PARITY_LIMIT = 0.015  # the kernel against the KV-blocked plain version
+BWD_PARITY_LIMIT = 0.02  # the backward pair against the plain backward, of max|ref|
+PARITY_BATCH = 8  # batch entries of a backward held against the plain version
 WHOLE_ROW_LIMIT = 0.05  # the KV-blocked plain version against the whole-row one, on the CPU
 PEAK_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12  # NVIDIA H100 SXM: dense bf16, HBM3
 
@@ -71,24 +83,84 @@ def sdpa(x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
 
-def sass_mix(kernel: str) -> tuple:
-    """(opcode counts of the whole kernel, of its main loop) for the function of
-    the built library whose mangled name contains ``kernel``."""
+def backward(entry: str, x: torch.Tensor, g: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
+    """One call of the backward entry that owns the shape -> its gradients."""
+    if entry == "qkv":
+        return (A.mha_qkv_bwd_kernel(x, g, heads, causal),)
+    return A.mha_qtile_bwd_kernel(x[..., :d], x[..., d:], g, heads)
+
+
+def plain_backward(entry: str, x: torch.Tensor, g: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
+    if entry == "qkv":
+        return (A.mha_qkv_bwd_reference(x, g, heads, causal),)
+    return A.mha_qtile_bwd_reference(x[..., :d], x[..., d:], g, heads)
+
+
+def sdpa_backward(x: torch.Tensor, g: torch.Tensor, heads: int, causal: bool) -> tuple:
+    b, l, width = x.shape
+    dh = width // (3 * heads)
+    leaves = [t.detach().requires_grad_(True) for t in x.view(b, l, 3, heads, dh).permute(2, 0, 3, 1, 4)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal)
+    return torch.autograd.grad(out, leaves, g.view(b, l, heads, dh).transpose(1, 2))
+
+
+def bench_backward(tag: str, entry: str, x: torch.Tensor, d: int, heads: int, causal: bool,
+                   iters: int) -> None:
+    """The second line of a shape: the tensor-core backward pair, or why not."""
+    b, l, _ = x.shape
+    dh = d // heads
+    route = A.attention_bwd_route(l, dh, x.element_size(), A.smem_limit(x.device))
+    if entry == "qkv" and route != "blocked":
+        print(f"{tag}, backward: the {route}-head kernel of mha_bwd.cu takes L={l}, not the pair",
+              flush=True)
+        return
+    rng = np.random.default_rng(1)
+    g = torch.from_numpy(rng.standard_normal((b, l, d)).astype(np.float32)).to(x)
+    n = min(b, PARITY_BATCH)
+    want = plain_backward(entry, x[:n], g[:n], d, heads, causal)
+    got = backward(entry, x, g, d, heads, causal)
+    top = max(w.float().abs().max().item() for w in want)
+    err = max((a[:n].float() - w.float()).abs().max().item() for a, w in zip(got, want)) / top
+    if not err < BWD_PARITY_LIMIT:
+        raise AssertionError(f"{tag}, backward: max|diff| {err} of max|ref| against the plain version")
+    del got, want
+    flops = 10 * b * heads * l * l * dh * (0.5 if causal else 1.0)
+    bound_ms = max(flops / PEAK_FLOPS, 2 * 7 * b * l * d / PEAK_BYTES_PER_S) * 1e3
+    sdpa_ms = median_ms(lambda: sdpa_backward(x, g, heads, causal), iters)
+    ms = median_ms(lambda: backward(entry, x, g, d, heads, causal), iters)
+    print(f"{tag}, backward (mha_tc_bwd.cu): {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
+          f"five products), sdpa forward+backward {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms"
+          f"  max|diff|/max|ref|={err:.2e}", flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _library_sass() -> str:
+    """``cuobjdump -sass`` of the built library, dumped once: it takes seconds."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
+    return subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    body = next(f for f in text.split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
+
+
+def sass_mix(kernel: str) -> tuple:
+    """(opcode counts of the whole kernel, of each of its main loops in address
+    order) for the function of the built library whose mangled name contains
+    ``kernel``. A main loop: the outermost backward branch around a barrier."""
+    body = next(f for f in _library_sass().split("Function : ")[1:]
+                if kernel in f.split("\n", 1)[0])
     code = []  # (address, opcode, branch target or None)
     for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;", body):
         target = re.search(r"\bBRA\b[^;]*\b0x([0-9a-f]+)", m.group(0))
         code.append((int(m.group(1), 16), m.group(2), int(target.group(1), 16) if target else None))
-    barrier = next(a for a, op, _ in code if op == "BAR")
-    # the KV loop: the last backward branch over the barrier, back to its target
-    start, end = max(((t, a) for a, op, t in code if t is not None and t <= barrier < a),
-                     key=lambda loop: loop[1])
+    loops = []  # (start, end), each the last backward branch over a barrier no earlier loop holds
+    for barrier in (a for a, op, _ in code if op == "BAR"):
+        if any(start <= barrier <= end for start, end in loops):
+            continue
+        around = [(t, a) for a, _, t in code if t is not None and t <= barrier < a]
+        if around:
+            loops.append(max(around, key=lambda loop: loop[1]))
     whole = collections.Counter(op for _, op, _ in code)
-    loop = collections.Counter(op for a, op, _ in code if start <= a <= end)
-    return whole, loop
+    return whole, [collections.Counter(op for a, op, _ in code if start <= a <= end)
+                   for start, end in loops]
 
 
 def main(argv=None) -> None:
@@ -101,9 +173,12 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     on_card = announce_device("bench_mha_tc", args.device, "plain versions at batch 2; no times")
     if on_card:
-        dh = A.MHA_TC_HEAD_DIM
+        dh, lib = A.MHA_TC_HEAD_DIM, build.load_library()
         print(f"head dim {dh}: {A.mha_tc_smem_bytes(dh)} B/block, "
-              f"{build.load_library().acl_mha_tc_blocks_per_sm(dh)} blocks/SM", flush=True)
+              f"{lib.acl_mha_tc_blocks_per_sm(dh)} blocks/SM; backward "
+              + ", ".join(f"{name} {A.blocked_bwd_tc_smem_bytes(dh, name)} B/block, "
+                          f"{lib.acl_blocked_bwd_tc_blocks_per_sm(dh, code)} blocks/SM"
+                          for name, code in A.BWD_TC_PASSES.items()), flush=True)
     for tag, b, l, d, heads, causal, entry in SHAPES:
         if args.only and not any(s in tag for s in args.only):
             continue
@@ -132,11 +207,14 @@ def main(argv=None) -> None:
         print(f"{tag} (B={b}, L={l}, D={d}, H={heads}): {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms"
               f"  max|diff|={err:.2e}", flush=True)
+        bench_backward(tag, entry, x, d, heads, causal, args.iters)
     if args.sass and on_card:
-        whole, loop = sass_mix(f"mha_tc_kernelILi{A.MHA_TC_HEAD_DIM}E")
-        for what, mix in (("kernel", whole), ("KV loop", loop)):
-            top = ", ".join(f"{op} {n}" for op, n in mix.most_common(12))
-            print(f"sass, {what}: {sum(mix.values())} operations: {top}", flush=True)
+        for kernel in ("mha_tc_kernel", "blocked_dq_tc_kernel", "blocked_dkv_tc_kernel"):
+            whole, loops = sass_mix(f"{kernel}ILi{A.MHA_TC_HEAD_DIM}E")
+            mixes = [("kernel", whole), *((f"loop {i + 1}", mix) for i, mix in enumerate(loops))]
+            for what, mix in mixes:
+                top = ", ".join(f"{op} {n}" for op, n in mix.most_common(12))
+                print(f"sass, {kernel}, {what}: {sum(mix.values())} operations: {top}", flush=True)
 
 
 if __name__ == "__main__":

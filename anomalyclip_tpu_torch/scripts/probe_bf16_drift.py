@@ -30,6 +30,12 @@ drift from ``blocked`` as far as the kernel does, then the end-to-end gap is
 the tower's amplification of rounding differences that any order of the sums
 makes, and not a fault of the kernel or of its plain form.
 
+``main`` returns what it printed as numbers, one entry a seed: per layer the
+stream's max, the local gap, the bf16 step of the stream there and the streams'
+gaps, then the embedding's gaps. ``local_gap_readings`` is the part of it the
+chip smoke run asserts on: the kernel's local gap at every layer, in bf16 steps
+of that layer's stream.
+
 ``--device cpu`` runs the plain forms on the tiny tower at 2 frames; the kernel
 form is then the ``blocked`` one and its gaps are 0.
 """
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -114,7 +121,38 @@ def gap(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def main(argv=None) -> None:
+def bf16_step(top: float) -> float:
+    """The distance between neighbouring bf16 values at magnitude ``top``:
+    2^(floor(log2 top) - 7)."""
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def local_gap_readings(params, cfg, frames, streams=None) -> list:
+    """Per layer of the bf16 tower: the max of the ``blocked`` plain run's
+    residual stream, the kernel's local gap there (``local_gaps``), one bf16 step
+    of that stream, and the gap in such steps. ``streams``: that run's, where
+    the caller has made it."""
+    if streams is None:
+        streams, _ = run_tower(params, cfg, frames, torch.bfloat16, "blocked")
+    readings = []
+    for layer, (x, local) in enumerate(zip(streams, local_gaps(params, cfg, frames, streams))):
+        top = x.float().abs().max().item()
+        step = bf16_step(top)
+        readings.append({"layer": layer + 1, "stream_max": top, "local_gap": local, "step": step,
+                         "local_steps": local / step if step else float("inf")})
+    return readings
+
+
+def seeded_tower(cfg, seed: int, n: int, device: str) -> tuple:
+    """Seeded fp32 weights of the image tower and ``n`` seeded uint8 frames."""
+    params = clip_model.init_clip_params(torch.Generator().manual_seed(seed), cfg)
+    params = _to({"visual": clip_model.cast_tree(params["visual"], torch.float32)}, device)
+    res = cfg.image_resolution
+    frames = np.random.default_rng(seed).integers(0, 256, (n, res, res, 3), dtype=np.uint8)
+    return params, torch.from_numpy(frames).to(device)
+
+
+def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="l14@336", choices=sorted(ARCHS))
     ap.add_argument("--frames", type=int, default=32)
@@ -126,33 +164,34 @@ def main(argv=None) -> None:
     cfg = ARCHS[args.arch]() if on_card else clip_model.CLIPConfig.tiny()
     n = args.frames if on_card else 2
     others = [f for f in FORMS if f != "blocked"]
+    readings = []
     for seed in range(args.seeds):
-        params = clip_model.init_clip_params(torch.Generator().manual_seed(seed), cfg)
-        params = {"visual": clip_model.cast_tree(params["visual"], torch.float32)}
-        params = _to(params, args.device)
-        rng = np.random.default_rng(seed)
-        frames = torch.from_numpy(rng.integers(
-            0, 256, (n, cfg.image_resolution, cfg.image_resolution, 3), dtype=np.uint8)).to(args.device)
+        params, frames = seeded_tower(cfg, seed, n, args.device)
         streams, outs = {}, {}
         for form in FORMS:
             streams[form], outs[form] = run_tower(params, cfg, frames, torch.bfloat16, form)
         _, truth = run_tower(params, cfg, frames, torch.float32, "whole")
-        local = local_gaps(params, cfg, frames, streams["blocked"])
+        layers = local_gap_readings(params, cfg, frames, streams["blocked"])
         print(f"seed {seed}: {args.arch if on_card else 'tiny'}, {n} frames, bf16; the residual "
               f"stream's max|x| and its max|diff| from the blocked plain run's, by layer", flush=True)
         print("layer  max|x|   kernel, local   " + "   ".join(f"{f:>10s}" for f in others), flush=True)
-        for layer, ref in enumerate(streams["blocked"]):
-            row = "   ".join(f"{gap(streams[f][layer], ref):10.3e}" for f in others)
-            print(f"{layer + 1:5d}  {ref.float().abs().max().item():7.2f}  {local[layer]:14.3e}   {row}",
+        for at, ref in zip(layers, streams["blocked"]):
+            at["stream_gap"] = {f: gap(streams[f][at["layer"] - 1], ref) for f in others}
+            row = "   ".join(f"{at['stream_gap'][f]:10.3e}" for f in others)
+            print(f"{at['layer']:5d}  {at['stream_max']:7.2f}  {at['local_gap']:14.3e}   {row}",
                   flush=True)
-        top = truth.abs().max().item()
-        print(f"seed {seed}: image embedding, max|x| {top:.3f}: from blocked: "
-              + ", ".join(f"{f} {gap(outs[f], outs['blocked']):.3e}" for f in others)
+        embedding = {"max": truth.abs().max().item(),
+                     "from_blocked": {f: gap(outs[f], outs["blocked"]) for f in others},
+                     "from_fp32": {f: gap(outs[f], truth) for f in FORMS}}
+        print(f"seed {seed}: image embedding, max|x| {embedding['max']:.3f}: from blocked: "
+              + ", ".join(f"{f} {g:.3e}" for f, g in embedding["from_blocked"].items())
               + "; from fp32: "
-              + ", ".join(f"{f} {gap(outs[f], truth):.3e}" for f in FORMS), flush=True)
+              + ", ".join(f"{f} {g:.3e}" for f, g in embedding["from_fp32"].items()), flush=True)
+        readings.append({"seed": seed, "frames": n, "layers": layers, "embedding": embedding})
         del streams, outs, truth, params, frames
         if on_card:
             torch.cuda.empty_cache()
+    return readings
 
 
 def _to(tree, device: str):

@@ -9,7 +9,8 @@ script exits non-zero without printing a result:
 2. build: compile the CUDA kernels from the repository's sources, hold the
    library's shared-memory sizes against the Python formulas the dispatch
    ladder uses, and print how many blocks of the tensor-core kernel one SM
-   holds (four blocks of four warps are what its design counts on);
+   holds (four blocks of four warps are what its design counts on) and of each
+   kernel of the tensor-core backward pair (three: what it is compiled for);
 3. kernels: each forward kernel against its plain PyTorch version at the main
    paths' shapes (K1 and K2 at the ViT-B/16 and ViT-L/14 shapes; K6, K8 with
    its log-sum-exp, and K5's flash branch at the ViT-L/14@336px tower's
@@ -34,7 +35,12 @@ script exits non-zero without printing a result:
    whole-head kernel's shared memory and so on the KV-blocked pair, causal
    and not; K9 and K10 with the mask and at head dim 16; autograd through
    ``fused_attention`` at (32, 16, 577, 64) against its plain path; and the
-   parity checks of ``anomalyclip_tpu_torch.scripts.bench_attn_bwd``;
+   parity checks of ``anomalyclip_tpu_torch.scripts.bench_attn_bwd``. In bf16
+   at head dim 64 every one of these launches the tensor-core pair
+   (ops/csrc/mha_tc_bwd.cu), held within BWD_TC_TOLERANCE of max|ref|, as is
+   K7 at L = 1, 63, 64, 65, 129 and 1100 at batch 3; the launches that took the
+   pair are counted exactly (none in fp32 or at head dim 16), and two launches
+   on the same inputs must give the same bits;
 3e. the shapes the reference computes by its XLA formulation, here on kernels:
    the temporal model at head dim 8 (emb 32, 4 heads), ``fused_attention`` at
    head dim 8, ``fused_mha_bld`` at head dim 16 and L=200 (its backward on
@@ -69,12 +75,19 @@ script exits non-zero without printing a result:
    two encode calls of 256 frames) in fp32, through the core rung into the
    flash kernel, and in bf16, through the q-tiled kernel; each run's launch
    counts are checked, and each is held against the same call with the plain
-   attention (fp32 within 1e-4, bf16 within BF16_SLICE_TOL, absolute);
+   attention (fp32 within 1e-4, bf16 within BF16_SLICE_TOL, absolute). Beside
+   that end-to-end limit, which bounds what 24 bf16 layers make of one-step
+   roundings, what catches a kernel: on 32 seeded frames in bf16, at each of
+   the 24 layers one block under the kernels against the same block under the
+   KV-blocked plain form, both on the plain run's own input, must agree
+   within LOCAL_GAP_STEPS bf16 steps of that layer's residual stream
+   (``scripts.probe_bf16_drift.local_gap_readings``);
 4d. the image tower's gradient: ``encode_image`` on 32 seeded uint8 frames at
    full ViT-L/14@336px width and depth, loss sum(features^2),
    ``torch.autograd.grad`` w.r.t. every visual leaf, in bf16 (the qtile rung:
-   24 K6 and 24 K7 launches) and in fp32 (the core rung: 24 K8, 24 K9 and 24
-   K10); the launch counts are checked exactly and the gradients held against
+   24 K6 and 24 K7 launches, every one on the tensor cores) and in fp32 (the
+   core rung: 24 K8, 24 K9 and 24 K10, none on them); the launch counts are
+   checked exactly and the gradients held against
    the same call with the plain attention (fp32 within 1e-4 of each leaf's
    max, bf16 within BF16_GRAD_TOL); then the same at ViT-B/16 width and
    depth, batch 32, fp32 (K1 forward, K3's entry backward on its blocked
@@ -87,7 +100,9 @@ script exits non-zero without printing a result:
    depth, batch 32, bf16 (24 K6 launches a forward under the fused kernels, none
    under identity and plain attention); ``validate_pickgb`` and
    ``validate_qtile_config`` to their exit codes; ``bench_mha_tc --sass`` (the
-   tensor-core kernel at the towers' shapes, and its opcode mix);
+   tensor-core kernels, forward and backward, at the towers' shapes, and their
+   opcode mixes); ``bench_attn_bwd --qtile`` (K7's parity in fp32, then the
+   forward+backward step in bf16 on the tensor-core kernels);
    ``probe_bf16_drift`` at one seed and 8 frames (the ViT-L/14@336px tower by
    layer under the kernels and under three plain forms); ``bench_eval``,
    ``bench_latency --path both`` and ``bench_train_step`` at their default
@@ -116,7 +131,13 @@ through its flash branch, K8), so its count is 0; its error and times are
 phase 3's. ``mha_tc`` is the tensor-core kernel that K1 and K6 launch in bf16:
 its count is ``route_counts["mha_tc"]`` over the same runs, its numbers the sums
 over the bf16 scoring paths' four shapes (phase 3); ``fused_mha_qtile``'s
-numbers are that kernel's too, at its one path shape. The six probe wrappers' numbers are phase 3d's at (32, 577, 1024) in
+numbers are that kernel's too, at its one path shape. ``blocked_bwd_tc`` is the
+tensor-core backward pair that K7, K9, K10 and the KV-blocked route of K3, K4
+and K5's backward launch in bf16 at head dim 64: its count is
+``route_counts["blocked_bwd_tc"]`` over the same runs, its numbers the pair's at
+K7's path shape, which are ``mha_qtile_bwd``'s too (K9's and K10's path is the
+fp32 tower: their numbers are the CUDA-core pair's). The six probe wrappers'
+numbers are phase 3d's at (32, 577, 1024) in
 bf16 (``probe_mha_qkv``: its four shapes summed; ``probe_mha_whole``: L=400) and
 their counts phase 4e's; ``nosoftmax_mha`` computes no function the library has,
 so its ``library_ms`` is null.
@@ -154,12 +175,17 @@ KERNEL_SOURCE = {
     "flash_attention_heads": "anomalyclip_tpu_torch/ops/csrc/mha_long.cu",
     # its whole-block kernel: acl_mha_bld_fwd with the heads folded
     "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
-    "mha_qtile_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
+    # on its path, the bf16 ViT-L/14@336px tower's gradient, the tensor-core pair
+    "mha_qtile_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_tc_bwd.cu",
+    # their path is the fp32 tower's gradient: the CUDA-core pair
     "flash_dq": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
     "flash_dkv": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
     # the kernel K1 and K6 launch in bf16 at head dim 64, counted by
     # route_counts["mha_tc"]
     "mha_tc": "anomalyclip_tpu_torch/ops/csrc/mha_tc.cu",
+    # the pair the KV-blocked backward launches in bf16 at head dim 64, counted by
+    # route_counts["blocked_bwd_tc"]
+    "blocked_bwd_tc": "anomalyclip_tpu_torch/ops/csrc/mha_tc_bwd.cu",
 }
 PROBE_SOURCE = "anomalyclip_tpu_torch/ops/csrc/mha_probe.cu"
 # probe wrapper -> the pallas_call sites of the JAX package's scripts it replaces
@@ -184,14 +210,29 @@ REPLACES = {
     "flash_dq": "anomalyclip_tpu/ops/pallas/attention.py:904",
     "flash_dkv": "anomalyclip_tpu/ops/pallas/attention.py:943",
     "mha_tc": "anomalyclip_tpu/ops/pallas/attention.py:423",
+    "blocked_bwd_tc": "anomalyclip_tpu/ops/pallas/attention.py:646",
 }
-MHA_TC_ALSO_REPLACES = ["anomalyclip_tpu/ops/pallas/attention.py:525"]
+ALSO_REPLACES = {
+    "mha_tc": ["anomalyclip_tpu/ops/pallas/attention.py:525"],
+    "blocked_bwd_tc": ["anomalyclip_tpu/ops/pallas/attention.py:904",
+                       "anomalyclip_tpu/ops/pallas/attention.py:943"],
+}
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 # the tensor-core kernel against its KV-blocked plain version (absolute): twice
 # the largest gap measured over the towers' shapes, 7.8e-3. The outputs of randn
 # inputs at L=577 have a standard deviation near 7e-2, so the bf16 tolerance of
 # the older kernels would pass a dropped key there
 TC_TOLERANCE = 1.5e-2
+# the tensor-core backward pair against its plain version, of max|ref| per case:
+# twice the largest gap measured over phase 3c's cases, 3.1e-3 (K10 under the
+# mask), rounded up. The CUDA-core pair's bf16 limit of 5e-2 would pass a wrong
+# column of the row statistics in a ragged tile
+BWD_TC_TOLERANCE = 7e-3
+# phase 4c: one block under the kernels against the same block under the plain
+# version, in bf16 steps of the layer's residual stream (one step is what a
+# single rounding of the stream moves; the readings are 1 and once 1.5)
+LOCAL_GAP_STEPS = 3
+LOCAL_GAP_FRAMES = 32
 FP32_SLICE_TOL = 1e-4
 # the plain attention rounds as the kernel does, so the two bf16 passes differ
 # only by summation order (about 3.4e-2 after ViT-B/16's twelve bf16 layers,
@@ -204,6 +245,9 @@ FP32_GRAD_TOL = 1e-4  # of each leaf's max |gradient|
 # of each leaf's max |gradient|: the kernel path and the plain path round alike
 # and differ by summation order, amplified through 24 bf16 layers each way
 BF16_GRAD_TOL = 5e-2
+# the warm step with K7 on the CUDA-core pair (NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's
+GRAD_STEP_BEFORE = {"ViT-L/14@336px bfloat16": "0.4785 s with K7 on mha_blocked_bwd.cu"}
 # the card's published peaks (NVIDIA H100 SXM, dense): what bound_ms is taken against
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -277,6 +321,15 @@ def phase_build() -> None:
     require(blocks >= 4, f"tensor-core kernel: {blocks} blocks an SM")
     print(f"[build] tensor-core kernel, head dim {dh}: {A.mha_tc_smem_bytes(dh)} B a block, "
           f"{blocks} blocks of 4 warps an SM")
+    checked += 1
+    for kernel, code in A.BWD_TC_PASSES.items():
+        need = A.blocked_bwd_tc_smem_bytes(dh, kernel)
+        require(lib.acl_blocked_bwd_tc_smem_bytes(dh, code) == need,
+                f"tensor-core backward smem, {kernel}")
+        blocks = lib.acl_blocked_bwd_tc_blocks_per_sm(dh, code)
+        require(blocks == 3, f"tensor-core backward, {kernel} kernel: {blocks} blocks an SM")
+        print(f"[build] tensor-core backward, {kernel} kernel, head dim {dh}: {need} B a block, "
+              f"{blocks} blocks of 4 warps an SM")
     checked += 1
     from anomalyclip_tpu_torch.ops import attention_probes as P
 
@@ -357,7 +410,8 @@ class Case:
     path: tuple = FP32  # the dtypes whose numbers go into the kernels line
     relative: bool = False  # the tolerance is of max|ref| (the backwards) or absolute
     library: bool = True  # the library has a call for the same function
-    tensor_cores: bool = False  # in bf16 the tensor-core kernel runs: held to TC_TOLERANCE
+    tensor_cores: bool = False  # in bf16 a tensor-core kernel runs: held to tc_tolerance
+    tc_tolerance: float = TC_TOLERANCE
 
 
 def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
@@ -380,7 +434,7 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
             scale = max(b.float().abs().max().item() for b in want) if case.relative else 1.0
             tight = case.tensor_cores and dtype == torch.bfloat16
-            tol = (TC_TOLERANCE if tight else TOLERANCE[dtype]) * scale
+            tol = (case.tc_tolerance if tight else TOLERANCE[dtype]) * scale
             for a, b in zip(got, want):
                 torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
             del got, want
@@ -398,8 +452,9 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
                 library_ms = median_ms(lambda: sdpa_backward(*views, case.causal, case.wrt))
                 beside = f"sdpa forward+backward {library_ms:.4f} ms (forward {fwd_ms:.4f})"
             bound_ms, bound_by = attention_bound(case.kind, dims, dtype, case.causal, case.stats)
+            of_ref = f", {err / scale:.3e} of max|ref|" if case.relative and scale > 0 else ""
             print(f"[{tag}] {case.name} {case.shape} as {dims} causal={case.causal} "
-                  f"{str(dtype).split('.')[-1]}: max|err| {err:.3e} (tol {tol:.3e}), "
+                  f"{str(dtype).split('.')[-1]}: max|err| {err:.3e}{of_ref} (tol {tol:.3e}), "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, "
                   f"bound {bound_ms:.4f} ms ({bound_by})")
             entry = report.setdefault(case.name, {
@@ -608,6 +663,8 @@ def phase_long_bwd_kernels(report: dict) -> None:
     from anomalyclip_tpu_torch.scripts import bench_attn_bwd as bench
 
     limit = A.smem_limit(torch.device("cuda"))
+    # in bf16 at head dim 64 every case below launches the tensor-core pair
+    on_tensor_cores = {"tensor_cores": True, "tc_tolerance": BWD_TC_TOLERANCE}
     cases = []
     # K7 at the ViT-L/14@336px tower's shape: t = q, kv, g; the bf16 tower is
     # its path
@@ -615,8 +672,16 @@ def phase_long_bwd_kernels(report: dict) -> None:
         "mha_qtile_bwd", (32, 577, 1024), [(32, 577, 1024), (32, 577, 2048), (32, 577, 1024)],
         lambda t: A.mha_qtile_bwd_kernel(*t, 16), lambda t: A.mha_qtile_bwd_reference(*t, 16),
         lambda t: (*packed_heads(t[0], 1, 16), *packed_heads(t[1], 2, 16), *packed_heads(t[2], 1, 16)),
-        kind="bwd", path=BF16, relative=True,
+        kind="bwd", path=BF16, relative=True, **on_tensor_cores,
     ))
+    # and at the ragged edges of its 64-row tiles and 64-key blocks (printed only)
+    for l in (1, 63, 64, 65, 129, 1100):
+        cases.append(Case(
+            "mha_qtile_bwd ragged", (3, l, 128), [(3, l, 128), (3, l, 256), (3, l, 128)],
+            lambda t: A.mha_qtile_bwd_kernel(*t, 2), lambda t: A.mha_qtile_bwd_reference(*t, 2),
+            lambda t: (*packed_heads(t[0], 1, 2), *packed_heads(t[1], 2, 2), *packed_heads(t[2], 1, 2)),
+            kind="bwd", dtypes=BF16, path=(), relative=True, **on_tensor_cores,
+        ))
 
     # K9 and K10 with the log-sum-exp and the output of K8, at the fp32 tower's
     # per-head shape (its path) and ragged on both axes: t = q, k, v, g, then
@@ -639,6 +704,7 @@ def phase_long_bwd_kernels(report: dict) -> None:
                 lambda t: tuple(u[:, None] for u in t[:4]),
                 prepare=lambda t, c=causal: with_stats(t, c),
                 kind=kind, causal=causal, stats=2, wrt=wrt, path=path, relative=True,
+                **(on_tensor_cores if shape[-1] == A.MHA_TC_HEAD_DIM else {}),
             ))
     # the whole-block backward entries past the whole-head kernel's shared
     # memory, on no path of the supported model (printed, not in the kernels
@@ -654,17 +720,43 @@ def phase_long_bwd_kernels(report: dict) -> None:
             lambda t, c=causal: A.mha_qkv_bwd_kernel(*t, 12, c),
             lambda t, c=causal: A.mha_qkv_bwd_reference(*t, 12, c),
             lambda t: (*packed_heads(t[0], 3, 12), *packed_heads(t[1], 1, 12)),
-            kind="bwd", causal=causal, path=(), relative=True,
+            kind="bwd", causal=causal, path=(), relative=True, **on_tensor_cores,
         ))
     cases.append(Case(
         "fused_attention backward", (32, 12, 197, 64), (32, 197, 4, 12, 64),
         lambda t: A.fused_attention_bwd_kernel(*t.permute(2, 0, 3, 1, 4), False),
         lambda t: A.attention_bwd_reference(*t.permute(2, 0, 3, 1, 4), False),
         lambda t: tuple(t.permute(2, 0, 3, 1, 4)), kind="bwd", path=(), relative=True,
+        **on_tensor_cores,
     ))
     scratch = {}
+    A.reset_launch_counts()
     run_cases("long bwd", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED + 3))
     report.update({k: v for k, v in scratch.items() if k in KERNEL_SOURCE})
+    # the tensor-core pair's own line: its numbers at its path's shape, K7's
+    report["blocked_bwd_tc"] = dict(scratch["mha_qtile_bwd"])
+    # every bf16 launch at head dim 64 took the tensor-core pair; none in fp32 or
+    # at head dim 16 (K8, which made the flash cases' statistics, has no route)
+    bf16_cases = sum(c.tensor_cores and torch.bfloat16 in c.dtypes for c in cases)
+    require_routes("long backward kernels", 0, CASE_CALLS * bf16_cases)
+    print(f"[long bwd] {A.route_counts['blocked_bwd_tc']} launches of the tensor-core backward pair "
+          f"over {bf16_cases} bf16 cases at head dim 64; none in fp32 or at head dim 16")
+
+    # a fixed order of sums and no atomics: two launches give the same bits
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    q, kv, g = (torch.randn(32, 577, d, device="cuda", generator=gen).bfloat16()
+                for d in (1024, 2048, 1024))
+    once, again = A.mha_qtile_bwd_kernel(q, kv, g, 16), A.mha_qtile_bwd_kernel(q, kv, g, 16)
+    heads = list(torch.randn(4, 64, 500, 64, device="cuda", generator=gen).bfloat16())
+    out, lse = A.flash_attention_heads(*heads[:3], save_lse=True, causal=True)
+    once += A.flash_bwd_kernel(*heads, lse, out, True)
+    again += A.flash_bwd_kernel(*heads, lse, out, True)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(once, again)),
+            "two launches of the tensor-core backward pair differ")
+    print(f"[long bwd] K7 at (32, 577, 1024) and K9, K10 causal at (64, 500, 64), bf16: two "
+          f"launches give the same bits in all {len(once)} gradients")
+    del q, kv, g, heads, out, lse, once, again
 
     # autograd through fused_attention at the fp32 tower's split heads (K8, then
     # K9 and K10) against its plain path
@@ -824,14 +916,15 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def require_routes(what: str, tensor_core: int) -> dict:
+def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0) -> dict:
     """The route counts of the run just made: ``tensor_core`` launches of K1 and
-    K6 took the tensor-core kernel (all of them in bf16 at head dim 64, none in
-    fp32) -> the counts."""
+    K6 took the tensor-core kernel and ``bwd_tensor_core`` launches of the
+    KV-blocked backward the tensor-core pair (all of them in bf16 at head dim
+    64, none in fp32) -> the counts."""
     from anomalyclip_tpu_torch.ops.attention import route_counts
 
-    routes = dict(route_counts)
-    require(routes == {"mha_tc": tensor_core}, f"{what}: routes {routes}, expected {tensor_core}")
+    routes, want = dict(route_counts), {"mha_tc": tensor_core, "blocked_bwd_tc": bwd_tensor_core}
+    require(routes == want, f"{what}: routes {routes}, expected {want}")
     return routes
 
 
@@ -1158,6 +1251,34 @@ def phase_l14() -> dict:
         assert_videos_close(vs, ref_vs, limit, f"ViT-L/14@336px {dtype} kernel vs plain")
         del predictor, ref
         torch.cuda.empty_cache()
+
+    # what catches a kernel, beside the end-to-end limit: the gap one layer's
+    # kernels open, on the plain run's own input, in bf16 steps of the stream
+    from anomalyclip_tpu_torch.scripts import probe_bf16_drift as drift
+
+    res = clip_cfg.image_resolution
+    tower_frames = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
+        0, 256, (LOCAL_GAP_FRAMES, res, res, 3), dtype=np.uint8)).to("cuda")
+    reset_launch_counts()
+    readings = drift.local_gap_readings(frozen["clip"], clip_cfg, tower_frames)
+    torch.cuda.synchronize()
+    local = {k: v for k, v in launch_counts.items() if v}
+    require(len(readings) == clip_cfg.vision_layers and local == {"fused_mha_qtile": len(readings)},
+            f"local gaps: {len(readings)} layers, launches {local}")
+    require_routes("ViT-L/14@336px local gaps", len(readings))
+    worst = max(readings, key=lambda r: r["local_steps"])
+    print(f"[l14] bf16 local gap by layer, {LOCAL_GAP_FRAMES} frames, in bf16 steps of the stream: "
+          + " ".join(f"{r['local_steps']:.2f}" for r in readings))
+    print(f"[l14] bf16 local gap: worst at layer {worst['layer']}: {worst['local_gap']:.3e} with "
+          f"max|x| {worst['stream_max']:.2f} (step {worst['step']:.3e}): {worst['local_steps']:.2f} "
+          f"steps (limit {LOCAL_GAP_STEPS})")
+    for r in readings:
+        require(r["local_steps"] <= LOCAL_GAP_STEPS,
+                f"ViT-L/14@336px bf16, layer {r['layer']}: the kernels' local gap {r['local_gap']:.3e} "
+                f"is {r['local_steps']:.2f} bf16 steps of the stream (max|x| {r['stream_max']:.2f}), "
+                f"limit {LOCAL_GAP_STEPS}")
+    del tower_frames
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return launches
 
@@ -1240,8 +1361,9 @@ def phase_tower_gradient() -> dict:
         launches[name] = dict(launch_counts)
         want_counts = {k: expect(cfg.vision_layers).get(k, 0) for k in launch_counts}
         require(launches[name] == want_counts, f"{name} launches {launches[name]}, expected {want_counts}")
-        launches[name].update(require_routes(
-            f"{name} gradient", cfg.vision_layers * (dtype == torch.bfloat16)))
+        # in bf16 every K6 launch and every K7 launch is a tensor-core one
+        on_tc = cfg.vision_layers * (dtype == torch.bfloat16)
+        launches[name].update(require_routes(f"{name} gradient", on_tc, on_tc))
         torch.cuda.reset_peak_memory_stats()
         _, warm_s = timed(lambda: step(dtype))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1256,6 +1378,8 @@ def phase_tower_gradient() -> dict:
               f"launches {({k: v for k, v in launches[name].items() if v})}")
         print(f"[grad] {name}: kernels vs plain attention, worst leaf max|diff| / max|grad| "
               f"{gap:.3e} (limit {limit:g}); two plain passes differ by {plain_gap:.3e}")
+        if name in GRAD_STEP_BEFORE:
+            print(f"[grad] {name}: warm step {warm_s:.4f} s; {GRAD_STEP_BEFORE[name]}")
         require(gap <= limit, f"{name} gradients: {gap:.3e} > {limit:g}")
         del got, want, again
     torch.cuda.empty_cache()
@@ -1408,8 +1532,17 @@ def phase_scripts() -> list:
     # the tensor-core kernel at the towers' six shapes (four through K1, two
     # through K6), each checked, warmed and timed, with the kernel's opcode mix
     # read from the built library
+    # and the backward pair at the four of them past the whole-head backward
+    # (two through K3's entry, two through K7), with all three kernels' opcode
+    # mixes
     runs.append(run_script("bench_mha_tc", ["--sass", *it], {
-        "fused_mha_qkv": 4 * calls, "fused_mha_qtile": 2 * calls, "mha_tc": 6 * calls}))
+        "fused_mha_qkv": 4 * calls, "fused_mha_qtile": 2 * calls, "mha_tc": 6 * calls,
+        "mha_qkv_bwd": 2 * calls, "mha_qtile_bwd": 2 * calls, "blocked_bwd_tc": 4 * calls}))
+    # K7's parity in fp32 (one launch of the CUDA-core pair), then the bf16
+    # forward+backward step, warmed and timed, on the tensor-core kernels
+    runs.append(run_script("bench_attn_bwd", ["--qtile", *it], {
+        "fused_mha_qtile": n + 1, "mha_tc": n + 1, "mha_qtile_bwd": 1 + n + 1,
+        "blocked_bwd_tc": n + 1}))
     # the ViT-L/14@336px tower by layer under the kernels and three plain forms:
     # 24 K6 launches along the kernel run and 24 for its local gaps
     runs.append(run_script("probe_bf16_drift", ["--seeds", "1", "--frames", "8"],
@@ -1447,6 +1580,8 @@ def kernel_class(name: str) -> str:
         return "attention (mha_long.cu)"
     if "mha_bwd_kernel" in low:
         return "attention backward (mha_bwd.cu)"
+    if "blocked_dq_tc_kernel" in low or "blocked_dkv_tc_kernel" in low:
+        return "attention backward (mha_tc_bwd.cu)"
     if "blocked_dq_kernel" in low or "blocked_dkv_kernel" in low:
         return "attention backward (mha_blocked_bwd.cu)"
     if low.startswith(("memcpy", "memset")):
@@ -1619,16 +1754,18 @@ def main() -> int:
     require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld",
                                                 "mha_qkv_bwd", "mha_bld_bwd")),
             f"a kernel of the training path was never launched: {train_launches}")
-    grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd", "mha_tc"),
+    grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd", "mha_tc",
+                                              "blocked_bwd_tc"),
                   "ViT-L/14@336px float32": ("flash_attention_heads", "flash_dq", "flash_dkv"),
                   "ViT-B/16 float32": ("fused_mha_qkv", "mha_qkv_bwd")}
     for run, names in grad_paths.items():
         require(all(grad_launches[run][k] > 0 for k in names),
                 f"a kernel of the {run} gradient path was never launched: {grad_launches[run]}")
-    # and the scripts' path ran every probe kernel and, again, K1-K4, K6 and K8
+    # and the scripts' path ran every probe kernel and, again, K1-K4, K6-K8
     script_totals = {k: sum(run[k] for run in script_launches) for k in script_launches[0]}
     script_path = (*PROBE_REPLACES, "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
-                   "fused_mha_qtile", "flash_attention_heads", "mha_tc")
+                   "fused_mha_qtile", "flash_attention_heads", "mha_tc", "mha_qtile_bwd",
+                   "blocked_bwd_tc")
     require(all(script_totals[k] > 0 for k in script_path),
             f"a kernel of the scripts' path was never launched: {script_totals}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
@@ -1641,8 +1778,7 @@ def main() -> int:
             "route": "cuda",
             "source": sources[name],
             "replaces": replaces[name],
-            "also_replaces": (MHA_TC_ALSO_REPLACES if name == "mha_tc"
-                              else PROBE_REPLACES.get(name, [None])[1:]),
+            "also_replaces": ALSO_REPLACES.get(name) or PROBE_REPLACES.get(name, [None])[1:],
             "launches": sum(run.get(name, 0) for run in all_runs),
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],

@@ -280,7 +280,7 @@ def test_tc_wrappers_read_views_in_place_and_count(numpy_kernels):
                                rtol=0, atol=2e-2)
     assert numpy_kernels.calls == [("qkv_tc", 64, 1), ("qtile_tc", 64)]
     assert tattn.launch_counts == _counts(fused_mha_qkv=1, fused_mha_qtile=1)
-    assert tattn.route_counts == {"mha_tc": 2}
+    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0}
 
 
 def _misaligned(rng, dtype):
@@ -615,7 +615,7 @@ def test_reset_launch_counts_clears_both_tables():
     tattn.launch_counts["fused_mha_qkv"] = 3
     tattn.route_counts["mha_tc"] = 3
     tattn.reset_launch_counts()
-    assert tattn.launch_counts == _counts() and tattn.route_counts == {"mha_tc": 0}
+    assert tattn.launch_counts == _counts() and tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +691,7 @@ def test_tc_qkv_kernel_matches_blocked_plain(cuda, b, l, d, heads, causal):
     want = tattn.mha_qkv_reference(qkv, heads, causal, BLOCK)
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)
-    assert tattn.route_counts == {"mha_tc": 1}
+    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0}
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
@@ -708,7 +708,7 @@ def test_tc_qtile_kernel_matches_blocked_plain(cuda, b, l, d, heads):
     want = tattn.mha_qtile_reference(x[..., :d], x[..., d:], heads, BLOCK)
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qtile=1)
-    assert tattn.route_counts == {"mha_tc": 1}
+    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0}
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
 
@@ -722,7 +722,7 @@ def test_misaligned_and_fp32_operands_take_the_cuda_core_kernel_on_the_card(cuda
     x = wide[..., 1:-1].float()
     torch.testing.assert_close(tattn.fused_mha_qkv(x, 2, True), tattn.mha_qkv_reference(x, 2, True),
                                rtol=0, atol=FP32_TOL)
-    assert tattn.launch_counts == _counts(fused_mha_qkv=1) and tattn.route_counts == {"mha_tc": 0}
+    assert tattn.launch_counts == _counts(fused_mha_qkv=1) and tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0}
     with pytest.raises(ValueError, match="16-byte pieces"):
         tattn.fused_mha_qkv(wide[..., 1:-1], 2, True)
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)

@@ -537,6 +537,7 @@ _SCRIPTS = [
     ("bench_mha_tc", []),
     ("bench_mha_tc", ["text", "--sass"]),
     ("probe_bf16_drift", ["--seeds", "1"]),
+    ("bench_attn_bwd", ["--flash", "--dtype", "bf16"]),
 ]
 
 
@@ -552,6 +553,44 @@ def test_script_runs_to_the_end_on_the_cpu_and_prints_no_times(script, argv, cap
     assert " ms" not in out and "fps" not in out and "FAIL" not in out
     if script == "bench_attn_l14" and "whole" in " ".join(argv) and "--seq" not in argv:
         assert "whole              does not fit: needs 318244 B" in out
+
+
+def test_probe_bf16_drift_returns_its_readings(capsys):
+    """What the script prints it also returns, one entry a seed: per layer the
+    stream's max, the kernel's local gap, one bf16 step of the stream and the gap
+    in such steps, the streams' gaps, and the embedding's gaps. On the CPU the
+    kernel form is the ``blocked`` plain one, so its gaps are 0."""
+    from anomalyclip_tpu_torch.scripts import probe_bf16_drift as drift
+
+    readings = drift.main(["--seeds", "2", "--device", "cpu"])
+    capsys.readouterr()
+    layers = tclip.CLIPConfig.tiny().vision_layers
+    assert [r["seed"] for r in readings] == [0, 1] and all(r["frames"] == 2 for r in readings)
+    for r in readings:
+        assert [at["layer"] for at in r["layers"]] == list(range(1, layers + 1))
+        for at in r["layers"]:
+            assert set(at) == {"layer", "stream_max", "local_gap", "step", "local_steps", "stream_gap"}
+            assert at["stream_max"] > 0 and at["step"] == drift.bf16_step(at["stream_max"])
+            assert at["local_gap"] == at["local_steps"] == 0.0
+            assert set(at["stream_gap"]) == {"kernel", "blocked128", "whole"}
+            assert at["stream_gap"]["kernel"] == 0.0
+        assert set(r["embedding"]) == {"max", "from_blocked", "from_fp32"}
+        assert set(r["embedding"]["from_fp32"]) == set(drift.FORMS)
+        assert 0 < r["embedding"]["from_fp32"]["blocked"] < 0.1 * r["embedding"]["max"]
+
+
+@pytest.mark.parametrize("top,step", [(5.5, 2.0**-5), (6.6, 2.0**-5), (1.0, 2.0**-7), (0.99, 2.0**-8),
+                                      (30.0, 2.0**-3), (0.0, 0.0)])
+def test_bf16_step_of_a_magnitude(top, step):
+    """2^(floor(log2 max|x|) - 7): the distance between neighbouring bf16 values
+    there, checked against torch's own rounding."""
+    from anomalyclip_tpu_torch.scripts import probe_bf16_drift as drift
+
+    assert drift.bf16_step(top) == step
+    if top:
+        x = torch.tensor(top).bfloat16()
+        above = torch.nextafter(x, torch.tensor(float("inf"), dtype=torch.bfloat16))
+        assert (above.float() - x.float()).item() == step
 
 
 def test_an_unknown_variant_or_group_ends_the_script():
