@@ -21,7 +21,8 @@ Five entries, the counterparts of the JAX package's Pallas kernels
   1152), routed as ``_fused_attention_impl`` routes (:1121-1135). The
   ViT-L/14@336px tower in fp32 enters here and goes on to the flash kernel, as
   does a causal shape too long for the whole-block kernel, which the reference
-  sends to its XLA formulation (:1135). Its gradient is the whole-block backward
+  sends to its XLA formulation (:1135); that branch hands the kernels the
+  four-dimensional views as they are. Its gradient is the whole-block backward
   with the heads folded (:1171-1181).
 
 The forwards compute the function of ``_attend_head`` (:68-85): fp32 scores, a
@@ -37,14 +38,19 @@ them; outside any such scope the environment variable ``ANOMALYCLIP_ATTN_IMPL``
 and kept for its backward, which autograd runs on another thread.
 
 Which kernel serves which operands. ``fused_mha_qkv`` and ``fused_mha_qtile``
-launch one of two kernels, chosen by the wrapper from the operand type and the
-head dim before the launch: in bf16 at head dim 64 the tensor-core kernel of
-mha_tc.cu (``mma.sync`` products, P in registers, K and V in blocks of
+launch one of several kernels, chosen by the wrapper from the operand type and
+the head dim before the launch: in bf16 at head dim 64 the tensor-core kernel
+of mha_tc.cu (``mma.sync`` products, P in registers, K and V in blocks of
 ``MHA_TC_BLOCK_KV`` keys with online softmax: every CLIP tower in bf16; its
-operands must be readable in 16-byte pieces, or the wrapper raises); otherwise
-the whole-row CUDA-core kernel of mha.cu, which also serves ``fused_mha_bld``
-and ``fused_attention``'s whole-block branch in either type (fp32 stays off the
-tensor cores: TF32 is off for checkpoint parity).
+operands must be readable in 16-byte pieces, or the wrapper raises); in fp32 at
+head dim 64 ``fused_mha_qkv``, like ``flash_attention_heads``, launches the
+split-TF32 kernel of mha_tf32.cu (the same design with each fp32 product formed
+as three TF32 ``mma.sync`` products of the operands' big and small parts, which
+keeps fp32 accuracy: TF32 itself stays off, and no ``allow_tf32`` flag is
+touched; the same demand on its operands); otherwise the whole-row CUDA-core
+kernel of mha.cu, which also serves ``fused_mha_bld`` and
+``fused_attention``'s whole-block branch in either type, and the KV-blocked
+CUDA-core kernel of mha_long.cu behind ``flash_attention_heads``.
 The KV-blocked backward pair is two kernels in the same way: in bf16 at head
 dim 64 every caller of it (K7, K9, K10, and K3, K4 and K5's backward past the
 whole-head kernel) launches the tensor-core pair of mha_tc_bwd.cu, with the same
@@ -113,8 +119,11 @@ launch_counts = {
 # CUDA-core one (mha.cu); "blocked_bwd_tc" the backward entries' launches (K7, K9,
 # K10, the KV-blocked route of K3, K4 and K5's backward) that took the
 # tensor-core pair (mha_tc_bwd.cu) rather than the CUDA-core one
-# (mha_blocked_bwd.cu), one for each count of ``launch_counts``
-route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0}
+# (mha_blocked_bwd.cu), one for each count of ``launch_counts``; "mha_tf32"
+# the launches of fused_mha_qkv and flash_attention_heads that took the
+# split-TF32 tensor-core kernel (mha_tf32.cu) rather than the CUDA-core one
+# (mha.cu, mha_long.cu)
+route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0}
 
 IMPL_ENV = "ANOMALYCLIP_ATTN_IMPL"
 _IMPLS = ("kernel", "reference")
@@ -149,10 +158,10 @@ def attention_impl(impl: str):
 
 
 def _masked_scores(q, k, causal: bool) -> torch.Tensor:
-    """fp32 q k^T / sqrt(dh) over (B, H, L, Dh), causal entries at NEG_INF."""
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    """fp32 q k^T / sqrt(dh) over (..., L, Dh), causal entries at NEG_INF."""
+    scores = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
-        l = q.shape[2]
+        l = q.shape[-2]
         mask = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~mask, NEG_INF)
     return scores
@@ -276,12 +285,13 @@ def flash_attention_reference(
     return out
 
 
-def _online_softmax(q, k, v, causal: bool, block: int) -> tuple:
+def _online_softmax(q, k, v, causal: bool, block: int, product=torch.einsum) -> tuple:
     """The KV-blocked sweep over (..., L, dh) q, k, v -> fp32 (accumulator
     (..., L, dh), sum (..., L, 1), max (..., L, 1)): per block of ``block`` keys
     the running max, alpha = exp(m_old - m_new) on the accumulator and the sum, p
     = exp(s - m_new) summed unrounded and cast to v's type before P.V; causal
-    entries at NEG_INF before the max."""
+    entries at NEG_INF before the max. ``product(spec, a, b)`` forms the two
+    products (fp32 einsum; the split-TF32 emulation for ``tf32x3_reference``)."""
     l, dh = q.shape[-2:]
     scale = 1.0 / math.sqrt(dh)
     qf = q.float()
@@ -291,14 +301,14 @@ def _online_softmax(q, k, v, causal: bool, block: int) -> tuple:
     rows = torch.arange(l, device=q.device)[:, None]
     for start in range(0, l, block):
         kb, vb = k[..., start : start + block, :], v[..., start : start + block, :]
-        s = torch.einsum("...qd,...kd->...qk", qf, kb.float()) * scale
+        s = product("...qd,...kd->...qk", qf, kb.float()) * scale
         if causal:
             keys = torch.arange(start, start + kb.shape[-2], device=q.device)[None, :]
             s = s.masked_fill(keys > rows, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
-        acc = acc * alpha + torch.einsum("...qk,...kd->...qd", p.to(v.dtype).float(), vb.float())
+        acc = acc * alpha + product("...qk,...kd->...qd", p.to(v.dtype).float(), vb.float())
         denom = denom * alpha + p.sum(dim=-1, keepdim=True)
         m = m_new
     return acc, denom, m
@@ -320,6 +330,52 @@ def attention_blocked_reference(
     return (acc / denom).to(q.dtype)
 
 
+# keys per KV block of the split-TF32 kernel (mha_tf32.cu: kTfKV)
+MHA_TF32_BLOCK_KV = 64
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """fp32 x -> (big, small), both TF32 values held as fp32: big = x rounded to
+    10 mantissa bits, to nearest with ties away from zero (``cvt.rna.tf32.f32``,
+    on the bits (b + 0x1000) & ~0x1FFF), small = x - big rounded the same way.
+    For the tests and the chip smoke run: nothing on the main path calls it."""
+    def rna(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(x.float())
+    return big, rna(x.float() - big)
+
+
+def _tf32_product(passes: int):
+    """einsum over TF32 parts: with 3 passes small.big + big.small + big.big,
+    the kernel's products in its order; with 1 pass big.big alone (plain TF32)."""
+    def product(spec, a, b):
+        (a_big, a_small), (b_big, b_small) = tf32_split(a), tf32_split(b)
+        big = torch.einsum(spec, a_big, b_big)
+        if passes == 1:
+            return big
+        return (torch.einsum(spec, a_small, b_big) + torch.einsum(spec, a_big, b_small)) + big
+
+    return product
+
+
+def tf32x3_reference(q, k, v, causal: bool = False, save_lse: bool = False, passes: int = 3):
+    """What the split-TF32 kernel (mha_tf32.cu) computes over fp32 (..., L, dh)
+    q, k, v: ``flash_attention_reference``'s KV-blocked arithmetic at
+    ``MHA_TF32_BLOCK_KV`` keys with each product formed from the operands' TF32
+    parts (``tf32_split``) -> out, or (out, lse). ``passes=1`` is plain TF32,
+    which the fp32 limits reject. For the tests and the chip smoke run."""
+    acc, denom, m = _online_softmax(q, k, v, causal, MHA_TF32_BLOCK_KV, _tf32_product(passes))
+    out = acc / denom
+    return (out, (m + torch.log(denom)).squeeze(-1)) if save_lse else out
+
+
+def mha_qkv_tf32x3_reference(qkv, num_heads: int, causal: bool = False, passes: int = 3):
+    """``tf32x3_reference`` over a packed (B, L, 3D) qkv -> (B, L, D)."""
+    heads = [_split_heads(t, num_heads) for t in _unpack_qkv(qkv)]
+    return _merge_heads(tf32x3_reference(*heads, causal, passes=passes))
+
+
 def flash_delta(g, out) -> torch.Tensor:
     """rowsum(g o out) in fp32, (N, L): the flash backward's delta, one
     elementwise pass outside the kernels, as ``_flash_bwd_impl`` (:1013-1016)."""
@@ -329,12 +385,13 @@ def flash_delta(g, out) -> torch.Tensor:
 def _flash_p_and_ds(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
     """fp32 (P, dS, g) of the flash backward from the (N, L) fp32 log-sum-exp and
     delta: P = exp(s - lse), not renormalised, 0 above the diagonal when
-    ``causal``; dS = P o (dP - delta) * scale, rounded to q's type."""
+    ``causal``; dS = P o (dP - delta) * scale, rounded to q's type. Per-head
+    (N, L, dh) operands, or the (B, H, L, dh) views with (B, H, L) statistics
+    that ``fused_attention`` hands over."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     g = g.to(q.dtype).float()
-    scores = _masked_scores(q.unsqueeze(0), k.unsqueeze(0), causal).squeeze(0)
-    p = torch.exp(scores - lse.unsqueeze(-1))
-    dp = torch.einsum("nqd,nkd->nqk", g, v.float())
+    p = torch.exp(_masked_scores(q, k, causal) - lse.unsqueeze(-1))
+    dp = torch.einsum("...qd,...kd->...qk", g, v.float())
     return p, (p * (dp - delta.unsqueeze(-1)) * scale).to(q.dtype).float(), g
 
 
@@ -342,15 +399,15 @@ def flash_dq_reference(q, k, v, g, lse, delta, causal: bool = False) -> torch.Te
     """``_flash_dq_kernel`` (:904-940) over per-head (N, L, dh): dq = dS K, dS
     cast to q's type first, summed in fp32."""
     _, ds, _ = _flash_p_and_ds(q, k, v, g, lse, delta, causal)
-    return torch.einsum("nqk,nkd->nqd", ds, k.float()).to(q.dtype)
+    return torch.einsum("...qk,...kd->...qd", ds, k.float()).to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
     """``_flash_dkv_kernel`` (:943-993): dk = dS^T q and dv = P^T g, dS cast to
     q's type and P to v's type first, summed in fp32."""
     p, ds, g = _flash_p_and_ds(q, k, v, g, lse, delta, causal)
-    dk = torch.einsum("nqk,nqd->nkd", ds, q.float())
-    dv = torch.einsum("nqk,nqd->nkd", p.to(v.dtype).float(), g)
+    dk = torch.einsum("...qk,...qd->...kd", ds, q.float())
+    dv = torch.einsum("...qk,...qd->...kd", p.to(v.dtype).float(), g)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -439,6 +496,25 @@ def mha_tc_eligible(dtype: torch.dtype, dh: int) -> bool:
     mha_blocked_bwd.cu. For K1 and K6 it also decides which plain version rounds
     like the kernel: the KV-blocked one where this says yes."""
     return dtype == torch.bfloat16 and dh == MHA_TC_HEAD_DIM
+
+
+MHA_TF32_HEAD_DIM = 64  # the one head dim the split-TF32 kernel is instantiated for
+_MHA_TF32_PADS = (8, 4)  # floats of padding per staged K row and V row (mha_tf32.cu)
+
+
+def mha_tf32_smem_bytes(dh: int = MHA_TF32_HEAD_DIM) -> int:
+    """The split-TF32 kernel (mha_tf32.cu): two stages of one KV block each of K
+    and V, fp32 rows padded by 8 and 4 floats; the q tile lives in registers.
+    Independent of L."""
+    k_pad, v_pad = _MHA_TF32_PADS
+    return 4 * _MHA_TC_STAGES * MHA_TF32_BLOCK_KV * ((dh + k_pad) + (dh + v_pad))
+
+
+def mha_tf32_eligible(dtype: torch.dtype, dh: int) -> bool:
+    """Whether K1 and K8 launch the split-TF32 tensor-core kernel (mha_tf32.cu)
+    for this operand type and head dim, or the CUDA-core kernels of mha.cu and
+    mha_long.cu (and in bf16 at head dim 64, K1 the kernel of mha_tc.cu)."""
+    return dtype == torch.float32 and dh == MHA_TF32_HEAD_DIM
 
 
 BWD_TC_PASSES = {"dq": 0, "dkv": 1}  # the library's codes for the pair's two kernels
@@ -583,56 +659,66 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _in_16_byte_pieces(t: torch.Tensor) -> bool:
+    """Whether a tensor-core kernel can read t in 16-byte pieces: its base
+    address and every stride but the last are multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:-1])
+
+
 def _check_16_byte_pieces(name: str, *operands: torch.Tensor) -> None:
-    """Raise on a bf16 operand a tensor-core kernel cannot read in 16-byte
-    pieces: its base address and every stride but the last."""
+    """Raise on an operand a tensor-core kernel cannot read in 16-byte pieces."""
     for t in operands:
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
+        if not _in_16_byte_pieces(t):
             raise ValueError(
-                f"{name}: the tensor-core kernel reads bf16 operands in 16-byte pieces; "
+                f"{name}: the tensor-core kernel reads {str(t.dtype).split('.')[-1]} operands "
+                f"in 16-byte pieces; "
                 f"shape {tuple(t.shape)} with strides {tuple(t.stride())} at offset "
                 f"{t.storage_offset()} is not aligned to them"
             )
 
 
-def _check_tc(name: str, out: torch.Tensor, num_heads: int, *operands: torch.Tensor) -> None:
-    """Raise on what the tensor-core kernel (mha_tc.cu) does not take: an operand
-    that cannot be read in 16-byte pieces (base address, batch and row strides),
-    a grid or a card too small for it."""
+def _check_tc(name: str, out: torch.Tensor, num_heads: int, *operands: torch.Tensor,
+              smem_need=mha_tc_smem_bytes) -> None:
+    """Raise on what a tensor-core kernel (mha_tc.cu; mha_tf32.cu with its
+    ``smem_need``) does not take: an operand that cannot be read in 16-byte
+    pieces (base address, batch and row strides), a grid or a card too small
+    for it. ``out`` is (B, L, D) with ``num_heads`` heads, or (B, H, L, dh)
+    with ``num_heads`` 1."""
     _check_16_byte_pieces(name, *operands)
-    b, l = out.shape[:2]
-    if b * num_heads * -(-l // _MHA_TC_ROWS) > _INT_MAX:
+    entries, l = out.shape[:-2].numel(), out.shape[-2]
+    if entries * num_heads * -(-l // _MHA_TC_ROWS) > _INT_MAX:
         raise ValueError(f"{name}: shape {tuple(out.shape)} is beyond the launch grid")
-    need, have = mha_tc_smem_bytes(out.shape[-1] // num_heads), smem_limit(out.device)
+    need, have = smem_need(out.shape[-1] // num_heads), smem_limit(out.device)
     if need > have:
         raise ValueError(f"{name}: the tensor-core kernel needs {need} B of shared memory "
                          f"per block, the card gives {have}")
 
 
 def mha_qkv_fwd_kernel(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
-    """K1: launch ``acl_mha_qkv_tc_fwd`` (bf16 at head dim 64) or
-    ``acl_mha_qkv_fwd`` (everything else) -> (B, L, D)."""
+    """K1: launch ``acl_mha_qkv_tc_fwd`` (bf16 at head dim 64),
+    ``acl_mha_qkv_tf32_fwd`` (fp32 at head dim 64) or ``acl_mha_qkv_fwd``
+    (everything else) -> (B, L, D)."""
     b, l, d3 = qkv.shape
     d = d3 // 3
     dh = _check_kernel_shape("fused_mha_qkv", qkv, d, num_heads, lambda dh: mha_smem_bytes(l, dh))
     bs, rs = _strides("fused_mha_qkv", qkv, qkv.shape)
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
     ptr = ctypes.c_void_p
-    tensor_cores = mha_tc_eligible(qkv.dtype, dh)
+    tensor_cores, tf32 = mha_tc_eligible(qkv.dtype, dh), mha_tf32_eligible(qkv.dtype, dh)
+    args = (ptr(qkv.data_ptr()), bs, rs, ptr(out.data_ptr()), b, l, num_heads, dh, int(causal),
+            1.0 / math.sqrt(dh), _stream(qkv))
     if tensor_cores:
         _check_tc("fused_mha_qkv", out, num_heads, qkv)
-        err = load_library().acl_mha_qkv_tc_fwd(
-            ptr(qkv.data_ptr()), bs, rs, ptr(out.data_ptr()), b, l, num_heads, dh, int(causal),
-            1.0 / math.sqrt(dh), _stream(qkv),
-        )
+        err = load_library().acl_mha_qkv_tc_fwd(*args)
+    elif tf32:
+        _check_tc("fused_mha_qkv", out, num_heads, qkv, smem_need=mha_tf32_smem_bytes)
+        err = load_library().acl_mha_qkv_tf32_fwd(*args)
     else:
-        err = load_library().acl_mha_qkv_fwd(
-            _DTYPE_CODES[qkv.dtype], ptr(qkv.data_ptr()), bs, rs, ptr(out.data_ptr()),
-            b, l, num_heads, dh, int(causal), 1.0 / math.sqrt(dh), _stream(qkv),
-        )
+        err = load_library().acl_mha_qkv_fwd(_DTYPE_CODES[qkv.dtype], *args)
     _raise_on_error("fused_mha_qkv", err)
     launch_counts["fused_mha_qkv"] += 1
     route_counts["mha_tc"] += tensor_cores
+    route_counts["mha_tf32"] += tf32
     return out
 
 
@@ -894,24 +980,46 @@ def mha_qtile_bwd_kernel(q, kv, g, num_heads: int) -> tuple:
     return dq, dkv
 
 
+def _as_heads(t: torch.Tensor) -> torch.Tensor:
+    """Per-head (N, L, dh) -> its (N, 1, L, dh) view; (B, H, L, dh) as it is."""
+    return t.unsqueeze(1) if t.dim() == 3 else t
+
+
+def _empty_heads(q: torch.Tensor) -> torch.Tensor:
+    """An output of q's shape: (N, L, dh) contiguous, or (B, H, L, dh) laid out
+    as (B, L, H, dh), so that folding its heads back into (B, L, H * dh), as the
+    core rung does, is a view and not a copy."""
+    if q.dim() == 3:
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    b, h, l, dh = q.shape
+    return torch.empty((b, l, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
 def _flash_bwd_views(q, k, v, g, lse, delta) -> tuple:
-    """The (N, 1, L, dh) views and (N, 1, L) statistics the blocked kernels take."""
-    n, l, dh = q.shape
-    if lse.shape != (n, l) or delta.shape != (n, l):
+    """The (B, H, L, dh) views and (B, H, L) statistics the blocked kernels take,
+    from per-head (N, L, dh) operands (H = 1) or from the (B, H, L, dh) views
+    ``fused_attention`` hands over, read in place; g is copied only where a
+    kernel could not read it in 16-byte pieces."""
+    if lse.shape != q.shape[:-1] or delta.shape != q.shape[:-1]:
         raise ValueError(
             f"flash backward: lse {tuple(lse.shape)} and delta {tuple(delta.shape)} for q {tuple(q.shape)}"
         )
-    views = [t.unsqueeze(1) for t in (q, k, v, g.to(q.dtype).contiguous())]
-    return views, lse.float().contiguous(), delta.float().contiguous()
+    g = g.to(q.dtype)
+    if g.stride(-1) != 1 or not _in_16_byte_pieces(g):
+        g = g.contiguous()
+    views = [_as_heads(t) for t in (q, k, v, g)]
+    stats = (t.float().contiguous().view(views[0].shape[:-1]) for t in (lse, delta))
+    return views, *stats
 
 
 def flash_dq_kernel(q, k, v, g, lse, delta, causal: bool = False) -> torch.Tensor:
     """K9: launch ``acl_blocked_dq`` (``acl_blocked_dq_tc`` in bf16 at head dim
-    64) with the given statistics over per-head (N, L, dh) -> dq (N, L, dh)."""
+    64) with the given statistics over per-head (N, L, dh), or over the (B, H,
+    L, dh) views of ``fused_attention`` -> dq of q's shape."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
     tensor_cores = _check_blocked("flash_dq", *views)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_blocked_dq("flash_dq", *views, dq.unsqueeze(1), lse, None, delta, False, causal)
+    dq = _empty_heads(q)
+    _launch_blocked_dq("flash_dq", *views, _as_heads(dq), lse, None, delta, False, causal)
     launch_counts["flash_dq"] += 1
     route_counts["blocked_bwd_tc"] += tensor_cores
     return dq
@@ -919,21 +1027,22 @@ def flash_dq_kernel(q, k, v, g, lse, delta, causal: bool = False) -> torch.Tenso
 
 def flash_dkv_kernel(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
     """K10: launch ``acl_blocked_dkv`` (``acl_blocked_dkv_tc`` in bf16 at head
-    dim 64) with the given statistics over per-head (N, L, dh) -> (dk, dv), each
-    (N, L, dh)."""
+    dim 64) with the given statistics over per-head (N, L, dh), or over the (B,
+    H, L, dh) views of ``fused_attention`` -> (dk, dv), each of q's shape."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
     tensor_cores = _check_blocked("flash_dkv", *views)
-    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    _launch_blocked_dkv("flash_dkv", *views, dk.unsqueeze(1), dv.unsqueeze(1), lse, None, delta, causal)
+    dk, dv = _empty_heads(q), _empty_heads(q)
+    _launch_blocked_dkv("flash_dkv", *views, _as_heads(dk), _as_heads(dv), lse, None, delta, causal)
     launch_counts["flash_dkv"] += 1
     route_counts["blocked_bwd_tc"] += tensor_cores
     return dk, dv
 
 
 def flash_bwd_kernel(q, k, v, g, lse, out, causal: bool = False) -> tuple:
-    """K9 and K10: (dq, dk, dv) over per-head (N, L, dh) from the forward's
-    saved log-sum-exp and output."""
-    g = g.to(q.dtype).contiguous()
+    """K9 and K10: (dq, dk, dv) over per-head (N, L, dh), or over the (B, H, L,
+    dh) views of ``fused_attention``, from the forward's saved log-sum-exp and
+    output."""
+    g = g.to(q.dtype)
     delta = flash_delta(g, out)
     dq = flash_dq_kernel(q, k, v, g, lse, delta, causal)
     return (dq, *flash_dkv_kernel(q, k, v, g, lse, delta, causal))
@@ -977,28 +1086,47 @@ def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
 
 
 def flash_fwd_kernel(q, k, v, save_lse: bool, causal: bool = False):
-    """K8: launch ``acl_flash_fwd`` over (N, L, dh) -> out (N, L, dh), or (out,
-    lse) with the (N, L) fp32 log-sum-exp; q, k, v are read in place."""
+    """K8 over per-head (N, L, dh), or over the (B, H, L, dh) views
+    ``fused_attention`` hands over -> out of q's shape, or (out, lse) with the
+    fp32 log-sum-exp of shape q.shape[:-1]. fp32 at head dim 64 launches
+    ``acl_flash_tf32_fwd``, which reads q, k, v in place through (batch, head,
+    row) strides and writes the output in (B, L, H, dh) layout
+    (``_empty_heads``); everything else ``acl_flash_fwd``, which takes per-head
+    tensors: four-dimensional views are folded into them."""
     _check_bld("flash_attention_heads", q, k, v)
-    n, l, dh = q.shape
+    l, dh = q.shape[-2:]
     itemsize = q.element_size()
     _check_kernel_shape(
         "flash_attention_heads", q, dh, 1, lambda dh: flash_smem_bytes(dh, itemsize)
     )
-    strides = [_strides("flash_attention_heads", t, q.shape) for t in (q, k, v)]
-    out = torch.empty((n, l, dh), dtype=q.dtype, device=q.device)
-    lse = torch.empty((n, l), dtype=torch.float32, device=q.device) if save_lse else None
-    ptr = ctypes.c_void_p
-    err = load_library().acl_flash_fwd(
-        _DTYPE_CODES[q.dtype],
-        ptr(q.data_ptr()), *strides[0],
-        ptr(k.data_ptr()), *strides[1],
-        ptr(v.data_ptr()), *strides[2],
-        ptr(out.data_ptr()), ptr(lse.data_ptr() if save_lse else None),
-        n, l, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
-    )
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device) if save_lse else None
+    lse_ptr = ctypes.c_void_p(lse.data_ptr() if save_lse else None)
+    scale = 1.0 / math.sqrt(dh)
+    tf32 = mha_tf32_eligible(q.dtype, dh)
+    if tf32:
+        out = _empty_heads(q)
+        views = [_as_heads(t) for t in (q, k, v, out)]
+        _check_tc("flash_attention_heads", views[3], 1, *views[:3], smem_need=mha_tf32_smem_bytes)
+        b, h = views[0].shape[:2]
+        err = load_library().acl_flash_tf32_fwd(
+            *_blocked_args("flash_attention_heads", views), lse_ptr, b, h, l, dh, int(causal),
+            scale, _stream(q),
+        )
+    else:
+        folded = [t.reshape(-1, l, dh) for t in (q, k, v)]
+        strides = [_strides("flash_attention_heads", t, q.shape) for t in folded]
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        ptr = ctypes.c_void_p
+        err = load_library().acl_flash_fwd(
+            _DTYPE_CODES[q.dtype],
+            ptr(folded[0].data_ptr()), *strides[0],
+            ptr(folded[1].data_ptr()), *strides[1],
+            ptr(folded[2].data_ptr()), *strides[2],
+            ptr(out.data_ptr()), lse_ptr, folded[0].shape[0], l, dh, int(causal), scale, _stream(q),
+        )
     _raise_on_error("flash_attention_heads", err)
     launch_counts["flash_attention_heads"] += 1
+    route_counts["mha_tf32"] += tf32
     return (out, lse) if save_lse else out
 
 
@@ -1111,7 +1239,8 @@ class _MhaQtile(torch.autograd.Function):
 
 
 class _FlashHeads(torch.autograd.Function):
-    """K8 forward, K9 and K10 backward. When a gradient is needed the forward
+    """K8 forward, K9 and K10 backward, over per-head (N, L, dh) or the (B, H,
+    L, dh) views of ``fused_attention``. When a gradient is needed the forward
     runs with the log-sum-exp and saves q, k, v, lse and the output, as
     ``_flash_fwd`` (:1071-1073). -> (out, lse); lse is None when neither the
     caller nor the backward needs it."""
@@ -1182,6 +1311,8 @@ def flash_attention_heads(
     (N, L) fp32 log-sum-exp. The reference's is non-causal; ``causal`` is for the
     shapes its router sends to the XLA formulation. Differentiable in q, k, v
     (not through lse): the backward rebuilds P from the saved log-sum-exp."""
+    if q.dim() != 3:
+        raise ValueError(f"flash_attention_heads takes per-head (N, L, dh) tensors, not {tuple(q.shape)}")
     out, lse = _FlashHeads.apply(q, k, v, save_lse, causal)
     return (out, lse) if save_lse else out
 
@@ -1195,15 +1326,18 @@ def fused_attention(
     - the whole-block kernel (K2's, heads folded into the batch) where it takes
       the shape (``mha_kernel_eligible``); its backward is
       ``attention_bwd_route``'s;
-    - else ``flash_attention_heads`` (K8, and K9 and K10 in the backward), with
-      the causal mask where asked: the reference's second branch and, for a
-      causal shape, the kernel in place of its third (``_xla_attention``, :1135,
-      :1195).
+    - else the flash kernel (K8, and K9 and K10 in the backward, as
+      ``flash_attention_heads``) on the four-dimensional views as they are,
+      with the causal mask where asked: the reference's second branch and, for
+      a causal shape, the kernel in place of its third (``_xla_attention``,
+      :1135, :1195). In fp32 at head dim 64 neither direction copies the views
+      of the core rung's packed qkv, and the output comes in the layout that
+      folds back into (B, L, H * Dh) without a copy.
 
     The branch is chosen from the shape before any launch; what neither kernel
     takes (an operand type or a head dim that is not instantiated) raises."""
     b, h, l, dh = q.shape
     if mha_kernel_eligible(l, dh, 1, q.dtype, smem_limit(q.device)):
         return _FusedAttention.apply(q, k, v, causal)
-    out = flash_attention_heads(*(t.reshape(b * h, l, dh) for t in (q, k, v)), causal=causal)
-    return out.reshape(b, h, l, dh)
+    out, _ = _FlashHeads.apply(q, k, v, False, causal)
+    return out

@@ -23,10 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu", CSRC / "mha_blocked_bwd.cu",
-    CSRC / "mha_probe.cu", CSRC / "mha_tc.cu", CSRC / "mha_tc_bwd.cu",
+    CSRC / "mha_probe.cu", CSRC / "mha_tc.cu", CSRC / "mha_tc_bwd.cu", CSRC / "mha_tf32.cu",
 )
-# attention_common.cuh is included by every source, tensor_core.cuh by the two
-# tensor-core ones
+# attention_common.cuh is included by every source, tensor_core.cuh by the
+# three tensor-core ones
 HEADERS = (CSRC / "attention_common.cuh", CSRC / "tensor_core.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -143,6 +143,17 @@ def load_library() -> ctypes.CDLL:
     lib.acl_blocked_dq_tc.restype = i
     lib.acl_blocked_dkv_tc.argtypes = [ptrs, strides, p, p, i, i, i, i, i, f, p]
     lib.acl_blocked_dkv_tc.restype = i
+    # the split-TF32 kernel (mha_tf32.cu): K1's arguments as the tensor-core
+    # kernel's; K8's pointer and (batch, head, row) stride arrays for q, k, v and
+    # the output, as the backward pair's
+    lib.acl_mha_tf32_smem_bytes.argtypes = [i]
+    lib.acl_mha_tf32_smem_bytes.restype = z
+    lib.acl_mha_tf32_blocks_per_sm.argtypes = [i]
+    lib.acl_mha_tf32_blocks_per_sm.restype = i
+    lib.acl_mha_qkv_tf32_fwd.argtypes = lib.acl_mha_qkv_tc_fwd.argtypes
+    lib.acl_mha_qkv_tf32_fwd.restype = i
+    lib.acl_flash_tf32_fwd.argtypes = [ptrs, strides, p, i, i, i, i, i, f, p]
+    lib.acl_flash_tf32_fwd.restype = i
     # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
     # pointer and 64-bit batch and row strides
     lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]

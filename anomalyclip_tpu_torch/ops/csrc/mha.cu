@@ -3,19 +3,20 @@
 //
 // Which kernel serves which operands: in bf16 at head dim 64 fused_mha_qkv and
 // fused_mha_qtile launch the tensor-core kernel of mha_tc.cu (every CLIP tower
-// in bf16); the wrappers (ops/attention.py) choose before the launch. This
-// kernel serves the rest: all of fp32 (TF32 is off for checkpoint parity, so the
-// fp32 products stay on the CUDA cores), fused_mha_bld and fused_attention's
-// whole-block branch in either type, and bf16 at head dims 8, 16 and 32.
+// in bf16), and in fp32 at head dim 64 fused_mha_qkv launches the split-TF32
+// kernel of mha_tf32.cu (every CLIP tower through the mha rung in fp32); the
+// wrappers (ops/attention.py) choose before the launch. This kernel serves the
+// rest: fused_mha_bld and fused_attention's whole-block branch in either type,
+// fused_mha_qtile in fp32, and fused_mha_qkv at head dims 8, 16 and 32.
 //
 // Three C entries, one kernel:
 //
 //   acl_mha_qkv_fwd    replaces _mha_qkv_kernel / fused_mha_qkv
 //                      (anomalyclip_tpu/ops/pallas/attention.py:423-466): attention
 //                      from one packed (B, L, 3D) qkv, lane order q|k|v, heads split
-//                      inside the kernel, optional causal mask. Serves the CLIP image
-//                      tower (L=197, 12 heads, dh 64) and the causal text towers
-//                      (L=77, 8 or 12 heads, dh 64) in fp32.
+//                      inside the kernel, optional causal mask. Its path shapes
+//                      (the CLIP towers, dh 64) take mha_tc.cu in bf16 and
+//                      mha_tf32.cu in fp32; here the head dims 8, 16 and 32.
 //   acl_mha_bld_fwd    replaces _mha_bld_kernel / fused_mha_bld
 //                      (attention.py:88-96, 386): the same function from separate
 //                      (B, L, D) q, k, v. Serves the temporal model's axial attention
@@ -68,8 +69,9 @@
 // fp32. For bf16 the products moved onto the tensor cores, with P kept in
 // registers and K and V in blocks, in mha_tc.cu (39.9 -> 1.7 ms at (256, 577,
 // 1024), 2.94 -> 0.25 ms at (256, 197, 2304), NVIDIA H100 80GB HBM3, 700 W;
-// PERF.md); this version stays the simple one for fp32, whose results are checked
-// against the plain PyTorch formulation.
+// PERF.md), and for fp32 at head dim 64 onto them as split-TF32 products in
+// mha_tf32.cu; this version stays the simple one for the rest, whose results are
+// checked against the plain PyTorch formulation.
 
 #include <type_traits>
 

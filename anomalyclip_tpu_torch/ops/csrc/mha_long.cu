@@ -6,13 +6,14 @@
 //                  (anomalyclip_tpu/ops/pallas/attention.py:800-854, 885, 1056):
 //                  KV-blocked online-softmax attention over per-head (N, L, dh) q,
 //                  k, v, read in place through element strides, with the
-//                  log-sum-exp per row written on request. Serves the
-//                  ViT-L/14@336px image tower in fp32 (N = 256 x 16, L=577, dh 64),
-//                  where fused_attention (attention.py:1121-1135) routes it: there
-//                  the whole-row kernel of mha.cu fits neither with fp32 nor, in
-//                  fp32, with operand-type staging. With the causal mask it also
-//                  serves what that router sends to the XLA formulation (:1135):
-//                  a causal shape too long for the whole-row kernel.
+//                  log-sum-exp per row written on request. In fp32 at head dim 64
+//                  (the ViT-L/14@336px tower in fp32, N = 256 x 16, L=577, where
+//                  fused_attention, attention.py:1121-1135, routes it) the
+//                  wrapper launches the split-TF32 kernel of mha_tf32.cu instead;
+//                  this kernel serves bf16 and the head dims 8, 16 and 32, with
+//                  the causal mask too: what that router sends to the XLA
+//                  formulation (:1135), a causal shape too long for the
+//                  whole-row kernel.
 //
 // What it computes is what _flash_kernel computes, block by block: per KV block
 // of kBlockKV keys, m_new = max(m, rowmax(s)), alpha = exp(m - m_new), p =
@@ -32,14 +33,14 @@
 // row's running max, sum and fp32 accumulator in shared memory between KV blocks;
 // in the P.V product lane t owns output columns t, t+32 (below head dim 32 the
 // upper lanes own none).
-// Shared memory is independent of L: at dh 64 about 101 KB in fp32 (two blocks
-// per SM) and 69 KB in bf16.
+// Shared memory is independent of L: at dh 64 (bf16 only) 70,656 B, at dh 32 in
+// fp32 54,272 B.
 //
 // What bounds it: 2 * 2 * L^2 * dh FLOP per (n) on the fp32 CUDA cores with one
 // shared-memory operand per multiply-add; device memory sees K and V once per
-// query tile (10 times at L=577), about 12 GB per call at the fp32 tower shape,
-// a few ms of the call against tens of ms of arithmetic. Tensor cores are later
-// work.
+// query tile (10 times at L=577). At the fp32 tower shape, which has moved to
+// mha_tf32.cu's tensor-core products, it took 31.2 ms against sdpa's 12.4
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 
 #include "attention_common.cuh"
 
@@ -187,8 +188,8 @@ size_t acl_flash_smem_bytes(int dh, int dtype) {
 }
 
 // K8. q, k, v: (N, L, dh) each with its own element strides (last stride 1);
-// out: contiguous (N, L, dh); lse: contiguous (N, L) fp32, or null. dh: 8, 16, 32
-// or 64.
+// out: contiguous (N, L, dh); lse: contiguous (N, L) fp32, or null. dh: 8, 16 or
+// 32, and 64 in bf16 (fp32 at head dim 64 is mha_tf32.cu's).
 int acl_flash_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* k, int k_bs,
                   int k_rs, const void* v, int v_bs, int v_rs, void* out, void* lse, int N,
                   int L, int dh, int causal, float scale, void* stream) {
@@ -204,7 +205,6 @@ int acl_flash_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* k, i
   ACL_FLASH_CASE(0, float, 8)
   ACL_FLASH_CASE(0, float, 16)
   ACL_FLASH_CASE(0, float, 32)
-  ACL_FLASH_CASE(0, float, 64)
   ACL_FLASH_CASE(1, BF, 8)
   ACL_FLASH_CASE(1, BF, 16)
   ACL_FLASH_CASE(1, BF, 32)

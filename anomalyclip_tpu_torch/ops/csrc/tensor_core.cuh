@@ -1,7 +1,9 @@
-// What the tensor-core kernels share (mha_tc.cu, mha_tc_bwd.cu): 16-byte cp.async
-// staging of bf16 rows into padded shared-memory rows, ldmatrix fragment loads,
-// the m16n8k16 bf16 product with fp32 accumulation, the approximate exponent
-// and the bf16 packing of two accumulator values into one fragment register.
+// What the tensor-core kernels share (mha_tc.cu, mha_tc_bwd.cu, mha_tf32.cu):
+// 16-byte cp.async staging of bf16 or fp32 rows into padded shared-memory rows,
+// ldmatrix fragment loads, the m16n8k16 bf16 product with fp32 accumulation,
+// the approximate exponent and the bf16 packing of two accumulator values into
+// one fragment register; for fp32 operands the TF32 split and the m16n8k8 TF32
+// product.
 // Each source includes it after attention_common.cuh and keeps its own copy
 // (internal linkage).
 
@@ -96,6 +98,59 @@ __device__ __forceinline__ void load_a_fragment(uint32_t (&a)[4], const bf16* ti
                                                 int row0, int k0, int lane) {
   ldmatrix_x4(a, smem_u32(tile + (row0 + (lane / 8 % 2) * 8 + lane % 8) * pitch + k0 +
                           (lane / 16) * 8));
+}
+
+// fp32 operands on the tensor cores (mha_tf32.cu): split-TF32 products.
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// the low 13 bits zero so that it reads back as a float: the bits
+// cvt.rna.tf32.f32 gives for every finite x, in two integer operations where
+// the cvt instruction is lowered to three with its NaN and infinity checks
+// (measured: the split kernel 23-30% faster; PERF.md).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small: big = tf32(x), small = tf32(x - big); big + small holds x to
+// about 2^-22 of |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// c (16 x 8, fp32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32, column-major)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b at close to fp32 accuracy from the split parts (3xTF32): the two
+// cross terms first, the product of the big parts last, as CUTLASS's fast-fp32
+// operator orders them; the small . small term is below fp32's last bit.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], uint32_t b_big0,
+                                           uint32_t b_big1, uint32_t b_small0, uint32_t b_small1) {
+  mma_tf32(c, a_small, b_big0, b_big1);
+  mma_tf32(c, a_big, b_small0, b_small1);
+  mma_tf32(c, a_big, b_big0, b_big1);
+}
+
+// A thread's share of staging ROWS rows of DH fp32 elements into rows of
+// PITCH floats, 16 bytes (4 floats) a copy: stage_rows's contract for fp32.
+template <int DH, int ROWS, int THREADS, int PITCH>
+__device__ __forceinline__ void stage_rows_f32(uint32_t dst, const float* src, int64_t pass_stride,
+                                               int row, int valid) {
+  constexpr int PASS = THREADS / (DH / 4);
+  static_assert(ROWS % PASS == 0, "the threads must tile the rows");
+  static_assert(PITCH % 4 == 0, "staged rows must start on 16 bytes");
+#pragma unroll
+  for (int j = 0; j < ROWS / PASS; ++j)
+    cp_async16(dst + j * PASS * PITCH * (int)sizeof(float), src + j * pass_stride,
+               row + j * PASS < valid ? 16 : 0);
 }
 
 }  // namespace

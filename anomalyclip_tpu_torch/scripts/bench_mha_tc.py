@@ -21,6 +21,17 @@ backward on the first ``PARITY_BATCH`` batch entries (within 2e-2), its time,
 bound (10 L^2 dh operations a head, seven tensors once). A shape short enough
 for the whole-head backward of mha_bwd.cu is not the pair's and is named so.
 
+A third set of lines gives the fp32 kernel of ops/csrc/mha_tf32.cu, whose
+products are split-TF32 (three TF32 products of the operands' big and small
+parts) on the tensor cores: ``fused_mha_qkv`` in fp32 at the towers' packed
+shapes, and ``flash_attention_heads``' kernel at the ViT-L/14@336px tower's
+heads, scoring (B=256) and gradient (B=32), on the (B, H, L, dh) views of one
+packed projection as ``fused_attention`` hands them over, with the
+log-sum-exp. Each is held within 1e-5 of the fp32 plain version and timed
+beside ``scaled_dot_product_attention`` and the bound (4 L^2 dh operations a
+head over 495 / 3 TFLOP/s, the split-TF32 rate of an fp32-accurate product, and
+the operands and the output once).
+
 ``--sass`` adds the opcode mix of each kernel, read from ``cuobjdump -sass`` of
 the built library: the opcodes of the whole kernel and of its main loops (each
 from its barrier to its backward branch, the mask of a ragged block included:
@@ -29,7 +40,9 @@ kernel's sweep over the q tiles), which is what the tensor-core operations
 (HMMA) have to be dispatched among.
 
 ``--device cpu`` runs the entries' plain versions (the KV-blocked form) at batch
-2, holds them against the whole-row form, and prints no times.
+2, holds them against the whole-row form, holds the emulation of the
+split-TF32 arithmetic (``tf32x3_reference``) against the fp32 plain version, and
+prints no times.
 """
 
 from __future__ import annotations
@@ -62,6 +75,17 @@ BWD_PARITY_LIMIT = 0.02  # the backward pair against the plain backward, of max|
 PARITY_BATCH = 8  # batch entries of a backward held against the plain version
 WHOLE_ROW_LIMIT = 0.05  # the KV-blocked plain version against the whole-row one, on the CPU
 PEAK_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12  # NVIDIA H100 SXM: dense bf16, HBM3
+# the fp32 kernel's shapes: tag, B, L, D, heads, causal, the entry ("flash": K8
+# on the (B, H, L, dh) views of the packed projection)
+TF32_SHAPES = [
+    ("ViT-B/16 vision", 256, 197, 768, 12, False, "qkv"),
+    ("ViT-L/14 vision", 64, 257, 1024, 16, False, "qkv"),
+    ("text tower, causal", 14, 77, 512, 8, True, "qkv"),
+    ("ViT-L/14@336px vision, heads", 256, 577, 1024, 16, False, "flash"),
+    ("ViT-L/14@336px gradient, heads", 32, 577, 1024, 16, False, "flash"),
+]
+TF32_PARITY_LIMIT = 1e-5  # the fp32 kernel against the fp32 plain version, absolute
+PEAK_TF32X3_FLOPS = 495e12 / 3  # dense TF32 over the three products of a split product
 
 
 def run(entry: str, x: torch.Tensor, d: int, heads: int, causal: bool) -> torch.Tensor:
@@ -81,6 +105,59 @@ def sdpa(x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
     b, l, width = x.shape
     q, k, v = x.view(b, l, 3, heads, width // (3 * heads)).permute(2, 0, 3, 1, 4)
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+def heads_views(x: torch.Tensor, heads: int) -> tuple:
+    """The (B, H, L, dh) views of q, k, v in the packed (B, L, 3D) x."""
+    b, l, width = x.shape
+    return tuple(x.view(b, l, 3, heads, width // (3 * heads)).permute(2, 0, 3, 1, 4))
+
+
+def run_tf32(entry: str, x: torch.Tensor, heads: int, causal: bool) -> tuple:
+    """One call of the fp32 kernel's wrapper: K1 on the packed x, or K8 with the
+    log-sum-exp on its head views."""
+    if entry == "qkv":
+        return (A.mha_qkv_fwd_kernel(x, heads, causal),)
+    return A.flash_fwd_kernel(*heads_views(x, heads), True, causal)
+
+
+def plain_tf32(entry: str, x: torch.Tensor, heads: int, causal: bool, emulated: bool = False) -> tuple:
+    """The fp32 plain version of ``run_tf32``'s call, or the emulation of the
+    kernel's split-TF32 arithmetic."""
+    views = heads_views(x, heads)
+    if emulated:
+        out, lse = A.tf32x3_reference(*views, causal, save_lse=True)
+    else:
+        out, lse = A.flash_attention_reference(*views, save_lse=True, causal=causal)
+    if entry == "qkv":
+        return (out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1),)
+    return out, lse
+
+
+def bench_tf32(tag: str, b: int, l: int, d: int, heads: int, causal: bool, entry: str,
+               on_card: bool, device: str, iters: int) -> None:
+    """A line of the fp32 kernel: parity against the fp32 plain version, and on
+    the card its time beside sdpa's and the bound."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((b, l, 3 * d)).astype(np.float32)).to(device)
+    want = plain_tf32(entry, x, heads, causal)
+    got = run_tf32(entry, x, heads, causal) if on_card else plain_tf32(entry, x, heads, causal, True)
+    err = max((a - w).abs().max().item() for a, w in zip(got, want))
+    if not err < TF32_PARITY_LIMIT:
+        raise AssertionError(f"{tag}, fp32: max|diff| {err} against the fp32 plain version")
+    del got, want
+    shape = f"{tag} fp32 (B={b}, L={l}, D={d}, H={heads}, {entry})"
+    if not on_card:
+        print(f"{shape}: the split-TF32 emulation, max|diff|={err:.2e}", flush=True)
+        return
+    dh = d // heads
+    flops = 4 * b * heads * l * l * dh * (0.5 if causal else 1.0)
+    stats = 4 * b * heads * l if entry == "flash" else 0
+    bound_ms = max(flops / PEAK_TF32X3_FLOPS, (4 * 4 * b * l * d + stats) / PEAK_BYTES_PER_S) * 1e3
+    sdpa_ms = median_ms(lambda: sdpa(x, heads, causal), iters)
+    ms = median_ms(lambda: run_tf32(entry, x, heads, causal), iters)
+    print(f"{shape} (mha_tf32.cu): {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), sdpa "
+          f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms  max|diff|={err:.2e}", flush=True)
 
 
 def backward(entry: str, x: torch.Tensor, g: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
@@ -208,8 +285,17 @@ def main(argv=None) -> None:
               f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms"
               f"  max|diff|={err:.2e}", flush=True)
         bench_backward(tag, entry, x, d, heads, causal, args.iters)
+    if on_card:
+        lib = build.load_library()
+        print(f"fp32, head dim {A.MHA_TF32_HEAD_DIM}: {A.mha_tf32_smem_bytes()} B/block, "
+              f"{lib.acl_mha_tf32_blocks_per_sm(A.MHA_TF32_HEAD_DIM)} blocks/SM", flush=True)
+    for tag, b, l, d, heads, causal, entry in TF32_SHAPES:
+        if not args.only or any(s in tag for s in args.only):
+            bench_tf32(tag, b if on_card else 2, l, d, heads, causal, entry, on_card, args.device,
+                       args.iters)
     if args.sass and on_card:
-        for kernel in ("mha_tc_kernel", "blocked_dq_tc_kernel", "blocked_dkv_tc_kernel"):
+        for kernel in ("mha_tc_kernel", "blocked_dq_tc_kernel", "blocked_dkv_tc_kernel",
+                       "mha_tf32_kernel"):
             whole, loops = sass_mix(f"{kernel}ILi{A.MHA_TC_HEAD_DIM}E")
             mixes = [("kernel", whole), *((f"loop {i + 1}", mix) for i, mix in enumerate(loops))]
             for what, mix in mixes:

@@ -9,8 +9,9 @@ script exits non-zero without printing a result:
 2. build: compile the CUDA kernels from the repository's sources, hold the
    library's shared-memory sizes against the Python formulas the dispatch
    ladder uses, and print how many blocks of the tensor-core kernel one SM
-   holds (four blocks of four warps are what its design counts on) and of each
-   kernel of the tensor-core backward pair (three: what it is compiled for);
+   holds (four blocks of four warps are what its design counts on), of each
+   kernel of the tensor-core backward pair (three: what it is compiled for)
+   and of the split-TF32 kernel (two);
 3. kernels: each forward kernel against its plain PyTorch version at the main
    paths' shapes (K1 and K2 at the ViT-B/16 and ViT-L/14 shapes; K6, K8 with
    its log-sum-exp, and K5's flash branch at the ViT-L/14@336px tower's
@@ -23,7 +24,16 @@ script exits non-zero without printing a result:
    (14, 77, 1536) 8 heads and (14, 77, 2304) 12 heads, (64, 257, 3072) 16
    heads, q (256, 577, 1024) with kv (256, 577, 2048) 16 heads, and at L = 1,
    63, 64, 65, 129 at batch 3, causal and not; the launches that took it are
-   counted exactly;
+   counted exactly. In fp32 at head dim 64 K1 and K8 launch the split-TF32
+   kernel (ops/csrc/mha_tf32.cu), held within 1e-5 of the fp32 plain versions
+   at K1's (256, 197, 2304) 12 heads, (64, 257, 3072) 16 heads and the causal
+   (14, 77, 1536) 8 heads and (14, 77, 2304) 12 heads, at K8's (4096, 577, 64)
+   and (512, 577, 64) with the log-sum-exp and the causal (512, 500, 64), and
+   through both entries at L = 1, 63, 64, 65, 129 at batch 3, causal and not;
+   its launches are counted exactly (none in bf16 or at other head dims), two
+   launches on the same inputs must give the same bits, and it must sit within
+   1e-5 of the emulation of its arithmetic (``tf32x3_reference``) while the
+   emulation of plain TF32 must not sit within 1e-5 of the fp32 plain version;
 3b. backward kernels: K3 and K4 against their plain backwards at the training
    step's shapes, fp32 within 1e-5 and bf16 within 5e-2 of max|ref|, with
    median times;
@@ -62,14 +72,17 @@ script exits non-zero without printing a result:
    attention (fp32 within 1e-4, absolute), and a bf16 pass, whose launch
    counts are checked too, against its own plain-attention pass (within
    BF16_SLICE_TOL, absolute). Here and in 4b-4e every K1 and K6 launch of a
-   bf16 run must have taken the tensor-core kernel and none of an fp32 run;
+   bf16 run must have taken the tensor-core kernel and none of an fp32 run,
+   and every K1 and K8 launch at head dim 64 of an fp32 run the split-TF32
+   kernel and none of a bf16 run;
 4b. training: the UCF-Crime training step from features at full width in fp32
    (batch 64: 32 abnormal and 32 normal videos of 512 x 512-d features), three
    steps through ``fit_steps`` with one step per epoch, so that epoch 0 trains
    at lr 0 and epoch 1 moves the weights; the kernel launch counts of that run
    are checked, and the same steps under the plain attention must agree: step
    1's loss terms and gradients within 1e-4 of each leaf's max, the 3-step
-   losses at rtol 5e-4, the BN state within 1e-5;
+   losses at rtol 5e-4, the BN state within 1e-5 (the text tower's K1 runs
+   split-TF32 products, so the two are close, not equal to the bit);
 4c. ViT-L/14@336px: the UCF-Crime model with the ViT-L/14@336px tower at full
    width from seeded weights scores one synthetic 200-frame video (one grid,
    two encode calls of 256 frames) in fp32, through the core rung into the
@@ -124,7 +137,8 @@ backward kernel, with ``library_fwd_ms`` beside it), timed here and used
 nowhere in the port, and ``bound_ms`` the least the card could take: the
 larger of the operations (4 L^2 dh per batch entry and head forward, 10
 backward, 6 and 8 for the two flash passes, half when causal) over 989 TFLOP/s
-for bf16 operands or 67 TFLOP/s for fp32, and the bytes (each input read and
+for bf16 operands or 495 / 3 = 165 TFLOP/s for fp32 (the split-TF32 rate of an
+fp32-accurate product on the tensor cores), and the bytes (each input read and
 each output written once) over 3.35 TB/s. fused_attention's own kernel, the
 whole-block one, is on none of these paths (its shapes there take K1, K6 or,
 through its flash branch, K8), so its count is 0; its error and times are
@@ -136,7 +150,12 @@ tensor-core backward pair that K7, K9, K10 and the KV-blocked route of K3, K4
 and K5's backward launch in bf16 at head dim 64: its count is
 ``route_counts["blocked_bwd_tc"]`` over the same runs, its numbers the pair's at
 K7's path shape, which are ``mha_qtile_bwd``'s too (K9's and K10's path is the
-fp32 tower: their numbers are the CUDA-core pair's). The six probe wrappers'
+fp32 tower: their numbers are the CUDA-core pair's). ``mha_tf32`` is the
+split-TF32 kernel that K1 and K8 launch in fp32 at head dim 64: its count is
+``route_counts["mha_tf32"]`` over the same runs, its numbers the sums over the
+fp32 scoring paths' four shapes (phase 3); on their fp32 paths
+``fused_mha_qkv``'s and ``flash_attention_heads``' numbers are that kernel's
+too. The six probe wrappers'
 numbers are phase 3d's at (32, 577, 1024) in
 bf16 (``probe_mha_qkv``: its four shapes summed; ``probe_mha_whole``: L=400) and
 their counts phase 4e's; ``nosoftmax_mha`` computes no function the library has,
@@ -166,13 +185,16 @@ VIDEO_GRIDS = {200: 1, 700: 2, 1600: 4}
 VIDEO_FRAMES = tuple(VIDEO_GRIDS)
 CHECK_VIDEO = 700
 KERNEL_SOURCE = {
-    "fused_mha_qkv": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
+    # on its paths, fp32 at head dim 64, the split-TF32 kernel (the bf16 paths'
+    # is mha_tc's line)
+    "fused_mha_qkv": "anomalyclip_tpu_torch/ops/csrc/mha_tf32.cu",
     "fused_mha_bld": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
     "mha_qkv_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
     "mha_bld_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
     # on its path, the bf16 ViT-L/14@336px tower, the tensor-core kernel
     "fused_mha_qtile": "anomalyclip_tpu_torch/ops/csrc/mha_tc.cu",
-    "flash_attention_heads": "anomalyclip_tpu_torch/ops/csrc/mha_long.cu",
+    # on its path, the fp32 ViT-L/14@336px tower, the split-TF32 kernel
+    "flash_attention_heads": "anomalyclip_tpu_torch/ops/csrc/mha_tf32.cu",
     # its whole-block kernel: acl_mha_bld_fwd with the heads folded
     "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
     # on its path, the bf16 ViT-L/14@336px tower's gradient, the tensor-core pair
@@ -186,6 +208,9 @@ KERNEL_SOURCE = {
     # the pair the KV-blocked backward launches in bf16 at head dim 64, counted by
     # route_counts["blocked_bwd_tc"]
     "blocked_bwd_tc": "anomalyclip_tpu_torch/ops/csrc/mha_tc_bwd.cu",
+    # the kernel K1 and K8 launch in fp32 at head dim 64, counted by
+    # route_counts["mha_tf32"]
+    "mha_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_tf32.cu",
 }
 PROBE_SOURCE = "anomalyclip_tpu_torch/ops/csrc/mha_probe.cu"
 # probe wrapper -> the pallas_call sites of the JAX package's scripts it replaces
@@ -211,8 +236,10 @@ REPLACES = {
     "flash_dkv": "anomalyclip_tpu/ops/pallas/attention.py:943",
     "mha_tc": "anomalyclip_tpu/ops/pallas/attention.py:423",
     "blocked_bwd_tc": "anomalyclip_tpu/ops/pallas/attention.py:646",
+    "mha_tf32": "anomalyclip_tpu/ops/pallas/attention.py:423",
 }
 ALSO_REPLACES = {
+    "mha_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:800"],
     "mha_tc": ["anomalyclip_tpu/ops/pallas/attention.py:525"],
     "blocked_bwd_tc": ["anomalyclip_tpu/ops/pallas/attention.py:904",
                        "anomalyclip_tpu/ops/pallas/attention.py:943"],
@@ -248,8 +275,12 @@ BF16_GRAD_TOL = 5e-2
 # the warm step with K7 on the CUDA-core pair (NVIDIA H100 80GB HBM3, 700 W),
 # printed beside this run's
 GRAD_STEP_BEFORE = {"ViT-L/14@336px bfloat16": "0.4785 s with K7 on mha_blocked_bwd.cu"}
-# the card's published peaks (NVIDIA H100 SXM, dense): what bound_ms is taken against
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the card's published peaks (NVIDIA H100 SXM, dense): what bound_ms is taken
+# against. For fp32 operands the least time for an fp32-accurate product is the
+# tensor cores' split-TF32 rate, 495 TFLOP/s of TF32 over the three products a
+# product takes (3xTF32, as mha_tf32.cu and the library's fp32 attention
+# compute it), not the 67 TFLOP/s of the CUDA cores' fp32 FMA
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # UCF-Crime training (anomalyclip_tpu/configs/model/anomaly_clip_ucfcrime.yaml,
@@ -346,6 +377,12 @@ def phase_build() -> None:
                             == P.parts_smem_bytes(rows, part, 64, itemsize, warps, heads),
                             f"parts smem at {rows, part, itemsize, warps, heads}")
         checked += 1
+    require(lib.acl_mha_tf32_smem_bytes(dh) == A.mha_tf32_smem_bytes(dh), "split-TF32 kernel smem")
+    blocks = lib.acl_mha_tf32_blocks_per_sm(dh)
+    require(blocks >= 2, f"split-TF32 kernel: {blocks} blocks an SM")
+    print(f"[build] split-TF32 kernel, head dim {dh}: {A.mha_tf32_smem_bytes(dh)} B a block, "
+          f"{blocks} blocks of 4 warps an SM")
+    checked += 1
     print(f"[build] shared-memory formulas: library and Python agree at {checked} (L, dh) "
           f"pairs; card limit {A.smem_limit(torch.device('cuda'))} B per block")
     torch.cuda.synchronize()
@@ -412,6 +449,7 @@ class Case:
     library: bool = True  # the library has a call for the same function
     tensor_cores: bool = False  # in bf16 a tensor-core kernel runs: held to tc_tolerance
     tc_tolerance: float = TC_TOLERANCE
+    tf32: bool = False  # in fp32 each call launches the split-TF32 kernel once
 
 
 def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
@@ -517,7 +555,7 @@ def phase_kernels(report: dict) -> None:
             "fused_mha_qkv", (b, l, 3 * d), (b, l, 3 * d),
             lambda t, h=h, c=causal: fused_mha_qkv(t, h, c),
             lambda t, h=h, c=causal: qkv_plain(t, h, c),
-            lambda t, h=h: packed_heads(t, 3, h), causal=causal, tensor_cores=True,
+            lambda t, h=h: packed_heads(t, 3, h), causal=causal, tensor_cores=True, tf32=True,
         ))
     # the tensor-core kernel in bf16 through both entries: the image towers
     # (ViT-B/16, ViT-L/14), the causal text towers, the ViT-L/14@336px tower's q
@@ -572,12 +610,12 @@ def phase_kernels(report: dict) -> None:
             lambda t: qtile_plain(t, 1024, 16),
             lambda t: packed_heads(t, 3, 16), dtypes=dtypes, path=path, tensor_cores=True,
         ))
-    # K8 at the shape fused_attention hands it in the fp32 tower, with the lse
+    # K8 at the per-head shape of the fp32 tower, with the lse
     cases.append(Case(
         "flash_attention_heads", (4096, 577, 64), (3, 4096, 577, 64),
         lambda t: flash_attention_heads(t[0], t[1], t[2], save_lse=True),
         lambda t: flash_attention_reference(t[0], t[1], t[2], save_lse=True),
-        lambda t: tuple(t[:, :, None]), stats=1,
+        lambda t: tuple(t[:, :, None]), stats=1, tf32=True,
     ))
     # K8 with the causal mask, ragged on both axes, and at the small head dims
     # (on no path of the supported models: printed, not in the kernels line)
@@ -586,7 +624,7 @@ def phase_kernels(report: dict) -> None:
             f"flash_attention_heads at dh {dh}", (n, l, dh), (3, n, l, dh),
             lambda t, c=causal: flash_attention_heads(t[0], t[1], t[2], save_lse=True, causal=c),
             lambda t, c=causal: flash_attention_reference(t[0], t[1], t[2], save_lse=True, causal=c),
-            lambda t: tuple(t[:, :, None]), causal=causal, stats=1, path=(),
+            lambda t: tuple(t[:, :, None]), causal=causal, stats=1, path=(), tf32=dh == 64,
         ))
     # K5: its whole-block kernel at ViT-B/16 heads, causal and not (on no path:
     # the kernels line reports these, in fp32), and its flash branch at the fp32
@@ -602,8 +640,45 @@ def phase_kernels(report: dict) -> None:
         "fused_attention", (256, 16, 577, 64), (256, 577, 3, 16, 64),
         lambda t: fused_attention(*t.permute(2, 0, 3, 1, 4)),
         lambda t: fused_attention_reference(*t.permute(2, 0, 3, 1, 4)),
-        lambda t: tuple(t.permute(2, 0, 3, 1, 4)), path=(),
+        lambda t: tuple(t.permute(2, 0, 3, 1, 4)), path=(), tf32=True,
     ))
+    # the split-TF32 kernel in fp32 through both entries, held against the fp32
+    # plain versions: its own line of the kernels list sums the four shapes of
+    # the fp32 scoring paths (the ViT-B/16 image tower, the two text towers, the
+    # ViT-L/14@336px tower's heads); printed beside them the ViT-L/14 tower, the
+    # tower gradient's heads and the causal flash shape, then the ragged edges
+    # at batch 3, causal and not
+    for b, l, d, h, causal, path in (
+        (256, 197, 768, 12, False, FP32), (14, 77, 512, 8, True, FP32),
+        (14, 77, 768, 12, True, FP32), (64, 257, 1024, 16, False, ()),
+    ):
+        cases.append(Case(
+            "mha_tf32", (b, l, 3 * d), (b, l, 3 * d),
+            lambda t, h=h, c=causal: fused_mha_qkv(t, h, c),
+            lambda t, h=h, c=causal: mha_qkv_reference(t, h, c),
+            lambda t, h=h: packed_heads(t, 3, h), causal=causal, dtypes=FP32, path=path, tf32=True,
+        ))
+    for n, l, causal, path in ((4096, 577, False, FP32), (512, 577, False, ()), (512, 500, True, ())):
+        cases.append(Case(
+            "mha_tf32", (n, l, 64), (3, n, l, 64),
+            lambda t, c=causal: flash_attention_heads(t[0], t[1], t[2], save_lse=True, causal=c),
+            lambda t, c=causal: flash_attention_reference(t[0], t[1], t[2], save_lse=True, causal=c),
+            lambda t: tuple(t[:, :, None]), causal=causal, stats=1, dtypes=FP32, path=path, tf32=True,
+        ))
+    for l in (1, 63, 64, 65, 129):
+        for causal in (False, True):
+            cases.append(Case(
+                "mha_tf32 ragged", (3, l, 3 * 128), (3, l, 3 * 128),
+                lambda t, c=causal: A.mha_qkv_fwd_kernel(t, 2, c),
+                lambda t, c=causal: mha_qkv_reference(t, 2, c),
+                lambda t: packed_heads(t, 3, 2), causal=causal, dtypes=FP32, path=(), tf32=True,
+            ))
+            cases.append(Case(
+                "mha_tf32 ragged", (3, l, 64), (3, 3, l, 64),
+                lambda t, c=causal: A.flash_fwd_kernel(t[0], t[1], t[2], True, c),
+                lambda t, c=causal: flash_attention_reference(t[0], t[1], t[2], save_lse=True, causal=c),
+                lambda t: tuple(t[:, :, None]), causal=causal, stats=1, dtypes=FP32, path=(), tf32=True,
+            ))
     # K2 at head dim 16, the temporal model at emb 128 with 8 heads (bench_eval's
     # size; on no model path: printed, not in the kernels line)
     cases.append(Case(
@@ -624,6 +699,57 @@ def phase_kernels(report: dict) -> None:
             f"tensor-core launches {route_counts} over {bf16_cases} bf16 cases of K1 and K6")
     print(f"[kernels] {route_counts['mha_tc']} launches of the tensor-core kernel over "
           f"{bf16_cases} bf16 cases of K1 and K6; none in fp32")
+    # every fp32 launch of K1 and K8 at head dim 64 took the split-TF32 kernel,
+    # and no other launch did
+    tf32_cases = sum(c.tf32 and torch.float32 in c.dtypes for c in cases)
+    require(route_counts["mha_tf32"] == CASE_CALLS * tf32_cases,
+            f"split-TF32 launches {route_counts} over {tf32_cases} fp32 cases of K1 and K8")
+    print(f"[kernels] {route_counts['mha_tf32']} launches of the split-TF32 kernel over "
+          f"{tf32_cases} fp32 cases of K1 and K8 at head dim 64; none in bf16 or at other head dims")
+    check_tf32_kernel()
+
+
+def check_tf32_kernel() -> None:
+    """The split-TF32 kernel against the emulation of its arithmetic
+    (``tf32x3_reference``) and of plain TF32 (one product of the big parts),
+    both beside the fp32 plain version; and two launches on the same inputs,
+    which must give the same bits (a fixed order of sums, no atomics)."""
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    qkv = torch.randn(256, 197, 3 * 768, device="cuda", generator=gen)
+    heads = list(torch.randn(3, 512, 577, 64, device="cuda", generator=gen))
+    causal = list(torch.randn(3, 512, 500, 64, device="cuda", generator=gen))
+    runs = {
+        "K1 (256, 197, 2304) 12 heads": (
+            lambda: A.mha_qkv_fwd_kernel(qkv, 12, False),
+            lambda passes: A.mha_qkv_tf32x3_reference(qkv, 12, False, passes),
+            lambda: A.mha_qkv_reference(qkv, 12, False)),
+        "K8 (512, 577, 64)": (
+            lambda: A.flash_fwd_kernel(*heads, True)[0],
+            lambda passes: A.tf32x3_reference(*heads, passes=passes),
+            lambda: A.flash_attention_reference(*heads)),
+        "K8 causal (512, 500, 64)": (
+            lambda: A.flash_fwd_kernel(*causal, True, True)[0],
+            lambda passes: A.tf32x3_reference(*causal, True, passes=passes),
+            lambda: A.flash_attention_reference(*causal, causal=True)),
+    }
+    for what, (kernel, emulated, plain) in runs.items():
+        once, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        require(torch.equal(once, again), f"{what}: two launches of the split-TF32 kernel differ")
+        fp32 = plain()
+        gaps = {"3xTF32 emulation": (once - emulated(3)).abs().max().item(),
+                "fp32 plain": (once - fp32).abs().max().item()}
+        tf32_gap = (emulated(1) - fp32).abs().max().item()
+        tol = TOLERANCE[torch.float32]
+        require(max(gaps.values()) <= tol, f"{what}: {gaps} (tol {tol:g})")
+        require(tf32_gap > tol, f"{what}: plain TF32 within {tf32_gap:.3e} of fp32, the check has no teeth")
+        print(f"[kernels] split-TF32 {what}: two launches give the same bits; kernel against the "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f" (tol {tol:g}); plain TF32 emulated against fp32 {tf32_gap:.3e}")
+    del qkv, heads, causal
+    torch.cuda.empty_cache()
 
 
 def phase_bwd_kernels(report: dict) -> None:
@@ -738,7 +864,10 @@ def phase_long_bwd_kernels(report: dict) -> None:
     # every bf16 launch at head dim 64 took the tensor-core pair; none in fp32 or
     # at head dim 16 (K8, which made the flash cases' statistics, has no route)
     bf16_cases = sum(c.tensor_cores and torch.bfloat16 in c.dtypes for c in cases)
-    require_routes("long backward kernels", 0, CASE_CALLS * bf16_cases)
+    # K8 made each fp32 flash case's statistics once, at head dim 64 on the
+    # split-TF32 kernel
+    tf32_stats = sum(c.prepare is not None and c.shape[-1] == A.MHA_TF32_HEAD_DIM for c in cases)
+    require_routes("long backward kernels", 0, CASE_CALLS * bf16_cases, tf32_stats)
     print(f"[long bwd] {A.route_counts['blocked_bwd_tc']} launches of the tensor-core backward pair "
           f"over {bf16_cases} bf16 cases at head dim 64; none in fp32 or at head dim 16")
 
@@ -815,9 +944,10 @@ def phase_small_and_causal() -> None:
     def randn(*shape):
         return torch.randn(shape, device="cuda", generator=gen).requires_grad_(True)
 
-    def both_ways(tag, fn, leaves, launches):
+    def both_ways(tag, fn, leaves, launches, tf32=0):
         """fn's value and gradients with the kernels chosen and with the plain
-        versions chosen; the first run's counts must be the given ones."""
+        versions chosen; the first run's counts must be the given ones, ``tf32``
+        of its launches on the split-TF32 kernel."""
         def run():
             out = fn()
             return (out, *torch.autograd.grad((out.float() ** 2).sum(), leaves))
@@ -831,7 +961,7 @@ def phase_small_and_causal() -> None:
         torch.cuda.synchronize()
         require(counts == {k: launches.get(k, 0) for k in counts}, f"{tag}: launches {counts}")
         require(dict(A.launch_counts) == counts, f"{tag}: the plain run launched a kernel")
-        require_routes(tag, 0)
+        require_routes(tag, 0, 0, tf32)
         worst = 0.0
         for ours, theirs in zip(got, want):
             top = theirs.abs().max().item()
@@ -870,11 +1000,11 @@ def phase_small_and_causal() -> None:
     q, k, v = randn(2, 4, 500, 64), randn(2, 4, 500, 64), randn(2, 4, 500, 64)
     both_ways("fused_attention, causal L=500 at head dim 64",
               lambda: A.fused_attention(q, k, v, True), [q, k, v],
-              {"flash_attention_heads": 1, "flash_dq": 1, "flash_dkv": 1})
+              {"flash_attention_heads": 1, "flash_dq": 1, "flash_dkv": 1}, tf32=1)
     # causal, L=197: the whole-row forward, the KV-blocked pair with the mask
     qkv = randn(2, 197, 3 * 128)
     both_ways("fused_mha_qkv, causal L=197", lambda: A.fused_mha_qkv(qkv, 2, True), [qkv],
-              {"fused_mha_qkv": 1, "mha_qkv_bwd": 1})
+              {"fused_mha_qkv": 1, "mha_qkv_bwd": 1}, tf32=1)
     q197 = randn(2, 12, 197, 64)
     both_ways("fused_attention, causal L=197", lambda: A.fused_attention(q197, q197, q197, True),
               [q197], {"fused_attention": 2})
@@ -916,14 +1046,16 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0) -> dict:
+def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0, tf32: int = 0) -> dict:
     """The route counts of the run just made: ``tensor_core`` launches of K1 and
     K6 took the tensor-core kernel and ``bwd_tensor_core`` launches of the
     KV-blocked backward the tensor-core pair (all of them in bf16 at head dim
-    64, none in fp32) -> the counts."""
+    64, none in fp32), ``tf32`` launches of K1 and K8 the split-TF32 kernel (all
+    of them in fp32 at head dim 64, none in bf16) -> the counts."""
     from anomalyclip_tpu_torch.ops.attention import route_counts
 
-    routes, want = dict(route_counts), {"mha_tc": tensor_core, "blocked_bwd_tc": bwd_tensor_core}
+    routes = dict(route_counts)
+    want = {"mha_tc": tensor_core, "blocked_bwd_tc": bwd_tensor_core, "mha_tf32": tf32}
     require(routes == want, f"{what}: routes {routes}, expected {want}")
     return routes
 
@@ -993,7 +1125,8 @@ def phase_slice() -> tuple:
     })
     print(f"[slice] launches {launches}, expected {expected} ({chunks} encode calls)")
     require(launches == expected, f"launches {launches}, expected {expected}")
-    launches.update(require_routes("fp32 scoring", 0))
+    # every K1 launch, text and image tower, at head dim 64: the split-TF32 kernel
+    launches.update(require_routes("fp32 scoring", 0, 0, expected["fused_mha_qkv"]))
 
     with attention_impl("reference"):
         ref_predictor = Predictor(model, frozen, trainable, bn_state, ncentroid, device="cuda")
@@ -1136,7 +1269,7 @@ def phase_train() -> dict:
     expected = {k: TRAIN_STEPS * per_step.get(k, 0) for k in launch_counts}
     print(f"[train] launches {launches}, expected {expected}")
     require(launches == expected, f"launches {launches}, expected {expected}")
-    launches.update(require_routes("fp32 training", 0))
+    launches.update(require_routes("fp32 training", 0, 0, expected["fused_mha_qkv"]))
 
     require(all(np.isfinite(t).all() for t in run.terms), f"non-finite loss terms {run.terms}")
     require(run.moved[0] == 0.0, f"epoch 0 trains at lr 0, but the weights moved {run.moved[0]}")
@@ -1231,7 +1364,8 @@ def phase_l14() -> dict:
               f"{L14_VIDEO_FRAMES / seconds:.1f} frames/s; launches {launches[dtype]}")
         require(launches[dtype] == want, f"{dtype} launches {launches[dtype]}, expected {want}")
         launches[dtype].update(require_routes(
-            f"ViT-L/14@336px {dtype} scoring", (text + vision) * (dtype == "bfloat16")))
+            f"ViT-L/14@336px {dtype} scoring", (text + vision) * (dtype == "bfloat16"), 0,
+            (text + vision) * (dtype == "float32")))
 
         start = time.perf_counter()
         with attention_impl("reference"):
@@ -1361,9 +1495,11 @@ def phase_tower_gradient() -> dict:
         launches[name] = dict(launch_counts)
         want_counts = {k: expect(cfg.vision_layers).get(k, 0) for k in launch_counts}
         require(launches[name] == want_counts, f"{name} launches {launches[name]}, expected {want_counts}")
-        # in bf16 every K6 launch and every K7 launch is a tensor-core one
+        # in bf16 every K6 launch and every K7 launch is a tensor-core one; in
+        # fp32 every K1 and K8 launch a split-TF32 one
         on_tc = cfg.vision_layers * (dtype == torch.bfloat16)
-        launches[name].update(require_routes(f"{name} gradient", on_tc, on_tc))
+        on_tf32 = cfg.vision_layers * (dtype == torch.float32)
+        launches[name].update(require_routes(f"{name} gradient", on_tc, on_tc, on_tf32))
         torch.cuda.reset_peak_memory_stats()
         _, warm_s = timed(lambda: step(dtype))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1534,10 +1670,12 @@ def phase_scripts() -> list:
     # read from the built library
     # and the backward pair at the four of them past the whole-head backward
     # (two through K3's entry, two through K7), with all three kernels' opcode
-    # mixes
+    # mixes; then the split-TF32 kernel in fp32 at five shapes (three through
+    # K1, two through K8), and its opcode mix
     runs.append(run_script("bench_mha_tc", ["--sass", *it], {
-        "fused_mha_qkv": 4 * calls, "fused_mha_qtile": 2 * calls, "mha_tc": 6 * calls,
-        "mha_qkv_bwd": 2 * calls, "mha_qtile_bwd": 2 * calls, "blocked_bwd_tc": 4 * calls}))
+        "fused_mha_qkv": (4 + 3) * calls, "fused_mha_qtile": 2 * calls, "mha_tc": 6 * calls,
+        "mha_qkv_bwd": 2 * calls, "mha_qtile_bwd": 2 * calls, "blocked_bwd_tc": 4 * calls,
+        "flash_attention_heads": 2 * calls, "mha_tf32": 5 * calls}))
     # K7's parity in fp32 (one launch of the CUDA-core pair), then the bf16
     # forward+backward step, warmed and timed, on the tensor-core kernels
     runs.append(run_script("bench_attn_bwd", ["--qtile", *it], {
@@ -1548,7 +1686,8 @@ def phase_scripts() -> list:
     runs.append(run_script("probe_bf16_drift", ["--seeds", "1", "--frames", "8"],
                            {"fused_mha_qtile": 48, "mha_tc": 48}))
     # 12 text layers when the scorer is built; two axial attentions a scoring call
-    runs.append(run_script("bench_eval", it, {"fused_mha_qkv": 12, "fused_mha_bld": 2 * calls}))
+    runs.append(run_script("bench_eval", it, {"fused_mha_qkv": 12, "mha_tf32": 12,
+                                              "fused_mha_bld": 2 * calls}))
     # features: four sizes; frames: 512 and 1024 frames in encode calls of 256
     # through the 12 vision layers, timed over max(4, iters // 4) calls
     frame_calls = 2 + max(4, n // 4)
@@ -1572,6 +1711,8 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
         return "attention (mha_tc.cu)"
+    if "mha_tf32_kernel" in low:
+        return "attention (mha_tf32.cu)"
     if "mha_fwd_kernel" in low:
         return "attention (mha.cu)"
     if "probe_kernel" in low or "parts_kernel" in low:
@@ -1741,23 +1882,24 @@ def main() -> int:
     # the flash kernel through fused_attention's routing in the fp32
     # ViT-L/14@336px tower, the q-tiled kernel in the bf16 one, and each one's
     # backward in the tower's gradient
-    require(all(slice_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld")),
+    require(all(slice_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tf32")),
             f"a kernel of the scoring path was never launched: {slice_launches}")
     require(all(slice16_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tc")),
             f"a kernel of the bf16 scoring path was never launched: {slice16_launches}")
-    l14_paths = {"float32": ("fused_mha_qkv", "fused_mha_bld", "flash_attention_heads"),
+    l14_paths = {"float32": ("fused_mha_qkv", "fused_mha_bld", "flash_attention_heads", "mha_tf32"),
                  "bfloat16": ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile", "mha_tc")}
     for dtype, names in l14_paths.items():
         require(all(l14_launches[dtype][k] > 0 for k in names),
                 f"a kernel of the {dtype} ViT-L/14@336px path was never launched: "
                 f"{l14_launches[dtype]}")
     require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld",
-                                                "mha_qkv_bwd", "mha_bld_bwd")),
+                                                "mha_qkv_bwd", "mha_bld_bwd", "mha_tf32")),
             f"a kernel of the training path was never launched: {train_launches}")
     grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd", "mha_tc",
                                               "blocked_bwd_tc"),
-                  "ViT-L/14@336px float32": ("flash_attention_heads", "flash_dq", "flash_dkv"),
-                  "ViT-B/16 float32": ("fused_mha_qkv", "mha_qkv_bwd")}
+                  "ViT-L/14@336px float32": ("flash_attention_heads", "flash_dq", "flash_dkv",
+                                             "mha_tf32"),
+                  "ViT-B/16 float32": ("fused_mha_qkv", "mha_qkv_bwd", "mha_tf32")}
     for run, names in grad_paths.items():
         require(all(grad_launches[run][k] > 0 for k in names),
                 f"a kernel of the {run} gradient path was never launched: {grad_launches[run]}")
@@ -1765,7 +1907,7 @@ def main() -> int:
     script_totals = {k: sum(run[k] for run in script_launches) for k in script_launches[0]}
     script_path = (*PROBE_REPLACES, "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                    "fused_mha_qtile", "flash_attention_heads", "mha_tc", "mha_qtile_bwd",
-                   "blocked_bwd_tc")
+                   "blocked_bwd_tc", "mha_tf32")
     require(all(script_totals[k] > 0 for k in script_path),
             f"a kernel of the scripts' path was never launched: {script_totals}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),

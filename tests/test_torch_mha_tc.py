@@ -159,7 +159,8 @@ def test_tc_shared_memory_is_independent_of_length():
 
 
 class NumpyMhaKernels:
-    """The forward entries of ops/csrc/mha.cu and mha_tc.cu in numpy: whole-row
+    """The forward entries of ops/csrc/mha.cu, mha_tc.cu and K1's of mha_tf32.cu
+    in numpy: whole-row
     softmax attention in fp32 on the decoded operands, without the kernels'
     tiling or their bf16 rounding of P, reading and writing through the raw
     pointers and (batch, row) element strides the wrappers pass, so that a wrong
@@ -222,6 +223,10 @@ class NumpyMhaKernels:
         self.calls.append(("qkv_tc", dh, causal))
         return self._qkv("qkv_tc", True, qkv, bs, rs, out, b, l, h, dh, causal, scale)
 
+    def acl_mha_qkv_tf32_fwd(self, qkv, bs, rs, out, b, l, h, dh, causal, scale, stream):
+        self.calls.append(("qkv_tf32", dh, causal))
+        return self._qkv("qkv_tf32", False, qkv, bs, rs, out, b, l, h, dh, causal, scale)
+
     def acl_mha_qtile_fwd(self, dtype, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale, stream):
         self.calls.append(("qtile", dtype, dh))
         return self._qtile(dtype == 1, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale)
@@ -280,7 +285,7 @@ def test_tc_wrappers_read_views_in_place_and_count(numpy_kernels):
                                rtol=0, atol=2e-2)
     assert numpy_kernels.calls == [("qkv_tc", 64, 1), ("qtile_tc", 64)]
     assert tattn.launch_counts == _counts(fused_mha_qkv=1, fused_mha_qtile=1)
-    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0}
+    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0}
 
 
 def _misaligned(rng, dtype):
@@ -292,29 +297,39 @@ def _misaligned(rng, dtype):
 @pytest.mark.parametrize(
     "dtype,heads,make,calls",
     [
-        (torch.float32, 2, None, [("qkv", 0, 64, 0), ("qtile", 0, 64)]),
+        (torch.float32, 2, None, [("qkv_tf32", 64, 0), ("qtile", 0, 64)]),
         (torch.bfloat16, 2, None, [("qkv_tc", 64, 0), ("qtile_tc", 64)]),
         (torch.bfloat16, 4, None, [("qkv", 1, 32, 0), ("qtile", 1, 32)]),
         (torch.bfloat16, 8, None, [("qkv", 1, 16, 0), ("qtile", 1, 16)]),
         (torch.bfloat16, 16, None, [("qkv", 1, 8, 0), ("qtile", 1, 8)]),
-        (torch.float32, 2, _misaligned, [("qkv", 0, 64, 0), ("qtile", 0, 64)]),
+        # K1 refuses the view (the split-TF32 kernel reads 16-byte pieces); K6
+        # takes it on the CUDA cores
+        (torch.float32, 2, _misaligned, [("qtile", 0, 64)]),
     ],
 )
 def test_kernel_choice_by_dtype_head_dim_and_alignment(numpy_kernels, dtype, heads, make, calls):
-    """The tensor-core kernel for bf16 at head dim 64; the CUDA-core kernel for
-    fp32, whatever its alignment, and for the smaller head dims. Either way the
-    entry's count rises, and the result is right."""
+    """The tensor-core kernel for bf16 at head dim 64 and, for K1, the
+    split-TF32 one for fp32 at head dim 64, which raises on a view it cannot
+    read in 16-byte pieces; the CUDA-core kernel for K6 in fp32, whatever its
+    alignment, and for the smaller head dims. The entry's count rises with each
+    launch, and the result is right."""
     rng = np.random.default_rng(11)
     x = make(rng, dtype) if make else _randn(rng, dtype, 2, 50, 3 * 128)
     tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
-    got = tattn.mha_qkv_fwd_kernel(x, heads, False)
-    torch.testing.assert_close(got.float(), tattn.mha_qkv_reference(x, heads).float(), rtol=0, atol=tol)
+    k1_launches = int(len(calls) == 2)
+    if k1_launches:
+        got = tattn.mha_qkv_fwd_kernel(x, heads, False)
+        torch.testing.assert_close(got.float(), tattn.mha_qkv_reference(x, heads).float(), rtol=0, atol=tol)
+    else:
+        with pytest.raises(ValueError, match=r"fused_mha_qkv: .*float32 operands in 16-byte pieces"):
+            tattn.mha_qkv_fwd_kernel(x, heads, False)
     got = tattn.mha_qtile_fwd_kernel(x[..., :128], x[..., 128:], heads)
     torch.testing.assert_close(got.float(), tattn.mha_qtile_reference(x[..., :128], x[..., 128:], heads).float(),
                                rtol=0, atol=tol)
     assert numpy_kernels.calls == calls
-    assert tattn.launch_counts == _counts(fused_mha_qkv=1, fused_mha_qtile=1)
+    assert tattn.launch_counts == _counts(fused_mha_qkv=k1_launches, fused_mha_qtile=1)
     assert tattn.route_counts["mha_tc"] == 2 * calls[0][0].endswith("_tc")
+    assert tattn.route_counts["mha_tf32"] == int(calls[0][0] == "qkv_tf32")
 
 
 def test_tc_wrappers_refuse_operands_they_cannot_read_in_16_byte_pieces(numpy_kernels):
@@ -348,7 +363,7 @@ def test_admission_limits_are_unchanged(numpy_kernels):
         tattn.mha_qtile_fwd_kernel(torch.zeros(1, 790, 64).bfloat16(), torch.zeros(1, 790, 128).bfloat16(), 1)
     with pytest.raises(ValueError, match="shared memory"):
         tattn.mha_qtile_fwd_kernel(torch.zeros(1, 421, 64), torch.zeros(1, 421, 128), 1)
-    assert [c[0] for c in numpy_kernels.calls] == ["qkv", "qkv_tc", "qtile_tc"]
+    assert [c[0] for c in numpy_kernels.calls] == ["qkv_tf32", "qkv_tc", "qtile_tc"]
     # what the kernels do not take
     with pytest.raises(ValueError, match=r"\(2, 10, 144\)"):
         tattn.mha_qkv_fwd_kernel(torch.zeros(2, 10, 144).bfloat16(), 2, False)  # head dim 24
@@ -543,16 +558,18 @@ def test_ladder_asks_the_eligibility_function(l, d, heads, itemsize, causal, run
 )
 def test_fused_attention_routes_by_shape(monkeypatch, shape, causal, branch):
     """``fused_attention``'s two branches, chosen from the shape; both
-    differentiate, and the flash branch is handed the mask."""
+    differentiate, and the flash branch is handed the mask and the
+    four-dimensional views as they are."""
     taken = []
-    real_apply, real_flash = tattn._FusedAttention.apply, tattn.flash_attention_heads
+    real_apply, real_flash = tattn._FusedAttention.apply, tattn._FlashHeads.apply
     monkeypatch.setattr(tattn._FusedAttention, "apply",
                         staticmethod(lambda *a: (taken.append("whole"), real_apply(*a))[1]))
-    monkeypatch.setattr(tattn, "flash_attention_heads",
-                        lambda *a, **kw: (taken.append(("flash", kw["causal"])), real_flash(*a, **kw))[1])
+    monkeypatch.setattr(tattn._FlashHeads, "apply", staticmethod(
+        lambda q, k, v, save_lse, causal: (taken.append(("flash", causal, q.shape)),
+                                           real_flash(q, k, v, save_lse, causal))[1]))
     q = torch.randn(shape, generator=torch.Generator().manual_seed(2)).requires_grad_(True)
     out = tattn.fused_attention(q, q, q, causal)
-    assert taken == ["whole" if branch == "whole" else ("flash", causal)]
+    assert taken == ["whole" if branch == "whole" else ("flash", causal, shape)]
     (grad,) = torch.autograd.grad((out**2).sum(), q)
     assert grad.shape == q.shape and torch.isfinite(grad).all() and grad.abs().max() > 0
     torch.testing.assert_close(out, tattn.attention_reference(q, q, q, causal), rtol=0, atol=FP32_TOL)
@@ -613,9 +630,10 @@ def test_both_directions_launch_a_kernel_at_every_shape(kernel_path_on_cpu, monk
 
 def test_reset_launch_counts_clears_both_tables():
     tattn.launch_counts["fused_mha_qkv"] = 3
-    tattn.route_counts["mha_tc"] = 3
+    tattn.route_counts["mha_tc"] = tattn.route_counts["mha_tf32"] = 3
     tattn.reset_launch_counts()
-    assert tattn.launch_counts == _counts() and tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0}
+    assert tattn.launch_counts == _counts()
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +709,7 @@ def test_tc_qkv_kernel_matches_blocked_plain(cuda, b, l, d, heads, causal):
     want = tattn.mha_qkv_reference(qkv, heads, causal, BLOCK)
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)
-    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0}
+    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0}
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
@@ -708,23 +726,26 @@ def test_tc_qtile_kernel_matches_blocked_plain(cuda, b, l, d, heads):
     want = tattn.mha_qtile_reference(x[..., :d], x[..., d:], heads, BLOCK)
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qtile=1)
-    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0}
+    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0}
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
 
 @pytest.mark.gpu
 def test_misaligned_and_fp32_operands_take_the_cuda_core_kernel_on_the_card(cuda):
-    """fp32 takes the CUDA-core kernel at any alignment; a bf16 view at head dim
-    64 that cannot be read in 16-byte pieces raises, and launches nothing."""
+    """fp32 below head dim 64 takes the CUDA-core kernel at any alignment; a
+    view at head dim 64, bf16 or fp32, that cannot be read in 16-byte pieces
+    raises, and launches nothing."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    wide = torch.randn(4, 77, 3 * 128 + 2, device=cuda, generator=gen).bfloat16()
+    wide = torch.randn(4, 77, 3 * 128 + 2, device=cuda, generator=gen)
     tattn.reset_launch_counts()
-    x = wide[..., 1:-1].float()
-    torch.testing.assert_close(tattn.fused_mha_qkv(x, 2, True), tattn.mha_qkv_reference(x, 2, True),
+    x = wide[..., 1:-1]  # fp32, one element into the wider buffer
+    torch.testing.assert_close(tattn.fused_mha_qkv(x, 4, True), tattn.mha_qkv_reference(x, 4, True),
                                rtol=0, atol=FP32_TOL)
-    assert tattn.launch_counts == _counts(fused_mha_qkv=1) and tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0}
-    with pytest.raises(ValueError, match="16-byte pieces"):
-        tattn.fused_mha_qkv(wide[..., 1:-1], 2, True)
+    assert tattn.launch_counts == _counts(fused_mha_qkv=1)
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0}
+    for misaligned in (wide.bfloat16()[..., 1:-1], x):
+        with pytest.raises(ValueError, match="16-byte pieces"):
+            tattn.fused_mha_qkv(misaligned, 2, True)
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)
 
 
