@@ -37,20 +37,28 @@ them; outside any such scope the environment variable ``ANOMALYCLIP_ATTN_IMPL``
 (``kernel`` | ``reference``) chooses. The choice is read when the forward runs
 and kept for its backward, which autograd runs on another thread.
 
-Which kernel serves which operands. ``fused_mha_qkv`` and ``fused_mha_qtile``
-launch one of several kernels, chosen by the wrapper from the operand type and
-the head dim before the launch: in bf16 at head dim 64 the tensor-core kernel
-of mha_tc.cu (``mma.sync`` products, P in registers, K and V in blocks of
-``MHA_TC_BLOCK_KV`` keys with online softmax: every CLIP tower in bf16; its
-operands must be readable in 16-byte pieces, or the wrapper raises); in fp32 at
-head dim 64 ``fused_mha_qkv``, like ``flash_attention_heads``, launches the
-split-TF32 kernel of mha_tf32.cu (the same design with each fp32 product formed
-as three TF32 ``mma.sync`` products of the operands' big and small parts, which
-keeps fp32 accuracy: TF32 itself stays off, and no ``allow_tf32`` flag is
-touched; the same demand on its operands); otherwise the whole-row CUDA-core
-kernel of mha.cu, which also serves ``fused_mha_bld`` and
-``fused_attention``'s whole-block branch in either type, and the KV-blocked
-CUDA-core kernel of mha_long.cu behind ``flash_attention_heads``.
+Which kernel serves which operands. ``fused_mha_qkv``, ``fused_mha_qtile`` and
+``flash_attention_heads`` launch one of several kernels, chosen by the wrapper
+from the operand type and the head dim before the launch:
+
+- K1: ``acl_mha_qkv_tc_fwd`` (mha_tc.cu) in bf16 at head dim 64,
+  ``acl_mha_qkv_tf32_fwd`` (mha_tf32.cu) in fp32 at head dim 64,
+  ``acl_mha_qkv_fwd`` (mha.cu) at head dims 8, 16, 32;
+- K6: ``acl_mha_qtile_tc_fwd``, ``acl_mha_qtile_tf32_fwd``, ``acl_mha_qtile_fwd``
+  (mha.cu), in the same order;
+- K8: ``acl_flash_tc_fwd``, ``acl_flash_tf32_fwd``, ``acl_flash_fwd``
+  (mha_long.cu), in the same order.
+
+mha_tc.cu is the tensor-core kernel (``mma.sync`` products, P in registers, K
+and V in blocks of ``MHA_TC_BLOCK_KV`` keys with online softmax: every CLIP
+tower in bf16, and the bf16 core rung); mha_tf32.cu the same design with each
+fp32 product formed as three TF32 ``mma.sync`` products of the operands' big
+and small parts, which keeps fp32 accuracy (TF32 itself stays off, and no
+``allow_tf32`` flag is touched). Both read their operands in 16-byte pieces, or
+the wrapper raises. The whole-row CUDA-core kernel of mha.cu also serves
+``fused_mha_bld`` and ``fused_attention``'s whole-block branch in either type,
+and the KV-blocked CUDA-core kernel of mha_long.cu the smaller head dims of
+``flash_attention_heads``.
 The KV-blocked backward pair is two kernels in the same way: in bf16 at head
 dim 64 every caller of it (K7, K9, K10, and K3, K4 and K5's backward past the
 whole-head kernel) launches the tensor-core pair of mha_tc_bwd.cu, with the same
@@ -60,7 +68,9 @@ Both compute one function, so the plain backwards have one form.
 two forms to match (``block=None``: whole rows; ``block``: KV-blocked), because
 in bf16 a plain version must round P where its kernel rounds it; the entries'
 reference branch runs the form of the kernel the operands would launch
-(``reference_block``).
+(``reference_block``). K8's plain version is KV-blocked at the block of the
+kernel its operands launch (``flash_reference_block``: the tensor-core
+kernel's 64 keys in bf16 at head dim 64, mha_long.cu's 128 otherwise).
 
 Which kernel fits a shape is a matter of shared memory and of what is
 instantiated: fp32 and bf16, head dims 8, 16, 32 and 64, causal or not, at any
@@ -114,15 +124,14 @@ launch_counts = {
 }
 
 # beside them, which kernels the launches took since the last
-# reset_launch_counts(): "mha_tc" counts the launches of fused_mha_qkv and
-# fused_mha_qtile that took the tensor-core kernel (mha_tc.cu) rather than the
-# CUDA-core one (mha.cu); "blocked_bwd_tc" the backward entries' launches (K7, K9,
-# K10, the KV-blocked route of K3, K4 and K5's backward) that took the
-# tensor-core pair (mha_tc_bwd.cu) rather than the CUDA-core one
-# (mha_blocked_bwd.cu), one for each count of ``launch_counts``; "mha_tf32"
-# the launches of fused_mha_qkv and flash_attention_heads that took the
-# split-TF32 tensor-core kernel (mha_tf32.cu) rather than the CUDA-core one
-# (mha.cu, mha_long.cu)
+# reset_launch_counts(): "mha_tc" counts the launches of fused_mha_qkv,
+# fused_mha_qtile and flash_attention_heads that took the tensor-core kernel
+# (mha_tc.cu) rather than a CUDA-core one (mha.cu, mha_long.cu);
+# "blocked_bwd_tc" the backward entries' launches (K7, K9, K10, the KV-blocked
+# route of K3, K4 and K5's backward) that took the tensor-core pair
+# (mha_tc_bwd.cu) rather than the CUDA-core one (mha_blocked_bwd.cu), one for
+# each count of ``launch_counts``; "mha_tf32" the launches of the same three
+# forward entries that took the split-TF32 tensor-core kernel (mha_tf32.cu)
 route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0}
 
 IMPL_ENV = "ANOMALYCLIP_ATTN_IMPL"
@@ -268,16 +277,26 @@ def fused_attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
 FLASH_BLOCK_KV = 128
 
 
-def flash_attention_reference(
-    q, k, v, save_lse: bool = False, block: int = FLASH_BLOCK_KV, causal: bool = False
-):
+def flash_reference_block(dtype: torch.dtype, dh: int) -> int:
+    """The ``block`` of ``flash_attention_reference`` that rounds like the
+    kernel K8 launches for this operand type and head dim: the tensor-core
+    kernel's ``MHA_TC_BLOCK_KV`` in bf16 at head dim 64, mha_long.cu's
+    ``FLASH_BLOCK_KV`` otherwise (in fp32 nothing rounds, and the block orders
+    the sums only). Read at each call, so that a caller may set either."""
+    return MHA_TC_BLOCK_KV if mha_tc_eligible(dtype, dh) else FLASH_BLOCK_KV
+
+
+def flash_attention_reference(q, k, v, save_lse: bool = False, block=None, causal: bool = False):
     """``_flash_kernel`` (:800-854) over per-head (N, L, dh): per KV block of
-    ``block`` keys (K8's ``FLASH_BLOCK_KV``) the running max, the rescale alpha = exp(m_old -
-    m_new), p = exp(s - m_new) cast to v's type before the P.V product and
-    summed unrounded, one divide at the end. The block size decides where bf16
-    rounds: it is the CUDA kernel's (the Pallas kernel's is 512). ``causal``
-    sets the entries above the diagonal to NEG_INF before the max. -> out, or
-    (out, lse) with lse = m + log(sum) as a plain (N, L) fp32 tensor."""
+    ``block`` keys the running max, the rescale alpha = exp(m_old - m_new), p =
+    exp(s - m_new) cast to v's type before the P.V product and summed
+    unrounded, one divide at the end. The block size decides where bf16 rounds:
+    ``None`` is the block of the CUDA kernel these operands launch
+    (``flash_reference_block``; the Pallas kernel's is 512). ``causal`` sets the
+    entries above the diagonal to NEG_INF before the max. -> out, or (out, lse)
+    with lse = m + log(sum) as a plain (N, L) fp32 tensor."""
+    if block is None:
+        block = flash_reference_block(q.dtype, q.shape[-1])
     acc, denom, m = _online_softmax(q, k, v, causal, block)
     out = (acc / denom).to(q.dtype)
     if save_lse:
@@ -374,6 +393,14 @@ def mha_qkv_tf32x3_reference(qkv, num_heads: int, causal: bool = False, passes: 
     """``tf32x3_reference`` over a packed (B, L, 3D) qkv -> (B, L, D)."""
     heads = [_split_heads(t, num_heads) for t in _unpack_qkv(qkv)]
     return _merge_heads(tf32x3_reference(*heads, causal, passes=passes))
+
+
+def mha_qtile_tf32x3_reference(q, kv, num_heads: int, passes: int = 3):
+    """``tf32x3_reference`` of q (B, L, D) against the packed k|v (B, L, 2D),
+    non-causal -> (B, L, D)."""
+    d = q.shape[-1]
+    heads = [_split_heads(t, num_heads) for t in (q, kv[..., :d], kv[..., d:])]
+    return _merge_heads(tf32x3_reference(*heads, passes=passes))
 
 
 def flash_delta(g, out) -> torch.Tensor:
@@ -490,11 +517,14 @@ def mha_tc_smem_bytes(dh: int = MHA_TC_HEAD_DIM) -> int:
 
 
 def mha_tc_eligible(dtype: torch.dtype, dh: int) -> bool:
-    """Whether K1 and K6 launch the tensor-core kernel for this operand type and
-    head dim, or the CUDA-core kernel of mha.cu, and whether the KV-blocked
-    backward is the tensor-core pair of mha_tc_bwd.cu or the CUDA-core pair of
-    mha_blocked_bwd.cu. For K1 and K6 it also decides which plain version rounds
-    like the kernel: the KV-blocked one where this says yes."""
+    """Whether K1, K6 and K8 launch the tensor-core kernel (mha_tc.cu) for this
+    operand type and head dim, or a CUDA-core kernel (mha.cu for K1 and K6,
+    mha_long.cu for K8; in fp32 at head dim 64 the split-TF32 kernel of
+    mha_tf32.cu), and whether the KV-blocked backward is the tensor-core pair of
+    mha_tc_bwd.cu or the CUDA-core pair of mha_blocked_bwd.cu. It also decides
+    which plain version rounds like the kernel: for K1 and K6 the KV-blocked
+    one, for K8 the one at the tensor-core kernel's KV block, where this says
+    yes."""
     return dtype == torch.bfloat16 and dh == MHA_TC_HEAD_DIM
 
 
@@ -511,9 +541,10 @@ def mha_tf32_smem_bytes(dh: int = MHA_TF32_HEAD_DIM) -> int:
 
 
 def mha_tf32_eligible(dtype: torch.dtype, dh: int) -> bool:
-    """Whether K1 and K8 launch the split-TF32 tensor-core kernel (mha_tf32.cu)
-    for this operand type and head dim, or the CUDA-core kernels of mha.cu and
-    mha_long.cu (and in bf16 at head dim 64, K1 the kernel of mha_tc.cu)."""
+    """Whether K1, K6 and K8 launch the split-TF32 tensor-core kernel
+    (mha_tf32.cu) for this operand type and head dim, or the CUDA-core kernels
+    of mha.cu and mha_long.cu (in bf16 at head dim 64 the kernel of
+    mha_tc.cu)."""
     return dtype == torch.float32 and dh == MHA_TF32_HEAD_DIM
 
 
@@ -1049,10 +1080,11 @@ def flash_bwd_kernel(q, k, v, g, lse, out, causal: bool = False) -> tuple:
 
 
 def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
-    """K6: launch ``acl_mha_qtile_tc_fwd`` (bf16 at head dim 64) or
-    ``acl_mha_qtile_fwd`` (everything else: the CUDA-core kernel with K and V
-    staged in the operand type) -> (B, L, D); q and the two halves of kv are
-    read in place."""
+    """K6: launch ``acl_mha_qtile_tc_fwd`` (bf16 at head dim 64),
+    ``acl_mha_qtile_tf32_fwd`` (fp32 at head dim 64) or ``acl_mha_qtile_fwd``
+    (everything else: the CUDA-core kernel with K and V staged in the operand
+    type) -> (B, L, D); q and the two halves of kv are read in place. The
+    admission limit is the CUDA-core kernel's whatever kernel launches."""
     b, l, d = q.shape
     if kv.shape != (b, l, 2 * d) or kv.dtype != q.dtype or kv.device != q.device:
         raise ValueError(
@@ -1066,10 +1098,13 @@ def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
     kv_strides = _strides("fused_mha_qtile", kv, kv.shape)
     out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     ptr = ctypes.c_void_p
-    tensor_cores = mha_tc_eligible(q.dtype, dh)
-    if tensor_cores:
-        _check_tc("fused_mha_qtile", out, num_heads, q, kv)
-        err = load_library().acl_mha_qtile_tc_fwd(
+    tensor_cores, tf32 = mha_tc_eligible(q.dtype, dh), mha_tf32_eligible(q.dtype, dh)
+    if tensor_cores or tf32:
+        _check_tc("fused_mha_qtile", out, num_heads, q, kv,
+                  smem_need=mha_tc_smem_bytes if tensor_cores else mha_tf32_smem_bytes)
+        lib = load_library()
+        entry = lib.acl_mha_qtile_tc_fwd if tensor_cores else lib.acl_mha_qtile_tf32_fwd
+        err = entry(
             ptr(q.data_ptr()), *q_strides, ptr(kv.data_ptr()), *kv_strides,
             ptr(out.data_ptr()), b, l, num_heads, dh, 1.0 / math.sqrt(dh), _stream(q),
         )
@@ -1082,17 +1117,19 @@ def mha_qtile_fwd_kernel(q, kv, num_heads: int) -> torch.Tensor:
     _raise_on_error("fused_mha_qtile", err)
     launch_counts["fused_mha_qtile"] += 1
     route_counts["mha_tc"] += tensor_cores
+    route_counts["mha_tf32"] += tf32
     return out
 
 
 def flash_fwd_kernel(q, k, v, save_lse: bool, causal: bool = False):
     """K8 over per-head (N, L, dh), or over the (B, H, L, dh) views
     ``fused_attention`` hands over -> out of q's shape, or (out, lse) with the
-    fp32 log-sum-exp of shape q.shape[:-1]. fp32 at head dim 64 launches
-    ``acl_flash_tf32_fwd``, which reads q, k, v in place through (batch, head,
-    row) strides and writes the output in (B, L, H, dh) layout
-    (``_empty_heads``); everything else ``acl_flash_fwd``, which takes per-head
-    tensors: four-dimensional views are folded into them."""
+    fp32 log-sum-exp of shape q.shape[:-1]. At head dim 64 bf16 launches
+    ``acl_flash_tc_fwd`` and fp32 ``acl_flash_tf32_fwd``, which read q, k, v in
+    place through (batch, head, row) strides and write the output in (B, L, H,
+    dh) layout (``_empty_heads``); the smaller head dims ``acl_flash_fwd``,
+    which takes per-head tensors: four-dimensional views are folded into them.
+    The admission limit is mha_long.cu's whatever kernel launches."""
     _check_bld("flash_attention_heads", q, k, v)
     l, dh = q.shape[-2:]
     itemsize = q.element_size()
@@ -1102,13 +1139,16 @@ def flash_fwd_kernel(q, k, v, save_lse: bool, causal: bool = False):
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device) if save_lse else None
     lse_ptr = ctypes.c_void_p(lse.data_ptr() if save_lse else None)
     scale = 1.0 / math.sqrt(dh)
-    tf32 = mha_tf32_eligible(q.dtype, dh)
-    if tf32:
+    tensor_cores, tf32 = mha_tc_eligible(q.dtype, dh), mha_tf32_eligible(q.dtype, dh)
+    if tensor_cores or tf32:
         out = _empty_heads(q)
         views = [_as_heads(t) for t in (q, k, v, out)]
-        _check_tc("flash_attention_heads", views[3], 1, *views[:3], smem_need=mha_tf32_smem_bytes)
+        _check_tc("flash_attention_heads", views[3], 1, *views[:3],
+                  smem_need=mha_tc_smem_bytes if tensor_cores else mha_tf32_smem_bytes)
         b, h = views[0].shape[:2]
-        err = load_library().acl_flash_tf32_fwd(
+        lib = load_library()
+        entry = lib.acl_flash_tc_fwd if tensor_cores else lib.acl_flash_tf32_fwd
+        err = entry(
             *_blocked_args("flash_attention_heads", views), lse_ptr, b, h, l, dh, int(causal),
             scale, _stream(q),
         )
@@ -1126,6 +1166,7 @@ def flash_fwd_kernel(q, k, v, save_lse: bool, causal: bool = False):
         )
     _raise_on_error("flash_attention_heads", err)
     launch_counts["flash_attention_heads"] += 1
+    route_counts["mha_tc"] += tensor_cores
     route_counts["mha_tf32"] += tf32
     return (out, lse) if save_lse else out
 
@@ -1330,9 +1371,9 @@ def fused_attention(
       ``flash_attention_heads``) on the four-dimensional views as they are,
       with the causal mask where asked: the reference's second branch and, for
       a causal shape, the kernel in place of its third (``_xla_attention``,
-      :1135, :1195). In fp32 at head dim 64 neither direction copies the views
-      of the core rung's packed qkv, and the output comes in the layout that
-      folds back into (B, L, H * Dh) without a copy.
+      :1135, :1195). At head dim 64, in either type, neither direction copies
+      the views of the core rung's packed qkv, and the output comes in the
+      layout that folds back into (B, L, H * Dh) without a copy.
 
     The branch is chosen from the shape before any launch; what neither kernel
     takes (an operand type or a head dim that is not instantiated) raises."""

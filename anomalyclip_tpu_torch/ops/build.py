@@ -123,16 +123,19 @@ def load_library() -> ctypes.CDLL:
     lib.acl_blocked_dkv.argtypes = [i, ptrs, strides, p, p, p, i, i, i, i, i, f, p]
     lib.acl_blocked_dkv.restype = i
     s, z = ctypes.c_int64, ctypes.c_size_t
-    # the tensor-core kernel (mha_tc.cu): per operand a pointer and 64-bit batch
-    # and row strides
+    # the tensor-core kernel (mha_tc.cu): K1 and K6 per operand a pointer and
+    # 64-bit batch and row strides; K8 the pointer and (batch, head, row) stride
+    # arrays for q, k, v and the output, as the backward pair's
     lib.acl_mha_tc_smem_bytes.argtypes = [i]
     lib.acl_mha_tc_smem_bytes.restype = z
-    lib.acl_mha_tc_blocks_per_sm.argtypes = [i]
+    lib.acl_mha_tc_blocks_per_sm.argtypes = [i, i]
     lib.acl_mha_tc_blocks_per_sm.restype = i
     lib.acl_mha_qkv_tc_fwd.argtypes = [p, s, s, p, i, i, i, i, i, f, p]
     lib.acl_mha_qkv_tc_fwd.restype = i
     lib.acl_mha_qtile_tc_fwd.argtypes = [p, s, s, p, s, s, p, i, i, i, i, f, p]
     lib.acl_mha_qtile_tc_fwd.restype = i
+    lib.acl_flash_tc_fwd.argtypes = [ptrs, strides, p, i, i, i, i, i, f, p]
+    lib.acl_flash_tc_fwd.restype = i
     # the tensor-core backward pair (mha_tc_bwd.cu): the arguments of
     # acl_blocked_dq and acl_blocked_dkv without the dtype and the row sum
     lib.acl_blocked_bwd_tc_smem_bytes.argtypes = [i, i]
@@ -143,17 +146,18 @@ def load_library() -> ctypes.CDLL:
     lib.acl_blocked_dq_tc.restype = i
     lib.acl_blocked_dkv_tc.argtypes = [ptrs, strides, p, p, i, i, i, i, i, f, p]
     lib.acl_blocked_dkv_tc.restype = i
-    # the split-TF32 kernel (mha_tf32.cu): K1's arguments as the tensor-core
-    # kernel's; K8's pointer and (batch, head, row) stride arrays for q, k, v and
-    # the output, as the backward pair's
+    # the split-TF32 kernel (mha_tf32.cu): each entry's arguments as the
+    # tensor-core kernel's
     lib.acl_mha_tf32_smem_bytes.argtypes = [i]
     lib.acl_mha_tf32_smem_bytes.restype = z
     lib.acl_mha_tf32_blocks_per_sm.argtypes = [i]
     lib.acl_mha_tf32_blocks_per_sm.restype = i
     lib.acl_mha_qkv_tf32_fwd.argtypes = lib.acl_mha_qkv_tc_fwd.argtypes
     lib.acl_mha_qkv_tf32_fwd.restype = i
-    lib.acl_flash_tf32_fwd.argtypes = [ptrs, strides, p, i, i, i, i, i, f, p]
+    lib.acl_flash_tf32_fwd.argtypes = lib.acl_flash_tc_fwd.argtypes
     lib.acl_flash_tf32_fwd.restype = i
+    lib.acl_mha_qtile_tf32_fwd.argtypes = lib.acl_mha_qtile_tc_fwd.argtypes
+    lib.acl_mha_qtile_tf32_fwd.restype = i
     # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
     # pointer and 64-bit batch and row strides
     lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]

@@ -6,14 +6,15 @@
 //                  (anomalyclip_tpu/ops/pallas/attention.py:800-854, 885, 1056):
 //                  KV-blocked online-softmax attention over per-head (N, L, dh) q,
 //                  k, v, read in place through element strides, with the
-//                  log-sum-exp per row written on request. In fp32 at head dim 64
-//                  (the ViT-L/14@336px tower in fp32, N = 256 x 16, L=577, where
-//                  fused_attention, attention.py:1121-1135, routes it) the
-//                  wrapper launches the split-TF32 kernel of mha_tf32.cu instead;
-//                  this kernel serves bf16 and the head dims 8, 16 and 32, with
-//                  the causal mask too: what that router sends to the XLA
-//                  formulation (:1135), a causal shape too long for the
-//                  whole-row kernel.
+//                  log-sum-exp per row written on request. At head dim 64 the
+//                  wrapper launches a tensor-core kernel instead: in fp32 the
+//                  split-TF32 kernel of mha_tf32.cu (the ViT-L/14@336px tower in
+//                  fp32, N = 256 x 16, L=577, where fused_attention,
+//                  attention.py:1121-1135, routes it), in bf16 the kernel of
+//                  mha_tc.cu (the bf16 core rung past L=789). This kernel serves
+//                  the head dims 8, 16 and 32 in both types, with the causal
+//                  mask too: what that router sends to the XLA formulation
+//                  (:1135), a causal shape too long for the whole-row kernel.
 //
 // What it computes is what _flash_kernel computes, block by block: per KV block
 // of kBlockKV keys, m_new = max(m, rowmax(s)), alpha = exp(m - m_new), p =
@@ -33,14 +34,16 @@
 // row's running max, sum and fp32 accumulator in shared memory between KV blocks;
 // in the P.V product lane t owns output columns t, t+32 (below head dim 32 the
 // upper lanes own none).
-// Shared memory is independent of L: at dh 64 (bf16 only) 70,656 B, at dh 32 in
-// fp32 54,272 B.
+// Shared memory is independent of L: at dh 32 in fp32 54,272 B; at dh 64 in bf16
+// it would be 70,656 B, the admission limit the wrapper still applies to the
+// tensor-core kernels that serve head dim 64.
 //
 // What bounds it: 2 * 2 * L^2 * dh FLOP per (n) on the fp32 CUDA cores with one
 // shared-memory operand per multiply-add; device memory sees K and V once per
-// query tile (10 times at L=577). At the fp32 tower shape, which has moved to
-// mha_tf32.cu's tensor-core products, it took 31.2 ms against sdpa's 12.4
-// (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// query tile (10 times at L=577). At the tower's per-head shape (4096, 577, 64),
+// which has moved to the tensor-core kernels, it took 31.2 ms in fp32 against
+// sdpa's 12.4 and 31.0 ms in bf16 against sdpa's 1.2 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md).
 
 #include "attention_common.cuh"
 
@@ -189,7 +192,7 @@ size_t acl_flash_smem_bytes(int dh, int dtype) {
 
 // K8. q, k, v: (N, L, dh) each with its own element strides (last stride 1);
 // out: contiguous (N, L, dh); lse: contiguous (N, L) fp32, or null. dh: 8, 16 or
-// 32, and 64 in bf16 (fp32 at head dim 64 is mha_tf32.cu's).
+// 32 (head dim 64 is mha_tc.cu's in bf16 and mha_tf32.cu's in fp32).
 int acl_flash_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* k, int k_bs,
                   int k_rs, const void* v, int v_bs, int v_rs, void* out, void* lse, int N,
                   int L, int dh, int causal, float scale, void* stream) {
@@ -208,7 +211,6 @@ int acl_flash_fwd(int dtype, const void* q, int q_bs, int q_rs, const void* k, i
   ACL_FLASH_CASE(1, BF, 8)
   ACL_FLASH_CASE(1, BF, 16)
   ACL_FLASH_CASE(1, BF, 32)
-  ACL_FLASH_CASE(1, BF, 64)
 #undef ACL_FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // Tensor-core multi-head attention for Hopper (sm_90a), fp32 operands, head dim
-// 64: the fp32 kernel behind fused_mha_qkv and flash_attention_heads, its
-// products split-TF32 (3xTF32) on the tensor cores.
+// 64: the fp32 kernel behind fused_mha_qkv, flash_attention_heads and
+// fused_mha_qtile, its products split-TF32 (3xTF32) on the tensor cores.
 //
-// Two C entries, one kernel:
+// Three C entries, one kernel:
 //
 //   acl_mha_qkv_tf32_fwd  replaces _mha_qkv_kernel / fused_mha_qkv
 //                         (anomalyclip_tpu/ops/pallas/attention.py:423-437, 466):
@@ -32,7 +32,7 @@
 // the row sum, p = exp(s - m_new) summed in fp32; P is not rounded before P.V
 // (fp32 has nothing to round to); one divide at the end, lse = m + log(l). The
 // plain versions it is held against are the fp32 ones (mha_qkv_reference,
-// flash_attention_reference).
+// flash_attention_reference, mha_qtile_reference).
 //
 // Products. TF32 is off in this port (no allow_tf32 flag is set anywhere), and
 // this kernel does not turn it on: each fp32 operand x is split into big =
@@ -53,8 +53,9 @@
 // per-head shape, the two products are 4 L^2 dh N = 349 GFLOP, executed three
 // times over on the TF32 pipe: 2.12 ms at 495 TFLOP/s (165 TFLOP/s of fp32
 // products), against 0.72 ms for the 2.4 GB of operands and output at 3.35
-// TB/s; at (256, 197, 2304), 12 heads, 0.19 ms either way. The products bound
-// it; PERF.md has the measured times beside sdpa's.
+// TB/s; at (256, 197, 2304), 12 heads, 0.19 ms either way; K6 at (64, 400,
+// 1024), 16 heads, 0.25 ms of operations. The products bound it; PERF.md has
+// the measured times beside sdpa's.
 //
 // Design. mha_tc.cu's block and pipeline with fp32 fragments:
 // - A block is one (batch entry, head, q tile of 64 rows): 4 warps, each owning
@@ -411,6 +412,22 @@ int acl_flash_tf32_fwd(const void* const* ptrs, const int64_t* strides, void* ls
     t[i] = Heads{static_cast<const float*>(ptrs[i]), strides[3 * i], strides[3 * i + 1],
                  strides[3 * i + 2]};
   return (int)launch(t[0], t[1], t[2], t[3], static_cast<float*>(lse), B, H, L, dh, causal, scale,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K6 in fp32. q: (B, L, D) and kv: (B, L, 2D), lane order k|v, each with element
+// strides (batch_stride, row_stride, 1), 16-byte aligned; out: contiguous
+// (B, L, D), D = H * dh. Non-causal.
+int acl_mha_qtile_tf32_fwd(const void* q, int64_t q_bs, int64_t q_rs, const void* kv, int64_t kv_bs,
+                           int64_t kv_rs, void* out, int B, int L, int H, int dh, float scale,
+                           void* stream) {
+  const float* kvp = static_cast<const float*>(kv);
+  const int64_t D = (int64_t)H * dh;
+  Heads qh{static_cast<const float*>(q), q_bs, dh, q_rs};
+  Heads kh{kvp, kv_bs, dh, kv_rs};
+  Heads vh{kvp + D, kv_bs, dh, kv_rs};
+  Heads o{static_cast<const float*>(out), L * D, dh, D};
+  return (int)launch(qh, kh, vh, o, nullptr, B, H, L, dh, /*causal=*/0, scale,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -3,10 +3,12 @@
     python -m anomalyclip_tpu_torch.scripts.bench_mha_tc [only ...] [--iters N] [--sass]
         [--device cpu]
 
-``fused_mha_qkv`` and ``fused_mha_qtile`` launch one kernel in bf16 at head dim
-64 (ops/csrc/mha_tc.cu). For each tower's per-layer shape, in bf16 on seeded
-normal inputs, a line gives max|diff| against the KV-blocked plain version
-(which must stay under 1.5e-2, twice the largest gap measured), the median time
+``fused_mha_qkv``, ``fused_mha_qtile`` and ``flash_attention_heads`` launch one
+kernel in bf16 at head dim 64 (ops/csrc/mha_tc.cu; K8 through its own
+instantiation, with head strides and the log-sum-exp). For each tower's
+per-layer shape, in bf16 on seeded normal inputs, a line gives max|diff|
+against the KV-blocked plain version (which must stay under 1.5e-2, twice the
+largest gap measured; K8's log-sum-exp under 1e-4), the median time
 and the TFLOP/s it amounts to, beside ``scaled_dot_product_attention`` on the same views (a
 yardstick: the port never calls it) and the least the card could take (the
 larger of 4 L^2 dh operations a head over 989 TFLOP/s and the operands and the
@@ -19,21 +21,24 @@ packed qkv, K7 for q against k|v), its max|diff| over max|ref| against the plain
 backward on the first ``PARITY_BATCH`` batch entries (within 2e-2), its time,
 ``scaled_dot_product_attention`` forward and backward through autograd, and the
 bound (10 L^2 dh operations a head, seven tensors once). A shape short enough
-for the whole-head backward of mha_bwd.cu is not the pair's and is named so.
+for the whole-head backward of mha_bwd.cu is not the pair's and is named so;
+K8's backward (K9, K10) is timed by chip_smoke.py's phase 3c, not here.
 
 A third set of lines gives the fp32 kernel of ops/csrc/mha_tf32.cu, whose
 products are split-TF32 (three TF32 products of the operands' big and small
 parts) on the tensor cores: ``fused_mha_qkv`` in fp32 at the towers' packed
-shapes, and ``flash_attention_heads``' kernel at the ViT-L/14@336px tower's
+shapes, ``flash_attention_heads``' kernel at the ViT-L/14@336px tower's
 heads, scoring (B=256) and gradient (B=32), on the (B, H, L, dh) views of one
 packed projection as ``fused_attention`` hands them over, with the
-log-sum-exp. Each is held within 1e-5 of the fp32 plain version and timed
+log-sum-exp, and ``fused_mha_qtile``'s at the fp32 shape its admission limit
+takes (L=400). Each is held within 1e-5 of the fp32 plain version and timed
 beside ``scaled_dot_product_attention`` and the bound (4 L^2 dh operations a
 head over 495 / 3 TFLOP/s, the split-TF32 rate of an fp32-accurate product, and
 the operands and the output once).
 
-``--sass`` adds the opcode mix of each kernel, read from ``cuobjdump -sass`` of
-the built library: the opcodes of the whole kernel and of its main loops (each
+``--sass`` adds the opcode mix of each kernel (the tensor-core kernel's two
+instantiations apart), read from ``cuobjdump -sass`` of the built library: the
+opcodes of the whole kernel and of its main loops (each
 from its barrier to its backward branch, the mask of a ragged block included:
 the forward's KV loop, the dq kernel's statistics and gradient sweeps, the dkv
 kernel's sweep over the q tiles), which is what the tensor-core operations
@@ -69,7 +74,10 @@ SHAPES = [
     ("text tower, causal", 256, 77, 512, 8, True, "qkv"),
     ("ViT-L/14@336px vision", 256, 577, 1024, 16, False, "qtile"),
     ("ViT-L/14@336px vision, batch 32", 32, 577, 1024, 16, False, "qtile"),
+    # K8 on the (B, H, L, dh) views, as the bf16 core rung hands them over
+    ("ViT-L/14@336px vision, heads", 256, 577, 1024, 16, False, "flash"),
 ]
+LSE_PARITY_LIMIT = 1e-4  # K8's log-sum-exp against the plain one
 PARITY_LIMIT = 0.015  # the kernel against the KV-blocked plain version
 BWD_PARITY_LIMIT = 0.02  # the backward pair against the plain backward, of max|ref|
 PARITY_BATCH = 8  # batch entries of a backward held against the plain version
@@ -83,22 +91,29 @@ TF32_SHAPES = [
     ("text tower, causal", 14, 77, 512, 8, True, "qkv"),
     ("ViT-L/14@336px vision, heads", 256, 577, 1024, 16, False, "flash"),
     ("ViT-L/14@336px gradient, heads", 32, 577, 1024, 16, False, "flash"),
+    ("ViT-L/14@336px vision at L=400", 64, 400, 1024, 16, False, "qtile"),
 ]
 TF32_PARITY_LIMIT = 1e-5  # the fp32 kernel against the fp32 plain version, absolute
 PEAK_TF32X3_FLOPS = 495e12 / 3  # dense TF32 over the three products of a split product
 
 
-def run(entry: str, x: torch.Tensor, d: int, heads: int, causal: bool) -> torch.Tensor:
+def run(entry: str, x: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
     """One call of the entry's kernel wrapper on the packed (B, L, 3D) x; K6 takes
-    q and k|v as its column slices, as the qtile rung over a packed projection."""
+    q and k|v as its column slices, as the qtile rung over a packed projection,
+    and K8 the (B, H, L, dh) views, as the core rung -> (out,) or (out, lse)."""
     if entry == "qkv":
-        return A.mha_qkv_fwd_kernel(x, heads, causal)
-    return A.mha_qtile_fwd_kernel(x[..., :d], x[..., d:], heads)
+        return (A.mha_qkv_fwd_kernel(x, heads, causal),)
+    if entry == "flash":
+        return A.flash_fwd_kernel(*heads_views(x, heads), True, causal)
+    return (A.mha_qtile_fwd_kernel(x[..., :d], x[..., d:], heads),)
 
 
-def plain(x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
-    """The KV-blocked plain version: for K6 the same function of the packed x."""
-    return A.mha_qkv_reference(x, heads, causal, A.MHA_TC_BLOCK_KV)
+def plain(entry: str, x: torch.Tensor, heads: int, causal: bool) -> tuple:
+    """The KV-blocked plain version of ``run``'s call: for K6 the same function
+    of the packed x."""
+    if entry == "flash":
+        return A.flash_attention_reference(*heads_views(x, heads), True, A.MHA_TC_BLOCK_KV, causal)
+    return (A.mha_qkv_reference(x, heads, causal, A.MHA_TC_BLOCK_KV),)
 
 
 def sdpa(x: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
@@ -114,10 +129,13 @@ def heads_views(x: torch.Tensor, heads: int) -> tuple:
 
 
 def run_tf32(entry: str, x: torch.Tensor, heads: int, causal: bool) -> tuple:
-    """One call of the fp32 kernel's wrapper: K1 on the packed x, or K8 with the
-    log-sum-exp on its head views."""
+    """One call of the fp32 kernel's wrapper: K1 on the packed x, K6 on its
+    column slices, or K8 with the log-sum-exp on its head views."""
     if entry == "qkv":
         return (A.mha_qkv_fwd_kernel(x, heads, causal),)
+    if entry == "qtile":
+        d = x.shape[-1] // 3
+        return (A.mha_qtile_fwd_kernel(x[..., :d], x[..., d:], heads),)
     return A.flash_fwd_kernel(*heads_views(x, heads), True, causal)
 
 
@@ -129,7 +147,7 @@ def plain_tf32(entry: str, x: torch.Tensor, heads: int, causal: bool, emulated: 
         out, lse = A.tf32x3_reference(*views, causal, save_lse=True)
     else:
         out, lse = A.flash_attention_reference(*views, save_lse=True, causal=causal)
-    if entry == "qkv":
+    if entry != "flash":  # K6 of the packed x's slices is K1's function of x
         return (out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1),)
     return out, lse
 
@@ -218,12 +236,13 @@ def _library_sass() -> str:
                           text=True, check=True, timeout=300).stdout
 
 
-def sass_mix(kernel: str) -> tuple:
+def sass_mix(*parts: str) -> tuple:
     """(opcode counts of the whole kernel, of each of its main loops in address
     order) for the function of the built library whose mangled name contains
-    ``kernel``. A main loop: the outermost backward branch around a barrier."""
+    every one of ``parts``. A main loop: the outermost backward branch around a
+    barrier."""
     body = next(f for f in _library_sass().split("Function : ")[1:]
-                if kernel in f.split("\n", 1)[0])
+                if all(part in f.split("\n", 1)[0] for part in parts))
     code = []  # (address, opcode, branch target or None)
     for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;", body):
         target = re.search(r"\bBRA\b[^;]*\b0x([0-9a-f]+)", m.group(0))
@@ -252,7 +271,8 @@ def main(argv=None) -> None:
     if on_card:
         dh, lib = A.MHA_TC_HEAD_DIM, build.load_library()
         print(f"head dim {dh}: {A.mha_tc_smem_bytes(dh)} B/block, "
-              f"{lib.acl_mha_tc_blocks_per_sm(dh)} blocks/SM; backward "
+              f"{lib.acl_mha_tc_blocks_per_sm(dh, 0)} blocks/SM (K1, K6), "
+              f"{lib.acl_mha_tc_blocks_per_sm(dh, 1)} (K8); backward "
               + ", ".join(f"{name} {A.blocked_bwd_tc_smem_bytes(dh, name)} B/block, "
                           f"{lib.acl_blocked_bwd_tc_blocks_per_sm(dh, code)} blocks/SM"
                           for name, code in A.BWD_TC_PASSES.items()), flush=True)
@@ -265,26 +285,37 @@ def main(argv=None) -> None:
         x = x.to(device=args.device, dtype=torch.bfloat16)
         if not on_card:
             # the entry runs the KV-blocked plain version: held against the whole-row one
-            fused = (A.fused_mha_qkv(x, heads, causal) if entry == "qkv"
-                     else A.fused_mha_qtile(x[..., :d], x[..., d:], heads))
+            if entry == "qkv":
+                fused = A.fused_mha_qkv(x, heads, causal)
+            elif entry == "qtile":
+                fused = A.fused_mha_qtile(x[..., :d], x[..., d:], heads)
+            else:
+                fused = A.fused_attention(*heads_views(x, heads), causal).transpose(1, 2).flatten(2)
             err = (fused.float() - A.mha_qkv_reference(x, heads, causal).float()).abs().max().item()
             if not err < WHOLE_ROW_LIMIT:
                 raise AssertionError(f"{tag}: max|diff| {err} against the whole-row plain version")
             print(f"{tag} (B={b}, L={l}, D={d}, H={heads}): max|diff|={err:.2e}", flush=True)
             continue
-        want = plain(x, heads, causal).float()
+        want = plain(entry, x, heads, causal)
         dh = d // heads
         flops = 4 * b * heads * l * l * dh * (0.5 if causal else 1.0)
-        bound_ms = max(flops / PEAK_FLOPS, 2 * 4 * b * l * d / PEAK_BYTES_PER_S) * 1e3
+        stats = 4 * b * heads * l if entry == "flash" else 0
+        bound_ms = max(flops / PEAK_FLOPS, (2 * 4 * b * l * d + stats) / PEAK_BYTES_PER_S) * 1e3
         sdpa_ms = median_ms(lambda: sdpa(x, heads, causal), args.iters)
-        err = (run(entry, x, d, heads, causal).float() - want).abs().max().item()
-        if not err < PARITY_LIMIT:
-            raise AssertionError(f"{tag}: max|diff| {err} against the plain version")
+        got = run(entry, x, d, heads, causal)
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        lse_err = (got[1] - want[1]).abs().max().item() if entry == "flash" else 0.0
+        if not (err < PARITY_LIMIT and lse_err < LSE_PARITY_LIMIT):
+            raise AssertionError(f"{tag}: max|diff| {err}, lse {lse_err} against the plain version")
+        del got, want
         ms = median_ms(lambda: run(entry, x, d, heads, causal), args.iters)
-        print(f"{tag} (B={b}, L={l}, D={d}, H={heads}): {ms:.4f} ms "
+        print(f"{tag} (B={b}, L={l}, D={d}, H={heads}, {entry}): {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms"
-              f"  max|diff|={err:.2e}", flush=True)
-        bench_backward(tag, entry, x, d, heads, causal, args.iters)
+              f"  max|diff|={err:.2e}" + (f" lse {lse_err:.2e}" if entry == "flash" else ""), flush=True)
+        if entry == "flash":
+            print(f"{tag}, backward: K9 and K10 are chip_smoke.py's phase 3c", flush=True)
+        else:
+            bench_backward(tag, entry, x, d, heads, causal, args.iters)
     if on_card:
         lib = build.load_library()
         print(f"fp32, head dim {A.MHA_TF32_HEAD_DIM}: {A.mha_tf32_smem_bytes()} B/block, "
@@ -294,9 +325,14 @@ def main(argv=None) -> None:
             bench_tf32(tag, b if on_card else 2, l, d, heads, causal, entry, on_card, args.device,
                        args.iters)
     if args.sass and on_card:
-        for kernel in ("mha_tc_kernel", "blocked_dq_tc_kernel", "blocked_dkv_tc_kernel",
-                       "mha_tf32_kernel"):
-            whole, loops = sass_mix(f"{kernel}ILi{A.MHA_TC_HEAD_DIM}E")
+        # the mangled names' template arguments: the tensor-core kernel is
+        # instantiated for K1 and K6 (Packed) and for K8 (Strided)
+        dh = A.MHA_TC_HEAD_DIM
+        for parts in ((f"mha_tc_kernelILi{dh}E", "Packed"), (f"mha_tc_kernelILi{dh}E", "Strided"),
+                      (f"blocked_dq_tc_kernelILi{dh}E",), (f"blocked_dkv_tc_kernelILi{dh}E",),
+                      (f"mha_tf32_kernelILi{dh}E",)):
+            whole, loops = sass_mix(*parts)
+            kernel = " ".join(parts)
             mixes = [("kernel", whole), *((f"loop {i + 1}", mix) for i, mix in enumerate(loops))]
             for what, mix in mixes:
                 top = ", ".join(f"{op} {n}" for op, n in mix.most_common(12))

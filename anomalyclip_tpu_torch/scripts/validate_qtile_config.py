@@ -10,8 +10,10 @@ and V of a head resident as bf16, which fits to L=789 at head dim 64 (292 L +
 2,048 B within 232,448 B), so L=1024 and L=1536 are not its shapes: the script
 reports the rung ``attention_rung`` picks for each shape and validates that
 kernel ("qtile": ``fused_mha_qtile``; "core": ``fused_attention``, which routes
-on to the flash kernel) within 5e-2 (absolute) of its plain version. The
-qtile-against-flash time is taken at the longest L both take. Exits 1 on a
+on to the flash kernel) within 5e-2 (absolute) of its plain version. At head
+dim 64 both entries launch the tensor-core kernel of ops/csrc/mha_tc.cu, each
+through its own entry. The qtile-against-flash time is taken at the longest L
+both take. Exits 1 on a
 failure. ``--device cpu`` runs the plain versions at batch 1, no times.
 """
 

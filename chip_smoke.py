@@ -9,28 +9,34 @@ script exits non-zero without printing a result:
 2. build: compile the CUDA kernels from the repository's sources, hold the
    library's shared-memory sizes against the Python formulas the dispatch
    ladder uses, and print how many blocks of the tensor-core kernel one SM
-   holds (four blocks of four warps are what its design counts on), of each
-   kernel of the tensor-core backward pair (three: what it is compiled for)
-   and of the split-TF32 kernel (two);
+   holds, in K1's and K6's instantiation and in K8's (four blocks of four
+   warps are what its design counts on), of each kernel of the tensor-core
+   backward pair (three: what it is compiled for) and of the split-TF32 kernel
+   (two);
 3. kernels: each forward kernel against its plain PyTorch version at the main
    paths' shapes (K1 and K2 at the ViT-B/16 and ViT-L/14 shapes; K6, K8 with
    its log-sum-exp, and K5's flash branch at the ViT-L/14@336px tower's
    shapes; K5's whole-block kernel at ViT-B/16's heads, causal and not; K8
    with the causal mask and at head dims 8 and 16), fp32 within 1e-5 and bf16
-   within 5e-2 (absolute), with median times. In bf16 at head dim 64 K1 and
-   K6 launch the tensor-core kernel (ops/csrc/mha_tc.cu), held within 1.5e-2
-   (twice the largest gap measured) of the KV-blocked plain version that
-   rounds where it rounds: at (256, 197, 2304) 12 heads, the causal
+   within 5e-2 (absolute), with median times. In bf16 at head dim 64 K1, K6
+   and K8 launch the tensor-core kernel (ops/csrc/mha_tc.cu), held within
+   1.5e-2 (twice the largest gap measured) of the KV-blocked plain version that
+   rounds where it rounds: K1 at (256, 197, 2304) 12 heads, the causal
    (14, 77, 1536) 8 heads and (14, 77, 2304) 12 heads, (64, 257, 3072) 16
-   heads, q (256, 577, 1024) with kv (256, 577, 2048) 16 heads, and at L = 1,
-   63, 64, 65, 129 at batch 3, causal and not; the launches that took it are
-   counted exactly. In fp32 at head dim 64 K1 and K8 launch the split-TF32
-   kernel (ops/csrc/mha_tf32.cu), held within 1e-5 of the fp32 plain versions
-   at K1's (256, 197, 2304) 12 heads, (64, 257, 3072) 16 heads and the causal
-   (14, 77, 1536) 8 heads and (14, 77, 2304) 12 heads, at K8's (4096, 577, 64)
+   heads, K6 at q (256, 577, 1024) with kv (256, 577, 2048) 16 heads, K8 at
+   (4096, 577, 64) with the log-sum-exp, (512, 1024, 64) and the causal
+   (512, 500, 64) and through K5's flash branch at (256, 16, 577, 64), and
+   through all three entries at L = 1, 63, 64, 65, 129 at batch 3, causal and
+   not (K6 not causal); the launches that took it are counted exactly, K8's
+   log-sum-exp must sit within 1e-4 of the plain one and two K8 launches must
+   give the same bits. In fp32 at head dim 64 K1, K6 and K8 launch the
+   split-TF32 kernel (ops/csrc/mha_tf32.cu), held within 1e-5 of the fp32
+   plain versions at K1's (256, 197, 2304) 12 heads, (64, 257, 3072) 16 heads
+   and the causal (14, 77, 1536) 8 heads and (14, 77, 2304) 12 heads, at K6's
+   q (64, 400, 1024) with kv (64, 400, 2048) 16 heads, at K8's (4096, 577, 64)
    and (512, 577, 64) with the log-sum-exp and the causal (512, 500, 64), and
-   through both entries at L = 1, 63, 64, 65, 129 at batch 3, causal and not;
-   its launches are counted exactly (none in bf16 or at other head dims), two
+   through all three entries at L = 1, 63, 64, 65, 129 at batch 3; its
+   launches are counted exactly (none in bf16 or at other head dims), two
    launches on the same inputs must give the same bits, and it must sit within
    1e-5 of the emulation of its arithmetic (``tf32x3_reference``) while the
    emulation of plain TF32 must not sit within 1e-5 of the fp32 plain version;
@@ -112,9 +118,10 @@ script exits non-zero without printing a result:
    configurations; ``bench_attn_l14 --tower`` at full ViT-L/14@336px width and
    depth, batch 32, bf16 (24 K6 launches a forward under the fused kernels, none
    under identity and plain attention); ``validate_pickgb`` and
-   ``validate_qtile_config`` to their exit codes; ``bench_mha_tc --sass`` (the
-   tensor-core kernels, forward and backward, at the towers' shapes, and their
-   opcode mixes); ``bench_attn_bwd --qtile`` (K7's parity in fp32, then the
+   ``validate_qtile_config`` to their exit codes (the latter's core rung at
+   L=1024 and 1536 on K8's tensor-core entry); ``bench_mha_tc --sass`` (the
+   tensor-core kernels, forward and backward, at the towers' shapes, K8 in bf16
+   and K6 in fp32 among them, and their opcode mixes); ``bench_attn_bwd --qtile`` (K7's parity in fp32, then the
    forward+backward step in bf16 on the tensor-core kernels);
    ``probe_bf16_drift`` at one seed and 8 frames (the ViT-L/14@336px tower by
    layer under the kernels and under three plain forms); ``bench_eval``,
@@ -142,16 +149,16 @@ fp32-accurate product on the tensor cores), and the bytes (each input read and
 each output written once) over 3.35 TB/s. fused_attention's own kernel, the
 whole-block one, is on none of these paths (its shapes there take K1, K6 or,
 through its flash branch, K8), so its count is 0; its error and times are
-phase 3's. ``mha_tc`` is the tensor-core kernel that K1 and K6 launch in bf16:
-its count is ``route_counts["mha_tc"]`` over the same runs, its numbers the sums
-over the bf16 scoring paths' four shapes (phase 3); ``fused_mha_qtile``'s
+phase 3's. ``mha_tc`` is the tensor-core kernel that K1, K6 and K8 launch in
+bf16: its count is ``route_counts["mha_tc"]`` over the same runs, its numbers
+the sums over the bf16 scoring paths' four shapes (phase 3); ``fused_mha_qtile``'s
 numbers are that kernel's too, at its one path shape. ``blocked_bwd_tc`` is the
 tensor-core backward pair that K7, K9, K10 and the KV-blocked route of K3, K4
 and K5's backward launch in bf16 at head dim 64: its count is
 ``route_counts["blocked_bwd_tc"]`` over the same runs, its numbers the pair's at
 K7's path shape, which are ``mha_qtile_bwd``'s too (K9's and K10's path is the
 fp32 tower: their numbers are the CUDA-core pair's). ``mha_tf32`` is the
-split-TF32 kernel that K1 and K8 launch in fp32 at head dim 64: its count is
+split-TF32 kernel that K1, K6 and K8 launch in fp32 at head dim 64: its count is
 ``route_counts["mha_tf32"]`` over the same runs, its numbers the sums over the
 fp32 scoring paths' four shapes (phase 3); on their fp32 paths
 ``fused_mha_qkv``'s and ``flash_attention_heads``' numbers are that kernel's
@@ -239,8 +246,10 @@ REPLACES = {
     "mha_tf32": "anomalyclip_tpu/ops/pallas/attention.py:423",
 }
 ALSO_REPLACES = {
-    "mha_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:800"],
-    "mha_tc": ["anomalyclip_tpu/ops/pallas/attention.py:525"],
+    "mha_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:800",
+                 "anomalyclip_tpu/ops/pallas/attention.py:525"],
+    "mha_tc": ["anomalyclip_tpu/ops/pallas/attention.py:525",
+               "anomalyclip_tpu/ops/pallas/attention.py:800"],
     "blocked_bwd_tc": ["anomalyclip_tpu/ops/pallas/attention.py:904",
                        "anomalyclip_tpu/ops/pallas/attention.py:943"],
 }
@@ -250,6 +259,9 @@ TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 # inputs at L=577 have a standard deviation near 7e-2, so the bf16 tolerance of
 # the older kernels would pass a dropped key there
 TC_TOLERANCE = 1.5e-2
+# K8's log-sum-exp from the tensor-core kernel against the plain one (absolute):
+# both are fp32 sums of unrounded p, apart by the order of the sums and ex2.approx
+LSE_TOLERANCE = 1e-4
 # the tensor-core backward pair against its plain version, of max|ref| per case:
 # twice the largest gap measured over phase 3c's cases, 3.1e-3 (K10 under the
 # mask), rounded up. The CUDA-core pair's bf16 limit of 5e-2 would pass a wrong
@@ -348,10 +360,11 @@ def phase_build() -> None:
         checked += 1
     dh = A.MHA_TC_HEAD_DIM
     require(lib.acl_mha_tc_smem_bytes(dh) == A.mha_tc_smem_bytes(dh), "tensor-core kernel smem")
-    blocks = lib.acl_mha_tc_blocks_per_sm(dh)
-    require(blocks >= 4, f"tensor-core kernel: {blocks} blocks an SM")
-    print(f"[build] tensor-core kernel, head dim {dh}: {A.mha_tc_smem_bytes(dh)} B a block, "
-          f"{blocks} blocks of 4 warps an SM")
+    for entries, strided in (("K1 and K6", 0), ("K8", 1)):
+        blocks = lib.acl_mha_tc_blocks_per_sm(dh, strided)
+        require(blocks >= 4, f"tensor-core kernel, {entries}: {blocks} blocks an SM")
+        print(f"[build] tensor-core kernel, {entries}, head dim {dh}: {A.mha_tc_smem_bytes(dh)} B a "
+              f"block, {blocks} blocks of 4 warps an SM")
     checked += 1
     for kernel, code in A.BWD_TC_PASSES.items():
         need = A.blocked_bwd_tc_smem_bytes(dh, kernel)
@@ -579,6 +592,13 @@ def phase_kernels(report: dict) -> None:
         lambda t: qtile_plain(t, 1024, 16),
         lambda t: packed_heads(t, 3, 16), dtypes=BF16, path=BF16, tensor_cores=True,
     ))
+    # K8 at the bf16 core rung's length past K6 (validate_qtile_config's L=1024)
+    cases.append(Case(
+        "mha_tc", (512, 1024, 64), (3, 512, 1024, 64),
+        lambda t: flash_attention_heads(t[0], t[1], t[2], save_lse=True),
+        lambda t: flash_attention_reference(t[0], t[1], t[2], save_lse=True),
+        lambda t: tuple(t[:, :, None]), stats=1, dtypes=BF16, path=(), tensor_cores=True,
+    ))
     for l in (1, 63, 64, 65, 129):
         for causal in (False, True):
             cases.append(Case(
@@ -586,6 +606,13 @@ def phase_kernels(report: dict) -> None:
                 lambda t, c=causal: A.mha_qkv_fwd_kernel(t, 2, c),
                 lambda t, c=causal: qkv_plain(t, 2, c),
                 lambda t: packed_heads(t, 3, 2), causal=causal, dtypes=BF16, path=(),
+                tensor_cores=True,
+            ))
+            cases.append(Case(
+                "mha_tc ragged", (3, l, 64), (3, 3, l, 64),
+                lambda t, c=causal: A.flash_fwd_kernel(t[0], t[1], t[2], True, c),
+                lambda t, c=causal: flash_attention_reference(t[0], t[1], t[2], save_lse=True, causal=c),
+                lambda t: tuple(t[:, :, None]), causal=causal, stats=1, dtypes=BF16, path=(),
                 tensor_cores=True,
             ))
         cases.append(Case(
@@ -603,19 +630,21 @@ def phase_kernels(report: dict) -> None:
         ))
     # K6: the ViT-L/14@336px tower's bf16 shape (q and k|v from one tensor, as
     # the ladder's two GEMMs leave them), and an fp32 shape whose K and V fit
+    # the admission limit, on the split-TF32 entry
     for b, l, dtypes, path in ((256, 577, BF16, BF16), (64, 400, FP32, ())):
         cases.append(Case(
             "fused_mha_qtile", (b, l, 1024), (b, l, 3 * 1024),
             lambda t: fused_mha_qtile(t[..., :1024], t[..., 1024:], 16),
             lambda t: qtile_plain(t, 1024, 16),
-            lambda t: packed_heads(t, 3, 16), dtypes=dtypes, path=path, tensor_cores=True,
+            lambda t: packed_heads(t, 3, 16), dtypes=dtypes, path=path, tensor_cores=True, tf32=True,
         ))
-    # K8 at the per-head shape of the fp32 tower, with the lse
+    # K8 at the per-head shape of the fp32 tower, with the lse; in bf16 on the
+    # tensor-core entry (the plain version at that kernel's KV block)
     cases.append(Case(
         "flash_attention_heads", (4096, 577, 64), (3, 4096, 577, 64),
         lambda t: flash_attention_heads(t[0], t[1], t[2], save_lse=True),
         lambda t: flash_attention_reference(t[0], t[1], t[2], save_lse=True),
-        lambda t: tuple(t[:, :, None]), stats=1, tf32=True,
+        lambda t: tuple(t[:, :, None]), stats=1, tensor_cores=True, tf32=True,
     ))
     # K8 with the causal mask, ragged on both axes, and at the small head dims
     # (on no path of the supported models: printed, not in the kernels line)
@@ -624,11 +653,13 @@ def phase_kernels(report: dict) -> None:
             f"flash_attention_heads at dh {dh}", (n, l, dh), (3, n, l, dh),
             lambda t, c=causal: flash_attention_heads(t[0], t[1], t[2], save_lse=True, causal=c),
             lambda t, c=causal: flash_attention_reference(t[0], t[1], t[2], save_lse=True, causal=c),
-            lambda t: tuple(t[:, :, None]), causal=causal, stats=1, path=(), tf32=dh == 64,
+            lambda t: tuple(t[:, :, None]), causal=causal, stats=1, path=(), tensor_cores=dh == 64,
+            tf32=dh == 64,
         ))
     # K5: its whole-block kernel at ViT-B/16 heads, causal and not (on no path:
     # the kernels line reports these, in fp32), and its flash branch at the fp32
-    # tower's split heads (strided views of one qkv), which launches K8
+    # tower's split heads (strided views of one qkv), which launches K8 (held
+    # against K8's plain version, at the block of the kernel the dtype takes)
     for causal in (False, True):
         cases.append(Case(
             "fused_attention", (256, 12, 197, 64), (3, 256, 12, 197, 64),
@@ -639,8 +670,8 @@ def phase_kernels(report: dict) -> None:
     cases.append(Case(
         "fused_attention", (256, 16, 577, 64), (256, 577, 3, 16, 64),
         lambda t: fused_attention(*t.permute(2, 0, 3, 1, 4)),
-        lambda t: fused_attention_reference(*t.permute(2, 0, 3, 1, 4)),
-        lambda t: tuple(t.permute(2, 0, 3, 1, 4)), path=(), tf32=True,
+        lambda t: flash_attention_reference(*t.permute(2, 0, 3, 1, 4)),
+        lambda t: tuple(t.permute(2, 0, 3, 1, 4)), path=(), tensor_cores=True, tf32=True,
     ))
     # the split-TF32 kernel in fp32 through both entries, held against the fp32
     # plain versions: its own line of the kernels list sums the four shapes of
@@ -679,6 +710,12 @@ def phase_kernels(report: dict) -> None:
                 lambda t, c=causal: flash_attention_reference(t[0], t[1], t[2], save_lse=True, causal=c),
                 lambda t: tuple(t[:, :, None]), causal=causal, stats=1, dtypes=FP32, path=(), tf32=True,
             ))
+        cases.append(Case(
+            "mha_tf32 ragged", (3, l, 128), (3, l, 3 * 128),
+            lambda t: A.mha_qtile_fwd_kernel(t[..., :128], t[..., 128:], 2),
+            lambda t: mha_qtile_reference(t[..., :128], t[..., 128:], 2),
+            lambda t: packed_heads(t, 3, 2), dtypes=FP32, path=(), tf32=True,
+        ))
     # K2 at head dim 16, the temporal model at emb 128 with 8 heads (bench_eval's
     # size; on no model path: printed, not in the kernels line)
     cases.append(Case(
@@ -691,22 +728,49 @@ def phase_kernels(report: dict) -> None:
     reset_launch_counts()
     run_cases("kernels", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED))
     report.update({k: v for k, v in scratch.items() if k in KERNEL_SOURCE})
-    # every bf16 case of K1 and K6 above is at head dim 64: each of their launches
-    # took the tensor-core kernel, and no fp32 one did
-    bf16_cases = sum(c.name.startswith(("mha_tc", "fused_mha_q")) and torch.bfloat16 in c.dtypes
-                     for c in cases)
+    # every bf16 launch of K1, K6 and K8 at head dim 64 took the tensor-core
+    # kernel, and no other launch did
+    bf16_cases = sum(c.tensor_cores and torch.bfloat16 in c.dtypes for c in cases)
     require(route_counts["mha_tc"] == CASE_CALLS * bf16_cases,
-            f"tensor-core launches {route_counts} over {bf16_cases} bf16 cases of K1 and K6")
+            f"tensor-core launches {route_counts} over {bf16_cases} bf16 cases of K1, K6 and K8")
     print(f"[kernels] {route_counts['mha_tc']} launches of the tensor-core kernel over "
-          f"{bf16_cases} bf16 cases of K1 and K6; none in fp32")
-    # every fp32 launch of K1 and K8 at head dim 64 took the split-TF32 kernel,
-    # and no other launch did
+          f"{bf16_cases} bf16 cases of K1, K6 and K8 at head dim 64; none in fp32 or at other head dims")
+    # every fp32 launch of K1, K6 and K8 at head dim 64 took the split-TF32
+    # kernel, and no other launch did
     tf32_cases = sum(c.tf32 and torch.float32 in c.dtypes for c in cases)
     require(route_counts["mha_tf32"] == CASE_CALLS * tf32_cases,
-            f"split-TF32 launches {route_counts} over {tf32_cases} fp32 cases of K1 and K8")
+            f"split-TF32 launches {route_counts} over {tf32_cases} fp32 cases of K1, K6 and K8")
     print(f"[kernels] {route_counts['mha_tf32']} launches of the split-TF32 kernel over "
-          f"{tf32_cases} fp32 cases of K1 and K8 at head dim 64; none in bf16 or at other head dims")
+          f"{tf32_cases} fp32 cases of K1, K6 and K8 at head dim 64; none in bf16 or at other head dims")
+    check_tc_flash()
     check_tf32_kernel()
+
+
+def check_tc_flash() -> None:
+    """K8 on the tensor-core kernel in bf16: its log-sum-exp against the plain
+    version's (the quantity K9 and K10 read, in natural-log units of the scaled
+    scores), its output against the plain version at the kernel's KV block, and
+    two launches on the same inputs, which must give the same bits."""
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for n, l, causal in ((4096, 577, False), (512, 1024, False), (512, 500, True)):
+        q, k, v = torch.randn(3, n, l, 64, device="cuda", generator=gen).bfloat16()
+        (out, lse), (again, lse_again) = (A.flash_fwd_kernel(q, k, v, True, causal) for _ in range(2))
+        want_out, want_lse = A.flash_attention_reference(q, k, v, True, causal=causal)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again) and torch.equal(lse, lse_again),
+                f"K8 bf16 ({n}, {l}, 64): two launches of the tensor-core kernel differ")
+        out_gap = (out.float() - want_out.float()).abs().max().item()
+        lse_gap = (lse - want_lse).abs().max().item()
+        require(out_gap <= TC_TOLERANCE and lse_gap <= LSE_TOLERANCE,
+                f"K8 bf16 ({n}, {l}, 64) causal={causal}: out {out_gap:.3e} (tol {TC_TOLERANCE:g}), "
+                f"lse {lse_gap:.3e} (tol {LSE_TOLERANCE:g})")
+        print(f"[kernels] tensor-core K8 bf16 ({n}, {l}, 64) causal={causal}: two launches give the "
+              f"same bits; out {out_gap:.3e} (tol {TC_TOLERANCE:g}), lse {lse_gap:.3e} "
+              f"(tol {LSE_TOLERANCE:g}) from the plain version")
+        del q, k, v, out, lse, again, lse_again, want_out, want_lse
+    torch.cuda.empty_cache()
 
 
 def check_tf32_kernel() -> None:
@@ -720,6 +784,8 @@ def check_tf32_kernel() -> None:
     qkv = torch.randn(256, 197, 3 * 768, device="cuda", generator=gen)
     heads = list(torch.randn(3, 512, 577, 64, device="cuda", generator=gen))
     causal = list(torch.randn(3, 512, 500, 64, device="cuda", generator=gen))
+    qtile = torch.randn(64, 400, 3 * 1024, device="cuda", generator=gen)
+    q, kv = qtile[..., :1024], qtile[..., 1024:]
     runs = {
         "K1 (256, 197, 2304) 12 heads": (
             lambda: A.mha_qkv_fwd_kernel(qkv, 12, False),
@@ -733,6 +799,10 @@ def check_tf32_kernel() -> None:
             lambda: A.flash_fwd_kernel(*causal, True, True)[0],
             lambda passes: A.tf32x3_reference(*causal, True, passes=passes),
             lambda: A.flash_attention_reference(*causal, causal=True)),
+        "K6 (64, 400, 1024) 16 heads": (
+            lambda: A.mha_qtile_fwd_kernel(q, kv, 16),
+            lambda passes: A.mha_qtile_tf32x3_reference(q, kv, 16, passes),
+            lambda: A.mha_qtile_reference(q, kv, 16)),
     }
     for what, (kernel, emulated, plain) in runs.items():
         once, again = kernel(), kernel()
@@ -748,7 +818,7 @@ def check_tf32_kernel() -> None:
         print(f"[kernels] split-TF32 {what}: two launches give the same bits; kernel against the "
               + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
               + f" (tol {tol:g}); plain TF32 emulated against fp32 {tf32_gap:.3e}")
-    del qkv, heads, causal
+    del qkv, heads, causal, qtile, q, kv
     torch.cuda.empty_cache()
 
 
@@ -862,12 +932,14 @@ def phase_long_bwd_kernels(report: dict) -> None:
     # the tensor-core pair's own line: its numbers at its path's shape, K7's
     report["blocked_bwd_tc"] = dict(scratch["mha_qtile_bwd"])
     # every bf16 launch at head dim 64 took the tensor-core pair; none in fp32 or
-    # at head dim 16 (K8, which made the flash cases' statistics, has no route)
+    # at head dim 16
     bf16_cases = sum(c.tensor_cores and torch.bfloat16 in c.dtypes for c in cases)
-    # K8 made each fp32 flash case's statistics once, at head dim 64 on the
-    # split-TF32 kernel
-    tf32_stats = sum(c.prepare is not None and c.shape[-1] == A.MHA_TF32_HEAD_DIM for c in cases)
-    require_routes("long backward kernels", 0, CASE_CALLS * bf16_cases, tf32_stats)
+    # K8 made each flash case's statistics once a dtype: at head dim 64 in bf16
+    # on the tensor-core kernel, in fp32 on the split-TF32 one
+    stats_64 = [c for c in cases if c.prepare is not None and c.shape[-1] == 64]
+    tc_stats = sum(torch.bfloat16 in c.dtypes for c in stats_64)
+    tf32_stats = sum(torch.float32 in c.dtypes for c in stats_64)
+    require_routes("long backward kernels", tc_stats, CASE_CALLS * bf16_cases, tf32_stats)
     print(f"[long bwd] {A.route_counts['blocked_bwd_tc']} launches of the tensor-core backward pair "
           f"over {bf16_cases} bf16 cases at head dim 64; none in fp32 or at head dim 16")
 
@@ -1047,11 +1119,11 @@ def require(ok: bool, what: str) -> None:
 
 
 def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0, tf32: int = 0) -> dict:
-    """The route counts of the run just made: ``tensor_core`` launches of K1 and
-    K6 took the tensor-core kernel and ``bwd_tensor_core`` launches of the
+    """The route counts of the run just made: ``tensor_core`` launches of K1, K6
+    and K8 took the tensor-core kernel and ``bwd_tensor_core`` launches of the
     KV-blocked backward the tensor-core pair (all of them in bf16 at head dim
-    64, none in fp32), ``tf32`` launches of K1 and K8 the split-TF32 kernel (all
-    of them in fp32 at head dim 64, none in bf16) -> the counts."""
+    64, none in fp32), ``tf32`` launches of K1, K6 and K8 the split-TF32 kernel
+    (all of them in fp32 at head dim 64, none in bf16) -> the counts."""
     from anomalyclip_tpu_torch.ops.attention import route_counts
 
     routes = dict(route_counts)
@@ -1636,7 +1708,7 @@ def phase_scripts() -> list:
     """The probe and measurement scripts on the card -> the launch counts of
     each run. A function a script checks and times is called once, once more
     to warm and ``--iters`` times. The scripts that run in bf16 launch the
-    tensor-core kernel for every K1 and K6 call ("mha_tc")."""
+    tensor-core kernel for every K1, K6 and K8 call at head dim 64 ("mha_tc")."""
     n = SCRIPT_ITERS
     calls = n + 2
     it = ["--iters", str(n)]
@@ -1662,20 +1734,22 @@ def phase_scripts() -> list:
     # nothing); K6 once and K8 three times in the checks, then both timed
     runs.append(run_script("validate_pickgb", it, {"fused_mha_qkv": 5 * calls, "fused_mha_qtile": calls,
                                                    "mha_tc": 6 * calls}))
+    # K6 once and K8 three times (the core rung at L=1024, 1024 and 1536) in the
+    # checks, then both timed: all in bf16 at head dim 64 on the tensor-core kernel
     runs.append(run_script("validate_qtile_config", it,
-                           {"fused_mha_qtile": 1 + (n + 1), "mha_tc": 1 + (n + 1),
-                            "flash_attention_heads": 3 + (n + 1)}))
-    # the tensor-core kernel at the towers' six shapes (four through K1, two
-    # through K6), each checked, warmed and timed, with the kernel's opcode mix
-    # read from the built library
-    # and the backward pair at the four of them past the whole-head backward
-    # (two through K3's entry, two through K7), with all three kernels' opcode
-    # mixes; then the split-TF32 kernel in fp32 at five shapes (three through
-    # K1, two through K8), and its opcode mix
+                           {"fused_mha_qtile": 1 + (n + 1), "flash_attention_heads": 3 + (n + 1),
+                            "mha_tc": 1 + (n + 1) + 3 + (n + 1)}))
+    # the tensor-core kernel at the towers' seven shapes (four through K1, two
+    # through K6, one through K8), each checked, warmed and timed, with the
+    # opcode mixes of its two instantiations read from the built library, and
+    # the backward pair at the four of them past the whole-head backward (two
+    # through K3's entry, two through K7), with both its kernels' opcode mixes;
+    # then the split-TF32 kernel in fp32 at six shapes (three through K1, two
+    # through K8, one through K6), and its opcode mix
     runs.append(run_script("bench_mha_tc", ["--sass", *it], {
-        "fused_mha_qkv": (4 + 3) * calls, "fused_mha_qtile": 2 * calls, "mha_tc": 6 * calls,
+        "fused_mha_qkv": (4 + 3) * calls, "fused_mha_qtile": (2 + 1) * calls, "mha_tc": 7 * calls,
         "mha_qkv_bwd": 2 * calls, "mha_qtile_bwd": 2 * calls, "blocked_bwd_tc": 4 * calls,
-        "flash_attention_heads": 2 * calls, "mha_tf32": 5 * calls}))
+        "flash_attention_heads": (1 + 2) * calls, "mha_tf32": 6 * calls}))
     # K7's parity in fp32 (one launch of the CUDA-core pair), then the bf16
     # forward+backward step, warmed and timed, on the tensor-core kernels
     runs.append(run_script("bench_attn_bwd", ["--qtile", *it], {

@@ -97,11 +97,15 @@ def test_flash_plain_matches_pallas(jax_side, n, l, dh, dtype_name):
 
 def test_flash_plain_rounds_per_kv_block(jax_side, monkeypatch):
     """With the Pallas kernel's KV block the bf16 plain version rounds where
-    that kernel rounds: far inside the bf16 tolerance."""
+    that kernel rounds: far inside the bf16 tolerance. The block is chosen at
+    each call (``flash_reference_block``), so setting the choice takes effect."""
     _, jattn = jax_side
-    monkeypatch.setattr(tattn, "FLASH_BLOCK_KV", jattn._FLASH_LKV)
     jqkv, qkv = _inputs(np.random.default_rng(2), [(2, 577, 64)] * 3, "bfloat16")
+    kernel_block = tattn.flash_attention_reference(*qkv)
+    monkeypatch.setattr(tattn, "flash_reference_block", lambda dtype, dh: jattn._FLASH_LKV)
     got = tattn.flash_attention_reference(*qkv)
+    assert torch.equal(got, tattn.flash_attention_reference(*qkv, block=jattn._FLASH_LKV))
+    assert not torch.equal(got, kernel_block)
     want = np.asarray(jattn.flash_attention_heads(*jqkv, True), dtype=np.float32)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2e-2)
 

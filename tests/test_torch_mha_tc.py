@@ -1,12 +1,17 @@
-"""The tensor-core kernel behind ``fused_mha_qkv`` and ``fused_mha_qtile`` in
-bf16 (ops/csrc/mha_tc.cu), and the routing around the kernels.
+"""The tensor-core kernel behind ``fused_mha_qkv``, ``fused_mha_qtile`` and
+``flash_attention_heads`` in bf16 (ops/csrc/mha_tc.cu), and the routing around
+the kernels.
 
 On the CPU:
 
 - the KV-blocked plain versions, which round where that kernel rounds, against
   the Pallas kernels in interpret mode (fp32 at 1e-5, bf16 at 5e-2), causal and
   not, at lengths that are and are not multiples of the KV block, and against
-  the whole-row plain versions in fp32 at 1e-6;
+  the whole-row plain versions in fp32 at 1e-6; K8's bf16 plain version at the
+  kernel's 64-key block, out and log-sum-exp, against the Pallas kernel and
+  ``flash_attention_heads`` and, under the causal mask, against the whole-row
+  plain version; the block each K8 plain version takes
+  (``flash_reference_block``);
 - the wrappers' Python with the library replaced by numpy: pointers, strides,
   the choice between the two kernels by operand type and head dim, the refusal
   of operands the tensor-core kernel cannot read, the counts, and the admission
@@ -19,8 +24,9 @@ On the CPU:
 - ``ANOMALYCLIP_ATTN_IMPL`` and its precedence under ``attention_impl``.
 
 The ``gpu`` cases hold the kernel against its plain version on the card at the
-shapes of the scoring paths and at the ragged edges, and the kernels of head
-dim 8 and of a causal shape past the whole-row kernel against theirs. JAX is
+shapes of the scoring paths and at the ragged edges, K8's entry with its
+log-sum-exp and two launches to the bit, and the kernels of head dim 8 and of a
+causal shape past the whole-row kernel against theirs. JAX is
 imported only in the CPU cases, so ``python -m pytest --noconftest -m gpu`` runs
 this file without it.
 """
@@ -148,6 +154,67 @@ def test_entries_run_the_plain_version_that_matches_the_kernel(dtype, heads, blo
     assert torch.equal(tattn.fused_mha_qtile(q, kv, heads), tattn.mha_qtile_reference(q, kv, heads, block))
 
 
+def _whole_row_lse(q, k, causal):
+    """The natural log-sum-exp of the fp32 scaled scores, whole rows."""
+    s = tattn._masked_scores(q, k, causal)
+    top = s.amax(dim=-1, keepdim=True)
+    return (top + torch.log(torch.exp(s - top).sum(dim=-1, keepdim=True))).squeeze(-1)
+
+
+@pytest.mark.parametrize("l", [577, 130, 65])
+def test_tc_flash_plain_matches_pallas(jax_side, l):
+    """K8 in bf16 at head dim 64: the plain version at the tensor-core kernel's
+    64-key block (where that kernel rounds p) against ``_flash_impl`` in
+    interpret mode and ``flash_attention_heads``, out within 5e-2 and the
+    log-sum-exp within 1e-4: the lse is the natural log-sum-exp of the fp32
+    scaled scores, the quantity K9 and K10 read."""
+    jnp, jattn = jax_side
+    jqkv, qkv = _inputs(jnp, 7, [(2, l, 64)] * 3, "bfloat16")
+    out, lse = tattn.flash_attention_reference(*qkv, save_lse=True, block=BLOCK)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32 and lse.shape == (2, l)
+    want_out, want_lse = jattn._flash_impl(*jqkv, True, save_lse=True)
+    _close(out, want_out, "bfloat16")
+    _close(out, jattn.flash_attention_heads(*jqkv, True), "bfloat16")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse, np.float32)[..., 0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, _whole_row_lse(*qkv[:2], False), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("l", [500, 129, 64])
+def test_tc_flash_plain_causal_matches_whole_row_plain(l):
+    """The same under the causal mask, which the Pallas kernel does not take:
+    against the port's whole-row plain version, out within 5e-2 and lse within
+    1e-4."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, l, 64)).astype(np.float32)).bfloat16()
+               for _ in range(3))
+    out, lse = tattn.flash_attention_reference(q, k, v, save_lse=True, block=BLOCK, causal=True)
+    whole = tattn.attention_reference(q[:, None], k[:, None], v[:, None], causal=True)[:, 0]
+    torch.testing.assert_close(out.float(), whole.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    torch.testing.assert_close(lse, _whole_row_lse(q, k, True), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "dtype,dh,block",
+    [(torch.bfloat16, 64, BLOCK), (torch.bfloat16, 32, tattn.FLASH_BLOCK_KV),
+     (torch.float32, 64, tattn.FLASH_BLOCK_KV), (torch.float32, 16, tattn.FLASH_BLOCK_KV)],
+)
+def test_flash_plain_rounds_at_the_block_of_the_kernel_it_stands_for(dtype, dh, block):
+    """``flash_attention_reference`` with no block, as ``flash_attention_heads``
+    runs it on the CPU, takes the block of the kernel the operands launch on
+    the card: the tensor-core kernel's 64 keys in bf16 at head dim 64,
+    mha_long.cu's 128 otherwise."""
+    assert tattn.flash_reference_block(dtype, dh) == block
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 300, dh)).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    out, lse = tattn.flash_attention_heads(q, k, v, save_lse=True)
+    want_out, want_lse = tattn.flash_attention_reference(q, k, v, True, block)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    if dtype == torch.bfloat16:  # the other kernel's block rounds elsewhere
+        other = tattn.FLASH_BLOCK_KV if block == BLOCK else BLOCK
+        assert not torch.equal(out, tattn.flash_attention_reference(q, k, v, block=other))
+
+
 def test_tc_shared_memory_is_independent_of_length():
     assert tattn.mha_tc_smem_bytes() == tattn.mha_tc_smem_bytes(tattn.MHA_TC_HEAD_DIM) == 46_080
     assert 4 * tattn.mha_tc_smem_bytes() <= tattn.H100_SMEM_OPTIN  # the four blocks an SM holds
@@ -159,8 +226,8 @@ def test_tc_shared_memory_is_independent_of_length():
 
 
 class NumpyMhaKernels:
-    """The forward entries of ops/csrc/mha.cu, mha_tc.cu and K1's of mha_tf32.cu
-    in numpy: whole-row
+    """The K1 and K6 entries of ops/csrc/mha.cu, mha_tc.cu and mha_tf32.cu in
+    numpy: whole-row
     softmax attention in fp32 on the decoded operands, without the kernels'
     tiling or their bf16 rounding of P, reading and writing through the raw
     pointers and (batch, row) element strides the wrappers pass, so that a wrong
@@ -235,6 +302,10 @@ class NumpyMhaKernels:
         self.calls.append(("qtile_tc", dh))
         return self._qtile(True, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale)
 
+    def acl_mha_qtile_tf32_fwd(self, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale, stream):
+        self.calls.append(("qtile_tf32", dh))
+        return self._qtile(False, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale)
+
 
 class _AsCuda:
     """A CPU tensor that says it is on the card, for the wrappers' shape checks."""
@@ -297,39 +368,43 @@ def _misaligned(rng, dtype):
 @pytest.mark.parametrize(
     "dtype,heads,make,calls",
     [
-        (torch.float32, 2, None, [("qkv_tf32", 64, 0), ("qtile", 0, 64)]),
+        (torch.float32, 2, None, [("qkv_tf32", 64, 0), ("qtile_tf32", 64)]),
         (torch.bfloat16, 2, None, [("qkv_tc", 64, 0), ("qtile_tc", 64)]),
         (torch.bfloat16, 4, None, [("qkv", 1, 32, 0), ("qtile", 1, 32)]),
         (torch.bfloat16, 8, None, [("qkv", 1, 16, 0), ("qtile", 1, 16)]),
         (torch.bfloat16, 16, None, [("qkv", 1, 8, 0), ("qtile", 1, 8)]),
-        # K1 refuses the view (the split-TF32 kernel reads 16-byte pieces); K6
-        # takes it on the CUDA cores
-        (torch.float32, 2, _misaligned, [("qtile", 0, 64)]),
+        # both refuse the view at head dim 64 (the split-TF32 kernel reads
+        # 16-byte pieces); at head dim 32 the CUDA-core kernels take it
+        (torch.float32, 2, _misaligned, []),
+        (torch.float32, 4, _misaligned, [("qkv", 0, 32, 0), ("qtile", 0, 32)]),
     ],
 )
 def test_kernel_choice_by_dtype_head_dim_and_alignment(numpy_kernels, dtype, heads, make, calls):
-    """The tensor-core kernel for bf16 at head dim 64 and, for K1, the
-    split-TF32 one for fp32 at head dim 64, which raises on a view it cannot
-    read in 16-byte pieces; the CUDA-core kernel for K6 in fp32, whatever its
-    alignment, and for the smaller head dims. The entry's count rises with each
-    launch, and the result is right."""
+    """The tensor-core kernel for bf16 at head dim 64 and the split-TF32 one
+    for fp32 at head dim 64, both of which raise on a view they cannot read in
+    16-byte pieces; the CUDA-core kernels for the smaller head dims, whatever
+    the alignment. The entry's count rises with each launch, and the result is
+    right."""
     rng = np.random.default_rng(11)
     x = make(rng, dtype) if make else _randn(rng, dtype, 2, 50, 3 * 128)
     tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
-    k1_launches = int(len(calls) == 2)
-    if k1_launches:
+    q, kv = x[..., :128], x[..., 128:]
+    launches = int(bool(calls))
+    if launches:
         got = tattn.mha_qkv_fwd_kernel(x, heads, False)
         torch.testing.assert_close(got.float(), tattn.mha_qkv_reference(x, heads).float(), rtol=0, atol=tol)
+        got = tattn.mha_qtile_fwd_kernel(q, kv, heads)
+        torch.testing.assert_close(got.float(), tattn.mha_qtile_reference(q, kv, heads).float(),
+                                   rtol=0, atol=tol)
     else:
         with pytest.raises(ValueError, match=r"fused_mha_qkv: .*float32 operands in 16-byte pieces"):
             tattn.mha_qkv_fwd_kernel(x, heads, False)
-    got = tattn.mha_qtile_fwd_kernel(x[..., :128], x[..., 128:], heads)
-    torch.testing.assert_close(got.float(), tattn.mha_qtile_reference(x[..., :128], x[..., 128:], heads).float(),
-                               rtol=0, atol=tol)
+        with pytest.raises(ValueError, match=r"fused_mha_qtile: .*float32 operands in 16-byte pieces"):
+            tattn.mha_qtile_fwd_kernel(q, kv, heads)
     assert numpy_kernels.calls == calls
-    assert tattn.launch_counts == _counts(fused_mha_qkv=k1_launches, fused_mha_qtile=1)
-    assert tattn.route_counts["mha_tc"] == 2 * calls[0][0].endswith("_tc")
-    assert tattn.route_counts["mha_tf32"] == int(calls[0][0] == "qkv_tf32")
+    assert tattn.launch_counts == _counts(fused_mha_qkv=launches, fused_mha_qtile=launches)
+    assert tattn.route_counts["mha_tc"] == 2 * (launches and calls[0][0].endswith("_tc"))
+    assert tattn.route_counts["mha_tf32"] == 2 * (launches and calls[0][0].endswith("_tf32"))
 
 
 def test_tc_wrappers_refuse_operands_they_cannot_read_in_16_byte_pieces(numpy_kernels):
@@ -728,6 +803,30 @@ def test_tc_qtile_kernel_matches_blocked_plain(cuda, b, l, d, heads):
     assert tattn.launch_counts == _counts(fused_mha_qtile=1)
     assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0}
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
+
+
+_FLASH_CASES = [(32, 16, 577, False), (32, 16, 1024, False), (32, 16, 500, True)] + [
+    (3, 1, l, c) for l in (1, 63, 64, 65, 129) for c in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,l,causal", _FLASH_CASES)
+def test_tc_flash_kernel_matches_blocked_plain_and_repeats_to_the_bit(cuda, b, h, l, causal):
+    """K8 in bf16 at head dim 64 on (B, H, L, dh) views: the tensor-core entry,
+    one launch each, within ``TC_TOL`` of the plain version at the kernel's
+    64-key block, the log-sum-exp within 1e-4 of the plain one, and two launches
+    to the bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = torch.randn(3, b, h, l, 64, device=cuda, generator=gen).bfloat16()
+    tattn.reset_launch_counts()
+    (out, lse), (again, lse_again) = (tattn.flash_fwd_kernel(q, k, v, True, causal) for _ in range(2))
+    want_out, want_lse = tattn.flash_attention_reference(q, k, v, True, BLOCK, causal)
+    torch.cuda.synchronize()
+    assert tattn.launch_counts == _counts(flash_attention_heads=2)
+    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0}
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=TC_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,7 @@
-"""The split-TF32 kernel behind ``fused_mha_qkv`` and ``flash_attention_heads``
-in fp32 at head dim 64 (ops/csrc/mha_tf32.cu), and the routing around it.
+"""The split-TF32 kernel behind ``fused_mha_qkv``, ``flash_attention_heads`` and
+``fused_mha_qtile`` in fp32 at head dim 64 (ops/csrc/mha_tf32.cu), and the
+routing around it and around K8's bf16 entry on the tensor-core kernel
+(ops/csrc/mha_tc.cu).
 
 On the CPU:
 
@@ -9,17 +11,20 @@ On the CPU:
   the emulation of plain TF32 (the big parts alone) is not, which is why TF32
   stays off; ``tf32_split`` rounds as ``cvt.rna.tf32.f32`` does;
 - the wrappers' Python with the library replaced by numpy: fp32 at head dim 64
-  launches the new entries, every other operand type or head dim the old ones;
-  ``route_counts["mha_tf32"]``; the pointers K8 is handed are the packed qkv's
-  own when ``fused_attention``'s flash branch runs on the core rung's views, and
-  its output folds back without a copy; the log-sum-exp handed on to K9 and
-  K10; the refusal of fp32 views the kernel cannot read in 16-byte pieces;
+  launches the split-TF32 entries (K1, K6, K8), bf16 at head dim 64 the
+  tensor-core ones, every other head dim the CUDA-core ones;
+  ``route_counts["mha_tf32"]`` and ``["mha_tc"]``; the pointers K8 is handed
+  are the packed qkv's own when ``fused_attention``'s flash branch runs on the
+  core rung's views, in either type, and its output folds back without a copy;
+  at head dim 32 the views are folded for mha_long.cu; the log-sum-exp handed on
+  to K9 and K10; the refusal of views the kernels cannot read in 16-byte
+  pieces;
 - ``mha_tf32_eligible``, the kernel's shared memory, and the ladder's rungs,
   which do not change.
 
 The ``gpu`` cases hold the kernel against the fp32 plain versions on the card
-at the paths' shapes and at the ragged edges, and require two launches to give
-the same bits. JAX is imported only in the CPU cases that need it, so
+at the paths' shapes and at the ragged edges (K6 too), and require two launches
+to give the same bits. JAX is imported only in the CPU cases that need it, so
 ``python -m pytest --noconftest -m gpu`` runs this file without it.
 """
 
@@ -105,6 +110,24 @@ def test_emulated_tf32x3_flash_matches_fp32_plain_and_pallas(jax_side, l):
     assert _max_gap(out, want_out) <= FP32_TOL and _max_gap(lse, want_lse) <= FP32_TOL
     jout, jlse = jattn._flash_impl(*(jnp.asarray(a) for a in arrays), True, save_lse=True)
     assert _max_gap(out, jout) <= FP32_TOL and _max_gap(lse, np.asarray(jlse)[..., 0]) <= FP32_TOL
+
+
+@pytest.mark.parametrize("l", [65, 400])
+def test_emulated_tf32x3_qtile_matches_fp32_plain_and_pallas(jax_side, l):
+    """K6's q (2, L, 128) against k|v (2, L, 256) with 2 heads of 64: the
+    emulation of the split-TF32 entry within 1e-5 of the fp32 plain version and
+    of ``fused_mha_qtile`` through its Pallas kernel, at a ragged length and at
+    the fp32 length the phase-3 case runs."""
+    jnp, jattn = jax_side
+    xq, xkv = _arrays(3, (2, l, 128), (2, l, 256))
+    q, kv = torch.from_numpy(xq), torch.from_numpy(xkv)
+    got = tattn.mha_qtile_tf32x3_reference(q, kv, 2)
+    assert got.shape == (2, l, 128) and got.dtype == torch.float32
+    assert _max_gap(got, tattn.mha_qtile_reference(q, kv, 2)) <= FP32_TOL
+    assert _max_gap(got, jattn.fused_mha_qtile(jnp.asarray(xq), jnp.asarray(xkv), 2, True)) <= FP32_TOL
+    # plain TF32 (the big parts alone) does not hold the limit there
+    assert _max_gap(tattn.mha_qtile_tf32x3_reference(q, kv, 2, passes=1),
+                    tattn.mha_qtile_reference(q, kv, 2)) > FP32_TOL
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -204,9 +227,9 @@ def _attend(q, k, v, causal, scale):
 
 
 class NumpyTf32Kernels:
-    """The entries K1 and K8 launch in numpy: the split-TF32 ones of
-    mha_tf32.cu, the CUDA-core ones of mha.cu and mha_long.cu and the
-    tensor-core one of mha_tc.cu; whole-row softmax attention in float64 on the
+    """The entries K1, K6 and K8 launch in numpy: the split-TF32 ones of
+    mha_tf32.cu, the tensor-core ones of mha_tc.cu and the CUDA-core ones of
+    mha.cu and mha_long.cu; whole-row softmax attention in float64 on the
     decoded operands, read and written through the raw pointers and element
     strides the wrappers pass, so that a wrong view, stride, argument order or
     choice of kernel shows. Each call is recorded with its pointers."""
@@ -232,17 +255,42 @@ class NumpyTf32Kernels:
     def acl_mha_qkv_tf32_fwd(self, qkv, bs, rs, out, b, l, h, dh, causal, scale, stream):
         return self._qkv("qkv_tf32", qkv, bs, rs, out, b, l, h, dh, causal, scale, False)
 
-    def acl_flash_tf32_fwd(self, ptrs, strides, lse, b, h, l, dh, causal, scale, stream):
+    def _flash_heads(self, tag, bf16, ptrs, strides, lse, b, h, l, dh, causal, scale):
         addresses = [ptrs[i] for i in range(4)]
-        self.calls.append(("flash_tf32", dh, causal, tuple(addresses), tuple(strides[i] for i in range(12))))
+        self.calls.append((tag, dh, causal, tuple(addresses), tuple(strides[i] for i in range(12))))
         shape = (b, h, l, dh)
-        q, k, v = (_read(addresses[i], (*(strides[3 * i + j] for j in range(3)), 1), shape, False)
+        q, k, v = (_read(addresses[i], (*(strides[3 * i + j] for j in range(3)), 1), shape, bf16)
                    for i in range(3))
         o, m = _attend(q, k, v, causal, scale)
-        _write(addresses[3], (*(strides[9 + j] for j in range(3)), 1), shape, o, False)
+        _write(addresses[3], (*(strides[9 + j] for j in range(3)), 1), shape, o, bf16)
         if lse.value is not None:
             _write(lse.value, (h * l, l, 1), (b, h, l), m, False)
         return 0
+
+    def acl_flash_tf32_fwd(self, ptrs, strides, lse, b, h, l, dh, causal, scale, stream):
+        return self._flash_heads("flash_tf32", False, ptrs, strides, lse, b, h, l, dh, causal, scale)
+
+    def acl_flash_tc_fwd(self, ptrs, strides, lse, b, h, l, dh, causal, scale, stream):
+        return self._flash_heads("flash_tc", True, ptrs, strides, lse, b, h, l, dh, causal, scale)
+
+    def _qtile(self, tag, bf16, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale):
+        d = h * dh
+        self.calls.append((tag, dh, q.value, kv.value))
+        x = _read(q, (q_bs, q_rs, 1), (b, l, d), bf16)
+        y = _read(kv, (kv_bs, kv_rs, 1), (b, l, 2 * d), bf16)
+        heads = [t.reshape(b, l, h, dh).transpose(0, 2, 1, 3) for t in (x, y[..., :d], y[..., d:])]
+        o, _ = _attend(*heads, False, scale)
+        _write(out, (l * d, d, 1), (b, l, d), o.transpose(0, 2, 1, 3).reshape(b, l, d), bf16)
+        return 0
+
+    def acl_mha_qtile_fwd(self, dtype, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale, stream):
+        return self._qtile("qtile", dtype == 1, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale)
+
+    def acl_mha_qtile_tc_fwd(self, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale, stream):
+        return self._qtile("qtile_tc", True, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale)
+
+    def acl_mha_qtile_tf32_fwd(self, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale, stream):
+        return self._qtile("qtile_tf32", False, q, q_bs, q_rs, kv, kv_bs, kv_rs, out, b, l, h, dh, scale)
 
     def acl_flash_fwd(self, dtype, q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, out, lse, n, l, dh,
                       causal, scale, stream):
@@ -317,14 +365,15 @@ def test_qkv_wrapper_takes_the_split_tf32_kernel_in_fp32_at_head_dim_64(numpy_ke
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize(
     "dtype,dh,kernel",
-    [(torch.float32, 64, "flash_tf32"), (torch.bfloat16, 64, "flash"), (torch.float32, 32, "flash"),
-     (torch.float32, 16, "flash")],
+    [(torch.float32, 64, "flash_tf32"), (torch.bfloat16, 64, "flash_tc"), (torch.float32, 32, "flash"),
+     (torch.float32, 16, "flash"), (torch.bfloat16, 32, "flash")],
 )
 def test_flash_wrapper_takes_the_split_tf32_kernel_in_fp32_at_head_dim_64(numpy_kernels, dtype, dh, kernel,
                                                                          causal):
-    """K8 over per-head (N, L, dh): out and the (N, L) log-sum-exp from the new
-    entry in fp32 at head dim 64 (as (N, 1, L, dh) views), from mha_long.cu's
-    otherwise."""
+    """K8 over per-head (N, L, dh): out and the (N, L) log-sum-exp from the
+    split-TF32 entry in fp32 at head dim 64 and from the tensor-core entry in
+    bf16 at head dim 64 (each as (N, 1, L, dh) views), from mha_long.cu's at
+    the smaller head dims."""
     rng = np.random.default_rng(41)
     q, k, v = (_randn(rng, dtype, 3, 70, dh) for _ in range(3))
     out, lse = tattn.flash_fwd_kernel(q, k, v, True, causal)
@@ -334,12 +383,12 @@ def test_flash_wrapper_takes_the_split_tf32_kernel_in_fp32_at_head_dim_64(numpy_
     torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=FP32_TOL)
     assert [c[0] for c in numpy_kernels.calls] == [kernel]
-    if kernel == "flash_tf32":
+    if kernel != "flash":
         _, _, _, addresses, strides = numpy_kernels.calls[0]
         assert addresses == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         assert strides == (70 * dh, 70 * dh, dh) * 4  # batch, head (one head), row
     assert tattn.launch_counts == _counts(flash_attention_heads=1)
-    assert tattn.route_counts == _routes(tf32=int(kernel == "flash_tf32"))
+    assert tattn.route_counts == _routes(tf32=int(kernel == "flash_tf32"), tc=int(kernel == "flash_tc"))
     out_only = tattn.flash_fwd_kernel(q, k, v, False, causal)  # no lse asked: a null pointer
     torch.testing.assert_close(out_only, out, rtol=0, atol=0)
 
@@ -399,15 +448,70 @@ def test_core_rung_hands_k8_the_packed_qkv_in_place(kernels_chosen, causal):
 
 
 def test_bf16_flash_branch_folds_the_heads_for_the_cuda_core_kernel(kernels_chosen):
-    """In bf16 K8 is mha_long.cu's kernel, which takes per-head tensors: the
-    four-dimensional views are folded for it, and nothing takes the new entry."""
+    """In bf16 at head dim 32 K8 is mha_long.cu's kernel, which takes per-head
+    tensors: the four-dimensional views are folded for it, and neither
+    tensor-core entry is taken."""
     numpy_kernels, _ = kernels_chosen
-    q, k, v = (_randn(np.random.default_rng(43), torch.bfloat16, 1, 2, 577, 64) for _ in range(3))
+    q, k, v = (_randn(np.random.default_rng(43), torch.bfloat16, 1, 2, 1500, 32) for _ in range(3))
+    assert not tattn.mha_kernel_eligible(1500, 32, 1, torch.bfloat16)  # the flash branch
     out = tattn.fused_attention(q, k, v)
-    assert out.shape == (1, 2, 577, 64)
+    assert out.shape == (1, 2, 1500, 32)
     torch.testing.assert_close(out.float(), tattn.attention_reference(q, k, v).float(), rtol=0, atol=2e-2)
-    assert numpy_kernels.calls == [("flash", 1, 64, 0)]
+    assert numpy_kernels.calls == [("flash", 1, 32, 0)]
     assert tattn.route_counts == _routes()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_core_rung_hands_the_tensor_core_kernel_the_packed_qkv_in_place(kernels_chosen, causal):
+    """In bf16 at head dim 64 the core rung (L past 789, or causal past the
+    whole-row kernel) hands K8's tensor-core entry the packed qkv's own memory
+    through (batch, head, row) strides and takes the output in the (B, L, H,
+    dh) layout that folds back into (B, L, D) without a copy; K9 and K10 get
+    the (B, H, L, dh) views with the forward's log-sum-exp, which is the plain
+    version's."""
+    numpy_kernels, handed = kernels_chosen
+    b, l, h, dh = 1, (500 if causal else 800), 2, 64
+    d = h * dh
+    qkv = _randn(np.random.default_rng(45), torch.bfloat16, b, l, 3 * d).requires_grad_(True)
+    assert tclip.attention_rung(b, l, d, h, 2, causal) == "core"
+    out = tclip._attention_apply_rung("core", qkv, h, causal)
+    (_, _, _, addresses, strides), = numpy_kernels.calls
+    assert numpy_kernels.calls[0][0] == "flash_tc"
+    base = qkv.data_ptr()
+    assert addresses[:3] == (base, base + 2 * d, base + 4 * d)
+    assert strides[:9] == (l * 3 * d, dh, 3 * d) * 3
+    assert strides[9:] == (l * d, dh, d)
+    assert out.data_ptr() == addresses[3] and out.is_contiguous()
+    torch.testing.assert_close(out.float(), tattn.mha_qkv_reference(qkv, h, causal).float(), rtol=0, atol=2e-2)
+    torch.autograd.grad((out.float() ** 2).sum(), qkv)
+    assert [(name, shape) for name, shape, _ in handed] == [("flash_dq_kernel", (b, h, l, dh)),
+                                                            ("flash_dkv_kernel", (b, h, l, dh))]
+    heads = [tattn._split_heads(t, h) for t in qkv.detach().split(d, dim=-1)]
+    _, want_lse = tattn.flash_attention_reference(*heads, save_lse=True, causal=causal)
+    torch.testing.assert_close(handed[0][2], want_lse, rtol=0, atol=1e-4)
+    assert tattn.launch_counts == _counts(flash_attention_heads=1)
+    assert tattn.route_counts == _routes(tc=1)
+
+
+@pytest.mark.parametrize(
+    "dtype,heads,call",
+    [(torch.float32, 2, "qtile_tf32"), (torch.bfloat16, 2, "qtile_tc"), (torch.float32, 4, "qtile"),
+     (torch.bfloat16, 4, "qtile")],
+)
+def test_qtile_wrapper_takes_the_split_tf32_kernel_in_fp32_at_head_dim_64(numpy_kernels, dtype, heads, call):
+    """K6: the split-TF32 entry for fp32 at head dim 64, the tensor-core one for
+    bf16 at head dim 64, mha.cu's at head dim 32; q and the two halves of kv are
+    the column slices of one packed projection, read in place."""
+    x = _randn(np.random.default_rng(46), dtype, 2, 70, 3 * 128)
+    q, kv = x[..., :128], x[..., 128:]
+    got = tattn.mha_qtile_fwd_kernel(q, kv, heads)
+    tol = FP32_TOL if dtype == torch.float32 else 2e-2
+    want = tattn.mha_qtile_reference(q, kv, heads)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert [c[:2] for c in numpy_kernels.calls] == [(call, 128 // heads)]
+    assert numpy_kernels.calls[0][2:] == (q.data_ptr(), kv.data_ptr())
+    assert tattn.launch_counts == _counts(fused_mha_qtile=1)
+    assert tattn.route_counts == _routes(tf32=int(call == "qtile_tf32"), tc=int(call == "qtile_tc"))
 
 
 def _one_element_in(rng, *shape):
@@ -437,6 +541,25 @@ def test_split_tf32_kernel_refuses_views_it_cannot_read_in_16_byte_pieces(numpy_
     tattn.flash_fwd_kernel(q[..., :32], k[..., :32], v[..., :32], True)
     tattn.mha_qkv_fwd_kernel(x.contiguous(), 2, False)
     assert [c[0] for c in numpy_kernels.calls] == ["qkv", "flash", "qkv_tf32"]
+
+
+@pytest.mark.parametrize("entry", ["qtile_fp32", "flash_bf16"])
+def test_new_entries_refuse_views_they_cannot_read_in_16_byte_pieces(numpy_kernels, entry):
+    """K6 in fp32 and K8 in bf16 at head dim 64 raise before any launch on a
+    view whose address or strides are not multiples of 16 bytes: no CUDA-core
+    kernel stands behind them any more."""
+    rng = np.random.default_rng(47)
+    if entry == "qtile_fp32":
+        x = _one_element_in(rng, 2, 50, 3 * 128)
+        with pytest.raises(ValueError, match=r"fused_mha_qtile: .*float32 operands in 16-byte pieces"):
+            tattn.mha_qtile_fwd_kernel(x[..., :128], x[..., 128:], 2)
+    else:
+        q = _randn(rng, torch.bfloat16, 3, 70, 66)[..., 1:-1]
+        k, v = (_randn(rng, torch.bfloat16, 3, 70, 64) for _ in range(2))
+        with pytest.raises(ValueError, match=r"flash_attention_heads: .*bfloat16 operands in 16-byte pieces"):
+            tattn.flash_fwd_kernel(q, k, v, True)
+    assert numpy_kernels.calls == [] and tattn.launch_counts == _counts()
+    assert tattn.route_counts == _routes()
 
 
 def test_flash_attention_heads_keeps_its_per_head_signature():
@@ -490,6 +613,26 @@ def test_tf32_flash_kernel_matches_fp32_plain_and_repeats_to_the_bit(cuda, n, l,
     for ours, repeat, theirs in zip(got, again, want):
         assert torch.equal(ours, repeat)
         torch.testing.assert_close(ours, theirs, rtol=0, atol=FP32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,heads", [(64, 400, 16), (3, 1, 2), (3, 63, 2), (3, 64, 2), (3, 65, 2),
+                                       (3, 129, 2)])
+def test_tf32_qtile_kernel_matches_fp32_plain_and_repeats_to_the_bit(cuda, b, l, heads):
+    """K6 in fp32 on q and kv as views of one packed projection, at the phase-3
+    shape and at the ragged edges: the split-TF32 entry, within 1e-5 of the fp32
+    plain version and of the emulation of its arithmetic."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    d = 64 * heads
+    x = torch.randn(b, l, 3 * d, device=cuda, generator=gen)
+    q, kv = x[..., :d], x[..., d:]
+    tattn.reset_launch_counts()
+    got, again = tattn.mha_qtile_fwd_kernel(q, kv, heads), tattn.mha_qtile_fwd_kernel(q, kv, heads)
+    torch.cuda.synchronize()
+    assert tattn.launch_counts == _counts(fused_mha_qtile=2) and tattn.route_counts == _routes(tf32=2)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tattn.mha_qtile_reference(q, kv, heads), rtol=0, atol=FP32_TOL)
+    torch.testing.assert_close(got, tattn.mha_qtile_tf32x3_reference(q, kv, heads), rtol=0, atol=FP32_TOL)
 
 
 @pytest.mark.gpu
