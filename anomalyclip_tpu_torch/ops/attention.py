@@ -59,11 +59,15 @@ the wrapper raises. The whole-row CUDA-core kernel of mha.cu also serves
 ``fused_mha_bld`` and ``fused_attention``'s whole-block branch in either type,
 and the KV-blocked CUDA-core kernel of mha_long.cu the smaller head dims of
 ``flash_attention_heads``.
-The KV-blocked backward pair is two kernels in the same way: in bf16 at head
-dim 64 every caller of it (K7, K9, K10, and K3, K4 and K5's backward past the
-whole-head kernel) launches the tensor-core pair of mha_tc_bwd.cu, with the same
-demand on its operands, and otherwise the CUDA-core pair of mha_blocked_bwd.cu.
-Both compute one function, so the plain backwards have one form.
+The KV-blocked backward pair is two kernels in the same way: every caller of
+it (K7, K9, K10, and K3, K4 and K5's backward past the whole-head kernel)
+launches, in bf16 at head dim 64, the tensor-core pair of mha_tc_bwd.cu, in
+fp32 at head dim 64 the split-TF32 pair of mha_tf32_bwd.cu (each product three
+TF32 ``mma.sync`` products of the operands' parts, as mha_tf32.cu forms them),
+both with the same demand on their operands, and at head dims 8, 16 and 32 the
+CUDA-core pair of mha_blocked_bwd.cu. All three compute one function, so the
+plain backwards have one form; ``blocked_bwd_tf32x3_reference`` emulates the
+split-TF32 pair's arithmetic for the tests and the chip smoke run.
 ``route_counts`` says which kernels a run took. K1's and K6's plain versions have the
 two forms to match (``block=None``: whole rows; ``block``: KV-blocked), because
 in bf16 a plain version must round P where its kernel rounds it; the entries'
@@ -86,8 +90,7 @@ statement of what a kernel takes: ``mha_kernel_eligible`` (the counterpart of
 the JAX package's ``mha_eligible``, which the dispatch ladder
 (models/clip/model.py: ``attention_rung``) and ``fused_attention`` ask to route
 between kernels) and ``attention_bwd_route`` (the whole-head kernel of
-mha_bwd.cu where its L x L tiles fit, the KV-blocked pair of mha_blocked_bwd.cu
-past it) are derived from it, and the wrappers raise its sentence. A wrapper on
+mha_bwd.cu where its L x L tiles fit, a KV-blocked pair past it) are derived from it, and the wrappers raise its sentence. A wrapper on
 a CUDA tensor launches or raises: no route computes the plain version on the
 card unless the caller chose it, and no failure is ever caught to choose a
 route.
@@ -131,8 +134,10 @@ launch_counts = {
 # route of K3, K4 and K5's backward) that took the tensor-core pair
 # (mha_tc_bwd.cu) rather than the CUDA-core one (mha_blocked_bwd.cu), one for
 # each count of ``launch_counts``; "mha_tf32" the launches of the same three
-# forward entries that took the split-TF32 tensor-core kernel (mha_tf32.cu)
-route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0}
+# forward entries that took the split-TF32 tensor-core kernel (mha_tf32.cu);
+# "blocked_bwd_tf32" the backward entries' launches that took the split-TF32
+# pair (mha_tf32_bwd.cu), counted as "blocked_bwd_tc" is
+route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
 
 IMPL_ENV = "ANOMALYCLIP_ATTN_IMPL"
 _IMPLS = ("kernel", "reference")
@@ -403,6 +408,54 @@ def mha_qtile_tf32x3_reference(q, kv, num_heads: int, passes: int = 3):
     return _merge_heads(tf32x3_reference(*heads, passes=passes))
 
 
+def blocked_bwd_tf32x3_reference(q, k, v, g, lse=None, delta=None, causal: bool = False,
+                                 passes: int = 3) -> tuple:
+    """What the split-TF32 backward pair (mha_tf32_bwd.cu) computes over fp32
+    (..., L, dh) q, k, v and the output gradient g -> (dq, dk, dv): the five
+    products formed from the operands' TF32 parts (``_tf32_product``), every
+    sum in fp32, P and dS not rounded. With ``lse`` and ``delta`` ((..., L)
+    fp32) the statistics are the given ones (the flash backward); without,
+    the dq pass's sweep rebuilds them: lse = m + log(l), delta = rowsum(P o dP)
+    with P normalised. ``passes=1`` is plain TF32, which the fp32 limits
+    reject. For the tests and the chip smoke run: nothing on the main path
+    calls it."""
+    product = _tf32_product(passes)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    q, k, v, g = (t.float() for t in (q, k, v, g))
+    s = product("...qd,...kd->...qk", q, k) * scale
+    if causal:
+        l = q.shape[-2]
+        s = s.masked_fill(~torch.ones((l, l), dtype=torch.bool, device=q.device).tril(), NEG_INF)
+    dp = product("...qd,...kd->...qk", g, v)
+    if lse is None:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        total = e.sum(dim=-1, keepdim=True)
+        lse, delta = (m + torch.log(total)).squeeze(-1), (e / total * dp).sum(dim=-1)
+    p = torch.exp(s - lse.float().unsqueeze(-1))
+    ds = p * (dp - delta.float().unsqueeze(-1)) * scale
+    return (product("...qk,...kd->...qd", ds, k), product("...qk,...qd->...kd", ds, q),
+            product("...qk,...qd->...kd", p, g))
+
+
+def mha_qtile_bwd_tf32x3_reference(q, kv, g, num_heads: int, passes: int = 3) -> tuple:
+    """``blocked_bwd_tf32x3_reference`` of K7: q, g (B, L, D) and the packed
+    k|v (B, L, 2D) -> (dq (B, L, D), dkv (B, L, 2D))."""
+    d = q.shape[-1]
+    heads = [_split_heads(t, num_heads) for t in (q, kv[..., :d], kv[..., d:], g)]
+    dq, dk, dv = (_merge_heads(t) for t in blocked_bwd_tf32x3_reference(*heads, passes=passes))
+    return dq, torch.cat([dk, dv], dim=-1)
+
+
+def mha_qkv_bwd_tf32x3_reference(qkv, g, num_heads: int, causal: bool = False,
+                                 passes: int = 3) -> torch.Tensor:
+    """``blocked_bwd_tf32x3_reference`` of K3's blocked route: the packed
+    (B, L, 3D) dqkv for the output gradient g (B, L, D)."""
+    heads = [_split_heads(t, num_heads) for t in (*_unpack_qkv(qkv), g)]
+    grads = blocked_bwd_tf32x3_reference(*heads, causal=causal, passes=passes)
+    return torch.cat([_merge_heads(t) for t in grads], dim=-1)
+
+
 def flash_delta(g, out) -> torch.Tensor:
     """rowsum(g o out) in fp32, (N, L): the flash backward's delta, one
     elementwise pass outside the kernels, as ``_flash_bwd_impl`` (:1013-1016)."""
@@ -521,7 +574,8 @@ def mha_tc_eligible(dtype: torch.dtype, dh: int) -> bool:
     operand type and head dim, or a CUDA-core kernel (mha.cu for K1 and K6,
     mha_long.cu for K8; in fp32 at head dim 64 the split-TF32 kernel of
     mha_tf32.cu), and whether the KV-blocked backward is the tensor-core pair of
-    mha_tc_bwd.cu or the CUDA-core pair of mha_blocked_bwd.cu. It also decides
+    mha_tc_bwd.cu or another (in fp32 at head dim 64 the split-TF32 pair of
+    mha_tf32_bwd.cu, otherwise the CUDA-core pair of mha_blocked_bwd.cu). It also decides
     which plain version rounds like the kernel: for K1 and K6 the KV-blocked
     one, for K8 the one at the tensor-core kernel's KV block, where this says
     yes."""
@@ -544,7 +598,9 @@ def mha_tf32_eligible(dtype: torch.dtype, dh: int) -> bool:
     """Whether K1, K6 and K8 launch the split-TF32 tensor-core kernel
     (mha_tf32.cu) for this operand type and head dim, or the CUDA-core kernels
     of mha.cu and mha_long.cu (in bf16 at head dim 64 the kernel of
-    mha_tc.cu)."""
+    mha_tc.cu); and whether the KV-blocked backward is the split-TF32 pair of
+    mha_tf32_bwd.cu or another (the tensor-core pair of mha_tc_bwd.cu in bf16
+    at head dim 64, the CUDA-core pair of mha_blocked_bwd.cu otherwise)."""
     return dtype == torch.float32 and dh == MHA_TF32_HEAD_DIM
 
 
@@ -558,6 +614,19 @@ def blocked_bwd_tc_smem_bytes(dh: int = MHA_TC_HEAD_DIM, kernel: str = "dkv") ->
     one g tile, and with each stage the tile's fp32 log-sum-exp and delta.
     Independent of L."""
     tiles = 2 * (dh + _MHA_TC_PAD) * (2 + 2 * _MHA_TC_STAGES) * BWD_BLOCK_KV
+    return tiles + (4 * 2 * _MHA_TC_STAGES * BWD_BLOCK_KV if BWD_TC_PASSES[kernel] else 0)
+
+
+_BWD_TF32_PAD = 4  # floats of padding per staged row of the split-TF32 pair (mha_tf32_bwd.cu)
+
+
+def blocked_bwd_tf32_smem_bytes(dh: int = MHA_TF32_HEAD_DIM, kernel: str = "dkv") -> int:
+    """The split-TF32 backward pair (mha_tf32_bwd.cu), fp32 rows padded by 4
+    floats: the dq kernel holds the q and g tiles and two stages of one KV block
+    each of K and V; the dkv kernel the K and V block, two stages of one q and
+    one g tile, and with each stage the tile's fp32 log-sum-exp and delta.
+    Independent of L."""
+    tiles = 4 * (dh + _BWD_TF32_PAD) * (2 + 2 * _MHA_TC_STAGES) * BWD_BLOCK_KV
     return tiles + (4 * 2 * _MHA_TC_STAGES * BWD_BLOCK_KV if BWD_TC_PASSES[kernel] else 0)
 
 
@@ -599,9 +668,10 @@ def attention_bwd_route(l: int, dh: int, itemsize: int, smem: int = H100_SMEM_OP
     """Which kernel the whole-block backward entries (K3, K4, and K5's backward)
     launch at sequence length ``l`` and head dim ``dh``, causal or not, given
     ``smem`` bytes of shared memory a block: "whole" (mha_bwd.cu) where its
-    L x L tiles fit, "blocked" (mha_blocked_bwd.cu, with the row statistics
-    recomputed) past it, None where a card gives a block too little for either
-    (the wrapper then raises). A pure function of the shape, so a CPU test
+    L x L tiles fit, "blocked" (the KV-blocked pair the operands take, with the
+    row statistics recomputed; admitted by mha_blocked_bwd.cu's shared memory
+    whichever pair serves it) past it, None where a card gives a block too
+    little for either (the wrapper then raises). A pure function of the shape, so a CPU test
     holds it."""
     if mha_bwd_smem_bytes(l, dh) <= smem:
         return "whole"
@@ -799,25 +869,51 @@ def _blocked_args(name: str, tensors) -> tuple:
     return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * len(strides))(*strides)
 
 
-def _check_blocked(name: str, q, k, v, g) -> bool:
-    """Raise on what the KV-blocked backward kernels do not take -> whether the
-    pair these operands launch is the tensor-core one (``mha_tc_eligible``)."""
+def _blocked_pair(dtype: torch.dtype, dh: int) -> str:
+    """Which KV-blocked backward pair these operands launch: "tc" (mha_tc_bwd.cu,
+    bf16 at head dim 64), "tf32" (mha_tf32_bwd.cu, fp32 at head dim 64) or
+    "cuda" (mha_blocked_bwd.cu, the smaller head dims)."""
+    if mha_tc_eligible(dtype, dh):
+        return "tc"
+    return "tf32" if mha_tf32_eligible(dtype, dh) else "cuda"
+
+
+def _count_pair(pair: str) -> None:
+    """One launch of a backward entry on ``pair``: the tensor-core pairs have a
+    route count each, the CUDA-core pair none."""
+    if pair != "cuda":
+        route_counts[f"blocked_bwd_{pair}"] += 1
+
+
+def _check_blocked(name: str, q, k, v, g) -> str:
+    """Raise on what the KV-blocked backward kernels do not take -> the pair
+    these operands launch (``_blocked_pair``)."""
     _check_bld(name, q, k, v)
     b, h, l, dh = q.shape
     itemsize = q.element_size()
-    tensor_cores = mha_tc_eligible(q.dtype, dh)
-    need = blocked_bwd_tc_smem_bytes if tensor_cores else (
-        lambda dh: blocked_bwd_smem_bytes(dh, itemsize))
+    pair = _blocked_pair(q.dtype, dh)
+    need = {"tc": blocked_bwd_tc_smem_bytes, "tf32": blocked_bwd_tf32_smem_bytes}.get(
+        pair, lambda dh: blocked_bwd_smem_bytes(dh, itemsize))
     _check_kernel_shape(name, q, dh, 1, need)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(
             f"{name}: gradient {tuple(g.shape)} {g.dtype} for q {tuple(q.shape)} {q.dtype}"
         )
     # the CUDA-core pair has the heads on a grid axis of 65535; the tensor-core
-    # pair one block per (batch, head, tile) on the first
-    if l > _INT_MAX or (b * h * -(-l // BWD_BLOCK_KV) > _INT_MAX if tensor_cores else h > 65535):
+    # pairs one block per (batch, head, tile) on the first
+    if l > _INT_MAX or (h > 65535 if pair == "cuda" else b * h * -(-l // BWD_BLOCK_KV) > _INT_MAX):
         raise ValueError(f"{name}: shape {tuple(q.shape)} is beyond the launch grid")
-    return tensor_cores
+    return pair
+
+
+def _tensor_core_entry(name: str, kernel: str, pair: str, l, *operands):
+    """The library entry of a tensor-core pair's ``kernel`` ("dq" or "dkv"),
+    after the checks its operands owe it: the log-sum-exp alone as the row
+    statistic, every operand in 16-byte pieces."""
+    if l is not None:
+        raise ValueError(f"{name}: the tensor-core pair takes the log-sum-exp, not m and l")
+    _check_16_byte_pieces(name, *operands)
+    return getattr(load_library(), f"acl_blocked_{kernel}_{pair}")
 
 
 def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool, causal: bool) -> None:
@@ -825,16 +921,15 @@ def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool, 
     ``_check_blocked``. ``acl_blocked_dq`` (mha_blocked_bwd.cu): the (B, H, L)
     fp32 statistics m, l, delta are written when ``recompute``, else read (l may
     be None: then 1). ``acl_blocked_dq_tc`` (mha_tc_bwd.cu, bf16 at head dim
-    64): l is None and m is the log-sum-exp, written with delta when
-    ``recompute``, else read. Counts nothing."""
+    64) and ``acl_blocked_dq_tf32`` (mha_tf32_bwd.cu, fp32 at head dim 64): l
+    is None and m is the log-sum-exp, written with delta when ``recompute``,
+    else read. Counts nothing."""
     b, h, seq, dh = q.shape
     ptrs, strides = _blocked_args(name, (q, k, v, g, dq))
     ptr = ctypes.c_void_p
-    if mha_tc_eligible(q.dtype, dh):
-        if l is not None:
-            raise ValueError(f"{name}: the tensor-core pair takes the log-sum-exp, not m and l")
-        _check_16_byte_pieces(name, q, k, v, g, dq)
-        err = load_library().acl_blocked_dq_tc(
+    pair = _blocked_pair(q.dtype, dh)
+    if pair != "cuda":
+        err = _tensor_core_entry(name, "dq", pair, l, q, k, v, g, dq)(
             ptrs, strides, ptr(m.data_ptr()), ptr(delta.data_ptr()), int(recompute),
             b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
         )
@@ -850,16 +945,14 @@ def _launch_blocked_dq(name: str, q, k, v, g, dq, m, l, delta, recompute: bool, 
 def _launch_blocked_dkv(name: str, q, k, v, g, dk, dv, m, l, delta, causal: bool) -> None:
     """Launch the dk, dv pass over (B, H, L, dh) views for entry ``name``, after
     ``_check_blocked``, reading the statistics as the dq pass of the same pair
-    takes them: ``acl_blocked_dkv``, or ``acl_blocked_dkv_tc`` in bf16 at head
-    dim 64. Counts nothing."""
+    takes them: ``acl_blocked_dkv``, or ``acl_blocked_dkv_tc`` in bf16 and
+    ``acl_blocked_dkv_tf32`` in fp32 at head dim 64. Counts nothing."""
     b, h, seq, dh = q.shape
     ptrs, strides = _blocked_args(name, (q, k, v, g, dk, dv))
     ptr = ctypes.c_void_p
-    if mha_tc_eligible(q.dtype, dh):
-        if l is not None:
-            raise ValueError(f"{name}: the tensor-core pair takes the log-sum-exp, not m and l")
-        _check_16_byte_pieces(name, q, k, v, g, dk, dv)
-        err = load_library().acl_blocked_dkv_tc(
+    pair = _blocked_pair(q.dtype, dh)
+    if pair != "cuda":
+        err = _tensor_core_entry(name, "dkv", pair, l, q, k, v, g, dk, dv)(
             ptrs, strides, ptr(m.data_ptr()), ptr(delta.data_ptr()),
             b, h, seq, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q),
         )
@@ -872,21 +965,21 @@ def _launch_blocked_dkv(name: str, q, k, v, g, dk, dv, m, l, delta, causal: bool
     _raise_on_error(name, err)
 
 
-def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv, causal: bool = False) -> bool:
+def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv, causal: bool = False) -> str:
     """The KV-blocked backward with the row statistics rebuilt by the dq pass
     (delta = rowsum(P o dP) with P normalised in fp32: the whole-block
     backwards' rounding) and handed to the dkv pass, all over (B, H, L, dh)
     views; the gradients are written into dq, dk, dv. The CUDA-core pair hands
-    over the row max, the row sum and delta; the tensor-core pair the
-    log-sum-exp and delta. Counts nothing -> whether it took the tensor-core
-    pair."""
-    tensor_cores = _check_blocked(name, q, k, v, g)
+    over the row max, the row sum and delta; the tensor-core pairs (bf16 and
+    split-TF32) the log-sum-exp and delta. Counts nothing -> the pair it took
+    (``_blocked_pair``)."""
+    pair = _check_blocked(name, q, k, v, g)
     b, h, l, _ = q.shape
-    stats = torch.empty((2 if tensor_cores else 3, b, h, l), dtype=torch.float32, device=q.device)
-    m, row_sum, delta = stats[0], (None if tensor_cores else stats[1]), stats[-1]
+    stats = torch.empty((3 if pair == "cuda" else 2, b, h, l), dtype=torch.float32, device=q.device)
+    m, row_sum, delta = stats[0], (stats[1] if pair == "cuda" else None), stats[-1]
     _launch_blocked_dq(name, q, k, v, g, dq, m, row_sum, delta, True, causal)
     _launch_blocked_dkv(name, q, k, v, g, dk, dv, m, row_sum, delta, causal)
-    return tensor_cores
+    return pair
 
 
 def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int) -> str:
@@ -915,7 +1008,7 @@ def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
     dqkv = torch.empty((b, l, d3), dtype=qkv.dtype, device=qkv.device)
     if route == "blocked":
         views = [_heads_view(t, num_heads) for t in (*_unpack_qkv(qkv), g, *_unpack_qkv(dqkv))]
-        route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute("mha_qkv_bwd", *views, causal)
+        _count_pair(_blocked_bwd_recompute("mha_qkv_bwd", *views, causal))
     else:
         dh = d // num_heads
         bs, rs = _strides("mha_qkv_bwd", qkv, qkv.shape)
@@ -943,7 +1036,7 @@ def _launch_mha_bld_bwd(name: str, q, k, v, g, num_heads: int, causal: bool) -> 
     dq, dk, dv = (torch.empty((b, l, d), dtype=q.dtype, device=q.device) for _ in range(3))
     if route == "blocked":
         views = [_heads_view(t, num_heads) for t in (q, k, v, g, dq, dk, dv)]
-        route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute(name, *views, causal)
+        _count_pair(_blocked_bwd_recompute(name, *views, causal))
         return dq, dk, dv
     dh = d // num_heads
     strides = [_strides(name, t, q.shape) for t in (q, k, v, g)]
@@ -978,8 +1071,7 @@ def fused_attention_bwd_kernel(q, k, v, g, causal: bool) -> tuple:
     if route == "blocked":
         g = g.to(q.dtype).contiguous()
         grads = tuple(torch.empty((b, h, l, dh), dtype=q.dtype, device=q.device) for _ in range(3))
-        route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute(
-            "fused_attention", q, k, v, g, *grads, causal)
+        _count_pair(_blocked_bwd_recompute("fused_attention", q, k, v, g, *grads, causal))
     else:
         folded = [t.reshape(b * h, l, dh) for t in (q, k, v, g)]
         grads = _launch_mha_bld_bwd("fused_attention", *folded, 1, causal)
@@ -989,8 +1081,8 @@ def fused_attention_bwd_kernel(q, k, v, g, causal: bool) -> tuple:
 
 
 def mha_qtile_bwd_kernel(q, kv, g, num_heads: int) -> tuple:
-    """K7: launch the KV-blocked pair (the tensor-core one in bf16 at head dim
-    64) with the row statistics recomputed ->
+    """K7: launch the KV-blocked pair (the tensor-core one in bf16 and the
+    split-TF32 one in fp32 at head dim 64) with the row statistics recomputed ->
     (dq (B, L, D), dkv (B, L, 2D)); q and the two halves of kv are read in
     place and the two halves of dkv written in place."""
     b, l, d = q.shape
@@ -1005,8 +1097,7 @@ def mha_qtile_bwd_kernel(q, kv, g, num_heads: int) -> tuple:
     dq = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
     dkv = torch.empty((b, l, 2 * d), dtype=q.dtype, device=q.device)
     tensors = (q, kv[..., :d], kv[..., d:], g, dq, dkv[..., :d], dkv[..., d:])
-    route_counts["blocked_bwd_tc"] += _blocked_bwd_recompute(
-        "mha_qtile_bwd", *(_heads_view(t, num_heads) for t in tensors))
+    _count_pair(_blocked_bwd_recompute("mha_qtile_bwd", *(_heads_view(t, num_heads) for t in tensors)))
     launch_counts["mha_qtile_bwd"] += 1
     return dq, dkv
 
@@ -1044,28 +1135,30 @@ def _flash_bwd_views(q, k, v, g, lse, delta) -> tuple:
 
 
 def flash_dq_kernel(q, k, v, g, lse, delta, causal: bool = False) -> torch.Tensor:
-    """K9: launch ``acl_blocked_dq`` (``acl_blocked_dq_tc`` in bf16 at head dim
-    64) with the given statistics over per-head (N, L, dh), or over the (B, H,
-    L, dh) views of ``fused_attention`` -> dq of q's shape."""
+    """K9: launch ``acl_blocked_dq`` (``acl_blocked_dq_tc`` in bf16 and
+    ``acl_blocked_dq_tf32`` in fp32 at head dim 64) with the given statistics
+    over per-head (N, L, dh), or over the (B, H, L, dh) views of
+    ``fused_attention`` -> dq of q's shape."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
-    tensor_cores = _check_blocked("flash_dq", *views)
+    pair = _check_blocked("flash_dq", *views)
     dq = _empty_heads(q)
     _launch_blocked_dq("flash_dq", *views, _as_heads(dq), lse, None, delta, False, causal)
     launch_counts["flash_dq"] += 1
-    route_counts["blocked_bwd_tc"] += tensor_cores
+    _count_pair(pair)
     return dq
 
 
 def flash_dkv_kernel(q, k, v, g, lse, delta, causal: bool = False) -> tuple:
-    """K10: launch ``acl_blocked_dkv`` (``acl_blocked_dkv_tc`` in bf16 at head
-    dim 64) with the given statistics over per-head (N, L, dh), or over the (B,
-    H, L, dh) views of ``fused_attention`` -> (dk, dv), each of q's shape."""
+    """K10: launch ``acl_blocked_dkv`` (``acl_blocked_dkv_tc`` in bf16 and
+    ``acl_blocked_dkv_tf32`` in fp32 at head dim 64) with the given statistics
+    over per-head (N, L, dh), or over the (B, H, L, dh) views of
+    ``fused_attention`` -> (dk, dv), each of q's shape."""
     views, lse, delta = _flash_bwd_views(q, k, v, g, lse, delta)
-    tensor_cores = _check_blocked("flash_dkv", *views)
+    pair = _check_blocked("flash_dkv", *views)
     dk, dv = _empty_heads(q), _empty_heads(q)
     _launch_blocked_dkv("flash_dkv", *views, _as_heads(dk), _as_heads(dv), lse, None, delta, causal)
     launch_counts["flash_dkv"] += 1
-    route_counts["blocked_bwd_tc"] += tensor_cores
+    _count_pair(pair)
     return dk, dv
 
 

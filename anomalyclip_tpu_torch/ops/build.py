@@ -24,9 +24,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu", CSRC / "mha_blocked_bwd.cu",
     CSRC / "mha_probe.cu", CSRC / "mha_tc.cu", CSRC / "mha_tc_bwd.cu", CSRC / "mha_tf32.cu",
+    CSRC / "mha_tf32_bwd.cu",
 )
 # attention_common.cuh is included by every source, tensor_core.cuh by the
-# three tensor-core ones
+# four tensor-core ones
 HEADERS = (CSRC / "attention_common.cuh", CSRC / "tensor_core.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -158,6 +159,16 @@ def load_library() -> ctypes.CDLL:
     lib.acl_flash_tf32_fwd.restype = i
     lib.acl_mha_qtile_tf32_fwd.argtypes = lib.acl_mha_qtile_tc_fwd.argtypes
     lib.acl_mha_qtile_tf32_fwd.restype = i
+    # the split-TF32 backward pair (mha_tf32_bwd.cu): the arguments of the
+    # tensor-core pair's entries
+    lib.acl_blocked_bwd_tf32_smem_bytes.argtypes = [i, i]
+    lib.acl_blocked_bwd_tf32_smem_bytes.restype = z
+    lib.acl_blocked_bwd_tf32_blocks_per_sm.argtypes = [i, i]
+    lib.acl_blocked_bwd_tf32_blocks_per_sm.restype = i
+    lib.acl_blocked_dq_tf32.argtypes = lib.acl_blocked_dq_tc.argtypes
+    lib.acl_blocked_dq_tf32.restype = i
+    lib.acl_blocked_dkv_tf32.argtypes = lib.acl_blocked_dkv_tc.argtypes
+    lib.acl_blocked_dkv_tf32.restype = i
     # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
     # pointer and 64-bit batch and row strides
     lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]

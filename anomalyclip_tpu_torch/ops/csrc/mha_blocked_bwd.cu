@@ -47,10 +47,10 @@
 //
 //   dq   one block per (batch, head, 64-row q tile): q and g rows staged once as
 //        fp32, the KV blocks of 64 keys streamed through shared memory, dq in
-//        registers (a thread owns one column of 16 rows at dh 64);
+//        registers (a thread owns one column of 8 rows at dh 32);
 //   dkv  one block per (batch, head, 64-key KV block): K and V staged once, the
 //        q/g tiles and their row statistics streamed, dk and dv in registers (a
-//        thread owns one column of 16 keys at dh 64). Rows past L in the last q
+//        thread owns one column of 8 keys at dh 32). Rows past L in the last q
 //        tile are staged as zeros and their P and dS forced to 0.
 //
 // Under the causal mask the dq pass stops at the KV block of its tile's last row
@@ -69,11 +69,12 @@
 // on the fp32 CUDA cores; this design does nine (S and dP are rebuilt by the dkv
 // pass, and once more by the statistics sweep), and shared-memory bandwidth, not
 // device memory, is the limit: device memory sees K and V once per q tile and q, g
-// once per KV block (10 times each at L=577). This pair serves fp32 (which stays
-// off the tensor cores: TF32 is off for checkpoint parity) and bf16 at head dims
-// 8, 16 and 32. In bf16 at head dim 64 the wrappers launch the tensor-core pair
-// of mha_tc_bwd.cu instead, which computes the same function with the same two
-// passes; sharing S and dP between the passes is later work.
+// once per KV block (10 times each at L=577). This pair serves fp32 and bf16 at
+// head dims 8, 16 and 32. At head dim 64 the wrappers launch a tensor-core pair
+// instead, which computes the same function with the same two passes: in bf16
+// that of mha_tc_bwd.cu, in fp32 that of mha_tf32_bwd.cu, whose split-TF32
+// products keep fp32 accuracy (TF32 itself stays off). Sharing S and dP between
+// the passes is later work.
 
 #include "attention_common.cuh"
 
@@ -453,7 +454,8 @@ size_t acl_blocked_bwd_smem_bytes(int dh, int dtype) {
 // head, row) element strides in ``strides`` (last stride 1). m, l, delta:
 // contiguous (B, H, L) fp32. recompute = 0: they are read, and l may be null
 // (then 1: m is a log-sum-exp); recompute = 1: they are written, for the dkv pass.
-// dh: 8, 16, 32 or 64 in fp32; 8, 16 or 32 in bf16.
+// dh: 8, 16 or 32 (head dim 64 is mha_tc_bwd.cu's in bf16 and
+// mha_tf32_bwd.cu's in fp32).
 int acl_blocked_dq(int dtype, void* const* ptrs, const int64_t* strides, void* m, void* l,
                    void* delta, int recompute, int B, int H, int L, int dh, int causal,
                    float scale, void* stream) {
@@ -471,10 +473,9 @@ int acl_blocked_dq(int dtype, void* const* ptrs, const int64_t* strides, void* m
   ACL_DQ_CASE(0, float, 8)
   ACL_DQ_CASE(0, float, 16)
   ACL_DQ_CASE(0, float, 32)
-  ACL_DQ_CASE(0, float, 64)
   ACL_DQ_CASE(1, BF, 8)
   ACL_DQ_CASE(1, BF, 16)
-  ACL_DQ_CASE(1, BF, 32)  // bf16 at head dim 64 is mha_tc_bwd.cu's
+  ACL_DQ_CASE(1, BF, 32)
 #undef ACL_DQ_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -497,10 +498,9 @@ int acl_blocked_dkv(int dtype, void* const* ptrs, const int64_t* strides, const 
   ACL_DKV_CASE(0, float, 8)
   ACL_DKV_CASE(0, float, 16)
   ACL_DKV_CASE(0, float, 32)
-  ACL_DKV_CASE(0, float, 64)
   ACL_DKV_CASE(1, BF, 8)
   ACL_DKV_CASE(1, BF, 16)
-  ACL_DKV_CASE(1, BF, 32)  // bf16 at head dim 64 is mha_tc_bwd.cu's
+  ACL_DKV_CASE(1, BF, 32)
 #undef ACL_DKV_CASE
   return (int)cudaErrorInvalidValue;
 }

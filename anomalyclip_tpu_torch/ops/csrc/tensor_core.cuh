@@ -1,4 +1,4 @@
-// What the tensor-core kernels share (mha_tc.cu, mha_tc_bwd.cu, mha_tf32.cu):
+// What the tensor-core kernels share (mha_tc.cu, mha_tc_bwd.cu, mha_tf32.cu, mha_tf32_bwd.cu):
 // 16-byte cp.async staging of bf16 or fp32 rows into padded shared-memory rows,
 // ldmatrix fragment loads, the m16n8k16 bf16 product with fp32 accumulation,
 // the approximate exponent and the bf16 packing of two accumulator values into
@@ -100,7 +100,7 @@ __device__ __forceinline__ void load_a_fragment(uint32_t (&a)[4], const bf16* ti
                           (lane / 16) * 8));
 }
 
-// fp32 operands on the tensor cores (mha_tf32.cu): split-TF32 products.
+// fp32 operands on the tensor cores (mha_tf32.cu, mha_tf32_bwd.cu): split-TF32 products.
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
 // the low 13 bits zero so that it reads back as a float: the bits

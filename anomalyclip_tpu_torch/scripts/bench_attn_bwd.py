@@ -19,8 +19,8 @@ Each is followed by the forward+backward time of the kernel path and of the
 plain path (CUDA events, median of ``--iters`` steps) in ``--dtype``, and names
 the source of the backward kernel that serves the shape in that type: the
 whole-head kernel of mha_bwd.cu, the tensor-core KV-blocked pair of
-mha_tc_bwd.cu (bf16 at head dim 64) or the CUDA-core pair of
-mha_blocked_bwd.cu. It runs on
+mha_tc_bwd.cu (bf16 at head dim 64), the split-TF32 pair of mha_tf32_bwd.cu
+(fp32 at head dim 64) or the CUDA-core pair of mha_blocked_bwd.cu. It runs on
 the card; ``--device cpu`` runs the plain versions at batch 2 for the parity
 checks alone and prints no times.
 """
@@ -56,7 +56,9 @@ def served_by(dtype: torch.dtype, dh: int, route: str = "blocked") -> str:
     operand type and head dim."""
     if route == "whole":
         return "mha_bwd.cu"
-    return "mha_tc_bwd.cu" if A.mha_tc_eligible(dtype, dh) else "mha_blocked_bwd.cu"
+    if A.mha_tc_eligible(dtype, dh):
+        return "mha_tc_bwd.cu"
+    return "mha_tf32_bwd.cu" if A.mha_tf32_eligible(dtype, dh) else "mha_blocked_bwd.cu"
 
 
 def rel_err(got, want) -> float:

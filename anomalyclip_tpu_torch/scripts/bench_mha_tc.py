@@ -36,6 +36,17 @@ beside ``scaled_dot_product_attention`` and the bound (4 L^2 dh operations a
 head over 495 / 3 TFLOP/s, the split-TF32 rate of an fp32-accurate product, and
 the operands and the output once).
 
+A fourth set gives the split-TF32 backward pair of ops/csrc/mha_tf32_bwd.cu at
+the fp32 paths' shapes: K9 and K10 on the ViT-L/14@336px tower gradient's
+(B, H, L, dh) views with K8's log-sum-exp (the core rung), K7 at that tower's
+q and k|v, and K3's entry at the ViT-B/16 gradient's packed qkv (past the
+whole-head kernel). Each is held within 1e-5 of max|ref| of the fp32 plain
+backward and of the emulation of its arithmetic
+(``blocked_bwd_tf32x3_reference``) and timed beside
+``scaled_dot_product_attention`` forward and backward and the bound (10 L^2 dh
+operations a head, 6 + 8 for the flash pair's two passes, over 495 / 3
+TFLOP/s, or the tensors once).
+
 ``--sass`` adds the opcode mix of each kernel (the tensor-core kernel's two
 instantiations apart), read from ``cuobjdump -sass`` of the built library: the
 opcodes of the whole kernel and of its main loops (each
@@ -45,9 +56,9 @@ kernel's sweep over the q tiles), which is what the tensor-core operations
 (HMMA) have to be dispatched among.
 
 ``--device cpu`` runs the entries' plain versions (the KV-blocked form) at batch
-2, holds them against the whole-row form, holds the emulation of the
-split-TF32 arithmetic (``tf32x3_reference``) against the fp32 plain version, and
-prints no times.
+2, holds them against the whole-row form, holds the emulations of the
+split-TF32 arithmetic (``tf32x3_reference``, ``blocked_bwd_tf32x3_reference``)
+against the fp32 plain versions, and prints no times.
 """
 
 from __future__ import annotations
@@ -94,6 +105,13 @@ TF32_SHAPES = [
     ("ViT-L/14@336px vision at L=400", 64, 400, 1024, 16, False, "qtile"),
 ]
 TF32_PARITY_LIMIT = 1e-5  # the fp32 kernel against the fp32 plain version, absolute
+# the split-TF32 backward pair's shapes, the same fields: "flash" is K9 and K10
+# on the core rung's head views, "qtile" K7, "qkv" K3's entry
+TF32_BWD_SHAPES = [
+    ("ViT-L/14@336px gradient, heads", 32, 577, 1024, 16, False, "flash"),
+    ("ViT-L/14@336px gradient", 32, 577, 1024, 16, False, "qtile"),
+    ("ViT-B/16 gradient", 32, 197, 768, 12, False, "qkv"),
+]
 PEAK_TF32X3_FLOPS = 495e12 / 3  # dense TF32 over the three products of a split product
 
 
@@ -176,6 +194,81 @@ def bench_tf32(tag: str, b: int, l: int, d: int, heads: int, causal: bool, entry
     ms = median_ms(lambda: run_tf32(entry, x, heads, causal), iters)
     print(f"{shape} (mha_tf32.cu): {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), sdpa "
           f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms  max|diff|={err:.2e}", flush=True)
+
+
+def flash_backward_parts(x: torch.Tensor, g: torch.Tensor, heads: int, causal: bool,
+                         on_card: bool) -> tuple:
+    """What K9 and K10 take on the core rung: the head views of the packed x and
+    of g, K8's log-sum-exp (one launch on the card) and delta from its output."""
+    views = heads_views(x, heads)
+    b, l, d = g.shape
+    g4 = g.view(b, l, heads, d // heads).transpose(1, 2)
+    forward = A.flash_fwd_kernel if on_card else A.flash_attention_reference
+    out, lse = forward(*views, True, causal=causal)
+    return (*views, g4, lse, A.flash_delta(g4, out))
+
+
+def tf32_backward(entry: str, parts: tuple, heads: int, causal: bool, how: str) -> tuple:
+    """The fp32 backward of one path shape -> its gradients: ``how`` is "kernel"
+    (the split-TF32 pair through the entry that owns the shape), "plain" or
+    "emulated" (``blocked_bwd_tf32x3_reference``). ``parts``: (x, g), or for
+    "flash" what ``flash_backward_parts`` returns."""
+    if entry == "flash":
+        if how == "kernel":
+            return (A.flash_dq_kernel(*parts, causal), *A.flash_dkv_kernel(*parts, causal))
+        if how == "plain":
+            return (A.flash_dq_reference(*parts, causal), *A.flash_dkv_reference(*parts, causal))
+        return A.blocked_bwd_tf32x3_reference(*parts, causal)
+    x, g = parts
+    d = g.shape[-1]
+    if how == "kernel":
+        return backward(entry, x, g, d, heads, causal)
+    if how == "plain":
+        return plain_backward(entry, x, g, d, heads, causal)
+    if entry == "qkv":
+        return (A.mha_qkv_bwd_tf32x3_reference(x, g, heads, causal),)
+    return A.mha_qtile_bwd_tf32x3_reference(x[..., :d], x[..., d:], g, heads)
+
+
+def bench_tf32_backward(tag: str, b: int, l: int, d: int, heads: int, causal: bool, entry: str,
+                        on_card: bool, device: str, iters: int) -> None:
+    """A line of the split-TF32 backward pair: parity against the fp32 plain
+    backward and the emulation, and on the card its time beside sdpa's forward
+    and backward and the bound. On the CPU the emulation against the plain
+    backward."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((b, l, 3 * d)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, l, d)).astype(np.float32)).to(device)
+    parts = flash_backward_parts(x, g, heads, causal, on_card) if entry == "flash" else (x, g)
+    want = tf32_backward(entry, parts, heads, causal, "plain")
+    top = max(w.abs().max().item() for w in want)
+
+    def gap(got, ref):
+        return max((a - r).abs().max().item() for a, r in zip(got, ref)) / top
+
+    emu = tf32_backward(entry, parts, heads, causal, "emulated")
+    gaps = {"emulated": gap(emu, want)}
+    if on_card:
+        got = tf32_backward(entry, parts, heads, causal, "kernel")
+        gaps.update({"kernel": gap(got, want), "kernel vs emulated": gap(got, emu)})
+        del got
+    if not max(gaps.values()) <= TF32_PARITY_LIMIT:
+        raise AssertionError(f"{tag}, fp32 backward: {gaps} of max|ref|")
+    del want, emu
+    shape = f"{tag} fp32 backward (B={b}, L={l}, D={d}, H={heads}, {entry})"
+    of_ref = ", ".join(f"{how} {gap:.2e}" for how, gap in gaps.items())
+    if not on_card:
+        print(f"{shape}: the split-TF32 emulation against the plain backward, {of_ref} of max|ref|",
+              flush=True)
+        return
+    dh = d // heads
+    flops = (14 if entry == "flash" else 10) * b * heads * l * l * dh * (0.5 if causal else 1.0)
+    bound_ms = max(flops / PEAK_TF32X3_FLOPS, 4 * 7 * b * l * d / PEAK_BYTES_PER_S) * 1e3
+    sdpa_ms = median_ms(lambda: sdpa_backward(x, g, heads, causal), iters)
+    ms = median_ms(lambda: tf32_backward(entry, parts, heads, causal, "kernel"), iters)
+    print(f"{shape} (mha_tf32_bwd.cu): {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), sdpa "
+          f"forward+backward {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms  {of_ref} of max|ref|",
+          flush=True)
 
 
 def backward(entry: str, x: torch.Tensor, g: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
@@ -324,13 +417,23 @@ def main(argv=None) -> None:
         if not args.only or any(s in tag for s in args.only):
             bench_tf32(tag, b if on_card else 2, l, d, heads, causal, entry, on_card, args.device,
                        args.iters)
+    if on_card:
+        print("fp32 backward, head dim 64: "
+              + ", ".join(f"{name} {A.blocked_bwd_tf32_smem_bytes(64, name)} B/block, "
+                          f"{lib.acl_blocked_bwd_tf32_blocks_per_sm(64, code)} blocks/SM"
+                          for name, code in A.BWD_TC_PASSES.items()), flush=True)
+    for tag, b, l, d, heads, causal, entry in TF32_BWD_SHAPES:
+        if not args.only or any(s in tag for s in args.only):
+            bench_tf32_backward(tag, b if on_card else 2, l, d, heads, causal, entry, on_card,
+                                args.device, args.iters)
     if args.sass and on_card:
         # the mangled names' template arguments: the tensor-core kernel is
         # instantiated for K1 and K6 (Packed) and for K8 (Strided)
         dh = A.MHA_TC_HEAD_DIM
         for parts in ((f"mha_tc_kernelILi{dh}E", "Packed"), (f"mha_tc_kernelILi{dh}E", "Strided"),
                       (f"blocked_dq_tc_kernelILi{dh}E",), (f"blocked_dkv_tc_kernelILi{dh}E",),
-                      (f"mha_tf32_kernelILi{dh}E",)):
+                      (f"mha_tf32_kernelILi{dh}E",), (f"blocked_dq_tf32_kernelILi{dh}E",),
+                      (f"blocked_dkv_tf32_kernelILi{dh}E",)):
             whole, loops = sass_mix(*parts)
             kernel = " ".join(parts)
             mixes = [("kernel", whole), *((f"loop {i + 1}", mix) for i, mix in enumerate(loops))]

@@ -11,8 +11,10 @@ script exits non-zero without printing a result:
    ladder uses, and print how many blocks of the tensor-core kernel one SM
    holds, in K1's and K6's instantiation and in K8's (four blocks of four
    warps are what its design counts on), of each kernel of the tensor-core
-   backward pair (three: what it is compiled for) and of the split-TF32 kernel
-   (two);
+   backward pair (three: what it is compiled for), of the split-TF32 kernel
+   (two) and of each kernel of the split-TF32 backward pair (two), and print
+   each tensor-core kernel's registers, stack and spills from the build's
+   ``ptxas -v`` log;
 3. kernels: each forward kernel against its plain PyTorch version at the main
    paths' shapes (K1 and K2 at the ViT-B/16 and ViT-L/14 shapes; K6, K8 with
    its log-sum-exp, and K5's flash branch at the ViT-L/14@336px tower's
@@ -51,12 +53,19 @@ script exits non-zero without printing a result:
    whole-head kernel's shared memory and so on the KV-blocked pair, causal
    and not; K9 and K10 with the mask and at head dim 16; autograd through
    ``fused_attention`` at (32, 16, 577, 64) against its plain path; and the
-   parity checks of ``anomalyclip_tpu_torch.scripts.bench_attn_bwd``. In bf16
-   at head dim 64 every one of these launches the tensor-core pair
-   (ops/csrc/mha_tc_bwd.cu), held within BWD_TC_TOLERANCE of max|ref|, as is
-   K7 at L = 1, 63, 64, 65, 129 and 1100 at batch 3; the launches that took the
-   pair are counted exactly (none in fp32 or at head dim 16), and two launches
-   on the same inputs must give the same bits;
+   parity checks of ``anomalyclip_tpu_torch.scripts.bench_attn_bwd`` (2e-5 of
+   max|ref|; the flash backward against float64 no noisier than twice the
+   plain VJP). In bf16 at head dim 64 every one of these launches the
+   tensor-core pair (ops/csrc/mha_tc_bwd.cu), held within BWD_TC_TOLERANCE of
+   max|ref|; in fp32 at head dim 64 the split-TF32 pair
+   (ops/csrc/mha_tf32_bwd.cu), held within 1e-5 of max|ref| of the fp32 plain
+   backward and of the emulation of its arithmetic
+   (``blocked_bwd_tf32x3_reference``); both at K7's path shape, at L = 1, 63,
+   64, 65, 129 and 1100 at batch 3, at K9's and K10's (512, 577, 64), the
+   ragged (8, 1100, 64) and the causal (64, 500, 64), and at K3's and K5's
+   shapes past the whole-head kernel; the launches that took each pair are
+   counted exactly (none at head dim 16), and two launches on the same inputs
+   must give the same bits in either type;
 3e. the shapes the reference computes by its XLA formulation, here on kernels:
    the temporal model at head dim 8 (emb 32, 4 heads), ``fused_attention`` at
    head dim 8, ``fused_mha_bld`` at head dim 16 and L=200 (its backward on
@@ -105,12 +114,13 @@ script exits non-zero without printing a result:
    full ViT-L/14@336px width and depth, loss sum(features^2),
    ``torch.autograd.grad`` w.r.t. every visual leaf, in bf16 (the qtile rung:
    24 K6 and 24 K7 launches, every one on the tensor cores) and in fp32 (the
-   core rung: 24 K8, 24 K9 and 24 K10, none on them); the launch counts are
+   core rung: 24 K8 on the split-TF32 kernel, 24 K9 and 24 K10 on the
+   split-TF32 pair); the launch counts are
    checked exactly and the gradients held against
    the same call with the plain attention (fp32 within 1e-4 of each leaf's
    max, bf16 within BF16_GRAD_TOL); then the same at ViT-B/16 width and
    depth, batch 32, fp32 (K1 forward, K3's entry backward on its blocked
-   route);
+   route, the split-TF32 pair);
 4e. the probe and measurement scripts, each through its ``main`` with the launch
    counts of its run checked exactly: ``bench_attn_l14 --check`` with its default
    variants at (32, 577, 1024) in bf16 and at ``--seq 576``, and ``whole`` and
@@ -121,7 +131,9 @@ script exits non-zero without printing a result:
    ``validate_qtile_config`` to their exit codes (the latter's core rung at
    L=1024 and 1536 on K8's tensor-core entry); ``bench_mha_tc --sass`` (the
    tensor-core kernels, forward and backward, at the towers' shapes, K8 in bf16
-   and K6 in fp32 among them, and their opcode mixes); ``bench_attn_bwd --qtile`` (K7's parity in fp32, then the
+   and K6 in fp32 among them, the split-TF32 backward pair at the fp32
+   gradients' shapes, and their opcode mixes); ``bench_attn_bwd --qtile`` (K7's
+   parity in fp32 on the split-TF32 pair, then the
    forward+backward step in bf16 on the tensor-core kernels);
    ``probe_bf16_drift`` at one seed and 8 frames (the ViT-L/14@336px tower by
    layer under the kernels and under three plain forms); ``bench_eval``,
@@ -157,7 +169,10 @@ tensor-core backward pair that K7, K9, K10 and the KV-blocked route of K3, K4
 and K5's backward launch in bf16 at head dim 64: its count is
 ``route_counts["blocked_bwd_tc"]`` over the same runs, its numbers the pair's at
 K7's path shape, which are ``mha_qtile_bwd``'s too (K9's and K10's path is the
-fp32 tower: their numbers are the CUDA-core pair's). ``mha_tf32`` is the
+fp32 tower: their numbers are the split-TF32 pair's). ``blocked_bwd_tf32`` is
+the split-TF32 backward pair that the same entries launch in fp32 at head dim
+64: its count is ``route_counts["blocked_bwd_tf32"]`` over the same runs, its
+numbers K7's in fp32 at the same path shape. ``mha_tf32`` is the
 split-TF32 kernel that K1, K6 and K8 launch in fp32 at head dim 64: its count is
 ``route_counts["mha_tf32"]`` over the same runs, its numbers the sums over the
 fp32 scoring paths' four shapes (phase 3); on their fp32 paths
@@ -174,6 +189,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -206,9 +222,9 @@ KERNEL_SOURCE = {
     "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
     # on its path, the bf16 ViT-L/14@336px tower's gradient, the tensor-core pair
     "mha_qtile_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_tc_bwd.cu",
-    # their path is the fp32 tower's gradient: the CUDA-core pair
-    "flash_dq": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
-    "flash_dkv": "anomalyclip_tpu_torch/ops/csrc/mha_blocked_bwd.cu",
+    # their path is the fp32 tower's gradient: the split-TF32 pair
+    "flash_dq": "anomalyclip_tpu_torch/ops/csrc/mha_tf32_bwd.cu",
+    "flash_dkv": "anomalyclip_tpu_torch/ops/csrc/mha_tf32_bwd.cu",
     # the kernel K1 and K6 launch in bf16 at head dim 64, counted by
     # route_counts["mha_tc"]
     "mha_tc": "anomalyclip_tpu_torch/ops/csrc/mha_tc.cu",
@@ -218,6 +234,9 @@ KERNEL_SOURCE = {
     # the kernel K1 and K8 launch in fp32 at head dim 64, counted by
     # route_counts["mha_tf32"]
     "mha_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_tf32.cu",
+    # the pair the KV-blocked backward launches in fp32 at head dim 64, counted
+    # by route_counts["blocked_bwd_tf32"]
+    "blocked_bwd_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_tf32_bwd.cu",
 }
 PROBE_SOURCE = "anomalyclip_tpu_torch/ops/csrc/mha_probe.cu"
 # probe wrapper -> the pallas_call sites of the JAX package's scripts it replaces
@@ -244,6 +263,7 @@ REPLACES = {
     "mha_tc": "anomalyclip_tpu/ops/pallas/attention.py:423",
     "blocked_bwd_tc": "anomalyclip_tpu/ops/pallas/attention.py:646",
     "mha_tf32": "anomalyclip_tpu/ops/pallas/attention.py:423",
+    "blocked_bwd_tf32": "anomalyclip_tpu/ops/pallas/attention.py:646",
 }
 ALSO_REPLACES = {
     "mha_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:800",
@@ -252,6 +272,8 @@ ALSO_REPLACES = {
                "anomalyclip_tpu/ops/pallas/attention.py:800"],
     "blocked_bwd_tc": ["anomalyclip_tpu/ops/pallas/attention.py:904",
                        "anomalyclip_tpu/ops/pallas/attention.py:943"],
+    "blocked_bwd_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:904",
+                         "anomalyclip_tpu/ops/pallas/attention.py:943"],
 }
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 # the tensor-core kernel against its KV-blocked plain version (absolute): twice
@@ -286,7 +308,8 @@ FP32_GRAD_TOL = 1e-4  # of each leaf's max |gradient|
 BF16_GRAD_TOL = 5e-2
 # the warm step with K7 on the CUDA-core pair (NVIDIA H100 80GB HBM3, 700 W),
 # printed beside this run's
-GRAD_STEP_BEFORE = {"ViT-L/14@336px bfloat16": "0.4785 s with K7 on mha_blocked_bwd.cu"}
+GRAD_STEP_BEFORE = {"ViT-L/14@336px bfloat16": "0.4785 s with K7 on mha_blocked_bwd.cu",
+                    "ViT-L/14@336px float32": "1.0966 s with K9 and K10 on mha_blocked_bwd.cu"}
 # the card's published peaks (NVIDIA H100 SXM, dense): what bound_ms is taken
 # against. For fp32 operands the least time for an fp32-accurate product is the
 # tensor cores' split-TF32 rate, 495 TFLOP/s of TF32 over the three products a
@@ -396,9 +419,44 @@ def phase_build() -> None:
     print(f"[build] split-TF32 kernel, head dim {dh}: {A.mha_tf32_smem_bytes(dh)} B a block, "
           f"{blocks} blocks of 4 warps an SM")
     checked += 1
+    for kernel, code in A.BWD_TC_PASSES.items():
+        need = A.blocked_bwd_tf32_smem_bytes(dh, kernel)
+        require(lib.acl_blocked_bwd_tf32_smem_bytes(dh, code) == need,
+                f"split-TF32 backward smem, {kernel}")
+        blocks = lib.acl_blocked_bwd_tf32_blocks_per_sm(dh, code)
+        require(blocks == 2, f"split-TF32 backward, {kernel} kernel: {blocks} blocks an SM")
+        print(f"[build] split-TF32 backward, {kernel} kernel, head dim {dh}: {need} B a block, "
+              f"{blocks} blocks of 4 warps an SM")
+    checked += 1
     print(f"[build] shared-memory formulas: library and Python agree at {checked} (L, dh) "
           f"pairs; card limit {A.smem_limit(torch.device('cuda'))} B per block")
+    log = build.library_path().with_suffix(".log").read_text()
+    for source in TENSOR_CORE_SOURCES:
+        for kernel, usage in ptxas_usage(log, source):
+            print(f"[build] ptxas, {source} {kernel}: {usage}")
     torch.cuda.synchronize()
+
+
+# the sources whose kernels' registers and spills phase_build prints
+TENSOR_CORE_SOURCES = ("mha_tc.cu", "mha_tc_bwd.cu", "mha_tf32.cu", "mha_tf32_bwd.cu")
+
+
+def ptxas_usage(log: str, source: str) -> list:
+    """(kernel, "N registers, S B stack, T B spill stores, U B spill loads") for
+    each kernel of ``source`` in the nvcc log that ops/build.py keeps beside the
+    library (``-Xptxas -v``)."""
+    section = log.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    usage = []
+    for entry in section.split("Compiling entry function '")[1:]:
+        mangled = entry.split("'", 1)[0]
+        name = re.search(r"(?:blocked_dq|blocked_dkv|mha)_(?:tc|tf32)_kernel", mangled)
+        layout = re.search(r"Packed|Strided", mangled) if "mha_tc_kernel" in mangled else None
+        kernel = (name.group() if name else mangled) + (f" ({layout.group()})" if layout else "")
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        usage.append((kernel, f"{regs.group(1)} registers, {frame.group(1)} B stack, "
+                              f"{frame.group(2)} B spill stores, {frame.group(3)} B spill loads"))
+    return usage
 
 
 FP32, BF16 = (torch.float32,), (torch.bfloat16,)
@@ -463,6 +521,9 @@ class Case:
     tensor_cores: bool = False  # in bf16 a tensor-core kernel runs: held to tc_tolerance
     tc_tolerance: float = TC_TOLERANCE
     tf32: bool = False  # in fp32 each call launches the split-TF32 kernel once
+    # f(x) -> the emulation of the split-TF32 arithmetic on the same inputs, which
+    # an fp32 run must match within TOLERANCE (of max|ref| where ``relative``)
+    emulated: object = None
 
 
 def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
@@ -488,6 +549,15 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
             tol = (case.tc_tolerance if tight else TOLERANCE[dtype]) * scale
             for a, b in zip(got, want):
                 torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+            emulation = ""
+            if case.emulated is not None and dtype == torch.float32:
+                emu = case.emulated(x)
+                emu = emu if isinstance(emu, tuple) else (emu,)
+                emu_err = max((a - b).abs().max().item() for a, b in zip(got, emu))
+                require(emu_err <= tol, f"{case.name} {case.shape}: {emu_err:.3e} from the emulation "
+                                        f"of its split-TF32 arithmetic (tol {tol:.3e})")
+                emulation = f", {emu_err / scale:.3e} from the emulation"
+                del emu
             del got, want
             ms, plain_ms = median_ms(lambda: case.kernel(x)), median_ms(lambda: case.plain(x))
             views = case.heads(x)
@@ -504,6 +574,7 @@ def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None
                 beside = f"sdpa forward+backward {library_ms:.4f} ms (forward {fwd_ms:.4f})"
             bound_ms, bound_by = attention_bound(case.kind, dims, dtype, case.causal, case.stats)
             of_ref = f", {err / scale:.3e} of max|ref|" if case.relative and scale > 0 else ""
+            of_ref += emulation
             print(f"[{tag}] {case.name} {case.shape} as {dims} causal={case.causal} "
                   f"{str(dtype).split('.')[-1]}: max|err| {err:.3e}{of_ref} (tol {tol:.3e}), "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, "
@@ -859,24 +930,30 @@ def phase_long_bwd_kernels(report: dict) -> None:
     from anomalyclip_tpu_torch.scripts import bench_attn_bwd as bench
 
     limit = A.smem_limit(torch.device("cuda"))
-    # in bf16 at head dim 64 every case below launches the tensor-core pair
+    # at head dim 64 every case below launches a tensor-core pair: in bf16
+    # mha_tc_bwd.cu's, in fp32 the split-TF32 one of mha_tf32_bwd.cu, held
+    # against the emulation of its arithmetic too
     on_tensor_cores = {"tensor_cores": True, "tc_tolerance": BWD_TC_TOLERANCE}
     cases = []
     # K7 at the ViT-L/14@336px tower's shape: t = q, kv, g; the bf16 tower is
-    # its path
-    cases.append(Case(
-        "mha_qtile_bwd", (32, 577, 1024), [(32, 577, 1024), (32, 577, 2048), (32, 577, 1024)],
-        lambda t: A.mha_qtile_bwd_kernel(*t, 16), lambda t: A.mha_qtile_bwd_reference(*t, 16),
-        lambda t: (*packed_heads(t[0], 1, 16), *packed_heads(t[1], 2, 16), *packed_heads(t[2], 1, 16)),
-        kind="bwd", path=BF16, relative=True, **on_tensor_cores,
-    ))
+    # its path, and its fp32 numbers are the split-TF32 pair's line
+    qtile_heads = lambda t: (*packed_heads(t[0], 1, 16), *packed_heads(t[1], 2, 16),  # noqa: E731
+                             *packed_heads(t[2], 1, 16))
+    for name, dtypes in (("mha_qtile_bwd", BF16), ("blocked_bwd_tf32", FP32)):
+        cases.append(Case(
+            name, (32, 577, 1024), [(32, 577, 1024), (32, 577, 2048), (32, 577, 1024)],
+            lambda t: A.mha_qtile_bwd_kernel(*t, 16), lambda t: A.mha_qtile_bwd_reference(*t, 16),
+            qtile_heads, kind="bwd", dtypes=dtypes, path=dtypes, relative=True,
+            emulated=lambda t: A.mha_qtile_bwd_tf32x3_reference(*t, 16), **on_tensor_cores,
+        ))
     # and at the ragged edges of its 64-row tiles and 64-key blocks (printed only)
     for l in (1, 63, 64, 65, 129, 1100):
         cases.append(Case(
             "mha_qtile_bwd ragged", (3, l, 128), [(3, l, 128), (3, l, 256), (3, l, 128)],
             lambda t: A.mha_qtile_bwd_kernel(*t, 2), lambda t: A.mha_qtile_bwd_reference(*t, 2),
             lambda t: (*packed_heads(t[0], 1, 2), *packed_heads(t[1], 2, 2), *packed_heads(t[2], 1, 2)),
-            kind="bwd", dtypes=BF16, path=(), relative=True, **on_tensor_cores,
+            kind="bwd", path=(), relative=True,
+            emulated=lambda t: A.mha_qtile_bwd_tf32x3_reference(*t, 2), **on_tensor_cores,
         ))
 
     # K9 and K10 with the log-sum-exp and the output of K8, at the fp32 tower's
@@ -890,17 +967,20 @@ def phase_long_bwd_kernels(report: dict) -> None:
     # head dim 16
     for shape, causal, path in (((512, 577, 64), False, FP32), ((8, 1100, 64), False, ()),
                                 ((64, 500, 64), True, ()), ((64, 333, 16), True, ())):
-        for name, kernel, plain, kind, wrt in (
-            ("flash_dq", A.flash_dq_kernel, A.flash_dq_reference, "dq", (0,)),
-            ("flash_dkv", A.flash_dkv_kernel, A.flash_dkv_reference, "dkv", (1, 2)),
+        for name, kernel, plain, kind, wrt, part in (
+            ("flash_dq", A.flash_dq_kernel, A.flash_dq_reference, "dq", (0,), slice(0, 1)),
+            ("flash_dkv", A.flash_dkv_kernel, A.flash_dkv_reference, "dkv", (1, 2), slice(1, 3)),
         ):
+            tensor_cores = shape[-1] == A.MHA_TC_HEAD_DIM
             cases.append(Case(
                 name, shape, [shape] * 4,
                 lambda t, f=kernel, c=causal: f(*t, c), lambda t, f=plain, c=causal: f(*t, c),
                 lambda t: tuple(u[:, None] for u in t[:4]),
                 prepare=lambda t, c=causal: with_stats(t, c),
                 kind=kind, causal=causal, stats=2, wrt=wrt, path=path, relative=True,
-                **(on_tensor_cores if shape[-1] == A.MHA_TC_HEAD_DIM else {}),
+                emulated=(lambda t, c=causal, p=part: A.blocked_bwd_tf32x3_reference(*t, c)[p])
+                if tensor_cores else None,
+                **(on_tensor_cores if tensor_cores else {}),
             ))
     # the whole-block backward entries past the whole-head kernel's shared
     # memory, on no path of the supported model (printed, not in the kernels
@@ -916,14 +996,15 @@ def phase_long_bwd_kernels(report: dict) -> None:
             lambda t, c=causal: A.mha_qkv_bwd_kernel(*t, 12, c),
             lambda t, c=causal: A.mha_qkv_bwd_reference(*t, 12, c),
             lambda t: (*packed_heads(t[0], 3, 12), *packed_heads(t[1], 1, 12)),
-            kind="bwd", causal=causal, path=(), relative=True, **on_tensor_cores,
+            kind="bwd", causal=causal, path=(), relative=True,
+            emulated=lambda t, c=causal: A.mha_qkv_bwd_tf32x3_reference(*t, 12, c), **on_tensor_cores,
         ))
     cases.append(Case(
         "fused_attention backward", (32, 12, 197, 64), (32, 197, 4, 12, 64),
         lambda t: A.fused_attention_bwd_kernel(*t.permute(2, 0, 3, 1, 4), False),
         lambda t: A.attention_bwd_reference(*t.permute(2, 0, 3, 1, 4), False),
         lambda t: tuple(t.permute(2, 0, 3, 1, 4)), kind="bwd", path=(), relative=True,
-        **on_tensor_cores,
+        emulated=lambda t: A.blocked_bwd_tf32x3_reference(*t.permute(2, 0, 3, 1, 4)), **on_tensor_cores,
     ))
     scratch = {}
     A.reset_launch_counts()
@@ -931,33 +1012,39 @@ def phase_long_bwd_kernels(report: dict) -> None:
     report.update({k: v for k, v in scratch.items() if k in KERNEL_SOURCE})
     # the tensor-core pair's own line: its numbers at its path's shape, K7's
     report["blocked_bwd_tc"] = dict(scratch["mha_qtile_bwd"])
-    # every bf16 launch at head dim 64 took the tensor-core pair; none in fp32 or
-    # at head dim 16
-    bf16_cases = sum(c.tensor_cores and torch.bfloat16 in c.dtypes for c in cases)
+    # every bf16 launch at head dim 64 took the tensor-core pair, every fp32 one
+    # the split-TF32 pair; none at head dim 16
+    bf16_cases, fp32_cases = (sum(c.tensor_cores and dtype in c.dtypes for c in cases)
+                              for dtype in (torch.bfloat16, torch.float32))
     # K8 made each flash case's statistics once a dtype: at head dim 64 in bf16
     # on the tensor-core kernel, in fp32 on the split-TF32 one
     stats_64 = [c for c in cases if c.prepare is not None and c.shape[-1] == 64]
     tc_stats = sum(torch.bfloat16 in c.dtypes for c in stats_64)
     tf32_stats = sum(torch.float32 in c.dtypes for c in stats_64)
-    require_routes("long backward kernels", tc_stats, CASE_CALLS * bf16_cases, tf32_stats)
+    require_routes("long backward kernels", tc_stats, CASE_CALLS * bf16_cases, tf32_stats,
+                   CASE_CALLS * fp32_cases)
     print(f"[long bwd] {A.route_counts['blocked_bwd_tc']} launches of the tensor-core backward pair "
-          f"over {bf16_cases} bf16 cases at head dim 64; none in fp32 or at head dim 16")
+          f"over {bf16_cases} bf16 cases and {A.route_counts['blocked_bwd_tf32']} of the split-TF32 "
+          f"pair over {fp32_cases} fp32 cases at head dim 64; none at head dim 16")
 
     # a fixed order of sums and no atomics: two launches give the same bits
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    q, kv, g = (torch.randn(32, 577, d, device="cuda", generator=gen).bfloat16()
-                for d in (1024, 2048, 1024))
-    once, again = A.mha_qtile_bwd_kernel(q, kv, g, 16), A.mha_qtile_bwd_kernel(q, kv, g, 16)
-    heads = list(torch.randn(4, 64, 500, 64, device="cuda", generator=gen).bfloat16())
-    out, lse = A.flash_attention_heads(*heads[:3], save_lse=True, causal=True)
-    once += A.flash_bwd_kernel(*heads, lse, out, True)
-    again += A.flash_bwd_kernel(*heads, lse, out, True)
-    torch.cuda.synchronize()
-    require(all(torch.equal(a, b) for a, b in zip(once, again)),
-            "two launches of the tensor-core backward pair differ")
-    print(f"[long bwd] K7 at (32, 577, 1024) and K9, K10 causal at (64, 500, 64), bf16: two "
-          f"launches give the same bits in all {len(once)} gradients")
-    del q, kv, g, heads, out, lse, once, again
+    for dtype in BOTH:
+        q, kv, g = (torch.randn(32, 577, d, device="cuda", generator=gen).to(dtype)
+                    for d in (1024, 2048, 1024))
+        once, again = A.mha_qtile_bwd_kernel(q, kv, g, 16), A.mha_qtile_bwd_kernel(q, kv, g, 16)
+        heads = list(torch.randn(4, 64, 500, 64, device="cuda", generator=gen).to(dtype))
+        out, lse = A.flash_attention_heads(*heads[:3], save_lse=True, causal=True)
+        once += A.flash_bwd_kernel(*heads, lse, out, True)
+        again += A.flash_bwd_kernel(*heads, lse, out, True)
+        torch.cuda.synchronize()
+        pair = "tensor-core" if dtype == torch.bfloat16 else "split-TF32"
+        require(all(torch.equal(a, b) for a, b in zip(once, again)),
+                f"two launches of the {pair} backward pair differ")
+        print(f"[long bwd] K7 at (32, 577, 1024) and K9, K10 causal at (64, 500, 64), "
+              f"{str(dtype).split('.')[-1]} on the {pair} pair: two launches give the same bits in "
+              f"all {len(once)} gradients")
+        del q, kv, g, heads, out, lse, once, again
 
     # autograd through fused_attention at the fp32 tower's split heads (K8, then
     # K9 and K10) against its plain path
@@ -1016,10 +1103,11 @@ def phase_small_and_causal() -> None:
     def randn(*shape):
         return torch.randn(shape, device="cuda", generator=gen).requires_grad_(True)
 
-    def both_ways(tag, fn, leaves, launches, tf32=0):
+    def both_ways(tag, fn, leaves, launches, tf32=0, bwd_tf32=0):
         """fn's value and gradients with the kernels chosen and with the plain
         versions chosen; the first run's counts must be the given ones, ``tf32``
-        of its launches on the split-TF32 kernel."""
+        of its launches on the split-TF32 kernel and ``bwd_tf32`` on the
+        split-TF32 backward pair."""
         def run():
             out = fn()
             return (out, *torch.autograd.grad((out.float() ** 2).sum(), leaves))
@@ -1033,7 +1121,7 @@ def phase_small_and_causal() -> None:
         torch.cuda.synchronize()
         require(counts == {k: launches.get(k, 0) for k in counts}, f"{tag}: launches {counts}")
         require(dict(A.launch_counts) == counts, f"{tag}: the plain run launched a kernel")
-        require_routes(tag, 0, 0, tf32)
+        require_routes(tag, 0, 0, tf32, bwd_tf32)
         worst = 0.0
         for ours, theirs in zip(got, want):
             top = theirs.abs().max().item()
@@ -1072,14 +1160,14 @@ def phase_small_and_causal() -> None:
     q, k, v = randn(2, 4, 500, 64), randn(2, 4, 500, 64), randn(2, 4, 500, 64)
     both_ways("fused_attention, causal L=500 at head dim 64",
               lambda: A.fused_attention(q, k, v, True), [q, k, v],
-              {"flash_attention_heads": 1, "flash_dq": 1, "flash_dkv": 1}, tf32=1)
+              {"flash_attention_heads": 1, "flash_dq": 1, "flash_dkv": 1}, tf32=1, bwd_tf32=2)
     # causal, L=197: the whole-row forward, the KV-blocked pair with the mask
     qkv = randn(2, 197, 3 * 128)
     both_ways("fused_mha_qkv, causal L=197", lambda: A.fused_mha_qkv(qkv, 2, True), [qkv],
-              {"fused_mha_qkv": 1, "mha_qkv_bwd": 1}, tf32=1)
+              {"fused_mha_qkv": 1, "mha_qkv_bwd": 1}, tf32=1, bwd_tf32=1)
     q197 = randn(2, 12, 197, 64)
     both_ways("fused_attention, causal L=197", lambda: A.fused_attention(q197, q197, q197, True),
-              [q197], {"fused_attention": 2})
+              [q197], {"fused_attention": 2}, bwd_tf32=1)
     torch.cuda.synchronize()
 
 
@@ -1118,16 +1206,19 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0, tf32: int = 0) -> dict:
+def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0, tf32: int = 0,
+                   bwd_tf32: int = 0) -> dict:
     """The route counts of the run just made: ``tensor_core`` launches of K1, K6
     and K8 took the tensor-core kernel and ``bwd_tensor_core`` launches of the
     KV-blocked backward the tensor-core pair (all of them in bf16 at head dim
     64, none in fp32), ``tf32`` launches of K1, K6 and K8 the split-TF32 kernel
+    and ``bwd_tf32`` launches of the KV-blocked backward the split-TF32 pair
     (all of them in fp32 at head dim 64, none in bf16) -> the counts."""
     from anomalyclip_tpu_torch.ops.attention import route_counts
 
     routes = dict(route_counts)
-    want = {"mha_tc": tensor_core, "blocked_bwd_tc": bwd_tensor_core, "mha_tf32": tf32}
+    want = {"mha_tc": tensor_core, "blocked_bwd_tc": bwd_tensor_core, "mha_tf32": tf32,
+            "blocked_bwd_tf32": bwd_tf32}
     require(routes == want, f"{what}: routes {routes}, expected {want}")
     return routes
 
@@ -1341,7 +1432,8 @@ def phase_train() -> dict:
     expected = {k: TRAIN_STEPS * per_step.get(k, 0) for k in launch_counts}
     print(f"[train] launches {launches}, expected {expected}")
     require(launches == expected, f"launches {launches}, expected {expected}")
-    launches.update(require_routes("fp32 training", 0, 0, expected["fused_mha_qkv"]))
+    # the text tower's backwards are whole-head (L=77): none on the split-TF32 pair
+    launches.update(require_routes("fp32 training", 0, 0, expected["fused_mha_qkv"], 0))
 
     require(all(np.isfinite(t).all() for t in run.terms), f"non-finite loss terms {run.terms}")
     require(run.moved[0] == 0.0, f"epoch 0 trains at lr 0, but the weights moved {run.moved[0]}")
@@ -1542,16 +1634,17 @@ def phase_tower_gradient() -> dict:
         reset_launch_counts,
     )
 
+    # arch, dtype, limit, launches and split-TF32 backward launches per n layers
     runs = (
         ("ViT-L/14@336px", torch.bfloat16, BF16_GRAD_TOL,
-         lambda n: {"fused_mha_qtile": n, "mha_qtile_bwd": n}),
+         lambda n: {"fused_mha_qtile": n, "mha_qtile_bwd": n}, lambda n: 0),
         ("ViT-L/14@336px", torch.float32, FP32_GRAD_TOL,
-         lambda n: {"flash_attention_heads": n, "flash_dq": n, "flash_dkv": n}),
+         lambda n: {"flash_attention_heads": n, "flash_dq": n, "flash_dkv": n}, lambda n: 2 * n),
         ("ViT-B/16", torch.float32, FP32_GRAD_TOL,
-         lambda n: {"fused_mha_qkv": n, "mha_qkv_bwd": n}),
+         lambda n: {"fused_mha_qkv": n, "mha_qkv_bwd": n}, lambda n: n),
     )
     launches, built = {}, (None, None)
-    for arch, dtype, limit, expect in runs:
+    for arch, dtype, limit, expect, on_tf32_bwd in runs:
         if built[0] != arch:
             del built
             torch.cuda.empty_cache()
@@ -1568,10 +1661,12 @@ def phase_tower_gradient() -> dict:
         want_counts = {k: expect(cfg.vision_layers).get(k, 0) for k in launch_counts}
         require(launches[name] == want_counts, f"{name} launches {launches[name]}, expected {want_counts}")
         # in bf16 every K6 launch and every K7 launch is a tensor-core one; in
-        # fp32 every K1 and K8 launch a split-TF32 one
+        # fp32 every K1 and K8 launch a split-TF32 one, and every launch of K9,
+        # K10 or K3's blocked route the split-TF32 pair
         on_tc = cfg.vision_layers * (dtype == torch.bfloat16)
         on_tf32 = cfg.vision_layers * (dtype == torch.float32)
-        launches[name].update(require_routes(f"{name} gradient", on_tc, on_tc, on_tf32))
+        launches[name].update(require_routes(f"{name} gradient", on_tc, on_tc, on_tf32,
+                                             on_tf32_bwd(cfg.vision_layers)))
         torch.cuda.reset_peak_memory_stats()
         _, warm_s = timed(lambda: step(dtype))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1745,16 +1840,19 @@ def phase_scripts() -> list:
     # the backward pair at the four of them past the whole-head backward (two
     # through K3's entry, two through K7), with both its kernels' opcode mixes;
     # then the split-TF32 kernel in fp32 at six shapes (three through K1, two
-    # through K8, one through K6), and its opcode mix
+    # through K8, one through K6), and its opcode mix; then the split-TF32
+    # backward pair at three (K9 and K10 on the gradient's heads after one K8
+    # launch for their statistics, K7, K3's entry), and both its kernels' mixes
     runs.append(run_script("bench_mha_tc", ["--sass", *it], {
         "fused_mha_qkv": (4 + 3) * calls, "fused_mha_qtile": (2 + 1) * calls, "mha_tc": 7 * calls,
-        "mha_qkv_bwd": 2 * calls, "mha_qtile_bwd": 2 * calls, "blocked_bwd_tc": 4 * calls,
-        "flash_attention_heads": (1 + 2) * calls, "mha_tf32": 6 * calls}))
-    # K7's parity in fp32 (one launch of the CUDA-core pair), then the bf16
+        "mha_qkv_bwd": (2 + 1) * calls, "mha_qtile_bwd": (2 + 1) * calls, "blocked_bwd_tc": 4 * calls,
+        "flash_attention_heads": (1 + 2) * calls + 1, "mha_tf32": 6 * calls + 1,
+        "flash_dq": calls, "flash_dkv": calls, "blocked_bwd_tf32": (2 + 1 + 1) * calls}))
+    # K7's parity in fp32 (one launch of the split-TF32 pair), then the bf16
     # forward+backward step, warmed and timed, on the tensor-core kernels
     runs.append(run_script("bench_attn_bwd", ["--qtile", *it], {
         "fused_mha_qtile": n + 1, "mha_tc": n + 1, "mha_qtile_bwd": 1 + n + 1,
-        "blocked_bwd_tc": n + 1}))
+        "blocked_bwd_tc": n + 1, "blocked_bwd_tf32": 1}))
     # the ViT-L/14@336px tower by layer under the kernels and three plain forms:
     # 24 K6 launches along the kernel run and 24 for its local gaps
     runs.append(run_script("probe_bf16_drift", ["--seeds", "1", "--frames", "8"],
@@ -1797,6 +1895,8 @@ def kernel_class(name: str) -> str:
         return "attention backward (mha_bwd.cu)"
     if "blocked_dq_tc_kernel" in low or "blocked_dkv_tc_kernel" in low:
         return "attention backward (mha_tc_bwd.cu)"
+    if "blocked_dq_tf32_kernel" in low or "blocked_dkv_tf32_kernel" in low:
+        return "attention backward (mha_tf32_bwd.cu)"
     if "blocked_dq_kernel" in low or "blocked_dkv_kernel" in low:
         return "attention backward (mha_blocked_bwd.cu)"
     if low.startswith(("memcpy", "memset")):
@@ -1972,8 +2072,8 @@ def main() -> int:
     grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd", "mha_tc",
                                               "blocked_bwd_tc"),
                   "ViT-L/14@336px float32": ("flash_attention_heads", "flash_dq", "flash_dkv",
-                                             "mha_tf32"),
-                  "ViT-B/16 float32": ("fused_mha_qkv", "mha_qkv_bwd", "mha_tf32")}
+                                             "mha_tf32", "blocked_bwd_tf32"),
+                  "ViT-B/16 float32": ("fused_mha_qkv", "mha_qkv_bwd", "mha_tf32", "blocked_bwd_tf32")}
     for run, names in grad_paths.items():
         require(all(grad_launches[run][k] > 0 for k in names),
                 f"a kernel of the {run} gradient path was never launched: {grad_launches[run]}")
@@ -1981,7 +2081,7 @@ def main() -> int:
     script_totals = {k: sum(run[k] for run in script_launches) for k in script_launches[0]}
     script_path = (*PROBE_REPLACES, "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                    "fused_mha_qtile", "flash_attention_heads", "mha_tc", "mha_qtile_bwd",
-                   "blocked_bwd_tc", "mha_tf32")
+                   "blocked_bwd_tc", "mha_tf32", "blocked_bwd_tf32")
     require(all(script_totals[k] > 0 for k in script_path),
             f"a kernel of the scripts' path was never launched: {script_totals}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),

@@ -53,20 +53,23 @@ BF16_CARD_TOL = 7e-3
 
 
 @pytest.mark.parametrize(
-    "dtype,dh,tensor_cores",
+    "dtype,dh,source",
     [
-        (torch.bfloat16, 64, True),
-        (torch.float32, 64, False),  # fp32 stays off the tensor cores: TF32 is off
-        (torch.bfloat16, 32, False),
-        (torch.bfloat16, 16, False),
-        (torch.bfloat16, 8, False),
-        (torch.float32, 8, False),
-        (torch.float16, 64, False),  # no kernel takes it; the wrappers raise
+        (torch.bfloat16, 64, "mha_tc_bwd.cu"),
+        # fp32 on the tensor cores as split-TF32 products: TF32 itself stays off
+        (torch.float32, 64, "mha_tf32_bwd.cu"),
+        (torch.bfloat16, 32, "mha_blocked_bwd.cu"),
+        (torch.bfloat16, 16, "mha_blocked_bwd.cu"),
+        (torch.bfloat16, 8, "mha_blocked_bwd.cu"),
+        (torch.float32, 8, "mha_blocked_bwd.cu"),
+        (torch.float16, 64, "mha_blocked_bwd.cu"),  # no kernel takes it; the wrappers raise
     ],
 )
-def test_which_pair_serves_a_backward_is_a_pure_function(dtype, dh, tensor_cores):
-    assert tattn.mha_tc_eligible(dtype, dh) is tensor_cores
-    source = "mha_tc_bwd.cu" if tensor_cores else "mha_blocked_bwd.cu"
+def test_which_pair_serves_a_backward_is_a_pure_function(dtype, dh, source):
+    assert tattn.mha_tc_eligible(dtype, dh) is (source == "mha_tc_bwd.cu")
+    assert tattn.mha_tf32_eligible(dtype, dh) is (source == "mha_tf32_bwd.cu")
+    assert tattn._blocked_pair(dtype, dh) == {"mha_tc_bwd.cu": "tc", "mha_tf32_bwd.cu": "tf32"}.get(
+        source, "cuda")
     assert bench_attn_bwd.served_by(dtype, dh) == bench_attn_bwd.served_by(dtype, dh, "blocked") == source
     assert bench_attn_bwd.served_by(dtype, dh, "whole") == "mha_bwd.cu"
 
@@ -104,7 +107,8 @@ def _bf16_round(x: np.ndarray) -> np.ndarray:
 
 
 class NumpyBackwardPairs:
-    """The four entries of ops/csrc/mha_blocked_bwd.cu and mha_tc_bwd.cu in numpy:
+    """The six entries of ops/csrc/mha_blocked_bwd.cu, mha_tc_bwd.cu and
+    mha_tf32_bwd.cu in numpy:
     their arithmetic without their tiling, on operands decoded from the raw
     pointers and (batch, head, row) element strides the wrappers pass, so that a
     wrong view, stride, output layout, statistic or choice of pair shows."""
@@ -201,6 +205,17 @@ class NumpyBackwardPairs:
         return self._dkv("dkv_tc", True, ptrs, strides, lse, ctypes.c_void_p(None), delta,
                          (b, h, seq, dh), causal, scale)
 
+    def acl_blocked_dq_tf32(self, ptrs, strides, lse, delta, recompute, b, h, seq, dh, causal, scale,
+                            stream):
+        assert dh == 64
+        return self._dq("dq_tf32", False, ptrs, strides, lse, ctypes.c_void_p(None), delta, recompute,
+                        (b, h, seq, dh), causal, scale, True)
+
+    def acl_blocked_dkv_tf32(self, ptrs, strides, lse, delta, b, h, seq, dh, causal, scale, stream):
+        assert dh == 64
+        return self._dkv("dkv_tf32", False, ptrs, strides, lse, ctypes.c_void_p(None), delta,
+                         (b, h, seq, dh), causal, scale)
+
 
 class _AsCuda:
     """A CPU tensor that says it is on the card, for the wrappers' shape checks."""
@@ -248,6 +263,8 @@ def _expected_calls(dtype, dh, causal=False):
     tail = " causal" if causal else ""
     if tattn.mha_tc_eligible(dtype, dh):
         return [f"dq_tc{tail}", f"dkv_tc{tail}"]
+    if tattn.mha_tf32_eligible(dtype, dh):
+        return [f"dq_tf32{tail}", f"dkv_tf32{tail}"]
     name = "fp32" if dtype == torch.float32 else "bf16"
     return [f"dq {name} dh{dh}{tail}", f"dkv {name} dh{dh}{tail}"]
 
@@ -259,8 +276,9 @@ _PAIR_CASES = [(torch.bfloat16, 2), (torch.float32, 2), (torch.bfloat16, 4), (to
 @pytest.mark.parametrize("dtype,heads", _PAIR_CASES)
 def test_qtile_bwd_wrapper_reads_and_writes_in_place(numpy_kernels, dtype, heads):
     """K7: q and kv as column slices of one packed tensor, dk|dv written into the
-    two halves of one (B, L, 2D) tensor; the tensor-core pair in bf16 at head
-    dim 64 alone, and the statistics of its dq launch read by its dkv launch."""
+    two halves of one (B, L, 2D) tensor; at head dim 64 the tensor-core pair in
+    bf16 and the split-TF32 pair in fp32, and the statistics of the dq launch
+    read by the dkv launch."""
     rng = np.random.default_rng(30)
     x, g = _randn(rng, dtype, 2, 150, 3 * 128), _randn(rng, dtype, 2, 150, 128)
     q, kv = x[..., :128], x[..., 128:]
@@ -269,8 +287,8 @@ def test_qtile_bwd_wrapper_reads_and_writes_in_place(numpy_kernels, dtype, heads
     _all_close((dq, dkv), tattn.mha_qtile_bwd_reference(q, kv, g, heads), dtype)
     assert numpy_kernels.calls == _expected_calls(dtype, 128 // heads)
     assert tattn.launch_counts == _counts(mha_qtile_bwd=1)
-    tc = int(numpy_kernels.calls[0] == "dq_tc")
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": tc, "mha_tf32": 0}
+    tc, tf32 = (int(numpy_kernels.calls[0] == call) for call in ("dq_tc", "dq_tf32"))
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": tc, "mha_tf32": 0, "blocked_bwd_tf32": tf32}
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -286,6 +304,7 @@ def test_qkv_bwd_wrapper_takes_the_blocked_route_on_either_pair(numpy_kernels, d
     assert numpy_kernels.calls == _expected_calls(dtype, 128 // heads, causal)
     assert tattn.launch_counts == _counts(mha_qkv_bwd=1)
     assert tattn.route_counts["blocked_bwd_tc"] == int(tattn.mha_tc_eligible(dtype, 128 // heads))
+    assert tattn.route_counts["blocked_bwd_tf32"] == int(tattn.mha_tf32_eligible(dtype, 128 // heads))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -305,6 +324,7 @@ def test_bld_and_fused_attention_bwd_wrappers_on_either_pair(numpy_kernels, dtyp
     assert numpy_kernels.calls == _expected_calls(dtype, 64, True) + _expected_calls(dtype, 64)
     assert tattn.launch_counts == _counts(mha_bld_bwd=1, fused_attention=1)
     assert tattn.route_counts["blocked_bwd_tc"] == 2 * (dtype == torch.bfloat16)
+    assert tattn.route_counts["blocked_bwd_tf32"] == 2 * (dtype == torch.float32)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -320,25 +340,29 @@ def test_flash_bwd_wrapper_hands_over_the_log_sum_exp_and_no_row_sum(numpy_kerne
     _all_close(got, tattn.flash_attention_bwd_reference(q, k, v, g, lse, out, causal), dtype)
     assert numpy_kernels.calls == _expected_calls(dtype, dh, causal)
     assert tattn.launch_counts == _counts(flash_dq=1, flash_dkv=1)
-    tc = 2 * tattn.mha_tc_eligible(dtype, dh)
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": tc, "mha_tf32": 0}
+    tc, tf32 = 2 * tattn.mha_tc_eligible(dtype, dh), 2 * tattn.mha_tf32_eligible(dtype, dh)
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": tc, "mha_tf32": 0, "blocked_bwd_tf32": tf32}
 
 
 def test_tc_pair_takes_no_row_sum(numpy_kernels):
-    """Its statistics are the log-sum-exp and delta: a caller that hands a row
-    sum beside a row max is refused before the launch."""
+    """Its statistics are the log-sum-exp and delta, as the split-TF32 pair's
+    are: a caller that hands a row sum beside a row max is refused before the
+    launch."""
     rng = np.random.default_rng(34)
     q, k, v, g = (_randn(rng, torch.bfloat16, 1, 1, 70, 64) for _ in range(4))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     m, l, delta = torch.zeros(3, 1, 1, 70)
-    with pytest.raises(ValueError, match="takes the log-sum-exp, not m and l"):
-        tattn._launch_blocked_dq("flash_dq", q, k, v, g, dq, m, l, delta, False, False)
-    with pytest.raises(ValueError, match="takes the log-sum-exp, not m and l"):
-        tattn._launch_blocked_dkv("flash_dkv", q, k, v, g, dk, dv, m, l, delta, False)
+    for operands in ((q, k, v, g), tuple(t.float() for t in (q, k, v, g))):
+        grads = tuple(torch.empty_like(operands[0]) for _ in range(3))
+        with pytest.raises(ValueError, match="takes the log-sum-exp, not m and l"):
+            tattn._launch_blocked_dq("flash_dq", *operands, grads[0], m, l, delta, False, False)
+        with pytest.raises(ValueError, match="takes the log-sum-exp, not m and l"):
+            tattn._launch_blocked_dkv("flash_dkv", *operands, *grads[1:], m, l, delta, False)
     assert numpy_kernels.calls == []
-    # the CUDA-core pair takes all three
-    tattn._launch_blocked_dq("flash_dq", *(t.float() for t in (q, k, v, g, dq)), m, l + 1, delta, False, False)
-    assert numpy_kernels.calls == ["dq fp32 dh64"]
+    # the CUDA-core pair (here at head dim 32) takes all three
+    tattn._launch_blocked_dq("flash_dq", *(t.float()[..., :32] for t in (q, k, v, g, dq)), m, l + 1, delta,
+                             False, False)
+    assert numpy_kernels.calls == ["dq fp32 dh32"]
 
 
 def _one_element_in(rng, *shape):
@@ -365,13 +389,14 @@ def test_tc_backward_refuses_operands_it_cannot_read_in_16_byte_pieces(numpy_ker
     with pytest.raises(ValueError, match="flash_dkv: .*16-byte pieces"):
         tattn.flash_dkv_kernel(k, q, v, gg, stats, stats)
     assert numpy_kernels.calls == [] and tattn.launch_counts == _counts()
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0}
-    # aligned copies launch; fp32 and head dim 32 take any view, on the CUDA cores
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+    # aligned copies launch; head dim 32 takes any view, on the CUDA cores; fp32
+    # copies at head dim 64 take the split-TF32 pair
     tattn.mha_qtile_bwd_kernel(x[..., :128].contiguous(), x[..., 128:].contiguous(), g, 2)
     tattn.mha_qtile_bwd_kernel(x[..., :128], x[..., 128:], g, 4)
     tattn.mha_qtile_bwd_kernel(x[..., :128].float(), x[..., 128:].float(), g.float(), 2)
     assert numpy_kernels.calls == ["dq_tc", "dkv_tc", "dq bf16 dh32", "dkv bf16 dh32",
-                                   "dq fp32 dh64", "dkv fp32 dh64"]
+                                   "dq_tf32", "dkv_tf32"]
 
 
 def test_tc_backward_refuses_what_the_card_cannot_hold(numpy_kernels, monkeypatch):
@@ -459,7 +484,7 @@ def test_tc_flash_bwd_matches_plain_and_repeats_to_the_bit(cuda, n, l, causal):
     tattn.reset_launch_counts()
     got = tattn.flash_bwd_kernel(q, k, v, g, lse, out, causal)
     again = tattn.flash_bwd_kernel(q, k, v, g, lse, out, causal)
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 4, "mha_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 4, "mha_tf32": 0, "blocked_bwd_tf32": 0}
     _card_close(got, tattn.flash_attention_bwd_reference(q, k, v, g, lse, out, causal))
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
@@ -481,7 +506,7 @@ def test_tc_pair_serves_the_whole_block_entries_past_the_whole_head_kernel(cuda,
     _card_close(tattn.fused_attention_bwd_kernel(*heads, causal),
                 tattn.attention_bwd_reference(*heads, causal))
     assert tattn.launch_counts == _counts(mha_qkv_bwd=1, mha_bld_bwd=1, fused_attention=1)
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 3, "mha_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 3, "mha_tf32": 0, "blocked_bwd_tf32": 0}
 
 
 @pytest.mark.gpu
@@ -499,7 +524,8 @@ def test_other_types_and_head_dims_stay_on_the_cuda_core_pair_on_the_card(cuda):
             torch.testing.assert_close(ours.float(), theirs.float(), rtol=0,
                                        atol=(FP32_TOL if dtype == torch.float32 else 5e-2) * top)
     assert tattn.launch_counts == _counts(mha_qtile_bwd=3)
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0}
+    # fp32 at head dim 64 on the split-TF32 pair; bf16 at head dims 32 and 8 on the CUDA cores
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 1}
 
 
 @pytest.mark.gpu

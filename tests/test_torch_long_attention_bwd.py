@@ -245,7 +245,9 @@ class NumpyBlockedKernels:
     """``acl_blocked_dq`` and ``acl_blocked_dkv`` in numpy (fp32 only): the
     arithmetic of ops/csrc/mha_blocked_bwd.cu without its tiling, reading and
     writing through the raw pointers and (batch, head, row) element strides the
-    wrappers pass, so that a wrong view, stride or output layout shows."""
+    wrappers pass, so that a wrong view, stride or output layout shows; and the
+    split-TF32 pair's two entries (mha_tf32_bwd.cu, fp32 at head dim 64), whose
+    row statistics are the log-sum-exp and delta."""
 
     def __init__(self):
         self.calls = []
@@ -281,25 +283,47 @@ class NumpyBlockedKernels:
         dp = np.einsum("bhqd,bhkd->bhqk", g, v)
         return p, p * (dp - delta[..., None]) * scale
 
-    def acl_blocked_dq(self, dtype, ptrs, strides, m, l, delta, recompute, b, h, seq, dh, causal, scale,
-                       stream):
-        assert dtype == 0
-        self.calls.append("dq causal" if causal else "dq")
-        q, k, v, g, dq = self._operands(ptrs, strides, 5, (b, h, seq, dh))
-        m, l, delta = (self._stat(t, (b, h, seq)) for t in (m, l, delta))
+    def _dq(self, tag, ptrs, strides, m, l, delta, recompute, shape, causal, scale):
+        self.calls.append(tag + (" causal" if causal else ""))
+        q, k, v, g, dq = self._operands(ptrs, strides, 5, shape)
+        m, l, delta = (self._stat(t, shape[:3]) for t in (m, l, delta))
         if recompute:
             s = self._scores(q, k, causal, scale)
-            m[...] = s.max(axis=-1)
-            e = np.exp(s - m[..., None])
-            l[...] = e.sum(axis=-1)
-            delta[...] = (e / l[..., None] * np.einsum("bhqd,bhkd->bhqk", g, v)).sum(axis=-1)
+            top = s.max(axis=-1)
+            e = np.exp(s - top[..., None])
+            total = e.sum(axis=-1)
+            delta[...] = (e / total[..., None] * np.einsum("bhqd,bhkd->bhqk", g, v)).sum(axis=-1)
+            if l is None:  # the split-TF32 pair hands over the log-sum-exp alone
+                m[...] = top + np.log(total)
+            else:
+                m[...], l[...] = top, total
         _, ds = self._p_and_ds(q, k, v, g, m, l, delta, causal, scale)
         dq[...] = np.einsum("bhqk,bhkd->bhqd", ds, k)
         return 0
 
+    def acl_blocked_dq(self, dtype, ptrs, strides, m, l, delta, recompute, b, h, seq, dh, causal, scale,
+                       stream):
+        assert dtype == 0
+        return self._dq("dq", ptrs, strides, m, l, delta, recompute, (b, h, seq, dh), causal, scale)
+
+    def acl_blocked_dq_tf32(self, ptrs, strides, lse, delta, recompute, b, h, seq, dh, causal, scale,
+                            stream):
+        assert dh == 64
+        return self._dq("dq_tf32", ptrs, strides, lse, ctypes.c_void_p(None), delta, recompute,
+                        (b, h, seq, dh), causal, scale)
+
+    def acl_blocked_dkv_tf32(self, ptrs, strides, lse, delta, b, h, seq, dh, causal, scale, stream):
+        assert dh == 64
+        return self._dkv("dkv_tf32", ptrs, strides, lse, ctypes.c_void_p(None), delta, (b, h, seq, dh),
+                         causal, scale)
+
     def acl_blocked_dkv(self, dtype, ptrs, strides, m, l, delta, b, h, seq, dh, causal, scale, stream):
         assert dtype == 0
-        self.calls.append("dkv causal" if causal else "dkv")
+        return self._dkv("dkv", ptrs, strides, m, l, delta, (b, h, seq, dh), causal, scale)
+
+    def _dkv(self, tag, ptrs, strides, m, l, delta, shape, causal, scale):
+        self.calls.append(tag + (" causal" if causal else ""))
+        b, h, seq, dh = shape
         q, k, v, g, dk, dv = self._operands(ptrs, strides, 6, (b, h, seq, dh))
         m, l, delta = (self._stat(t, (b, h, seq)) for t in (m, l, delta))
         p, ds = self._p_and_ds(q, k, v, g, m, l, delta, causal, scale)
@@ -356,13 +380,18 @@ def test_qkv_bwd_wrapper_takes_the_blocked_route(numpy_kernels):
     got = tattn.mha_qkv_bwd_kernel(qkv, g, 2, False)
     assert got.shape == qkv.shape
     _all_close([got], [tattn.mha_qkv_bwd_reference(qkv, g, 2, False)])
-    assert numpy_kernels.calls == ["dq", "dkv"]
+    # fp32 at head dim 64: the split-TF32 pair
+    assert numpy_kernels.calls == ["dq_tf32", "dkv_tf32"]
     assert tattn.launch_counts == _counts(mha_qkv_bwd=1)
     # the same route with the causal mask handed on to both passes
     got = tattn.mha_qkv_bwd_kernel(qkv, g, 2, True)
     _all_close([got], [tattn.mha_qkv_bwd_reference(qkv, g, 2, True)])
-    assert numpy_kernels.calls[2:] == ["dq causal", "dkv causal"]
+    assert numpy_kernels.calls[2:] == ["dq_tf32 causal", "dkv_tf32 causal"]
     assert tattn.launch_counts == _counts(mha_qkv_bwd=2)
+    # and at head dim 32 the CUDA-core pair
+    got = tattn.mha_qkv_bwd_kernel(qkv, g, 4, False)
+    _all_close([got], [tattn.mha_qkv_bwd_reference(qkv, g, 4, False)])
+    assert numpy_kernels.calls[4:] == ["dq", "dkv"]
 
 
 def test_bld_bwd_wrapper_takes_the_blocked_route(numpy_kernels):

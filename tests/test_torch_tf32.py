@@ -340,8 +340,8 @@ def _counts(**expected):
     return {k: expected.get(k, 0) for k in tattn.launch_counts}
 
 
-def _routes(tf32=0, tc=0):
-    return {"mha_tc": tc, "blocked_bwd_tc": 0, "mha_tf32": tf32}
+def _routes(tf32=0, tc=0, bwd_tf32=0):
+    return {"mha_tc": tc, "blocked_bwd_tc": 0, "mha_tf32": tf32, "blocked_bwd_tf32": bwd_tf32}
 
 
 @pytest.mark.parametrize(
@@ -645,7 +645,7 @@ def test_core_rung_views_on_the_card(cuda):
     out = tclip._attention_apply_rung("core", qkv, 16, False)
     (grad,) = torch.autograd.grad((out ** 2).sum(), qkv)
     assert tattn.launch_counts == _counts(flash_attention_heads=1, flash_dq=1, flash_dkv=1)
-    assert tattn.route_counts == _routes(tf32=1)
+    assert tattn.route_counts == _routes(tf32=1, bwd_tf32=2)  # K9 and K10 on mha_tf32_bwd.cu
     with tattn.attention_impl("reference"):
         want = tclip._attention_apply_rung("core", qkv, 16, False)
         (want_grad,) = torch.autograd.grad((want ** 2).sum(), qkv)
