@@ -151,12 +151,21 @@ def _attn_along_frames(x: torch.Tensor, p: Params, cfg: TemporalConfig) -> torch
     return y.reshape(b, n, l, d)
 
 
+def leaky_relu(y: torch.Tensor, positive=None) -> torch.Tensor:
+    """LeakyReLU(0.01): y where ``positive`` (by default y >= 0), else 0.01 y.
+    ``positive`` lets a comparison of two runs take one run's branches in the
+    other (chip_smoke.py phase 4b): the derivative jumps from 1 to 0.01 at 0, so
+    two runs that differ by one rounding take different branches wherever y
+    lies within that rounding of 0."""
+    return torch.where(y >= 0 if positive is None else positive, y, 0.01 * y)
+
+
 def _conv_ff(x: torch.Tensor, p: Params) -> torch.Tensor:
     """Channel-LN -> 3x3 conv (d -> 4d) -> LeakyReLU(0.01) -> 3x3 conv (4d -> d)
     over the (n, l) grid; "SAME" padding."""
     y = _chan_layer_norm(x, p["ln_g"], p["ln_b"]).permute(0, 3, 1, 2)
     y = F.conv2d(y, p["conv1_w"], p["conv1_b"], padding=1)
-    y = torch.where(y >= 0, y, 0.01 * y)
+    y = leaky_relu(y)
     y = F.conv2d(y, p["conv2_w"], p["conv2_b"], padding=1)
     return y.permute(0, 2, 3, 1)
 

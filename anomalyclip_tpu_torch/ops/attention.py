@@ -49,6 +49,13 @@ from the operand type and the head dim before the launch:
 - K8: ``acl_flash_tc_fwd``, ``acl_flash_tf32_fwd``, ``acl_flash_fwd``
   (mha_long.cu), in the same order.
 
+- K2: ``acl_mha_bld_tf32_fwd`` (mha_bld_tf32.cu) in fp32 at head dims 16 and
+  32 with L <= 32 (the temporal model's axial attention), ``acl_mha_bld_fwd``
+  (mha.cu) everything else; its backward K4 ``acl_mha_bld_tf32_bwd`` at the
+  same shapes, ``acl_mha_bld_bwd`` (mha_bwd.cu) or the KV-blocked pair past
+  them (``mha_bld_tf32_eligible``). fused_attention's whole-block branch keeps
+  mha.cu and mha_bwd.cu in either direction.
+
 mha_tc.cu is the tensor-core kernel (``mma.sync`` products, P in registers, K
 and V in blocks of ``MHA_TC_BLOCK_KV`` keys with online softmax: every CLIP
 tower in bf16, and the bf16 core rung); mha_tf32.cu the same design with each
@@ -108,6 +115,7 @@ import ctypes
 import functools
 import math
 import os
+import types
 
 import torch
 
@@ -136,8 +144,11 @@ launch_counts = {
 # each count of ``launch_counts``; "mha_tf32" the launches of the same three
 # forward entries that took the split-TF32 tensor-core kernel (mha_tf32.cu);
 # "blocked_bwd_tf32" the backward entries' launches that took the split-TF32
-# pair (mha_tf32_bwd.cu), counted as "blocked_bwd_tc" is
-route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+# pair (mha_tf32_bwd.cu), counted as "blocked_bwd_tc" is; "bld_tf32" the
+# launches of fused_mha_bld (K2) that took the split-TF32 whole-head kernel
+# (mha_bld_tf32.cu), and "bld_bwd_tf32" those of its backward (K4)
+route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
+                "bld_tf32": 0, "bld_bwd_tf32": 0}
 
 IMPL_ENV = "ANOMALYCLIP_ATTN_IMPL"
 _IMPLS = ("kernel", "reference")
@@ -456,6 +467,44 @@ def mha_qkv_bwd_tf32x3_reference(qkv, g, num_heads: int, causal: bool = False,
     return torch.cat([_merge_heads(t) for t in grads], dim=-1)
 
 
+def mha_bld_tf32x3_reference(q, k, v, num_heads: int, causal: bool = False,
+                             passes: int = 3) -> torch.Tensor:
+    """What the split-TF32 whole-head forward (mha_bld_tf32.cu, K2 in fp32 at L
+    <= 32) computes over fp32 (B, L, D) q, k, v -> (B, L, D): whole softmax rows
+    (one KV block of L keys in ``_online_softmax``), the products formed from the
+    operands' TF32 parts (``_tf32_product``), the divide on the output row.
+    ``passes=1`` is plain TF32, which the fp32 limits reject. For the tests and
+    the chip smoke run: nothing on the main path calls it."""
+    heads = [_split_heads(t.float(), num_heads) for t in (q, k, v)]
+    acc, denom, _ = _online_softmax(*heads, causal, q.shape[1], _tf32_product(passes))
+    return _merge_heads(acc / denom)
+
+
+def mha_bld_bwd_tf32x3_reference(q, k, v, g, num_heads: int, causal: bool = False,
+                                 passes: int = 3) -> tuple:
+    """What the split-TF32 whole-head backward (mha_bld_tf32.cu, K4 in fp32 at L
+    <= 32) computes over fp32 (B, L, D) q, k, v and the output gradient g ->
+    (dq, dk, dv), each (B, L, D): ``_mha_bwd_head``'s function, P normalised as
+    e / sum, delta = rowsum(P o dP), dS = P o (dP - delta) * scale, the five
+    products formed from the operands' TF32 parts, the cross terms first, as the
+    kernel orders them. ``passes=1`` is plain TF32. For the tests and the chip
+    smoke run: nothing on the main path calls it."""
+    product = _tf32_product(passes)
+    q, k, v, g = (_split_heads(t.float(), num_heads) for t in (q, k, v, g))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = product("...qd,...kd->...qk", q, k) * scale
+    if causal:
+        l = q.shape[-2]
+        s = s.masked_fill(~torch.ones((l, l), dtype=torch.bool, device=q.device).tril(), NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = product("...qd,...kd->...qk", g, v)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * scale
+    grads = (product("...qk,...kd->...qd", ds, k), product("...qk,...qd->...kd", ds, q),
+             product("...qk,...qd->...kd", p, g))
+    return tuple(_merge_heads(t) for t in grads)
+
+
 def flash_delta(g, out) -> torch.Tensor:
     """rowsum(g o out) in fp32, (N, L): the flash backward's delta, one
     elementwise pass outside the kernels, as ``_flash_bwd_impl`` (:1013-1016)."""
@@ -602,6 +651,33 @@ def mha_tf32_eligible(dtype: torch.dtype, dh: int) -> bool:
     mha_tf32_bwd.cu or another (the tensor-core pair of mha_tc_bwd.cu in bf16
     at head dim 64, the CUDA-core pair of mha_blocked_bwd.cu otherwise)."""
     return dtype == torch.float32 and dh == MHA_TF32_HEAD_DIM
+
+
+BLD_TF32_HEAD_DIMS = (16, 32)  # the head dims the split-TF32 whole-head kernels take
+BLD_TF32_MAX_L = 32  # the rows and keys one warp of them holds
+_BLD_TF32_WARPS = 4  # warps a block, each owning one (batch entry, head) (mha_bld_tf32.cu)
+_BLD_TF32_PADS = (8, 4, 4)  # floats of padding: the forward's K and V rows, the backward's rows
+
+
+def mha_bld_tf32_smem_bytes(l: int, dh: int, backward: bool) -> int:
+    """The split-TF32 whole-head kernels (mha_bld_tf32.cu), a block of four
+    warps: the forward's static K and V tiles of 32 rows (independent of L);
+    the backward's q, k, v and g tiles and its P and dS tiles, each of L
+    rounded up to 16 rows."""
+    k_pad, v_pad, pad = _BLD_TF32_PADS
+    if not backward:
+        return 4 * _BLD_TF32_WARPS * BLD_TF32_MAX_L * ((dh + k_pad) + (dh + v_pad))
+    rows = -(-l // 16) * 16
+    return 4 * _BLD_TF32_WARPS * (4 * rows * (dh + pad) + 2 * rows * (rows + pad))
+
+
+def mha_bld_tf32_eligible(dtype: torch.dtype, dh: int, l: int) -> bool:
+    """Whether K2 (``fused_mha_bld``) and its backward K4 launch the split-TF32
+    whole-head kernels of mha_bld_tf32.cu for this operand type, head dim and
+    length, or the CUDA-core kernels of mha.cu and mha_bwd.cu (the KV-blocked
+    pair past the whole-head backward): fp32 at head dim 16 or 32 with
+    1 <= L <= 32, the temporal model's axial attention."""
+    return dtype == torch.float32 and dh in BLD_TF32_HEAD_DIMS and 1 <= l <= BLD_TF32_MAX_L
 
 
 BWD_TC_PASSES = {"dq": 0, "dkv": 1}  # the library's codes for the pair's two kernels
@@ -844,9 +920,63 @@ def _launch_mha_bld(name: str, q, k, v, num_heads: int, causal: bool) -> torch.T
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _bld_tf32_plan(name: str, operands: tuple, num_heads: int, backward: bool) -> tuple:
+    """What the split-TF32 whole-head entries owe their operands that depends
+    only on their shapes, strides, dtypes and devices, given as one (shape,
+    stride, dtype, device) per operand (q first), so that a repeated call pays
+    for it once; raises, with the shape, on what they do not take -> (head
+    dim, scale, the operands' (batch, row) element strides, flat)."""
+    shape, _, dtype, device = operands[0]
+    for other, _, other_dtype, other_device in operands[1:]:
+        if other != shape or other_dtype != dtype:
+            raise ValueError(f"{name}: operands must agree: " + ", ".join(
+                f"{tuple(s)} {dt}" for s, _, dt, _ in operands))
+        if other_device != device:
+            raise ValueError(f"{name}: operands must be on one device")
+    b, l, d = shape
+    dh = _check_kernel_shape(name, types.SimpleNamespace(shape=shape, dtype=dtype, device=device), d,
+                             num_heads, lambda dh: mha_bld_tf32_smem_bytes(l, dh, backward))
+    strides = []
+    for _, stride, _, _ in operands:
+        if stride[-1] != 1:
+            raise ValueError(f"{name}: shape {tuple(shape)}: the last dimension must be contiguous")
+        if stride[0] % 4 or stride[1] % 4:
+            raise ValueError(f"{name}: the split-TF32 kernel reads float32 operands in 16-byte "
+                             f"pieces; shape {tuple(shape)} with strides {tuple(stride)} is not "
+                             f"aligned to them")
+        strides.extend(stride[:2])
+    if b * num_heads > _INT_MAX:
+        raise ValueError(f"{name}: shape {tuple(shape)} is beyond the launch grid")
+    return dh, 1.0 / math.sqrt(dh), tuple(strides)
+
+
+def _bld_tf32_args(name: str, operands: tuple, num_heads: int, backward: bool) -> tuple:
+    """``_bld_tf32_plan`` of the operands, and each base address in 16-byte
+    pieces (the one check a call repeats) -> the plan."""
+    plan = _bld_tf32_plan(name, tuple([(t.shape, t.stride(), t.dtype, t.device) for t in operands]),
+                          num_heads, backward)
+    if any([t.data_ptr() % 16 for t in operands]):
+        _check_16_byte_pieces(name, *operands)
+    return plan
+
+
 def mha_bld_fwd_kernel(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
-    """K2: launch ``acl_mha_bld_fwd`` -> (B, L, D); k and v are read in place."""
-    out = _launch_mha_bld("fused_mha_bld", q, k, v, num_heads, causal)
+    """K2: launch ``acl_mha_bld_tf32_fwd`` (fp32 at head dims 16 and 32 with L <=
+    32: ``mha_bld_tf32_eligible``) or ``acl_mha_bld_fwd`` (everything else) ->
+    (B, L, D); k and v are read in place."""
+    b, l, d = q.shape
+    if d % num_heads == 0 and mha_bld_tf32_eligible(q.dtype, d // num_heads, l):
+        dh, scale, strides = _bld_tf32_args("fused_mha_bld", (q, k, v), num_heads, False)
+        out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
+        err = load_library().acl_mha_bld_tf32_fwd(
+            q.data_ptr(), *strides[0:2], k.data_ptr(), *strides[2:4], v.data_ptr(), *strides[4:6],
+            out.data_ptr(), b, l, num_heads, dh, int(causal), scale, _stream(q),
+        )
+        _raise_on_error("fused_mha_bld", err)
+        route_counts["bld_tf32"] += 1
+    else:
+        out = _launch_mha_bld("fused_mha_bld", q, k, v, num_heads, causal)
     launch_counts["fused_mha_bld"] += 1
     return out
 
@@ -1055,8 +1185,23 @@ def _launch_mha_bld_bwd(name: str, q, k, v, g, num_heads: int, causal: bool) -> 
 
 
 def mha_bld_bwd_kernel(q, k, v, g, num_heads: int, causal: bool) -> tuple:
-    """K4: (dq, dk, dv), each (B, L, D)."""
-    grads = _launch_mha_bld_bwd("mha_bld_bwd", q, k, v, g, num_heads, causal)
+    """K4: (dq, dk, dv), each (B, L, D), from ``acl_mha_bld_tf32_bwd`` (fp32 at
+    head dims 16 and 32 with L <= 32: ``mha_bld_tf32_eligible``), else as
+    ``_launch_mha_bld_bwd`` routes; q, k, v are read in place."""
+    b, l, d = q.shape
+    if d % num_heads == 0 and mha_bld_tf32_eligible(q.dtype, d // num_heads, l):
+        g = g.to(q.dtype).contiguous()
+        dh, scale, strides = _bld_tf32_args("mha_bld_bwd", (q, k, v, g), num_heads, True)
+        grads = tuple(torch.empty((b, l, d), dtype=q.dtype, device=q.device) for _ in range(3))
+        err = load_library().acl_mha_bld_tf32_bwd(
+            q.data_ptr(), *strides[0:2], k.data_ptr(), *strides[2:4], v.data_ptr(), *strides[4:6],
+            g.data_ptr(), *strides[6:8], *(t.data_ptr() for t in grads),
+            b, l, num_heads, dh, int(causal), scale, _stream(q),
+        )
+        _raise_on_error("mha_bld_bwd", err)
+        route_counts["bld_bwd_tf32"] += 1
+    else:
+        grads = _launch_mha_bld_bwd("mha_bld_bwd", q, k, v, g, num_heads, causal)
     launch_counts["mha_bld_bwd"] += 1
     return grads
 

@@ -206,21 +206,6 @@ __device__ __forceinline__ void add_into(float (&acc)[DH / 8][4], const float (&
     for (int e = 0; e < 4; ++e) acc[d][e] += part[d][e];
 }
 
-// A warp's 16 x DH accumulator to rows first + g and first + g + 8 of out, those
-// before L: a thread holds columns 8d + 2t and 8d + 2t + 1, one float2 each.
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], float* out,
-                                           int64_t row_stride, int first, int L, int g, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (first + g + 8 * r >= L) continue;
-    float* row = out + (int64_t)(g + 8 * r) * row_stride + 2 * t;
-#pragma unroll
-    for (int d = 0; d < DH / 8; ++d)
-      *reinterpret_cast<float2*>(row + d * 8) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
-  }
-}
-
 template <int DH>
 __global__ void __launch_bounds__(kTbThreads, kTbBlocksPerSm)
 blocked_dq_tf32_kernel(Strided q, Strided k, Strided v, Strided g, Strided dq,

@@ -1,9 +1,9 @@
-// What the tensor-core kernels share (mha_tc.cu, mha_tc_bwd.cu, mha_tf32.cu, mha_tf32_bwd.cu):
-// 16-byte cp.async staging of bf16 or fp32 rows into padded shared-memory rows,
-// ldmatrix fragment loads, the m16n8k16 bf16 product with fp32 accumulation,
-// the approximate exponent and the bf16 packing of two accumulator values into
-// one fragment register; for fp32 operands the TF32 split and the m16n8k8 TF32
-// product.
+// What the tensor-core kernels share (mha_tc.cu, mha_tc_bwd.cu, mha_tf32.cu, mha_tf32_bwd.cu,
+// mha_bld_tf32.cu): 16-byte cp.async staging of bf16 or fp32 rows into padded
+// shared-memory rows, ldmatrix fragment loads, the m16n8k16 bf16 product with
+// fp32 accumulation, the approximate exponent and the bf16 packing of two
+// accumulator values into one fragment register; for fp32 operands the TF32
+// split, the m16n8k8 TF32 product and the store of a warp's accumulator rows.
 // Each source includes it after attention_common.cuh and keeps its own copy
 // (internal linkage).
 
@@ -137,6 +137,23 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big
   mma_tf32(c, a_small, b_big0, b_big1);
   mma_tf32(c, a_big, b_small0, b_small1);
   mma_tf32(c, a_big, b_big0, b_big1);
+}
+
+// A warp's 16 x DH fp32 accumulator (m16n8k8 C fragments, columns 8d .. 8d + 7
+// in acc[d]) to rows first + g and first + g + 8 of out, those before L: a
+// thread holds columns 8d + 2t and 8d + 2t + 1, one float2 each; out points at
+// row `first`.
+template <int DH>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], float* out,
+                                           int64_t row_stride, int first, int L, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (first + g + 8 * r >= L) continue;
+    float* row = out + (int64_t)(g + 8 * r) * row_stride + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d)
+      *reinterpret_cast<float2*>(row + d * 8) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+  }
 }
 
 // A thread's share of staging ROWS rows of DH fp32 elements into rows of

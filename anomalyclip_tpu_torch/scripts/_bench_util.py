@@ -4,13 +4,17 @@ The JAX package's scripts chain each call to the one before it
 (scripts/_bench_util.py: ``carry_bench``) because waiting on a result is
 unreliable over a remote TPU. On the card CUDA events are the clock: a warm
 call, then the median of ``reps`` calls, each between two events on the current
-stream.
+stream (``median_ms``). A call shorter than its own enqueue is timed by that
+clock at the host's pace, so two more clocks stand beside it: the device time of
+the kernels a call launches, under torch.profiler (``device_ms``), and the host
+time of one enqueue (``host_ms``).
 """
 
 from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -29,6 +33,38 @@ def median_ms(fn, reps: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 30) -> float:
+    """Device time of one call of ``fn``: the durations of every kernel and copy
+    that ``calls`` calls put on the card under torch.profiler, summed, over
+    ``calls``, after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == cuda)
+    if total_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total_us / 1e3 / calls
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time of one enqueue of ``fn``: ``calls`` calls on the host clock with
+    no synchronisation between them, over ``calls``, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / calls
 
 
 def device_line() -> str:

@@ -47,6 +47,22 @@ backward and of the emulation of its arithmetic
 operations a head, 6 + 8 for the flash pair's two passes, over 495 / 3
 TFLOP/s, or the tensors once).
 
+A fifth set gives the temporal model's axial attention in fp32 (K2,
+``fused_mha_bld``, and its backward K4) at its four path shapes, 8 heads of 32,
+q (B, L, 256) and k, v the two halves of one (B, L, 512) projection: along
+segments (L=32) and frames (L=16) at a scoring grid batch of 4 and at the
+training batch of 64. For each of K2, K4, ``scaled_dot_product_attention``
+forward and its forward and backward through autograd, three clocks: the device
+time of the kernels one call launches (torch.profiler), the event time of one
+call as the other lines read it (CUDA events around the call), and the host time
+of one enqueue (``HOST_CALLS`` enqueues on the host clock, no synchronisation);
+K2 is held within 1e-5 of its fp32 plain version and K4 within 1e-5 of max|ref|
+of its plain backward, and the lines name the kernel the launches took
+(``route_counts``). Below about 0.3 ms the event time is the host's enqueue,
+not the kernel's; a last line splits K2's host time at the first shape into
+its parts (the entry through autograd, the wrapper, its shape checks, the
+output's allocation, the stream lookup, the library call).
+
 ``--sass`` adds the opcode mix of each kernel (the tensor-core kernel's two
 instantiations apart), read from ``cuobjdump -sass`` of the built library: the
 opcodes of the whole kernel and of its main loops (each
@@ -57,8 +73,9 @@ kernel's sweep over the q tiles), which is what the tensor-core operations
 
 ``--device cpu`` runs the entries' plain versions (the KV-blocked form) at batch
 2, holds them against the whole-row form, holds the emulations of the
-split-TF32 arithmetic (``tf32x3_reference``, ``blocked_bwd_tf32x3_reference``)
-against the fp32 plain versions, and prints no times.
+split-TF32 arithmetic (``tf32x3_reference``, ``blocked_bwd_tf32x3_reference``,
+``mha_bld_tf32x3_reference``, ``mha_bld_bwd_tf32x3_reference``) against the
+fp32 plain versions, and prints no times.
 """
 
 from __future__ import annotations
@@ -75,7 +92,7 @@ import torch
 
 from anomalyclip_tpu_torch.ops import attention as A
 from anomalyclip_tpu_torch.ops import build
-from anomalyclip_tpu_torch.scripts._bench_util import announce_device, median_ms
+from anomalyclip_tpu_torch.scripts._bench_util import announce_device, device_ms, host_ms, median_ms
 
 # tag, B, L, D, heads, causal, the entry
 SHAPES = [
@@ -113,6 +130,17 @@ TF32_BWD_SHAPES = [
     ("ViT-B/16 gradient", 32, 197, 768, 12, False, "qkv"),
 ]
 PEAK_TF32X3_FLOPS = 495e12 / 3  # dense TF32 over the three products of a split product
+# the temporal model's axial attention (models/temporal.py): tag, B, L, D,
+# heads; along segments (L=32, the grid's 16 frames folded into the batch) and
+# along frames (L=16, its 32 segments folded), at a scoring grid batch of 4
+# and at the training batch of 64
+BLD_SHAPES = [
+    ("temporal scoring, segments", 64, 32, 256, 8),
+    ("temporal scoring, frames", 128, 16, 256, 8),
+    ("temporal training, segments", 1024, 32, 256, 8),
+    ("temporal training, frames", 2048, 16, 256, 8),
+]
+HOST_CALLS = 200  # enqueues timed on the host clock for one host time
 
 
 def run(entry: str, x: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
@@ -271,6 +299,96 @@ def bench_tf32_backward(tag: str, b: int, l: int, d: int, heads: int, causal: bo
           flush=True)
 
 
+def bench_bld(tag: str, b: int, l: int, d: int, heads: int, on_card: bool, device: str,
+              iters: int) -> None:
+    """The lines of one temporal shape: on the card K2, K4 and sdpa forward and
+    forward+backward, each by device, event and host time, beside the bounds;
+    on the CPU the emulations of the split-TF32 arithmetic against the fp32
+    plain versions."""
+    rng = np.random.default_rng(4)
+    q, kv, g = (torch.from_numpy(rng.standard_normal((b, l, w)).astype(np.float32)).to(device)
+                for w in (d, 2 * d, d))
+    k, v = kv[..., :d], kv[..., d:]
+    shape = f"{tag} fp32 (B={b}, L={l}, D={d}, H={heads})"
+    want_out = A.mha_bld_reference(q, k, v, heads)
+    want_grads = A.mha_bld_bwd_reference(q, k, v, g, heads)
+    top = max(w.abs().max().item() for w in want_grads)
+    if on_card:
+        got_out = A.mha_bld_fwd_kernel(q, k, v, heads, False)
+        got_grads = A.mha_bld_bwd_kernel(q, k, v, g, heads, False)
+    else:
+        got_out = A.mha_bld_tf32x3_reference(q, k, v, heads)
+        got_grads = A.mha_bld_bwd_tf32x3_reference(q, k, v, g, heads)
+    err = (got_out - want_out).abs().max().item()
+    bwd_err = max((a - w).abs().max().item() for a, w in zip(got_grads, want_grads)) / top
+    if not (err <= TF32_PARITY_LIMIT and bwd_err <= TF32_PARITY_LIMIT):
+        raise AssertionError(f"{shape}: forward max|diff| {err}, backward {bwd_err} of max|ref|")
+    del got_out, got_grads, want_out, want_grads
+    if not on_card:
+        print(f"{shape}: the split-TF32 emulations against the fp32 plain versions, forward "
+              f"max|diff|={err:.2e}, backward {bwd_err:.2e} of max|ref|", flush=True)
+        return
+    dh = d // heads
+    views = [t.view(b, l, heads, dh).transpose(1, 2) for t in (q, k, v, g)]
+
+    def sdpa_forward():
+        return torch.nn.functional.scaled_dot_product_attention(*views[:3])
+
+    def sdpa_forward_backward():
+        leaves = [t.detach().requires_grad_(True) for t in views[:3]]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        return torch.autograd.grad(out, leaves, views[3])
+
+    calls = {
+        "K2": lambda: A.mha_bld_fwd_kernel(q, k, v, heads, False),
+        "K4": lambda: A.mha_bld_bwd_kernel(q, k, v, g, heads, False),
+        "sdpa forward": sdpa_forward,
+        "sdpa forward+backward": sdpa_forward_backward,
+    }
+    # the least the card could take: 4 L^2 dh operations a head forward and 10
+    # backward over the split-TF32 rate, or q, k, v and the output once (with g
+    # and the three gradients backward) over the memory rate
+    pairs = b * heads * l * l * dh
+    bounds = {kind: max(ops * pairs / PEAK_TF32X3_FLOPS, 4 * tensors * b * l * d / PEAK_BYTES_PER_S) * 1e3
+              for kind, ops, tensors in (("forward", 4, 4), ("backward", 10, 7))}
+    before = dict(A.route_counts)
+    for name, fn in calls.items():
+        times = (device_ms(fn, iters), median_ms(fn, iters), host_ms(fn, HOST_CALLS))
+        kind = "backward" if name in ("K4", "sdpa forward+backward") else "forward"
+        print(f"{shape} {name}: device {times[0]:.4f} ms, event {times[1]:.4f} ms, host "
+              f"{times[2]:.4f} ms an enqueue; {kind} bound {bounds[kind]:.4f} ms", flush=True)
+    routes = {k: n - before.get(k, 0) for k, n in A.route_counts.items() if n != before.get(k, 0)}
+    print(f"{shape}: K2 max|diff|={err:.2e}, K4 {bwd_err:.2e} of max|ref| against the fp32 plain "
+          f"versions; route counts of the timed launches {routes}", flush=True)
+
+
+def bld_host_breakdown(b: int, l: int, d: int, heads: int) -> None:
+    """Where K2's host time goes at one shape, each part by ``host_ms``: the
+    entry as the temporal model calls it (``fused_mha_bld``, through autograd),
+    the kernel wrapper, and the wrapper's parts (the shape checks, the output's
+    allocation, the stream lookup, the library call with its arguments made)."""
+    from anomalyclip_tpu_torch.ops import build as B
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, kv = (torch.randn(b, l, w, device="cuda", generator=gen) for w in (d, 2 * d))
+    k, v = kv[..., :d], kv[..., d:]
+    dh, scale, strides = A._bld_tf32_args("fused_mha_bld", (q, k, v), heads, False)
+    out = torch.empty_like(q)
+    lib = B.load_library()
+    args = (q.data_ptr(), *strides[0:2], k.data_ptr(), *strides[2:4], v.data_ptr(), *strides[4:6],
+            out.data_ptr(), b, l, heads, dh, 0, scale, A._stream(q))
+    parts = {
+        "entry fused_mha_bld": lambda: A.fused_mha_bld(q, k, v, heads),
+        "wrapper mha_bld_fwd_kernel": lambda: A.mha_bld_fwd_kernel(q, k, v, heads, False),
+        "shape checks": lambda: A._bld_tf32_args("fused_mha_bld", (q, k, v), heads, False),
+        "output allocation": lambda: torch.empty((b, l, d), dtype=q.dtype, device=q.device),
+        "stream lookup": lambda: A._stream(q),
+        "library call": lambda: lib.acl_mha_bld_tf32_fwd(*args),
+    }
+    print(f"K2 host time at (B={b}, L={l}, D={d}, H={heads}), ms an enqueue: "
+          + ", ".join(f"{name} {host_ms(fn, HOST_CALLS):.4f}" for name, fn in parts.items()), flush=True)
+
+
 def backward(entry: str, x: torch.Tensor, g: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
     """One call of the backward entry that owns the shape -> its gradients."""
     if entry == "qkv":
@@ -426,6 +544,12 @@ def main(argv=None) -> None:
         if not args.only or any(s in tag for s in args.only):
             bench_tf32_backward(tag, b if on_card else 2, l, d, heads, causal, entry, on_card,
                                 args.device, args.iters)
+    for tag, b, l, d, heads in BLD_SHAPES:
+        if not args.only or any(s in tag for s in args.only):
+            bench_bld(tag, b if on_card else 2, l, d, heads, on_card, args.device, args.iters)
+    tag, *shape = BLD_SHAPES[0]
+    if on_card and (not args.only or any(s in tag for s in args.only)):
+        bld_host_breakdown(*shape)
     if args.sass and on_card:
         # the mangled names' template arguments: the tensor-core kernel is
         # instantiated for K1 and K6 (Packed) and for K8 (Strided)

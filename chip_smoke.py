@@ -12,7 +12,8 @@ script exits non-zero without printing a result:
    holds, in K1's and K6's instantiation and in K8's (four blocks of four
    warps are what its design counts on), of each kernel of the tensor-core
    backward pair (three: what it is compiled for), of the split-TF32 kernel
-   (two) and of each kernel of the split-TF32 backward pair (two), and print
+   (two), of each kernel of the split-TF32 backward pair (two) and of the
+   split-TF32 whole-head kernels at L = 16 and 32 (at least two), and print
    each tensor-core kernel's registers, stack and spills from the build's
    ``ptxas -v`` log;
 3. kernels: each forward kernel against its plain PyTorch version at the main
@@ -41,10 +42,22 @@ script exits non-zero without printing a result:
    launches are counted exactly (none in bf16 or at other head dims), two
    launches on the same inputs must give the same bits, and it must sit within
    1e-5 of the emulation of its arithmetic (``tf32x3_reference``) while the
-   emulation of plain TF32 must not sit within 1e-5 of the fp32 plain version;
+   emulation of plain TF32 must not sit within 1e-5 of the fp32 plain version.
+   In fp32 at head dims 16 and 32 with L <= 32 K2 launches the split-TF32
+   whole-head kernel (ops/csrc/mha_bld_tf32.cu), held within 1e-5 of the fp32
+   plain version and of ``mha_bld_tf32x3_reference`` at the temporal model's
+   scoring shapes, at (1024, 32, 128) and at L = 1, 7, 16, 31, 32 at batch 3,
+   causal and not, at head dims 32 and 16; L=33 stays on mha.cu; its launches
+   are counted exactly, and two launches of it and of K4's give the same bits
+   at the training shapes, causal at L=23, at head dim 16 and at a batch of
+   66,000;
 3b. backward kernels: K3 and K4 against their plain backwards at the training
    step's shapes, fp32 within 1e-5 and bf16 within 5e-2 of max|ref|, with
-   median times;
+   median times; in fp32 K4 launches the split-TF32 whole-head kernel
+   (mha_bld_tf32.cu), held within 1e-5 of max|ref| of the plain backward and
+   of ``mha_bld_bwd_tf32x3_reference`` there and at L = 1, 7, 16, 31, 32 at
+   batch 3, causal and not, at head dims 32 and 16 (L=33 on mha_bwd.cu), its
+   launches counted exactly;
 3c. long backward kernels, the same limits: K7 at the ViT-L/14@336px shape
    (q, g (32, 577, 1024), kv (32, 577, 2048), 16 heads); K9 and K10 at
    (512, 577, 64) and at the ragged (8, 1100, 64), with the log-sum-exp and
@@ -88,16 +101,23 @@ script exits non-zero without printing a result:
    counts are checked too, against its own plain-attention pass (within
    BF16_SLICE_TOL, absolute). Here and in 4b-4e every K1 and K6 launch of a
    bf16 run must have taken the tensor-core kernel and none of an fp32 run,
-   and every K1 and K8 launch at head dim 64 of an fp32 run the split-TF32
-   kernel and none of a bf16 run;
+   every K1 and K8 launch at head dim 64 of an fp32 run the split-TF32
+   kernel and none of a bf16 run, and every K2 and K4 launch (the temporal
+   model, fp32 under either compute dtype) the split-TF32 whole-head kernels;
 4b. training: the UCF-Crime training step from features at full width in fp32
    (batch 64: 32 abnormal and 32 normal videos of 512 x 512-d features), three
    steps through ``fit_steps`` with one step per epoch, so that epoch 0 trains
    at lr 0 and epoch 1 moves the weights; the kernel launch counts of that run
    are checked, and the same steps under the plain attention must agree: step
-   1's loss terms and gradients within 1e-4 of each leaf's max, the 3-step
-   losses at rtol 5e-4, the BN state within 1e-5 (the text tower's K1 runs
-   split-TF32 products, so the two are close, not equal to the bit);
+   1's loss terms within 1e-4, the 3-step losses at rtol 5e-4, the BN state
+   within 1e-5 (the text tower's K1 and the temporal model's K2 and K4 run
+   split-TF32 products, so the two are close, not equal to the bit), and step
+   1's gradients within 1e-4 of each leaf's max against the plain run that
+   takes the kernel run's branches of the temporal model's LeakyReLU
+   (``LeakyBranches``: where a pre-activation lies within a rounding of 0 the
+   two runs would otherwise take different branches, and a conv weight's
+   gradient jumps there by several times 1e-4 of its max; that gap is printed,
+   not asserted);
 4c. ViT-L/14@336px: the UCF-Crime model with the ViT-L/14@336px tower at full
    width from seeded weights scores one synthetic 200-frame video (one grid,
    two encode calls of 256 frames) in fp32, through the core rung into the
@@ -132,7 +152,9 @@ script exits non-zero without printing a result:
    L=1024 and 1536 on K8's tensor-core entry); ``bench_mha_tc --sass`` (the
    tensor-core kernels, forward and backward, at the towers' shapes, K8 in bf16
    and K6 in fp32 among them, the split-TF32 backward pair at the fp32
-   gradients' shapes, and their opcode mixes); ``bench_attn_bwd --qtile`` (K7's
+   gradients' shapes, and their opcode mixes, then K2 and K4 at the temporal
+   model's four shapes by device, event and host time); ``bench_attn_bwd
+   --qtile`` (K7's
    parity in fp32 on the split-TF32 pair, then the
    forward+backward step in bf16 on the tensor-core kernels);
    ``probe_bf16_drift`` at one seed and 8 frames (the ViT-L/14@336px tower by
@@ -172,7 +194,12 @@ K7's path shape, which are ``mha_qtile_bwd``'s too (K9's and K10's path is the
 fp32 tower: their numbers are the split-TF32 pair's). ``blocked_bwd_tf32`` is
 the split-TF32 backward pair that the same entries launch in fp32 at head dim
 64: its count is ``route_counts["blocked_bwd_tf32"]`` over the same runs, its
-numbers K7's in fp32 at the same path shape. ``mha_tf32`` is the
+numbers K7's in fp32 at the same path shape. ``bld_tf32`` and
+``bld_bwd_tf32`` are the split-TF32 whole-head kernels that K2 and K4 launch
+in fp32 at head dims 16 and 32 with L <= 32: their counts are
+``route_counts["bld_tf32"]`` and ``["bld_bwd_tf32"]`` over the same runs, their
+numbers K2's (phase 3) and K4's (phase 3b) at the temporal model's shapes,
+which are ``fused_mha_bld``'s and ``mha_bld_bwd``'s too. ``mha_tf32`` is the
 split-TF32 kernel that K1, K6 and K8 launch in fp32 at head dim 64: its count is
 ``route_counts["mha_tf32"]`` over the same runs, its numbers the sums over the
 fp32 scoring paths' four shapes (phase 3); on their fp32 paths
@@ -187,6 +214,7 @@ so its ``library_ms`` is null.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -211,9 +239,11 @@ KERNEL_SOURCE = {
     # on its paths, fp32 at head dim 64, the split-TF32 kernel (the bf16 paths'
     # is mha_tc's line)
     "fused_mha_qkv": "anomalyclip_tpu_torch/ops/csrc/mha_tf32.cu",
-    "fused_mha_bld": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
+    # on their paths, the temporal model in fp32 at head dim 32, L=32 and 16:
+    # the split-TF32 whole-head kernels
+    "fused_mha_bld": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
     "mha_qkv_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
-    "mha_bld_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
+    "mha_bld_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
     # on its path, the bf16 ViT-L/14@336px tower, the tensor-core kernel
     "fused_mha_qtile": "anomalyclip_tpu_torch/ops/csrc/mha_tc.cu",
     # on its path, the fp32 ViT-L/14@336px tower, the split-TF32 kernel
@@ -237,6 +267,10 @@ KERNEL_SOURCE = {
     # the pair the KV-blocked backward launches in fp32 at head dim 64, counted
     # by route_counts["blocked_bwd_tf32"]
     "blocked_bwd_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_tf32_bwd.cu",
+    # the kernels K2 and K4 launch in fp32 at head dims 16 and 32 with L <= 32,
+    # counted by route_counts["bld_tf32"] and ["bld_bwd_tf32"]
+    "bld_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
+    "bld_bwd_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
 }
 PROBE_SOURCE = "anomalyclip_tpu_torch/ops/csrc/mha_probe.cu"
 # probe wrapper -> the pallas_call sites of the JAX package's scripts it replaces
@@ -264,6 +298,8 @@ REPLACES = {
     "blocked_bwd_tc": "anomalyclip_tpu/ops/pallas/attention.py:646",
     "mha_tf32": "anomalyclip_tpu/ops/pallas/attention.py:423",
     "blocked_bwd_tf32": "anomalyclip_tpu/ops/pallas/attention.py:646",
+    "bld_tf32": "anomalyclip_tpu/ops/pallas/attention.py:88",
+    "bld_bwd_tf32": "anomalyclip_tpu/ops/pallas/attention.py:273",
 }
 ALSO_REPLACES = {
     "mha_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:800",
@@ -428,6 +464,20 @@ def phase_build() -> None:
         print(f"[build] split-TF32 backward, {kernel} kernel, head dim {dh}: {need} B a block, "
               f"{blocks} blocks of 4 warps an SM")
     checked += 1
+    for dh in A.BLD_TF32_HEAD_DIMS:
+        for l in range(1, A.BLD_TF32_MAX_L + 1):
+            for backward in (0, 1):
+                require(lib.acl_mha_bld_tf32_smem_bytes(l, dh, backward)
+                        == A.mha_bld_tf32_smem_bytes(l, dh, bool(backward)),
+                        f"split-TF32 whole-head smem at {l, dh, backward}")
+        checked += 1
+        for l in (16, 32):
+            blocks = [lib.acl_mha_bld_tf32_blocks_per_sm(l, dh, backward) for backward in (0, 1)]
+            require(min(blocks) >= 2,
+                    f"split-TF32 whole-head kernels at L={l}, dh {dh}: {blocks} blocks an SM")
+            print(f"[build] split-TF32 whole-head kernels, head dim {dh}, L={l}: forward "
+                  f"{A.mha_bld_tf32_smem_bytes(l, dh, False)} B a block, {blocks[0]} blocks of 4 warps "
+                  f"an SM; backward {A.mha_bld_tf32_smem_bytes(l, dh, True)} B, {blocks[1]} blocks")
     print(f"[build] shared-memory formulas: library and Python agree at {checked} (L, dh) "
           f"pairs; card limit {A.smem_limit(torch.device('cuda'))} B per block")
     log = build.library_path().with_suffix(".log").read_text()
@@ -438,7 +488,7 @@ def phase_build() -> None:
 
 
 # the sources whose kernels' registers and spills phase_build prints
-TENSOR_CORE_SOURCES = ("mha_tc.cu", "mha_tc_bwd.cu", "mha_tf32.cu", "mha_tf32_bwd.cu")
+TENSOR_CORE_SOURCES = ("mha_tc.cu", "mha_tc_bwd.cu", "mha_tf32.cu", "mha_tf32_bwd.cu", "mha_bld_tf32.cu")
 
 
 def ptxas_usage(log: str, source: str) -> list:
@@ -449,9 +499,12 @@ def ptxas_usage(log: str, source: str) -> list:
     usage = []
     for entry in section.split("Compiling entry function '")[1:]:
         mangled = entry.split("'", 1)[0]
-        name = re.search(r"(?:blocked_dq|blocked_dkv|mha)_(?:tc|tf32)_kernel", mangled)
+        name = re.search(r"(?:blocked_dq|blocked_dkv|mha|mha_bld)_(?:tc|tf32)(?:_fwd|_bwd)?_kernel", mangled)
         layout = re.search(r"Packed|Strided", mangled) if "mha_tc_kernel" in mangled else None
-        kernel = (name.group() if name else mangled) + (f" ({layout.group()})" if layout else "")
+        layout = layout.group() if layout else None
+        if "mha_bld_tf32" in mangled:  # instantiated at head dims 16 and 32
+            layout = "dh " + re.search(r"ILi(\d+)E", mangled).group(1)
+        kernel = (name.group() if name else mangled) + (f" ({layout})" if layout else "")
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         usage.append((kernel, f"{regs.group(1)} registers, {frame.group(1)} B stack, "
@@ -524,6 +577,9 @@ class Case:
     # f(x) -> the emulation of the split-TF32 arithmetic on the same inputs, which
     # an fp32 run must match within TOLERANCE (of max|ref| where ``relative``)
     emulated: object = None
+    # in fp32 each call launches a split-TF32 whole-head kernel of mha_bld_tf32.cu
+    # once (K2's or K4's)
+    bld_tf32: bool = False
 
 
 def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
@@ -692,13 +748,33 @@ def phase_kernels(report: dict) -> None:
             lambda t: qtile_plain(t, 128, 2),
             lambda t: packed_heads(t, 3, 2), dtypes=BF16, path=(), tensor_cores=True,
         ))
+    # K2 at the temporal model's scoring shapes: in fp32 the split-TF32
+    # whole-head kernel (mha_bld_tf32.cu), held against the fp32 plain version
+    # and the emulation of its arithmetic; in bf16 mha.cu
     for b, l, d, h in ((64, 32, 256, 8), (128, 16, 256, 8)):
         cases.append(Case(  # q | k v
             "fused_mha_bld", (b, l, d), (b, l, 3 * d),
             lambda t, h=h, d=d: fused_mha_bld(t[..., :d], t[..., d:2 * d], t[..., 2 * d:], h),
             lambda t, h=h, d=d: mha_bld_reference(t[..., :d], t[..., d:2 * d], t[..., 2 * d:], h),
-            lambda t, h=h: packed_heads(t, 3, h),
+            lambda t, h=h: packed_heads(t, 3, h), bld_tf32=True,
+            emulated=lambda t, h=h, d=d: A.mha_bld_tf32x3_reference(
+                t[..., :d], t[..., d:2 * d], t[..., 2 * d:], h),
         ))
+    # and at the ragged lengths at batch 3, causal and not, at head dims 32 and
+    # 16 (printed only); L=33 is past it: mha.cu takes it
+    for d in (256, 128):
+        for l in (1, 7, 16, 31, 32, 33):
+            for causal in (False, True):
+                cases.append(Case(
+                    "fused_mha_bld ragged", (3, l, d), (3, l, 3 * d),
+                    lambda t, d=d, c=causal: fused_mha_bld(t[..., :d], t[..., d:2 * d], t[..., 2 * d:], 8, c),
+                    lambda t, d=d, c=causal: mha_bld_reference(
+                        t[..., :d], t[..., d:2 * d], t[..., 2 * d:], 8, c),
+                    lambda t: packed_heads(t, 3, 8), causal=causal, dtypes=FP32, path=(),
+                    bld_tf32=l <= 32,
+                    emulated=(lambda t, d=d, c=causal: A.mha_bld_tf32x3_reference(
+                        t[..., :d], t[..., d:2 * d], t[..., 2 * d:], 8, c)) if l <= 32 else None,
+                ))
     # K6: the ViT-L/14@336px tower's bf16 shape (q and k|v from one tensor, as
     # the ladder's two GEMMs leave them), and an fp32 shape whose K and V fit
     # the admission limit, on the split-TF32 entry
@@ -793,7 +869,8 @@ def phase_kernels(report: dict) -> None:
         "fused_mha_bld at dh 16", (1024, 32, 128), (1024, 32, 3 * 128),
         lambda t: fused_mha_bld(t[..., :128], t[..., 128:256], t[..., 256:], 8),
         lambda t: mha_bld_reference(t[..., :128], t[..., 128:256], t[..., 256:], 8),
-        lambda t: packed_heads(t, 3, 8), path=(),
+        lambda t: packed_heads(t, 3, 8), path=(), bld_tf32=True,
+        emulated=lambda t: A.mha_bld_tf32x3_reference(t[..., :128], t[..., 128:256], t[..., 256:], 8),
     ))
     scratch = {}
     reset_launch_counts()
@@ -813,8 +890,16 @@ def phase_kernels(report: dict) -> None:
             f"split-TF32 launches {route_counts} over {tf32_cases} fp32 cases of K1, K6 and K8")
     print(f"[kernels] {route_counts['mha_tf32']} launches of the split-TF32 kernel over "
           f"{tf32_cases} fp32 cases of K1, K6 and K8 at head dim 64; none in bf16 or at other head dims")
+    # every fp32 launch of K2 at head dims 16 and 32 with L <= 32 took the
+    # split-TF32 whole-head kernel, and no other launch did (bf16, L=33, K5)
+    bld_cases = sum(c.bld_tf32 and torch.float32 in c.dtypes for c in cases)
+    require(route_counts["bld_tf32"] == CASE_CALLS * bld_cases and route_counts["bld_bwd_tf32"] == 0,
+            f"split-TF32 whole-head launches {route_counts} over {bld_cases} fp32 cases of K2")
+    print(f"[kernels] {route_counts['bld_tf32']} launches of the split-TF32 whole-head kernel over "
+          f"{bld_cases} fp32 cases of K2 at L <= 32; none in bf16, at L=33 or through K5")
     check_tc_flash()
     check_tf32_kernel()
+    check_bld_tf32()
 
 
 def check_tc_flash() -> None:
@@ -893,8 +978,52 @@ def check_tf32_kernel() -> None:
     torch.cuda.empty_cache()
 
 
+def check_bld_tf32() -> None:
+    """The split-TF32 whole-head kernels (K2 and K4 in fp32): two launches on the
+    same inputs give the same bits, at the temporal model's training shapes,
+    causal at a ragged length, at head dim 16 and at a batch past 65,535, each
+    within 1e-5 (of max|ref| backward) of the fp32 plain versions; the emulation
+    of plain TF32 misses that limit."""
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    tol = TOLERANCE[torch.float32]
+    for b, l, d, h, causal in ((1024, 32, 256, 8, False), (2048, 16, 256, 8, False),
+                               (64, 23, 256, 8, True), (512, 32, 128, 8, True),
+                               (66_000, 16, 64, 2, False)):
+        q, kv, g = (torch.randn(b, l, w, device="cuda", generator=gen) for w in (d, 2 * d, d))
+        k, v = kv[..., :d], kv[..., d:]
+        A.reset_launch_counts()
+        out, again = (A.mha_bld_fwd_kernel(q, k, v, h, causal) for _ in range(2))
+        grads, grads_again = (A.mha_bld_bwd_kernel(q, k, v, g, h, causal) for _ in range(2))
+        torch.cuda.synchronize()
+        require(A.route_counts["bld_tf32"] == 2 and A.route_counts["bld_bwd_tf32"] == 2,
+                f"K2, K4 ({b}, {l}, {d}): routes {A.route_counts}")
+        require(torch.equal(out, again) and all(torch.equal(a, c) for a, c in zip(grads, grads_again)),
+                f"K2, K4 ({b}, {l}, {d}) causal={causal}: two launches of the split-TF32 whole-head "
+                f"kernels differ")
+        want = A.mha_bld_reference(q, k, v, h, causal)
+        want_grads = A.mha_bld_bwd_reference(q, k, v, g, h, causal)
+        top = max(t.abs().max().item() for t in want_grads)
+        gap = (out - want).abs().max().item()
+        bwd_gap = max((a - c).abs().max().item() for a, c in zip(grads, want_grads)) / top
+        require(gap <= tol and bwd_gap <= tol,
+                f"K2, K4 ({b}, {l}, {d}): {gap:.3e}, {bwd_gap:.3e} (tol {tol:g})")
+        if b <= 2048:
+            tf32_gap = (A.mha_bld_tf32x3_reference(q, k, v, h, causal, passes=1) - want).abs().max().item()
+            require(tf32_gap > tol, f"K2 ({b}, {l}, {d}): plain TF32 within {tf32_gap:.3e} of fp32, "
+                                    f"the check has no teeth")
+        print(f"[kernels] split-TF32 whole-head K2 and K4 ({b}, {l}, {d}) {h} heads causal={causal}: "
+              f"two launches give the same bits; forward {gap:.3e}, backward {bwd_gap:.3e} of max|ref| "
+              f"from the fp32 plain versions (tol {tol:g})")
+        del q, kv, g, k, v, out, again, grads, grads_again, want, want_grads
+    torch.cuda.empty_cache()
+
+
 def phase_bwd_kernels(report: dict) -> None:
-    """K3 and K4 against their plain backwards at the training step's shapes."""
+    """K3 and K4 against their plain backwards at the training step's shapes,
+    and K4 at ragged lengths."""
+    from anomalyclip_tpu_torch.ops import attention as A
     from anomalyclip_tpu_torch.ops.attention import (
         mha_bld_bwd_kernel,
         mha_bld_bwd_reference,
@@ -910,16 +1039,41 @@ def phase_bwd_kernels(report: dict) -> None:
         kind="bwd", causal=True, relative=True,
     )]
     # the temporal model's backward along segments and along frames, k and v
-    # the two halves of one kv: t = q | k v, g
+    # the two halves of one kv: t = q | k v, g; in fp32 the split-TF32
+    # whole-head kernel, held against the emulation of its arithmetic too
     for b, l in ((1024, 32), (2048, 16)):
         cases.append(Case(
             "mha_bld_bwd", (b, l, 256), [(b, l, 3 * 256), (b, l, 256)],
             lambda t: mha_bld_bwd_kernel(*t[0].split(256, dim=-1), t[1], 8, False),
             lambda t: mha_bld_bwd_reference(*t[0].split(256, dim=-1), t[1], 8),
             lambda t: (*packed_heads(t[0], 3, 8), *packed_heads(t[1], 1, 8)),
-            kind="bwd", relative=True,
+            kind="bwd", relative=True, bld_tf32=True,
+            emulated=lambda t: A.mha_bld_bwd_tf32x3_reference(*t[0].split(256, dim=-1), t[1], 8),
         ))
+    # and at the ragged lengths at batch 3, causal and not, at head dims 32 and
+    # 16 (printed only); L=33 is past it: mha_bwd.cu takes it
+    for d in (256, 128):
+        for l in (1, 7, 16, 31, 32, 33):
+            for causal in (False, True):
+                cases.append(Case(
+                    "mha_bld_bwd ragged", (3, l, d), [(3, l, 3 * d), (3, l, d)],
+                    lambda t, d=d, c=causal: mha_bld_bwd_kernel(*t[0].split(d, dim=-1), t[1], 8, c),
+                    lambda t, d=d, c=causal: mha_bld_bwd_reference(*t[0].split(d, dim=-1), t[1], 8, c),
+                    lambda t: (*packed_heads(t[0], 3, 8), *packed_heads(t[1], 1, 8)),
+                    kind="bwd", causal=causal, dtypes=FP32, path=(), relative=True, bld_tf32=l <= 32,
+                    emulated=(lambda t, d=d, c=causal: A.mha_bld_bwd_tf32x3_reference(
+                        *t[0].split(d, dim=-1), t[1], 8, c)) if l <= 32 else None,
+                ))
+    A.reset_launch_counts()
     run_cases("bwd kernels", cases, report, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    # every fp32 launch of K4 at L <= 32 took the split-TF32 whole-head kernel,
+    # none in bf16, at L=33 or of K3
+    bld_cases = sum(c.bld_tf32 and torch.float32 in c.dtypes for c in cases)
+    require_routes("backward kernels", 0, bld_bwd=CASE_CALLS * bld_cases)
+    print(f"[bwd kernels] {A.route_counts['bld_bwd_tf32']} launches of the split-TF32 whole-head "
+          f"backward over {bld_cases} fp32 cases of K4 at L <= 32; none in bf16, at L=33 or of K3")
+    report["bld_tf32"] = dict(report["fused_mha_bld"])
+    report["bld_bwd_tf32"] = dict(report["mha_bld_bwd"])
 
 
 def phase_long_bwd_kernels(report: dict) -> None:
@@ -1207,18 +1361,20 @@ def require(ok: bool, what: str) -> None:
 
 
 def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0, tf32: int = 0,
-                   bwd_tf32: int = 0) -> dict:
+                   bwd_tf32: int = 0, bld: int = 0, bld_bwd: int = 0) -> dict:
     """The route counts of the run just made: ``tensor_core`` launches of K1, K6
     and K8 took the tensor-core kernel and ``bwd_tensor_core`` launches of the
     KV-blocked backward the tensor-core pair (all of them in bf16 at head dim
     64, none in fp32), ``tf32`` launches of K1, K6 and K8 the split-TF32 kernel
     and ``bwd_tf32`` launches of the KV-blocked backward the split-TF32 pair
-    (all of them in fp32 at head dim 64, none in bf16) -> the counts."""
+    (all of them in fp32 at head dim 64, none in bf16), ``bld`` launches of K2
+    and ``bld_bwd`` of K4 the split-TF32 whole-head kernels (all of them in fp32
+    at head dims 16 and 32 with L <= 32) -> the counts."""
     from anomalyclip_tpu_torch.ops.attention import route_counts
 
     routes = dict(route_counts)
     want = {"mha_tc": tensor_core, "blocked_bwd_tc": bwd_tensor_core, "mha_tf32": tf32,
-            "blocked_bwd_tf32": bwd_tf32}
+            "blocked_bwd_tf32": bwd_tf32, "bld_tf32": bld, "bld_bwd_tf32": bld_bwd}
     require(routes == want, f"{what}: routes {routes}, expected {want}")
     return routes
 
@@ -1289,7 +1445,10 @@ def phase_slice() -> tuple:
     print(f"[slice] launches {launches}, expected {expected} ({chunks} encode calls)")
     require(launches == expected, f"launches {launches}, expected {expected}")
     # every K1 launch, text and image tower, at head dim 64: the split-TF32 kernel
-    launches.update(require_routes("fp32 scoring", 0, 0, expected["fused_mha_qkv"]))
+    # and every K2 launch, the temporal model in fp32 at L=32 and 16, the
+    # split-TF32 whole-head kernel
+    launches.update(require_routes("fp32 scoring", 0, 0, expected["fused_mha_qkv"],
+                                   bld=expected["fused_mha_bld"]))
 
     with attention_impl("reference"):
         ref_predictor = Predictor(model, frozen, trainable, bn_state, ncentroid, device="cuda")
@@ -1317,7 +1476,9 @@ def phase_slice() -> tuple:
         "fused_mha_bld": 2 * cfg.depth,
     })
     require(launches16 == expected16, f"bf16 launches {launches16}, expected {expected16}")
-    launches16.update(require_routes("bf16 scoring", expected16["fused_mha_qkv"]))
+    # the temporal model runs in fp32 under either compute dtype
+    launches16.update(require_routes("bf16 scoring", expected16["fused_mha_qkv"],
+                                     bld=expected16["fused_mha_bld"]))
     print(f"[slice] bf16 launches {launches16}")
     check_video(vs16, res16, CHECK_VIDEO, n_abn)
     print(f"[slice] bf16 video {CHECK_VIDEO} frames: {seconds:.3f} s, "
@@ -1353,6 +1514,42 @@ def make_train_batches(rng: np.random.Generator, dim: int) -> list:
         )
         for _ in range(TRAIN_STEPS)
     ]
+
+
+class LeakyBranches:
+    """The branches the temporal model's LeakyReLU (``models/temporal.py``
+    ``leaky_relu``) takes in one run, recorded, and taken again in a later run.
+    Its derivative jumps from 1 to 0.01 at 0, so two runs whose attention rounds
+    differently (by an ulp: any kernel that is not the plain version's own
+    arithmetic) take different branches wherever a pre-activation lies within
+    that rounding of 0, and a conv weight's gradient jumps there by far more
+    than the rounding (4.7e-4 of the leaf's max at phase 4b's step 1 with K2 and
+    K4 on the split-TF32 kernels; NVIDIA H100 80GB HBM3, 700 W). A run that
+    replays the other's branches computes the same function to that rounding,
+    with the same derivative."""
+
+    def __init__(self):
+        from anomalyclip_tpu_torch.models import temporal
+
+        self.temporal, self.leaky_relu = temporal, temporal.leaky_relu
+        self.masks, self.taken = [], 0
+
+    def _record(self, y, positive=None):
+        self.masks.append(y >= 0)
+        return self.leaky_relu(y, self.masks[-1])
+
+    def _replay(self, y, positive=None):
+        self.taken += 1
+        return self.leaky_relu(y, self.masks[self.taken - 1])
+
+    @contextlib.contextmanager
+    def using(self, how):
+        """``how``: "record" or "replay" within the scope."""
+        self.temporal.leaky_relu = self._record if how == "record" else self._replay
+        try:
+            yield self
+        finally:
+            self.temporal.leaky_relu = self.leaky_relu
 
 
 def run_training(model, frozen, trainable, bn_state, batches, ncentroid) -> SimpleNamespace:
@@ -1422,9 +1619,12 @@ def phase_train() -> dict:
     ncentroid = torch.as_tensor(compute_ncentroid(normal_videos, dim), device="cuda")
     torch.cuda.synchronize()
 
-    # the main path: counters from zero, three steps, counters read
+    # the main path: counters from zero, three steps, counters read; the
+    # temporal model's LeakyReLU branches recorded for the comparison below
+    branches = LeakyBranches()
     reset_launch_counts()
-    run = run_training(model, frozen, trainable, bn_state, batches, ncentroid)
+    with branches.using("record"):
+        run = run_training(model, frozen, trainable, bn_state, batches, ncentroid)
     launches = dict(launch_counts)
     text_layers, depth = model.clip_cfg.transformer_layers, model.cfg.depth
     per_step = {"fused_mha_qkv": text_layers, "mha_qkv_bwd": text_layers,
@@ -1433,7 +1633,8 @@ def phase_train() -> dict:
     print(f"[train] launches {launches}, expected {expected}")
     require(launches == expected, f"launches {launches}, expected {expected}")
     # the text tower's backwards are whole-head (L=77): none on the split-TF32 pair
-    launches.update(require_routes("fp32 training", 0, 0, expected["fused_mha_qkv"], 0))
+    launches.update(require_routes("fp32 training", 0, 0, expected["fused_mha_qkv"], 0,
+                                   expected["fused_mha_bld"], expected["mha_bld_bwd"]))
 
     require(all(np.isfinite(t).all() for t in run.terms), f"non-finite loss terms {run.terms}")
     require(run.moved[0] == 0.0, f"epoch 0 trains at lr 0, but the weights moved {run.moved[0]}")
@@ -1450,8 +1651,19 @@ def phase_train() -> dict:
 
     np.testing.assert_allclose(run.terms[0], ref.terms[0], rtol=TRAIN_GRAD_TOL, atol=1e-6,
                                err_msg="step 1 loss terms, kernels vs plain")
+    # step 1's gradients against the plain run that takes the kernel run's
+    # LeakyReLU branches (LeakyBranches); beside them, not asserted, the plain
+    # run that takes its own
+    free = max((got - want).abs().max().item() / want.abs().max().item()
+               for got, want in zip(run.grads, ref.grads))
+    reset_launch_counts()
+    with attention_impl("reference"), branches.using("replay"):
+        pinned = run_training(model, frozen, trainable, bn_state, batches, ncentroid)
+    require(not any(launch_counts.values()), f"plain attention launched kernels: {launch_counts}")
+    require(branches.taken == len(branches.masks), f"{branches.taken} of {len(branches.masks)} "
+                                                   f"recorded LeakyReLU branches replayed")
     worst, differing = 0.0, 0
-    for got, want in zip(run.grads, ref.grads):
+    for got, want in zip(run.grads, pinned.grads):
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
         require(scale > 0, "a trainable leaf got no gradient")
@@ -1466,7 +1678,8 @@ def phase_train() -> dict:
         torch.testing.assert_close(a, b, rtol=0, atol=TRAIN_BN_TOL)
     print(f"[train] kernels vs plain attention: step 1 gradients max|diff| / max|grad| "
           f"{worst:.3e} (limit {TRAIN_GRAD_TOL:g}; {differing} of {len(ref.grads)} leaves "
-          f"differ at all); losses max rel diff "
+          f"differ at all; {free:.3e} with each run's own LeakyReLU branches, not asserted); "
+          f"losses max rel diff "
           f"{max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)):.3e} "
           f"(limit {TRAIN_LOSS_RTOL:g})")
     torch.cuda.synchronize()
@@ -1529,7 +1742,7 @@ def phase_l14() -> dict:
         require(launches[dtype] == want, f"{dtype} launches {launches[dtype]}, expected {want}")
         launches[dtype].update(require_routes(
             f"ViT-L/14@336px {dtype} scoring", (text + vision) * (dtype == "bfloat16"), 0,
-            (text + vision) * (dtype == "float32")))
+            (text + vision) * (dtype == "float32"), bld=temporal))
 
         start = time.perf_counter()
         with attention_impl("reference"):
@@ -1842,12 +2055,23 @@ def phase_scripts() -> list:
     # then the split-TF32 kernel in fp32 at six shapes (three through K1, two
     # through K8, one through K6), and its opcode mix; then the split-TF32
     # backward pair at three (K9 and K10 on the gradient's heads after one K8
-    # launch for their statistics, K7, K3's entry), and both its kernels' mixes
+    # launch for their statistics, K7, K3's entry), and both its kernels' mixes;
+    # then K2 and K4 at the temporal model's four shapes on the split-TF32
+    # whole-head kernels, each checked once and timed by three clocks (a warm
+    # call and --iters calls under the profiler and by events, a warm call and
+    # HOST_CALLS enqueues on the host clock), and K2's host time split into its
+    # parts, the entry and the wrapper each warmed and enqueued HOST_CALLS times
+    # (the library called alone counts nothing)
+    from anomalyclip_tpu_torch.scripts.bench_mha_tc import BLD_SHAPES, HOST_CALLS
+
+    bld = len(BLD_SHAPES) * (1 + 2 * (1 + n) + 1 + HOST_CALLS)
+    k2 = bld + 2 * (1 + HOST_CALLS)
     runs.append(run_script("bench_mha_tc", ["--sass", *it], {
         "fused_mha_qkv": (4 + 3) * calls, "fused_mha_qtile": (2 + 1) * calls, "mha_tc": 7 * calls,
         "mha_qkv_bwd": (2 + 1) * calls, "mha_qtile_bwd": (2 + 1) * calls, "blocked_bwd_tc": 4 * calls,
         "flash_attention_heads": (1 + 2) * calls + 1, "mha_tf32": 6 * calls + 1,
-        "flash_dq": calls, "flash_dkv": calls, "blocked_bwd_tf32": (2 + 1 + 1) * calls}))
+        "flash_dq": calls, "flash_dkv": calls, "blocked_bwd_tf32": (2 + 1 + 1) * calls,
+        "fused_mha_bld": k2, "mha_bld_bwd": bld, "bld_tf32": k2, "bld_bwd_tf32": bld}))
     # K7's parity in fp32 (one launch of the split-TF32 pair), then the bf16
     # forward+backward step, warmed and timed, on the tensor-core kernels
     runs.append(run_script("bench_attn_bwd", ["--qtile", *it], {
@@ -1858,8 +2082,9 @@ def phase_scripts() -> list:
     runs.append(run_script("probe_bf16_drift", ["--seeds", "1", "--frames", "8"],
                            {"fused_mha_qtile": 48, "mha_tc": 48}))
     # 12 text layers when the scorer is built; two axial attentions a scoring call
+    # (emb 128: head dim 16, on the split-TF32 whole-head kernel)
     runs.append(run_script("bench_eval", it, {"fused_mha_qkv": 12, "mha_tf32": 12,
-                                              "fused_mha_bld": 2 * calls}))
+                                              "fused_mha_bld": 2 * calls, "bld_tf32": 2 * calls}))
     # features: four sizes; frames: 512 and 1024 frames in encode calls of 256
     # through the 12 vision layers, timed over max(4, iters // 4) calls
     frame_calls = 2 + max(4, n // 4)
@@ -1867,6 +2092,7 @@ def phase_scripts() -> list:
         "fused_mha_qkv": 12 + frame_calls * 12 * (2 + 4),
         "mha_tc": 12 + frame_calls * 12 * (2 + 4),
         "fused_mha_bld": 2 * (4 * calls + 2 * frame_calls),
+        "bld_tf32": 2 * (4 * calls + 2 * frame_calls),
     }))
     # a first step and four timed ones: 2048 frames in 8 encode calls, the text
     # tower forward and backward, the temporal model's two axes each way
@@ -1875,6 +2101,7 @@ def phase_scripts() -> list:
         "fused_mha_qkv": steps * (8 * 12 + 12), "mha_tc": steps * (8 * 12 + 12),
         "mha_qkv_bwd": steps * 12,
         "fused_mha_bld": steps * 2, "mha_bld_bwd": steps * 2,
+        "bld_tf32": steps * 2, "bld_bwd_tf32": steps * 2,
     }))
     return runs
 
@@ -1885,6 +2112,8 @@ def kernel_class(name: str) -> str:
         return "attention (mha_tc.cu)"
     if "mha_tf32_kernel" in low:
         return "attention (mha_tf32.cu)"
+    if "mha_bld_tf32" in low:
+        return "attention (mha_bld_tf32.cu)"
     if "mha_fwd_kernel" in low:
         return "attention (mha.cu)"
     if "probe_kernel" in low or "parts_kernel" in low:
@@ -2056,18 +2285,19 @@ def main() -> int:
     # the flash kernel through fused_attention's routing in the fp32
     # ViT-L/14@336px tower, the q-tiled kernel in the bf16 one, and each one's
     # backward in the tower's gradient
-    require(all(slice_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tf32")),
+    require(all(slice_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tf32", "bld_tf32")),
             f"a kernel of the scoring path was never launched: {slice_launches}")
-    require(all(slice16_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tc")),
+    require(all(slice16_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tc", "bld_tf32")),
             f"a kernel of the bf16 scoring path was never launched: {slice16_launches}")
-    l14_paths = {"float32": ("fused_mha_qkv", "fused_mha_bld", "flash_attention_heads", "mha_tf32"),
-                 "bfloat16": ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile", "mha_tc")}
+    l14_paths = {"float32": ("fused_mha_qkv", "fused_mha_bld", "flash_attention_heads", "mha_tf32",
+                             "bld_tf32"),
+                 "bfloat16": ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile", "mha_tc", "bld_tf32")}
     for dtype, names in l14_paths.items():
         require(all(l14_launches[dtype][k] > 0 for k in names),
                 f"a kernel of the {dtype} ViT-L/14@336px path was never launched: "
                 f"{l14_launches[dtype]}")
-    require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld",
-                                                "mha_qkv_bwd", "mha_bld_bwd", "mha_tf32")),
+    require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd",
+                                                "mha_bld_bwd", "mha_tf32", "bld_tf32", "bld_bwd_tf32")),
             f"a kernel of the training path was never launched: {train_launches}")
     grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd", "mha_tc",
                                               "blocked_bwd_tc"),
@@ -2081,7 +2311,7 @@ def main() -> int:
     script_totals = {k: sum(run[k] for run in script_launches) for k in script_launches[0]}
     script_path = (*PROBE_REPLACES, "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                    "fused_mha_qtile", "flash_attention_heads", "mha_tc", "mha_qtile_bwd",
-                   "blocked_bwd_tc", "mha_tf32", "blocked_bwd_tf32")
+                   "blocked_bwd_tc", "mha_tf32", "blocked_bwd_tf32", "bld_tf32", "bld_bwd_tf32")
     require(all(script_totals[k] > 0 for k in script_path),
             f"a kernel of the scripts' path was never launched: {script_totals}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),

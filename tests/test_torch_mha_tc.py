@@ -356,7 +356,8 @@ def test_tc_wrappers_read_views_in_place_and_count(numpy_kernels):
                                rtol=0, atol=2e-2)
     assert numpy_kernels.calls == [("qkv_tc", 64, 1), ("qtile_tc", 64)]
     assert tattn.launch_counts == _counts(fused_mha_qkv=1, fused_mha_qtile=1)
-    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
 
 
 def _misaligned(rng, dtype):
@@ -708,7 +709,8 @@ def test_reset_launch_counts_clears_both_tables():
     tattn.route_counts["mha_tc"] = tattn.route_counts["mha_tf32"] = 3
     tattn.reset_launch_counts()
     assert tattn.launch_counts == _counts()
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -784,7 +786,8 @@ def test_tc_qkv_kernel_matches_blocked_plain(cuda, b, l, d, heads, causal):
     want = tattn.mha_qkv_reference(qkv, heads, causal, BLOCK)
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)
-    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
@@ -801,7 +804,8 @@ def test_tc_qtile_kernel_matches_blocked_plain(cuda, b, l, d, heads):
     want = tattn.mha_qtile_reference(x[..., :d], x[..., d:], heads, BLOCK)
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qtile=1)
-    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
 
@@ -823,7 +827,8 @@ def test_tc_flash_kernel_matches_blocked_plain_and_repeats_to_the_bit(cuda, b, h
     want_out, want_lse = tattn.flash_attention_reference(q, k, v, True, BLOCK, causal)
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(flash_attention_heads=2)
-    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
     torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=TC_TOL)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
@@ -841,7 +846,8 @@ def test_misaligned_and_fp32_operands_take_the_cuda_core_kernel_on_the_card(cuda
     torch.testing.assert_close(tattn.fused_mha_qkv(x, 4, True), tattn.mha_qkv_reference(x, 4, True),
                                rtol=0, atol=FP32_TOL)
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)
-    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0}
+    assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
     for misaligned in (wide.bfloat16()[..., 1:-1], x):
         with pytest.raises(ValueError, match="16-byte pieces"):
             tattn.fused_mha_qkv(misaligned, 2, True)
