@@ -53,8 +53,17 @@ from the operand type and the head dim before the launch:
   32 with L <= 32 (the temporal model's axial attention), ``acl_mha_bld_fwd``
   (mha.cu) everything else; its backward K4 ``acl_mha_bld_tf32_bwd`` at the
   same shapes, ``acl_mha_bld_bwd`` (mha_bwd.cu) or the KV-blocked pair past
-  them (``mha_bld_tf32_eligible``). fused_attention's whole-block branch keeps
-  mha.cu and mha_bwd.cu in either direction.
+  them (``mha_bld_tf32_eligible``).
+- K3, K4 and K5's backward (heads folded) in fp32 at head dim 64 with
+  L <= 112: the split-TF32 whole-head kernel of mha_whole_tf32_bwd.cu
+  (``acl_mha_qkv_whole_tf32_bwd`` for the packed qkv,
+  ``acl_mha_bld_whole_tf32_bwd`` for separate operands;
+  ``mha_whole_tf32_eligible``), the text tower's CoOp gradient; bf16, the
+  smaller head dims and 112 < L <= 117 keep mha_bwd.cu.
+- K5's whole-block forward: at head dim 64 K8's tensor-core entries
+  (``acl_flash_tc_fwd`` in bf16, ``acl_flash_tf32_fwd`` in fp32) on the
+  (B, H, L, Dh) views in place, without the log-sum-exp; at head dims 8, 16
+  and 32 K2's ``acl_mha_bld_fwd`` (mha.cu) with the heads folded.
 
 mha_tc.cu is the tensor-core kernel (``mma.sync`` products, P in registers, K
 and V in blocks of ``MHA_TC_BLOCK_KV`` keys with online softmax: every CLIP
@@ -63,9 +72,9 @@ fp32 product formed as three TF32 ``mma.sync`` products of the operands' big
 and small parts, which keeps fp32 accuracy (TF32 itself stays off, and no
 ``allow_tf32`` flag is touched). Both read their operands in 16-byte pieces, or
 the wrapper raises. The whole-row CUDA-core kernel of mha.cu also serves
-``fused_mha_bld`` and ``fused_attention``'s whole-block branch in either type,
-and the KV-blocked CUDA-core kernel of mha_long.cu the smaller head dims of
-``flash_attention_heads``.
+``fused_mha_bld`` and, at the smaller head dims, ``fused_attention``'s
+whole-block branch in either type, and the KV-blocked CUDA-core kernel of
+mha_long.cu the smaller head dims of ``flash_attention_heads``.
 The KV-blocked backward pair is two kernels in the same way: every caller of
 it (K7, K9, K10, and K3, K4 and K5's backward past the whole-head kernel)
 launches, in bf16 at head dim 64, the tensor-core pair of mha_tc_bwd.cu, in
@@ -79,9 +88,10 @@ split-TF32 pair's arithmetic for the tests and the chip smoke run.
 two forms to match (``block=None``: whole rows; ``block``: KV-blocked), because
 in bf16 a plain version must round P where its kernel rounds it; the entries'
 reference branch runs the form of the kernel the operands would launch
-(``reference_block``). K8's plain version is KV-blocked at the block of the
-kernel its operands launch (``flash_reference_block``: the tensor-core
-kernel's 64 keys in bf16 at head dim 64, mha_long.cu's 128 otherwise).
+(``reference_block``), and so does K5's whole-block branch. K8's plain
+version is KV-blocked at the block of the kernel its operands launch
+(``flash_reference_block``: the tensor-core kernel's 64 keys in bf16 at head
+dim 64, mha_long.cu's 128 otherwise).
 
 Which kernel fits a shape is a matter of shared memory and of what is
 instantiated: fp32 and bf16, head dims 8, 16, 32 and 64, causal or not, at any
@@ -146,9 +156,12 @@ launch_counts = {
 # "blocked_bwd_tf32" the backward entries' launches that took the split-TF32
 # pair (mha_tf32_bwd.cu), counted as "blocked_bwd_tc" is; "bld_tf32" the
 # launches of fused_mha_bld (K2) that took the split-TF32 whole-head kernel
-# (mha_bld_tf32.cu), and "bld_bwd_tf32" those of its backward (K4)
+# (mha_bld_tf32.cu), and "bld_bwd_tf32" those of its backward (K4);
+# "whole_bwd_tf32" the launches of K3, K4 and K5's backward that took the
+# split-TF32 whole-head kernel at head dim 64 (mha_whole_tf32_bwd.cu). K5's
+# whole-block forward at head dim 64 counts under "mha_tc" or "mha_tf32"
 route_counts = {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                "bld_tf32": 0, "bld_bwd_tf32": 0}
+                "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 IMPL_ENV = "ANOMALYCLIP_ATTN_IMPL"
 _IMPLS = ("kernel", "reference")
@@ -284,9 +297,14 @@ def mha_qtile_bwd_reference(q, kv, g, num_heads: int) -> tuple:
     return dq, torch.cat([dk, dv], dim=-1)
 
 
-def fused_attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
-    """``fused_attention``'s whole-block kernel (:1089-1093) over (B, H, L, Dh)."""
-    return attention_reference(q, k, v, causal)
+def fused_attention_reference(q, k, v, causal: bool = False, block=None) -> torch.Tensor:
+    """``fused_attention``'s whole-block kernel (:1089-1093) over (B, H, L, Dh):
+    whole rows, or with ``block`` keys per KV block and online softmax
+    (``attention_blocked_reference``), where the tensor-core kernel that the
+    branch launches in bf16 at head dim 64 rounds (``reference_block``)."""
+    if block is None:
+        return attention_reference(q, k, v, causal)
+    return attention_blocked_reference(q, k, v, causal, block)
 
 
 # keys per KV block of the flash kernel (mha_long.cu: kBlockKV)
@@ -482,13 +500,16 @@ def mha_bld_tf32x3_reference(q, k, v, num_heads: int, causal: bool = False,
 
 def mha_bld_bwd_tf32x3_reference(q, k, v, g, num_heads: int, causal: bool = False,
                                  passes: int = 3) -> tuple:
-    """What the split-TF32 whole-head backward (mha_bld_tf32.cu, K4 in fp32 at L
-    <= 32) computes over fp32 (B, L, D) q, k, v and the output gradient g ->
-    (dq, dk, dv), each (B, L, D): ``_mha_bwd_head``'s function, P normalised as
-    e / sum, delta = rowsum(P o dP), dS = P o (dP - delta) * scale, the five
-    products formed from the operands' TF32 parts, the cross terms first, as the
-    kernel orders them. ``passes=1`` is plain TF32. For the tests and the chip
-    smoke run: nothing on the main path calls it."""
+    """What the split-TF32 whole-head backwards compute over fp32 (B, L, D) q,
+    k, v and the output gradient g -> (dq, dk, dv), each (B, L, D): K4 in fp32
+    at head dims 16 and 32 with L <= 32 (mha_bld_tf32.cu), and K3, K4 and K5's
+    backward in fp32 at head dim 64 with L <= 112 (mha_whole_tf32_bwd.cu; K3's
+    packed qkv unpacked, K5's heads folded into the batch with one head):
+    ``_mha_bwd_head``'s function, P normalised as e / sum, delta = rowsum(P o
+    dP), dS = P o (dP - delta) * scale, the five products formed from the
+    operands' TF32 parts, the cross terms first, as both kernels order them.
+    ``passes=1`` is plain TF32. For the tests and the chip smoke run: nothing
+    on the main path calls it."""
     product = _tf32_product(passes)
     q, k, v, g = (_split_heads(t.float(), num_heads) for t in (q, k, v, g))
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -669,6 +690,35 @@ def mha_bld_tf32_smem_bytes(l: int, dh: int, backward: bool) -> int:
         return 4 * _BLD_TF32_WARPS * BLD_TF32_MAX_L * ((dh + k_pad) + (dh + v_pad))
     rows = -(-l // 16) * 16
     return 4 * _BLD_TF32_WARPS * (4 * rows * (dh + pad) + 2 * rows * (rows + pad))
+
+
+WHOLE_TF32_HEAD_DIM = 64  # the one head dim the split-TF32 whole-head backward takes
+_WHOLE_TF32_PAD = 4  # floats of padding per staged row and tile row (mha_whole_tf32_bwd.cu)
+
+
+def mha_whole_tf32_smem_bytes(l: int) -> int:
+    """The split-TF32 whole-head backward at head dim 64 (mha_whole_tf32_bwd.cu),
+    one block a head: the q, k, v and g tiles and the P and dS tiles, each of L
+    rounded up to 16 rows, rows padded by 4 floats."""
+    rows = -(-l // 16) * 16
+    pad = _WHOLE_TF32_PAD
+    return 4 * (4 * rows * (WHOLE_TF32_HEAD_DIM + pad) + 2 * rows * (rows + pad))
+
+
+# the longest head it takes: the last multiple of 16 rows whose tiles fit an
+# H100's block (112: 225,792 B; 128 would need 274,432)
+WHOLE_TF32_MAX_L = max(r for r in range(16, 257, 16) if mha_whole_tf32_smem_bytes(r) <= H100_SMEM_OPTIN)
+
+
+def mha_whole_tf32_eligible(dtype: torch.dtype, dh: int, l: int) -> bool:
+    """Whether K3 (``mha_qkv_bwd``), K4 (``mha_bld_bwd``) and K5's backward
+    (heads folded) launch the split-TF32 whole-head kernel of
+    mha_whole_tf32_bwd.cu for this operand type, head dim and length, or the
+    kernels ``attention_bwd_route`` names (mha_bwd.cu, the KV-blocked pair; K4
+    at head dims 16 and 32 first asks ``mha_bld_tf32_eligible``): fp32 at head
+    dim 64 with 1 <= L <= ``WHOLE_TF32_MAX_L``, the text tower's CoOp
+    gradient. A pure function of the shape."""
+    return dtype == torch.float32 and dh == WHOLE_TF32_HEAD_DIM and 1 <= l <= WHOLE_TF32_MAX_L
 
 
 def mha_bld_tf32_eligible(dtype: torch.dtype, dh: int, l: int) -> bool:
@@ -920,13 +970,24 @@ def _launch_mha_bld(name: str, q, k, v, num_heads: int, causal: bool) -> torch.T
     return out
 
 
+# the shared memory a block of each split-TF32 whole-head kernel needs at
+# (L, dh): K2's forward and K4's backward of mha_bld_tf32.cu, the head-dim-64
+# backward of mha_whole_tf32_bwd.cu
+_WHOLE_HEAD_SMEM = {
+    "bld_fwd": lambda l, dh: mha_bld_tf32_smem_bytes(l, dh, False),
+    "bld_bwd": lambda l, dh: mha_bld_tf32_smem_bytes(l, dh, True),
+    "whole_bwd": lambda l, dh: mha_whole_tf32_smem_bytes(l),
+}
+
+
 @functools.lru_cache(maxsize=256)
-def _bld_tf32_plan(name: str, operands: tuple, num_heads: int, backward: bool) -> tuple:
+def _bld_tf32_plan(name: str, operands: tuple, num_heads: int, kernel: str) -> tuple:
     """What the split-TF32 whole-head entries owe their operands that depends
     only on their shapes, strides, dtypes and devices, given as one (shape,
     stride, dtype, device) per operand (q first), so that a repeated call pays
     for it once; raises, with the shape, on what they do not take -> (head
-    dim, scale, the operands' (batch, row) element strides, flat)."""
+    dim, scale, the operands' (batch, row) element strides, flat). ``kernel``
+    names the kernel's shared memory (``_WHOLE_HEAD_SMEM``)."""
     shape, _, dtype, device = operands[0]
     for other, _, other_dtype, other_device in operands[1:]:
         if other != shape or other_dtype != dtype:
@@ -936,7 +997,7 @@ def _bld_tf32_plan(name: str, operands: tuple, num_heads: int, backward: bool) -
             raise ValueError(f"{name}: operands must be on one device")
     b, l, d = shape
     dh = _check_kernel_shape(name, types.SimpleNamespace(shape=shape, dtype=dtype, device=device), d,
-                             num_heads, lambda dh: mha_bld_tf32_smem_bytes(l, dh, backward))
+                             num_heads, lambda dh: _WHOLE_HEAD_SMEM[kernel](l, dh))
     strides = []
     for _, stride, _, _ in operands:
         if stride[-1] != 1:
@@ -951,11 +1012,11 @@ def _bld_tf32_plan(name: str, operands: tuple, num_heads: int, backward: bool) -
     return dh, 1.0 / math.sqrt(dh), tuple(strides)
 
 
-def _bld_tf32_args(name: str, operands: tuple, num_heads: int, backward: bool) -> tuple:
+def _bld_tf32_args(name: str, operands: tuple, num_heads: int, kernel: str) -> tuple:
     """``_bld_tf32_plan`` of the operands, and each base address in 16-byte
     pieces (the one check a call repeats) -> the plan."""
     plan = _bld_tf32_plan(name, tuple([(t.shape, t.stride(), t.dtype, t.device) for t in operands]),
-                          num_heads, backward)
+                          num_heads, kernel)
     if any([t.data_ptr() % 16 for t in operands]):
         _check_16_byte_pieces(name, *operands)
     return plan
@@ -967,7 +1028,7 @@ def mha_bld_fwd_kernel(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
     (B, L, D); k and v are read in place."""
     b, l, d = q.shape
     if d % num_heads == 0 and mha_bld_tf32_eligible(q.dtype, d // num_heads, l):
-        dh, scale, strides = _bld_tf32_args("fused_mha_bld", (q, k, v), num_heads, False)
+        dh, scale, strides = _bld_tf32_args("fused_mha_bld", (q, k, v), num_heads, "bld_fwd")
         out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
         err = load_library().acl_mha_bld_tf32_fwd(
             q.data_ptr(), *strides[0:2], k.data_ptr(), *strides[2:4], v.data_ptr(), *strides[4:6],
@@ -1126,14 +1187,40 @@ def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int) -> st
     return route
 
 
+def _launch_qkv_whole_tf32(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
+    """K3 on ``acl_mha_qkv_whole_tf32_bwd`` (mha_whole_tf32_bwd.cu), after the
+    checks it owes its operands: the packed dqkv. Counts the route only."""
+    b, l, d3 = qkv.shape
+    dh = _check_kernel_shape("mha_qkv_bwd", qkv, d3 // 3, num_heads,
+                             lambda dh: mha_whole_tf32_smem_bytes(l))
+    bs, rs = _strides("mha_qkv_bwd", qkv, qkv.shape)
+    _check_16_byte_pieces("mha_qkv_bwd", qkv, g)
+    if b * num_heads > _INT_MAX:
+        raise ValueError(f"mha_qkv_bwd: shape {tuple(qkv.shape)} is beyond the launch grid")
+    dqkv = torch.empty((b, l, d3), dtype=qkv.dtype, device=qkv.device)
+    err = load_library().acl_mha_qkv_whole_tf32_bwd(
+        qkv.data_ptr(), bs, rs, g.data_ptr(), dqkv.data_ptr(), b, l, num_heads, dh, int(causal),
+        1.0 / math.sqrt(dh), _stream(qkv),
+    )
+    _raise_on_error("mha_qkv_bwd", err)
+    route_counts["whole_bwd_tf32"] += 1
+    return dqkv
+
+
 def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
-    """K3: the packed (B, L, 3D) dqkv, from ``acl_mha_qkv_bwd`` where the
-    whole-head kernel's shared memory fits, else from the KV-blocked pair."""
+    """K3: the packed (B, L, 3D) dqkv, from ``acl_mha_qkv_whole_tf32_bwd`` (fp32
+    at head dim 64 with L <= 112: ``mha_whole_tf32_eligible``), else from
+    ``acl_mha_qkv_bwd`` where the whole-head kernel's shared memory fits, else
+    from the KV-blocked pair."""
     b, l, d3 = qkv.shape
     d = d3 // 3
-    route = _bwd_route("mha_qkv_bwd", qkv, l, d, num_heads)
     if g.shape != (b, l, d) or g.device != qkv.device:
         raise ValueError(f"mha_qkv_bwd: gradient {tuple(g.shape)} for qkv {tuple(qkv.shape)}")
+    if d % num_heads == 0 and mha_whole_tf32_eligible(qkv.dtype, d // num_heads, l):
+        dqkv = _launch_qkv_whole_tf32(qkv, g.to(qkv.dtype).contiguous(), num_heads, causal)
+        launch_counts["mha_qkv_bwd"] += 1
+        return dqkv
+    route = _bwd_route("mha_qkv_bwd", qkv, l, d, num_heads)
     g = g.to(qkv.dtype).contiguous()
     dqkv = torch.empty((b, l, d3), dtype=qkv.dtype, device=qkv.device)
     if route == "blocked":
@@ -1154,11 +1241,25 @@ def mha_qkv_bwd_kernel(qkv, g, num_heads: int, causal: bool) -> torch.Tensor:
 
 
 def _launch_mha_bld_bwd(name: str, q, k, v, g, num_heads: int, causal: bool) -> tuple:
-    """(dq, dk, dv), each (B, L, D), for entry ``name``: ``acl_mha_bld_bwd``
-    where the whole-head kernel's shared memory fits, else the KV-blocked pair;
-    q, k, v are read in place. Counts no launch, only the pair's route."""
-    _check_bld(name, q, k, v)
+    """(dq, dk, dv), each (B, L, D), for entry ``name``:
+    ``acl_mha_bld_whole_tf32_bwd`` in fp32 at head dim 64 with L <= 112
+    (``mha_whole_tf32_eligible``), else ``acl_mha_bld_bwd`` where the
+    whole-head kernel's shared memory fits, else the KV-blocked pair; q, k, v
+    are read in place. Counts no launch, only the route."""
     b, l, d = q.shape
+    if d % num_heads == 0 and mha_whole_tf32_eligible(q.dtype, d // num_heads, l):
+        g = g.to(q.dtype).contiguous()
+        dh, scale, strides = _bld_tf32_args(name, (q, k, v, g), num_heads, "whole_bwd")
+        grads = tuple(torch.empty((b, l, d), dtype=q.dtype, device=q.device) for _ in range(3))
+        err = load_library().acl_mha_bld_whole_tf32_bwd(
+            q.data_ptr(), *strides[0:2], k.data_ptr(), *strides[2:4], v.data_ptr(), *strides[4:6],
+            g.data_ptr(), *strides[6:8], *(t.data_ptr() for t in grads),
+            b, l, num_heads, dh, int(causal), scale, _stream(q),
+        )
+        _raise_on_error(name, err)
+        route_counts["whole_bwd_tf32"] += 1
+        return grads
+    _check_bld(name, q, k, v)
     route = _bwd_route(name, q, l, d, num_heads)
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"{name}: gradient {tuple(g.shape)} for q {tuple(q.shape)}")
@@ -1191,7 +1292,7 @@ def mha_bld_bwd_kernel(q, k, v, g, num_heads: int, causal: bool) -> tuple:
     b, l, d = q.shape
     if d % num_heads == 0 and mha_bld_tf32_eligible(q.dtype, d // num_heads, l):
         g = g.to(q.dtype).contiguous()
-        dh, scale, strides = _bld_tf32_args("mha_bld_bwd", (q, k, v, g), num_heads, True)
+        dh, scale, strides = _bld_tf32_args("mha_bld_bwd", (q, k, v, g), num_heads, "bld_bwd")
         grads = tuple(torch.empty((b, l, d), dtype=q.dtype, device=q.device) for _ in range(3))
         err = load_library().acl_mha_bld_tf32_bwd(
             q.data_ptr(), *strides[0:2], k.data_ptr(), *strides[2:4], v.data_ptr(), *strides[4:6],
@@ -1207,12 +1308,14 @@ def mha_bld_bwd_kernel(q, k, v, g, num_heads: int, causal: bool) -> tuple:
 
 
 def fused_attention_bwd_kernel(q, k, v, g, causal: bool) -> tuple:
-    """K5's whole-block backward over (B, H, L, Dh): K4's kernel with the heads
-    folded into the batch (``_fused_attention_bwd``, :1171-1181) where its
-    shared memory fits, else the KV-blocked pair on the four-dimensional views
-    as they are."""
+    """K5's whole-block backward over (B, H, L, Dh): K4's route with the heads
+    folded into the batch (``_fused_attention_bwd``, :1171-1181): the
+    split-TF32 whole-head kernel in fp32 at head dim 64 with L <= 112, else
+    mha_bwd.cu where its shared memory fits, else the KV-blocked pair on the
+    four-dimensional views as they are."""
     b, h, l, dh = q.shape
-    route = _bwd_route("fused_attention", q, l, dh, 1)
+    whole_tf32 = mha_whole_tf32_eligible(q.dtype, dh, l)
+    route = "whole" if whole_tf32 else _bwd_route("fused_attention", q, l, dh, 1)
     if route == "blocked":
         g = g.to(q.dtype).contiguous()
         grads = tuple(torch.empty((b, h, l, dh), dtype=q.dtype, device=q.device) for _ in range(3))
@@ -1376,20 +1479,8 @@ def flash_fwd_kernel(q, k, v, save_lse: bool, causal: bool = False):
     )
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device) if save_lse else None
     lse_ptr = ctypes.c_void_p(lse.data_ptr() if save_lse else None)
-    scale = 1.0 / math.sqrt(dh)
-    tensor_cores, tf32 = mha_tc_eligible(q.dtype, dh), mha_tf32_eligible(q.dtype, dh)
-    if tensor_cores or tf32:
-        out = _empty_heads(q)
-        views = [_as_heads(t) for t in (q, k, v, out)]
-        _check_tc("flash_attention_heads", views[3], 1, *views[:3],
-                  smem_need=mha_tc_smem_bytes if tensor_cores else mha_tf32_smem_bytes)
-        b, h = views[0].shape[:2]
-        lib = load_library()
-        entry = lib.acl_flash_tc_fwd if tensor_cores else lib.acl_flash_tf32_fwd
-        err = entry(
-            *_blocked_args("flash_attention_heads", views), lse_ptr, b, h, l, dh, int(causal),
-            scale, _stream(q),
-        )
+    if mha_tc_eligible(q.dtype, dh) or mha_tf32_eligible(q.dtype, dh):
+        out = _launch_flash_tc("flash_attention_heads", q, k, v, lse_ptr, causal)
     else:
         folded = [t.reshape(-1, l, dh) for t in (q, k, v)]
         strides = [_strides("flash_attention_heads", t, q.shape) for t in folded]
@@ -1400,23 +1491,54 @@ def flash_fwd_kernel(q, k, v, save_lse: bool, causal: bool = False):
             ptr(folded[0].data_ptr()), *strides[0],
             ptr(folded[1].data_ptr()), *strides[1],
             ptr(folded[2].data_ptr()), *strides[2],
-            ptr(out.data_ptr()), lse_ptr, folded[0].shape[0], l, dh, int(causal), scale, _stream(q),
+            ptr(out.data_ptr()), lse_ptr, folded[0].shape[0], l, dh, int(causal), 1.0 / math.sqrt(dh),
+            _stream(q),
         )
-    _raise_on_error("flash_attention_heads", err)
+        _raise_on_error("flash_attention_heads", err)
     launch_counts["flash_attention_heads"] += 1
-    route_counts["mha_tc"] += tensor_cores
-    route_counts["mha_tf32"] += tf32
     return (out, lse) if save_lse else out
 
 
+def _launch_flash_tc(name: str, q, k, v, lse_ptr, causal: bool) -> torch.Tensor:
+    """K8's tensor-core entry for entry ``name`` at head dim 64
+    (``acl_flash_tc_fwd`` in bf16, ``acl_flash_tf32_fwd`` in fp32), reading
+    per-head (N, L, dh) or (B, H, L, dh) q, k, v in place through (batch, head,
+    row) strides and writing the log-sum-exp to ``lse_ptr`` unless it is
+    NULL -> the output in ``_empty_heads`` layout. Counts the route only."""
+    l, dh = q.shape[-2:]
+    tensor_cores = mha_tc_eligible(q.dtype, dh)
+    out = _empty_heads(q)
+    views = [_as_heads(t) for t in (q, k, v, out)]
+    _check_tc(name, views[3], 1, *views[:3],
+              smem_need=mha_tc_smem_bytes if tensor_cores else mha_tf32_smem_bytes)
+    b, h = views[0].shape[:2]
+    lib = load_library()
+    entry = lib.acl_flash_tc_fwd if tensor_cores else lib.acl_flash_tf32_fwd
+    err = entry(*_blocked_args(name, views), lse_ptr, b, h, l, dh, int(causal), 1.0 / math.sqrt(dh),
+                _stream(q))
+    _raise_on_error(name, err)
+    route_counts["mha_tc" if tensor_cores else "mha_tf32"] += 1
+    return out
+
+
 def fused_attention_fwd_kernel(q, k, v, causal: bool) -> torch.Tensor:
-    """K5's whole-block branch: K2's kernel (``acl_mha_bld_fwd``) with the heads
-    folded into the batch, one head per entry -> (B, H, L, Dh)."""
+    """K5's whole-block branch -> (B, H, L, Dh): at head dim 64 K8's tensor-core
+    entry (``acl_flash_tc_fwd`` in bf16, ``acl_flash_tf32_fwd`` in fp32) on the
+    views in place, without the log-sum-exp, its output in the layout that
+    folds back into (B, L, H * Dh) without a copy; at the smaller head dims
+    K2's kernel (``acl_mha_bld_fwd``) with the heads folded into the batch, one
+    head per entry. The admission limit is mha.cu's whatever kernel launches
+    (``mha_kernel_eligible``, which ``fused_attention`` asks before the call)."""
     b, h, l, dh = q.shape
-    folded = [t.reshape(b * h, l, dh) for t in (q, k, v)]
-    out = _launch_mha_bld("fused_attention", *folded, 1, causal)
+    if mha_tc_eligible(q.dtype, dh) or mha_tf32_eligible(q.dtype, dh):
+        _check_bld("fused_attention", q, k, v)
+        _check_kernel_shape("fused_attention", q, dh, 1, lambda dh: mha_smem_bytes(l, dh))
+        out = _launch_flash_tc("fused_attention", q, k, v, ctypes.c_void_p(None), causal)
+    else:
+        folded = [t.reshape(b * h, l, dh) for t in (q, k, v)]
+        out = _launch_mha_bld("fused_attention", *folded, 1, causal).reshape(b, h, l, dh)
     launch_counts["fused_attention"] += 1
-    return out.reshape(b, h, l, dh)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1425,9 +1547,10 @@ def fused_attention_fwd_kernel(q, k, v, causal: bool) -> torch.Tensor:
 
 
 def reference_block(dtype: torch.dtype, dh: int):
-    """The ``block`` of the plain version that rounds like the kernel K1 and K6
-    launch for this operand type and head dim: the tensor-core kernel's KV
-    block, or None (whole rows) for the CUDA-core kernel."""
+    """The ``block`` of the plain version that rounds like the kernel K1, K6 and
+    K5's whole-block branch launch for this operand type and head dim: the
+    tensor-core kernel's KV block, or None (whole rows) for the CUDA-core
+    kernels and the split-TF32 ones (in fp32 the block orders the sums only)."""
     return MHA_TC_BLOCK_KV if mha_tc_eligible(dtype, dh) else None
 
 
@@ -1552,9 +1675,11 @@ class _FlashHeads(torch.autograd.Function):
 
 
 class _FusedAttention(torch.autograd.Function):
-    """K5's whole-block forward (K2's kernel, heads folded) and its backward
-    (K4's kernel, heads folded, or the KV-blocked pair); saves q, k, v, as
-    ``_fused_attention_fwd`` (:1167-1168)."""
+    """K5's whole-block forward (K8's tensor-core entries at head dim 64, K2's
+    kernel with the heads folded at the smaller ones) and its backward (K4's
+    route, heads folded, or the KV-blocked pair); saves q, k, v, as
+    ``_fused_attention_fwd`` (:1167-1168). The reference branch rounds as the
+    kernel does (``reference_block``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -1562,7 +1687,7 @@ class _FusedAttention(torch.autograd.Function):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
         if ctx.reference:
-            return fused_attention_reference(q, k, v, causal)
+            return fused_attention_reference(q, k, v, causal, reference_block(q.dtype, q.shape[-1]))
         return fused_attention_fwd_kernel(q, k, v, causal)
 
     @staticmethod
@@ -1602,9 +1727,12 @@ def fused_attention(
     """Attention over per-head (B, H, L, Dh) -> (B, H, L, Dh), routed as
     ``_fused_attention_impl`` (:1121-1135) routes, with the card's limits:
 
-    - the whole-block kernel (K2's, heads folded into the batch) where it takes
-      the shape (``mha_kernel_eligible``); its backward is
-      ``attention_bwd_route``'s;
+    - the whole-block branch where the whole-row kernel takes the shape
+      (``mha_kernel_eligible``): at head dim 64 K8's tensor-core entries on the
+      views in place, at the smaller head dims K2's kernel with the heads
+      folded into the batch; its backward is K4's route (the split-TF32
+      whole-head kernel in fp32 at head dim 64 with L <= 112, else
+      ``attention_bwd_route``'s);
     - else the flash kernel (K8, and K9 and K10 in the backward, as
       ``flash_attention_heads``) on the four-dimensional views as they are,
       with the causal mask where asked: the reference's second branch and, for

@@ -24,10 +24,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "mha.cu", CSRC / "mha_bwd.cu", CSRC / "mha_long.cu", CSRC / "mha_blocked_bwd.cu",
     CSRC / "mha_probe.cu", CSRC / "mha_tc.cu", CSRC / "mha_tc_bwd.cu", CSRC / "mha_tf32.cu",
-    CSRC / "mha_tf32_bwd.cu", CSRC / "mha_bld_tf32.cu",
+    CSRC / "mha_tf32_bwd.cu", CSRC / "mha_bld_tf32.cu", CSRC / "mha_whole_tf32_bwd.cu",
 )
 # attention_common.cuh is included by every source, tensor_core.cuh by the
-# five tensor-core ones
+# six tensor-core ones
 HEADERS = (CSRC / "attention_common.cuh", CSRC / "tensor_core.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -180,6 +180,17 @@ def load_library() -> ctypes.CDLL:
     lib.acl_mha_bld_tf32_bwd.argtypes = [p, s, s, p, s, s, p, s, s, p, s, s, p, p, p, i, i, i, i, i,
                                          f, p]
     lib.acl_mha_bld_tf32_bwd.restype = i
+    # the split-TF32 whole-head backward at head dim 64 (mha_whole_tf32_bwd.cu):
+    # K3 from the packed qkv (its 64-bit strides), g and the packed dqkv; K4 as
+    # acl_mha_bld_tf32_bwd
+    lib.acl_mha_whole_tf32_smem_bytes.argtypes = [i]
+    lib.acl_mha_whole_tf32_smem_bytes.restype = z
+    lib.acl_mha_whole_tf32_blocks_per_sm.argtypes = [i]
+    lib.acl_mha_whole_tf32_blocks_per_sm.restype = i
+    lib.acl_mha_qkv_whole_tf32_bwd.argtypes = [p, s, s, p, p, i, i, i, i, i, f, p]
+    lib.acl_mha_qkv_whole_tf32_bwd.restype = i
+    lib.acl_mha_bld_whole_tf32_bwd.argtypes = lib.acl_mha_bld_tf32_bwd.argtypes
+    lib.acl_mha_bld_whole_tf32_bwd.restype = i
     # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
     # pointer and 64-bit batch and row strides
     lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]

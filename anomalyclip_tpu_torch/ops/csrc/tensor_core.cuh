@@ -1,5 +1,5 @@
 // What the tensor-core kernels share (mha_tc.cu, mha_tc_bwd.cu, mha_tf32.cu, mha_tf32_bwd.cu,
-// mha_bld_tf32.cu): 16-byte cp.async staging of bf16 or fp32 rows into padded
+// mha_bld_tf32.cu, mha_whole_tf32_bwd.cu): 16-byte cp.async staging of bf16 or fp32 rows into padded
 // shared-memory rows, ldmatrix fragment loads, the m16n8k16 bf16 product with
 // fp32 accumulation, the approximate exponent and the bf16 packing of two
 // accumulator values into one fragment register; for fp32 operands the TF32

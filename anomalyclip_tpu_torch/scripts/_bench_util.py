@@ -35,23 +35,27 @@ def median_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 30) -> float:
+def device_ms(fn, calls: int = 30, sessions: int = 3) -> float:
     """Device time of one call of ``fn``: the durations of every kernel and copy
     that ``calls`` calls put on the card under torch.profiler, summed, over
-    ``calls``, after one warm call."""
+    ``calls``, after one warm call. Now and then a profiler session hands back
+    no device activity at all (seen on the H100's machine in the middle of
+    runs whose other sessions recorded theirs): such a session is run again,
+    up to ``sessions`` in all; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == cuda)
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / 1e3 / calls
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == cuda)
+        if total_us > 0:
+            return total_us / 1e3 / calls
+    raise RuntimeError(f"torch.profiler recorded no device time in {sessions} sessions")
 
 
 def host_ms(fn, calls: int = 200) -> float:

@@ -63,6 +63,21 @@ not the kernel's; a last line splits K2's host time at the first shape into
 its parts (the entry through autograd, the wrapper, its shape checks, the
 output's allocation, the stream lookup, the library call).
 
+A sixth set gives the text towers' CoOp gradient in fp32 (``text``): K1
+forward and K3 backward through the packed qkv at the UCF-Crime training
+step's 14 prompts of 77 tokens, causal, for the ViT-B/16 text tower (width 512,
+8 heads of 64) and ViT-L/14's (768, 12 heads), with
+``scaled_dot_product_attention`` forward and forward+backward, each by the
+three clocks of the fifth set; K3 is held within 1e-5 of max|ref| of its fp32
+plain backward (on the card: whichever kernel the wrapper takes, named by the
+route counts). A last set times K5's whole-block branch (``whole-block``,
+``fused_attention_fwd_kernel``) at ViT-B/16's heads, (256, 12, 197, 64), in
+fp32 and bf16, causal and not, by device and event time beside
+``scaled_dot_product_attention`` and the bound; fp32 is held within 1e-5 of
+the whole-row plain version, bf16 within 5e-2 of the plain version at the
+tensor-core kernel's KV block. Both sets use only entries that every slice of
+the port has had, so the script also times an older checkout's kernels.
+
 ``--sass`` adds the opcode mix of each kernel (the tensor-core kernel's two
 instantiations apart), read from ``cuobjdump -sass`` of the built library: the
 opcodes of the whole kernel and of its main loops (each
@@ -141,6 +156,16 @@ BLD_SHAPES = [
     ("temporal training, frames", 2048, 16, 256, 8),
 ]
 HOST_CALLS = 200  # enqueues timed on the host clock for one host time
+# the text towers (causal, L=77) at the UCF-Crime training step's 14 prompts:
+# tag, B, L, D, heads
+TEXT_SHAPES = [
+    ("text tower", 14, 77, 512, 8),
+    ("ViT-L/14 text tower", 14, 77, 768, 12),
+]
+# K5's whole-block branch at ViT-B/16's heads: (B, H, L, dh), its dtypes and masks
+WHOLE_BLOCK_DIMS = (256, 12, 197, 64)
+WHOLE_BLOCK_CASES = [(dtype, causal) for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)]
+WHOLE_BLOCK_BF16_LIMIT = 5e-2  # bf16 against the plain version at the kernel's KV block
 
 
 def run(entry: str, x: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
@@ -299,6 +324,16 @@ def bench_tf32_backward(tag: str, b: int, l: int, d: int, heads: int, causal: bo
           flush=True)
 
 
+def three_clocks(shape: str, calls: dict, bounds: dict, iters: int) -> None:
+    """A line per call: device, event and host time, beside the bound of its
+    kind ("backward" where the name says so, else "forward")."""
+    for name, fn in calls.items():
+        times = (device_ms(fn, iters), median_ms(fn, iters), host_ms(fn, HOST_CALLS))
+        kind = "backward" if "backward" in name or name in ("K3", "K4") else "forward"
+        print(f"{shape} {name}: device {times[0]:.4f} ms, event {times[1]:.4f} ms, host "
+              f"{times[2]:.4f} ms an enqueue; {kind} bound {bounds[kind]:.4f} ms", flush=True)
+
+
 def bench_bld(tag: str, b: int, l: int, d: int, heads: int, on_card: bool, device: str,
               iters: int) -> None:
     """The lines of one temporal shape: on the card K2, K4 and sdpa forward and
@@ -352,11 +387,7 @@ def bench_bld(tag: str, b: int, l: int, d: int, heads: int, on_card: bool, devic
     bounds = {kind: max(ops * pairs / PEAK_TF32X3_FLOPS, 4 * tensors * b * l * d / PEAK_BYTES_PER_S) * 1e3
               for kind, ops, tensors in (("forward", 4, 4), ("backward", 10, 7))}
     before = dict(A.route_counts)
-    for name, fn in calls.items():
-        times = (device_ms(fn, iters), median_ms(fn, iters), host_ms(fn, HOST_CALLS))
-        kind = "backward" if name in ("K4", "sdpa forward+backward") else "forward"
-        print(f"{shape} {name}: device {times[0]:.4f} ms, event {times[1]:.4f} ms, host "
-              f"{times[2]:.4f} ms an enqueue; {kind} bound {bounds[kind]:.4f} ms", flush=True)
+    three_clocks(shape, calls, bounds, iters)
     routes = {k: n - before.get(k, 0) for k, n in A.route_counts.items() if n != before.get(k, 0)}
     print(f"{shape}: K2 max|diff|={err:.2e}, K4 {bwd_err:.2e} of max|ref| against the fp32 plain "
           f"versions; route counts of the timed launches {routes}", flush=True)
@@ -372,7 +403,7 @@ def bld_host_breakdown(b: int, l: int, d: int, heads: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, kv = (torch.randn(b, l, w, device="cuda", generator=gen) for w in (d, 2 * d))
     k, v = kv[..., :d], kv[..., d:]
-    dh, scale, strides = A._bld_tf32_args("fused_mha_bld", (q, k, v), heads, False)
+    dh, scale, strides = A._bld_tf32_args("fused_mha_bld", (q, k, v), heads, "bld_fwd")
     out = torch.empty_like(q)
     lib = B.load_library()
     args = (q.data_ptr(), *strides[0:2], k.data_ptr(), *strides[2:4], v.data_ptr(), *strides[4:6],
@@ -380,13 +411,92 @@ def bld_host_breakdown(b: int, l: int, d: int, heads: int) -> None:
     parts = {
         "entry fused_mha_bld": lambda: A.fused_mha_bld(q, k, v, heads),
         "wrapper mha_bld_fwd_kernel": lambda: A.mha_bld_fwd_kernel(q, k, v, heads, False),
-        "shape checks": lambda: A._bld_tf32_args("fused_mha_bld", (q, k, v), heads, False),
+        "shape checks": lambda: A._bld_tf32_args("fused_mha_bld", (q, k, v), heads, "bld_fwd"),
         "output allocation": lambda: torch.empty((b, l, d), dtype=q.dtype, device=q.device),
         "stream lookup": lambda: A._stream(q),
         "library call": lambda: lib.acl_mha_bld_tf32_fwd(*args),
     }
     print(f"K2 host time at (B={b}, L={l}, D={d}, H={heads}), ms an enqueue: "
           + ", ".join(f"{name} {host_ms(fn, HOST_CALLS):.4f}" for name, fn in parts.items()), flush=True)
+
+
+def bench_text(tag: str, b: int, l: int, d: int, heads: int, on_card: bool, device: str,
+               iters: int) -> None:
+    """The lines of one text tower: on the card K1, K3 and sdpa forward and
+    forward+backward, each by device, event and host time, beside the bounds;
+    on the CPU the emulation of the split-TF32 whole-head backward against the
+    fp32 plain backward."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((b, l, 3 * d)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, l, d)).astype(np.float32)).to(device)
+    shape = f"{tag} fp32 causal (B={b}, L={l}, D={d}, H={heads})"
+    want = A.mha_qkv_bwd_reference(x, g, heads, True)
+    if on_card:
+        got = A.mha_qkv_bwd_kernel(x, g, heads, True)
+        fwd = A.mha_qkv_fwd_kernel(x, heads, True)
+        fwd_err = (fwd - A.mha_qkv_reference(x, heads, True)).abs().max().item()
+    else:
+        got = torch.cat(A.mha_bld_bwd_tf32x3_reference(*A._unpack_qkv(x), g, heads, True), dim=-1)
+        fwd_err = 0.0
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    if not (err <= TF32_PARITY_LIMIT and fwd_err <= TF32_PARITY_LIMIT):
+        raise AssertionError(f"{shape}: K3 {err} of max|ref|, K1 max|diff| {fwd_err}")
+    del got, want
+    if not on_card:
+        print(f"{shape}: the split-TF32 emulation against the fp32 plain backward, {err:.2e} of "
+              f"max|ref|", flush=True)
+        return
+    dh = d // heads
+    pairs = b * heads * l * l * dh * 0.5  # causal: half the score entries
+    bounds = {kind: max(ops * pairs / PEAK_TF32X3_FLOPS, 4 * tensors * b * l * d / PEAK_BYTES_PER_S) * 1e3
+              for kind, ops, tensors in (("forward", 4, 4), ("backward", 10, 7))}
+    before = dict(A.route_counts)
+    three_clocks(shape, {
+        "K1": lambda: A.mha_qkv_fwd_kernel(x, heads, True),
+        "K3": lambda: A.mha_qkv_bwd_kernel(x, g, heads, True),
+        "sdpa forward": lambda: sdpa(x, heads, True),
+        "sdpa forward+backward": lambda: sdpa_backward(x, g, heads, True),
+    }, bounds, iters)
+    routes = {k: n - before.get(k, 0) for k, n in A.route_counts.items() if n != before.get(k, 0)}
+    print(f"{shape}: K1 max|diff|={fwd_err:.2e}, K3 {err:.2e} of max|ref| against the fp32 plain "
+          f"versions; route counts of the timed launches {routes}", flush=True)
+
+
+def bench_whole_block(on_card: bool, device: str, iters: int) -> None:
+    """K5's whole-block branch at ``WHOLE_BLOCK_DIMS``, each dtype and mask: on
+    the card its device and event time beside sdpa's and the bound; on the CPU
+    (batch 2) the entry's plain version against the whole-row one."""
+    b, h, l, dh = WHOLE_BLOCK_DIMS
+    b = b if on_card else 2
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((3, b, h, l, dh)).astype(np.float32)).to(device)
+    for dtype, causal in WHOLE_BLOCK_CASES:
+        q, k, v = x.to(dtype)
+        shape = f"whole-block {str(dtype).split('.')[-1]} (B={b}, H={h}, L={l}, dh={dh}) causal={causal}"
+        if dtype == torch.float32:
+            want, limit = A.attention_reference(q, k, v, causal), TF32_PARITY_LIMIT
+        else:
+            want = A.attention_blocked_reference(q, k, v, causal, A.MHA_TC_BLOCK_KV)
+            limit = WHOLE_BLOCK_BF16_LIMIT
+        got = A.fused_attention_fwd_kernel(q, k, v, causal) if on_card else A.fused_attention(q, k, v, causal)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= limit:
+            raise AssertionError(f"{shape}: max|diff| {err} against the plain version")
+        del got, want
+        if not on_card:
+            print(f"{shape}: the entry's plain version, max|diff|={err:.2e}", flush=True)
+            continue
+        flops = 4 * b * h * l * l * dh * (0.5 if causal else 1.0)
+        peak = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_FLOPS
+        bound_ms = max(flops / peak, dtype.itemsize * 4 * b * h * l * dh / PEAK_BYTES_PER_S) * 1e3
+        before = dict(A.route_counts)
+        calls = {"K5": lambda: A.fused_attention_fwd_kernel(q, k, v, causal),
+                 "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)}
+        times = {name: (device_ms(fn, iters), median_ms(fn, iters)) for name, fn in calls.items()}
+        routes = {k: n - before.get(k, 0) for k, n in A.route_counts.items() if n != before.get(k, 0)}
+        print(f"{shape}: " + ", ".join(f"{name} device {dev:.4f} ms, event {event:.4f} ms"
+                                       for name, (dev, event) in times.items())
+              + f"; bound {bound_ms:.4f} ms  max|diff|={err:.2e}; route counts {routes}", flush=True)
 
 
 def backward(entry: str, x: torch.Tensor, g: torch.Tensor, d: int, heads: int, causal: bool) -> tuple:
@@ -550,6 +660,11 @@ def main(argv=None) -> None:
     tag, *shape = BLD_SHAPES[0]
     if on_card and (not args.only or any(s in tag for s in args.only)):
         bld_host_breakdown(*shape)
+    for tag, b, l, d, heads in TEXT_SHAPES:
+        if not args.only or any(s in tag for s in args.only):
+            bench_text(tag, b if on_card else 2, l, d, heads, on_card, args.device, args.iters)
+    if not args.only or any(s in "whole-block" for s in args.only):
+        bench_whole_block(on_card, args.device, args.iters)
     if args.sass and on_card:
         # the mangled names' template arguments: the tensor-core kernel is
         # instantiated for K1 and K6 (Packed) and for K8 (Strided)
@@ -557,7 +672,7 @@ def main(argv=None) -> None:
         for parts in ((f"mha_tc_kernelILi{dh}E", "Packed"), (f"mha_tc_kernelILi{dh}E", "Strided"),
                       (f"blocked_dq_tc_kernelILi{dh}E",), (f"blocked_dkv_tc_kernelILi{dh}E",),
                       (f"mha_tf32_kernelILi{dh}E",), (f"blocked_dq_tf32_kernelILi{dh}E",),
-                      (f"blocked_dkv_tf32_kernelILi{dh}E",)):
+                      (f"blocked_dkv_tf32_kernelILi{dh}E",), ("mha_whole_tf32_bwd_kernel",)):
             whole, loops = sass_mix(*parts)
             kernel = " ".join(parts)
             mixes = [("kernel", whole), *((f"loop {i + 1}", mix) for i, mix in enumerate(loops))]

@@ -13,15 +13,21 @@ script exits non-zero without printing a result:
    warps are what its design counts on), of each kernel of the tensor-core
    backward pair (three: what it is compiled for), of the split-TF32 kernel
    (two), of each kernel of the split-TF32 backward pair (two) and of the
-   split-TF32 whole-head kernels at L = 16 and 32 (at least two), and print
-   each tensor-core kernel's registers, stack and spills from the build's
-   ``ptxas -v`` log;
+   split-TF32 whole-head kernels at L = 16 and 32 (at least two) and of the
+   split-TF32 whole-head backward at head dim 64 at L = 16, 77 and 112 (at
+   least one; its shared memory held at every L up to 112, and L = 113
+   refused), and print each tensor-core kernel's registers, stack and spills
+   from the build's ``ptxas -v`` log;
 3. kernels: each forward kernel against its plain PyTorch version at the main
    paths' shapes (K1 and K2 at the ViT-B/16 and ViT-L/14 shapes; K6, K8 with
    its log-sum-exp, and K5's flash branch at the ViT-L/14@336px tower's
-   shapes; K5's whole-block kernel at ViT-B/16's heads, causal and not; K8
-   with the causal mask and at head dims 8 and 16), fp32 within 1e-5 and bf16
-   within 5e-2 (absolute), with median times. In bf16 at head dim 64 K1, K6
+   shapes; K5's whole-block branch at ViT-B/16's heads, (256, 12, 197, 64),
+   causal and not, which at head dim 64 launches K8's tensor-core entries on
+   the views, in fp32 the split-TF32 kernel (also held against
+   ``tf32x3_reference``) and in bf16 mha_tc.cu (held within 1.5e-2 of the plain
+   version at that kernel's KV block), its launches counted in ``mha_tf32``
+   and ``mha_tc``; K8 with the causal mask and at head dims 8 and 16), fp32
+   within 1e-5 and bf16 within 5e-2 (absolute), with median times. In bf16 at head dim 64 K1, K6
    and K8 launch the tensor-core kernel (ops/csrc/mha_tc.cu), held within
    1.5e-2 (twice the largest gap measured) of the KV-blocked plain version that
    rounds where it rounds: K1 at (256, 197, 2304) 12 heads, the causal
@@ -57,7 +63,15 @@ script exits non-zero without printing a result:
    (mha_bld_tf32.cu), held within 1e-5 of max|ref| of the plain backward and
    of ``mha_bld_bwd_tf32x3_reference`` there and at L = 1, 7, 16, 31, 32 at
    batch 3, causal and not, at head dims 32 and 16 (L=33 on mha_bwd.cu), its
-   launches counted exactly;
+   launches counted exactly; in fp32 at head dim 64 K3 launches the
+   split-TF32 whole-head backward (mha_whole_tf32_bwd.cu), held within 1e-5 of
+   max|ref| of the plain backward and of the same emulation on the unpacked
+   q, k, v at the text towers' (14, 77, 1536) with 8 heads and (14, 77, 2304)
+   with 12, causal, and at L = 1, 7, 16, 33, 77, 80, 112 at batch 3 with 2
+   heads, causal and not (L = 113 and 117 on mha_bwd.cu), its launches counted
+   exactly; two launches of it through K3, K4 and K5's backward give the same
+   bits at the text towers' shapes and at L = 33 and 112, and plain TF32's
+   emulation misses 1e-5;
 3c. long backward kernels, the same limits: K7 at the ViT-L/14@336px shape
    (q, g (32, 577, 1024), kv (32, 577, 2048), 16 heads); K9 and K10 at
    (512, 577, 64) and at the ragged (8, 1100, 64), with the log-sum-exp and
@@ -84,8 +98,10 @@ script exits non-zero without printing a result:
    head dim 8, ``fused_mha_bld`` at head dim 16 and L=200 (its backward on
    the KV-blocked pair), ``fused_attention`` causal at L=500 and head dim 64
    (K8, K9 and K10 with the mask), and the causal backwards at L=197 (the
-   KV-blocked pair with the mask); forward and backward, the launches counted
-   exactly, each within 1e-5 of the same call with the plain versions chosen;
+   KV-blocked pair with the mask; ``fused_attention``'s forward there on its
+   whole-block branch, the split-TF32 kernel); forward and backward, the
+   launches counted exactly, each within 1e-5 of the same call with the plain
+   versions chosen;
 3d. probe kernels (ops/csrc/mha_probe.cu), fp32 within 1e-5 and bf16 within 5e-2
    of max|ref|, with median times: the tile probe at the ViT-L/14@336px layer's
    shape (32, 577, 1024), 16 heads, on its three layouts and at K6's own and two
@@ -110,8 +126,9 @@ script exits non-zero without printing a result:
    at lr 0 and epoch 1 moves the weights; the kernel launch counts of that run
    are checked, and the same steps under the plain attention must agree: step
    1's loss terms within 1e-4, the 3-step losses at rtol 5e-4, the BN state
-   within 1e-5 (the text tower's K1 and the temporal model's K2 and K4 run
-   split-TF32 products, so the two are close, not equal to the bit), and step
+   within 1e-5 (the text tower's K1 and K3 and the temporal model's K2 and K4
+   run split-TF32 products, so the two are close, not equal to the bit; every
+   one of the 36 K3 launches takes the split-TF32 whole-head backward), and step
    1's gradients within 1e-4 of each leaf's max against the plain run that
    takes the kernel run's branches of the temporal model's LeakyReLU
    (``LeakyBranches``: where a pre-activation lies within a rounding of 0 the
@@ -153,7 +170,9 @@ script exits non-zero without printing a result:
    tensor-core kernels, forward and backward, at the towers' shapes, K8 in bf16
    and K6 in fp32 among them, the split-TF32 backward pair at the fp32
    gradients' shapes, and their opcode mixes, then K2 and K4 at the temporal
-   model's four shapes by device, event and host time); ``bench_attn_bwd
+   model's four shapes by device, event and host time, K1 and K3 at the two
+   text towers' shapes by the same three clocks, and K5's whole-block branch
+   at (256, 12, 197, 64)); ``bench_attn_bwd
    --qtile`` (K7's
    parity in fp32 on the split-TF32 pair, then the
    forward+backward step in bf16 on the tensor-core kernels);
@@ -180,10 +199,16 @@ larger of the operations (4 L^2 dh per batch entry and head forward, 10
 backward, 6 and 8 for the two flash passes, half when causal) over 989 TFLOP/s
 for bf16 operands or 495 / 3 = 165 TFLOP/s for fp32 (the split-TF32 rate of an
 fp32-accurate product on the tensor cores), and the bytes (each input read and
-each output written once) over 3.35 TB/s. fused_attention's own kernel, the
-whole-block one, is on none of these paths (its shapes there take K1, K6 or,
-through its flash branch, K8), so its count is 0; its error and times are
-phase 3's. ``mha_tc`` is the tensor-core kernel that K1, K6 and K8 launch in
+each output written once) over 3.35 TB/s. fused_attention's whole-block
+branch is on none of these paths (its shapes there take K1, K6 or, through
+its flash branch, K8): its count is the launches of phase 4e's benchmark,
+its error and times phase 3's in fp32 (the split-TF32 kernel of
+mha_tf32.cu at head dim 64). ``mha_qkv_bwd``'s numbers are phase 3b's at the
+ViT-B/16 text tower's shape in fp32, where it launches the split-TF32
+whole-head backward (mha_whole_tf32_bwd.cu); ``whole_bwd_tf32`` is that
+kernel, which K3, K4 and K5's backward launch in fp32 at head dim 64 with
+L <= 112: its count is ``route_counts["whole_bwd_tf32"]`` over the same runs
+(the training path's 36), its numbers K3's. ``mha_tc`` is the tensor-core kernel that K1, K6 and K8 launch in
 bf16: its count is ``route_counts["mha_tc"]`` over the same runs, its numbers
 the sums over the bf16 scoring paths' four shapes (phase 3); ``fused_mha_qtile``'s
 numbers are that kernel's too, at its one path shape. ``blocked_bwd_tc`` is the
@@ -242,14 +267,17 @@ KERNEL_SOURCE = {
     # on their paths, the temporal model in fp32 at head dim 32, L=32 and 16:
     # the split-TF32 whole-head kernels
     "fused_mha_bld": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
-    "mha_qkv_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bwd.cu",
+    # on its path, the text tower's CoOp gradient in fp32 at head dim 64, L=77:
+    # the split-TF32 whole-head backward
+    "mha_qkv_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_whole_tf32_bwd.cu",
     "mha_bld_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
     # on its path, the bf16 ViT-L/14@336px tower, the tensor-core kernel
     "fused_mha_qtile": "anomalyclip_tpu_torch/ops/csrc/mha_tc.cu",
     # on its path, the fp32 ViT-L/14@336px tower, the split-TF32 kernel
     "flash_attention_heads": "anomalyclip_tpu_torch/ops/csrc/mha_tf32.cu",
-    # its whole-block kernel: acl_mha_bld_fwd with the heads folded
-    "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha.cu",
+    # its whole-block branch at head dim 64: K8's tensor-core entries, in fp32
+    # the split-TF32 kernel (mha.cu's acl_mha_bld_fwd at the smaller head dims)
+    "fused_attention": "anomalyclip_tpu_torch/ops/csrc/mha_tf32.cu",
     # on its path, the bf16 ViT-L/14@336px tower's gradient, the tensor-core pair
     "mha_qtile_bwd": "anomalyclip_tpu_torch/ops/csrc/mha_tc_bwd.cu",
     # their path is the fp32 tower's gradient: the split-TF32 pair
@@ -271,6 +299,9 @@ KERNEL_SOURCE = {
     # counted by route_counts["bld_tf32"] and ["bld_bwd_tf32"]
     "bld_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
     "bld_bwd_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_bld_tf32.cu",
+    # the kernel K3, K4 and K5's backward launch in fp32 at head dim 64 with
+    # L <= 112, counted by route_counts["whole_bwd_tf32"]
+    "whole_bwd_tf32": "anomalyclip_tpu_torch/ops/csrc/mha_whole_tf32_bwd.cu",
 }
 PROBE_SOURCE = "anomalyclip_tpu_torch/ops/csrc/mha_probe.cu"
 # probe wrapper -> the pallas_call sites of the JAX package's scripts it replaces
@@ -300,6 +331,7 @@ REPLACES = {
     "blocked_bwd_tf32": "anomalyclip_tpu/ops/pallas/attention.py:646",
     "bld_tf32": "anomalyclip_tpu/ops/pallas/attention.py:88",
     "bld_bwd_tf32": "anomalyclip_tpu/ops/pallas/attention.py:273",
+    "whole_bwd_tf32": "anomalyclip_tpu/ops/pallas/attention.py:291",
 }
 ALSO_REPLACES = {
     "mha_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:800",
@@ -310,6 +342,7 @@ ALSO_REPLACES = {
                        "anomalyclip_tpu/ops/pallas/attention.py:943"],
     "blocked_bwd_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:904",
                          "anomalyclip_tpu/ops/pallas/attention.py:943"],
+    "whole_bwd_tf32": ["anomalyclip_tpu/ops/pallas/attention.py:273"],
 }
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 # the tensor-core kernel against its KV-blocked plain version (absolute): twice
@@ -478,6 +511,17 @@ def phase_build() -> None:
             print(f"[build] split-TF32 whole-head kernels, head dim {dh}, L={l}: forward "
                   f"{A.mha_bld_tf32_smem_bytes(l, dh, False)} B a block, {blocks[0]} blocks of 4 warps "
                   f"an SM; backward {A.mha_bld_tf32_smem_bytes(l, dh, True)} B, {blocks[1]} blocks")
+    for l in range(1, A.WHOLE_TF32_MAX_L + 1):
+        require(lib.acl_mha_whole_tf32_smem_bytes(l) == A.mha_whole_tf32_smem_bytes(l),
+                f"split-TF32 whole-head backward smem at L={l}")
+    require(lib.acl_mha_whole_tf32_blocks_per_sm(A.WHOLE_TF32_MAX_L + 1) == -1,
+            "the split-TF32 whole-head backward admits L past its limit")
+    checked += 1
+    for l in (16, 77, A.WHOLE_TF32_MAX_L):
+        blocks = lib.acl_mha_whole_tf32_blocks_per_sm(l)
+        require(blocks >= 1, f"split-TF32 whole-head backward at L={l}: {blocks} blocks an SM")
+        print(f"[build] split-TF32 whole-head backward, head dim 64, L={l}: "
+              f"{A.mha_whole_tf32_smem_bytes(l)} B a block of {-(-l // 16)} warps, {blocks} blocks an SM")
     print(f"[build] shared-memory formulas: library and Python agree at {checked} (L, dh) "
           f"pairs; card limit {A.smem_limit(torch.device('cuda'))} B per block")
     log = build.library_path().with_suffix(".log").read_text()
@@ -488,7 +532,8 @@ def phase_build() -> None:
 
 
 # the sources whose kernels' registers and spills phase_build prints
-TENSOR_CORE_SOURCES = ("mha_tc.cu", "mha_tc_bwd.cu", "mha_tf32.cu", "mha_tf32_bwd.cu", "mha_bld_tf32.cu")
+TENSOR_CORE_SOURCES = ("mha_tc.cu", "mha_tc_bwd.cu", "mha_tf32.cu", "mha_tf32_bwd.cu", "mha_bld_tf32.cu",
+                       "mha_whole_tf32_bwd.cu")
 
 
 def ptxas_usage(log: str, source: str) -> list:
@@ -499,7 +544,8 @@ def ptxas_usage(log: str, source: str) -> list:
     usage = []
     for entry in section.split("Compiling entry function '")[1:]:
         mangled = entry.split("'", 1)[0]
-        name = re.search(r"(?:blocked_dq|blocked_dkv|mha|mha_bld)_(?:tc|tf32)(?:_fwd|_bwd)?_kernel", mangled)
+        name = re.search(r"(?:blocked_dq|blocked_dkv|mha|mha_bld|mha_whole)_(?:tc|tf32)(?:_fwd|_bwd)?_kernel",
+                         mangled)
         layout = re.search(r"Packed|Strided", mangled) if "mha_tc_kernel" in mangled else None
         layout = layout.group() if layout else None
         if "mha_bld_tf32" in mangled:  # instantiated at head dims 16 and 32
@@ -580,6 +626,9 @@ class Case:
     # in fp32 each call launches a split-TF32 whole-head kernel of mha_bld_tf32.cu
     # once (K2's or K4's)
     bld_tf32: bool = False
+    # in fp32 each call launches the split-TF32 whole-head backward of
+    # mha_whole_tf32_bwd.cu once (K3's, K4's or K5's at head dim 64)
+    whole_tf32: bool = False
 
 
 def run_cases(tag: str, cases: list, report: dict, gen: torch.Generator) -> None:
@@ -803,16 +852,21 @@ def phase_kernels(report: dict) -> None:
             lambda t: tuple(t[:, :, None]), causal=causal, stats=1, path=(), tensor_cores=dh == 64,
             tf32=dh == 64,
         ))
-    # K5: its whole-block kernel at ViT-B/16 heads, causal and not (on no path:
+    # K5: its whole-block branch at ViT-B/16 heads, causal and not (on no path:
     # the kernels line reports these, in fp32), and its flash branch at the fp32
     # tower's split heads (strided views of one qkv), which launches K8 (held
     # against K8's plain version, at the block of the kernel the dtype takes)
+    # (at head dim 64 its whole-block branch launches K8's tensor-core entries
+    # on the views: in fp32 the split-TF32 kernel, held against the whole-row
+    # plain version and the emulation, in bf16 mha_tc.cu, held against the plain
+    # version at that kernel's KV block)
     for causal in (False, True):
         cases.append(Case(
             "fused_attention", (256, 12, 197, 64), (3, 256, 12, 197, 64),
             lambda t, c=causal: fused_attention(t[0], t[1], t[2], c),
-            lambda t, c=causal: fused_attention_reference(t[0], t[1], t[2], c),
-            tuple, causal=causal,
+            lambda t, c=causal: fused_attention_reference(t[0], t[1], t[2], c, reference_block(t.dtype, 64)),
+            tuple, causal=causal, tensor_cores=True, tf32=True,
+            emulated=lambda t, c=causal: A.tf32x3_reference(t[0], t[1], t[2], c),
         ))
     cases.append(Case(
         "fused_attention", (256, 16, 577, 64), (256, 577, 3, 16, 64),
@@ -1031,13 +1085,30 @@ def phase_bwd_kernels(report: dict) -> None:
         mha_qkv_bwd_reference,
     )
 
-    # the text tower's backward: qkv (14, 77, 1536) and g, 8 heads, causal
+    # the text towers' backward, causal: qkv (14, 77, 1536) and g with 8 heads
+    # (ViT-B/16's, the path), (14, 77, 2304) with 12 (ViT-L/14's, printed); in
+    # fp32 the split-TF32 whole-head backward (mha_whole_tf32_bwd.cu), held
+    # against the emulation of its arithmetic too; in bf16 mha_bwd.cu
     cases = [Case(
-        "mha_qkv_bwd", (14, 77, 3 * 512), [(14, 77, 3 * 512), (14, 77, 512)],
-        lambda t: mha_qkv_bwd_kernel(*t, 8, True), lambda t: mha_qkv_bwd_reference(*t, 8, True),
-        lambda t: (*packed_heads(t[0], 3, 8), *packed_heads(t[1], 1, 8)),
-        kind="bwd", causal=True, relative=True,
-    )]
+        "mha_qkv_bwd", (14, 77, 3 * d), [(14, 77, 3 * d), (14, 77, d)],
+        lambda t, h=h: mha_qkv_bwd_kernel(*t, h, True), lambda t, h=h: mha_qkv_bwd_reference(*t, h, True),
+        lambda t, h=h: (*packed_heads(t[0], 3, h), *packed_heads(t[1], 1, h)),
+        kind="bwd", causal=True, relative=True, path=path, whole_tf32=True,
+        emulated=lambda t, h=h: qkv_whole_emulation(*t, h, True),
+    ) for d, h, path in ((512, 8, FP32), (768, 12, ()))]
+    # and at ragged lengths at batch 3 with 2 heads of 64, causal and not
+    # (printed only); L=113 and 117 are past it: mha_bwd.cu takes them
+    for l in (1, 7, 16, 33, 77, 80, 112, 113, 117):
+        for causal in (False, True):
+            whole = l <= A.WHOLE_TF32_MAX_L
+            cases.append(Case(
+                "mha_qkv_bwd ragged", (3, l, 3 * 128), [(3, l, 3 * 128), (3, l, 128)],
+                lambda t, c=causal: mha_qkv_bwd_kernel(*t, 2, c),
+                lambda t, c=causal: mha_qkv_bwd_reference(*t, 2, c),
+                lambda t: (*packed_heads(t[0], 3, 2), *packed_heads(t[1], 1, 2)),
+                kind="bwd", causal=causal, dtypes=FP32, path=(), relative=True, whole_tf32=whole,
+                emulated=(lambda t, c=causal: qkv_whole_emulation(*t, 2, c)) if whole else None,
+            ))
     # the temporal model's backward along segments and along frames, k and v
     # the two halves of one kv: t = q | k v, g; in fp32 the split-TF32
     # whole-head kernel, held against the emulation of its arithmetic too
@@ -1067,13 +1138,76 @@ def phase_bwd_kernels(report: dict) -> None:
     A.reset_launch_counts()
     run_cases("bwd kernels", cases, report, torch.Generator(device="cuda").manual_seed(SEED + 1))
     # every fp32 launch of K4 at L <= 32 took the split-TF32 whole-head kernel,
-    # none in bf16, at L=33 or of K3
+    # none in bf16, at L=33 or of K3; every fp32 launch of K3 at L <= 112 the
+    # split-TF32 whole-head backward, none in bf16 or at L = 113 and 117
     bld_cases = sum(c.bld_tf32 and torch.float32 in c.dtypes for c in cases)
-    require_routes("backward kernels", 0, bld_bwd=CASE_CALLS * bld_cases)
+    whole_cases = sum(c.whole_tf32 and torch.float32 in c.dtypes for c in cases)
+    require_routes("backward kernels", 0, bld_bwd=CASE_CALLS * bld_cases, whole_bwd=CASE_CALLS * whole_cases)
     print(f"[bwd kernels] {A.route_counts['bld_bwd_tf32']} launches of the split-TF32 whole-head "
           f"backward over {bld_cases} fp32 cases of K4 at L <= 32; none in bf16, at L=33 or of K3")
+    print(f"[bwd kernels] {A.route_counts['whole_bwd_tf32']} launches of the split-TF32 whole-head "
+          f"backward at head dim 64 over {whole_cases} fp32 cases of K3 at L <= {A.WHOLE_TF32_MAX_L}; "
+          f"none in bf16 or at L = 113 and 117")
     report["bld_tf32"] = dict(report["fused_mha_bld"])
     report["bld_bwd_tf32"] = dict(report["mha_bld_bwd"])
+    report["whole_bwd_tf32"] = dict(report["mha_qkv_bwd"])
+    check_whole_tf32()
+
+
+def qkv_whole_emulation(qkv, g, heads: int, causal: bool, passes: int = 3) -> torch.Tensor:
+    """The emulation of the split-TF32 whole-head backward's arithmetic over
+    K3's packed qkv -> the packed dqkv."""
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    return torch.cat(A.mha_bld_bwd_tf32x3_reference(*A._unpack_qkv(qkv), g, heads, causal, passes=passes),
+                     dim=-1)
+
+
+def check_whole_tf32() -> None:
+    """The split-TF32 whole-head backward through its three callers: two
+    launches on the same inputs give the same bits (K3 at the text towers'
+    shapes and at ragged lengths, K4 with k and v the halves of one kv, K5's
+    backward with the heads folded), each within 1e-5 of max|ref| of the fp32
+    plain backward; the emulation of plain TF32 misses that limit."""
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tol = TOLERANCE[torch.float32]
+
+    def gap(got, want):
+        return max((a - b).abs().max().item() for a, b in zip(got, want)) / max(
+            b.abs().max().item() for b in want)
+
+    for b, l, d, h, causal in ((14, 77, 512, 8, True), (14, 77, 768, 12, True), (3, 33, 128, 2, True),
+                               (3, 112, 128, 2, False)):
+        qkv, g = (torch.randn(b, l, w, device="cuda", generator=gen) for w in (3 * d, d))
+        q, k, v = A._unpack_qkv(qkv)
+        heads = [t.view(b, l, h, 64).transpose(1, 2) for t in (q, k, v, g)]
+        A.reset_launch_counts()
+        runs = [(A.mha_qkv_bwd_kernel(qkv, g, h, causal),) for _ in range(2)]
+        runs += [A.mha_bld_bwd_kernel(q, k, v, g, h, causal) for _ in range(2)]
+        runs += [A.fused_attention_bwd_kernel(*heads, causal) for _ in range(2)]
+        torch.cuda.synchronize()
+        require_routes(f"K3, K4, K5 ({b}, {l}, {d})", 0, whole_bwd=6)
+        for i, what in enumerate(("K3", "K4", "K5's backward")):
+            require(all(torch.equal(a, c) for a, c in zip(runs[2 * i], runs[2 * i + 1])),
+                    f"{what} ({b}, {l}, {d}) causal={causal}: two launches of the split-TF32 whole-head "
+                    f"backward differ")
+        gaps = {"K3": gap(runs[0], (A.mha_qkv_bwd_reference(qkv, g, h, causal),)),
+                "K4": gap(runs[2], A.mha_bld_bwd_reference(q, k, v, g, h, causal)),
+                "K5's backward": gap(runs[4], A.attention_bwd_reference(*heads, causal)),
+                "K3 against the emulation": gap(runs[0], (qkv_whole_emulation(qkv, g, h, causal),))}
+        require(max(gaps.values()) <= tol, f"({b}, {l}, {d}) causal={causal}: {gaps} (tol {tol:g})")
+        tf32_gap = gap((qkv_whole_emulation(qkv, g, h, causal, passes=1),),
+                       (A.mha_qkv_bwd_reference(qkv, g, h, causal),))
+        require(tf32_gap > tol, f"({b}, {l}, {d}): plain TF32 within {tf32_gap:.3e} of fp32, the check "
+                                f"has no teeth")
+        print(f"[bwd kernels] split-TF32 whole-head backward ({b}, {l}, {d}) {h} heads causal={causal}: "
+              f"two launches give the same bits through K3, K4 and K5; "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f" of max|ref| (tol {tol:g}); plain TF32 emulated {tf32_gap:.3e}")
+        del qkv, g, q, k, v, heads, runs
+    torch.cuda.empty_cache()
 
 
 def phase_long_bwd_kernels(report: dict) -> None:
@@ -1260,8 +1394,9 @@ def phase_small_and_causal() -> None:
     def both_ways(tag, fn, leaves, launches, tf32=0, bwd_tf32=0):
         """fn's value and gradients with the kernels chosen and with the plain
         versions chosen; the first run's counts must be the given ones, ``tf32``
-        of its launches on the split-TF32 kernel and ``bwd_tf32`` on the
-        split-TF32 backward pair."""
+        of its launches on the split-TF32 kernel (K8's, or K5's whole-block
+        branch at head dim 64) and ``bwd_tf32`` on the split-TF32 backward
+        pair."""
         def run():
             out = fn()
             return (out, *torch.autograd.grad((out.float() ** 2).sum(), leaves))
@@ -1321,7 +1456,7 @@ def phase_small_and_causal() -> None:
               {"fused_mha_qkv": 1, "mha_qkv_bwd": 1}, tf32=1, bwd_tf32=1)
     q197 = randn(2, 12, 197, 64)
     both_ways("fused_attention, causal L=197", lambda: A.fused_attention(q197, q197, q197, True),
-              [q197], {"fused_attention": 2}, bwd_tf32=1)
+              [q197], {"fused_attention": 2}, tf32=1, bwd_tf32=1)
     torch.cuda.synchronize()
 
 
@@ -1361,7 +1496,7 @@ def require(ok: bool, what: str) -> None:
 
 
 def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0, tf32: int = 0,
-                   bwd_tf32: int = 0, bld: int = 0, bld_bwd: int = 0) -> dict:
+                   bwd_tf32: int = 0, bld: int = 0, bld_bwd: int = 0, whole_bwd: int = 0) -> dict:
     """The route counts of the run just made: ``tensor_core`` launches of K1, K6
     and K8 took the tensor-core kernel and ``bwd_tensor_core`` launches of the
     KV-blocked backward the tensor-core pair (all of them in bf16 at head dim
@@ -1369,12 +1504,15 @@ def require_routes(what: str, tensor_core: int, bwd_tensor_core: int = 0, tf32: 
     and ``bwd_tf32`` launches of the KV-blocked backward the split-TF32 pair
     (all of them in fp32 at head dim 64, none in bf16), ``bld`` launches of K2
     and ``bld_bwd`` of K4 the split-TF32 whole-head kernels (all of them in fp32
-    at head dims 16 and 32 with L <= 32) -> the counts."""
+    at head dims 16 and 32 with L <= 32), ``whole_bwd`` launches of K3, K4 and
+    K5's backward the split-TF32 whole-head backward (all of them in fp32 at
+    head dim 64 with L <= 112) -> the counts."""
     from anomalyclip_tpu_torch.ops.attention import route_counts
 
     routes = dict(route_counts)
     want = {"mha_tc": tensor_core, "blocked_bwd_tc": bwd_tensor_core, "mha_tf32": tf32,
-            "blocked_bwd_tf32": bwd_tf32, "bld_tf32": bld, "bld_bwd_tf32": bld_bwd}
+            "blocked_bwd_tf32": bwd_tf32, "bld_tf32": bld, "bld_bwd_tf32": bld_bwd,
+            "whole_bwd_tf32": whole_bwd}
     require(routes == want, f"{what}: routes {routes}, expected {want}")
     return routes
 
@@ -1632,9 +1770,11 @@ def phase_train() -> dict:
     expected = {k: TRAIN_STEPS * per_step.get(k, 0) for k in launch_counts}
     print(f"[train] launches {launches}, expected {expected}")
     require(launches == expected, f"launches {launches}, expected {expected}")
-    # the text tower's backwards are whole-head (L=77): none on the split-TF32 pair
+    # the text tower's backwards are whole-head (L=77, head dim 64): every one on
+    # the split-TF32 whole-head backward, none on the split-TF32 pair
     launches.update(require_routes("fp32 training", 0, 0, expected["fused_mha_qkv"], 0,
-                                   expected["fused_mha_bld"], expected["mha_bld_bwd"]))
+                                   expected["fused_mha_bld"], expected["mha_bld_bwd"],
+                                   expected["mha_qkv_bwd"]))
 
     require(all(np.isfinite(t).all() for t in run.terms), f"non-finite loss terms {run.terms}")
     require(run.moved[0] == 0.0, f"epoch 0 trains at lr 0, but the weights moved {run.moved[0]}")
@@ -1984,10 +2124,49 @@ def phase_probe_kernels(report: dict) -> None:
     torch.cuda.synchronize()
 
 
+@contextlib.contextmanager
+def silent_profiler_sessions():
+    """While open, every torch.profiler session that records no device time
+    books the launches made inside it -> the Counter of those launches.
+    ``_bench_util.device_ms`` runs such a session again (the profiler now and
+    then hands one back empty), so a script that times by device time launches
+    one session's calls more than its own count says for each; those launches
+    are measured here, not assumed."""
+    import collections
+
+    import torch.profiler
+
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    real, booked = torch.profiler.profile, collections.Counter()
+
+    def counts():
+        return collections.Counter({**A.launch_counts, **A.route_counts})
+
+    class Profile(real):
+        def __enter__(self):
+            self.launches_before = counts()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            done = super().__exit__(*exc)
+            cuda = torch.autograd.DeviceType.CUDA
+            if sum(e.time_range.elapsed_us() for e in self.events() if e.device_type == cuda) <= 0:
+                booked.update(counts() - self.launches_before)
+            return done
+
+    torch.profiler.profile = Profile
+    try:
+        yield booked
+    finally:
+        torch.profiler.profile = real
+
+
 def run_script(name: str, argv: list, expected: dict) -> dict:
     """One script of the port through its ``main``, the launch counts set to 0
     just before and read just after -> the counts, which must be ``expected``
-    (entries not named: 0)."""
+    (entries not named: 0), beside the launches of any profiler session that
+    recorded no device time and was run again (``silent_profiler_sessions``)."""
     import importlib
 
     from anomalyclip_tpu_torch.ops import attention as A
@@ -1998,15 +2177,19 @@ def run_script(name: str, argv: list, expected: dict) -> dict:
     A.reset_launch_counts()
     P.reset_launch_counts()
     start = time.perf_counter()
-    try:
-        module.main(argv)
-    except SystemExit as exc:  # the validate scripts exit with their verdict
-        require(exc.code in (0, None), f"{name} exited with {exc.code}")
-    torch.cuda.synchronize()
+    with silent_profiler_sessions() as repeated:
+        try:
+            module.main(argv)
+        except SystemExit as exc:  # the validate scripts exit with their verdict
+            require(exc.code in (0, None), f"{name} exited with {exc.code}")
+        torch.cuda.synchronize()
     counts = {**A.launch_counts, **A.route_counts, **P.launch_counts}
-    want = {k: expected.get(k, 0) for k in counts}
+    want = {k: expected.get(k, 0) + repeated[k] for k in counts}
     print(f"[scripts] {name}: {time.perf_counter() - start:.1f} s, launches "
           f"{({k: v for k, v in counts.items() if v})}", flush=True)
+    if repeated:
+        print(f"[scripts] {name}: launches in profiler sessions that recorded no device time and "
+              f"were run again: {dict(repeated)}", flush=True)
     require(counts == want, f"{name} launches {counts}, expected {want}")
     torch.cuda.empty_cache()
     return counts
@@ -2062,16 +2245,32 @@ def phase_scripts() -> list:
     # HOST_CALLS enqueues on the host clock), and K2's host time split into its
     # parts, the entry and the wrapper each warmed and enqueued HOST_CALLS times
     # (the library called alone counts nothing)
-    from anomalyclip_tpu_torch.scripts.bench_mha_tc import BLD_SHAPES, HOST_CALLS
+    # (the library called alone counts nothing); then K1 and K3 at the two text
+    # towers' shapes in fp32, each checked once and timed by the three clocks,
+    # K3 on the split-TF32 whole-head backward; then K5's whole-block branch at
+    # (256, 12, 197, 64) in fp32 and bf16, causal and not, each checked once
+    # and timed by device and event time, on the split-TF32 kernel in fp32 and
+    # the tensor-core one in bf16
+    from anomalyclip_tpu_torch.scripts.bench_mha_tc import (
+        BLD_SHAPES,
+        HOST_CALLS,
+        TEXT_SHAPES,
+        WHOLE_BLOCK_CASES,
+    )
 
     bld = len(BLD_SHAPES) * (1 + 2 * (1 + n) + 1 + HOST_CALLS)
     k2 = bld + 2 * (1 + HOST_CALLS)
+    text = len(TEXT_SHAPES) * (1 + 2 * (1 + n) + 1 + HOST_CALLS)
+    whole_block = {dtype: sum(d == dtype for d, _ in WHOLE_BLOCK_CASES) * (1 + 2 * (1 + n)) for dtype in BOTH}
     runs.append(run_script("bench_mha_tc", ["--sass", *it], {
-        "fused_mha_qkv": (4 + 3) * calls, "fused_mha_qtile": (2 + 1) * calls, "mha_tc": 7 * calls,
-        "mha_qkv_bwd": (2 + 1) * calls, "mha_qtile_bwd": (2 + 1) * calls, "blocked_bwd_tc": 4 * calls,
-        "flash_attention_heads": (1 + 2) * calls + 1, "mha_tf32": 6 * calls + 1,
+        "fused_mha_qkv": (4 + 3) * calls + text, "fused_mha_qtile": (2 + 1) * calls,
+        "mha_tc": 7 * calls + whole_block[torch.bfloat16],
+        "mha_qkv_bwd": (2 + 1) * calls + text, "mha_qtile_bwd": (2 + 1) * calls, "blocked_bwd_tc": 4 * calls,
+        "flash_attention_heads": (1 + 2) * calls + 1,
+        "mha_tf32": 6 * calls + 1 + text + whole_block[torch.float32],
         "flash_dq": calls, "flash_dkv": calls, "blocked_bwd_tf32": (2 + 1 + 1) * calls,
-        "fused_mha_bld": k2, "mha_bld_bwd": bld, "bld_tf32": k2, "bld_bwd_tf32": bld}))
+        "fused_mha_bld": k2, "mha_bld_bwd": bld, "bld_tf32": k2, "bld_bwd_tf32": bld,
+        "whole_bwd_tf32": text, "fused_attention": sum(whole_block.values())}))
     # K7's parity in fp32 (one launch of the split-TF32 pair), then the bf16
     # forward+backward step, warmed and timed, on the tensor-core kernels
     runs.append(run_script("bench_attn_bwd", ["--qtile", *it], {
@@ -2114,6 +2313,8 @@ def kernel_class(name: str) -> str:
         return "attention (mha_tf32.cu)"
     if "mha_bld_tf32" in low:
         return "attention (mha_bld_tf32.cu)"
+    if "mha_whole_tf32" in low:
+        return "attention backward (mha_whole_tf32_bwd.cu)"
     if "mha_fwd_kernel" in low:
         return "attention (mha.cu)"
     if "probe_kernel" in low or "parts_kernel" in low:
@@ -2297,7 +2498,8 @@ def main() -> int:
                 f"a kernel of the {dtype} ViT-L/14@336px path was never launched: "
                 f"{l14_launches[dtype]}")
     require(all(train_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd",
-                                                "mha_bld_bwd", "mha_tf32", "bld_tf32", "bld_bwd_tf32")),
+                                                "mha_bld_bwd", "mha_tf32", "bld_tf32", "bld_bwd_tf32",
+                                                "whole_bwd_tf32")),
             f"a kernel of the training path was never launched: {train_launches}")
     grad_paths = {"ViT-L/14@336px bfloat16": ("fused_mha_qtile", "mha_qtile_bwd", "mha_tc",
                                               "blocked_bwd_tc"),
@@ -2311,7 +2513,8 @@ def main() -> int:
     script_totals = {k: sum(run[k] for run in script_launches) for k in script_launches[0]}
     script_path = (*PROBE_REPLACES, "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                    "fused_mha_qtile", "flash_attention_heads", "mha_tc", "mha_qtile_bwd",
-                   "blocked_bwd_tc", "mha_tf32", "blocked_bwd_tf32", "bld_tf32", "bld_bwd_tf32")
+                   "blocked_bwd_tc", "mha_tf32", "blocked_bwd_tf32", "bld_tf32", "bld_bwd_tf32",
+                   "whole_bwd_tf32")
     require(all(script_totals[k] > 0 for k in script_path),
             f"a kernel of the scripts' path was never launched: {script_totals}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),

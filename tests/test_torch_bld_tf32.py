@@ -172,8 +172,10 @@ def _address(p) -> int:
 
 
 class NumpyBld:
-    """The entries of K2's and K4's kernels. The split-TF32 ones and, in fp32,
-    the CUDA-core ones compute their function in numpy through the raw
+    """The entries of K2's and K4's kernels (K4's at head dim 64 in fp32 on the
+    split-TF32 whole-head backward of mha_whole_tf32_bwd.cu among them). The
+    split-TF32 ones and, in fp32, the CUDA-core ones compute their function in
+    numpy through the raw
     pointers and (batch, row) element strides the wrappers pass; every call is
     recorded with its entry, pointers and strides."""
 
@@ -232,6 +234,13 @@ class NumpyBld:
         self._backward(ops, (dq, dk, dv), b, l, h, dh, causal, scale)
         return 0
 
+    def acl_mha_bld_whole_tf32_bwd(self, q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, g, g_bs, g_rs,
+                                   dq, dk, dv, b, l, h, dh, causal, scale, stream):
+        ops = ((q, q_bs, q_rs), (k, k_bs, k_rs), (v, v_bs, v_rs), (g, g_bs, g_rs))
+        self.calls.append(("bld_whole_bwd", [(_address(p), bs, rs) for p, bs, rs in ops], causal))
+        self._backward(ops, (dq, dk, dv), b, l, h, dh, causal, scale)
+        return 0
+
     def acl_mha_bld_fwd(self, dtype, q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, out, b, l, h, dh,
                         causal, scale, stream):
         ops = ((q, q_bs, q_rs), (k, k_bs, k_rs), (v, v_bs, v_rs))
@@ -279,9 +288,9 @@ def numpy_bld(monkeypatch):
     tattn._bld_tf32_plan.cache_clear()
 
 
-def _routes(bld=0, bld_bwd=0):
+def _routes(bld=0, bld_bwd=0, whole_bwd=0):
     return {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-            "bld_tf32": bld, "bld_bwd_tf32": bld_bwd}
+            "bld_tf32": bld, "bld_bwd_tf32": bld_bwd, "whole_bwd_tf32": whole_bwd}
 
 
 def _counts(**expected):
@@ -347,20 +356,23 @@ def test_repeated_shapes_are_checked_once(numpy_bld):
 
 
 @pytest.mark.parametrize(
-    "dtype,l,d,heads",
-    [(torch.bfloat16, 32, 256, 8), (torch.float32, 33, 256, 8), (torch.float32, 16, 32, 4),
-     (torch.float32, 16, 128, 2)],
+    "dtype,l,d,heads,backward",
+    [(torch.bfloat16, 32, 256, 8, "bld_bwd"), (torch.float32, 33, 256, 8, "bld_bwd"),
+     (torch.float32, 16, 32, 4, "bld_bwd"), (torch.float32, 16, 128, 2, "bld_whole_bwd")],
     ids=["bf16", "L=33", "head dim 8", "head dim 64"],
 )
-def test_other_shapes_keep_todays_kernels(numpy_bld, dtype, l, d, heads):
-    """bf16, L past 32 and the other head dims launch mha.cu and mha_bwd.cu (the
-    whole-head backward fits all of them), with no route count."""
+def test_other_shapes_keep_todays_kernels(numpy_bld, dtype, l, d, heads, backward):
+    """bf16, L past 32 and the other head dims launch mha.cu forward and
+    mha_bwd.cu backward (the whole-head backward fits all of them), with no
+    route count; fp32 at head dim 64 launches mha.cu forward and the
+    split-TF32 whole-head backward of mha_whole_tf32_bwd.cu, counted by
+    ``whole_bwd_tf32``."""
     q, k, v, g = (t.to(dtype) for t in _operands(np.random.default_rng(72), 2, l, d))
     tattn.mha_bld_fwd_kernel(q, k, v, heads, False)
     tattn.mha_bld_bwd_kernel(q, k, v, g, heads, False)
-    assert [c[0] for c in numpy_bld.calls] == ["bld_fwd", "bld_bwd"]
+    assert [c[0] for c in numpy_bld.calls] == ["bld_fwd", backward]
     assert tattn.launch_counts == _counts(fused_mha_bld=1, mha_bld_bwd=1)
-    assert tattn.route_counts == _routes()
+    assert tattn.route_counts == _routes(whole_bwd=int(backward == "bld_whole_bwd"))
 
 
 def test_fused_attention_whole_block_branch_keeps_mha_cu(numpy_bld):

@@ -289,7 +289,7 @@ def test_qtile_bwd_wrapper_reads_and_writes_in_place(numpy_kernels, dtype, heads
     assert tattn.launch_counts == _counts(mha_qtile_bwd=1)
     tc, tf32 = (int(numpy_kernels.calls[0] == call) for call in ("dq_tc", "dq_tf32"))
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": tc, "mha_tf32": 0, "blocked_bwd_tf32": tf32,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -343,7 +343,7 @@ def test_flash_bwd_wrapper_hands_over_the_log_sum_exp_and_no_row_sum(numpy_kerne
     assert tattn.launch_counts == _counts(flash_dq=1, flash_dkv=1)
     tc, tf32 = 2 * tattn.mha_tc_eligible(dtype, dh), 2 * tattn.mha_tf32_eligible(dtype, dh)
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": tc, "mha_tf32": 0, "blocked_bwd_tf32": tf32,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 def test_tc_pair_takes_no_row_sum(numpy_kernels):
@@ -392,7 +392,7 @@ def test_tc_backward_refuses_operands_it_cannot_read_in_16_byte_pieces(numpy_ker
         tattn.flash_dkv_kernel(k, q, v, gg, stats, stats)
     assert numpy_kernels.calls == [] and tattn.launch_counts == _counts()
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
     # aligned copies launch; head dim 32 takes any view, on the CUDA cores; fp32
     # copies at head dim 64 take the split-TF32 pair
     tattn.mha_qtile_bwd_kernel(x[..., :128].contiguous(), x[..., 128:].contiguous(), g, 2)
@@ -488,7 +488,7 @@ def test_tc_flash_bwd_matches_plain_and_repeats_to_the_bit(cuda, n, l, causal):
     got = tattn.flash_bwd_kernel(q, k, v, g, lse, out, causal)
     again = tattn.flash_bwd_kernel(q, k, v, g, lse, out, causal)
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 4, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
     _card_close(got, tattn.flash_attention_bwd_reference(q, k, v, g, lse, out, causal))
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
@@ -511,7 +511,7 @@ def test_tc_pair_serves_the_whole_block_entries_past_the_whole_head_kernel(cuda,
                 tattn.attention_bwd_reference(*heads, causal))
     assert tattn.launch_counts == _counts(mha_qkv_bwd=1, mha_bld_bwd=1, fused_attention=1)
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 3, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 @pytest.mark.gpu
@@ -531,7 +531,7 @@ def test_other_types_and_head_dims_stay_on_the_cuda_core_pair_on_the_card(cuda):
     assert tattn.launch_counts == _counts(mha_qtile_bwd=3)
     # fp32 at head dim 64 on the split-TF32 pair; bf16 at head dims 32 and 8 on the CUDA cores
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 1,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 @pytest.mark.gpu

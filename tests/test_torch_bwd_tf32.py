@@ -278,7 +278,7 @@ def numpy_pairs(monkeypatch):
 
 def _routes(tf32=0, tc=0):
     return {"mha_tc": 0, "blocked_bwd_tc": tc, "mha_tf32": 0, "blocked_bwd_tf32": tf32,
-            "bld_tf32": 0, "bld_bwd_tf32": 0}
+            "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 def _counts(**expected):

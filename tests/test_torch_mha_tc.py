@@ -357,7 +357,7 @@ def test_tc_wrappers_read_views_in_place_and_count(numpy_kernels):
     assert numpy_kernels.calls == [("qkv_tc", 64, 1), ("qtile_tc", 64)]
     assert tattn.launch_counts == _counts(fused_mha_qkv=1, fused_mha_qtile=1)
     assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 def _misaligned(rng, dtype):
@@ -710,7 +710,7 @@ def test_reset_launch_counts_clears_both_tables():
     tattn.reset_launch_counts()
     assert tattn.launch_counts == _counts()
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -787,7 +787,7 @@ def test_tc_qkv_kernel_matches_blocked_plain(cuda, b, l, d, heads, causal):
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)
     assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
@@ -805,7 +805,7 @@ def test_tc_qtile_kernel_matches_blocked_plain(cuda, b, l, d, heads):
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(fused_mha_qtile=1)
     assert tattn.route_counts == {"mha_tc": 1, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TC_TOL)
 
 
@@ -828,7 +828,7 @@ def test_tc_flash_kernel_matches_blocked_plain_and_repeats_to_the_bit(cuda, b, h
     torch.cuda.synchronize()
     assert tattn.launch_counts == _counts(flash_attention_heads=2)
     assert tattn.route_counts == {"mha_tc": 2, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
     torch.testing.assert_close(out.float(), want_out.float(), rtol=0, atol=TC_TOL)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
@@ -847,7 +847,7 @@ def test_misaligned_and_fp32_operands_take_the_cuda_core_kernel_on_the_card(cuda
                                rtol=0, atol=FP32_TOL)
     assert tattn.launch_counts == _counts(fused_mha_qkv=1)
     assert tattn.route_counts == {"mha_tc": 0, "blocked_bwd_tc": 0, "mha_tf32": 0, "blocked_bwd_tf32": 0,
-                                  "bld_tf32": 0, "bld_bwd_tf32": 0}
+                                  "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
     for misaligned in (wide.bfloat16()[..., 1:-1], x):
         with pytest.raises(ValueError, match="16-byte pieces"):
             tattn.fused_mha_qkv(misaligned, 2, True)

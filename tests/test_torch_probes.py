@@ -607,6 +607,44 @@ def test_a_script_without_a_card_says_so(monkeypatch):
         _bench_util.announce_device("bench_eval", "cuda", "something smaller")
 
 
+@pytest.mark.parametrize("recorded,want", [([0, 0, 6000], 0.2), ([6000], 0.2), ([0, 0, 0], None)])
+def test_device_ms_runs_a_silent_profiler_session_again(monkeypatch, recorded, want):
+    """A profiler session that records no device time is run again, up to three
+    in all, and then the clock raises: what each session records is given
+    in microseconds for 30 calls."""
+    import types
+
+    import torch.profiler
+
+    from anomalyclip_tpu_torch.scripts import _bench_util
+
+    sessions, cuda = iter(recorded), torch.autograd.DeviceType.CUDA
+
+    class Session:
+        def __init__(self, activities):
+            self.us = next(sessions)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [types.SimpleNamespace(device_type=cuda,
+                                          time_range=types.SimpleNamespace(elapsed_us=lambda: self.us))]
+
+    monkeypatch.setattr(torch.profiler, "profile", Session)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    if want is None:
+        with pytest.raises(RuntimeError, match="no device time in 3 sessions"):
+            _bench_util.device_ms(lambda: calls.append(1))
+    else:
+        assert _bench_util.device_ms(lambda: calls.append(1)) == pytest.approx(want)
+    assert len(calls) == 1 + 30 * len(recorded)
+
+
 # ---------------------------------------------------------------------------
 # the entry points run on the card unless asked for the CPU
 # ---------------------------------------------------------------------------

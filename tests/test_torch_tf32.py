@@ -342,7 +342,7 @@ def _counts(**expected):
 
 def _routes(tf32=0, tc=0, bwd_tf32=0):
     return {"mha_tc": tc, "blocked_bwd_tc": 0, "mha_tf32": tf32, "blocked_bwd_tf32": bwd_tf32,
-            "bld_tf32": 0, "bld_bwd_tf32": 0}
+            "bld_tf32": 0, "bld_bwd_tf32": 0, "whole_bwd_tf32": 0}
 
 
 @pytest.mark.parametrize(
