@@ -107,7 +107,13 @@ import torch
 
 from anomalyclip_tpu_torch.ops import attention as A
 from anomalyclip_tpu_torch.ops import build
-from anomalyclip_tpu_torch.scripts._bench_util import announce_device, device_ms, host_ms, median_ms
+from anomalyclip_tpu_torch.scripts._bench_util import (
+    announce_device,
+    device_ms,
+    format_ms,
+    host_ms,
+    median_ms,
+)
 
 # tag, B, L, D, heads, causal, the entry
 SHAPES = [
@@ -330,7 +336,7 @@ def three_clocks(shape: str, calls: dict, bounds: dict, iters: int) -> None:
     for name, fn in calls.items():
         times = (device_ms(fn, iters), median_ms(fn, iters), host_ms(fn, HOST_CALLS))
         kind = "backward" if "backward" in name or name in ("K3", "K4") else "forward"
-        print(f"{shape} {name}: device {times[0]:.4f} ms, event {times[1]:.4f} ms, host "
+        print(f"{shape} {name}: device {format_ms(times[0])}, event {times[1]:.4f} ms, host "
               f"{times[2]:.4f} ms an enqueue; {kind} bound {bounds[kind]:.4f} ms", flush=True)
 
 
@@ -494,7 +500,7 @@ def bench_whole_block(on_card: bool, device: str, iters: int) -> None:
                  "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)}
         times = {name: (device_ms(fn, iters), median_ms(fn, iters)) for name, fn in calls.items()}
         routes = {k: n - before.get(k, 0) for k, n in A.route_counts.items() if n != before.get(k, 0)}
-        print(f"{shape}: " + ", ".join(f"{name} device {dev:.4f} ms, event {event:.4f} ms"
+        print(f"{shape}: " + ", ".join(f"{name} device {format_ms(dev)}, event {event:.4f} ms"
                                        for name, (dev, event) in times.items())
               + f"; bound {bound_ms:.4f} ms  max|diff|={err:.2e}; route counts {routes}", flush=True)
 

@@ -179,7 +179,39 @@ script exits non-zero without printing a result:
    ``probe_bf16_drift`` at one seed and 8 frames (the ViT-L/14@336px tower by
    layer under the kernels and under three plain forms); ``bench_eval``,
    ``bench_latency --path both`` and ``bench_train_step`` at their default
-   sizes;
+   sizes. It prints how many device times by torch.profiler were measured
+   and how many came back "not measured" (no session recorded any);
+4f. data and evaluation: the UCF-Crime model at full width from features on
+   disk. The port's synthetic generator writes a feature set at UCF-Crime's
+   published width (256 normal and 256 abnormal training videos, 16 test
+   videos of 300-2000 frames, 512-d, about 1.2 GB of .npy) into a temporary
+   directory under build/, removed at the end; the port's
+   ``AnomalyCLIPDataModule`` reads it with the repository's UCF-Crime label
+   file. The loader alone is timed batch by batch over three epochs of eight
+   batches of 64; then, the launch counts set to 0: ncentroid over the normal
+   training videos in test mode, a ``GridScorer`` built, two epochs of
+   ``fit_steps`` over the train loader (16 steps, each epoch begun through
+   ``set_epoch``, resumed at epoch 1 of the warmup so that every step updates
+   the weights), ``GridScorer.update`` with the trained state,
+   ``evaluate_videos`` over the test loader and ``detection_metrics``. The
+   launches are counted exactly (K1 12 a text-tower forward: the scorer's
+   constructor, each step and the update; K3 12 a step; K2 and K4 two a
+   temporal call and a backward), every one on its fp32 route; the labels
+   must equal the annotation files' frame labels, the scores be finite and
+   of the set's length, the test videos fill grid buckets 1, 2 and 4 and the
+   metrics be finite. Under the plain attention: every step of the kernel
+   run again from the state it started from, taking its LeakyReLU branches
+   (as 4b), its gradients within 1e-4 of each leaf's max; the first three
+   steps from the same initial state on the plain run's own loader, whose
+   batches, and the loader-alone run's, must equal the kernel run's to the
+   bit, agreeing as in 4b (step 1's loss terms within 1e-4, the losses at
+   rtol 5e-4, the BN state within 1e-5); the kernel run's trained state
+   evaluated must give the same labels, scores and class probabilities
+   within 1e-4 and AUC, AP, mAUC and mAP within 1e-4. It prints the loader's
+   seconds a batch alone and the training step's with the loader, each
+   epoch's first apart from the others' median, the evaluation's seconds a
+   video and frames a second over one pass, and the metrics, each beside
+   the card's name and power limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one warm training step, one warm call of the ViT-L/14@336px video
@@ -189,7 +221,7 @@ script exits non-zero without printing a result:
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
-gradient and script runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+gradient, script and data runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -241,11 +273,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -398,6 +432,18 @@ TRAIN_STEPS = 3
 TRAIN_GRAD_TOL = 1e-4  # of each leaf's max |gradient|
 TRAIN_LOSS_RTOL = 5e-4
 TRAIN_BN_TOL = 1e-5
+# phase 4f: a UCF-Crime feature set at its published width (512-d ViT-B/16
+# features) from the port's synthetic generator. 256 + 256 training videos
+# (UCF-Crime's list has 800 + 810) make epochs of eight batches of 64, so that
+# a batch or a step inside an epoch is timed apart from an epoch's first; test
+# videos of 300-2000 frames cover 1 to 4 grids of 32x16 frames (buckets 1, 2, 4)
+FEATURE_SET = dict(num_normal=256, num_abnormal=256, num_test=16, min_frames=300, max_frames=2000)
+# training resumes at the start of epoch 1 of the 5-epoch warmup (lr = base / 5),
+# so that every step updates the weights; two epochs of it, three of the loader
+# alone; the plain attention repeats the first DATA_CHECK_STEPS on its own
+DATA_START_EPOCH, DATA_EPOCHS, LOADER_EPOCHS, DATA_CHECK_STEPS = 1, 2, 3, 3
+EVAL_METRICS = ("auc_roc", "auc_pr", "mean_mc_auroc", "mean_mc_aupr", "optimal_threshold")
+EVAL_METRIC_TOL = 1e-4  # AUC, AP, mAUC and mAP, kernels vs plain attention (absolute)
 CASE_CALLS = 32  # of a kernel in run_cases: one checked, one to warm, 30 timed
 SCRIPT_ITERS = 10  # timed calls per variant or shape in the scripts of phase 4e
 
@@ -2203,6 +2249,9 @@ def phase_scripts() -> list:
     n = SCRIPT_ITERS
     calls = n + 2
     it = ["--iters", str(n)]
+    from anomalyclip_tpu_torch.scripts import _bench_util
+
+    readings = dict(_bench_util.device_readings)
     runs = []
     # the isolated variants at the ViT-L/14@336px layer's shape and its aligned
     # neighbour, then the two that need a length whose K and V fit otherwise
@@ -2302,7 +2351,320 @@ def phase_scripts() -> list:
         "fused_mha_bld": steps * 2, "mha_bld_bwd": steps * 2,
         "bld_tf32": steps * 2, "bld_bwd_tf32": steps * 2,
     }))
+    # the device times that no profiler session recorded print as "not
+    # measured": their count, beside that of the measured ones
+    counted = {k: n - readings[k] for k, n in _bench_util.device_readings.items()}
+    print(f"[scripts] device times by torch.profiler: {counted['measured']} measured, "
+          f"{counted['not_measured']} not measured", flush=True)
     return runs
+
+
+def epochs_of(loader, first: int, epochs: int, kept: list, waits: list):
+    """The batches of ``loader``'s epochs ``first``, ``first + 1``, ...
+    (``epochs`` of them), each epoch begun through ``set_epoch``; each batch is
+    appended to ``kept``, and the host seconds its consumer waited for it to
+    ``waits`` (an epoch's first wait includes the start of its prefetch)."""
+    for epoch in range(first, first + epochs):
+        loader.set_epoch(epoch)
+        clock = time.perf_counter()
+        for batch in loader:
+            waits.append(time.perf_counter() - clock)
+            kept.append(batch)
+            yield batch
+            clock = time.perf_counter()
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The keys down to each tensor of a tree of dictionaries and lists, joined
+    by "/", in the order ``tree_leaves`` gives the tensors."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def by_epoch_position(seconds: list, per_epoch: int) -> tuple:
+    """Seconds per batch or step over whole epochs -> (those of each epoch's
+    first, the median of the others, their least, their most)."""
+    rest = [s for i, s in enumerate(seconds) if i % per_epoch]
+    return seconds[::per_epoch], statistics.median(rest), min(rest), max(rest)
+
+
+def annotated_frame_labels(annotations: Path) -> np.ndarray:
+    """The per-frame labels of the test set straight from the generator's two
+    annotation files: the video's class inside its annotated span, the normal
+    class elsewhere, in the order of the test list."""
+    spans = {}
+    for line in (annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt").read_text().splitlines():
+        if line.strip():
+            name, _, start, end = line.split()
+            spans[name] = (int(start), int(end))
+    labels = []
+    for line in (annotations / "Anomaly_Test.txt").read_text().splitlines():
+        if line.strip():
+            name, first, last, label = line.split()
+            frames = np.arange(int(first), int(last) + 1)
+            start, end = spans[name]
+            labels.append(np.where((frames >= start) & (frames <= end), int(label), NORMAL_ID))
+    return np.concatenate(labels)
+
+
+def phase_data(smi: str) -> dict:
+    """The UCF-Crime model from a feature set on disk: the port's synthetic
+    generator, datamodule and loaders, the loader timed alone, ncentroid, two
+    epochs of training resumed at epoch DATA_START_EPOCH, ``GridScorer.update``
+    with the trained state, whole-set evaluation and the detection metrics ->
+    the kernel launch counts of that run."""
+    from anomalyclip_tpu_torch.convert import tree_leaves, tree_map
+    from anomalyclip_tpu_torch.data import AnomalyCLIPDataModule, DataConfig
+    from anomalyclip_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from anomalyclip_tpu_torch.eval.evaluator import DEFAULT_BUCKETS, GridScorer, bucket_size, evaluate_videos
+    from anomalyclip_tpu_torch.eval.metrics import detection_metrics
+    from anomalyclip_tpu_torch.models.losses import LossConfig
+    from anomalyclip_tpu_torch.models.selector import BNState
+    from anomalyclip_tpu_torch.ops.attention import (
+        attention_impl,
+        launch_counts,
+        reset_launch_counts,
+        route_counts,
+    )
+    from anomalyclip_tpu_torch.train.module import build_train_step, compute_ncentroid, fit_steps, init_state
+
+    model, frozen, trainable, _, _ = build_ucf_model("cuda", load_from_features=True)
+    bn_state = BNState.create(len(model.classnames) - 1).to("cuda")
+    dim = model.clip_cfg.embed_dim
+    train_step = build_train_step(model, LossConfig(normal_id=NORMAL_ID, num_topk=3, frames_per_segment=16,
+                                                    num_segments=32))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="feature_set_", dir=ROOT / "build") as tmp:
+        frames_root, annotations = Path(tmp) / "features", Path(tmp) / "annotations"
+        start = time.perf_counter()
+        generate_synthetic_dataset(frames_root, annotations, num_classes=NUM_CLASSES, normal_id=NORMAL_ID,
+                                   feature_dim=dim, seed=SEED, make_frames=False, **FEATURE_SET)
+        size = sum(f.stat().st_size for f in frames_root.iterdir())
+        print(f"[data] feature set: {size / 1e9:.3f} GB of .npy in {time.perf_counter() - start:.1f} s",
+              flush=True)
+        cfg = DataConfig(
+            annotation_file_normal=str(annotations / "Anomaly_Train_Normal.txt"),
+            annotation_file_anomaly=str(annotations / "Anomaly_Train_Abnormal.txt"),
+            annotation_file_test=str(annotations / "Anomaly_Test.txt"),
+            annotation_file_temporal_test=str(annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"),
+            frames_root=str(frames_root),
+            labels_file=str(ROOT / "anomalyclip_tpu" / "labels" / "ucf_labels.csv"),
+            normal_id=NORMAL_ID, num_classes=NUM_CLASSES, num_segments=32, seg_length=16,
+            batch_size=2 * HALF_BATCH, num_workers=8, load_from_features=True,
+        )
+        dm = AnomalyCLIPDataModule(cfg, seed=SEED)
+
+        # the loader alone, from disk (the files were just written: the page
+        # cache holds them), over LOADER_EPOCHS epochs
+        loader = dm.train_dataloader()
+        per_epoch = len(loader)
+        require(per_epoch == FEATURE_SET["num_abnormal"] // HALF_BATCH, f"{per_epoch} batches an epoch")
+        alone, alone_waits = [], []
+        start = time.perf_counter()
+        for _ in epochs_of(loader, DATA_START_EPOCH, LOADER_EPOCHS, alone, alone_waits):
+            pass
+        seconds = time.perf_counter() - start
+        loader.close()
+        require(len(alone) == LOADER_EPOCHS * per_epoch, f"{len(alone)} batches in {LOADER_EPOCHS} epochs")
+        firsts, median, low, high = by_epoch_position(alone_waits, per_epoch)
+        print(f"[data] loader alone from disk: {len(alone)} batches of {2 * HALF_BATCH} videos, {LOADER_EPOCHS} "
+              f"epochs of {per_epoch}, in {seconds:.3f} s; each epoch's first batch "
+              f"{', '.join(f'{s:.4f}' for s in firsts)} s; the other {len(alone) - len(firsts)}: median "
+              f"{median:.4f} s ({low:.4f}-{high:.4f}), {1 / median:.2f} batches/s ({smi})", flush=True)
+
+        def resumed_state():
+            """The initial state resumed at the start of epoch DATA_START_EPOCH:
+            the schedule's update count at that epoch's first step."""
+            state = init_state(trainable, bn_state, SOLVER, OPTIMIZER, SCHEDULER, steps_per_epoch=per_epoch)
+            state.optimizer.count = DATA_START_EPOCH * per_epoch
+            return state
+
+        def train(attention: str, steps: int, keep_starts: bool) -> SimpleNamespace:
+            """``steps`` steps of fit_steps over the train loader from the
+            resumed state -> the run: per-step seconds, the loader waits in
+            them, loss terms, gradients, batches, the final state and, with
+            ``keep_starts``, the state each step started from (trainable
+            leaves, BN state, the dropout generator's state)."""
+            loader, gen = dm.train_dataloader(), torch.Generator().manual_seed(SEED)
+            run = SimpleNamespace(seconds=[], waits=[], terms=[], grads=[], batches=[],
+                                  starts=[(trainable, bn_state, gen.get_state())])
+            clock = [0.0]
+
+            def on_step(st, step_terms):
+                torch.cuda.synchronize()
+                run.seconds.append(time.perf_counter() - clock[0])
+                run.terms.append([float(x) for x in step_terms])
+                run.grads.append([leaf.grad.detach().clone() for leaf in tree_leaves(st.trainable)])
+                if keep_starts:
+                    run.starts.append((tree_map(lambda t: t.detach().clone(), st.trainable),
+                                       BNState(*(t.clone() for t in st.bn_state)), gen.get_state()))
+                clock[0] = time.perf_counter()
+
+            epochs = -(-steps // per_epoch)
+            stream = epochs_of(loader, DATA_START_EPOCH, epochs, run.batches, run.waits)
+            with attention_impl(attention):
+                torch.cuda.synchronize()
+                clock[0] = time.perf_counter()
+                run.state, history = fit_steps(train_step, frozen, resumed_state(), stream, ncentroid, gen,
+                                               epochs=epochs, steps_per_epoch=min(steps, per_epoch),
+                                               on_step=on_step)
+            stream.close()
+            loader.close()
+            require(run.state.step == steps and len(history) == epochs and len(run.batches) == steps,
+                    f"{run.state.step} steps in {len(history)} epochs, expected {steps} in {epochs}")
+            return run
+
+        def evaluate(scorer, attention: str):
+            videos = []
+            with attention_impl(attention):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                ev = evaluate_videos(dm.test_dataloader(), scorer, model, on_video=videos.append)
+                torch.cuda.synchronize()
+            return ev, videos, time.perf_counter() - start
+
+        # the main path: counters from zero; ncentroid, the scorer, two epochs
+        # of training, the scorer updated with the trained state, the whole
+        # test set scored; the temporal model's LeakyReLU branches recorded for
+        # the gradient check below
+        steps = DATA_EPOCHS * per_epoch
+        branches = LeakyBranches()
+        reset_launch_counts()
+        ncentroid = torch.as_tensor(compute_ncentroid(dm.train_dataloader_test_mode(), dim), device="cuda")
+        scorer = GridScorer(model, frozen, trainable, bn_state, ncentroid, device="cuda")
+        with branches.using("record"):
+            run = train("kernel", steps, keep_starts=True)
+        scorer.update(frozen, run.state.trainable, run.state.bn_state, ncentroid)
+        ev, videos, eval_seconds = evaluate(scorer, "kernel")
+        torch.cuda.synchronize()
+        launches = dict(launch_counts)
+        text_layers, depth = model.clip_cfg.transformer_layers, model.cfg.depth
+        # the text tower: the scorer's constructor, each step, the update
+        expected = dict.fromkeys(launch_counts, 0)
+        expected.update({"fused_mha_qkv": (steps + 2) * text_layers,
+                         "mha_qkv_bwd": steps * text_layers,
+                         "fused_mha_bld": 2 * depth * (steps + len(videos)),
+                         "mha_bld_bwd": 2 * depth * steps})
+        print(f"[data] launches {launches}, expected {expected}")
+        require(launches == expected, f"launches {launches}, expected {expected}")
+        launches.update(require_routes("fp32 data and evaluation", 0, 0, expected["fused_mha_qkv"], 0,
+                                       expected["fused_mha_bld"], expected["mha_bld_bwd"],
+                                       expected["mha_qkv_bwd"]))
+
+        # what came out: the labels of the annotations, finite scores of the set's
+        # length, the grid buckets 1, 2 and 4 all filled
+        labels = annotated_frame_labels(annotations)
+        n_abn = NUM_CLASSES - 1
+        np.testing.assert_array_equal(ev["labels"], labels, err_msg="evaluated labels vs the annotations")
+        require(ev["abnormal_scores"].shape == labels.shape and ev["class_probs"].shape == (len(labels), n_abn),
+                f"shapes {ev['abnormal_scores'].shape} {ev['class_probs'].shape} for {len(labels)} frames")
+        require(np.isfinite(ev["abnormal_scores"]).all() and np.isfinite(ev["class_probs"]).all(),
+                "non-finite scores")
+        grids = sorted({-(-len(vs.scores) // (32 * 16)) for vs in videos})
+        buckets = sorted({bucket_size(g, DEFAULT_BUCKETS) for g in grids})
+        require(buckets == [1, 2, 4], f"the test set's grids {grids} fill buckets {buckets}, not 1, 2 and 4")
+        binary = labels != NORMAL_ID
+        require(binary.any() and not binary.all(), "the test set holds one class only")
+        det = detection_metrics(ev["abnormal_scores"], ev["labels"], ev["class_probs"], NORMAL_ID, NUM_CLASSES)
+        metrics = np.array([det[k] for k in EVAL_METRICS])
+        require(np.isfinite(metrics).all(), f"non-finite metrics {dict(zip(EVAL_METRICS, metrics))}")
+        require(all(np.isfinite(terms_).all() for terms_ in run.terms), f"non-finite loss terms {run.terms}")
+        firsts, median, low, high = by_epoch_position(run.seconds, per_epoch)
+        wait_firsts, wait_median, _, _ = by_epoch_position(run.waits, per_epoch)
+        print(f"[data] training with the loader, {steps} steps over {DATA_EPOCHS} epochs of {per_epoch}: each "
+              f"epoch's first step {', '.join(f'{s:.4f}' for s in firsts)} s (waiting for the loader "
+              f"{', '.join(f'{s:.4f}' for s in wait_firsts)}); the other {steps - len(firsts)}: median "
+              f"{median:.4f} s ({low:.4f}-{high:.4f}), of which waiting for the loader {wait_median:.4f} s "
+              f"({smi})")
+        frames = len(labels)
+        print(f"[data] evaluation, one pass over {len(videos)} videos, {frames} frames: {eval_seconds:.3f} s, "
+              f"{eval_seconds / len(videos):.4f} s/video, {frames / eval_seconds:.0f} frames/s ({smi})")
+        print(f"[data] metrics after {steps} steps: "
+              + ", ".join(f"{k} {v:.6f}" for k, v in zip(EVAL_METRICS, metrics)) + f" ({smi})")
+
+        # the same under the plain attention: DATA_CHECK_STEPS steps from the
+        # same state on its own loader; every step of the kernel run again from
+        # the state it started from, taking its LeakyReLU branches; the kernel
+        # run's trained state evaluated
+        reset_launch_counts()
+        ref = train("reference", DATA_CHECK_STEPS, keep_starts=False)
+        gaps, names = [], leaf_paths(trainable)
+        with attention_impl("reference"), branches.using("replay"):
+            for step, ((params, bn, gen_state), batch, grads) in enumerate(
+                    zip(run.starts[:-1], run.batches, run.grads, strict=True), 1):
+                gen, want = torch.Generator(), []
+                gen.set_state(gen_state)
+                fit_steps(train_step, frozen, init_state(params, bn, SOLVER, OPTIMIZER, SCHEDULER, per_epoch),
+                          [batch], ncentroid, gen, epochs=1, steps_per_epoch=1,
+                          on_step=lambda st, _: want.extend(leaf.grad.detach().clone()
+                                                            for leaf in tree_leaves(st.trainable)))
+                for name, got, pinned in zip(names, grads, want, strict=True):
+                    scale = pinned.abs().max().item()
+                    err = (got - pinned).abs().max().item()
+                    require(scale > 0, f"{name} got no gradient in step {step}")
+                    require(err <= TRAIN_GRAD_TOL * scale, f"step {step} gradient of {name}: max|diff| "
+                                                           f"{err:.3e} > {TRAIN_GRAD_TOL:g} x max {scale:.3e}")
+                    gaps.append((err / scale, step, name))
+        require(branches.taken == len(branches.masks), f"{branches.taken} of {len(branches.masks)} "
+                                                       f"recorded LeakyReLU branches replayed")
+        with attention_impl("reference"):
+            ref_scorer = GridScorer(model, frozen, run.state.trainable, run.state.bn_state, ncentroid, device="cuda")
+        ref_ev, _, _ = evaluate(ref_scorer, "reference")
+        require(not any(launch_counts.values()) and not any(route_counts.values()),
+                f"plain attention launched kernels: {launch_counts} {route_counts}")
+    # the loader's batches to the bit: the loader alone over the same epochs,
+    # and the plain run's own loader
+    for what, got, want in (("the loader alone", alone[:steps], run.batches),
+                            ("the plain run", ref.batches, run.batches[:DATA_CHECK_STEPS])):
+        for batch, other in zip(got, want, strict=True):
+            for name in batch._fields:
+                np.testing.assert_array_equal(getattr(batch, name), getattr(other, name),
+                                              err_msg=f"loader batch {name}, {what} vs the kernel run")
+    # every step updated every leaf: the schedule's lr is above 0 from the first
+    for step, (before, after) in enumerate(zip(run.starts, run.starts[1:]), 1):
+        moved = min((a - b).abs().max().item() for a, b in zip(tree_leaves(after[0]), tree_leaves(before[0])))
+        require(moved > 0, f"a trainable leaf did not move in step {step}")
+    np.testing.assert_allclose(run.terms[0], ref.terms[0], rtol=TRAIN_GRAD_TOL, atol=1e-6,
+                               err_msg="step 1 loss terms, kernels vs plain")
+    losses, ref_losses = [t[0] for t in run.terms[:DATA_CHECK_STEPS]], [t[0] for t in ref.terms]
+    np.testing.assert_allclose(losses, ref_losses, rtol=TRAIN_LOSS_RTOL, atol=0,
+                               err_msg=f"{DATA_CHECK_STEPS}-step losses, kernels vs plain")
+    trained, trained_bn = run.starts[DATA_CHECK_STEPS][:2]
+    for a, b in zip(trained_bn, ref.state.bn_state):
+        torch.testing.assert_close(a, b, rtol=0, atol=TRAIN_BN_TOL)
+    # not asserted: the two runs' weights after DATA_CHECK_STEPS steps, each
+    # leaf's gap over its largest change. AdamW's first updates are about lr
+    # times the sign of each gradient element, so an element whose gradient
+    # lies within a rounding of 0 may move either way: the gradients above are
+    # what holds the backward kernels
+    weight_gap = max(((a - b).abs().max() / (b - c).abs().max()).item() for a, b, c in
+                     zip(tree_leaves(trained), tree_leaves(ref.state.trainable), tree_leaves(trainable)))
+    np.testing.assert_array_equal(ref_ev["labels"], ev["labels"])
+    for name in ("abnormal_scores", "class_probs"):
+        np.testing.assert_allclose(ev[name], ref_ev[name], rtol=0, atol=FP32_SLICE_TOL,
+                                   err_msg=f"evaluated {name}, kernels vs plain")
+    ref_det = detection_metrics(ref_ev["abnormal_scores"], ref_ev["labels"], ref_ev["class_probs"],
+                                NORMAL_ID, NUM_CLASSES)
+    ref_metrics = np.array([ref_det[k] for k in EVAL_METRICS])
+    np.testing.assert_allclose(metrics[:4], ref_metrics[:4], rtol=0, atol=EVAL_METRIC_TOL,
+                               err_msg="AUC, AP, mAUC, mAP, kernels vs plain")
+    gaps.sort(reverse=True)
+    print(f"[data] kernels vs plain attention: gradients of all {steps} steps from the kernel run's own states, "
+          f"max|diff| / max|grad| {gaps[0][0]:.3e} (limit {TRAIN_GRAD_TOL:g}; the largest: "
+          + ", ".join(f"{gap:.3e} step {step} {name}" for gap, step, name in gaps[:3])
+          + f"; median over {len(gaps)} {statistics.median(g for g, _, _ in gaps):.3e}); {DATA_CHECK_STEPS}-step losses max "
+          f"rel diff {max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)):.3e} (limit "
+          f"{TRAIN_LOSS_RTOL:g}); weights after {DATA_CHECK_STEPS} steps, max|diff| / max|change| "
+          f"{weight_gap:.3e} (not asserted); scores max|diff| "
+          f"{np.abs(ev['abnormal_scores'] - ref_ev['abnormal_scores']).max():.3e}, class probs "
+          f"{np.abs(ev['class_probs'] - ref_ev['class_probs']).max():.3e} (limit {FP32_SLICE_TOL:g}); metrics "
+          f"max|diff| {np.abs(metrics[:4] - ref_metrics[:4]).max():.3e} (limit {EVAL_METRIC_TOL:g}); loader "
+          f"batches equal to the bit")
+    torch.cuda.synchronize()
+    return launches
 
 
 def kernel_class(name: str) -> str:
@@ -2480,6 +2842,7 @@ def main() -> int:
     l14_launches = phase_l14()
     grad_launches = phase_tower_gradient()
     script_launches = phase_scripts()
+    data_launches = phase_data(smi)
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -2517,8 +2880,12 @@ def main() -> int:
                    "whole_bwd_tf32")
     require(all(script_totals[k] > 0 for k in script_path),
             f"a kernel of the scripts' path was never launched: {script_totals}")
+    # the data layer's path: training from disk and whole-set evaluation
+    require(all(data_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                                               "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
+            f"a kernel of the data and evaluation path was never launched: {data_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
-                *script_launches]
+                *script_launches, data_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

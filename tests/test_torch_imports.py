@@ -51,11 +51,17 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.convert",
         "anomalyclip_tpu_torch.numerics",
         "anomalyclip_tpu_torch.predict",
+        "anomalyclip_tpu_torch.data",
+        "anomalyclip_tpu_torch.data.datamodule",
         "anomalyclip_tpu_torch.data.dataset",
         "anomalyclip_tpu_torch.data.loader",
+        "anomalyclip_tpu_torch.data.records",
         "anomalyclip_tpu_torch.data.sampling",
+        "anomalyclip_tpu_torch.data.sources",
+        "anomalyclip_tpu_torch.data.synthetic",
         "anomalyclip_tpu_torch.data.transforms",
         "anomalyclip_tpu_torch.eval.evaluator",
+        "anomalyclip_tpu_torch.eval.metrics",
         "anomalyclip_tpu_torch.models.anomaly_clip",
         "anomalyclip_tpu_torch.models.clip.model",
         "anomalyclip_tpu_torch.models.clip.tokenizer",

@@ -15,8 +15,8 @@ Same numpy inputs, same converted weights, both packages:
 - the optimizer against optax's ``build_optimizer`` at 1e-6, and the schedule;
 - three steps of ``fit_steps`` against the frozen ``steps/*`` (losses rtol 5e-4
   / atol 1e-5, weights with test_golden.py's two-tier check, BN 1e-5 / 1e-6);
-- ``compute_ncentroid`` over the synthetic corpus against the frozen
-  ``ncentroid`` at 1e-5.
+- ``compute_ncentroid`` over the synthetic corpus, through the port's data layer
+  and through the JAX package's, against the frozen ``ncentroid`` at 1e-5.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ from anomalyclip_tpu.models.clip import model as jclip
 from anomalyclip_tpu.train import optim as joptim
 from anomalyclip_tpu.utils.treeio import flatten_tree, unflatten_tree
 from anomalyclip_tpu_torch import convert
+from anomalyclip_tpu_torch.data import datamodule as tdatamodule
+from anomalyclip_tpu_torch.data import synthetic as tsynthetic
 from anomalyclip_tpu_torch.models import anomaly_clip as tac
 from anomalyclip_tpu_torch.models import losses as tloss
 from anomalyclip_tpu_torch.models import selector as tsel
@@ -481,11 +483,18 @@ def test_fit_steps_groups_steps_into_epochs(tiny):
     np.testing.assert_allclose(history[0]["train/loss"], g["train/loss_terms"][0], rtol=2e-4)
 
 
-def test_compute_ncentroid_matches_golden(tiny):
-    """Over the synthetic corpus the golden fixture's module generates."""
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_compute_ncentroid_matches_golden(tiny, package):
+    """Over the synthetic corpus the golden fixture's module generates, written
+    and read by the port's data layer or by the JAX package's."""
+    generate, datamodule_cls, config_cls = {
+        "port": (tsynthetic.generate_synthetic_dataset, tdatamodule.AnomalyCLIPDataModule,
+                 tdatamodule.DataConfig),
+        "jax": (generate_synthetic_dataset, AnomalyCLIPDataModule, DataConfig),
+    }[package]
     cfg = tiny.cfg
     data = dict(cfg.data)
-    generate_synthetic_dataset(
+    generate(
         frames_root=data["frames_root"], annotations_root=data["annotations_root"],
         num_normal=data.get("synthetic_num_normal", 8),
         num_abnormal=data.get("synthetic_num_abnormal", 8),
@@ -496,7 +505,7 @@ def test_compute_ncentroid_matches_golden(tiny):
         max_frames=data.get("synthetic_max_frames", 1400),
         seed=int(cfg.seed), make_frames=False,
     )
-    datamodule = AnomalyCLIPDataModule(DataConfig.from_dict(data), seed=int(cfg.seed))
+    datamodule = datamodule_cls(config_cls.from_dict(data), seed=int(cfg.seed))
     got = tmod.compute_ncentroid(
         datamodule.train_dataloader_test_mode(), tiny.model.clip_cfg.embed_dim
     )
