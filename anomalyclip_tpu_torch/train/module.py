@@ -1,8 +1,11 @@
-"""The training step and its neighbours: the counterpart of the step-level parts
-of anomalyclip_tpu/train/module.py.
+"""The training and evaluation orchestrator: the counterpart of
+anomalyclip_tpu/train/module.py.
+
+The step-level functions:
 
 - ``compute_ncentroid``: the mean CLIP feature over every frame of the normal
-  training videos, accumulated in fp64 with padding frames dropped;
+  training videos, accumulated in fp64 with padding frames dropped (frames
+  encoded first by a given ``encode``);
 - ``prepare_batch``: a ``TrainBatch`` of numpy halves -> tensors on the device,
   the ncrops axis squeezed;
 - ``build_train_step``: abnormal half first -> ``forward_train`` ->
@@ -12,26 +15,51 @@ of anomalyclip_tpu/train/module.py.
 - ``fit_steps``: a loop over a stream of batches, grouped into epochs, moving
   the metric sums to the host once an epoch.
 
-Validation, early stopping, checkpoints, preemption and loggers (the rest of the
-JAX ``fit``) are not ported yet.
+``AnomalyCLIPTrainModule`` builds a run from a composed config (a plain nested
+dict) and runs it: the ncentroid pass and its cache, ``fit`` (epochs of
+``fit_steps``, validation, early stopping, checkpoints, resume, preemption,
+metric loggers), ``validate``, ``test`` with its artifacts, ``load_state`` and
+``adopt_converted_state``. One process, on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Callable, Dict, Iterable, List, Optional
+import signal
+import threading
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from anomalyclip_tpu_torch.data.loader import TrainBatch
-from anomalyclip_tpu_torch.convert import as_trainable
-from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
+from anomalyclip_tpu_torch.convert import as_trainable, tree_leaves, tree_to
+from anomalyclip_tpu_torch.data.datamodule import AnomalyCLIPDataModule, DataConfig
+from anomalyclip_tpu_torch.data.loader import TrainBatch, limit_count
+from anomalyclip_tpu_torch.data.synthetic import generate_synthetic_dataset
+from anomalyclip_tpu_torch.eval.artifacts import write_metrics_json, write_test_artifacts
+from anomalyclip_tpu_torch.eval.evaluator import GridScorer, _world_size, encode_frames_chunked, evaluate_videos
+from anomalyclip_tpu_torch.eval.metrics import detection_metrics
+from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP, AnomalyCLIPConfig, read_classnames
+from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, init_clip_params
 from anomalyclip_tpu_torch.models.losses import LossConfig, LossTerms, compute_loss
 from anomalyclip_tpu_torch.models.selector import BNState
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
-from anomalyclip_tpu_torch.train.optim import GroupedAdamW, build_optimizer
+from anomalyclip_tpu_torch.train.checkpoint import (
+    STATE_FILE,
+    CheckpointManager,
+    host_copy,
+    load_ncentroid,
+    save_ncentroid,
+)
+from anomalyclip_tpu_torch.train.optim import GroupedAdamW, base_lr_schedule, build_optimizer
+from anomalyclip_tpu_torch.utils.logging import MetricLoggerSet, get_logger, is_host_zero
+
+log = get_logger(__name__)
 
 # metric name -> LossTerms field
 METRIC_NAMES = {
@@ -49,10 +77,11 @@ METRIC_NAMES = {
 @dataclasses.dataclass
 class TrainState:
     """The trainable leaves (updated in place by ``optimizer``), the selector's
-    BN running state and the number of steps taken."""
+    BN running state and the number of steps taken. A state loaded to score
+    (``load_state``, ``adopt_converted_state``) has no optimizer."""
 
     trainable: Dict[str, Any]
-    optimizer: GroupedAdamW
+    optimizer: Optional[GroupedAdamW]
     bn_state: BNState
     step: int = 0
 
@@ -136,10 +165,13 @@ def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig):
     return train_step
 
 
-def compute_ncentroid(videos: Iterable[Any], dim: int) -> np.ndarray:
+def compute_ncentroid(
+    videos: Iterable[Any], dim: int, encode: Optional[Callable[[np.ndarray], np.ndarray]] = None
+) -> np.ndarray:
     """Mean feature over every frame of ``videos`` -> (dim,) fp32.
 
-    Each video has ``features`` (ncrops, t, D) and ``frame_labels`` (one per
+    Each video has ``features`` (ncrops, t, D), or frames (ncrops, t, H, W, 3)
+    that ``encode`` turns into (n, D) features, and ``frame_labels`` (one per
     real frame), as the data package's test-mode items; frames past
     ``len(frame_labels)`` are padding and dropped. The sum is taken in fp64."""
     total = np.zeros(dim, dtype=np.float64)
@@ -147,6 +179,8 @@ def compute_ncentroid(videos: Iterable[Any], dim: int) -> np.ndarray:
     for item in videos:
         feats = np.asarray(item.features)
         flat = feats.reshape(-1, *feats.shape[2:])[: len(item.frame_labels)]
+        if encode is not None:
+            flat = encode(flat)
         total += flat.reshape(len(flat), -1).sum(axis=0, dtype=np.float64)
         count += len(flat)
     return (total / max(count, 1)).astype(np.float32)
@@ -183,3 +217,632 @@ def fit_steps(
             break
         history.append({k: float(v) / count for k, v in sums.items()})
     return state, history
+
+
+# ---------------------------------------------------------------------------
+# the module: a run from a composed config
+# ---------------------------------------------------------------------------
+
+
+class TrainingPreempted(RuntimeError):
+    """Raised after a SIGTERM-triggered checkpoint save (preemption recovery).
+
+    Preemptions and maintenance events deliver SIGTERM with a grace period; the
+    reference (Lightning on GPUs) has no preemption story. fit() saves the last
+    *epoch-boundary* state as a regular checkpoint and raises this, so
+    `ckpt_path=<run>/checkpoints/last` resumes with exactly the same semantics as
+    any other epoch checkpoint (no partial-epoch optimizer state is ever
+    persisted)."""
+
+
+# arch -> CLIP config for ``clip_init: random-full`` (the JAX package's registry
+# without RN50, whose tower is not ported yet)
+_ARCH_CONFIGS = {
+    "ViT-B/16": CLIPConfig.vit_b16,
+    "ViT-B/32": CLIPConfig.vit_b32,
+    "ViT-L/14": CLIPConfig.vit_l14,
+    "ViT-L/14@336px": CLIPConfig.vit_l14_336,
+}
+
+
+def resolve_clip(arch: str = "ViT-B/16", clip_init: str = "pretrained", seed: int = 0) -> Tuple[Dict, CLIPConfig]:
+    """The random half of the JAX package's ``resolve_clip``
+    (anomalyclip_tpu/models/clip/registry.py:131-136) -> (CLIP params on the
+    CPU, config): ``random`` is ``CLIPConfig.tiny()``, ``random-full`` the
+    arch's config, both from ``init_clip_params`` with a generator seeded from
+    ``seed``."""
+    if clip_init == "random":
+        cfg = CLIPConfig.tiny()
+    elif clip_init == "random-full":
+        if arch == "RN50":
+            raise NotImplementedError(
+                "clip_init=random-full with arch RN50: the ResNet tower is not ported yet "
+                "(ROADMAP.md section 1, item 7)"
+            )
+        cfg = _ARCH_CONFIGS.get(arch, CLIPConfig.vit_b16)()
+    else:
+        raise NotImplementedError(
+            f"clip_init={clip_init!r}: pretrained CLIP weights and clip_ckpt_path are not "
+            "ported yet (ROADMAP.md section 1, item 5); use random or random-full"
+        )
+    return init_clip_params(torch.Generator().manual_seed(seed), cfg), cfg
+
+
+def _fields(cls, mapping: Dict[str, Any]) -> Dict[str, Any]:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in mapping.items() if k in names}
+
+
+class AnomalyCLIPTrainModule:
+    """Owns model, data, optimizer and the train and eval loops for one composed
+    config: the JAX package's ``AnomalyCLIPTrainModule``
+    (anomalyclip_tpu/train/module.py:87-1208), one process on one device.
+
+    ``cfg`` is the composed config as a plain nested dict (what
+    ``anomalyclip_tpu.config.compose.to_dict`` gives, or a JSON file of it).
+    ``device`` is the card unless the caller passes ``"cpu"``. The frozen CLIP
+    tree lives on ``device``."""
+
+    def __init__(self, cfg: Dict[str, Any], device=None):
+        if _world_size() > 1:
+            raise NotImplementedError(
+                f"AnomalyCLIPTrainModule across {_world_size()} processes: more than one "
+                "process is not ported yet (ROADMAP.md section 1, item 8)"
+            )
+        self.cfg = cfg
+        self.device = torch.device("cuda" if device is None else device)
+        self.seed = int(cfg.get("seed") or 0)
+        model_cfg = cfg["model"]
+        self.save_dir = Path(model_cfg.get("save_dir") or cfg["paths"]["output_dir"])
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+
+        trainer_cfg = cfg.get("trainer") or {}
+        if int(trainer_cfg.get("model_parallel") or 1) > 1:
+            raise NotImplementedError(
+                f"trainer.model_parallel={trainer_cfg['model_parallel']}: the tensor-parallel "
+                "tower is not ported yet (ROADMAP.md section 1, item 8)"
+            )
+        if trainer_cfg.get("detect_anomaly"):
+            torch.autograd.set_detect_anomaly(True)
+
+        data_cfg = dict(cfg["data"])
+        net_cfg = dict(model_cfg["net"])
+        if (net_cfg.get("quantize") or "none") != "none":
+            raise NotImplementedError(
+                f"model.net.quantize={net_cfg['quantize']!r}: the int8 tower is not ported yet "
+                "(ROADMAP.md section 1, item 7)"
+            )
+        # the synthetic features must match the resolved tower's embed_dim
+        clip_params, clip_cfg = resolve_clip(
+            arch=net_cfg.get("arch", "ViT-B/16"),
+            clip_init=net_cfg.get("clip_init", "pretrained"),
+            seed=self.seed,
+        )
+        if data_cfg.get("synthetic"):
+            generate_synthetic_dataset(
+                frames_root=data_cfg["frames_root"],
+                annotations_root=data_cfg["annotations_root"],
+                num_normal=data_cfg.get("synthetic_num_normal", 8),
+                num_abnormal=data_cfg.get("synthetic_num_abnormal", 8),
+                num_test=data_cfg.get("synthetic_num_test", 4),
+                num_classes=data_cfg["num_classes"],
+                normal_id=data_cfg["normal_id"],
+                feature_dim=clip_cfg.embed_dim,
+                min_frames=data_cfg.get("synthetic_min_frames", 600),
+                max_frames=data_cfg.get("synthetic_max_frames", 1400),
+                seed=self.seed,
+                make_frames=not data_cfg.get("load_from_features", True),
+                frame_size=int(data_cfg.get("input_size", 224)),
+            )
+        self.datamodule = AnomalyCLIPDataModule(DataConfig.from_dict(data_cfg), seed=self.seed)
+
+        self.net_cfg = AnomalyCLIPConfig(**_fields(AnomalyCLIPConfig, net_cfg))
+        self.model, frozen = AnomalyCLIP.build(self.net_cfg, clip_params, clip_cfg)
+        self.frozen = tree_to(frozen, self.device)
+        self.loss_cfg = LossConfig(**_fields(LossConfig, dict(model_cfg["loss"])))
+
+        mc_cfg = (cfg.get("callbacks") or {}).get("model_checkpoint") or {}
+        self.ckpt = CheckpointManager(
+            self.save_dir,
+            save_top_k=int(mc_cfg.get("save_top_k", -1) or -1),
+            save_last=bool(mc_cfg.get("save_last", True)),
+        )
+        self._ckpt_every_n_epochs = int(mc_cfg.get("every_n_epochs", 1) or 1)
+        self.loggers = MetricLoggerSet(cfg.get("logger"), self.save_dir)
+        self.ncentroid: Optional[np.ndarray] = None
+        self._scorer_cache: Optional[GridScorer] = None
+        self._train_loader = None
+        self._sigterm_installed = False
+        self._old_sigterm = None
+
+    # ------------------------------------------------------------------ data
+
+    def _frame_features(self, frames: np.ndarray) -> np.ndarray:
+        """CLIP-encode raw frames for the ncentroid pass (the frames path)."""
+        return encode_frames_chunked(
+            lambda part: self.model.encode_frames(self.frozen, part), frames, self.device
+        )
+
+    def compute_ncentroid(self, limit: Optional[int] = None) -> np.ndarray:
+        """Mean CLIP feature over every frame of the normal training videos
+        (anomaly_clip_module.py:134-171), cached as ncentroid.npy. A limited pass
+        (fast_dev_run) neither trusts nor writes the cache."""
+        cached = load_ncentroid(self.save_dir)
+        if cached is not None and limit is None:
+            self.ncentroid = cached
+            return cached
+        log.info("computing ncentroid over normal training videos ...")
+        ncentroid = compute_ncentroid(
+            self.datamodule.train_dataloader_test_mode(limit=limit),
+            self.model.embedding_dim,
+            encode=None if self.net_cfg.load_from_features else self._frame_features,
+        )
+        if limit is None and is_host_zero():
+            save_ncentroid(self.save_dir, ncentroid)
+        self.ncentroid = ncentroid
+        return ncentroid
+
+    # ----------------------------------------------------------------- train
+
+    def _build_train_step(self):
+        return build_train_step(self.model, self.loss_cfg)
+
+    def _optimizer_cfgs(self) -> Tuple[Dict, Dict, Dict]:
+        model_cfg = self.cfg["model"]
+        return (
+            dict(model_cfg["solver"]),
+            dict(model_cfg.get("optimizer") or {}),
+            dict(model_cfg.get("scheduler") or {}),
+        )
+
+    def init_state(self, steps_per_epoch: int) -> TrainState:
+        """The seeded initial state on the device: trainable parameters from a
+        generator seeded with ``seed``, a fresh BN state, a fresh optimizer."""
+        trainable, bn_state = self.model.init_trainable(
+            torch.Generator().manual_seed(self.seed), self.frozen
+        )
+        return init_state(
+            tree_to(trainable, self.device), bn_state.to(self.device),
+            *self._optimizer_cfgs(), steps_per_epoch,
+        )
+
+    def _log_model_summary(self, state: TrainState) -> None:
+        """Parameter counts per optimizer group + frozen CLIP (the reference's
+        log_hyperparameters, src/utils/logging_utils.py:9-50)."""
+
+        def count(tree) -> int:
+            return sum(t.numel() for t in tree_leaves(tree))
+
+        frozen_n = count(self.frozen)
+        groups = {k: count(v) for k, v in state.trainable.items()}
+        trainable_n = sum(groups.values())
+        per_group = ", ".join(f"{k}={v:,}" for k, v in groups.items())
+        log.info(
+            f"model summary: trainable={trainable_n:,} ({per_group}); "
+            f"frozen CLIP={frozen_n:,}; total={trainable_n + frozen_n:,}"
+        )
+        self.loggers.log_metrics(
+            {
+                "model/params_trainable": float(trainable_n),
+                "model/params_frozen": float(frozen_n),
+                "model/params_total": float(trainable_n + frozen_n),
+            },
+            step=0,
+        )
+
+    def _run_task(self, fn):
+        """task_wrapper analogue (reference: src/utils/utils.py:42-92): exceptions
+        are appended to <run_dir>/exception.log and re-raised; metric loggers are
+        always finalized so a crashed run keeps its buffered metrics."""
+        try:
+            return fn()
+        except Exception:
+            if is_host_zero():
+                path = self.save_dir / "exception.log"
+                with open(path, "a") as f:
+                    f.write(traceback.format_exc() + "\n")
+                log.error(f"task failed; traceback saved to {path}")
+            raise
+        finally:
+            self.loggers.finalize()
+
+    def fit(self) -> Dict[str, Any]:
+        return self._run_task(self._fit)
+
+    def _fit(self) -> Dict[str, Any]:
+        if (self.cfg.get("trainer") or {}).get("profiler"):
+            raise NotImplementedError(
+                f"trainer.profiler={self.cfg['trainer']['profiler']!r}: the JAX package's value "
+                "is a JAX trace, and the port has no counterpart"
+            )
+        try:
+            return self._fit_body()
+        finally:
+            if self._train_loader is not None:
+                self._train_loader.close()
+                self._train_loader = None
+            # restore even when the previous handler was None (installed from C)
+            if self._sigterm_installed:
+                signal.signal(signal.SIGTERM, self._old_sigterm)
+                self._sigterm_installed = False
+                self._old_sigterm = None
+
+    def _boundary(self, state: TrainState) -> Dict[str, Any]:
+        """A resumable epoch boundary: a deep copy on the CPU of the trainable
+        tree, the optimizer's state, its update count, the BN state and the step.
+        The optimizer updates the trainable leaves and its moments in place, and
+        ``state_dict()`` hands out the live tensors, so an alias would hold the
+        state of a later step by the time it is saved."""
+        return host_copy({
+            "trainable": state.trainable,
+            "optimizer": state.optimizer.optimizer.state_dict(),
+            "count": state.optimizer.count,
+            "bn_state": state.bn_state,
+            "step": state.step,
+        })
+
+    def _resume(self, ckpt_path, steps_per_epoch: int) -> Tuple[TrainState, int]:
+        """A checkpoint of the port -> (the state on the device, its epoch)."""
+        restored = self.ckpt.restore(ckpt_path, device="cpu")
+        state = init_state(
+            tree_to(restored["trainable"], self.device), restored["bn_state"].to(self.device),
+            *self._optimizer_cfgs(), steps_per_epoch,
+        )
+        # the moments move to their parameters' device; AdamW's step counts stay
+        # on the CPU, where an uninterrupted run keeps them
+        state.optimizer.optimizer.load_state_dict(restored["optimizer"])
+        state.optimizer.count = int(restored["count"])
+        return dataclasses.replace(state, step=int(restored["step"])), int(restored["epoch"])
+
+    def _fit_body(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        trainer_cfg = cfg.get("trainer") or {}
+        fast_dev_run = bool(trainer_cfg.get("fast_dev_run"))
+        max_epochs = 1 if fast_dev_run else int(trainer_cfg.get("max_epochs", 50))
+
+        self.compute_ncentroid(limit=1 if fast_dev_run else None)
+
+        # kept on self so _fit's finally can join the worker pool even when an
+        # epoch raises
+        train_loader = self._train_loader = self.datamodule.train_dataloader()
+        overfit_batches = int(trainer_cfg.get("overfit_batches") or 0)
+        steps_per_epoch = limit_count(len(train_loader), trainer_cfg.get("limit_train_batches"))
+        if overfit_batches:
+            # train on the same few batches every epoch (Lightning overfit_batches;
+            # reference: configs/debug/overfit.yaml) — epoch shuffling is pinned
+            steps_per_epoch = min(steps_per_epoch, overfit_batches)
+        if fast_dev_run:
+            steps_per_epoch = 1
+        if steps_per_epoch == 0:
+            raise RuntimeError("empty train loader (batch_size larger than dataset?)")
+
+        solver_cfg, _, scheduler_cfg = self._optimizer_cfgs()
+        lr_schedule = base_lr_schedule(solver_cfg, scheduler_cfg, steps_per_epoch)
+        train_step = self._build_train_step()
+        state = self.init_state(steps_per_epoch)
+        start_epoch = 0
+        ckpt_path = cfg.get("ckpt_path")
+        if ckpt_path:
+            state, epoch = self._resume(ckpt_path, steps_per_epoch)
+            start_epoch = epoch + 1
+            log.info(f"resumed from {ckpt_path} at epoch {start_epoch}")
+        ncentroid = torch.as_tensor(self.ncentroid, device=self.device)
+
+        callbacks_cfg = cfg.get("callbacks") or {}
+        if callbacks_cfg.get("model_summary", True):
+            self._log_model_summary(state)
+
+        # early stopping (reference: configs/callbacks/early_stopping.yaml)
+        es_cfg = callbacks_cfg.get("early_stopping") or None
+        es_monitor = es_cfg.get("monitor", "auc_roc") if es_cfg else None
+        es_patience = int(es_cfg.get("patience", 3)) if es_cfg else 0
+        es_mode = str(es_cfg.get("mode", "max")) if es_cfg else "max"
+        es_min_delta = float(es_cfg.get("min_delta", 0.0)) if es_cfg else 0.0
+        es_best: Optional[float] = None
+        es_bad_epochs = 0
+
+        # the selector's dropout masks: seeded at every fit() start, resume
+        # included, as the JAX package's key is
+        gen = torch.Generator().manual_seed(self.seed + 17)
+        last_val: Dict[str, Any] = {}
+
+        # ---- preemption safety -------------------------------------------
+        # On SIGTERM, persist the newest *epoch-boundary* state as a normal
+        # checkpoint and raise TrainingPreempted: resume via ckpt_path=.../last
+        # re-runs the interrupted epoch from its start. Off switch:
+        # trainer.preempt_save=false.
+        preempt_flag = {"set": False}
+        preempt_armed = bool(trainer_cfg.get("preempt_save", True)) and (
+            threading.current_thread() is threading.main_thread()
+        )
+        if preempt_armed:
+
+            def _on_sigterm(signum, frame):
+                # async-signal-safe: only flip the flag — logging here can
+                # re-enter a buffered stream mid-write
+                preempt_flag["set"] = True
+
+            # restored by _fit's finally (survives any exception below)
+            self._old_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+            self._sigterm_installed = True
+
+        # newest completed epoch boundary (a deep copy on the host, see
+        # _boundary); the one before the first epoch is never saved
+        boundary_epoch, boundary_state = start_epoch - 1, None
+        last_saved_epoch = start_epoch - 1  # skip re-serializing in the grace window
+
+        def _handle_preempt(during_epoch: int) -> None:
+            nonlocal last_saved_epoch
+            if not preempt_flag["set"]:
+                return
+            log.warning("SIGTERM received: checkpointing the last epoch boundary")
+            if boundary_epoch >= 0 and boundary_epoch != last_saved_epoch:
+                try:
+                    self.ckpt.save_epoch(boundary_epoch, {**boundary_state, "epoch": boundary_epoch})
+                except Exception as e:  # noqa: BLE001 — surfaced as the preemption's cause
+                    log.error(f"preemption checkpoint save FAILED: {e!r}")
+                    raise TrainingPreempted(
+                        f"preempted during epoch {during_epoch} and the boundary "
+                        f"checkpoint save failed: {e!r}"
+                    ) from e
+                last_saved_epoch = boundary_epoch
+                log.warning(
+                    f"preemption checkpoint saved at epoch {boundary_epoch}; "
+                    f"resume with ckpt_path={self.ckpt.ckpt_dir / 'last'}"
+                )
+            if boundary_epoch < 0:
+                raise TrainingPreempted(
+                    f"preempted during epoch {during_epoch} before any epoch "
+                    "completed — no checkpoint written; restart from scratch"
+                )
+            raise TrainingPreempted(
+                f"preempted during epoch {during_epoch} "
+                f"(saved boundary: epoch {boundary_epoch})"
+            )
+
+        def polled(epoch: int):
+            """The epoch's batches, the preemption flag polled before each step."""
+            for batch_idx, batch in enumerate(train_loader):
+                if batch_idx >= steps_per_epoch:
+                    return
+                _handle_preempt(epoch)
+                yield batch
+
+        for epoch in range(start_epoch, max_epochs):
+            train_loader.set_epoch(0 if overfit_batches else epoch)
+            t0 = time.time()
+            # one epoch of fit_steps: its loss means reach the host once
+            state, history = fit_steps(
+                train_step, self.frozen, state, polled(epoch), ncentroid, gen,
+                epochs=1, steps_per_epoch=steps_per_epoch,
+            )
+            # the epoch's steps all ran: this state is a resumable boundary,
+            # copied to the host whenever preemption or a checkpoint may save it
+            boundary_epoch = epoch
+            ckpt_due = not fast_dev_run and (epoch + 1) % self._ckpt_every_n_epochs == 0
+            boundary_state = self._boundary(state) if preempt_armed or ckpt_due else None
+            _handle_preempt(epoch)
+            epoch_metrics = dict(history[0]) if history else zero_metric_sums("cpu")
+            epoch_metrics = {k: float(v) for k, v in epoch_metrics.items()}
+            if callbacks_cfg.get("lr_logger", True):
+                # reference: LearningRateMonitor (configs/callbacks/default.yaml);
+                # the LR in effect during THIS epoch (per-epoch schedule)
+                epoch_metrics["train/lr"] = float(lr_schedule(epoch * steps_per_epoch))
+            epoch_metrics["train/epoch_time_s"] = time.time() - t0
+            log.info(
+                f"epoch {epoch}: loss={epoch_metrics.get('train/loss', float('nan')):.4f} "
+                f"({state.step} steps so far, {epoch_metrics['train/epoch_time_s']:.1f}s)"
+            )
+            self.loggers.log_metrics(epoch_metrics, step=epoch)
+
+            # ---- validation (every epoch, like the reference) ----
+            check_every = int(trainer_cfg.get("check_val_every_n_epoch", 1) or 1)
+            validated_this_epoch = (epoch + 1) % check_every == 0
+            if validated_this_epoch:
+                val_limit = limit_count(
+                    len(self.datamodule.val_dataloader()),
+                    1 if fast_dev_run else trainer_cfg.get("limit_val_batches"),
+                )
+                # a SIGTERM mid-validation must not burn the grace period on
+                # scoring: bail between videos; _handle_preempt below then
+                # checkpoints the epoch boundary
+                last_val = self.validate(
+                    state, epoch, limit=val_limit, should_stop=lambda: preempt_flag["set"],
+                )
+                self.loggers.log_metrics(
+                    {
+                        f"test/{k}": last_val[j]
+                        for k, j in [
+                            ("AUC", "auc_roc"),
+                            ("AP", "auc_pr"),
+                            ("mAUC", "mean_mc_auroc"),
+                            ("mAP", "mean_mc_aupr"),
+                        ]
+                        if j in last_val and np.isfinite(last_val[j])
+                    },
+                    step=epoch,
+                )
+
+            # early stopping counts only epochs with a FRESH validation — with
+            # check_val_every_n_epoch > 1, stale metrics must not burn patience
+            if es_monitor and last_val and validated_this_epoch:
+                value = last_val.get(es_monitor)
+                if value is not None and np.isfinite(value):
+                    improved = es_best is None or (
+                        value > es_best + es_min_delta
+                        if es_mode == "max"
+                        else value < es_best - es_min_delta
+                    )
+                    if improved:
+                        es_best, es_bad_epochs = float(value), 0
+                    else:
+                        es_bad_epochs += 1
+
+            if ckpt_due:
+                self.ckpt.save_epoch(epoch, {**boundary_state, "epoch": epoch})
+                last_saved_epoch = epoch
+
+            _handle_preempt(epoch)  # a SIGTERM during validation lands here
+
+            if es_monitor and es_bad_epochs >= es_patience > 0:
+                log.info(
+                    f"early stopping at epoch {epoch}: {es_monitor} did not improve "
+                    f"for {es_bad_epochs} epochs (best {es_best:.4f})"
+                )
+                break
+
+        self._final_state = state
+        return last_val
+
+    # ------------------------------------------------------------------ eval
+
+    def _scorer(self, state: TrainState) -> GridScorer:
+        """The one scorer of this model, built at its first use and then
+        ``update``d from ``state``: the text features are computed from the text
+        subtree of the frozen tree (``GridScorer.update``); the image tower,
+        which only the frames path reads, stays where it is."""
+        ncentroid = torch.as_tensor(self.ncentroid, device=self.device)
+        if self._scorer_cache is None or self._scorer_cache.model is not self.model:
+            self._scorer_cache = GridScorer(
+                self.model, self.frozen, state.trainable, state.bn_state, ncentroid,
+                device=self.device,
+            )
+            return self._scorer_cache
+        return self._scorer_cache.update(self.frozen, state.trainable, state.bn_state, ncentroid)
+
+    def validate(
+        self,
+        state: TrainState,
+        epoch: int,
+        limit: Optional[int] = None,
+        should_stop=None,
+    ) -> Dict:
+        """Validation epoch -> detection metrics + metrics_{epoch}.json
+        (anomaly_clip_module.py:301-404). ``should_stop`` (polled between
+        videos) aborts with {} — the preemption path; no partial metrics are
+        written or logged."""
+        scorer = self._scorer(state)
+        outputs = evaluate_videos(
+            self.datamodule.val_dataloader(limit=limit), scorer, self.model,
+            should_stop=should_stop,
+        )
+        if not outputs:
+            return {}
+        det = detection_metrics(
+            outputs["abnormal_scores"],
+            outputs["labels"],
+            outputs["class_probs"],
+            self.net_cfg.normal_id,
+            self.datamodule.num_classes,
+        )
+        metrics = {
+            "epoch": epoch,
+            "auc_roc": det["auc_roc"],
+            "auc_pr": det["auc_pr"],
+            "mean_mc_auroc": det["mean_mc_auroc"],
+            "mean_mc_aupr": det["mean_mc_aupr"],
+            "mc_auroc": det["mc_auroc"],
+            "mc_aupr": det["mc_aupr"],
+            "optimal_threshold": det["optimal_threshold"],
+        }
+        if is_host_zero():
+            write_metrics_json(self.save_dir, metrics, epoch=epoch)
+        log.info(
+            f"val epoch {epoch}: AUC={det['auc_roc']:.4f} AP={det['auc_pr']:.4f} "
+            f"mAUC={det['mean_mc_auroc']:.4f} mAP={det['mean_mc_aupr']:.4f}"
+        )
+        return metrics
+
+    def load_state(self, ckpt_path) -> TrainState:
+        """A checkpoint directory of the port (or its ``last``) -> a TrainState
+        on the device, without optimizer. Lightning ``.ckpt`` files and Orbax
+        directories of the JAX package are not read yet."""
+        path = Path(ckpt_path)
+        if path.suffix == ".ckpt":
+            raise NotImplementedError(
+                f"{path}: converting a Lightning .ckpt is not ported yet "
+                "(ROADMAP.md section 1, item 5)"
+            )
+        if path.is_dir() and not (path / STATE_FILE).is_file():
+            raise NotImplementedError(
+                f"{path} holds no {STATE_FILE}: reading a checkpoint directory other than "
+                "the port's own (an Orbax one of the JAX package) is not ported yet "
+                "(ROADMAP.md section 1, item 5)"
+            )
+        restored = self.ckpt.restore(path, device=self.device)
+        ctx = restored["trainable"]["prompt_ctx"]
+        if ctx.shape[-1] != self.model.prompt_spec.ctx_dim:
+            raise ValueError(
+                f"checkpoint prompt ctx dim {ctx.shape[-1]} does not match "
+                f"the session's CLIP text width {self.model.prompt_spec.ctx_dim} "
+                "— evaluate with the model config the checkpoint was trained with"
+            )
+        return TrainState(
+            trainable=restored["trainable"],
+            optimizer=None,
+            bn_state=restored["bn_state"],
+            step=int(restored["step"]),
+        )
+
+    def adopt_converted_state(self, frozen, trainable, bn_state: BNState, clip_cfg: CLIPConfig) -> TrainState:
+        """Swap this module onto already-converted parameter trees of the port
+        (``convert.params_from_jax`` of the JAX package's trees, say): rebuild
+        the model around the trees' own CLIP and drop the cached scorer."""
+        n_ctx = int(trainable["prompt_ctx"].shape[-2])
+        # rebuild unconditionally: prompt_spec (token prefix/suffix, EOT
+        # indices) is derived from the token embedding
+        self.net_cfg = dataclasses.replace(self.net_cfg, n_ctx=n_ctx)
+        self.model, frozen = AnomalyCLIP.build(self.net_cfg, frozen["clip"], clip_cfg)
+        self.frozen = tree_to(frozen, self.device)
+        self._scorer_cache = None
+        return TrainState(
+            trainable=tree_to(trainable, self.device),
+            optimizer=None,
+            bn_state=bn_state.to(self.device),
+            step=0,
+        )
+
+    def test(
+        self,
+        ckpt_path=None,
+        state: Optional[TrainState] = None,
+        limit: Optional[int] = None,
+    ) -> Dict:
+        """Full test pass + artifacts (anomaly_clip_module.py:459-691)."""
+        if self.datamodule.cfg.visualize:
+            raise NotImplementedError(
+                "data.visualize: the visualizer is not ported yet (ROADMAP.md section 1, item 6)"
+            )
+        if state is None:
+            if ckpt_path is None:
+                raise ValueError("test() needs a checkpoint path or a TrainState")
+            state = self.load_state(ckpt_path)
+        if self.ncentroid is None:
+            self.compute_ncentroid()
+
+        trainer_cfg = self.cfg.get("trainer") or {}
+        limit = limit if limit is not None else trainer_cfg.get("limit_test_batches")
+        test_loader = self.datamodule.test_dataloader(
+            limit=limit_count(len(self.datamodule.test_dataloader()), limit)
+        )
+        outputs = evaluate_videos(test_loader, self._scorer(state), self.model)
+        if not outputs:
+            # empty test pass (limit_test_batches=0 / empty annotation file)
+            log.warning("test pass scored zero videos — no metrics written")
+            return {}
+        metrics = write_test_artifacts(
+            self.save_dir,
+            outputs["abnormal_scores"],
+            outputs["labels"],
+            outputs["class_probs"],
+            self.net_cfg.normal_id,
+            self.datamodule.num_classes,
+            read_classnames(self.datamodule.cfg.labels_file),
+            write_files=is_host_zero(),
+        )
+        if is_host_zero():
+            log.info(
+                f"test: AUC={metrics['auc_roc']:.4f} AP={metrics['auc_pr']:.4f} "
+                f"(artifacts in {self.save_dir})"
+            )
+        return metrics

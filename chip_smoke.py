@@ -211,7 +211,35 @@ script exits non-zero without printing a result:
    seconds a batch alone and the training step's with the loader, each
    epoch's first apart from the others' median, the evaluation's seconds a
    video and frames a second over one pass, and the metrics, each beside
-   the card's name and power limit;
+   the card's name and power limit. The feature set is written once, before
+   4f, and 4g reads it too;
+4g. the training run: ``AnomalyCLIPTrainModule`` from ``ucf_fit_config`` (the
+   composed ``experiment=ucfcrime`` apart from FIT_OVERRIDES and the paths;
+   tests/test_torch_fit.py holds it there) on 4f's feature set, under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+   CUBLAS_WORKSPACE_CONFIG=:4096:8 (both restored afterwards; an op that warns
+   is named, and B is then held to A at C's tolerances). The launch counts set
+   to 0: fit A, three epochs of eight steps at batch 64, a validation pass and
+   a checkpoint after each, then ``test(state=...)``; fit B, the same with a
+   SIGTERM raised after epoch 1's third step, which must raise
+   ``TrainingPreempted`` with "saved boundary: epoch 0" and restore the
+   previous handler, then a fresh module resumed from ``checkpoints/last``
+   through epochs 1-2; ``test(ckpt_path=last)`` in a fresh module; the
+   from-frames ncentroid of a module whose normal videos are FRAME_VIDEOS
+   seeded uint8 videos of 64-300 frames (``seeded_frames``: the frame source
+   with the JPEG decode replaced), ViT-B/16 at full width. The launches are
+   counted exactly, every one on its fp32 route. Then fit C, A under
+   ANOMALYCLIP_ATTN_IMPL=reference, and the from-frames pass again, with no
+   launch. B must equal A to the bit (each epoch's losses, the metrics of
+   epochs 1-2, every trainable leaf and the BN state at the end); A and C agree
+   within 5e-4 relative on the losses and 1e-4 on AUC, AP, mAUC and mAP, the
+   two ncentroids within 1e-4; A's run directory holds epoch_000-002, last,
+   ncentroid.npy and metrics_{0,1,2}.json; epoch 0 (warmup, lr 0) leaves every
+   leaf as initialised and saves nonzero AdamW moments; epoch 1 moves every
+   leaf; the fresh module's test agrees with A's within RELOAD_TOL. It prints
+   the seconds of each epoch, validation pass, checkpoint save and restore, a
+   checkpoint's bytes and the resumed run's epochs beside A's, with the card's
+   name and power limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one warm training step, one warm call of the ViT-L/14@336px video
@@ -221,7 +249,7 @@ script exits non-zero without printing a result:
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
-gradient, script and data runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+gradient, script, data and training-run runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -438,6 +466,7 @@ TRAIN_BN_TOL = 1e-5
 # a batch or a step inside an epoch is timed apart from an epoch's first; test
 # videos of 300-2000 frames cover 1 to 4 grids of 32x16 frames (buckets 1, 2, 4)
 FEATURE_SET = dict(num_normal=256, num_abnormal=256, num_test=16, min_frames=300, max_frames=2000)
+FEATURE_DIM = 512  # ViT-B/16's embed dim
 # training resumes at the start of epoch 1 of the 5-epoch warmup (lr = base / 5),
 # so that every step updates the weights; two epochs of it, three of the loader
 # alone; the plain attention repeats the first DATA_CHECK_STEPS on its own
@@ -446,6 +475,24 @@ EVAL_METRICS = ("auc_roc", "auc_pr", "mean_mc_auroc", "mean_mc_aupr", "optimal_t
 EVAL_METRIC_TOL = 1e-4  # AUC, AP, mAUC and mAP, kernels vs plain attention (absolute)
 CASE_CALLS = 32  # of a kernel in run_cases: one checked, one to warm, 30 timed
 SCRIPT_ITERS = 10  # timed calls per variant or shape in the scripts of phase 4e
+# phase 4g: the UCF-Crime training run (configs/experiment/ucfcrime.yaml, seed
+# 1024) on FEATURE_SET, FIT_EPOCHS epochs; the preempted fit takes SIGTERM after
+# PREEMPT_AFTER_STEPS steps of epoch 1; the from-frames ncentroid pass reads
+# FRAME_VIDEOS seeded videos of 64-300 uint8 frames
+UCF_SEED, FIT_EPOCHS, PREEMPT_AFTER_STEPS = 1024, 3, 3
+FRAME_VIDEOS, FRAME_COUNTS = 4, (64, 300)
+# what phase 4g sets apart from the published config: CLIP from seeded weights
+# at full width, three epochs, the paths, the csv logger in the run's own
+# directory, and dropout 0: the dropout generator restarts from seed + 17 at
+# every fit(), resume included (as the JAX package's key does), so only
+# without dropout can a resumed run repeat the uninterrupted one
+# a fresh module's test pass from ``last`` against A's own on the same tensors
+# and inputs: the same scoring at two points of one process differed by an fp32
+# step (8.94e-8 on an NVIDIA H100 at 700 W), so it is held within RELOAD_TOL,
+# not to the bit
+RELOAD_TOL = 1e-6
+FIT_OVERRIDES = ("model.net.clip_init", "model.net.select_idx_dropout_topk",
+                 "model.net.select_idx_dropout_bottomk", "trainer.max_epochs")
 
 
 def phase_device() -> str:
@@ -2410,15 +2457,29 @@ def annotated_frame_labels(annotations: Path) -> np.ndarray:
     return np.concatenate(labels)
 
 
-def phase_data(smi: str) -> dict:
-    """The UCF-Crime model from a feature set on disk: the port's synthetic
-    generator, datamodule and loaders, the loader timed alone, ncentroid, two
-    epochs of training resumed at epoch DATA_START_EPOCH, ``GridScorer.update``
-    with the trained state, whole-set evaluation and the detection metrics ->
-    the kernel launch counts of that run."""
+def make_feature_set(root: Path) -> tuple:
+    """The port's synthetic generator writes FEATURE_SET at UCF-Crime's width
+    under ``root`` -> (its features directory, its annotations directory)."""
+    from anomalyclip_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    frames_root, annotations = root / "features", root / "annotations"
+    start = time.perf_counter()
+    generate_synthetic_dataset(frames_root, annotations, num_classes=NUM_CLASSES, normal_id=NORMAL_ID,
+                               feature_dim=FEATURE_DIM, seed=SEED, make_frames=False, **FEATURE_SET)
+    size = sum(f.stat().st_size for f in frames_root.iterdir())
+    print(f"[data] feature set: {size / 1e9:.3f} GB of .npy in {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return frames_root, annotations
+
+
+def phase_data(smi: str, frames_root: Path, annotations: Path) -> dict:
+    """The UCF-Crime model from a feature set on disk: the port's datamodule
+    and loaders over the set ``make_feature_set`` wrote, the loader timed alone,
+    ncentroid, two epochs of training resumed at epoch DATA_START_EPOCH,
+    ``GridScorer.update`` with the trained state, whole-set evaluation and the
+    detection metrics -> the kernel launch counts of that run."""
     from anomalyclip_tpu_torch.convert import tree_leaves, tree_map
     from anomalyclip_tpu_torch.data import AnomalyCLIPDataModule, DataConfig
-    from anomalyclip_tpu_torch.data.synthetic import generate_synthetic_dataset
     from anomalyclip_tpu_torch.eval.evaluator import DEFAULT_BUCKETS, GridScorer, bucket_size, evaluate_videos
     from anomalyclip_tpu_torch.eval.metrics import detection_metrics
     from anomalyclip_tpu_torch.models.losses import LossConfig
@@ -2434,187 +2495,179 @@ def phase_data(smi: str) -> dict:
     model, frozen, trainable, _, _ = build_ucf_model("cuda", load_from_features=True)
     bn_state = BNState.create(len(model.classnames) - 1).to("cuda")
     dim = model.clip_cfg.embed_dim
+    require(dim == FEATURE_DIM, f"embed dim {dim}")
     train_step = build_train_step(model, LossConfig(normal_id=NORMAL_ID, num_topk=3, frames_per_segment=16,
                                                     num_segments=32))
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="feature_set_", dir=ROOT / "build") as tmp:
-        frames_root, annotations = Path(tmp) / "features", Path(tmp) / "annotations"
-        start = time.perf_counter()
-        generate_synthetic_dataset(frames_root, annotations, num_classes=NUM_CLASSES, normal_id=NORMAL_ID,
-                                   feature_dim=dim, seed=SEED, make_frames=False, **FEATURE_SET)
-        size = sum(f.stat().st_size for f in frames_root.iterdir())
-        print(f"[data] feature set: {size / 1e9:.3f} GB of .npy in {time.perf_counter() - start:.1f} s",
-              flush=True)
-        cfg = DataConfig(
-            annotation_file_normal=str(annotations / "Anomaly_Train_Normal.txt"),
-            annotation_file_anomaly=str(annotations / "Anomaly_Train_Abnormal.txt"),
-            annotation_file_test=str(annotations / "Anomaly_Test.txt"),
-            annotation_file_temporal_test=str(annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"),
-            frames_root=str(frames_root),
-            labels_file=str(ROOT / "anomalyclip_tpu" / "labels" / "ucf_labels.csv"),
-            normal_id=NORMAL_ID, num_classes=NUM_CLASSES, num_segments=32, seg_length=16,
-            batch_size=2 * HALF_BATCH, num_workers=8, load_from_features=True,
-        )
-        dm = AnomalyCLIPDataModule(cfg, seed=SEED)
+    cfg = DataConfig(
+        annotation_file_normal=str(annotations / "Anomaly_Train_Normal.txt"),
+        annotation_file_anomaly=str(annotations / "Anomaly_Train_Abnormal.txt"),
+        annotation_file_test=str(annotations / "Anomaly_Test.txt"),
+        annotation_file_temporal_test=str(annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"),
+        frames_root=str(frames_root),
+        labels_file=str(ROOT / "anomalyclip_tpu" / "labels" / "ucf_labels.csv"),
+        normal_id=NORMAL_ID, num_classes=NUM_CLASSES, num_segments=32, seg_length=16,
+        batch_size=2 * HALF_BATCH, num_workers=8, load_from_features=True,
+    )
+    dm = AnomalyCLIPDataModule(cfg, seed=SEED)
 
-        # the loader alone, from disk (the files were just written: the page
-        # cache holds them), over LOADER_EPOCHS epochs
-        loader = dm.train_dataloader()
-        per_epoch = len(loader)
-        require(per_epoch == FEATURE_SET["num_abnormal"] // HALF_BATCH, f"{per_epoch} batches an epoch")
-        alone, alone_waits = [], []
-        start = time.perf_counter()
-        for _ in epochs_of(loader, DATA_START_EPOCH, LOADER_EPOCHS, alone, alone_waits):
-            pass
-        seconds = time.perf_counter() - start
+    # the loader alone, from disk (the files were just written: the page
+    # cache holds them), over LOADER_EPOCHS epochs
+    loader = dm.train_dataloader()
+    per_epoch = len(loader)
+    require(per_epoch == FEATURE_SET["num_abnormal"] // HALF_BATCH, f"{per_epoch} batches an epoch")
+    alone, alone_waits = [], []
+    start = time.perf_counter()
+    for _ in epochs_of(loader, DATA_START_EPOCH, LOADER_EPOCHS, alone, alone_waits):
+        pass
+    seconds = time.perf_counter() - start
+    loader.close()
+    require(len(alone) == LOADER_EPOCHS * per_epoch, f"{len(alone)} batches in {LOADER_EPOCHS} epochs")
+    firsts, median, low, high = by_epoch_position(alone_waits, per_epoch)
+    print(f"[data] loader alone from disk: {len(alone)} batches of {2 * HALF_BATCH} videos, {LOADER_EPOCHS} "
+          f"epochs of {per_epoch}, in {seconds:.3f} s; each epoch's first batch "
+          f"{', '.join(f'{s:.4f}' for s in firsts)} s; the other {len(alone) - len(firsts)}: median "
+          f"{median:.4f} s ({low:.4f}-{high:.4f}), {1 / median:.2f} batches/s ({smi})", flush=True)
+
+    def resumed_state():
+        """The initial state resumed at the start of epoch DATA_START_EPOCH:
+        the schedule's update count at that epoch's first step."""
+        state = init_state(trainable, bn_state, SOLVER, OPTIMIZER, SCHEDULER, steps_per_epoch=per_epoch)
+        state.optimizer.count = DATA_START_EPOCH * per_epoch
+        return state
+
+    def train(attention: str, steps: int, keep_starts: bool) -> SimpleNamespace:
+        """``steps`` steps of fit_steps over the train loader from the
+        resumed state -> the run: per-step seconds, the loader waits in
+        them, loss terms, gradients, batches, the final state and, with
+        ``keep_starts``, the state each step started from (trainable
+        leaves, BN state, the dropout generator's state)."""
+        loader, gen = dm.train_dataloader(), torch.Generator().manual_seed(SEED)
+        run = SimpleNamespace(seconds=[], waits=[], terms=[], grads=[], batches=[],
+                              starts=[(trainable, bn_state, gen.get_state())])
+        clock = [0.0]
+
+        def on_step(st, step_terms):
+            torch.cuda.synchronize()
+            run.seconds.append(time.perf_counter() - clock[0])
+            run.terms.append([float(x) for x in step_terms])
+            run.grads.append([leaf.grad.detach().clone() for leaf in tree_leaves(st.trainable)])
+            if keep_starts:
+                run.starts.append((tree_map(lambda t: t.detach().clone(), st.trainable),
+                                   BNState(*(t.clone() for t in st.bn_state)), gen.get_state()))
+            clock[0] = time.perf_counter()
+
+        epochs = -(-steps // per_epoch)
+        stream = epochs_of(loader, DATA_START_EPOCH, epochs, run.batches, run.waits)
+        with attention_impl(attention):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+            run.state, history = fit_steps(train_step, frozen, resumed_state(), stream, ncentroid, gen,
+                                           epochs=epochs, steps_per_epoch=min(steps, per_epoch),
+                                           on_step=on_step)
+        stream.close()
         loader.close()
-        require(len(alone) == LOADER_EPOCHS * per_epoch, f"{len(alone)} batches in {LOADER_EPOCHS} epochs")
-        firsts, median, low, high = by_epoch_position(alone_waits, per_epoch)
-        print(f"[data] loader alone from disk: {len(alone)} batches of {2 * HALF_BATCH} videos, {LOADER_EPOCHS} "
-              f"epochs of {per_epoch}, in {seconds:.3f} s; each epoch's first batch "
-              f"{', '.join(f'{s:.4f}' for s in firsts)} s; the other {len(alone) - len(firsts)}: median "
-              f"{median:.4f} s ({low:.4f}-{high:.4f}), {1 / median:.2f} batches/s ({smi})", flush=True)
+        require(run.state.step == steps and len(history) == epochs and len(run.batches) == steps,
+                f"{run.state.step} steps in {len(history)} epochs, expected {steps} in {epochs}")
+        return run
 
-        def resumed_state():
-            """The initial state resumed at the start of epoch DATA_START_EPOCH:
-            the schedule's update count at that epoch's first step."""
-            state = init_state(trainable, bn_state, SOLVER, OPTIMIZER, SCHEDULER, steps_per_epoch=per_epoch)
-            state.optimizer.count = DATA_START_EPOCH * per_epoch
-            return state
+    def evaluate(scorer, attention: str):
+        videos = []
+        with attention_impl(attention):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            ev = evaluate_videos(dm.test_dataloader(), scorer, model, on_video=videos.append)
+            torch.cuda.synchronize()
+        return ev, videos, time.perf_counter() - start
 
-        def train(attention: str, steps: int, keep_starts: bool) -> SimpleNamespace:
-            """``steps`` steps of fit_steps over the train loader from the
-            resumed state -> the run: per-step seconds, the loader waits in
-            them, loss terms, gradients, batches, the final state and, with
-            ``keep_starts``, the state each step started from (trainable
-            leaves, BN state, the dropout generator's state)."""
-            loader, gen = dm.train_dataloader(), torch.Generator().manual_seed(SEED)
-            run = SimpleNamespace(seconds=[], waits=[], terms=[], grads=[], batches=[],
-                                  starts=[(trainable, bn_state, gen.get_state())])
-            clock = [0.0]
+    # the main path: counters from zero; ncentroid, the scorer, two epochs
+    # of training, the scorer updated with the trained state, the whole
+    # test set scored; the temporal model's LeakyReLU branches recorded for
+    # the gradient check below
+    steps = DATA_EPOCHS * per_epoch
+    branches = LeakyBranches()
+    reset_launch_counts()
+    ncentroid = torch.as_tensor(compute_ncentroid(dm.train_dataloader_test_mode(), dim), device="cuda")
+    scorer = GridScorer(model, frozen, trainable, bn_state, ncentroid, device="cuda")
+    with branches.using("record"):
+        run = train("kernel", steps, keep_starts=True)
+    scorer.update(frozen, run.state.trainable, run.state.bn_state, ncentroid)
+    ev, videos, eval_seconds = evaluate(scorer, "kernel")
+    torch.cuda.synchronize()
+    launches = dict(launch_counts)
+    text_layers, depth = model.clip_cfg.transformer_layers, model.cfg.depth
+    # the text tower: the scorer's constructor, each step, the update
+    expected = dict.fromkeys(launch_counts, 0)
+    expected.update({"fused_mha_qkv": (steps + 2) * text_layers,
+                     "mha_qkv_bwd": steps * text_layers,
+                     "fused_mha_bld": 2 * depth * (steps + len(videos)),
+                     "mha_bld_bwd": 2 * depth * steps})
+    print(f"[data] launches {launches}, expected {expected}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    launches.update(require_routes("fp32 data and evaluation", 0, 0, expected["fused_mha_qkv"], 0,
+                                   expected["fused_mha_bld"], expected["mha_bld_bwd"],
+                                   expected["mha_qkv_bwd"]))
 
-            def on_step(st, step_terms):
-                torch.cuda.synchronize()
-                run.seconds.append(time.perf_counter() - clock[0])
-                run.terms.append([float(x) for x in step_terms])
-                run.grads.append([leaf.grad.detach().clone() for leaf in tree_leaves(st.trainable)])
-                if keep_starts:
-                    run.starts.append((tree_map(lambda t: t.detach().clone(), st.trainable),
-                                       BNState(*(t.clone() for t in st.bn_state)), gen.get_state()))
-                clock[0] = time.perf_counter()
+    # what came out: the labels of the annotations, finite scores of the set's
+    # length, the grid buckets 1, 2 and 4 all filled
+    labels = annotated_frame_labels(annotations)
+    n_abn = NUM_CLASSES - 1
+    np.testing.assert_array_equal(ev["labels"], labels, err_msg="evaluated labels vs the annotations")
+    require(ev["abnormal_scores"].shape == labels.shape and ev["class_probs"].shape == (len(labels), n_abn),
+            f"shapes {ev['abnormal_scores'].shape} {ev['class_probs'].shape} for {len(labels)} frames")
+    require(np.isfinite(ev["abnormal_scores"]).all() and np.isfinite(ev["class_probs"]).all(),
+            "non-finite scores")
+    grids = sorted({-(-len(vs.scores) // (32 * 16)) for vs in videos})
+    buckets = sorted({bucket_size(g, DEFAULT_BUCKETS) for g in grids})
+    require(buckets == [1, 2, 4], f"the test set's grids {grids} fill buckets {buckets}, not 1, 2 and 4")
+    binary = labels != NORMAL_ID
+    require(binary.any() and not binary.all(), "the test set holds one class only")
+    det = detection_metrics(ev["abnormal_scores"], ev["labels"], ev["class_probs"], NORMAL_ID, NUM_CLASSES)
+    metrics = np.array([det[k] for k in EVAL_METRICS])
+    require(np.isfinite(metrics).all(), f"non-finite metrics {dict(zip(EVAL_METRICS, metrics))}")
+    require(all(np.isfinite(terms_).all() for terms_ in run.terms), f"non-finite loss terms {run.terms}")
+    firsts, median, low, high = by_epoch_position(run.seconds, per_epoch)
+    wait_firsts, wait_median, _, _ = by_epoch_position(run.waits, per_epoch)
+    print(f"[data] training with the loader, {steps} steps over {DATA_EPOCHS} epochs of {per_epoch}: each "
+          f"epoch's first step {', '.join(f'{s:.4f}' for s in firsts)} s (waiting for the loader "
+          f"{', '.join(f'{s:.4f}' for s in wait_firsts)}); the other {steps - len(firsts)}: median "
+          f"{median:.4f} s ({low:.4f}-{high:.4f}), of which waiting for the loader {wait_median:.4f} s "
+          f"({smi})")
+    frames = len(labels)
+    print(f"[data] evaluation, one pass over {len(videos)} videos, {frames} frames: {eval_seconds:.3f} s, "
+          f"{eval_seconds / len(videos):.4f} s/video, {frames / eval_seconds:.0f} frames/s ({smi})")
+    print(f"[data] metrics after {steps} steps: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in zip(EVAL_METRICS, metrics)) + f" ({smi})")
 
-            epochs = -(-steps // per_epoch)
-            stream = epochs_of(loader, DATA_START_EPOCH, epochs, run.batches, run.waits)
-            with attention_impl(attention):
-                torch.cuda.synchronize()
-                clock[0] = time.perf_counter()
-                run.state, history = fit_steps(train_step, frozen, resumed_state(), stream, ncentroid, gen,
-                                               epochs=epochs, steps_per_epoch=min(steps, per_epoch),
-                                               on_step=on_step)
-            stream.close()
-            loader.close()
-            require(run.state.step == steps and len(history) == epochs and len(run.batches) == steps,
-                    f"{run.state.step} steps in {len(history)} epochs, expected {steps} in {epochs}")
-            return run
-
-        def evaluate(scorer, attention: str):
-            videos = []
-            with attention_impl(attention):
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                ev = evaluate_videos(dm.test_dataloader(), scorer, model, on_video=videos.append)
-                torch.cuda.synchronize()
-            return ev, videos, time.perf_counter() - start
-
-        # the main path: counters from zero; ncentroid, the scorer, two epochs
-        # of training, the scorer updated with the trained state, the whole
-        # test set scored; the temporal model's LeakyReLU branches recorded for
-        # the gradient check below
-        steps = DATA_EPOCHS * per_epoch
-        branches = LeakyBranches()
-        reset_launch_counts()
-        ncentroid = torch.as_tensor(compute_ncentroid(dm.train_dataloader_test_mode(), dim), device="cuda")
-        scorer = GridScorer(model, frozen, trainable, bn_state, ncentroid, device="cuda")
-        with branches.using("record"):
-            run = train("kernel", steps, keep_starts=True)
-        scorer.update(frozen, run.state.trainable, run.state.bn_state, ncentroid)
-        ev, videos, eval_seconds = evaluate(scorer, "kernel")
-        torch.cuda.synchronize()
-        launches = dict(launch_counts)
-        text_layers, depth = model.clip_cfg.transformer_layers, model.cfg.depth
-        # the text tower: the scorer's constructor, each step, the update
-        expected = dict.fromkeys(launch_counts, 0)
-        expected.update({"fused_mha_qkv": (steps + 2) * text_layers,
-                         "mha_qkv_bwd": steps * text_layers,
-                         "fused_mha_bld": 2 * depth * (steps + len(videos)),
-                         "mha_bld_bwd": 2 * depth * steps})
-        print(f"[data] launches {launches}, expected {expected}")
-        require(launches == expected, f"launches {launches}, expected {expected}")
-        launches.update(require_routes("fp32 data and evaluation", 0, 0, expected["fused_mha_qkv"], 0,
-                                       expected["fused_mha_bld"], expected["mha_bld_bwd"],
-                                       expected["mha_qkv_bwd"]))
-
-        # what came out: the labels of the annotations, finite scores of the set's
-        # length, the grid buckets 1, 2 and 4 all filled
-        labels = annotated_frame_labels(annotations)
-        n_abn = NUM_CLASSES - 1
-        np.testing.assert_array_equal(ev["labels"], labels, err_msg="evaluated labels vs the annotations")
-        require(ev["abnormal_scores"].shape == labels.shape and ev["class_probs"].shape == (len(labels), n_abn),
-                f"shapes {ev['abnormal_scores'].shape} {ev['class_probs'].shape} for {len(labels)} frames")
-        require(np.isfinite(ev["abnormal_scores"]).all() and np.isfinite(ev["class_probs"]).all(),
-                "non-finite scores")
-        grids = sorted({-(-len(vs.scores) // (32 * 16)) for vs in videos})
-        buckets = sorted({bucket_size(g, DEFAULT_BUCKETS) for g in grids})
-        require(buckets == [1, 2, 4], f"the test set's grids {grids} fill buckets {buckets}, not 1, 2 and 4")
-        binary = labels != NORMAL_ID
-        require(binary.any() and not binary.all(), "the test set holds one class only")
-        det = detection_metrics(ev["abnormal_scores"], ev["labels"], ev["class_probs"], NORMAL_ID, NUM_CLASSES)
-        metrics = np.array([det[k] for k in EVAL_METRICS])
-        require(np.isfinite(metrics).all(), f"non-finite metrics {dict(zip(EVAL_METRICS, metrics))}")
-        require(all(np.isfinite(terms_).all() for terms_ in run.terms), f"non-finite loss terms {run.terms}")
-        firsts, median, low, high = by_epoch_position(run.seconds, per_epoch)
-        wait_firsts, wait_median, _, _ = by_epoch_position(run.waits, per_epoch)
-        print(f"[data] training with the loader, {steps} steps over {DATA_EPOCHS} epochs of {per_epoch}: each "
-              f"epoch's first step {', '.join(f'{s:.4f}' for s in firsts)} s (waiting for the loader "
-              f"{', '.join(f'{s:.4f}' for s in wait_firsts)}); the other {steps - len(firsts)}: median "
-              f"{median:.4f} s ({low:.4f}-{high:.4f}), of which waiting for the loader {wait_median:.4f} s "
-              f"({smi})")
-        frames = len(labels)
-        print(f"[data] evaluation, one pass over {len(videos)} videos, {frames} frames: {eval_seconds:.3f} s, "
-              f"{eval_seconds / len(videos):.4f} s/video, {frames / eval_seconds:.0f} frames/s ({smi})")
-        print(f"[data] metrics after {steps} steps: "
-              + ", ".join(f"{k} {v:.6f}" for k, v in zip(EVAL_METRICS, metrics)) + f" ({smi})")
-
-        # the same under the plain attention: DATA_CHECK_STEPS steps from the
-        # same state on its own loader; every step of the kernel run again from
-        # the state it started from, taking its LeakyReLU branches; the kernel
-        # run's trained state evaluated
-        reset_launch_counts()
-        ref = train("reference", DATA_CHECK_STEPS, keep_starts=False)
-        gaps, names = [], leaf_paths(trainable)
-        with attention_impl("reference"), branches.using("replay"):
-            for step, ((params, bn, gen_state), batch, grads) in enumerate(
-                    zip(run.starts[:-1], run.batches, run.grads, strict=True), 1):
-                gen, want = torch.Generator(), []
-                gen.set_state(gen_state)
-                fit_steps(train_step, frozen, init_state(params, bn, SOLVER, OPTIMIZER, SCHEDULER, per_epoch),
-                          [batch], ncentroid, gen, epochs=1, steps_per_epoch=1,
-                          on_step=lambda st, _: want.extend(leaf.grad.detach().clone()
-                                                            for leaf in tree_leaves(st.trainable)))
-                for name, got, pinned in zip(names, grads, want, strict=True):
-                    scale = pinned.abs().max().item()
-                    err = (got - pinned).abs().max().item()
-                    require(scale > 0, f"{name} got no gradient in step {step}")
-                    require(err <= TRAIN_GRAD_TOL * scale, f"step {step} gradient of {name}: max|diff| "
-                                                           f"{err:.3e} > {TRAIN_GRAD_TOL:g} x max {scale:.3e}")
-                    gaps.append((err / scale, step, name))
-        require(branches.taken == len(branches.masks), f"{branches.taken} of {len(branches.masks)} "
-                                                       f"recorded LeakyReLU branches replayed")
-        with attention_impl("reference"):
-            ref_scorer = GridScorer(model, frozen, run.state.trainable, run.state.bn_state, ncentroid, device="cuda")
-        ref_ev, _, _ = evaluate(ref_scorer, "reference")
-        require(not any(launch_counts.values()) and not any(route_counts.values()),
-                f"plain attention launched kernels: {launch_counts} {route_counts}")
+    # the same under the plain attention: DATA_CHECK_STEPS steps from the
+    # same state on its own loader; every step of the kernel run again from
+    # the state it started from, taking its LeakyReLU branches; the kernel
+    # run's trained state evaluated
+    reset_launch_counts()
+    ref = train("reference", DATA_CHECK_STEPS, keep_starts=False)
+    gaps, names = [], leaf_paths(trainable)
+    with attention_impl("reference"), branches.using("replay"):
+        for step, ((params, bn, gen_state), batch, grads) in enumerate(
+                zip(run.starts[:-1], run.batches, run.grads, strict=True), 1):
+            gen, want = torch.Generator(), []
+            gen.set_state(gen_state)
+            fit_steps(train_step, frozen, init_state(params, bn, SOLVER, OPTIMIZER, SCHEDULER, per_epoch),
+                      [batch], ncentroid, gen, epochs=1, steps_per_epoch=1,
+                      on_step=lambda st, _: want.extend(leaf.grad.detach().clone()
+                                                        for leaf in tree_leaves(st.trainable)))
+            for name, got, pinned in zip(names, grads, want, strict=True):
+                scale = pinned.abs().max().item()
+                err = (got - pinned).abs().max().item()
+                require(scale > 0, f"{name} got no gradient in step {step}")
+                require(err <= TRAIN_GRAD_TOL * scale, f"step {step} gradient of {name}: max|diff| "
+                                                       f"{err:.3e} > {TRAIN_GRAD_TOL:g} x max {scale:.3e}")
+                gaps.append((err / scale, step, name))
+    require(branches.taken == len(branches.masks), f"{branches.taken} of {len(branches.masks)} "
+                                                   f"recorded LeakyReLU branches replayed")
+    with attention_impl("reference"):
+        ref_scorer = GridScorer(model, frozen, run.state.trainable, run.state.bn_state, ncentroid, device="cuda")
+    ref_ev, _, _ = evaluate(ref_scorer, "reference")
+    require(not any(launch_counts.values()) and not any(route_counts.values()),
+            f"plain attention launched kernels: {launch_counts} {route_counts}")
     # the loader's batches to the bit: the loader alone over the same epochs,
     # and the plain run's own loader
     for what, got, want in (("the loader alone", alone[:steps], run.batches),
@@ -2663,6 +2716,393 @@ def phase_data(smi: str) -> dict:
           f"{np.abs(ev['class_probs'] - ref_ev['class_probs']).max():.3e} (limit {FP32_SLICE_TOL:g}); metrics "
           f"max|diff| {np.abs(metrics[:4] - ref_metrics[:4]).max():.3e} (limit {EVAL_METRIC_TOL:g}); loader "
           f"batches equal to the bit")
+    torch.cuda.synchronize()
+    return launches
+
+
+def ucf_fit_config(frames_root: Path, annotations: Path, save_dir: Path) -> dict:
+    """The UCF-Crime training run of ``configs/experiment/ucfcrime.yaml`` as the
+    composed dict the port's module takes, on the feature set under
+    ``frames_root`` and ``annotations``, its run directory ``save_dir``; it
+    differs from the published config in FIT_OVERRIDES and the paths
+    (tests/test_torch_fit.py holds it to the composed one)."""
+    labels = str(ROOT / "anomalyclip_tpu" / "labels" / "ucf_labels.csv")
+    data = {
+        "num_workers": 8, "num_segments": 32, "seg_length": 16, "batch_size": 2 * HALF_BATCH,
+        "batch_size_test": 1, "num_classes": NUM_CLASSES, "input_size": 224, "load_from_features": True,
+        "frames_root": f"{frames_root}/", "annotations_root": f"{annotations}/", "normal_id": NORMAL_ID,
+        "image_tmpl": "{:06d}.jpg", "stride": 1, "ncrops": 1,
+        "annotation_file_anomaly": str(annotations / "Anomaly_Train_Abnormal.txt"),
+        "annotation_file_normal": str(annotations / "Anomaly_Train_Normal.txt"),
+        "annotation_file_test": str(annotations / "Anomaly_Test.txt"),
+        "annotation_file_temporal_test": str(annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"),
+        "labels_file": labels, "spatialannotationdir_path": None, "visualize": False,
+    }
+    net = {
+        "arch": "ViT-B/16", "clip_init": "random-full", "shared_context": False, "ctx_init": "",
+        "seg_length": 16, "num_segments": 32, "select_idx_dropout_topk": 0.0, "select_idx_dropout_bottomk": 0.0,
+        "n_ctx": 8, "heads": 8, "dim_heads": None, "load_from_features": True, "stride": 1, "ncrops": 1,
+        "concat_features": False, "emb_size": 256, "depth": 1, "num_topk": 3, "num_bottomk": 3,
+        "labels_file": labels, "normal_id": NORMAL_ID, "compute_dtype": "float32",
+    }
+    loss = {
+        "normal_id": NORMAL_ID, "num_topk": 3, "lambda_dir_abn": 1.0, "lambda_dir_nor": 1.0,
+        "lambda_topk_abn": 1.0, "lambda_bottomk_abn": 1.0, "lambda_topk_nor": 1.0, "lambda_smooth": 8e-4,
+        "lambda_sparse": 8e-3, "frames_per_segment": 16, "num_segments": 32,
+    }
+    return {
+        "seed": UCF_SEED,
+        "ckpt_path": None,
+        "data": data,
+        "model": {
+            "num_classes": NUM_CLASSES,
+            "optimizer": {"name": "adamw", **OPTIMIZER},
+            "scheduler": {"name": "warmup_cosine", **SCHEDULER},
+            "net": net,
+            "loss": loss,
+            "solver": dict(SOLVER),
+            "save_dir": str(save_dir),
+        },
+        "callbacks": {
+            "model_checkpoint": {"dirpath": str(save_dir / "checkpoints"), "filename": "epoch_{epoch:03d}",
+                                 "monitor": None, "save_last": True, "every_n_epochs": 1, "save_top_k": -1},
+            "lr_logger": True, "model_summary": True, "progress_bar": True, "early_stopping": None,
+        },
+        "logger": {"csv": {"save_dir": str(save_dir), "name": "csv"}},
+        "trainer": {
+            "accelerator": "auto", "devices": 1, "model_parallel": 1, "max_epochs": FIT_EPOCHS, "min_epochs": 1,
+            "check_val_every_n_epoch": 1, "limit_train_batches": None, "limit_val_batches": None,
+            "limit_test_batches": None, "deterministic": False, "detect_anomaly": False, "profiler": None,
+            "fast_dev_run": False,
+        },
+        "paths": {"output_dir": str(save_dir)},
+    }
+
+
+class InstrumentedFit:
+    """One ``AnomalyCLIPTrainModule`` built from ``cfg``, its readings taken on
+    the host clock with the card synchronized: the metrics it logged by step,
+    the seconds of each validation pass, checkpoint save and restore.
+    ``after_step(n)`` runs after its n-th training step."""
+
+    def __init__(self, cfg: dict, after_step=None):
+        from anomalyclip_tpu_torch.train.module import AnomalyCLIPTrainModule
+
+        self.module = m = AnomalyCLIPTrainModule(cfg)
+        self.logged, self.validate_s, self.save_s, self.restore_s = defaultdict(dict), [], [], []
+        log_metrics = m.loggers.log_metrics
+
+        def logged(metrics, step):
+            self.logged[step].update(metrics)
+            log_metrics(metrics, step)
+
+        m.loggers.log_metrics = logged
+        m.validate = self.timed(m.validate, self.validate_s)
+        m.ckpt.save_epoch = self.timed(m.ckpt.save_epoch, self.save_s)
+        m.ckpt.restore = self.timed(m.ckpt.restore, self.restore_s)
+        if after_step is not None:
+            build = m._build_train_step
+
+            def build_hooked():
+                step, taken = build(), [0]
+
+                def hooked(*args):
+                    out = step(*args)
+                    taken[0] += 1
+                    after_step(taken[0])
+                    return out
+
+                return hooked
+
+            m._build_train_step = build_hooked
+
+    @staticmethod
+    def timed(fn, seconds: list):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            return out
+
+        return call
+
+    def losses(self, epoch: int) -> dict:
+        from anomalyclip_tpu_torch.train.module import METRIC_NAMES
+
+        return {k: self.logged[epoch][k] for k in METRIC_NAMES}
+
+    def epoch_s(self) -> list:
+        return [self.logged[e]["train/epoch_time_s"] for e in sorted(self.logged)
+                if "train/epoch_time_s" in self.logged[e]]
+
+
+def seeded_frames(size: int):
+    """A test-mode frame source of seeded uint8 frames made in memory: the
+    data layer's ``FrameSource`` with the JPEG decode replaced (the card's
+    machine has neither cv2 nor PIL). Video ``Normal_<i>``'s frame ``f`` is
+    drawn from (SEED, i, f)."""
+    from anomalyclip_tpu_torch.data.sources import FrameSource
+
+    class SeededFrames(FrameSource):
+        def _load_one(self, record, file_idx: int) -> np.ndarray:
+            rng = np.random.default_rng((SEED, int(record.rel_path.split("_")[-1]), file_idx))
+            return rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+
+    return SeededFrames(input_size=size)
+
+
+def frames_ncentroid_module(root: Path, counts: list):
+    """The UCF-Crime module from frames (``load_from_features`` false, ViT-B/16
+    at full width) whose normal training videos are ``counts`` frames long,
+    read through ``seeded_frames``."""
+    from anomalyclip_tpu_torch.train.module import AnomalyCLIPTrainModule
+
+    annotations = root / "annotations"
+    annotations.mkdir(parents=True)
+    listing = annotations / "Anomaly_Train_Normal.txt"
+    listing.write_text("".join(f"Normal_{i} 1 {n} {NORMAL_ID}\n" for i, n in enumerate(counts)))
+    cfg = ucf_fit_config(root / "frames", annotations, root / "run")
+    for key in ("annotation_file_anomaly", "annotation_file_normal", "annotation_file_test"):
+        cfg["data"][key] = str(listing)
+    cfg["data"]["load_from_features"] = cfg["model"]["net"]["load_from_features"] = False
+    module = AnomalyCLIPTrainModule(cfg)
+    module.datamodule._source = lambda: seeded_frames(module.model.clip_cfg.image_resolution)
+    return module
+
+
+def phase_fit(smi: str, frames_root: Path, annotations: Path) -> dict:
+    """The UCF-Crime training run through ``AnomalyCLIPTrainModule.fit`` on the
+    feature set of phase 4f, under ``torch.use_deterministic_algorithms`` ->
+    the kernel launch counts of its main path."""
+    import os
+    import warnings
+
+    from anomalyclip_tpu_torch.ops.attention import IMPL_ENV
+
+    saved_env = {k: os.environ.get(k) for k in ("CUBLAS_WORKSPACE_CONFIG", IMPL_ENV)}
+    saved_mode = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    # warn_only: an op without a deterministic form warns (and is named below)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="fit_runs_", dir=ROOT / "build") as tmp, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            return run_fits(smi, frames_root, annotations, Path(tmp), caught)
+    finally:
+        torch.use_deterministic_algorithms(saved_mode[0], warn_only=saved_mode[1])
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def run_fits(smi: str, frames_root: Path, annotations: Path, tmp: Path, caught: list) -> dict:
+    """Phase 4g's fits A (uninterrupted), B (SIGTERM in epoch 1, then resumed
+    from ``last`` by a fresh module) and C (A under the plain attention), the
+    test passes and the from-frames ncentroid; see the module docstring."""
+    import importlib.util
+    import os
+    import signal
+
+    import anomalyclip_tpu_torch.train.module as train_module
+    from anomalyclip_tpu_torch.convert import tree_leaves
+    from anomalyclip_tpu_torch.ops.attention import IMPL_ENV, launch_counts, reset_launch_counts, route_counts
+    from anomalyclip_tpu_torch.train.checkpoint import STATE_FILE
+    from anomalyclip_tpu_torch.train.module import METRIC_NAMES, TrainingPreempted
+
+    print(f"[fit] matplotlib {'present' if importlib.util.find_spec('matplotlib') else 'absent'} on this machine",
+          flush=True)
+    per_epoch = FEATURE_SET["num_abnormal"] // HALF_BATCH
+    frame_counts = [int(n) for n in np.random.default_rng(SEED).integers(*FRAME_COUNTS, FRAME_VIDEOS,
+                                                                          endpoint=True)]
+
+    # the main path: counters from zero; A, B and its resume, the test passes,
+    # the from-frames ncentroid
+    reset_launch_counts()
+    a = InstrumentedFit(ucf_fit_config(frames_root, annotations, tmp / "A"))
+    a.module.fit()
+    # the two test passes' outputs: test() returns only the metrics
+    evaluate, test_outputs = train_module.evaluate_videos, []
+
+    def recorded(*args, **kwargs):
+        test_outputs.append(evaluate(*args, **kwargs))
+        return test_outputs[-1]
+
+    train_module.evaluate_videos = recorded
+    try:
+        a_test = a.module.test(state=a.module._final_state)
+    finally:
+        train_module.evaluate_videos = evaluate
+
+    sigterm_before = signal.getsignal(signal.SIGTERM)
+    b = InstrumentedFit(ucf_fit_config(frames_root, annotations, tmp / "B"),
+                        after_step=lambda n: n == per_epoch + PREEMPT_AFTER_STEPS
+                        and signal.raise_signal(signal.SIGTERM))
+    try:
+        b.module.fit()
+        raise AssertionError("fit B ran to its end through a SIGTERM")
+    except TrainingPreempted as exc:
+        require("saved boundary: epoch 0" in str(exc), f"preempted with {exc}")
+        print(f"[fit] B: {exc}", flush=True)
+    require(signal.getsignal(signal.SIGTERM) is sigterm_before, "fit B left its SIGTERM handler installed")
+    b_steps = per_epoch + PREEMPT_AFTER_STEPS
+    resume_cfg = ucf_fit_config(frames_root, annotations, tmp / "B")
+    resume_cfg["ckpt_path"] = str(tmp / "B" / "checkpoints" / "last")
+    r = InstrumentedFit(resume_cfg)
+    r.module.fit()
+
+    fresh = InstrumentedFit(ucf_fit_config(frames_root, annotations, tmp / "A"))
+    train_module.evaluate_videos = recorded
+    try:
+        fresh_test = fresh.module.test(ckpt_path=tmp / "A" / "checkpoints" / "last")
+    finally:
+        train_module.evaluate_videos = evaluate
+
+    frames = frames_ncentroid_module(tmp / "frames", frame_counts)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    frames_nc = frames.compute_ncentroid()
+    frames_s = time.perf_counter() - start
+    torch.cuda.synchronize()
+    launches, routes = dict(launch_counts), dict(route_counts)
+
+    # exactly what the path ran: the text tower once a step and once a
+    # validation or test pass (the scorer's constructor or update), its
+    # backward once a step, the temporal model once a step and once a video
+    # scored, its backward once a step; the image tower once an encode call
+    steps = a.module._final_state.step + b_steps + (r.module._final_state.step - per_epoch)
+    passes = len(a.validate_s) + len(b.validate_s) + len(r.validate_s) + 2
+    videos = len(a.module.datamodule.test_dataloader())
+    chunk = frames.model.ENCODE_CHUNK
+    encode_calls = sum(-(-n // chunk) for n in frame_counts)
+    text_layers, vision_layers = (frames.model.clip_cfg.transformer_layers, frames.model.clip_cfg.vision_layers)
+    expected = dict.fromkeys(launch_counts, 0)
+    expected.update({"fused_mha_qkv": text_layers * (steps + passes) + vision_layers * encode_calls,
+                     "mha_qkv_bwd": text_layers * steps, "fused_mha_bld": 2 * (steps + videos * passes),
+                     "mha_bld_bwd": 2 * steps})
+    print(f"[fit] launches {launches}, expected {expected}", flush=True)
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    launches.update(require_routes("fp32 fit", 0, 0, expected["fused_mha_qkv"], 0, expected["fused_mha_bld"],
+                                   expected["mha_bld_bwd"], expected["mha_qkv_bwd"]))
+
+    # C: A under the plain attention, and the from-frames pass again
+    os.environ[IMPL_ENV] = "reference"
+    reset_launch_counts()
+    c = InstrumentedFit(ucf_fit_config(frames_root, annotations, tmp / "C"))
+    c.module.fit()
+    (frames.save_dir / "ncentroid.npy").unlink()
+    frames_nc_plain = frames.compute_ncentroid()
+    require(not any(launch_counts.values()) and not any(route_counts.values()),
+            f"plain attention launched kernels: {launch_counts} {route_counts}")
+
+    nondeterministic = sorted({str(w.message) for w in caught if "deterministic" in str(w.message)})
+    for message in nondeterministic:
+        print(f"[fit] not deterministic: {message}", flush=True)
+
+    # the run directory of A
+    run_a = tmp / "A"
+    for name in ("checkpoints/epoch_000", "checkpoints/epoch_001", "checkpoints/epoch_002", "checkpoints/last",
+                 "ncentroid.npy", "metrics_0.json", "metrics_1.json", "metrics_2.json", "metrics.json",
+                 "csv/metrics.csv"):
+        require((run_a / name).exists(), f"{name} missing from run A")
+    ckpt = a.module.ckpt
+    epoch0, epoch1 = (ckpt.restore(run_a / "checkpoints" / f"epoch_{e:03d}") for e in (0, 1))
+    initial = a.module.init_state(per_epoch).trainable
+    names = leaf_paths(initial)
+    # epoch 0 of the warmup trains at lr 0: the weights stay, the moments fill
+    for name, x, y in zip(names, tree_leaves(initial), tree_leaves(epoch0["trainable"]), strict=True):
+        require(torch.equal(x.detach().cpu(), y), f"{name} moved in epoch 0 (lr 0)")
+    moments = epoch0["optimizer"]["state"]
+    require(len(moments) == len(names) and all(m["exp_avg"].abs().max() > 0 and m["exp_avg_sq"].max() > 0
+                                               for m in moments.values()),
+            "zero AdamW moments saved at the epoch-0 boundary")
+    require(epoch0["count"] == per_epoch and epoch0["step"] == per_epoch, f"epoch 0 boundary {epoch0['step']}")
+    for name, x, y in zip(names, tree_leaves(epoch0["trainable"]), tree_leaves(epoch1["trainable"]), strict=True):
+        require(not torch.equal(x, y) and (x != y).any(), f"{name} did not move in epoch 1")
+
+    def val_metrics(run: Path, epoch: int) -> np.ndarray:
+        with open(run / f"metrics_{epoch}.json") as f:
+            got = json.load(f)
+        return np.array([got[k] for k in EVAL_METRICS])
+
+    def losses(fit: InstrumentedFit, epoch: int) -> np.ndarray:
+        return np.array([fit.losses(epoch)[k] for k in METRIC_NAMES])
+
+    # B (epoch 0, then the resume through epochs 1-2) against A
+    b_losses = {0: losses(b, 0), 1: losses(r, 1), 2: losses(r, 2)}
+    final_a, final_b = a.module._final_state, r.module._final_state
+    leaves_a = tree_leaves(final_a.trainable) + list(final_a.bn_state)
+    leaves_b = tree_leaves(final_b.trainable) + list(final_b.bn_state)
+    if not nondeterministic:
+        for epoch in range(FIT_EPOCHS):
+            np.testing.assert_array_equal(b_losses[epoch], losses(a, epoch), err_msg=f"epoch {epoch} losses, B vs A")
+        for epoch in (1, 2):
+            np.testing.assert_array_equal(val_metrics(tmp / "B", epoch), val_metrics(run_a, epoch),
+                                          err_msg=f"epoch {epoch} metrics, B vs A")
+        for name, x, y in zip(names + ["bn mean", "bn var"], leaves_a, leaves_b, strict=True):
+            require(torch.equal(x, y), f"{name} after epoch 2, B vs A")
+        b_vs_a = "to the bit"
+    else:
+        for epoch in range(FIT_EPOCHS):
+            np.testing.assert_allclose(b_losses[epoch], losses(a, epoch), rtol=TRAIN_LOSS_RTOL, atol=0)
+        for epoch in (1, 2):
+            np.testing.assert_allclose(val_metrics(tmp / "B", epoch)[:4], val_metrics(run_a, epoch)[:4], rtol=0,
+                                       atol=EVAL_METRIC_TOL)
+        b_vs_a = "within the tolerances (not deterministic)"
+    weight_gap = max((x - y).abs().max().item() for x, y in zip(leaves_a, leaves_b))
+
+    # A against C, the plain attention
+    loss_gap = metric_gap = 0.0
+    for epoch in range(FIT_EPOCHS):
+        np.testing.assert_allclose(losses(a, epoch), losses(c, epoch), rtol=TRAIN_LOSS_RTOL, atol=0,
+                                   err_msg=f"epoch {epoch} losses, kernels vs plain")
+        np.testing.assert_allclose(val_metrics(run_a, epoch)[:4], val_metrics(tmp / "C", epoch)[:4], rtol=0,
+                                   atol=EVAL_METRIC_TOL, err_msg=f"epoch {epoch} metrics, kernels vs plain")
+        loss_gap = max(loss_gap, float(np.max(np.abs(losses(a, epoch) / losses(c, epoch) - 1))))
+        metric_gap = max(metric_gap, float(np.abs(val_metrics(run_a, epoch) - val_metrics(tmp / "C", epoch))[:4].max()))
+    np.testing.assert_allclose(frames_nc, frames_nc_plain, rtol=0, atol=FP32_SLICE_TOL,
+                               err_msg="from-frames ncentroid, kernels vs plain")
+    require(np.isfinite(frames_nc).all() and frames_nc.shape == (FEATURE_DIM,), "from-frames ncentroid")
+
+    # test(ckpt_path=last) in a fresh module against test(state=A's final):
+    # the same tensors, scored at two points of the process, within RELOAD_TOL
+    require(len(test_outputs) == 2, f"{len(test_outputs)} test passes recorded")
+    np.testing.assert_array_equal(test_outputs[0]["labels"], test_outputs[1]["labels"])
+    reload_gap = max(float(np.abs(test_outputs[0][k] - test_outputs[1][k]).max())
+                     for k in ("abnormal_scores", "class_probs"))
+    require(reload_gap <= RELOAD_TOL, f"test outputs, fresh module vs A: max|diff| {reload_gap:.3e}")
+    require(a_test.keys() == fresh_test.keys(), "test metrics' keys")
+    for key in a_test:
+        np.testing.assert_allclose(fresh_test[key], a_test[key], rtol=0, atol=RELOAD_TOL,
+                                   err_msg=f"test {key}: fresh module vs A")
+    metrics_equal = all(np.array_equal(fresh_test[k], a_test[k]) for k in a_test)
+    require(np.isfinite([a_test[k] for k in EVAL_METRICS]).all(), f"test metrics {a_test}")
+
+    size = (run_a / "checkpoints" / "epoch_000" / STATE_FILE).stat().st_size
+    epochs_a, epochs_r, epochs_c = a.epoch_s(), r.epoch_s(), c.epoch_s()
+    print(f"[fit] A, {FIT_EPOCHS} epochs of {per_epoch} steps at batch {2 * HALF_BATCH}: seconds an epoch "
+          f"{', '.join(f'{s:.3f}' for s in epochs_a)}; a validation pass over {videos} videos "
+          f"{', '.join(f'{s:.4f}' for s in a.validate_s)} s; a checkpoint save "
+          f"{', '.join(f'{s:.4f}' for s in a.save_s)} s, {size} bytes ({smi})")
+    print(f"[fit] B resumed from epoch 0: restore {', '.join(f'{s:.4f}' for s in r.restore_s)} s, seconds an "
+          f"epoch {', '.join(f'{s:.3f}' for s in epochs_r)} against A's {epochs_a[1]:.3f}, "
+          f"{epochs_a[2]:.3f} (A's first {epochs_a[0]:.3f}); restore for test {fresh.restore_s[0]:.4f} s ({smi})")
+    print(f"[fit] C, plain attention: seconds an epoch {', '.join(f'{s:.3f}' for s in epochs_c)}; validation "
+          f"{', '.join(f'{s:.4f}' for s in c.validate_s)} s ({smi})")
+    print(f"[fit] from-frames ncentroid over {FRAME_VIDEOS} videos of {frame_counts} frames, {encode_calls} "
+          f"encode calls: {frames_s:.3f} s; kernels vs plain max|diff| "
+          f"{np.abs(frames_nc - frames_nc_plain).max():.3e} (limit {FP32_SLICE_TOL:g}) ({smi})")
+    print(f"[fit] B vs A {b_vs_a}: weights and BN max|diff| {weight_gap:.3e}; A vs C: losses max rel diff "
+          f"{loss_gap:.3e} (limit {TRAIN_LOSS_RTOL:g}), AUC, AP, mAUC, mAP max|diff| {metric_gap:.3e} (limit "
+          f"{EVAL_METRIC_TOL:g}); test AUC {a_test['auc_roc']:.6f} AP {a_test['auc_pr']:.6f} mAUC "
+          f"{a_test['mean_mc_auroc']:.6f} mAP {a_test['mean_mc_aupr']:.6f}; the fresh module's test from `last`: "
+          f"scores and class probs max|diff| {reload_gap:.3e} (limit {RELOAD_TOL:g}), metrics "
+          f"{'equal to the bit' if metrics_equal else 'within the limit'}")
     torch.cuda.synchronize()
     return launches
 
@@ -2842,7 +3282,12 @@ def main() -> int:
     l14_launches = phase_l14()
     grad_launches = phase_tower_gradient()
     script_launches = phase_scripts()
-    data_launches = phase_data(smi)
+    # one feature set on disk for phases 4f and 4g, removed at the end
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="feature_set_", dir=ROOT / "build") as tmp:
+        feature_set = make_feature_set(Path(tmp))
+        data_launches = phase_data(smi, *feature_set)
+        fit_launches = phase_fit(smi, *feature_set)
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -2884,8 +3329,13 @@ def main() -> int:
     require(all(data_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                                                "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
             f"a kernel of the data and evaluation path was never launched: {data_launches}")
+    # the training run's path: fit, validation, checkpoints, resume, test, the
+    # from-frames ncentroid
+    require(all(fit_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                                              "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
+            f"a kernel of the training run's path was never launched: {fit_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
-                *script_launches, data_launches]
+                *script_launches, data_launches, fit_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

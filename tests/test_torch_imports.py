@@ -1,8 +1,10 @@
 """Importing every module of the port, or ``chip_smoke``, loads none of jax, yaml,
-regex, cv2, PIL or optax, and nothing of the JAX package ``anomalyclip_tpu``: the
-machine with the card has none of them (or, for jax and optax, the port must
-not rely on them), and the port keeps its own copy of what it needs from the
-JAX package, even from its modules that import no JAX. Checked in a fresh
+regex, cv2, PIL, optax, matplotlib, tensorflow or orbax, and nothing of the JAX
+package ``anomalyclip_tpu``: the machine with the card has none of them (or,
+for jax and optax, the port must not rely on them; matplotlib and tensorflow
+are imported where a plot or a TensorBoard logger is made), and the port keeps
+its own copy of what it needs from the JAX package, even from its modules that
+import no JAX. Checked in a fresh
 interpreter, since this test process has jax loaded already
 (tests/conftest.py)."""
 
@@ -15,7 +17,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # by exact module name: "anomalyclip_tpu" is a prefix of the port's own name
-FORBIDDEN = ("jax", "yaml", "regex", "cv2", "PIL", "optax", "anomalyclip_tpu")
+FORBIDDEN = ("jax", "yaml", "regex", "cv2", "PIL", "optax", "matplotlib", "tensorflow", "orbax",
+             "anomalyclip_tpu")
 
 _REPORT = """
 print(json.dumps({"modules": names, "loaded": sorted(
@@ -60,6 +63,7 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.data.sources",
         "anomalyclip_tpu_torch.data.synthetic",
         "anomalyclip_tpu_torch.data.transforms",
+        "anomalyclip_tpu_torch.eval.artifacts",
         "anomalyclip_tpu_torch.eval.evaluator",
         "anomalyclip_tpu_torch.eval.metrics",
         "anomalyclip_tpu_torch.models.anomaly_clip",
@@ -85,8 +89,10 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.scripts.probe_qtile_vmem",
         "anomalyclip_tpu_torch.scripts.validate_pickgb",
         "anomalyclip_tpu_torch.scripts.validate_qtile_config",
+        "anomalyclip_tpu_torch.train.checkpoint",
         "anomalyclip_tpu_torch.train.module",
         "anomalyclip_tpu_torch.train.optim",
+        "anomalyclip_tpu_torch.utils.logging",
         "anomalyclip_tpu_torch.utils.treeio",
     }
     assert expected <= set(report["modules"])
