@@ -63,6 +63,17 @@ def _from_saved(raw: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def write_state(path: Path, state: Dict[str, Any]) -> Path:
+    """One checkpoint directory ``path`` holding ``state`` (the keys of
+    ``CheckpointManager.save_epoch``) as ``state.pt``, written to a temporary
+    name and renamed into place -> ``path``."""
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / f".{STATE_FILE}.tmp"
+    torch.save(_to_saveable(state), tmp)
+    tmp.replace(path / STATE_FILE)
+    return path
+
+
 class CheckpointManager:
     def __init__(self, run_dir: str | Path, save_top_k: int = -1, save_last: bool = True):
         self.ckpt_dir = Path(run_dir) / "checkpoints"
@@ -79,11 +90,7 @@ class CheckpointManager:
         ``save_top_k > 0`` keeps only the newest k epoch checkpoints (monitor:
         null in the reference default, so "top" = newest); it deletes only
         directories whose names parse as epochs."""
-        path = self.ckpt_dir / f"epoch_{epoch:03d}"
-        path.mkdir(parents=True, exist_ok=True)
-        tmp = path / f".{STATE_FILE}.tmp"
-        torch.save(_to_saveable(state), tmp)
-        tmp.replace(path / STATE_FILE)
+        path = write_state(self.ckpt_dir / f"epoch_{epoch:03d}", state)
         if self.save_last:
             last = self.ckpt_dir / "last"
             link = self.ckpt_dir / ".last.tmp"

@@ -45,7 +45,8 @@ from anomalyclip_tpu_torch.eval.artifacts import write_metrics_json, write_test_
 from anomalyclip_tpu_torch.eval.evaluator import GridScorer, _world_size, encode_frames_chunked, evaluate_videos
 from anomalyclip_tpu_torch.eval.metrics import detection_metrics
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP, AnomalyCLIPConfig, read_classnames
-from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, init_clip_params
+from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
+from anomalyclip_tpu_torch.models.clip.registry import resolve_clip
 from anomalyclip_tpu_torch.models.losses import LossConfig, LossTerms, compute_loss
 from anomalyclip_tpu_torch.models.selector import BNState
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
@@ -235,39 +236,6 @@ class TrainingPreempted(RuntimeError):
     persisted)."""
 
 
-# arch -> CLIP config for ``clip_init: random-full`` (the JAX package's registry
-# without RN50, whose tower is not ported yet)
-_ARCH_CONFIGS = {
-    "ViT-B/16": CLIPConfig.vit_b16,
-    "ViT-B/32": CLIPConfig.vit_b32,
-    "ViT-L/14": CLIPConfig.vit_l14,
-    "ViT-L/14@336px": CLIPConfig.vit_l14_336,
-}
-
-
-def resolve_clip(arch: str = "ViT-B/16", clip_init: str = "pretrained", seed: int = 0) -> Tuple[Dict, CLIPConfig]:
-    """The random half of the JAX package's ``resolve_clip``
-    (anomalyclip_tpu/models/clip/registry.py:131-136) -> (CLIP params on the
-    CPU, config): ``random`` is ``CLIPConfig.tiny()``, ``random-full`` the
-    arch's config, both from ``init_clip_params`` with a generator seeded from
-    ``seed``."""
-    if clip_init == "random":
-        cfg = CLIPConfig.tiny()
-    elif clip_init == "random-full":
-        if arch == "RN50":
-            raise NotImplementedError(
-                "clip_init=random-full with arch RN50: the ResNet tower is not ported yet "
-                "(ROADMAP.md section 1, item 7)"
-            )
-        cfg = _ARCH_CONFIGS.get(arch, CLIPConfig.vit_b16)()
-    else:
-        raise NotImplementedError(
-            f"clip_init={clip_init!r}: pretrained CLIP weights and clip_ckpt_path are not "
-            "ported yet (ROADMAP.md section 1, item 5); use random or random-full"
-        )
-    return init_clip_params(torch.Generator().manual_seed(seed), cfg), cfg
-
-
 def _fields(cls, mapping: Dict[str, Any]) -> Dict[str, Any]:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in mapping.items() if k in names}
@@ -279,7 +247,7 @@ class AnomalyCLIPTrainModule:
     (anomalyclip_tpu/train/module.py:87-1208), one process on one device.
 
     ``cfg`` is the composed config as a plain nested dict (what
-    ``anomalyclip_tpu.config.compose.to_dict`` gives, or a JSON file of it).
+    ``to_dict(compose(...))`` of ``anomalyclip_tpu_torch.config`` gives).
     ``device`` is the card unless the caller passes ``"cpu"``. The frozen CLIP
     tree lives on ``device``."""
 
@@ -316,6 +284,7 @@ class AnomalyCLIPTrainModule:
         clip_params, clip_cfg = resolve_clip(
             arch=net_cfg.get("arch", "ViT-B/16"),
             clip_init=net_cfg.get("clip_init", "pretrained"),
+            clip_ckpt_path=net_cfg.get("clip_ckpt_path"),
             seed=self.seed,
         )
         if data_cfg.get("synthetic"):
@@ -754,20 +723,29 @@ class AnomalyCLIPTrainModule:
         return metrics
 
     def load_state(self, ckpt_path) -> TrainState:
-        """A checkpoint directory of the port (or its ``last``) -> a TrainState
-        on the device, without optimizer. Lightning ``.ckpt`` files and Orbax
+        """A checkpoint directory of the port (or its ``last``), or a reference
+        Lightning ``.ckpt`` -> a TrainState on the device, without optimizer.
+        A ``.ckpt`` is converted in place and the model rebuilt around the
+        checkpoint's own CLIP, whatever the session's ``clip_init``. Orbax
         directories of the JAX package are not read yet."""
         path = Path(ckpt_path)
-        if path.suffix == ".ckpt":
-            raise NotImplementedError(
-                f"{path}: converting a Lightning .ckpt is not ported yet "
-                "(ROADMAP.md section 1, item 5)"
+        if path.suffix == ".ckpt" and path.is_file():
+            # released reference checkpoint (reference contract: src/eval.py:73,
+            # README.md:72-76)
+            from anomalyclip_tpu_torch.convert_ckpt import (
+                convert_lightning_checkpoint,
+                converted_clip_config,
+                load_lightning_state_dict,
             )
+
+            sd = load_lightning_state_dict(path)  # one disk load, shared
+            frozen, trainable, bn_state = convert_lightning_checkpoint(sd)
+            return self.adopt_converted_state(frozen, trainable, bn_state, converted_clip_config(sd))
         if path.is_dir() and not (path / STATE_FILE).is_file():
             raise NotImplementedError(
                 f"{path} holds no {STATE_FILE}: reading a checkpoint directory other than "
                 "the port's own (an Orbax one of the JAX package) is not ported yet "
-                "(ROADMAP.md section 1, item 5)"
+                "(ROADMAP.md section 1, item 5, its one open part)"
             )
         restored = self.ckpt.restore(path, device=self.device)
         ctx = restored["trainable"]["prompt_ctx"]

@@ -212,10 +212,10 @@ script exits non-zero without printing a result:
    epoch's first apart from the others' median, the evaluation's seconds a
    video and frames a second over one pass, and the metrics, each beside
    the card's name and power limit. The feature set is written once, before
-   4f, and 4g reads it too;
+   4f, and 4g and 4h read it too;
 4g. the training run: ``AnomalyCLIPTrainModule`` from ``ucf_fit_config`` (the
-   composed ``experiment=ucfcrime`` apart from FIT_OVERRIDES and the paths;
-   tests/test_torch_fit.py holds it there) on 4f's feature set, under
+   port's composition of ``experiment=ucfcrime`` with FIT_VALUES and the paths;
+   tests/test_torch_fit.py holds it to the JAX package's) on 4f's feature set, under
    ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
    CUBLAS_WORKSPACE_CONFIG=:4096:8 (both restored afterwards; an op that warns
    is named, and B is then held to A at C's tolerances). The launch counts set
@@ -240,6 +240,30 @@ script exits non-zero without printing a result:
    the seconds of each epoch, validation pass, checkpoint save and restore, a
    checkpoint's bytes and the resumed run's epochs beside A's, with the card's
    name and power limit;
+4h. the command line, in the same deterministic mode on 4f's feature set,
+   laid out as ``configs/data/ucfcrime.yaml`` reads it under UCFCRIME_ROOT
+   (``Image-Features/``, ``Annotations/``, the temporal annotation file): a
+   ViT-B/16 CLIP state dict at its published width in OpenAI's key layout
+   (``openai_clip_shapes``), seeded, in fp16, written to a file; the launch
+   counts set to 0: ``train_entry.main`` with ``experiment=ucfcrime``, the
+   file as ``model.net.clip_ckpt_path``, ENTRY_EPOCHS epochs, dropout 0 and the
+   csv logger (``clip_init`` left at the published default, so the module
+   resolves the file through the registry); ``eval_entry.main`` with
+   ``data=ucfcrime model=anomaly_clip_ucfcrime`` on its ``checkpoints/last``;
+   ``hparams_search=ucfcrime_tpe`` with SWEEP_TRIALS one-epoch trials,
+   SWEEP_STARTUP of them random; a ``-m`` multirun over ENTRY_LRS. The
+   launches are counted exactly, every one on its fp32 route. The CLIP tree on
+   the card must equal the file's fp16 values upcast, to the bit; the same
+   run through ``AnomalyCLIPTrainModule`` built from the port's ``compose``
+   directly (out of the count) must equal the entry's to the bit (each
+   epoch's losses, validation and test metrics, every trainable leaf and the
+   BN state), with no op warning under deterministic mode; the eval's AUC,
+   AP, mAUC and mAP within RELOAD_TOL of the run's test; the search's trials
+   finite (so the last is drawn by the Parzen model), a finite best, each
+   trial's run directory; the multirun's two run directories. It prints the
+   seconds to compose, to read and convert the CLIP file (and its bytes), to
+   build the module, of each epoch, the test pass, the whole eval entry, each
+   trial and each job, with the card's name and power limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one warm training step, one warm call of the ViT-L/14@336px video
@@ -249,7 +273,7 @@ script exits non-zero without printing a result:
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
-gradient, script, data and training-run runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+gradient, script, data, training-run and command-line runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -491,8 +515,16 @@ FRAME_VIDEOS, FRAME_COUNTS = 4, (64, 300)
 # step (8.94e-8 on an NVIDIA H100 at 700 W), so it is held within RELOAD_TOL,
 # not to the bit
 RELOAD_TOL = 1e-6
-FIT_OVERRIDES = ("model.net.clip_init", "model.net.select_idx_dropout_topk",
-                 "model.net.select_idx_dropout_bottomk", "trainer.max_epochs")
+# phase 4h: the published UCF-Crime experiment through the port's command line
+# on 4f's feature set: ENTRY_EPOCHS epochs, then a TPE search of SWEEP_TRIALS
+# one-epoch trials (SWEEP_STARTUP random ones first) and a multirun over
+# ENTRY_LRS
+ENTRY_EPOCHS, SWEEP_TRIALS, SWEEP_STARTUP = 2, 3, 2
+ENTRY_LRS = ("1.e-5", "1.e-4")
+FIT_VALUES = {"model.net.clip_init": "random-full", "model.net.select_idx_dropout_topk": 0.0,
+              "model.net.select_idx_dropout_bottomk": 0.0, "trainer.max_epochs": FIT_EPOCHS}
+FIT_OVERRIDES = tuple(FIT_VALUES)
+TEMPORAL_ANNOTATIONS = "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"
 
 
 def phase_device() -> str:
@@ -2443,7 +2475,7 @@ def annotated_frame_labels(annotations: Path) -> np.ndarray:
     annotation files: the video's class inside its annotated span, the normal
     class elsewhere, in the order of the test list."""
     spans = {}
-    for line in (annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt").read_text().splitlines():
+    for line in (annotations / TEMPORAL_ANNOTATIONS).read_text().splitlines():
         if line.strip():
             name, _, start, end = line.split()
             spans[name] = (int(start), int(end))
@@ -2502,7 +2534,7 @@ def phase_data(smi: str, frames_root: Path, annotations: Path) -> dict:
         annotation_file_normal=str(annotations / "Anomaly_Train_Normal.txt"),
         annotation_file_anomaly=str(annotations / "Anomaly_Train_Abnormal.txt"),
         annotation_file_test=str(annotations / "Anomaly_Test.txt"),
-        annotation_file_temporal_test=str(annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"),
+        annotation_file_temporal_test=str(annotations / TEMPORAL_ANNOTATIONS),
         frames_root=str(frames_root),
         labels_file=str(ROOT / "anomalyclip_tpu" / "labels" / "ucf_labels.csv"),
         normal_id=NORMAL_ID, num_classes=NUM_CLASSES, num_segments=32, seg_length=16,
@@ -2721,75 +2753,33 @@ def phase_data(smi: str, frames_root: Path, annotations: Path) -> dict:
 
 
 def ucf_fit_config(frames_root: Path, annotations: Path, save_dir: Path) -> dict:
-    """The UCF-Crime training run of ``configs/experiment/ucfcrime.yaml`` as the
-    composed dict the port's module takes, on the feature set under
-    ``frames_root`` and ``annotations``, its run directory ``save_dir``; it
-    differs from the published config in FIT_OVERRIDES and the paths
-    (tests/test_torch_fit.py holds it to the composed one)."""
-    labels = str(ROOT / "anomalyclip_tpu" / "labels" / "ucf_labels.csv")
-    data = {
-        "num_workers": 8, "num_segments": 32, "seg_length": 16, "batch_size": 2 * HALF_BATCH,
-        "batch_size_test": 1, "num_classes": NUM_CLASSES, "input_size": 224, "load_from_features": True,
-        "frames_root": f"{frames_root}/", "annotations_root": f"{annotations}/", "normal_id": NORMAL_ID,
-        "image_tmpl": "{:06d}.jpg", "stride": 1, "ncrops": 1,
-        "annotation_file_anomaly": str(annotations / "Anomaly_Train_Abnormal.txt"),
-        "annotation_file_normal": str(annotations / "Anomaly_Train_Normal.txt"),
-        "annotation_file_test": str(annotations / "Anomaly_Test.txt"),
-        "annotation_file_temporal_test": str(annotations / "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"),
-        "labels_file": labels, "spatialannotationdir_path": None, "visualize": False,
-    }
-    net = {
-        "arch": "ViT-B/16", "clip_init": "random-full", "shared_context": False, "ctx_init": "",
-        "seg_length": 16, "num_segments": 32, "select_idx_dropout_topk": 0.0, "select_idx_dropout_bottomk": 0.0,
-        "n_ctx": 8, "heads": 8, "dim_heads": None, "load_from_features": True, "stride": 1, "ncrops": 1,
-        "concat_features": False, "emb_size": 256, "depth": 1, "num_topk": 3, "num_bottomk": 3,
-        "labels_file": labels, "normal_id": NORMAL_ID, "compute_dtype": "float32",
-    }
-    loss = {
-        "normal_id": NORMAL_ID, "num_topk": 3, "lambda_dir_abn": 1.0, "lambda_dir_nor": 1.0,
-        "lambda_topk_abn": 1.0, "lambda_bottomk_abn": 1.0, "lambda_topk_nor": 1.0, "lambda_smooth": 8e-4,
-        "lambda_sparse": 8e-3, "frames_per_segment": 16, "num_segments": 32,
-    }
-    return {
-        "seed": UCF_SEED,
-        "ckpt_path": None,
-        "data": data,
-        "model": {
-            "num_classes": NUM_CLASSES,
-            "optimizer": {"name": "adamw", **OPTIMIZER},
-            "scheduler": {"name": "warmup_cosine", **SCHEDULER},
-            "net": net,
-            "loss": loss,
-            "solver": dict(SOLVER),
-            "save_dir": str(save_dir),
-        },
-        "callbacks": {
-            "model_checkpoint": {"dirpath": str(save_dir / "checkpoints"), "filename": "epoch_{epoch:03d}",
-                                 "monitor": None, "save_last": True, "every_n_epochs": 1, "save_top_k": -1},
-            "lr_logger": True, "model_summary": True, "progress_bar": True, "early_stopping": None,
-        },
-        "logger": {"csv": {"save_dir": str(save_dir), "name": "csv"}},
-        "trainer": {
-            "accelerator": "auto", "devices": 1, "model_parallel": 1, "max_epochs": FIT_EPOCHS, "min_epochs": 1,
-            "check_val_every_n_epoch": 1, "limit_train_batches": None, "limit_val_batches": None,
-            "limit_test_batches": None, "deterministic": False, "detect_anomaly": False, "profiler": None,
-            "fast_dev_run": False,
-        },
-        "paths": {"output_dir": str(save_dir)},
-    }
+    """The UCF-Crime training run of ``configs/experiment/ucfcrime.yaml``,
+    composed by the port (``experiment=ucfcrime``, FIT_VALUES and the paths) as
+    the dict the port's module takes, on the feature set under ``frames_root``
+    and ``annotations``, its run directory ``save_dir``
+    (tests/test_torch_fit.py holds it to the JAX package's composition)."""
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+
+    overrides = ["experiment=ucfcrime", *(f"{k}={v}" for k, v in FIT_VALUES.items()),
+                 f"paths.root_dir={ROOT}", f"paths.output_dir={save_dir}", f"data.frames_root={frames_root}/",
+                 f"data.annotations_root={annotations}/",
+                 f"data.annotation_file_temporal_test={annotations / TEMPORAL_ANNOTATIONS}"]
+    return to_dict(compose(default_config_dir(), "train", overrides))
 
 
 class InstrumentedFit:
-    """One ``AnomalyCLIPTrainModule`` built from ``cfg``, its readings taken on
-    the host clock with the card synchronized: the metrics it logged by step,
-    the seconds of each validation pass, checkpoint save and restore.
-    ``after_step(n)`` runs after its n-th training step."""
+    """One ``AnomalyCLIPTrainModule`` built from ``cfg`` (or ``module``, built
+    already), its readings taken on the host clock with the card synchronized:
+    the metrics it logged by step, the seconds of each validation pass, test
+    pass, checkpoint save and restore. ``after_step(n)`` runs after its n-th
+    training step."""
 
-    def __init__(self, cfg: dict, after_step=None):
+    def __init__(self, cfg: dict, after_step=None, module=None):
         from anomalyclip_tpu_torch.train.module import AnomalyCLIPTrainModule
 
-        self.module = m = AnomalyCLIPTrainModule(cfg)
+        self.module = m = AnomalyCLIPTrainModule(cfg) if module is None else module
         self.logged, self.validate_s, self.save_s, self.restore_s = defaultdict(dict), [], [], []
+        self.test_s = []
         log_metrics = m.loggers.log_metrics
 
         def logged(metrics, step):
@@ -2798,6 +2788,7 @@ class InstrumentedFit:
 
         m.loggers.log_metrics = logged
         m.validate = self.timed(m.validate, self.validate_s)
+        m.test = self.timed(m.test, self.test_s)
         m.ckpt.save_epoch = self.timed(m.ckpt.save_epoch, self.save_s)
         m.ckpt.restore = self.timed(m.ckpt.restore, self.restore_s)
         if after_step is not None:
@@ -2872,10 +2863,11 @@ def frames_ncentroid_module(root: Path, counts: list):
     return module
 
 
-def phase_fit(smi: str, frames_root: Path, annotations: Path) -> dict:
-    """The UCF-Crime training run through ``AnomalyCLIPTrainModule.fit`` on the
-    feature set of phase 4f, under ``torch.use_deterministic_algorithms`` ->
-    the kernel launch counts of its main path."""
+@contextlib.contextmanager
+def deterministic_mode():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8, both restored after; yields the warnings
+    caught meanwhile (an op without a deterministic form warns)."""
     import os
     import warnings
 
@@ -2885,20 +2877,32 @@ def phase_fit(smi: str, frames_root: Path, annotations: Path) -> dict:
     saved_mode = (torch.are_deterministic_algorithms_enabled(),
                   torch.is_deterministic_algorithms_warn_only_enabled())
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    # warn_only: an op without a deterministic form warns (and is named below)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with tempfile.TemporaryDirectory(prefix="fit_runs_", dir=ROOT / "build") as tmp, \
-                warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            return run_fits(smi, frames_root, annotations, Path(tmp), caught)
+            yield caught
     finally:
         torch.use_deterministic_algorithms(saved_mode[0], warn_only=saved_mode[1])
-        for key, value in saved_env.items():
-            if value is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = value
+        restore_env(saved_env)
+
+
+def restore_env(saved: dict) -> None:
+    import os
+
+    for key, value in saved.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+
+
+def phase_fit(smi: str, frames_root: Path, annotations: Path) -> dict:
+    """The UCF-Crime training run through ``AnomalyCLIPTrainModule.fit`` on the
+    feature set of phase 4f, under ``torch.use_deterministic_algorithms`` ->
+    the kernel launch counts of its main path."""
+    with tempfile.TemporaryDirectory(prefix="fit_runs_", dir=ROOT / "build") as tmp, deterministic_mode() as caught:
+        return run_fits(smi, frames_root, annotations, Path(tmp), caught)
 
 
 def run_fits(smi: str, frames_root: Path, annotations: Path, tmp: Path, caught: list) -> dict:
@@ -3107,6 +3111,247 @@ def run_fits(smi: str, frames_root: Path, annotations: Path, tmp: Path, caught: 
     return launches
 
 
+def openai_clip_shapes(cfg) -> dict:
+    """The keys and shapes of an OpenAI CLIP ViT state dict of ``cfg``: the
+    ``state_dict()`` of the released ``ViT-B-16.pt`` for ``CLIPConfig.vit_b16()``
+    (without the three integer entries OpenAI's ``build_model`` drops)."""
+    w, tw, e, p = cfg.vision_width, cfg.transformer_width, cfg.embed_dim, cfg.vision_patch_size
+    grid = cfg.image_resolution // p
+    shapes = {
+        "positional_embedding": (cfg.context_length, tw), "text_projection": (tw, e), "logit_scale": (),
+        "visual.class_embedding": (w,), "visual.positional_embedding": (grid * grid + 1, w), "visual.proj": (w, e),
+        "visual.conv1.weight": (w, 3, p, p), "visual.ln_pre.weight": (w,), "visual.ln_pre.bias": (w,),
+        "visual.ln_post.weight": (w,), "visual.ln_post.bias": (w,),
+        "token_embedding.weight": (cfg.vocab_size, tw), "ln_final.weight": (tw,), "ln_final.bias": (tw,),
+    }
+    for prefix, d, layers in (("visual.transformer", w, cfg.vision_layers), ("transformer", tw, cfg.transformer_layers)):
+        for i in range(layers):
+            b = f"{prefix}.resblocks.{i}"
+            shapes.update({
+                f"{b}.attn.in_proj_weight": (3 * d, d), f"{b}.attn.in_proj_bias": (3 * d,),
+                f"{b}.attn.out_proj.weight": (d, d), f"{b}.attn.out_proj.bias": (d,),
+                f"{b}.ln_1.weight": (d,), f"{b}.ln_1.bias": (d,), f"{b}.ln_2.weight": (d,), f"{b}.ln_2.bias": (d,),
+                f"{b}.mlp.c_fc.weight": (4 * d, d), f"{b}.mlp.c_fc.bias": (4 * d,),
+                f"{b}.mlp.c_proj.weight": (d, 4 * d), f"{b}.mlp.c_proj.bias": (d,),
+            })
+    return shapes
+
+
+def seeded_clip_state_dict(cfg, seed: int) -> dict:
+    """A state dict of ``openai_clip_shapes(cfg)`` in fp16, as OpenAI's files
+    hold theirs, drawn from ``seed``: N(0, 0.02^2) everywhere, 1 added to the
+    LayerNorm scales, the logit scale log(1/0.07)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in openai_clip_shapes(cfg).items():
+        if key == "logit_scale":
+            value = np.asarray(np.log(1 / 0.07), np.float32)
+        else:
+            value = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+            if key.endswith(".weight") and key.split(".")[-2].startswith("ln"):
+                value += np.float32(1)
+        sd[key] = torch.from_numpy(value).half()
+    return sd
+
+
+def entry_module_class(made: list):
+    """``AnomalyCLIPTrainModule`` with every instance instrumented
+    (``InstrumentedFit``, its build timed) and appended to ``made``."""
+    from anomalyclip_tpu_torch.train.module import AnomalyCLIPTrainModule
+
+    class Recorded(AnomalyCLIPTrainModule):
+        def __init__(self, cfg, device=None):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            super().__init__(cfg, device)
+            torch.cuda.synchronize()
+            reading = InstrumentedFit(cfg, module=self)
+            reading.build_s = time.perf_counter() - start
+            made.append(reading)
+
+    return Recorded
+
+
+def phase_entry(smi: str, frames_root: Path, annotations: Path) -> dict:
+    """The published UCF-Crime experiment through the port's command line on
+    the feature set of phase 4f, under ``deterministic_mode`` -> the kernel
+    launch counts of its main path."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("UCFCRIME_ROOT", "ANOMALYCLIP_NO_DOWNLOAD")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="entry_runs_", dir=ROOT / "build") as tmp, deterministic_mode() as caught:
+            tmp = Path(tmp)
+            # the layout data/ucfcrime.yaml reads under UCFCRIME_ROOT
+            data_root = tmp / "UCFCrime"
+            data_root.mkdir()
+            (data_root / "Image-Features").symlink_to(frames_root.resolve(), target_is_directory=True)
+            (data_root / "Annotations").symlink_to(annotations.resolve(), target_is_directory=True)
+            (data_root / TEMPORAL_ANNOTATIONS).symlink_to((annotations / TEMPORAL_ANNOTATIONS).resolve())
+            os.environ["UCFCRIME_ROOT"] = str(data_root)
+            os.environ["ANOMALYCLIP_NO_DOWNLOAD"] = "1"
+            return run_entries(smi, tmp, caught)
+    finally:
+        restore_env(saved)
+
+
+def run_entries(smi: str, tmp: Path, caught: list) -> dict:
+    """Phase 4h's runs; see the module docstring."""
+    import anomalyclip_tpu_torch.train.module as train_module
+    from anomalyclip_tpu_torch import eval_entry, train_entry
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+    from anomalyclip_tpu_torch.convert import tree_leaves
+    from anomalyclip_tpu_torch.models.clip.convert import load_torch_clip_checkpoint, state_dict_from_params
+    from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
+    from anomalyclip_tpu_torch.ops.attention import launch_counts, reset_launch_counts, route_counts
+    from anomalyclip_tpu_torch.train.module import METRIC_NAMES
+
+    phase_start = time.perf_counter()
+    # the CLIP file: ViT-B/16 at its published width, fp16, OpenAI's key layout
+    clip_path = tmp / "ViT-B-16.pt"
+    clip_sd = seeded_clip_state_dict(CLIPConfig.vit_b16(), SEED)
+    torch.save(clip_sd, clip_path)
+    clip_bytes = clip_path.stat().st_size
+    start = time.perf_counter()
+    _, loaded_cfg = load_torch_clip_checkpoint(clip_path)
+    load_s = time.perf_counter() - start
+    require(loaded_cfg == CLIPConfig.vit_b16(), f"the CLIP file reads as {loaded_cfg}")
+
+    args = ["experiment=ucfcrime", f"model.net.clip_ckpt_path={clip_path}", f"trainer.max_epochs={ENTRY_EPOCHS}",
+            "model.net.select_idx_dropout_topk=0.0", "model.net.select_idx_dropout_bottomk=0.0", "logger=csv"]
+    start = time.perf_counter()
+    direct_cfg = to_dict(compose(default_config_dir(), "train", args + [f"paths.log_dir={tmp / 'direct'}"]))
+    compose_s = time.perf_counter() - start
+    require(direct_cfg["model"]["net"].get("clip_init", "pretrained") == "pretrained"
+            and direct_cfg["trainer"]["accelerator"] == "tpu", "the published experiment's CLIP and trainer")
+
+    # the main path: counters from zero; the train entry, the eval entry on its
+    # run, a TPE search and a multirun, all through the entries
+    made = []
+    real_class = train_module.AnomalyCLIPTrainModule
+    real_single_run = train_entry._single_run
+    trial_s = []
+
+    def timed_single_run(job):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = real_single_run(job)
+        torch.cuda.synchronize()
+        trial_s.append(time.perf_counter() - begin)
+        return out
+
+    reset_launch_counts()
+    train_module.AnomalyCLIPTrainModule = entry_module_class(made)
+    try:
+        entry_test = train_entry.main(args + [f"paths.log_dir={tmp / 'entry'}"])
+        entry = made[-1]
+        run_dir = tmp / "entry" / "train" / "runs" / "ucfcrime"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        evaluated = eval_entry.main(["data=ucfcrime", "model=anomaly_clip_ucfcrime",
+                                     f"model.net.clip_ckpt_path={clip_path}",
+                                     f"ckpt_path={run_dir / 'checkpoints' / 'last'}",
+                                     f"paths.log_dir={tmp / 'eval'}"])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - start
+        evaluator = made[-1]
+        train_entry._single_run = timed_single_run
+        search = train_entry.main(["experiment=ucfcrime", f"model.net.clip_ckpt_path={clip_path}",
+                                   "hparams_search=ucfcrime_tpe", f"hparams_search.n_trials={SWEEP_TRIALS}",
+                                   f"hparams_search.n_startup_trials={SWEEP_STARTUP}", "trainer.max_epochs=1",
+                                   f"paths.log_dir={tmp / 'search'}"])
+        search_s, trial_s = list(trial_s), []
+        jobs = train_entry.main(["-m", "experiment=ucfcrime", f"model.net.clip_ckpt_path={clip_path}",
+                                 "trainer.max_epochs=1", f"model.solver.lr={','.join(ENTRY_LRS)}",
+                                 f"paths.log_dir={tmp / 'multirun'}"])
+        multirun_s = list(trial_s)
+    finally:
+        train_module.AnomalyCLIPTrainModule = real_class
+        train_entry._single_run = real_single_run
+    torch.cuda.synchronize()
+    launches, routes = dict(launch_counts), dict(route_counts)
+
+    # exactly what the entries ran: the text tower once a step and once a
+    # validation or test pass, its backward once a step, the temporal model
+    # once a step and once a video scored, its backward once a step
+    require(len(made) == 2 + SWEEP_TRIALS + len(ENTRY_LRS), f"{len(made)} modules built")
+    steps = sum(m.module._final_state.step for m in made if hasattr(m.module, "_final_state"))
+    passes = sum(len(m.validate_s) + len(m.test_s) for m in made)
+    videos = len(entry.module.datamodule.test_dataloader())
+    text_layers = entry.module.model.clip_cfg.transformer_layers
+    expected = dict.fromkeys(launch_counts, 0)
+    expected.update({"fused_mha_qkv": text_layers * (steps + passes), "mha_qkv_bwd": text_layers * steps,
+                     "fused_mha_bld": 2 * (steps + videos * passes), "mha_bld_bwd": 2 * steps})
+    print(f"[entry] launches {launches}, expected {expected}", flush=True)
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    launches.update(require_routes("entry runs", 0, 0, expected["fused_mha_qkv"], 0, expected["fused_mha_bld"],
+                                   expected["mha_bld_bwd"], expected["mha_qkv_bwd"]))
+
+    # the CLIP on the card is the file's fp16 values upcast, to the bit
+    clip_tree = entry.module.frozen["clip"]
+    require(all(t.is_cuda for t in tree_leaves(clip_tree)), "the frozen CLIP tree is not on the card")
+    on_card = state_dict_from_params(clip_tree)
+    require(on_card.keys() == clip_sd.keys(), "the CLIP tree's keys")
+    for key, value in clip_sd.items():
+        require(torch.equal(on_card[key], value.float()), f"CLIP {key} on the card differs from the file")
+
+    # the same run through the module directly, out of the main path's count
+    direct = InstrumentedFit(direct_cfg)
+    direct.module.fit()
+    direct_test = direct.module.test(state=direct.module._final_state)
+    nondeterministic = sorted({str(w.message) for w in caught if "deterministic" in str(w.message)})
+    require(not nondeterministic, f"not deterministic: {nondeterministic}")
+    for epoch in range(ENTRY_EPOCHS):
+        got = [entry.logged[epoch][k] for k in METRIC_NAMES]
+        want = [direct.logged[epoch][k] for k in METRIC_NAMES]
+        require(got == want, f"epoch {epoch} losses, entry {got} vs module {want}")
+        with open(run_dir / f"metrics_{epoch}.json") as f, \
+                open(direct.module.save_dir / f"metrics_{epoch}.json") as g:
+            require(json.load(f) == json.load(g), f"epoch {epoch} validation metrics, entry vs module")
+    require(entry_test.keys() == direct_test.keys(), "test metrics' keys")
+    for key in entry_test:
+        np.testing.assert_array_equal(entry_test[key], direct_test[key], err_msg=f"test {key}, entry vs module")
+    final_e, final_d = entry.module._final_state, direct.module._final_state
+    for x, y in zip(tree_leaves(final_e.trainable) + list(final_e.bn_state),
+                    tree_leaves(final_d.trainable) + list(final_d.bn_state), strict=True):
+        require(torch.equal(x, y), "a final trainable leaf or the BN state, entry vs module")
+
+    # the eval entry on the run's last checkpoint against the run's own test
+    eval_gap = max(abs(evaluated[k] - entry_test[k]) for k in EVAL_METRICS[:4])
+    require(eval_gap <= RELOAD_TOL, f"eval entry vs the run's test: max|diff| {eval_gap:.3e}")
+    require(np.isfinite([entry_test[k] for k in EVAL_METRICS]).all(), f"test metrics {entry_test}")
+
+    # the search: three trials, the last drawn by the Parzen model (its
+    # startup trials both finite), a finite best; the multirun's two run dirs
+    values = [t["value"] for t in search["trials"]]
+    require(len(values) == SWEEP_TRIALS and all(v is not None and np.isfinite(v) for v in values),
+            f"search trials {search['trials']}")
+    require(search["best"] is not None and np.isfinite(search["best"]["value"]), f"search best {search['best']}")
+    for i in range(SWEEP_TRIALS):
+        require((tmp / "search" / "train" / "runs" / "ucfcrime" / f"trial_{i}" / "metrics.json").is_file(),
+                f"trial {i} wrote no metrics.json")
+    require(sorted(jobs) == list(range(len(ENTRY_LRS))) and not any("error" in r for r in jobs.values()),
+            f"multirun {jobs}")
+    for i in range(len(ENTRY_LRS)):
+        require((tmp / "multirun" / "train" / "runs" / "ucfcrime" / str(i) / "checkpoints" / "last").is_dir(),
+                f"multirun job {i} has no run dir")
+
+    print(f"[entry] compose {compose_s:.4f} s; CLIP file {clip_bytes} bytes, load and convert {load_s:.3f} s; "
+          f"module build (CLIP file included) {entry.build_s:.3f} s; epochs "
+          f"{', '.join(f'{x:.3f}' for x in entry.epoch_s())} s; test pass {entry.test_s[0]:.4f} s; the whole "
+          f"eval entry {eval_s:.3f} s (its test pass {evaluator.test_s[0]:.4f} s) ({smi})")
+    print(f"[entry] TPE search of {SWEEP_TRIALS} trials, one epoch each: "
+          f"{', '.join(f'{x:.3f}' for x in search_s)} s a trial; multirun of lr {', '.join(ENTRY_LRS)}: "
+          f"{', '.join(f'{x:.3f}' for x in multirun_s)} s a job ({smi})")
+    print(f"[entry] the entry run equals the module run to the bit (losses, validation and test metrics, trainable "
+          f"leaves, BN state); eval vs the run's test max|diff| {eval_gap:.3e} (limit {RELOAD_TOL:g}); test AUC "
+          f"{entry_test['auc_roc']:.6f} AP {entry_test['auc_pr']:.6f}; search values "
+          f"{', '.join(f'{v:.6f}' for v in values)}, best trial {search['best']['trial']}; the CLIP on the card "
+          f"equals the file's fp16 values upcast; the phase {time.perf_counter() - phase_start:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return launches
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
@@ -3282,12 +3527,13 @@ def main() -> int:
     l14_launches = phase_l14()
     grad_launches = phase_tower_gradient()
     script_launches = phase_scripts()
-    # one feature set on disk for phases 4f and 4g, removed at the end
+    # one feature set on disk for phases 4f, 4g and 4h, removed at the end
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="feature_set_", dir=ROOT / "build") as tmp:
         feature_set = make_feature_set(Path(tmp))
         data_launches = phase_data(smi, *feature_set)
         fit_launches = phase_fit(smi, *feature_set)
+        entry_launches = phase_entry(smi, *feature_set)
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -3334,8 +3580,12 @@ def main() -> int:
     require(all(fit_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                                               "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
             f"a kernel of the training run's path was never launched: {fit_launches}")
+    # the command line's path: the train and eval entries, a search, a multirun
+    require(all(entry_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                                                "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
+            f"a kernel of the entry points' path was never launched: {entry_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
-                *script_launches, data_launches, fit_launches]
+                *script_launches, data_launches, fit_launches, entry_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

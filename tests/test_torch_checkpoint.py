@@ -14,7 +14,8 @@ artifacts, on the CPU (the counterparts of tests/test_review_fixes.py:26, 43,
   installed under ``preempt_save=false`` or off the main thread;
 - ``write_test_artifacts`` writes the four PNGs, and only ``metrics.json`` plus a
   warning when ``matplotlib`` does not import;
-- ``load_state`` refuses a Lightning ``.ckpt`` and an Orbax directory.
+- ``load_state`` refuses an empty or incomplete Lightning ``.ckpt`` and an Orbax
+  directory.
 """
 
 from __future__ import annotations
@@ -183,10 +184,16 @@ def test_ncentroid_limit_never_cached(tmp_path):
 
 
 def test_load_state_refuses_lightning_and_orbax_inputs(tmp_path):
+    """A Lightning ``.ckpt`` is read and converted since the converter was
+    ported (tests/test_torch_entry.py): an empty one, or one without the
+    model's weights, is refused. Orbax directories are not read yet."""
     module = port_module(tmp_path, "run")
     ckpt = tmp_path / "released.ckpt"
     ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(EOFError):
+        module.load_state(ckpt)
+    torch.save({"state_dict": {"net.prompt_learner.ctx": torch.zeros(2, 8, 64)}}, ckpt)
+    with pytest.raises(KeyError):
         module.load_state(ckpt)
     orbax_dir = tmp_path / "orbax_epoch_000"
     orbax_dir.mkdir()

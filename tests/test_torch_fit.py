@@ -11,8 +11,9 @@
 - The rest of the fit loop on the port alone: ``fast_dev_run`` (no checkpoint,
   no cache), ``overfit_batches`` (``set_epoch(0)`` every epoch), early
   stopping under ``check_val_every_n_epoch=2`` (stale metrics burn no
-  patience), ``exception.log`` on a failing fit, ``train/lr``, and what is not
-  ported yet raising ``NotImplementedError`` with its ROADMAP.md item.
+  patience), ``exception.log`` on a failing fit, ``train/lr``, a pretrained
+  CLIP read from ``clip_ckpt_path``, and what is not ported yet raising
+  ``NotImplementedError`` with its ROADMAP.md item.
 - ``chip_smoke.py``'s UCF-Crime run config against the composed
   ``experiment=ucfcrime`` on every key the port's module reads.
 """
@@ -242,12 +243,32 @@ def test_exception_log_on_a_failing_fit(tmp_path):
 
 @pytest.mark.parametrize("override, item", [
     ("model.net.quantize=int8", "item 7"),
-    ("model.net.clip_init=pretrained", "item 5"),
     ("trainer.model_parallel=2", "item 8"),
 ])
 def test_unported_options_raise_at_init(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=item):
         _port(tmp_path, "run", override)
+
+
+def test_pretrained_clip_comes_from_clip_ckpt_path(tmp_path, monkeypatch):
+    """``clip_init: pretrained`` reads the CLIP file the registry resolves; with
+    no file to read and downloads switched off it names what it searched."""
+    import torch
+
+    from anomalyclip_tpu_torch.models.clip.convert import state_dict_from_params
+    from anomalyclip_tpu_torch.models.clip.model import init_clip_params
+
+    params = init_clip_params(torch.Generator().manual_seed(5), CLIPConfig.tiny())
+    path = tmp_path / "clip.pt"
+    torch.save(state_dict_from_params(params), path)
+    module = _port(tmp_path, "run", "model.net.clip_init=pretrained", f"model.net.clip_ckpt_path={path}")
+    for got, want in zip(convert.tree_leaves(module.frozen["clip"]), convert.tree_leaves(params), strict=True):
+        assert torch.equal(got, want)
+    monkeypatch.setenv("ANOMALYCLIP_NO_DOWNLOAD", "1")
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("CLIP_CKPT_PATH", raising=False)
+    with pytest.raises(FileNotFoundError, match="No CLIP checkpoint found"):
+        _port(tmp_path, "run2", "model.net.clip_init=pretrained")
 
 
 def test_unported_options_raise_where_used(tmp_path):

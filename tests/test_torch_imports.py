@@ -51,8 +51,14 @@ def _run(probe: str) -> dict:
 def test_port_imports_no_jax_yaml_regex_cv2_pil():
     report = _run(_PROBE)
     expected = {
+        "anomalyclip_tpu_torch.config",
+        "anomalyclip_tpu_torch.config.compose",
+        "anomalyclip_tpu_torch.config.yaml_subset",
         "anomalyclip_tpu_torch.convert",
+        "anomalyclip_tpu_torch.convert_ckpt",
+        "anomalyclip_tpu_torch.eval_entry",
         "anomalyclip_tpu_torch.numerics",
+        "anomalyclip_tpu_torch.train_entry",
         "anomalyclip_tpu_torch.predict",
         "anomalyclip_tpu_torch.data",
         "anomalyclip_tpu_torch.data.datamodule",
@@ -67,7 +73,9 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.eval.evaluator",
         "anomalyclip_tpu_torch.eval.metrics",
         "anomalyclip_tpu_torch.models.anomaly_clip",
+        "anomalyclip_tpu_torch.models.clip.convert",
         "anomalyclip_tpu_torch.models.clip.model",
+        "anomalyclip_tpu_torch.models.clip.registry",
         "anomalyclip_tpu_torch.models.clip.tokenizer",
         "anomalyclip_tpu_torch.models.losses",
         "anomalyclip_tpu_torch.models.prompt_learner",
@@ -92,6 +100,8 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.train.checkpoint",
         "anomalyclip_tpu_torch.train.module",
         "anomalyclip_tpu_torch.train.optim",
+        "anomalyclip_tpu_torch.train.tpe",
+        "anomalyclip_tpu_torch.utils.extras",
         "anomalyclip_tpu_torch.utils.logging",
         "anomalyclip_tpu_torch.utils.treeio",
     }
