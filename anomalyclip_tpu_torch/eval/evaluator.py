@@ -4,8 +4,11 @@ counterpart of anomalyclip_tpu/eval/evaluator.py (:37-380).
 The host lays a video's flat (n, s, l) frame stream out as ``s`` independent
 (num_segments x seg_length) grids, pads the grid batch up to a bucket size and
 scores it on the device; padded grids are sliced off before the inverse layout.
-The numpy halves (bucketing, layout, stride expansion, softmax) are copies of
-the JAX package's. ``evaluate_videos`` scores a whole test loader, the pass of
+The numpy halves (bucketing, layout, stride expansion, softmax) and the
+chunked encode loop are copies of the JAX package's, in eval/grids.py, which
+the exported artifact shares. ``score_grid_batch`` is the
+scoring function of a grid batch that ``GridScorer`` runs and export.py
+traces. ``evaluate_videos`` scores a whole test loader, the pass of
 validation and test; ``eval/metrics.py`` turns its output into AUC and AP.
 """
 
@@ -19,58 +22,16 @@ import torch
 
 from anomalyclip_tpu_torch.convert import tree_leaves
 from anomalyclip_tpu_torch.data.dataset import TestItem
+from anomalyclip_tpu_torch.eval.grids import (
+    DEFAULT_BUCKETS,
+    encode_frames_chunked,
+    pad_to_bucket,
+    score_sampled_features,
+)
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
 from anomalyclip_tpu_torch.models.selector import BNState, selector_test
 from anomalyclip_tpu_torch.models.temporal import temporal_scores
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
-
-DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
-
-# one static chunk for every frame-encoding call: the model's own
-ENCODE_CHUNK = AnomalyCLIP.ENCODE_CHUNK
-
-
-def bucket_size(g: int, buckets: Tuple[int, ...]) -> int:
-    for b in buckets:
-        if g <= b:
-            return b
-    top = buckets[-1]
-    return ((g + top - 1) // top) * top
-
-
-def pad_to_bucket(
-    grids: np.ndarray, buckets: Tuple[int, ...] = DEFAULT_BUCKETS
-) -> Tuple[np.ndarray, int]:
-    """Zero-pad the grid batch up to its bucket size -> (padded grids, true g)."""
-    g = grids.shape[0]
-    gb = bucket_size(g, buckets)
-    if gb != g:
-        pad = np.zeros((gb - g,) + grids.shape[1:], dtype=grids.dtype)
-        grids = np.concatenate([grids, pad], axis=0)
-    return grids, g
-
-
-def encode_frames_chunked(
-    encode: Callable[[torch.Tensor], torch.Tensor],
-    frames: np.ndarray,
-    device,
-    chunk: int = ENCODE_CHUNK,
-) -> np.ndarray:
-    """CLIP-encode (N, H, W, 3) frames in calls of exactly ``chunk`` frames, the
-    last one padded by repeating its first frame -> (N, D) float32. uint8 frames
-    go to the device as uint8 and are normalized there. bf16 features widen to
-    float32 exactly."""
-    outs = []
-    for i in range(0, len(frames), chunk):
-        part = frames[i : i + chunk]
-        pad = chunk - len(part)
-        if pad:
-            part = np.concatenate([part, np.repeat(part[:1], pad, axis=0)])
-        out = encode(torch.from_numpy(np.ascontiguousarray(part)).to(device))
-        out = out.float().cpu().numpy()
-        outs.append(out[: len(out) - pad] if pad else out)
-    return np.concatenate(outs)
-
 
 def _require_on(device: torch.device, name: str, tree) -> None:
     """Raise unless every tensor of ``tree`` lies on ``device``, both named."""
@@ -82,6 +43,23 @@ def _require_on(device: torch.device, name: str, tree) -> None:
                 f"GridScorer: device is {device}, but the {name} parameters are on "
                 f"{leaf.device}; move them (convert.tree_to) or pass device={str(leaf.device)!r}"
             )
+
+
+def score_grid_batch(
+    model: AnomalyCLIP, text_features, temporal, bn_state: BNState, ncentroid, grids: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scoring function of a grid batch, given the text features, the
+    temporal parameters, the BN state and the ncentroid: grids (G, n, l, D) ->
+    (similarity (G*n*l, C-1), scores (G*n*l,)). ``GridScorer`` runs it, and the
+    exported score graph is its trace (export.py). It branches on no size, so
+    G stays symbolic in a trace."""
+    flat = grids.reshape(-1, grids.shape[-1])
+    similarity = selector_test(flat, text_features, ncentroid, bn_state, model.selector_cfg)
+    features = model._temporal_input(flat, similarity, ncentroid)
+    scores = temporal_scores(
+        features, temporal, model.temporal_cfg, segment_size=1, test_mode=False
+    ).reshape(-1)
+    return similarity, scores
 
 
 class GridScorer:
@@ -130,17 +108,9 @@ class GridScorer:
 
     def _score(self, grids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """grids: (G, n, l, D) -> (similarity (G*n*l, C-1), scores (G*n*l,))"""
-        model = self.model
-        with torch.no_grad(), matmul_precision_for(model.cfg.dtype):
-            flat = grids.reshape(-1, grids.shape[-1])
-            similarity = selector_test(
-                flat, self.text_features, self._ncentroid, self._bn_state, model.selector_cfg
-            )
-            features = model._temporal_input(flat, similarity, self._ncentroid)
-            scores = temporal_scores(
-                features, self._temporal, model.temporal_cfg, segment_size=1, test_mode=False
-            ).reshape(-1)
-            return similarity, scores
+        with torch.no_grad(), matmul_precision_for(self.model.cfg.dtype):
+            return score_grid_batch(self.model, self.text_features, self._temporal, self._bn_state,
+                                    self._ncentroid, grids)
 
     def encode_frames_np(self, frames: np.ndarray) -> np.ndarray:
         """CLIP-encode raw frames (N, H, W, 3) -> (N, D) in static-shape chunks."""
@@ -172,51 +142,6 @@ class VideoScores:
     video_label: int
     path: str
     start_frame: int = 0  # file id of score index 0
-
-
-def score_sampled_features(
-    feats: np.ndarray,
-    segment_size: int,
-    num_segments: int,
-    seg_length: int,
-    stride: int,
-    num_labels: int,
-    score_grids: Callable[[np.ndarray], Tuple[np.ndarray, np.ndarray]],
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Host-side half of per-video scoring: grid layout, crop consensus, stride
-    expansion, trim, softmax. ``feats`` is (ncrops, n*s*l, D). Returns
-    (similarity (T, C-1), scores (T,), class_probs)."""
-    ncrops, t, d = feats.shape
-    n, l, s = num_segments, seg_length, segment_size
-    if t != n * s * l:
-        raise ValueError(f"features of length {t} are not {n}*{s}*{l}")
-
-    # (ncrops, n, s, l, D) -> (ncrops*s, n, l, D): grids in (crop-major, s) order
-    grids = (
-        feats.reshape(ncrops, n, s, l, d).transpose(0, 2, 1, 3, 4).reshape(ncrops * s, n, l, d)
-    )
-    similarity, scores = score_grids(grids)
-
-    # invert to the flat (ncrops, n, s, l) frame order
-    c_abn = similarity.shape[-1]
-    sim = (
-        similarity.reshape(ncrops, s, n, l, c_abn)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(ncrops, t, c_abn)
-    )
-    sc = scores.reshape(ncrops, s, n, l).transpose(0, 2, 1, 3).reshape(ncrops, t)
-    # multicrop consensus: the mean over crops (the identity for one crop)
-    sim = sim.mean(axis=0)
-    sc = sc.mean(axis=0)
-
-    # frame-rate expansion by stride, then trim the padding
-    sim = np.repeat(sim, stride, axis=0)[:num_labels]
-    sc = np.repeat(sc, stride, axis=0)[:num_labels]
-
-    # softmax over classes, joint probs
-    e = np.exp(sim - sim.max(axis=1, keepdims=True))
-    class_probs = (e / e.sum(axis=1, keepdims=True)) * sc[:, None]
-    return sim, sc, class_probs
 
 
 def score_video(item: TestItem, scorer: GridScorer, model: AnomalyCLIP) -> VideoScores:

@@ -12,8 +12,13 @@ anomalyclip_tpu/eval_entry.py, with the reference's invocation contract
 ``ckpt_path`` is a checkpoint directory of the port (an epoch's, or ``last``;
 ``convert_ckpt`` writes one from a ``.ckpt``) or a reference Lightning ``.ckpt``,
 which is converted in place and scored with its own CLIP. The device is chosen
-as in ``train_entry``. Artifact mode (``artifact=<dir>``, an exported serving
-artifact) is not ported yet.
+as in ``train_entry``.
+
+Artifact mode validates an exported serving artifact (export.py) against a
+labeled benchmark with no model code or checkpoint, the check before an
+artifact ships:
+
+    python -m anomalyclip_tpu_torch.eval_entry artifact=<dir> data=ucfcrime [trainer=cpu]
 """
 
 from __future__ import annotations
@@ -36,10 +41,16 @@ def main(argv=None) -> dict:
     cfg = compose(default_config_dir(), "eval", argv)
 
     if cfg.get("artifact"):
-        raise NotImplementedError(
-            f"artifact={cfg['artifact']}: evaluating an exported serving artifact is not ported "
-            "yet (ROADMAP.md section 1, item 6)"
-        )
+        if not cfg.get("data"):
+            raise SystemExit(
+                "artifact eval needs a data group: python -m anomalyclip_tpu_torch.eval_entry "
+                "artifact=<dir> data=..."
+            )
+        device = choose_device(argv, cfg)
+        from anomalyclip_tpu_torch.utils.extras import apply_extras
+
+        apply_extras(cfg)
+        return _eval_artifact(to_dict(cfg), device)
 
     if not cfg.get("data") or not cfg.get("model"):
         raise SystemExit(
@@ -62,6 +73,68 @@ def main(argv=None) -> dict:
 
     module = AnomalyCLIPTrainModule(to_dict(cfg), device=device)
     return module.test(ckpt_path=ckpt_path)
+
+
+def _eval_artifact(cfg: dict, device: str) -> dict:
+    """The whole test set through the exported graphs alone: each test-sampled
+    item scored by the artifact, then the test artifacts of ``module.test``
+    (metrics.json and the plots) under ``<output_dir>/artifact_eval``."""
+    import numpy as np
+
+    from anomalyclip_tpu_torch.data.datamodule import AnomalyCLIPDataModule, DataConfig
+    from anomalyclip_tpu_torch.data.loader import limit_count
+    from anomalyclip_tpu_torch.eval.artifacts import write_test_artifacts
+    from anomalyclip_tpu_torch.eval.evaluator import VideoScores, evaluate_videos
+    from anomalyclip_tpu_torch.export import ServingArtifact
+    from anomalyclip_tpu_torch.models.anomaly_clip import read_classnames
+    from anomalyclip_tpu_torch.utils.logging import is_host_zero
+
+    art = ServingArtifact.load(cfg["artifact"], device=device)
+    datamodule = AnomalyCLIPDataModule(DataConfig.from_dict(dict(cfg["data"])), seed=int(cfg.get("seed") or 0))
+    g = art.meta["grid"]
+    dm_cfg = datamodule.cfg
+    # all three sampling sizes must agree, or the scores misalign in time
+    # (stride expands per-chunk scores back to frame rate)
+    wanted = (g["num_segments"], g["seg_length"], g["stride"])
+    got = (dm_cfg.num_segments, dm_cfg.seg_length, dm_cfg.stride)
+    if got != wanted:
+        raise SystemExit(
+            f"data group samples (num_segments, seg_length, stride)={got} but "
+            f"the artifact was exported for {wanted}"
+        )
+
+    def score_item(item) -> VideoScores:
+        sim, sc, probs = art.score_test_item(item)
+        return VideoScores(sim, sc, probs, np.asarray(item.frame_labels), item.video_label,
+                           item.path, getattr(item, "start_frame", 0))
+
+    # trainer.limit_test_batches as the checkpoint-backed test reads it
+    limit = (cfg.get("trainer") or {}).get("limit_test_batches")
+    loader = datamodule.test_dataloader()
+    if limit is not None:
+        loader = datamodule.test_dataloader(limit=limit_count(len(loader), limit))
+
+    outputs = evaluate_videos(loader, score_item=score_item)
+    if not outputs:
+        raise SystemExit("artifact eval scored no test videos (empty test set?)")
+
+    save_dir = Path((cfg.get("paths") or {}).get("output_dir") or ".") / "artifact_eval"
+    classnames = art.meta.get("classnames") or read_classnames(dm_cfg.labels_file)
+    metrics = write_test_artifacts(
+        save_dir,
+        outputs["abnormal_scores"],
+        outputs["labels"],
+        outputs["class_probs"],
+        int(art.meta["normal_id"]),
+        len(classnames),
+        classnames,
+        write_files=is_host_zero(),
+    )
+    print(
+        f"artifact eval: AUC={metrics['auc_roc']:.4f} AP={metrics['auc_pr']:.4f} "
+        f"mAUC={metrics['mean_mc_auroc']:.4f} mAP={metrics['mean_mc_aupr']:.4f} -> {save_dir}"
+    )
+    return metrics
 
 
 def cli() -> int:

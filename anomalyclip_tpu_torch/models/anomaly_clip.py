@@ -17,6 +17,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from anomalyclip_tpu_torch.eval.grids import ENCODE_CHUNK as _ENCODE_CHUNK
 from anomalyclip_tpu_torch.models.clip.model import (
     CLIPConfig,
     encode_image,
@@ -101,8 +102,9 @@ class AnomalyCLIP:
     """Static model description (configs, prompt spec, classnames) and the
     forwards as functions over the parameter trees."""
 
-    # frames per image-encoder call (anomaly_clip.py:221)
-    ENCODE_CHUNK = 256
+    # frames per image-encoder call (anomaly_clip.py:221): the chunked encode
+    # loop's (eval/grids.py), so that every encoder call sees one static shape
+    ENCODE_CHUNK = _ENCODE_CHUNK
 
     def __init__(
         self,

@@ -28,9 +28,12 @@ Five entries, the counterparts of the JAX package's Pallas kernels
 The forwards compute the function of ``_attend_head`` (:68-85): fp32 scores, a
 row-max-subtracted fp32 softmax, masked entries at ``NEG_INF``. The backwards
 compute the exact softmax VJP of ``_mha_bwd_head`` (:244-270), scores recomputed
-from q and k. Each entry is a ``torch.autograd.Function``: on a CUDA tensor each
-direction launches its kernel (ops/csrc/*.cu, built by ops/build.py) or raises;
-on a CPU tensor both run the plain versions.
+from q and k. Each entry is a ``torch.library.custom_op`` (namespace
+"anomalyclip", ``REGISTERED_OPS``) with a fake implementation, so that
+``torch.export`` records it in a graph (export.py), and its backward registered
+through ``register_autograd``: on a CUDA tensor each direction launches its
+kernel (ops/csrc/*.cu, built by ops/build.py) or raises; on a CPU tensor both
+run the plain versions.
 ``attention_impl("reference")`` makes the wrappers run the plain versions on the
 card too, so that tests and the chip smoke run can hold the kernels against
 them; outside any such scope the environment variable ``ANOMALYCLIP_ATTN_IMPL``
@@ -1542,8 +1545,19 @@ def fused_attention_fwd_kernel(q, k, v, causal: bool) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Autograd entries
+# The entries: custom operators, each with a fake implementation and autograd
 # ---------------------------------------------------------------------------
+#
+# Each forward is a ``torch.library.custom_op`` of the "anomalyclip" namespace,
+# so that ``torch.export`` records it as one node of a graph (export.py). Its
+# implementation chooses when it runs: the kernel on a CUDA tensor, the plain
+# version on a CPU tensor or under attention_impl("reference"); an exported
+# graph therefore launches the kernels on the card and runs the plain versions
+# on the CPU. Its fake implementation gives the output's shape, type and
+# strides from the operands' alone, as the kernel lays it out. The backwards
+# are registered with ``register_autograd``; ``setup_context`` keeps the
+# forward's choice of kernel or plain version for the backward, which autograd
+# runs on another thread.
 
 
 def reference_block(dtype: torch.dtype, dh: int):
@@ -1554,58 +1568,214 @@ def reference_block(dtype: torch.dtype, dh: int):
     return MHA_TC_BLOCK_KV if mha_tc_eligible(dtype, dh) else None
 
 
-class _MhaQkv(torch.autograd.Function):
-    """K1 forward, K3 backward; saves only qkv, as ``_mha_qkv_fwd`` (:479-480)."""
-
-    @staticmethod
-    def forward(ctx, qkv, num_heads, causal):
-        ctx.reference = _use_reference(qkv)  # the caller's choice, kept for backward
-        ctx.num_heads, ctx.causal = num_heads, causal
-        ctx.save_for_backward(qkv)
-        if ctx.reference:
-            block = reference_block(qkv.dtype, qkv.shape[-1] // 3 // num_heads)
-            return mha_qkv_reference(qkv, num_heads, causal, block)
-        return mha_qkv_fwd_kernel(qkv, num_heads, causal)
-
-    @staticmethod
-    def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        if ctx.reference:
-            dqkv = mha_qkv_bwd_reference(qkv, g, ctx.num_heads, ctx.causal)
-        else:
-            dqkv = mha_qkv_bwd_kernel(qkv, g, ctx.num_heads, ctx.causal)
-        return dqkv, None, None
+def _heads_out(q: torch.Tensor) -> torch.Tensor:
+    """An empty output of q's shape in the layout K5's and K8's kernels write:
+    ``_empty_heads`` where the tensor-core entries serve q's type and head dim,
+    else contiguous. Fake and real outputs share it, so an exported graph's
+    strides do not depend on the device it runs on."""
+    if mha_tc_eligible(q.dtype, q.shape[-1]) or mha_tf32_eligible(q.dtype, q.shape[-1]):
+        return _empty_heads(q)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
-class _MhaBld(torch.autograd.Function):
-    """K2 forward, K4 backward; saves q, k, v, as ``_mha_bld_fwd`` (:400-401).
-    When k and v are views of one tensor, autograd adds dk and dv into its
-    gradient."""
+def _in_heads_layout(q: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """A plain version's output ``out`` in ``_heads_out``'s layout."""
+    laid = _heads_out(q)
+    return out if laid.stride() == out.stride() else laid.copy_(out)
 
-    @staticmethod
-    def forward(ctx, q, k, v, num_heads, causal):
-        ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
-        ctx.num_heads, ctx.causal = num_heads, causal
-        ctx.save_for_backward(q, k, v)
-        if ctx.reference:
-            return mha_bld_reference(q, k, v, num_heads, causal)
-        return mha_bld_fwd_kernel(q, k, v, num_heads, causal)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        if ctx.reference:
-            grads = mha_bld_bwd_reference(q, k, v, g, ctx.num_heads, ctx.causal)
-        else:
-            grads = mha_bld_bwd_kernel(q, k, v, g, ctx.num_heads, ctx.causal)
-        return (*grads, None, None)
+@torch.library.custom_op("anomalyclip::fused_mha_qkv", mutates_args=())
+def _mha_qkv_op(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
+    """K1, or its plain version."""
+    if _use_reference(qkv):
+        block = reference_block(qkv.dtype, qkv.shape[-1] // 3 // num_heads)
+        return mha_qkv_reference(qkv, num_heads, causal, block)
+    return mha_qkv_fwd_kernel(qkv, num_heads, causal)
+
+
+@_mha_qkv_op.register_fake
+def _(qkv, num_heads, causal):
+    b, l, d3 = qkv.shape
+    return qkv.new_empty((b, l, d3 // 3))
+
+
+def _mha_qkv_setup(ctx, inputs, output):
+    """K3 backward; saves only qkv, as ``_mha_qkv_fwd`` (:479-480)."""
+    qkv, ctx.num_heads, ctx.causal = inputs
+    ctx.reference = _use_reference(qkv)  # the forward's choice, kept for backward
+    ctx.save_for_backward(qkv)
+
+
+def _mha_qkv_backward(ctx, g):
+    (qkv,) = ctx.saved_tensors
+    if ctx.reference:
+        return mha_qkv_bwd_reference(qkv, g, ctx.num_heads, ctx.causal), None, None
+    return mha_qkv_bwd_kernel(qkv, g, ctx.num_heads, ctx.causal), None, None
+
+
+_mha_qkv_op.register_autograd(_mha_qkv_backward, setup_context=_mha_qkv_setup)
+
+
+@torch.library.custom_op("anomalyclip::fused_mha_bld", mutates_args=())
+def _mha_bld_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                causal: bool) -> torch.Tensor:
+    """K2, or its plain version."""
+    if _use_reference(q):
+        return mha_bld_reference(q, k, v, num_heads, causal)
+    return mha_bld_fwd_kernel(q, k, v, num_heads, causal)
+
+
+@_mha_bld_op.register_fake
+def _(q, k, v, num_heads, causal):
+    return q.new_empty(q.shape)
+
+
+def _mha_bld_setup(ctx, inputs, output):
+    """K4 backward; saves q, k, v, as ``_mha_bld_fwd`` (:400-401). When k and v
+    are views of one tensor, autograd adds dk and dv into its gradient."""
+    q, k, v, ctx.num_heads, ctx.causal = inputs
+    ctx.reference = _use_reference(q)
+    ctx.save_for_backward(q, k, v)
+
+
+def _mha_bld_backward(ctx, g):
+    q, k, v = ctx.saved_tensors
+    if ctx.reference:
+        grads = mha_bld_bwd_reference(q, k, v, g, ctx.num_heads, ctx.causal)
+    else:
+        grads = mha_bld_bwd_kernel(q, k, v, g, ctx.num_heads, ctx.causal)
+    return (*grads, None, None)
+
+
+_mha_bld_op.register_autograd(_mha_bld_backward, setup_context=_mha_bld_setup)
+
+
+@torch.library.custom_op("anomalyclip::fused_mha_qtile", mutates_args=())
+def _mha_qtile_op(q: torch.Tensor, kv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K6, or its plain version."""
+    if _use_reference(q):
+        return mha_qtile_reference(q, kv, num_heads, reference_block(q.dtype, q.shape[-1] // num_heads))
+    return mha_qtile_fwd_kernel(q, kv, num_heads)
+
+
+@_mha_qtile_op.register_fake
+def _(q, kv, num_heads):
+    return q.new_empty(q.shape)
+
+
+def _mha_qtile_setup(ctx, inputs, output):
+    """K7 backward; saves q and kv, as ``_mha_qtile_fwd`` (:642-643): the
+    backward rebuilds the softmax rows from them."""
+    q, kv, ctx.num_heads = inputs
+    ctx.reference = _use_reference(q)
+    ctx.save_for_backward(q, kv)
+
+
+def _mha_qtile_backward(ctx, g):
+    q, kv = ctx.saved_tensors
+    if ctx.reference:
+        dq, dkv = mha_qtile_bwd_reference(q, kv, g, ctx.num_heads)
+    else:
+        dq, dkv = mha_qtile_bwd_kernel(q, kv, g, ctx.num_heads)
+    return dq, dkv, None
+
+
+_mha_qtile_op.register_autograd(_mha_qtile_backward, setup_context=_mha_qtile_setup)
+
+
+@torch.library.custom_op("anomalyclip::flash_attention_heads", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool,
+              causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8, or its plain version -> (out, lse); lse is empty (shape (0,)) unless
+    ``with_lse``."""
+    if _use_reference(q):
+        got = flash_attention_reference(q, k, v, with_lse, causal=causal)
+        out, lse = got if with_lse else (got, None)
+        out = _in_heads_layout(q, out)
+    else:
+        got = flash_fwd_kernel(q, k, v, with_lse, causal=causal)
+        out, lse = got if with_lse else (got, None)
+    return out, lse if with_lse else q.new_empty((0,), dtype=torch.float32)
+
+
+@_flash_op.register_fake
+def _(q, k, v, with_lse, causal):
+    lse_shape = q.shape[:-1] if with_lse else (0,)
+    return _heads_out(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    """K9 and K10 backward, from q, k, v, the log-sum-exp and the output, as
+    ``_flash_fwd`` (:1071-1073) saves them; the lse is not differentiable."""
+    q, k, v, _, ctx.causal = inputs
+    ctx.reference = _use_reference(q)
+    ctx.save_for_backward(q, k, v, output[1], output[0])
+    ctx.mark_non_differentiable(output[1])
+
+
+def _flash_backward(ctx, g, _):
+    q, k, v, lse, out = ctx.saved_tensors
+    if ctx.reference:
+        grads = flash_attention_bwd_reference(q, k, v, g, lse, out, ctx.causal)
+    else:
+        grads = flash_bwd_kernel(q, k, v, g, lse, out, ctx.causal)
+    return (*grads, None, None)
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+@torch.library.custom_op("anomalyclip::fused_attention", mutates_args=())
+def _fused_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> torch.Tensor:
+    """K5's whole-block branch, or its plain version (rounded as the kernel
+    rounds: ``reference_block``)."""
+    if _use_reference(q):
+        out = fused_attention_reference(q, k, v, causal, reference_block(q.dtype, q.shape[-1]))
+        return _in_heads_layout(q, out)
+    return fused_attention_fwd_kernel(q, k, v, causal)
+
+
+@_fused_attention_op.register_fake
+def _(q, k, v, causal):
+    return _heads_out(q)
+
+
+def _fused_attention_setup(ctx, inputs, output):
+    """K5's backward (K4's route, heads folded, or the KV-blocked pair); saves
+    q, k, v, as ``_fused_attention_fwd`` (:1167-1168)."""
+    q, k, v, ctx.causal = inputs
+    ctx.reference = _use_reference(q)
+    ctx.save_for_backward(q, k, v)
+
+
+def _fused_attention_backward(ctx, g):
+    q, k, v = ctx.saved_tensors
+    if ctx.reference:
+        grads = attention_bwd_reference(q, k, v, g, ctx.causal)
+    else:
+        grads = fused_attention_bwd_kernel(q, k, v, g, ctx.causal)
+    return (*grads, None)
+
+
+_fused_attention_op.register_autograd(_fused_attention_backward, setup_context=_fused_attention_setup)
+
+# every registered op by its entry's name (tests/test_torch_export.py runs
+# torch.library.opcheck on each)
+REGISTERED_OPS = {
+    "fused_mha_qkv": _mha_qkv_op,
+    "fused_mha_bld": _mha_bld_op,
+    "fused_mha_qtile": _mha_qtile_op,
+    "flash_attention_heads": _flash_op,
+    "fused_attention": _fused_attention_op,
+}
 
 
 def fused_mha_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False) -> torch.Tensor:
     """Attention over a packed (B, L, 3D) qkv (lane order q|k|v, the layout of
     ``x @ qkv_w``) -> (B, L, D). Heads are split inside the kernels; the
     gradient is one packed (B, L, 3D) tensor."""
-    return _MhaQkv.apply(qkv, num_heads, causal)
+    return _mha_qkv_op(qkv, num_heads, causal)
 
 
 def fused_mha_bld(
@@ -1613,98 +1783,22 @@ def fused_mha_bld(
 ) -> torch.Tensor:
     """Attention over (B, L, D) q, k, v -> (B, L, D). k and v may be views, e.g.
     the two halves of one (B, L, 2D) projection: the kernels read them in place."""
-    return _MhaBld.apply(q, k, v, num_heads, causal)
-
-
-class _MhaQtile(torch.autograd.Function):
-    """K6 forward, K7 backward; saves q and kv, as ``_mha_qtile_fwd`` (:642-643):
-    the backward rebuilds the softmax rows from them."""
-
-    @staticmethod
-    def forward(ctx, q, kv, num_heads):
-        ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(q, kv)
-        if ctx.reference:
-            block = reference_block(q.dtype, q.shape[-1] // num_heads)
-            return mha_qtile_reference(q, kv, num_heads, block)
-        return mha_qtile_fwd_kernel(q, kv, num_heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, kv = ctx.saved_tensors
-        if ctx.reference:
-            dq, dkv = mha_qtile_bwd_reference(q, kv, g, ctx.num_heads)
-        else:
-            dq, dkv = mha_qtile_bwd_kernel(q, kv, g, ctx.num_heads)
-        return dq, dkv, None
-
-
-class _FlashHeads(torch.autograd.Function):
-    """K8 forward, K9 and K10 backward, over per-head (N, L, dh) or the (B, H,
-    L, dh) views of ``fused_attention``. When a gradient is needed the forward
-    runs with the log-sum-exp and saves q, k, v, lse and the output, as
-    ``_flash_fwd`` (:1071-1073). -> (out, lse); lse is None when neither the
-    caller nor the backward needs it."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, save_lse, causal):
-        ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
-        ctx.causal = causal
-        needs_grad = any(ctx.needs_input_grad[:3])
-        if ctx.reference:
-            forward = functools.partial(flash_attention_reference, causal=causal)
-        else:
-            forward = functools.partial(flash_fwd_kernel, causal=causal)
-        if not (save_lse or needs_grad):
-            return forward(q, k, v, False), None
-        out, lse = forward(q, k, v, True)
-        if needs_grad:
-            ctx.save_for_backward(q, k, v, lse, out)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
-
-    @staticmethod
-    def backward(ctx, g, _):
-        q, k, v, lse, out = ctx.saved_tensors
-        if ctx.reference:
-            grads = flash_attention_bwd_reference(q, k, v, g, lse, out, ctx.causal)
-        else:
-            grads = flash_bwd_kernel(q, k, v, g, lse, out, ctx.causal)
-        return (*grads, None, None)
-
-
-class _FusedAttention(torch.autograd.Function):
-    """K5's whole-block forward (K8's tensor-core entries at head dim 64, K2's
-    kernel with the heads folded at the smaller ones) and its backward (K4's
-    route, heads folded, or the KV-blocked pair); saves q, k, v, as
-    ``_fused_attention_fwd`` (:1167-1168). The reference branch rounds as the
-    kernel does (``reference_block``)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.reference = _use_reference(q)  # the caller's choice, kept for backward
-        ctx.causal = causal
-        ctx.save_for_backward(q, k, v)
-        if ctx.reference:
-            return fused_attention_reference(q, k, v, causal, reference_block(q.dtype, q.shape[-1]))
-        return fused_attention_fwd_kernel(q, k, v, causal)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        if ctx.reference:
-            grads = attention_bwd_reference(q, k, v, g, ctx.causal)
-        else:
-            grads = fused_attention_bwd_kernel(q, k, v, g, ctx.causal)
-        return (*grads, None)
+    return _mha_bld_op(q, k, v, num_heads, causal)
 
 
 def fused_mha_qtile(q: torch.Tensor, kv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Non-causal attention of q (B, L, D) against the packed k|v (B, L, 2D) ->
     (B, L, D), K and V of each head resident in the kernel's shared memory. The
     gradient is dq and one packed (B, L, 2D) dk|dv."""
-    return _MhaQtile.apply(q, kv, num_heads)
+    return _mha_qtile_op(q, kv, num_heads)
+
+
+def _flash_heads(q, k, v, save_lse: bool, causal: bool):
+    """K8 through its op -> (out, lse or None). The forward computes the
+    log-sum-exp when the caller asks for it or a gradient will need it."""
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    out, lse = _flash_op(q, k, v, save_lse or needs_grad, causal)
+    return out, (lse if save_lse else None)
 
 
 def flash_attention_heads(
@@ -1717,7 +1811,7 @@ def flash_attention_heads(
     (not through lse): the backward rebuilds P from the saved log-sum-exp."""
     if q.dim() != 3:
         raise ValueError(f"flash_attention_heads takes per-head (N, L, dh) tensors, not {tuple(q.shape)}")
-    out, lse = _FlashHeads.apply(q, k, v, save_lse, causal)
+    out, lse = _flash_heads(q, k, v, save_lse, causal)
     return (out, lse) if save_lse else out
 
 
@@ -1745,6 +1839,6 @@ def fused_attention(
     takes (an operand type or a head dim that is not instantiated) raises."""
     b, h, l, dh = q.shape
     if mha_kernel_eligible(l, dh, 1, q.dtype, smem_limit(q.device)):
-        return _FusedAttention.apply(q, k, v, causal)
-    out, _ = _FlashHeads.apply(q, k, v, False, causal)
+        return _fused_attention_op(q, k, v, causal)
+    out, _ = _flash_heads(q, k, v, False, causal)
     return out

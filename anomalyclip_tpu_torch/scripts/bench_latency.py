@@ -26,7 +26,8 @@ import argparse
 import numpy as np
 import torch
 
-from anomalyclip_tpu_torch.eval.evaluator import GridScorer, bucket_size
+from anomalyclip_tpu_torch.eval.evaluator import GridScorer
+from anomalyclip_tpu_torch.eval.grids import bucket_size
 from anomalyclip_tpu_torch.models.clip.model import cast_tree
 from anomalyclip_tpu_torch.scripts._bench_models import UCF_LABELS, build_model
 from anomalyclip_tpu_torch.scripts._bench_util import announce_device, median_ms

@@ -42,7 +42,8 @@ from anomalyclip_tpu_torch.data.datamodule import AnomalyCLIPDataModule, DataCon
 from anomalyclip_tpu_torch.data.loader import TrainBatch, limit_count
 from anomalyclip_tpu_torch.data.synthetic import generate_synthetic_dataset
 from anomalyclip_tpu_torch.eval.artifacts import write_metrics_json, write_test_artifacts
-from anomalyclip_tpu_torch.eval.evaluator import GridScorer, _world_size, encode_frames_chunked, evaluate_videos
+from anomalyclip_tpu_torch.eval.evaluator import GridScorer, _world_size, evaluate_videos
+from anomalyclip_tpu_torch.eval.grids import encode_frames_chunked
 from anomalyclip_tpu_torch.eval.metrics import detection_metrics
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP, AnomalyCLIPConfig, read_classnames
 from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
@@ -786,11 +787,9 @@ class AnomalyCLIPTrainModule:
         state: Optional[TrainState] = None,
         limit: Optional[int] = None,
     ) -> Dict:
-        """Full test pass + artifacts (anomaly_clip_module.py:459-691)."""
-        if self.datamodule.cfg.visualize:
-            raise NotImplementedError(
-                "data.visualize: the visualizer is not ported yet (ROADMAP.md section 1, item 6)"
-            )
+        """Full test pass + artifacts (anomaly_clip_module.py:459-691); with
+        ``data.visualize``, an mp4 of each video that has frames
+        (eval/visualizer.py)."""
         if state is None:
             if ckpt_path is None:
                 raise ValueError("test() needs a checkpoint path or a TrainState")
@@ -803,7 +802,20 @@ class AnomalyCLIPTrainModule:
         test_loader = self.datamodule.test_dataloader(
             limit=limit_count(len(self.datamodule.test_dataloader()), limit)
         )
-        outputs = evaluate_videos(test_loader, self._scorer(state), self.model)
+        on_video = None
+        if self.datamodule.cfg.visualize:
+            from anomalyclip_tpu_torch.eval.visualizer import Visualizer
+
+            viz = Visualizer(
+                normal_id=self.net_cfg.normal_id,
+                labels_file=self.datamodule.cfg.labels_file,
+                image_tmpl=self.datamodule.cfg.image_tmpl,
+                save_dir=self.save_dir,
+                frame_step=self.datamodule.cfg.visualize_frame_step,
+            )
+            on_video = viz.process_video
+
+        outputs = evaluate_videos(test_loader, self._scorer(state), self.model, on_video=on_video)
         if not outputs:
             # empty test pass (limit_test_batches=0 / empty annotation file)
             log.warning("test pass scored zero videos — no metrics written")

@@ -263,7 +263,45 @@ script exits non-zero without printing a result:
    trial's run directory; the multirun's two run directories. It prints the
    seconds to compose, to read and convert the CLIP file (and its bytes), to
    build the module, of each epoch, the test pass, the whole eval entry, each
-   trial and each job, with the card's name and power limit;
+   trial and each job, with the card's name and power limit. The run's
+   directory and the CLIP file are kept for 4i;
+4i. the serving surface, on 4h's run (``checkpoints/last``, its
+   ncentroid.npy, the CLIP file) and 4f's feature set under UCFCRIME_ROOT.
+   Every main-path call runs with the launch counts set to 0 just before it
+   and read just after, and must launch exactly its K1 (all on ``mha_tf32``)
+   and K2 (all on ``bld_tf32``) and nothing else: the text tower once a
+   ``score_input`` and once an export, the image tower once an encode chunk,
+   the temporal model's two axial attentions a layer once a scoring call. The
+   references run outside those windows. The calls: ``predict.main`` on
+   SERVE_VIDEOS test videos' ``.npy`` features, each prediction (the JSON's
+   scores and top-class probabilities, six decimals) within SERVE_TOL of
+   ``evaluate_videos``' scores and class probabilities for the video;
+   ``score_input`` on each, and on a seeded SERVE_FRAME_VIDEO-frame uint8
+   video, equal within SERVE_TOL to ``Predictor.score_frames`` (phase 4's
+   entry) on the same model; ``serve`` over the same videos in its stdin mode
+   and its watch mode (``stop_after``), one JSON per input or the phase fails
+   (the service itself logs a bad input and goes on), each equal to the
+   predict CLI's; the export CLI with the encoder, ``ServingArtifact.load`` on
+   the card, and the artifact's scores within SERVE_TOL of the checkpoint's
+   on the features and within ARTIFACT_FRAMES_TOL on the uint8 video
+   (normalized on the host), the score graph at g = 1, 2 and 5 from the one
+   export within SERVE_TOL of the scorer; ``eval_entry.main(artifact=...)``
+   on the feature set, AUC, AP, mAUC and mAP within SERVE_TOL of the
+   checkpoint's eval; ``extract_features.FeatureWriter`` on EXTRACT_FRAMES
+   seeded uint8 videos, the ``.npy`` files within SERVE_TOL of
+   ``encode_frames``; the graft entry's function (``graft_entry.entry()``:
+   ViT-B/16, 512 frames, bf16) with every K1 launch on ``mha_tc``, within
+   BF16_SLICE_TOL of itself under the plain attention; and one XD_FRAMES-frame
+   (T, 512) fp32 feature ``.npy`` through ``predict.main`` in a subprocess,
+   which counts its own launches (held as above), its scores within
+   XD_CHUNK_TOL of chunk-aligned scoring of the same file (grids in batches
+   of XD_CHUNK_GRIDS), its peak resident memory above what it holds once the
+   CUDA context is up within XD_GROWTH_MIB. It prints the predict CLI's
+   seconds and the scoring's alone a video, serve's seconds an input, the
+   export's seconds and the artifact's bytes, the load's seconds, the
+   artifact's and the checkpoint's scoring seconds a video, extraction frames
+   a second, and the XD subprocess's seconds and resident memory after each
+   stage and at its peak, with the card's name and power limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one warm training step, one warm call of the ViT-L/14@336px video
@@ -273,7 +311,7 @@ script exits non-zero without printing a result:
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
-gradient, script, data, training-run and command-line runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+gradient, script, data, training-run, command-line and serving runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -525,6 +563,28 @@ FIT_VALUES = {"model.net.clip_init": "random-full", "model.net.select_idx_dropou
               "model.net.select_idx_dropout_bottomk": 0.0, "trainer.max_epochs": FIT_EPOCHS}
 FIT_OVERRIDES = tuple(FIT_VALUES)
 TEMPORAL_ANNOTATIONS = "Temporal_Anomaly_Annotation_for_Testing_Videos.txt"
+# phase 4i: the serving surface on 4h's run. SERVE_TOL: the same functions on
+# the same inputs (the checkpoint's path twice, the artifact on features), up
+# to the six decimals of a prediction's JSON; ARTIFACT_FRAMES_TOL: the
+# artifact's encode graph reads frames normalized on the host (the same fp32
+# arithmetic as on the card); XD_CHUNK_TOL: a JSON's six decimals against the
+# same grids scored in batches of XD_CHUNK_GRIDS (tests/test_xd_scale.py's
+# limit)
+SERVE_VIDEOS, SERVE_FRAME_VIDEO, EXTRACT_FRAMES = 4, 700, (300, 100)
+SERVE_TOL, ARTIFACT_FRAMES_TOL = 1e-6, 1e-5
+XD_FRAMES, XD_CHUNK_GRIDS, XD_CHUNK_TOL = 100_000, 16, 1e-5
+# the XD child's peak resident memory above what it holds once the CUDA context
+# is up. Not its whole resident size, as tests/test_xd_scale.py bounds the JAX
+# process's on the CPU: on the card's machine the resident size counts every
+# page of the CUDA libraries torch maps (libtorch_cuda, cuBLAS, cuSPARSE, NCCL,
+# ...), 4,542 MiB after `import torch` alone. Above the context (NVIDIA H100
+# 80GB HBM3, 700 W): the CLIP file and the module 136 MiB, the 205 MB feature
+# file 195 MiB, then the scoring, which maps cuDNN's precompiled engines (492
+# MiB) and cuBLAS's on first use and holds the gathered copy and the
+# bucket-padded grids (256 grids of 512 frames, 268 MB): 2,170 MiB at the
+# peak. 3 GiB leaves 0.9 GiB for the spread between runs, which is not
+# measured
+XD_GROWTH_MIB = 3072
 
 
 def phase_device() -> str:
@@ -1615,6 +1675,16 @@ def build_ucf_model(device: str, compute_dtype: str = "float32", load_from_featu
             bn_state.to(device), ncentroid)
 
 
+def ucf_sampling() -> SimpleNamespace:
+    """The sampling sizes of configs/data/ucfcrime.yaml (num_segments,
+    seg_length, stride), read with the port's YAML reader: what
+    ``Predictor`` samples a video by."""
+    from anomalyclip_tpu_torch.config import default_config_dir, load_yaml
+
+    data = load_yaml(default_config_dir() / "data" / "ucfcrime.yaml")
+    return SimpleNamespace(**{k: int(data[k]) for k in ("num_segments", "seg_length", "stride")})
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -1680,7 +1750,8 @@ def phase_slice() -> tuple:
 
     # the main path: counters from zero, predictor built, three videos scored
     reset_launch_counts()
-    predictor = Predictor(model, frozen, trainable, bn_state, ncentroid, device="cuda")
+    predictor = Predictor(model, frozen, trainable, bn_state, ncentroid, device="cuda",
+                          sampling=ucf_sampling())
     outputs = {}
     for t_raw, frames in videos.items():
         start = time.perf_counter()
@@ -1714,7 +1785,8 @@ def phase_slice() -> tuple:
                                    bld=expected["fused_mha_bld"]))
 
     with attention_impl("reference"):
-        ref_predictor = Predictor(model, frozen, trainable, bn_state, ncentroid, device="cuda")
+        ref_predictor = Predictor(model, frozen, trainable, bn_state, ncentroid, device="cuda",
+                                  sampling=ucf_sampling())
         ref_vs, _ = ref_predictor.score_frames(videos[CHECK_VIDEO])
     torch.cuda.synchronize()
     err = assert_videos_close(outputs[CHECK_VIDEO], ref_vs, FP32_SLICE_TOL, "fp32 kernel vs plain")
@@ -1726,7 +1798,8 @@ def phase_slice() -> tuple:
     # the bf16 path: counters from zero, predictor built, one video scored; every
     # K1 launch, text and image tower, takes the tensor-core kernel
     reset_launch_counts()
-    pred16 = Predictor(model16, frozen, trainable, bn_state, ncentroid, device="cuda")
+    pred16 = Predictor(model16, frozen, trainable, bn_state, ncentroid, device="cuda",
+                       sampling=ucf_sampling())
     start = time.perf_counter()
     vs16, res16 = pred16.score_frames(videos[CHECK_VIDEO])
     torch.cuda.synchronize()
@@ -1747,7 +1820,8 @@ def phase_slice() -> tuple:
     print(f"[slice] bf16 video {CHECK_VIDEO} frames: {seconds:.3f} s, "
           f"{CHECK_VIDEO / seconds:.1f} frames/s")
     with attention_impl("reference"):
-        ref16 = Predictor(model16, frozen, trainable, bn_state, ncentroid, device="cuda")
+        ref16 = Predictor(model16, frozen, trainable, bn_state, ncentroid, device="cuda",
+                          sampling=ucf_sampling())
         ref16_vs, _ = ref16.score_frames(videos[CHECK_VIDEO])
     torch.cuda.synchronize()
     err16 = assert_videos_close(vs16, ref16_vs, BF16_SLICE_TOL, "bf16 kernel vs plain")
@@ -1992,7 +2066,8 @@ def phase_l14() -> dict:
         # the main path: counters from zero, predictor built, the video scored
         reset_launch_counts()
         start = time.perf_counter()
-        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda")
+        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda",
+                              sampling=ucf_sampling())
         vs, result = predictor.score_frames(frames)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
@@ -2011,7 +2086,8 @@ def phase_l14() -> dict:
 
         start = time.perf_counter()
         with attention_impl("reference"):
-            ref = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda")
+            ref = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda",
+                            sampling=ucf_sampling())
             ref_vs, _ = ref.score_frames(frames)
         torch.cuda.synchronize()
         plain_seconds = time.perf_counter() - start
@@ -2512,7 +2588,8 @@ def phase_data(smi: str, frames_root: Path, annotations: Path) -> dict:
     detection metrics -> the kernel launch counts of that run."""
     from anomalyclip_tpu_torch.convert import tree_leaves, tree_map
     from anomalyclip_tpu_torch.data import AnomalyCLIPDataModule, DataConfig
-    from anomalyclip_tpu_torch.eval.evaluator import DEFAULT_BUCKETS, GridScorer, bucket_size, evaluate_videos
+    from anomalyclip_tpu_torch.eval.evaluator import GridScorer, evaluate_videos
+    from anomalyclip_tpu_torch.eval.grids import DEFAULT_BUCKETS, bucket_size
     from anomalyclip_tpu_torch.eval.metrics import detection_metrics
     from anomalyclip_tpu_torch.models.losses import LossConfig
     from anomalyclip_tpu_torch.models.selector import BNState
@@ -3172,25 +3249,38 @@ def entry_module_class(made: list):
     return Recorded
 
 
-def phase_entry(smi: str, frames_root: Path, annotations: Path) -> dict:
+def ucf_data_root(tmp: Path, frames_root: Path, annotations: Path) -> Path:
+    """The layout data/ucfcrime.yaml reads under UCFCRIME_ROOT, as links to the
+    feature set, under ``tmp`` -> the root; sets UCFCRIME_ROOT to it and
+    ANOMALYCLIP_NO_DOWNLOAD (the caller restores both)."""
+    import os
+
+    data_root = tmp / "UCFCrime"
+    data_root.mkdir()
+    (data_root / "Image-Features").symlink_to(frames_root.resolve(), target_is_directory=True)
+    (data_root / "Annotations").symlink_to(annotations.resolve(), target_is_directory=True)
+    (data_root / TEMPORAL_ANNOTATIONS).symlink_to((annotations / TEMPORAL_ANNOTATIONS).resolve())
+    os.environ["UCFCRIME_ROOT"] = str(data_root)
+    os.environ["ANOMALYCLIP_NO_DOWNLOAD"] = "1"
+    return data_root
+
+
+def phase_entry(smi: str, frames_root: Path, annotations: Path, keep: Path) -> dict:
     """The published UCF-Crime experiment through the port's command line on
     the feature set of phase 4f, under ``deterministic_mode`` -> the kernel
-    launch counts of its main path."""
+    launch counts of its main path. The entry run's directory and the CLIP
+    file move to ``keep`` (``run``, ``ViT-B-16.pt``) for phase 4i."""
     import os
 
     saved = {k: os.environ.get(k) for k in ("UCFCRIME_ROOT", "ANOMALYCLIP_NO_DOWNLOAD")}
     try:
         with tempfile.TemporaryDirectory(prefix="entry_runs_", dir=ROOT / "build") as tmp, deterministic_mode() as caught:
             tmp = Path(tmp)
-            # the layout data/ucfcrime.yaml reads under UCFCRIME_ROOT
-            data_root = tmp / "UCFCrime"
-            data_root.mkdir()
-            (data_root / "Image-Features").symlink_to(frames_root.resolve(), target_is_directory=True)
-            (data_root / "Annotations").symlink_to(annotations.resolve(), target_is_directory=True)
-            (data_root / TEMPORAL_ANNOTATIONS).symlink_to((annotations / TEMPORAL_ANNOTATIONS).resolve())
-            os.environ["UCFCRIME_ROOT"] = str(data_root)
-            os.environ["ANOMALYCLIP_NO_DOWNLOAD"] = "1"
-            return run_entries(smi, tmp, caught)
+            ucf_data_root(tmp, frames_root, annotations)
+            launches = run_entries(smi, tmp, caught)
+            (tmp / "entry" / "train" / "runs" / "ucfcrime").rename(keep / "run")
+            (tmp / "ViT-B-16.pt").rename(keep / "ViT-B-16.pt")
+            return launches
     finally:
         restore_env(saved)
 
@@ -3352,6 +3442,349 @@ def run_entries(smi: str, tmp: Path, caught: list) -> dict:
     return launches
 
 
+def counts_taken() -> dict:
+    """The launch and route counts since they were last set to 0, which they
+    are again."""
+    from anomalyclip_tpu_torch.ops.attention import launch_counts, reset_launch_counts, route_counts
+
+    counts = {**launch_counts, **route_counts}
+    reset_launch_counts()
+    return counts
+
+
+def phase_serving(smi: str, frames_root: Path, annotations: Path, kept: Path) -> dict:
+    """The serving surface on phase 4h's run, kept in ``kept``, and 4f's
+    feature set -> the kernel launch and route counts of its main path."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("UCFCRIME_ROOT", "ANOMALYCLIP_NO_DOWNLOAD")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="serving_", dir=ROOT / "build") as tmp:
+            tmp = Path(tmp)
+            data_root = ucf_data_root(tmp, frames_root, annotations)
+            return run_serving(smi, tmp, data_root, kept / "run", kept / "ViT-B-16.pt")
+    finally:
+        restore_env(saved)
+
+
+# phase 4i's subprocess: predict.main on its arguments, timed, with its own
+# launch and route counts and its resident memory (/proc/self/statm) after each
+# stage (imports; the CUDA context; the module built; the input loaded; the
+# input scored) and at its peak, sampled every 5 ms (the card's sandbox has no
+# VmHWM; ru_maxrss would count the parent's peak, which it keeps across exec)
+XD_CHILD = """
+import json, os, sys, threading, time
+import torch
+from anomalyclip_tpu_torch import predict
+from anomalyclip_tpu_torch.ops.attention import launch_counts, route_counts
+
+PAGE = os.sysconf("SC_PAGE_SIZE")
+
+def memory():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE
+
+peak, done, stages = [memory()], threading.Event(), {}
+
+def sample():
+    while not done.wait(0.005):
+        peak[0] = max(peak[0], memory())
+
+def stage(name):
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    stages[name] = memory()
+
+def then(name, fn):
+    def staged(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        stage(name)
+        return out
+    return staged
+
+real_load = predict.load_module_and_state
+
+def load(cfg, device):
+    torch.zeros(1, device=device)
+    stage("CUDA context")
+    return real_load(cfg, device)
+
+stage("imports")
+predict.load_module_and_state = then("module built", load)
+predict._load_input = then("input loaded", predict._load_input)
+predict.score_input = then("input scored", predict.score_input)
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+start = time.perf_counter()
+result = predict.main(sys.argv[1:])
+torch.cuda.synchronize()
+seconds = time.perf_counter() - start
+done.set()
+sampler.join()
+print(json.dumps({"seconds": seconds, "peak": max(peak[0], memory(), *stages.values()), "stages": stages,
+                  "num_frames": result["num_frames"],
+                  "counts": {**launch_counts, **route_counts}}))
+"""
+
+
+def run_serving(smi: str, tmp: Path, data_root: Path, run: Path, clip_path: Path) -> dict:
+    """Phase 4i's runs; see the module docstring."""
+    import io
+    import os
+    import subprocess
+
+    from anomalyclip_tpu_torch import eval_entry, export, extract_features, graft_entry, predict, serve
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+    from anomalyclip_tpu_torch.data.sampling import gather_frame_indices, test_start_indices
+    from anomalyclip_tpu_torch.eval.evaluator import evaluate_videos
+    from anomalyclip_tpu_torch.eval.grids import encode_frames_chunked, score_sampled_features
+    from anomalyclip_tpu_torch.export import ServingArtifact
+    from anomalyclip_tpu_torch.ops.attention import attention_impl
+
+    phase_start = time.perf_counter()
+    common = ["data=ucfcrime", "model=anomaly_clip_ucfcrime", f"model.net.clip_ckpt_path={clip_path}",
+              f"ckpt_path={run / 'checkpoints' / 'last'}", "extras.print_config=False"]
+    videos = [data_root / "Image-Features" / f"test_{i:03d}.npy" for i in range(SERVE_VIDEOS)]
+    rng = np.random.default_rng(SEED + 5)
+    frames_video = rng.integers(0, 256, (1, SERVE_FRAME_VIDEO, 224, 224, 3), dtype=np.uint8)
+    counts = []  # the main path's counts, call by call
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - begin
+
+    def exact(what: str, got: dict, k1: int, k2: int, k1_route: str = "mha_tf32") -> dict:
+        """Exactly k1 K1 launches, all on k1_route, and k2 K2 launches, all on
+        bld_tf32, and nothing else -> got."""
+        want = dict.fromkeys(got, 0)
+        want.update({"fused_mha_qkv": k1, k1_route: k1, "fused_mha_bld": k2, "bld_tf32": k2})
+        require(got == want, f"{what}: launches {({k: v for k, v in got.items() if v})}, expected "
+                             f"{({k: v for k, v in want.items() if v})}")
+        return got
+
+    def counted(what: str, fn, k1: int = 0, k2: int = 0, k1_route: str = "mha_tf32"):
+        """A main-path call, the counts set to 0 just before it and read just
+        after, held to ``exact`` -> (its output, its seconds). The references
+        run outside these windows."""
+        counts_taken()
+        out, seconds = timed(fn)
+        counts.append(exact(what, counts_taken(), k1, k2, k1_route))
+        return out, seconds
+
+    # the checkpoint-backed module, as the CLIs build it
+    cfg = to_dict(compose(default_config_dir(), "eval", common + [f"paths.log_dir={tmp / 'module'}"]))
+    (module, state), module_s = counted("load_module_and_state",
+                                        lambda: predict.load_module_and_state(cfg, "cuda"))
+    require(np.array_equal(module.ncentroid, np.load(run / "ncentroid.npy")), "the ncentroid beside the run")
+    # K1 launches: the text tower once a scorer update (every score_input),
+    # the image tower once an encode chunk; K2: the temporal model's two axial
+    # attentions a layer, once a scoring call
+    text_k1, image_layers = module.model.clip_cfg.transformer_layers, module.model.clip_cfg.vision_layers
+    k2 = 2 * module.model.cfg.depth
+    grid_frames = module.model.cfg.num_segments * module.model.cfg.seg_length
+    frame_chunks = -(-(-(-SERVE_FRAME_VIDEO // grid_frames) * grid_frames) // module.model.ENCODE_CHUNK)
+
+    # reference: the test pass's own scores of the first videos
+    scorer = module._scorer(state)
+    tested = []
+    evaluate_videos(module.datamodule.test_dataloader(limit=SERVE_VIDEOS), scorer, module.model,
+                    on_video=tested.append)
+    require([Path(vs.path) for vs in tested] == videos, f"test videos {[vs.path for vs in tested]}")
+
+    # predict CLI on each video; the scoring alone on the module
+    cli_s, score_s, results, direct = [], [], {}, {}
+    for path, vs in zip(videos, tested):
+        out = tmp / "predict" / f"{path.stem}.json"
+        result, seconds = counted(f"predict.main {path.stem}",
+                                  lambda: predict.main(common + [f"input={path}", f"output={out}",
+                                                                 f"paths.log_dir={tmp / 'cli'}"]),
+                                  text_k1, k2)
+        cli_s.append(seconds)
+        require(json.loads(out.read_text()) == result, f"{out} is not the returned prediction")
+        require(result["num_frames"] == len(vs.scores), f"{path.stem}: {result['num_frames']} frames")
+        gap = max(float(np.abs(np.asarray(result["frame_scores"]) - vs.scores).max()),
+                  float(np.abs(np.asarray(result["frame_top_class_prob"]) - vs.class_probs.max(axis=1)).max()))
+        require(gap <= SERVE_TOL, f"{path.stem}: predict vs the test pass max|diff| {gap:.3e}")
+        raw = predict._load_input(path, cfg["data"], 224)
+        (direct[path], _), seconds = counted(f"score_input {path.stem}",
+                                             lambda: predict.score_input(module, state, raw, str(path)),
+                                             text_k1, k2)
+        score_s.append(seconds)
+        assert_videos_close(direct[path], vs, SERVE_TOL, f"{path.stem}: score_input vs the test pass")
+        results[path] = result
+
+    # score_input on frames against phase 4's entry on the same model
+    (frames_vs, frames_result), frames_s = counted(
+        "score_input on frames", lambda: predict.score_input(module, state, frames_video, "seeded_video"),
+        text_k1 + image_layers * frame_chunks, k2)
+    predictor = predict.Predictor(module.model, module.frozen, state.trainable, state.bn_state, module.ncentroid,
+                                  sampling=module.datamodule.cfg, device="cuda")
+    predictor_vs, _ = predictor.score_frames(frames_video, "seeded_video")
+    frames_gap = assert_videos_close(frames_vs, predictor_vs, SERVE_TOL, "score_input vs Predictor, frames")
+    check_video(frames_vs, frames_result, SERVE_FRAME_VIDEO, len(module.model.classnames) - 1)
+
+    # serve, stdin and watch, one JSON per input, each the predict CLI's
+    real_finish, finish_s = serve._finish, []
+
+    def timed_finish(*args):
+        finish_s.append(timed(lambda: real_finish(*args))[1])
+
+    watch = tmp / "incoming"
+    watch.mkdir()
+    for path in videos:
+        (watch / path.name).symlink_to(path.resolve())
+    real_stdin = sys.stdin
+    serve._finish = timed_finish
+    try:
+        sys.stdin = io.StringIO("".join(f"{path}\n" for path in videos))
+        counted("serve (stdin)", lambda: serve.main(common + [f"output_dir={tmp / 'served_stdin'}",
+                                                              f"paths.log_dir={tmp / 'serve'}"]),
+                SERVE_VIDEOS * text_k1, SERVE_VIDEOS * k2)
+        stdin_s = list(finish_s)
+        counted("serve (watch)", lambda: serve.main(common + [f"watch={watch}", "poll_interval=0.25", "stop_after=1",
+                                                              f"output_dir={tmp / 'served_watch'}",
+                                                              f"paths.log_dir={tmp / 'serve'}"]),
+                SERVE_VIDEOS * text_k1, SERVE_VIDEOS * k2)
+    finally:
+        sys.stdin, serve._finish = real_stdin, real_finish
+    for mode in ("stdin", "watch"):
+        for path in videos:
+            out = tmp / f"served_{mode}" / f"{path.stem}.json"
+            require(out.is_file(), f"serve ({mode}) wrote no {out.name}")
+            got, want = json.loads(out.read_text()), dict(results[path])
+            if mode == "watch":
+                require(got.pop("input") == str(watch / path.name), f"watch input {out.name}")
+                want.pop("input")
+            require(got == want, f"serve ({mode}) {out.name} differs from the predict CLI's")
+
+    # export (the text features once; the graphs are traced on fake tensors),
+    # then the artifact on the card
+    art_dir, export_s = counted("export", lambda: export.main(common + [f"out={tmp / 'artifact'}",
+                                                                        f"paths.log_dir={tmp / 'x'}"]), text_k1)
+    art_bytes = sum(f.stat().st_size for f in Path(art_dir).iterdir())
+    art, load_s = counted("ServingArtifact.load", lambda: ServingArtifact.load(art_dir, device="cuda"))
+    g_grids = {g: rng.standard_normal((g, 32, 16, FEATURE_DIM)).astype(np.float32) for g in (1, 2, 5)}
+    g_want = {g: [t.cpu().numpy() for t in scorer._score(torch.from_numpy(x).cuda())] for g, x in g_grids.items()}
+    raws = {path: predict._load_input(path, cfg["data"], 224) for path in videos}
+    art_s, art_outputs = [], {}
+    for path in videos:
+        art_outputs[path], seconds = counted(f"the artifact on {path.stem}", lambda: art.score_video(raws[path]),
+                                             0, k2)
+        art_s.append(seconds)
+    art_frames, art_frames_s = counted("the artifact on frames", lambda: art.score_video(frames_video),
+                                       image_layers * frame_chunks, k2)
+    g_got = {g: counted(f"the score graph at g = {g}", lambda: art.score(x), 0, k2)[0] for g, x in g_grids.items()}
+    artifact_counts = {k: sum(c[k] for c in counts[-len(videos) - 1 - len(g_grids):]) for k in counts[0]}
+    gaps = []
+    for path in videos:
+        want = direct[path]
+        for got, name in zip(art_outputs[path], ("similarity", "scores", "class_probs")):
+            gaps.append(float(np.abs(got - getattr(want, name)).max()))
+    require(max(gaps) <= SERVE_TOL, f"artifact vs checkpoint on features max|diff| {max(gaps):.3e}")
+    frames_art_gap = max(float(np.abs(got - getattr(frames_vs, name)).max())
+                         for got, name in zip(art_frames, ("similarity", "scores", "class_probs")))
+    require(frames_art_gap <= ARTIFACT_FRAMES_TOL, f"artifact vs checkpoint from frames {frames_art_gap:.3e}")
+    g_gap = max(float(np.abs(a - b).max()) for g in g_grids for a, b in zip(g_got[g], g_want[g]))
+    require(g_gap <= SERVE_TOL, f"score graph at g = 1, 2, 5 vs the scorer max|diff| {g_gap:.3e}")
+
+    # the eval entry on the artifact against the checkpoint's eval
+    test_videos = len(module.datamodule.test_dataloader())
+    ckpt_eval, ckpt_eval_s = timed(lambda: eval_entry.main(common + [f"paths.log_dir={tmp / 'eval_ckpt'}"]))
+    art_eval, art_eval_s = counted("eval_entry artifact=", lambda: eval_entry.main(
+        [f"artifact={art_dir}", "data=ucfcrime", "extras.print_config=False",
+         f"paths.output_dir={tmp / 'eval_art'}"]), 0, k2 * test_videos)
+    eval_gap = max(abs(art_eval[k] - ckpt_eval[k]) for k in EVAL_METRICS[:4])
+    require(eval_gap <= SERVE_TOL, f"artifact eval vs checkpoint eval max|diff| {eval_gap:.3e}")
+
+    # extraction: encode and write seeded uint8 videos, no decoder
+    writer, _ = counted("FeatureWriter", lambda: extract_features.FeatureWriter(
+        module.frozen["clip"], module.model.clip_cfg, torch.float32, "cuda"))
+    extract_s, extract_gap = 0.0, 0.0
+    for n in EXTRACT_FRAMES:
+        video = rng.integers(0, 256, (1, n, 224, 224, 3), dtype=np.uint8)
+        out = tmp / "extract" / f"video_{n}.npy"
+        feats, seconds = counted(f"extraction of {n} frames", lambda: writer.write(
+            out, [writer.encode(video[:, lo:lo + writer.batch]) for lo in range(0, n, writer.batch)]),
+            image_layers * -(-n // writer.batch))
+        extract_s += seconds
+        want = encode_frames_chunked(lambda part: module.model.encode_frames(module.frozen, part), video[0], "cuda")
+        require(np.array_equal(np.load(out), feats) and feats.shape == want.shape, f"{out.name}")
+        extract_gap = max(extract_gap, float(np.abs(feats - want).max()))
+    require(extract_gap <= SERVE_TOL, f"extracted features vs encode_frames max|diff| {extract_gap:.3e}")
+
+    # the graft entry: bf16, K1 on the tensor-core kernel, K2 on bld_tf32
+    cfg16, clip16 = graft_entry.flagship_config()
+    graft_k1 = clip16.transformer_layers + clip16.vision_layers * (cfg16.num_segments * cfg16.seg_length // 256)
+    (fn, args), _ = counted("graft_entry.entry", graft_entry.entry)
+    (sim16, scores16), graft_s = counted("the graft entry's function", lambda: fn(*args), graft_k1,
+                                         2 * cfg16.depth, "mha_tc")
+    graft_counts = counts[-1]
+    with attention_impl("reference"):
+        ref_sim, ref_scores = fn(*args)
+    graft_gap = max(float((sim16.float() - ref_sim.float()).abs().max()),
+                    float((scores16.float() - ref_scores.float()).abs().max()))
+    require(torch.isfinite(sim16).all() and torch.isfinite(scores16).all() and graft_gap <= BF16_SLICE_TOL,
+            f"graft entry kernels vs plain max|diff| {graft_gap:.3e}")
+    del fn, args
+    torch.cuda.empty_cache()
+
+    # XD-Violence scale: one long feature file through predict in a subprocess,
+    # which counts its own launches
+    xd = tmp / "xd_video.npy"
+    np.save(xd, np.float32(0.1) * rng.standard_normal((XD_FRAMES, FEATURE_DIM), dtype=np.float32))
+    xd_out = tmp / "xd_video.json"
+    proc = subprocess.run([sys.executable, "-c", XD_CHILD, *common, f"input={xd}", f"output={xd_out}",
+                           f"paths.log_dir={tmp / 'xd'}"], cwd=ROOT, env=dict(os.environ),
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"XD child failed: {proc.stderr[-2000:]}")
+    xd_run = json.loads(proc.stdout.strip().splitlines()[-1])
+    counts.append(exact("the XD child", xd_run["counts"], text_k1, k2))
+    mib = {name: round(x / 2**20, 1) for name, x in {**xd_run["stages"], "peak": xd_run["peak"]}.items()}
+    growth = mib["peak"] - mib["CUDA context"]
+    print(f"[serve] XD child resident MiB after each stage and at its peak {mib} ({smi})", flush=True)
+    require(growth <= XD_GROWTH_MIB, f"XD child: peak resident {growth:.1f} MiB above the CUDA context's "
+                                     f"(limit {XD_GROWTH_MIB})")
+    xd_scores = np.asarray(json.loads(xd_out.read_text())["frame_scores"])
+    raw = predict._load_input(xd, cfg["data"], 224)
+    starts, segment_size = test_start_indices(XD_FRAMES, 32, 16, 1)
+    sampled = raw[:, gather_frame_indices(starts, 16, 1, XD_FRAMES)]
+
+    def chunked(grids):
+        parts = [scorer.score_grids(grids[i:i + XD_CHUNK_GRIDS]) for i in range(0, len(grids), XD_CHUNK_GRIDS)]
+        return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+    _, xd_chunked, _ = score_sampled_features(sampled, segment_size, 32, 16, 1, XD_FRAMES, chunked)
+    xd_gap = float(np.abs(xd_scores - xd_chunked).max())
+    require(xd_run["num_frames"] == XD_FRAMES == len(xd_scores) and xd_gap <= XD_CHUNK_TOL,
+            f"XD: {xd_run['num_frames']} frames, chunk-aligned max|diff| {xd_gap:.3e}")
+    torch.cuda.synchronize()
+
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    print(f"[serve] launches, {len(counts)} main-path calls each held exactly {launches}; the artifact's calls "
+          f"{artifact_counts}; the graft entry's {graft_counts}", flush=True)
+    print(f"[serve] module from the run {module_s:.3f} s; predict CLI a video "
+          f"{', '.join(f'{x:.3f}' for x in cli_s)} s, its scoring alone {', '.join(f'{x:.4f}' for x in score_s)} s; "
+          f"from {SERVE_FRAME_VIDEO} uint8 frames {frames_s:.3f} s (vs Predictor max|diff| {frames_gap:.3e}) ({smi})")
+    print(f"[serve] serve an input (stdin) {', '.join(f'{x:.4f}' for x in stdin_s)} s, (watch) "
+          f"{', '.join(f'{x:.4f}' for x in finish_s[len(stdin_s):])} s; export {export_s:.3f} s, "
+          f"{art_bytes} B; load {load_s:.3f} s ({smi})")
+    print(f"[serve] artifact a video {', '.join(f'{x:.4f}' for x in art_s)} s vs checkpoint "
+          f"{', '.join(f'{x:.4f}' for x in score_s)} s; from frames {art_frames_s:.3f} s vs {frames_s:.3f} s; "
+          f"max|diff| features {max(gaps):.3e} (limit {SERVE_TOL:g}), frames {frames_art_gap:.3e} (limit "
+          f"{ARTIFACT_FRAMES_TOL:g}), g = 1, 2, 5 {g_gap:.3e}; eval artifact {art_eval_s:.3f} s vs checkpoint "
+          f"{ckpt_eval_s:.3f} s, metrics max|diff| {eval_gap:.3e} ({smi})")
+    print(f"[serve] extraction {sum(EXTRACT_FRAMES) / extract_s:.1f} frames/s, vs encode_frames max|diff| "
+          f"{extract_gap:.3e}; graft entry {graft_s:.3f} s, kernels vs plain max|diff| {graft_gap:.3e} (limit "
+          f"{BF16_SLICE_TOL:g}); XD {XD_FRAMES} frames through predict in a subprocess {xd_run['seconds']:.3f} s, "
+          f"peak resident {mib['peak']:.1f} MiB, {growth:.1f} MiB above the CUDA context's (limit {XD_GROWTH_MIB}; "
+          f"statm sampled every 5 ms), vs chunk-aligned max|diff| {xd_gap:.3e} (limit {XD_CHUNK_TOL:g}); the "
+          f"phase {time.perf_counter() - phase_start:.1f} s ({smi})", flush=True)
+    return launches
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
@@ -3455,7 +3888,8 @@ def phase_profile(out: Path, smi: str) -> None:
     for dtype in ("float32", "bfloat16"):
         m = AnomalyCLIP(dataclasses.replace(model.cfg, compute_dtype=dtype),
                         model.clip_cfg, model.classnames, model.prompt_spec)
-        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda")
+        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda",
+                              sampling=ucf_sampling())
         results[dtype] = profile_call(lambda: predictor.score_frames(frames))
         print_profile(f"{dtype} {CHECK_VIDEO} frames", results[dtype])
 
@@ -3488,7 +3922,8 @@ def phase_profile(out: Path, smi: str) -> None:
     for dtype in ("float32", "bfloat16"):
         m = AnomalyCLIP(dataclasses.replace(model.cfg, compute_dtype=dtype),
                         model.clip_cfg, model.classnames, model.prompt_spec)
-        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda")
+        predictor = Predictor(m, frozen, trainable, bn_state, ncentroid, device="cuda",
+                              sampling=ucf_sampling())
         key = f"l14_336_{dtype}"
         results[key] = profile_call(lambda: predictor.score_frames(frames), warm=1)
         print_profile(f"ViT-L/14@336px {dtype} {L14_VIDEO_FRAMES} frames", results[key])
@@ -3533,7 +3968,8 @@ def main() -> int:
         feature_set = make_feature_set(Path(tmp))
         data_launches = phase_data(smi, *feature_set)
         fit_launches = phase_fit(smi, *feature_set)
-        entry_launches = phase_entry(smi, *feature_set)
+        entry_launches = phase_entry(smi, *feature_set, Path(tmp))
+        serving_launches = phase_serving(smi, *feature_set, Path(tmp))
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -3584,8 +4020,13 @@ def main() -> int:
     require(all(entry_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                                                 "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
             f"a kernel of the entry points' path was never launched: {entry_launches}")
+    # the serving surface: predict, serve, the artifact, extraction (fp32) and
+    # the graft entry (bf16)
+    require(all(serving_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tf32", "mha_tc",
+                                                  "bld_tf32")),
+            f"a kernel of the serving path was never launched: {serving_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
-                *script_launches, data_launches, fit_launches, entry_launches]
+                *script_launches, data_launches, fit_launches, entry_launches, serving_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

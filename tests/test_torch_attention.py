@@ -333,3 +333,80 @@ def test_bwd_kernels_reject_unsupported_shapes(cuda):
         _bwd_close(ours, theirs, FP32_TOL)
     with pytest.raises(ValueError, match="float16"):
         tattn.mha_bld_bwd_kernel(q.half(), q.half(), q.half(), q.half(), 1, True)
+
+
+def _op_case_on_card(name: str, dtype, cuda):
+    """(the registered op's arguments) at the shapes the exported graphs and the
+    ViT-L/14@336px towers hand it, views where the callers pass views: the
+    towers' packed qkv, the temporal model's k and v halves of one projection,
+    the core rung's (B, H, L, 64) views of one (B, L, 3, H, 64) projection."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+
+    def t(*shape):
+        return torch.randn(shape, device=cuda, generator=gen).to(dtype)
+
+    def heads(b, l, h, dh):
+        return t(b, l, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0)
+
+    def bld(b, l, d):
+        kv = t(b, l, 2 * d)
+        return t(b, l, d), kv[..., :d], kv[..., d:]
+
+    cases = {
+        "fused_mha_qkv image": (t(4, 197, 2304), 12, False),
+        "fused_mha_qkv text": (t(14, 77, 1536), 8, True),
+        "fused_mha_bld (g*32, 16, 256)": (*bld(128, 16, 256), 8, False),
+        "fused_mha_bld (g*16, 32, 256)": (*bld(64, 32, 256), 8, False),
+        "fused_mha_qtile L=577": (t(2, 577, 1024), t(2, 577, 2048), 16),
+        "flash_attention_heads views": (*heads(2, 577, 16, 64), True, False),
+        "flash_attention_heads per head": (t(32, 577, 64), t(32, 577, 64), t(32, 577, 64), False, False),
+        "fused_attention L=197": (*heads(2, 197, 12, 64), False),
+        "fused_attention L=197 causal": (*heads(2, 197, 12, 64), True),
+        "fused_attention dh 32": (*heads(2, 77, 8, 32), False),
+    }
+    return cases[name]
+
+
+# each case in fp32 and bf16, but K6, which only the bf16 ViT-L/14@336px tower
+# launches (the fp32 one takes K8; K6 in fp32 at L=577 is refused for its
+# shared memory)
+_OP_CASES_ON_CARD = [
+    (case, dtype)
+    for case in ("fused_mha_qkv image", "fused_mha_qkv text", "fused_mha_bld (g*32, 16, 256)",
+                 "fused_mha_bld (g*16, 32, 256)", "fused_mha_qtile L=577", "flash_attention_heads views",
+                 "flash_attention_heads per head", "fused_attention L=197", "fused_attention L=197 causal",
+                 "fused_attention dh 32")
+    for dtype in (torch.float32, torch.bfloat16)
+    if not (case.startswith("fused_mha_qtile") and dtype == torch.float32)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,dtype", _OP_CASES_ON_CARD,
+                         ids=[f"{case} {str(dtype)[6:]}" for case, dtype in _OP_CASES_ON_CARD])
+def test_registered_op_fake_strides_are_the_kernels_on_the_card(cuda, dtype, case):
+    """Each registered op's fake implementation gives the shape, type and
+    strides its kernel writes on the card (the CPU cases cannot show it: there
+    the real implementation is the plain version), and torch.library.opcheck's
+    schema, autograd-registration and fake-tensor checks pass on CUDA tensors.
+    Its fourth check, a trace of forward and backward, passes on the CPU
+    (tests/test_torch_export.py) and not here: the backwards launch their
+    kernels through ctypes without being operators themselves, so a traced
+    backward reaches a data pointer of a fake tensor (ROADMAP.md, section 3)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    name = case.split(" ")[0]
+    op = tattn.REGISTERED_OPS[name]
+    args = _op_case_on_card(case, dtype, cuda)
+    before = tattn.launch_counts[name]
+    real = op(*args)
+    torch.cuda.synchronize()
+    assert tattn.launch_counts[name] == before + 1  # the kernel, not the plain version
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    real, fake = (out if isinstance(out, tuple) else (out,) for out in (real, fake))
+    for r, f in zip(real, fake, strict=True):
+        assert (tuple(r.shape), r.stride(), r.dtype) == (tuple(f.shape), f.stride(), f.dtype), case
+    torch.library.opcheck(op, tuple(a.detach().requires_grad_(True) if isinstance(a, torch.Tensor) else a
+                                    for a in args),
+                          test_utils=("test_schema", "test_autograd_registration", "test_faketensor"))

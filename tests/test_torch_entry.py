@@ -6,7 +6,8 @@ against the JAX package's, on the CPU.
   with ``_single_run`` replaced in both packages by one function of the trial;
 - ``train_entry.main`` equal to the port's module run directly, a multirun's
   and a random search's run directories, the refusals (no card without
-  ``trainer=cpu``, more than one device or process, ``artifact=``);
+  ``trainer=cpu``, more than one device or process, an artifact's eval
+  included);
 - a Lightning ``.ckpt`` built here: its conversion equal to the JAX
   converter's to the bit after ``params_from_jax``, ``eval_entry`` on it
   within 1e-4 of the JAX ``eval_entry``'s AUC, AP, mAUC and mAP, and the
@@ -291,7 +292,7 @@ def test_entries_without_a_card_raise_rather_than_run_on_the_cpu(env, main, argv
     (train_entry.main, ["experiment=synthetic", "trainer=ddp"], "item 8"),
     (train_entry.main, ["experiment=synthetic", "trainer=cpu", "trainer.devices=2"], "item 8"),
     (eval_entry.main, ["data=synthetic", "model=anomaly_clip_synthetic", "trainer=ddp", "ckpt_path=x"], "item 8"),
-    (eval_entry.main, ["artifact=/tmp/art", "data=synthetic", "trainer=cpu"], "item 6"),
+    (eval_entry.main, ["artifact=/tmp/art", "data=synthetic", "trainer=ddp"], "item 8"),
 ])
 def test_unported_entry_options_raise(env, main, argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -277,9 +277,6 @@ def test_unported_options_raise_where_used(tmp_path):
     module = _port(tmp_path, "run", "trainer.profiler=jax")
     with pytest.raises(NotImplementedError, match="profiler"):
         module.fit()
-    module = _port(tmp_path, "run", "data.visualize=true")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        module.test(state=module.init_state(1))
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,10 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.convert",
         "anomalyclip_tpu_torch.convert_ckpt",
         "anomalyclip_tpu_torch.eval_entry",
+        "anomalyclip_tpu_torch.export",
+        "anomalyclip_tpu_torch.extract_features",
+        "anomalyclip_tpu_torch.graft_entry",
+        "anomalyclip_tpu_torch.serve",
         "anomalyclip_tpu_torch.numerics",
         "anomalyclip_tpu_torch.train_entry",
         "anomalyclip_tpu_torch.predict",
@@ -71,6 +75,8 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.data.transforms",
         "anomalyclip_tpu_torch.eval.artifacts",
         "anomalyclip_tpu_torch.eval.evaluator",
+        "anomalyclip_tpu_torch.eval.grids",
+        "anomalyclip_tpu_torch.eval.visualizer",
         "anomalyclip_tpu_torch.eval.metrics",
         "anomalyclip_tpu_torch.models.anomaly_clip",
         "anomalyclip_tpu_torch.models.clip.convert",

@@ -124,10 +124,8 @@ def test_flash_plain_rounds_per_kv_block(jax_side, monkeypatch):
 def test_fused_attention_plain_matches_pallas(jax_side, monkeypatch, shape, causal, route, dtype_name):
     _, jattn = jax_side
     flash_calls = []
-    real_flash = tattn._FlashHeads.apply
-    monkeypatch.setattr(
-        tattn._FlashHeads, "apply", staticmethod(lambda *a: (flash_calls.append(a[0].shape), real_flash(*a))[1])
-    )
+    real_flash = tattn._flash_heads
+    monkeypatch.setattr(tattn, "_flash_heads", lambda *a: (flash_calls.append(a[0].shape), real_flash(*a))[1])
     jqkv, qkv = _inputs(np.random.default_rng(3), [shape] * 3, dtype_name)
     got = tattn.fused_attention(*qkv, causal)
     assert got.shape == shape and got.dtype == qkv[0].dtype
@@ -243,13 +241,13 @@ def test_encode_image_at_l577_takes_the_rungs(monkeypatch, dtype, calls):
 
     for name in ("fused_mha_qkv", "fused_mha_qtile", "fused_attention"):
         record(tclip, name)
-    real_flash = tattn._FlashHeads.apply  # the flash entry's autograd function
+    real_flash = tattn._flash_heads  # the flash entry's call of its op
 
     def flash(*args):
         seen["flash_attention_heads"] += 1
         return real_flash(*args)
 
-    monkeypatch.setattr(tattn._FlashHeads, "apply", staticmethod(flash))
+    monkeypatch.setattr(tattn, "_flash_heads", flash)
     cfg = _l577_config()
     params = tclip.init_clip_params(torch.Generator().manual_seed(0), cfg)
     frames = torch.from_numpy(

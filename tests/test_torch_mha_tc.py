@@ -637,12 +637,12 @@ def test_fused_attention_routes_by_shape(monkeypatch, shape, causal, branch):
     differentiate, and the flash branch is handed the mask and the
     four-dimensional views as they are."""
     taken = []
-    real_apply, real_flash = tattn._FusedAttention.apply, tattn._FlashHeads.apply
-    monkeypatch.setattr(tattn._FusedAttention, "apply",
-                        staticmethod(lambda *a: (taken.append("whole"), real_apply(*a))[1]))
-    monkeypatch.setattr(tattn._FlashHeads, "apply", staticmethod(
-        lambda q, k, v, save_lse, causal: (taken.append(("flash", causal, q.shape)),
-                                           real_flash(q, k, v, save_lse, causal))[1]))
+    real_whole, real_flash = tattn._fused_attention_op, tattn._flash_heads
+    monkeypatch.setattr(tattn, "_fused_attention_op",
+                        lambda *a: (taken.append("whole"), real_whole(*a))[1])
+    monkeypatch.setattr(tattn, "_flash_heads",
+                        lambda q, k, v, save_lse, causal: (taken.append(("flash", causal, q.shape)),
+                                                           real_flash(q, k, v, save_lse, causal))[1])
     q = torch.randn(shape, generator=torch.Generator().manual_seed(2)).requires_grad_(True)
     out = tattn.fused_attention(q, q, q, causal)
     assert taken == ["whole" if branch == "whole" else ("flash", causal, shape)]

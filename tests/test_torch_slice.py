@@ -27,7 +27,7 @@ from anomalyclip_tpu.models import anomaly_clip as jac
 from anomalyclip_tpu.models.clip import model as jclip
 from anomalyclip_tpu.models.selector import BNState as JBNState
 from anomalyclip_tpu_torch import convert
-from anomalyclip_tpu_torch.eval import evaluator as teval
+from anomalyclip_tpu_torch.eval import grids as tgrids
 from anomalyclip_tpu_torch.models import anomaly_clip as tac
 from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
 from anomalyclip_tpu_torch.predict import Predictor
@@ -70,7 +70,7 @@ def _build_pair(net_kwargs, jfrozen, jtrainable, jbn, jclip_cfg, ncentroid):
     tmodel, frozen = tac.AnomalyCLIP.build(tac.AnomalyCLIPConfig(**net_kwargs), frozen["clip"], tclip_cfg)
     predictor = Predictor(
         tmodel, frozen, convert.params_from_jax(_np_tree(jtrainable), device="cpu"),
-        convert.bn_state_from_jax(jbn, device="cpu"), ncentroid, device="cpu",
+        convert.bn_state_from_jax(jbn, device="cpu"), ncentroid, sampling=tmodel.cfg, device="cpu",
     )
     return jmodel, jscorer, predictor
 
@@ -195,11 +195,11 @@ def test_forward_test_matches_jax(tiny_pair):
 
 
 def test_bucketing_and_padding_helpers():
-    assert [teval.bucket_size(g, teval.DEFAULT_BUCKETS) for g in (1, 3, 64, 65, 130)] == [
+    assert [tgrids.bucket_size(g, tgrids.DEFAULT_BUCKETS) for g in (1, 3, 64, 65, 130)] == [
         jeval.bucket_size(g, jeval.DEFAULT_BUCKETS) for g in (1, 3, 64, 65, 130)
     ]
     grids = np.ones((3, 2, 2, 5), np.float32)
-    ours, theirs = teval.pad_to_bucket(grids), jeval.pad_to_bucket(grids)
+    ours, theirs = tgrids.pad_to_bucket(grids), jeval.pad_to_bucket(grids)
     assert ours[1] == theirs[1] == 3
     np.testing.assert_array_equal(ours[0], theirs[0])
 
@@ -212,7 +212,7 @@ def test_encode_frames_chunked_pads_by_repetition():
         return part.reshape(part.shape[0], -1)[:, :2].float()
 
     frames = np.arange(5 * 2 * 2 * 3, dtype=np.uint8).reshape(5, 2, 2, 3)
-    out = teval.encode_frames_chunked(encode, frames, "cpu", chunk=4)
+    out = tgrids.encode_frames_chunked(encode, frames, "cpu", chunk=4)
     assert seen == [(4, 2, 2, 3), (4, 2, 2, 3)]
     np.testing.assert_array_equal(out, frames.reshape(5, -1)[:, :2].astype(np.float32))
 
