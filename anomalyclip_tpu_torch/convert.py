@@ -7,7 +7,10 @@ with ``frozen/``, ``trainable/``, ``bn/`` and ``clip_cfg/`` keys, as in
 
 - every ``blocks`` subtree, stacked on a leading layer axis in the JAX package,
   becomes a list with one dictionary per layer;
-- temporal conv kernels go from HWIO to OIHW, the layout ``F.conv2d`` takes;
+- every conv kernel goes from HWIO to OIHW, the layout ``F.conv2d`` takes:
+  the temporal model's ``conv1_w`` and ``conv2_w``, and the ModifiedResNet
+  tower's ``conv1_w``, ``conv2_w``, ``conv3_w`` and ``down_conv_w`` in its
+  stem and in each bottleneck (``CONV_KEYS``);
 - everything else keeps its layout: ``qkv_w`` stays (D, 3D) so the hot path is
   ``x @ w``, and ``patch_embed`` stays (3*p*p, width) in its channel-major order.
 
@@ -36,6 +39,10 @@ _CLIP_CFG_FIELDS = (
 )
 
 
+# the keys of every conv kernel of the package's trees (HWIO in the JAX package)
+CONV_KEYS = ("conv1_w", "conv2_w", "conv3_w", "down_conv_w")
+
+
 def _tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
@@ -48,7 +55,7 @@ def _tree(node: Any, device, key: str = "") -> Any:
     if isinstance(node, (list, tuple)):
         return [_tree(v, device) for v in node]
     t = _tensor(node, device)
-    if key in ("conv1_w", "conv2_w"):
+    if key in CONV_KEYS:
         t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
     return t
 
@@ -154,6 +161,6 @@ def tree_to_jax(node: Any, key: str = "") -> Any:
 
         return stack(items)
     t = node.detach().float().cpu()
-    if key in ("conv1_w", "conv2_w"):
+    if key in CONV_KEYS:
         t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
     return t.numpy()

@@ -70,9 +70,12 @@ class GridScorer:
     must already be on ``device``: a tree on another device raises, with both
     named. The image tower is read, and its device checked, only by
     ``encode_frames_np``, so a scorer of features needs no image tower on the
-    device. ``score_grids`` runs the selector and the temporal model on a
-    bucket-padded grid batch. ``encode_calls`` counts the image-tower calls of
-    ``encode_frames_np``, one per chunk."""
+    device. ``encode`` is the frame encoder (frozen, frames) -> features,
+    ``model.encode_frames`` unless the caller hands another (the module's
+    int8 serving tower, JAX evaluator.py:141, 207-209). ``score_grids`` runs
+    the selector and the temporal model on a bucket-padded grid batch.
+    ``encode_calls`` counts the image-tower calls of ``encode_frames_np``, one
+    per chunk."""
 
     def __init__(
         self,
@@ -83,8 +86,10 @@ class GridScorer:
         ncentroid,
         buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
         device="cuda",
+        encode: Optional[Callable[[dict, torch.Tensor], torch.Tensor]] = None,
     ):
         self.model = model
+        self.encode = model.encode_frames if encode is None else encode
         self.buckets = buckets
         self.device = torch.device(device)
         self.encode_calls = 0
@@ -118,7 +123,7 @@ class GridScorer:
 
         def encode(part: torch.Tensor) -> torch.Tensor:
             self.encode_calls += 1
-            return self.model.encode_frames(self._frozen, part)
+            return self.encode(self._frozen, part)
 
         return encode_frames_chunked(encode, frames, self.device)
 

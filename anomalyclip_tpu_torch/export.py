@@ -134,7 +134,10 @@ def export_serving_artifact(
 
     ``frozen``, ``trainable``, ``bn_state`` and ``ncentroid`` are the trees the
     evaluator reads, on one device (the graphs are traced there). Returns the
-    artifact path."""
+    artifact path. The encode graph is the fp tower's, also under
+    ``model.net.quantize=int8``: the int8 tower (models/clip/quant.py) is
+    quantized where it serves and is not part of an artifact (JAX
+    export.py:124-125)."""
     from anomalyclip_tpu_torch.eval.evaluator import GridScorer, score_grid_batch
 
     out = Path(out_dir)

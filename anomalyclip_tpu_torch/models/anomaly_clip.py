@@ -56,8 +56,7 @@ def read_classnames(labels_file: str | Path) -> List[str]:
 
 @dataclasses.dataclass(frozen=True)
 class AnomalyCLIPConfig:
-    """The JAX package's AnomalyCLIPConfig (the `net:` config block), without
-    ``quantize``: the int8 serving tower is not ported yet."""
+    """The JAX package's AnomalyCLIPConfig (the `net:` config block)."""
 
     arch: str = "ViT-B/16"
     labels_file: str = ""
@@ -80,6 +79,11 @@ class AnomalyCLIPConfig:
     shared_context: bool = False
     ctx_init: str = ""
     class_token_position: str = "end"
+    # "none" | "int8": the frozen visual tower's GEMMs in int8 for serving
+    # (W8A8, models/clip/quant.py). Serving only: the module routes fit(), its
+    # ncentroid pass included, through the fp tower
+    # (train/module.py:_int8_serving_active)
+    quantize: str = "none"
     compute_dtype: str = "float32"
 
     @property

@@ -7,7 +7,8 @@ inferred from state-dict shapes and the tensors are laid out as the port's tree
 (models/clip/model.py): each transformer's ``blocks`` a list with one
 dictionary per layer, linear weights transposed for right-multiplication
 (``qkv_w`` (D, 3D)), the patch embedding (3*p*p, width) in channel-major order,
-every leaf an fp32 tensor on the CPU. fp16 files, as OpenAI released them, are
+the ModifiedResNet's conv kernels OIHW as the file holds them, every leaf an
+fp32 tensor on the CPU. fp16 files, as OpenAI released them, are
 upcast exactly.
 """
 
@@ -19,7 +20,6 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from anomalyclip_tpu_torch.convert import params_from_jax
 from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, Params
 
 
@@ -109,64 +109,50 @@ def _blocks(sd: Dict[str, np.ndarray], prefix: str, layers: int) -> List[Params]
     return out
 
 
-def _conv_hwio(w: np.ndarray) -> np.ndarray:
-    """torch OIHW conv kernel -> HWIO."""
-    return w.transpose(2, 3, 1, 0).copy()
-
-
 def _bn_params(sd: Dict[str, np.ndarray], prefix: str) -> Params:
     return {
-        "scale": sd[f"{prefix}.weight"],
-        "bias": sd[f"{prefix}.bias"],
-        "mean": sd[f"{prefix}.running_mean"],
-        "var": sd[f"{prefix}.running_var"],
+        "scale": _t(sd[f"{prefix}.weight"]),
+        "bias": _t(sd[f"{prefix}.bias"]),
+        "mean": _t(sd[f"{prefix}.running_mean"]),
+        "var": _t(sd[f"{prefix}.running_var"]),
     }
+
+
+# the three convs, each with its BN, of the ModifiedResNet's stem
+# (``visual.<name>``) and of each bottleneck: (key in the port's tree, name in
+# the state dict)
+_CONVS = (("conv1_w", "conv1"), ("conv2_w", "conv2"), ("conv3_w", "conv3"))
+_ATTNPOOL_LINEARS = (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("c", "c_proj"))
 
 
 def _resnet_visual_params(sd: Dict[str, np.ndarray], cfg: CLIPConfig) -> Params:
-    """ModifiedResNet weights -> the JAX package's numpy layout of that tower
-    (anomalyclip_tpu/models/clip/resnet.py); the port has no ResNet tower yet
-    (ROADMAP.md section 1, item 7)."""
+    """ModifiedResNet weights -> the port's tree of that tower
+    (models/clip/resnet.py): conv kernels OIHW as the state dict holds them,
+    BN parameters with their running statistics, the attention pool's linear
+    weights transposed for right-multiplication."""
+
+    def conv_bn(prefix: str) -> Params:
+        p: Params = {}
+        for i, (key, name) in enumerate(_CONVS, start=1):
+            p[key] = _t(sd[f"{prefix}.{name}.weight"])
+            p[f"bn{i}"] = _bn_params(sd, f"{prefix}.bn{i}")
+        return p
 
     def bottleneck(prefix: str) -> Params:
-        p = {
-            "conv1_w": _conv_hwio(sd[f"{prefix}.conv1.weight"]),
-            "bn1": _bn_params(sd, f"{prefix}.bn1"),
-            "conv2_w": _conv_hwio(sd[f"{prefix}.conv2.weight"]),
-            "bn2": _bn_params(sd, f"{prefix}.bn2"),
-            "conv3_w": _conv_hwio(sd[f"{prefix}.conv3.weight"]),
-            "bn3": _bn_params(sd, f"{prefix}.bn3"),
-        }
+        p = conv_bn(prefix)
         if f"{prefix}.downsample.0.weight" in sd:
-            p["down_conv_w"] = _conv_hwio(sd[f"{prefix}.downsample.0.weight"])
+            p["down_conv_w"] = _t(sd[f"{prefix}.downsample.0.weight"])
             p["down_bn"] = _bn_params(sd, f"{prefix}.downsample.1")
         return p
 
-    visual: Params = {
-        "stem": {
-            "conv1_w": _conv_hwio(sd["visual.conv1.weight"]),
-            "bn1": _bn_params(sd, "visual.bn1"),
-            "conv2_w": _conv_hwio(sd["visual.conv2.weight"]),
-            "bn2": _bn_params(sd, "visual.bn2"),
-            "conv3_w": _conv_hwio(sd["visual.conv3.weight"]),
-            "bn3": _bn_params(sd, "visual.bn3"),
-        },
-        "attnpool": {
-            "positional_embedding": sd["visual.attnpool.positional_embedding"],
-            "q_w": sd["visual.attnpool.q_proj.weight"].T.copy(),
-            "q_b": sd["visual.attnpool.q_proj.bias"],
-            "k_w": sd["visual.attnpool.k_proj.weight"].T.copy(),
-            "k_b": sd["visual.attnpool.k_proj.bias"],
-            "v_w": sd["visual.attnpool.v_proj.weight"].T.copy(),
-            "v_b": sd["visual.attnpool.v_proj.bias"],
-            "c_w": sd["visual.attnpool.c_proj.weight"].T.copy(),
-            "c_b": sd["visual.attnpool.c_proj.bias"],
-        },
-    }
+    attnpool: Params = {"positional_embedding": _t(sd["visual.attnpool.positional_embedding"])}
+    for key, name in _ATTNPOOL_LINEARS:
+        attnpool[f"{key}_w"] = _t(sd[f"visual.attnpool.{name}.weight"].T)
+        attnpool[f"{key}_b"] = _t(sd[f"visual.attnpool.{name}.bias"])
+    visual: Params = {"stem": conv_bn("visual")}
     for li, blocks in enumerate(cfg.vision_layers, start=1):
-        visual[f"layer{li}"] = [
-            bottleneck(f"visual.layer{li}.{bi}") for bi in range(blocks)
-        ]
+        visual[f"layer{li}"] = [bottleneck(f"visual.layer{li}.{bi}") for bi in range(blocks)]
+    visual["attnpool"] = attnpool
     return visual
 
 
@@ -177,8 +163,7 @@ def torch_state_dict_to_params(
     (fp32 tensors on the CPU) and its config."""
     cfg = config_from_state_dict(sd)
     if cfg.is_resnet:
-        # as convert.params_from_jax carries the JAX package's ResNet tree
-        visual = params_from_jax(_resnet_visual_params(sd, cfg), device="cpu")
+        visual = _resnet_visual_params(sd, cfg)
     else:
         conv = sd["visual.conv1.weight"]  # (width, 3, p, p), flattens channel-major
         visual = {
@@ -211,9 +196,11 @@ def load_torch_clip_checkpoint(path: str | Path) -> Tuple[Params, CLIPConfig]:
 
 
 def state_dict_from_params(params: Params) -> Dict[str, torch.Tensor]:
-    """The inverse of ``torch_state_dict_to_params`` for a ViT tree: the
-    port's CLIP tree -> a state dict in OpenAI's key layout, fp32 tensors on
-    the CPU (what ``torch.save`` of an OpenAI CLIP's ``state_dict()`` holds)."""
+    """The inverse of ``torch_state_dict_to_params``, ViT or ModifiedResNet:
+    the port's CLIP tree -> a state dict in OpenAI's key layout, fp32 tensors
+    on the CPU (what ``torch.save`` of an OpenAI CLIP's ``state_dict()``
+    holds, without the BN layers' ``num_batches_tracked``, which no
+    conversion reads)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def c(t: torch.Tensor) -> torch.Tensor:
@@ -233,18 +220,41 @@ def state_dict_from_params(params: Params) -> Dict[str, torch.Tensor]:
             sd[f"{p}.mlp.c_proj.bias"] = c(b["mlp"]["proj_b"])
             sd[f"{p}.ln_2.weight"], sd[f"{p}.ln_2.bias"] = c(b["ln_2"]["scale"]), c(b["ln_2"]["bias"])
 
+    def bn(prefix: str, p: Params) -> None:
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = c(p["scale"]), c(p["bias"])
+        sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"] = c(p["mean"]), c(p["var"])
+
+    def conv_bn(prefix: str, p: Params) -> None:
+        for i, (key, name) in enumerate(_CONVS, start=1):
+            sd[f"{prefix}.{name}.weight"] = c(p[key])
+            bn(f"{prefix}.bn{i}", p[f"bn{i}"])
+
     visual, text = params["visual"], params["text"]
-    if "patch_embed" not in visual:
-        raise NotImplementedError("the ModifiedResNet tower is not ported yet (ROADMAP.md section 1, item 7)")
-    width = visual["patch_embed"].shape[1]
-    patch = round((visual["patch_embed"].shape[0] // 3) ** 0.5)
-    sd["visual.class_embedding"] = c(visual["class_embedding"])
-    sd["visual.positional_embedding"] = c(visual["positional_embedding"])
-    sd["visual.proj"] = c(visual["proj"])
-    sd["visual.conv1.weight"] = c(visual["patch_embed"].T.reshape(width, 3, patch, patch))
-    sd["visual.ln_pre.weight"], sd["visual.ln_pre.bias"] = c(visual["ln_pre"]["scale"]), c(visual["ln_pre"]["bias"])
-    blocks("visual.transformer", visual["blocks"])
-    sd["visual.ln_post.weight"], sd["visual.ln_post.bias"] = c(visual["ln_post"]["scale"]), c(visual["ln_post"]["bias"])
+    if "stem" in visual:
+        conv_bn("visual", visual["stem"])
+        for li in range(1, 5):
+            for bi, block in enumerate(visual[f"layer{li}"]):
+                prefix = f"visual.layer{li}.{bi}"
+                conv_bn(prefix, block)
+                if "down_conv_w" in block:
+                    sd[f"{prefix}.downsample.0.weight"] = c(block["down_conv_w"])
+                    bn(f"{prefix}.downsample.1", block["down_bn"])
+        pool = visual["attnpool"]
+        sd["visual.attnpool.positional_embedding"] = c(pool["positional_embedding"])
+        for key, name in _ATTNPOOL_LINEARS:
+            sd[f"visual.attnpool.{name}.weight"] = c(pool[f"{key}_w"].T)
+            sd[f"visual.attnpool.{name}.bias"] = c(pool[f"{key}_b"])
+    else:
+        width = visual["patch_embed"].shape[1]
+        patch = round((visual["patch_embed"].shape[0] // 3) ** 0.5)
+        sd["visual.class_embedding"] = c(visual["class_embedding"])
+        sd["visual.positional_embedding"] = c(visual["positional_embedding"])
+        sd["visual.proj"] = c(visual["proj"])
+        sd["visual.conv1.weight"] = c(visual["patch_embed"].T.reshape(width, 3, patch, patch))
+        sd["visual.ln_pre.weight"], sd["visual.ln_pre.bias"] = c(visual["ln_pre"]["scale"]), c(visual["ln_pre"]["bias"])
+        blocks("visual.transformer", visual["blocks"])
+        sd["visual.ln_post.weight"] = c(visual["ln_post"]["scale"])
+        sd["visual.ln_post.bias"] = c(visual["ln_post"]["bias"])
     sd["positional_embedding"] = c(text["positional_embedding"])
     sd["text_projection"] = c(text["text_projection"])
     sd["logit_scale"] = c(params["logit_scale"])

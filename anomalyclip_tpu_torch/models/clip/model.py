@@ -1,11 +1,13 @@
-"""CLIP ViT and text transformer as plain functions over dictionaries of tensors.
+"""CLIP ViT, ModifiedResNet and text transformer as plain functions over
+dictionaries of tensors.
 
-The counterpart of anomalyclip_tpu/models/clip/model.py (ViT tower only; the
-ModifiedResNet tower is not ported yet). The parameter layout is the JAX
-package's, with one difference: each transformer's ``blocks`` is a list with
-one dictionary per layer instead of arrays stacked on a leading layer axis
-(convert.py unstacks them). ``qkv_w`` keeps the JAX orientation (D, 3D), so the
-hot path is ``x @ w``.
+The counterpart of anomalyclip_tpu/models/clip/model.py; the ModifiedResNet
+tower lives in resnet.py and is reached through ``encode_image``, as in the
+JAX package. The parameter layout is the JAX package's, with two differences:
+each transformer's ``blocks`` is a list with one dictionary per layer instead
+of arrays stacked on a leading layer axis, and conv kernels are OIHW instead
+of HWIO (convert.py does both). ``qkv_w`` keeps the JAX orientation (D, 3D),
+so the hot path is ``x @ w``.
 
 Numerics follow the JAX package: LayerNorm in fp32 returning the input dtype,
 QuickGELU, products in ``compute_dtype`` with the block weights cast to the
@@ -17,11 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from anomalyclip_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
+from anomalyclip_tpu_torch.models.clip.resnet import init_resnet_params, resnet_encode_image
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
 from anomalyclip_tpu_torch.ops.attention import (
     H100_SMEM_OPTIN,
@@ -41,6 +44,7 @@ class CLIPConfig:
 
     embed_dim: int = 512
     image_resolution: int = 224
+    # int -> ViT depth; tuple -> ModifiedResNet stage depths
     vision_layers: Any = 12
     vision_width: int = 768
     vision_patch_size: Optional[int] = 16  # None -> ModifiedResNet tower
@@ -86,6 +90,15 @@ class CLIPConfig:
     @staticmethod
     def vit_l14_336() -> "CLIPConfig":
         return dataclasses.replace(CLIPConfig.vit_l14(), image_resolution=336)
+
+    @staticmethod
+    def rn50() -> "CLIPConfig":
+        return CLIPConfig(
+            embed_dim=1024,
+            vision_layers=(3, 4, 6, 3),
+            vision_width=64,
+            vision_patch_size=None,
+        )
 
     @staticmethod
     def tiny(vocab_size: int = 49408) -> "CLIPConfig":
@@ -156,11 +169,15 @@ def attention_rung(
 
 
 def _attention_apply_rung(rung: str, qkv: torch.Tensor, num_heads: int, causal: bool):
-    """Run the "mha" or "core" rung over a packed (B, L, 3D) qkv projection."""
+    """Run the chosen rung over a packed (B, L, 3D) qkv projection. The qtile
+    rung hands K6 q and the packed k|v as strided views of ``qkv``, which it
+    reads in place (JAX model.py:275-278)."""
     b, l, d3 = qkv.shape
     d = d3 // 3
     if rung == "mha":
         return fused_mha_qkv(qkv, num_heads, causal)
+    if rung == "qtile":
+        return fused_mha_qtile(qkv[..., :d], qkv[..., d:], num_heads)
 
     def split_heads(t):
         return t.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
@@ -168,6 +185,16 @@ def _attention_apply_rung(rung: str, qkv: torch.Tensor, num_heads: int, causal: 
     q, k, v = (split_heads(t) for t in qkv.split(d, dim=-1))
     out = attention_core(q, k, v, causal)
     return out.transpose(1, 2).reshape(b, l, d)
+
+
+def attention_from_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False) -> torch.Tensor:
+    """The attention core over a packed (B, L, 3D) qkv projection -> (B, L, D),
+    through the same ``attention_rung`` ladder as the fp path, all three rungs
+    included (JAX model.py:289-299). For callers that own the projections: the
+    int8 serving tower (quant.py)."""
+    b, l, d3 = qkv.shape
+    rung = attention_rung(b, l, d3 // 3, num_heads, qkv.element_size(), causal, smem_limit(qkv.device))
+    return _attention_apply_rung(rung, qkv, num_heads, causal)
 
 
 def multi_head_attention(
@@ -242,13 +269,14 @@ def encode_image(
     images: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Visual forward: (B, H, W, 3) NHWC -> (B, embed_dim). uint8 input is
+    """Visual forward: (B, H, W, 3) NHWC -> (B, embed_dim), through the ViT or
+    the ModifiedResNet (resnet.py) as the config says. uint8 input is
     CLIP-normalized on the device first."""
-    if cfg.is_resnet:
-        raise NotImplementedError("the ModifiedResNet tower is not ported yet")
     if images.dtype == torch.uint8:
         images = normalize_frames_on_device(images)
     with matmul_precision_for(compute_dtype):
+        if cfg.is_resnet:
+            return resnet_encode_image(params["visual"], images, cfg.vision_heads, compute_dtype)
         visual = params["visual"]
         x = patchify(images.to(compute_dtype), cfg.vision_patch_size)
         x = x @ visual["patch_embed"].to(compute_dtype)
@@ -297,6 +325,24 @@ def encode_text(
     )
 
 
+def clip_similarity(
+    params: Params,
+    cfg: CLIPConfig,
+    images: torch.Tensor,
+    tokens: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contrastive logits (reference model.py:416-430; JAX model.py:461-475)
+    -> (logits_per_image (B, N), logits_per_text (N, B))."""
+    image_features = encode_image(params, cfg, images, compute_dtype)
+    text_features = encode_text(params, cfg, tokens, compute_dtype)
+    image_features = image_features / torch.linalg.vector_norm(image_features, dim=1, keepdim=True)
+    text_features = text_features / torch.linalg.vector_norm(text_features, dim=1, keepdim=True)
+    scale = torch.exp(params["logit_scale"])
+    logits_per_image = scale * image_features @ text_features.T
+    return logits_per_image, logits_per_image.T
+
+
 # ---------------------------------------------------------------------------
 # Seeded initialization: the distributions of init_clip_params (model.py:483-566)
 # ---------------------------------------------------------------------------
@@ -334,23 +380,24 @@ def _init_blocks(gen: torch.Generator, layers: int, width: int) -> list:
 
 
 def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> Params:
-    """Random ViT CLIP parameters (on the CPU) with the reference's init
-    distributions. The numbers differ from the JAX init's: only the
-    distributions are shared."""
-    if cfg.is_resnet:
-        raise NotImplementedError("the ModifiedResNet tower is not ported yet")
+    """Random CLIP parameters (on the CPU), ViT or ModifiedResNet as the config
+    says, with the reference's init distributions. The numbers differ from the
+    JAX init's: only the distributions are shared."""
     width = cfg.vision_width
     scale = width**-0.5
     tw = cfg.transformer_width
-    visual = {
-        "patch_embed": _normal(gen, (3 * cfg.vision_patch_size**2, width), scale),
-        "class_embedding": _normal(gen, (width,), scale),
-        "positional_embedding": _normal(gen, (cfg.grid_size**2 + 1, width), scale),
-        "ln_pre": {"scale": torch.ones(width), "bias": torch.zeros(width)},
-        "blocks": _init_blocks(gen, cfg.vision_layers, width),
-        "ln_post": {"scale": torch.ones(width), "bias": torch.zeros(width)},
-        "proj": _normal(gen, (width, cfg.embed_dim), scale),
-    }
+    if cfg.is_resnet:
+        visual = init_resnet_params(gen, cfg)
+    else:
+        visual = {
+            "patch_embed": _normal(gen, (3 * cfg.vision_patch_size**2, width), scale),
+            "class_embedding": _normal(gen, (width,), scale),
+            "positional_embedding": _normal(gen, (cfg.grid_size**2 + 1, width), scale),
+            "ln_pre": {"scale": torch.ones(width), "bias": torch.zeros(width)},
+            "blocks": _init_blocks(gen, cfg.vision_layers, width),
+            "ln_post": {"scale": torch.ones(width), "bias": torch.zeros(width)},
+            "proj": _normal(gen, (width, cfg.embed_dim), scale),
+        }
     text = {
         "token_embedding": _normal(gen, (cfg.vocab_size, tw), 0.02),
         "positional_embedding": _normal(gen, (cfg.context_length, tw), 0.01),

@@ -27,18 +27,12 @@ from anomalyclip_tpu_torch.models.clip.convert import load_torch_clip_checkpoint
 from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, Params, init_clip_params
 
 
-def _rn50() -> CLIPConfig:
-    raise NotImplementedError(
-        "arch RN50: the ResNet tower is not ported yet (ROADMAP.md section 1, item 7)"
-    )
-
-
 _ARCH_CONFIGS = {
     "ViT-B/16": CLIPConfig.vit_b16,
     "ViT-B/32": CLIPConfig.vit_b32,
     "ViT-L/14": CLIPConfig.vit_l14,
     "ViT-L/14@336px": CLIPConfig.vit_l14_336,
-    "RN50": _rn50,
+    "RN50": CLIPConfig.rn50,
 }
 
 _MODELS = {

@@ -47,6 +47,7 @@ from anomalyclip_tpu_torch.eval.grids import encode_frames_chunked
 from anomalyclip_tpu_torch.eval.metrics import detection_metrics
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP, AnomalyCLIPConfig, read_classnames
 from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
+from anomalyclip_tpu_torch.models.clip.quant import encode_image_int8, quantize_clip_visual
 from anomalyclip_tpu_torch.models.clip.registry import resolve_clip
 from anomalyclip_tpu_torch.models.losses import LossConfig, LossTerms, compute_loss
 from anomalyclip_tpu_torch.models.selector import BNState
@@ -276,11 +277,6 @@ class AnomalyCLIPTrainModule:
 
         data_cfg = dict(cfg["data"])
         net_cfg = dict(model_cfg["net"])
-        if (net_cfg.get("quantize") or "none") != "none":
-            raise NotImplementedError(
-                f"model.net.quantize={net_cfg['quantize']!r}: the int8 tower is not ported yet "
-                "(ROADMAP.md section 1, item 7)"
-            )
         # the synthetic features must match the resolved tower's embed_dim
         clip_params, clip_cfg = resolve_clip(
             arch=net_cfg.get("arch", "ViT-B/16"),
@@ -320,6 +316,8 @@ class AnomalyCLIPTrainModule:
         self._ckpt_every_n_epochs = int(mc_cfg.get("every_n_epochs", 1) or 1)
         self.loggers = MetricLoggerSet(cfg.get("logger"), self.save_dir)
         self.ncentroid: Optional[np.ndarray] = None
+        self._encode_frames_fn: Optional[Callable] = None
+        self._in_fit = False
         self._scorer_cache: Optional[GridScorer] = None
         self._train_loader = None
         self._sigterm_installed = False
@@ -327,11 +325,65 @@ class AnomalyCLIPTrainModule:
 
     # ------------------------------------------------------------------ data
 
+    def _encode_fn(self) -> Callable:
+        """The frame encoder (frozen, frames) -> features that the ncentroid
+        pass and the scorer share, chosen at its first use and kept: the int8
+        tower when ``_int8_serving_active``, else ``AnomalyCLIP.encode_frames``
+        (JAX module.py:172-241, one device)."""
+        if self._encode_frames_fn is None:
+            if self._int8_serving_active():
+                self._encode_frames_fn = self._int8_encode_fn()
+            else:
+                self._encode_frames_fn = self.model.encode_frames
+        return self._encode_frames_fn
+
+    def _int8_serving_active(self) -> bool:
+        """Whether the W8A8 tower serves this encode (JAX module.py:243-267).
+        ``quantize=int8`` is a serving knob: inside ``fit`` the fp tower encodes
+        everything, the ncentroid pass included, so that training never mixes
+        precisions; a ModifiedResNet tower has no int8 path and serves fp. Any
+        value other than "none" and "int8" raises here, at the first encode."""
+        quantize = self.net_cfg.quantize
+        if quantize == "none":
+            return False
+        if quantize != "int8":
+            raise ValueError(f"model.net.quantize={quantize!r}: expected 'none' or 'int8'")
+        if self.model.clip_cfg.is_resnet:
+            log.warning("model.net.quantize=int8 has no ResNet-tower path — serving the fp tower instead")
+            return False
+        if self._in_fit:
+            log.warning(
+                "model.net.quantize=int8 is serving-only: the training run "
+                "(incl. its ncentroid bootstrap) uses the fp tower"
+            )
+            return False
+        return True
+
+    def _int8_encode_fn(self) -> Callable:
+        """The W8A8 serving encoder (models/clip/quant.py): the frozen visual
+        tower quantized once, here, on the device it lies on; activations
+        quantized per token at each GEMM; chunked as
+        ``AnomalyCLIP.encode_frames`` chunks, in the model's compute dtype. The
+        returned function ignores the ``frozen`` it is given, as the JAX
+        module's does: it holds its own tower."""
+        qvisual = quantize_clip_visual(self.frozen["clip"])
+        clip_cfg, chunk, dtype = self.model.clip_cfg, self.model.ENCODE_CHUNK, self.model.cfg.dtype
+
+        def encode(_frozen, frames: torch.Tensor) -> torch.Tensor:
+            n = frames.shape[0]
+            if n > chunk and n % chunk == 0:
+                return torch.cat([encode_image_int8(qvisual, clip_cfg, c, dtype) for c in frames.split(chunk)])
+            return encode_image_int8(qvisual, clip_cfg, frames, dtype)
+
+        log.info("encode path: int8 (W8A8) serving tower")
+        encode.int8 = True
+        return encode
+
     def _frame_features(self, frames: np.ndarray) -> np.ndarray:
-        """CLIP-encode raw frames for the ncentroid pass (the frames path)."""
-        return encode_frames_chunked(
-            lambda part: self.model.encode_frames(self.frozen, part), frames, self.device
-        )
+        """CLIP-encode raw frames for the ncentroid pass (the frames path),
+        through the routed encoder (``_encode_fn``)."""
+        encode = self._encode_fn()
+        return encode_frames_chunked(lambda part: encode(self.frozen, part), frames, self.device)
 
     def compute_ncentroid(self, limit: Optional[int] = None) -> np.ndarray:
         """Mean CLIP feature over every frame of the normal training videos
@@ -425,9 +477,19 @@ class AnomalyCLIPTrainModule:
                 f"trainer.profiler={self.cfg['trainer']['profiler']!r}: the JAX package's value "
                 "is a JAX trace, and the port has no counterpart"
             )
+        # quantize=int8 is serving-only (_int8_serving_active): the encoder is
+        # kept, directly and inside the cached scorer, so the fp routing of the
+        # fit must not leak into a later test() or predict(), nor a pre-fit
+        # int8 encoder into the fit: both caches go at both edges
+        self._in_fit = True
+        if self.net_cfg.quantize != "none":
+            self._encode_frames_fn = self._scorer_cache = None
         try:
             return self._fit_body()
         finally:
+            self._in_fit = False
+            if self.net_cfg.quantize != "none":
+                self._encode_frames_fn = self._scorer_cache = None
             if self._train_loader is not None:
                 self._train_loader.close()
                 self._train_loader = None
@@ -670,12 +732,13 @@ class AnomalyCLIPTrainModule:
         """The one scorer of this model, built at its first use and then
         ``update``d from ``state``: the text features are computed from the text
         subtree of the frozen tree (``GridScorer.update``); the image tower,
-        which only the frames path reads, stays where it is."""
+        which only the frames path reads, stays where it is, and frames are
+        encoded by the routed encoder (``_encode_fn``)."""
         ncentroid = torch.as_tensor(self.ncentroid, device=self.device)
         if self._scorer_cache is None or self._scorer_cache.model is not self.model:
             self._scorer_cache = GridScorer(
                 self.model, self.frozen, state.trainable, state.bn_state, ncentroid,
-                device=self.device,
+                device=self.device, encode=self._encode_fn(),
             )
             return self._scorer_cache
         return self._scorer_cache.update(self.frozen, state.trainable, state.bn_state, ncentroid)
@@ -773,7 +836,7 @@ class AnomalyCLIPTrainModule:
         self.net_cfg = dataclasses.replace(self.net_cfg, n_ctx=n_ctx)
         self.model, frozen = AnomalyCLIP.build(self.net_cfg, frozen["clip"], clip_cfg)
         self.frozen = tree_to(frozen, self.device)
-        self._scorer_cache = None
+        self._encode_frames_fn = self._scorer_cache = None
         return TrainState(
             trainable=tree_to(trainable, self.device),
             optimizer=None,

@@ -177,7 +177,9 @@ script exits non-zero without printing a result:
    parity in fp32 on the split-TF32 pair, then the
    forward+backward step in bf16 on the tensor-core kernels);
    ``probe_bf16_drift`` at one seed and 8 frames (the ViT-L/14@336px tower by
-   layer under the kernels and under three plain forms); ``bench_eval``,
+   layer under the kernels and under three plain forms); ``probe_int8_drift``
+   (the int8 tower by layer: ViT-B/16 fp32 at 32 frames, ViT-L/14@336px bf16
+   at 8); ``bench_eval``,
    ``bench_latency --path both`` and ``bench_train_step`` at their default
    sizes. It prints how many device times by torch.profiler were measured
    and how many came back "not measured" (no session recorded any);
@@ -302,8 +304,44 @@ script exits non-zero without printing a result:
    artifact's and the checkpoint's scoring seconds a video, extraction frames
    a second, and the XD subprocess's seconds and resident memory after each
    stage and at its peak, with the card's name and power limit;
+4j. the other two CLIP towers on the serving path, on 4h's run and 4f's feature
+   set under UCFCRIME_ROOT. First every int8 GEMM shape of the int8 towers
+   (``int8_gemm_shapes``: ViT-B/16's patch embed, qkv, out, fc, proj and final
+   projection at a 256-frame chunk and the final projection at 8 frames, M <=
+   16; ViT-L/14@336px's at TOWER_FRAMES frames, its patch embed's K = 588)
+   through ``quant.int8_matmul`` equal to the fp64 product of the same int8
+   operands. RN50: a seeded fp16 state dict at RN50's full shapes in OpenAI's
+   key layout (``state_dict_from_params`` of ``init_clip_params`` with the BN
+   running statistics drawn), written to a file; a module composed from
+   ``experiment=ucfcrime`` with ``model.net.arch=RN50`` and the file (the CLIP
+   on the card equal to the file's values upcast) writes its state at init and
+   a seeded 1024-d ncentroid as a run directory of its own. Then, for RN50 on
+   that run and for ``model.net.quantize=int8`` on 4h's, in fp32 and bf16:
+   ``predict.main`` on phase 4i's seeded SERVE_FRAME_VIDEO-frame uint8 video
+   (``seeded_decode``: the video decode replaced by the frames), a module built
+   by ``load_module_and_state`` scoring it with ``score_input`` twice (cold,
+   warm), within SERVE_TOL of the CLI's scores, and the same call under the
+   plain attention: RN50 within 1e-4 (fp32) and BF16_SLICE_TOL (bf16). For
+   int8 also: the tower's quantization timed, ``Predictor.score_frames`` (the fp
+   tower, phase 4's entry) on the same frames and module, and ``serve`` over
+   two inputs of the same video (one JSON each, within SERVE_TOL of
+   ``score_input``); the int8 run is held to its plain run where the kernels
+   meet it (``int8_local_gaps``: each layer's attention against the plain
+   version on the layer's own qkv, fp32 within TOLERANCE, bf16 within
+   TC_TOLERANCE) and end to end within INT8_NOISE_RATIO times its own gap to
+   the fp tower (see INT8_NOISE_RATIO), its features of 256 frames within
+   cosine INT8_COSINE of the fp tower's. Then the int8 ViT-L/14@336px tower
+   from seeded weights on TOWER_FRAMES uint8 frames in fp32 (the core rung: K8
+   on ``mha_tf32``) and bf16 (the qtile rung: K6 on ``mha_tc``, fed strided
+   views of the packed qkv), twice to the same bits, held as the int8 scoring
+   is and within cosine INT8_COSINE of the fp tower. Every main-path call runs
+   in a window of its own and must launch exactly its K1, K2, K6 or K8 on its
+   route (RN50's image tower is convs and an einsum pool: no kernel); it prints
+   the times with the card's name and power limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
+   for one 256-frame encode chunk of the ViT-B/16 tower, of the int8 ViT-B/16
+   tower on the same weights and of RN50 per dtype, the same
    for one warm training step, one warm call of the ViT-L/14@336px video
    per dtype and one warm step of the ViT-L/14@336px tower's gradient per
    dtype: device time against wall time, time by class of kernel and the
@@ -311,7 +349,8 @@ script exits non-zero without printing a result:
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
-gradient, script, data, training-run, command-line and serving runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+gradient, script, data, training-run, command-line, serving and other-tower
+runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -585,6 +624,29 @@ XD_FRAMES, XD_CHUNK_GRIDS, XD_CHUNK_TOL = 100_000, 16, 1e-5
 # peak. 3 GiB leaves 0.9 GiB for the spread between runs, which is not
 # measured
 XD_GROWTH_MIB = 3072
+# phase 4j: the other two towers on the serving path. RN50 (CLIPConfig.rn50())
+# from a seeded fp16 file at its full shapes, and the int8 tower
+# (model.net.quantize=int8) on 4h's run, each scoring phase 4i's seeded
+# SERVE_FRAME_VIDEO-frame uint8 video through the predict CLI; the int8
+# ViT-L/14@336px tower on TOWER_FRAMES seeded frames. INT8_COSINE: the int8
+# features against the fp tower's on the same frames (tests/test_quant.py's
+# bound). The int8 tower's kernel run and its plain run are two roundings to
+# int8 of nearly the same activations: a code at a rounding tie flips on an
+# fp32 ulp, a flip moves a GEMM's output row by one quantization step of its
+# input, and the residual stream carries it on, so that by the last layer a
+# quarter of the codes differ and the features are 1-2% apart, as far as a
+# one-ulp nudge of the input moves the plain run and nearly as far as the int8
+# tower is from the fp tower (scripts/probe_int8_drift.py, NVIDIA H100 80GB
+# HBM3, 700 W: ViT-B/16 fp32, 256 frames, kernel vs plain 1.355e-2 relative,
+# nudge 1.366e-2, int8 vs fp 1.528e-2; 20-25% of the codes flipped at layer
+# 12). So the
+# kernels are held where the int8 run meets them, each layer's attention
+# against the plain version on that layer's own qkv at the kernels' limits
+# (fp32 TOLERANCE, bf16 TC_TOLERANCE), and end to end the kernel run within
+# INT8_NOISE_RATIO times the int8 tower's own gap to the fp tower (two
+# independent roundings of one size: sqrt(2) expected)
+TOWER_FRAMES, INT8_COSINE, INT8_NOISE_RATIO = 32, 0.999, 2.0
+SEEDED_VIDEO = "seeded_video.mp4"
 
 
 def phase_device() -> str:
@@ -2484,6 +2546,12 @@ def phase_scripts() -> list:
     # 24 K6 launches along the kernel run and 24 for its local gaps
     runs.append(run_script("probe_bf16_drift", ["--seeds", "1", "--frames", "8"],
                            {"fused_mha_qtile": 48, "mha_tc": 48}))
+    # the int8 tower by layer: its kernel run and the fp tower under the
+    # kernels, the plain run, the nudged run and the local gaps under the plain
+    # attention (ViT-B/16 fp32: 12 K1 a tower; ViT-L/14@336px bf16: 24 K6)
+    runs.append(run_script("probe_int8_drift", ["--frames", "32"], {"fused_mha_qkv": 24, "mha_tf32": 24}))
+    runs.append(run_script("probe_int8_drift", ["--arch", "l14@336", "--dtype", "bf16", "--frames", "8"],
+                           {"fused_mha_qtile": 48, "mha_tc": 48}))
     # 12 text layers when the scorer is built; two axial attentions a scoring call
     # (emb 128: head dim 16, on the split-TF32 whole-head kernel)
     runs.append(run_script("bench_eval", it, {"fused_mha_qkv": 12, "mha_tf32": 12,
@@ -3559,11 +3627,7 @@ def run_serving(smi: str, tmp: Path, data_root: Path, run: Path, clip_path: Path
     def exact(what: str, got: dict, k1: int, k2: int, k1_route: str = "mha_tf32") -> dict:
         """Exactly k1 K1 launches, all on k1_route, and k2 K2 launches, all on
         bld_tf32, and nothing else -> got."""
-        want = dict.fromkeys(got, 0)
-        want.update({"fused_mha_qkv": k1, k1_route: k1, "fused_mha_bld": k2, "bld_tf32": k2})
-        require(got == want, f"{what}: launches {({k: v for k, v in got.items() if v})}, expected "
-                             f"{({k: v for k, v in want.items() if v})}")
-        return got
+        return held(what, got, {"fused_mha_qkv": k1, k1_route: k1, "fused_mha_bld": k2, "bld_tf32": k2})
 
     def counted(what: str, fn, k1: int = 0, k2: int = 0, k1_route: str = "mha_tf32"):
         """A main-path call, the counts set to 0 just before it and read just
@@ -3785,6 +3849,337 @@ def run_serving(smi: str, tmp: Path, data_root: Path, run: Path, clip_path: Path
     return launches
 
 
+@contextlib.contextmanager
+def seeded_decode(frames: np.ndarray):
+    """The input loader of predict and serve with the decode of any video file
+    named ``seeded_*.mp4`` replaced by ``frames`` (ncrops, T, H, W, 3) uint8, as
+    4g replaces the JPEG decode: the card's machine has no video decoder."""
+    from anomalyclip_tpu_torch import predict, serve
+
+    real = predict._load_input
+
+    def load(path, data_cfg, input_size):
+        path = Path(path)
+        if path.name.startswith("seeded_") and path.suffix == ".mp4":
+            require(input_size == frames.shape[-2], f"{path.name}: the model reads {input_size} px frames")
+            return frames
+        return real(path, data_cfg, input_size)
+
+    predict._load_input = serve._load_input = load
+    try:
+        yield
+    finally:
+        predict._load_input = serve._load_input = real
+
+
+def held(what: str, got: dict, want: dict) -> dict:
+    """Exactly the launch and route counts ``want`` (a name it lacks: 0) -> got."""
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    require(got == full, f"{what}: launches {({k: v for k, v in got.items() if v})}, expected "
+                         f"{({k: v for k, v in full.items() if v})}")
+    return got
+
+
+def int8_local_gaps(qvisual, cfg, frames: torch.Tensor, dtype: torch.dtype) -> float:
+    """Every layer's attention in the int8 tower on uint8 ``frames``, the
+    kernel against the plain version on that layer's own qkv
+    (``scripts.probe_int8_drift``), held at the kernels' limit -> the largest
+    gap. Outside any counted window."""
+    from anomalyclip_tpu_torch.models.clip.model import normalize_frames_on_device
+    from anomalyclip_tpu_torch.scripts import probe_int8_drift as drift
+
+    _, layers = drift.run_int8(qvisual, cfg, normalize_frames_on_device(frames), dtype, "kernel")
+    gaps = drift.local_gaps(layers, cfg.vision_heads)
+    del layers
+    limit = TOLERANCE[torch.float32] if dtype == torch.float32 else TC_TOLERANCE
+    require(len(gaps) == cfg.vision_layers and max(gaps) <= limit,
+            f"int8 {cfg.vision_width}-wide {dtype}: {len(gaps)} layers, attention kernel vs plain on the "
+            f"layer's own qkv max|diff| {max(gaps):.3e} (limit {limit:g})")
+    return max(gaps)
+
+
+def cosines(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    a, b = a.double(), b.double()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).cpu().numpy()
+
+
+def int8_gemm_shapes() -> dict:
+    """Every int8 GEMM of the int8 ViT-B/16 tower at one 256-frame encode chunk
+    (and its final projection at 8 frames, M <= 16) and of the ViT-L/14@336px
+    tower at TOWER_FRAMES frames (its patch embed's K = 588) -> name: (M, K, N)."""
+    shapes = {}
+    for arch, width, patches, embed, frames in (("ViT-B/16", 768, 196, 512, 256),
+                                                ("ViT-L/14@336px", 1024, 576, 768, TOWER_FRAMES)):
+        k_patch = 3 * (16 if arch == "ViT-B/16" else 14) ** 2
+        rows = frames * (patches + 1)
+        shapes.update({
+            f"{arch} patch embed": (frames * patches, k_patch, width), f"{arch} qkv": (rows, width, 3 * width),
+            f"{arch} out": (rows, width, width), f"{arch} fc": (rows, width, 4 * width),
+            f"{arch} proj": (rows, 4 * width, width), f"{arch} final proj": (frames, width, embed),
+        })
+    shapes["ViT-B/16 final proj at 8 frames"] = (8, 768, 512)
+    return shapes
+
+
+def phase_towers(smi: str, frames_root: Path, annotations: Path, kept: Path) -> dict:
+    """The RN50 tower and the int8 tower on the serving path, on phase 4h's run,
+    kept in ``kept``, and 4f's feature set -> the kernel launch and route counts
+    of its main path."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("UCFCRIME_ROOT", "ANOMALYCLIP_NO_DOWNLOAD")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="towers_", dir=ROOT / "build") as tmp:
+            tmp = Path(tmp)
+            ucf_data_root(tmp, frames_root, annotations)
+            return run_towers(smi, tmp, kept / "run", kept / "ViT-B-16.pt")
+    finally:
+        restore_env(saved)
+
+
+def run_towers(smi: str, tmp: Path, run: Path, clip_path: Path) -> dict:
+    """Phase 4j's runs; see the module docstring."""
+    import io
+
+    from anomalyclip_tpu_torch import predict, serve
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+    from anomalyclip_tpu_torch.convert import tree_leaves, tree_map, tree_to
+    from anomalyclip_tpu_torch.models.clip import quant
+    from anomalyclip_tpu_torch.models.clip.convert import state_dict_from_params
+    from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, encode_image, init_clip_params
+    from anomalyclip_tpu_torch.ops.attention import attention_impl
+    from anomalyclip_tpu_torch.train.checkpoint import save_ncentroid
+    from anomalyclip_tpu_torch.train.module import AnomalyCLIPTrainModule
+
+    phase_start = time.perf_counter()
+    # phase 4i's seeded video (the same seed, the same first draw)
+    frames_video = np.random.default_rng(SEED + 5).integers(0, 256, (1, SERVE_FRAME_VIDEO, 224, 224, 3),
+                                                            dtype=np.uint8)
+    video = tmp / SEEDED_VIDEO
+    video.touch()
+    counts, readings = [], defaultdict(dict)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - begin
+
+    def counted(what: str, fn, want: dict):
+        """A main-path call in a window of its own, held to ``want`` ->
+        (its output, its seconds). The references run outside these windows."""
+        counts_taken()
+        out, seconds = timed(fn)
+        counts.append(held(what, counts_taken(), want))
+        return out, seconds
+
+    def scoring(k1: int, dtype: str, k2: int = 2, key: str = "fused_mha_qkv") -> dict:
+        route = "mha_tf32" if dtype == "float32" else "mha_tc"
+        return {key: k1, route: k1, "fused_mha_bld": k2, "bld_tf32": k2}
+
+    # ---- the int8 GEMMs, exact against an fp64 product of the same operands
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gemm_s = {}
+    for name, (m, k, n) in int8_gemm_shapes().items():
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+        got, gemm_s[name] = timed(lambda: quant.int8_matmul(a, w))
+        require(got.dtype == torch.int32 and got.shape == (m, n), f"int8 GEMM {name}: {got.dtype} {tuple(got.shape)}")
+        require(torch.equal(got.double(), a.double() @ w.double().T), f"int8 GEMM {name} (M, K, N) = {(m, k, n)} "
+                                                                      "differs from the fp64 product")
+    del a, w, got
+    print(f"[towers] every int8 GEMM equals the fp64 product of its int8 operands: "
+          + "; ".join(f"{name} {int8_gemm_shapes()[name]} {s * 1e3:.3f} ms" for name, s in gemm_s.items())
+          + f" (one call each, cold; {smi})", flush=True)
+
+    # ---- RN50: a seeded fp16 file at the full shapes, its own run directory
+    rn_start = time.perf_counter()
+    rn_params = init_clip_params(torch.Generator().manual_seed(SEED + 7), CLIPConfig.rn50())
+    bn_gen = torch.Generator().manual_seed(SEED + 8)
+    for layer in [rn_params["visual"]["stem"], *(b for li in range(1, 5) for b in rn_params["visual"][f"layer{li}"])]:
+        for bn in (v for v in layer.values() if isinstance(v, dict)):  # eval-mode BN with real statistics
+            bn["mean"] = 0.1 * torch.randn(bn["mean"].shape, generator=bn_gen)
+            bn["var"] = 0.5 + torch.rand(bn["var"].shape, generator=bn_gen)
+    rn_file = tmp / "RN50.pt"
+    torch.save({k: v.half() for k, v in state_dict_from_params(rn_params).items()}, rn_file)
+    rn_bytes = rn_file.stat().st_size
+    rn_args = ["data=ucfcrime", "model=anomaly_clip_ucfcrime", "model.net.arch=RN50",
+               f"model.net.clip_ckpt_path={rn_file}"]
+    init_module = AnomalyCLIPTrainModule(
+        to_dict(compose(default_config_dir(), "train", ["experiment=ucfcrime", *rn_args[2:],
+                                                         f"paths.log_dir={tmp / 'rn50_init'}"])), device="cuda")
+    rn_dim = CLIPConfig.rn50().embed_dim
+    require(init_module.model.clip_cfg == CLIPConfig.rn50() and init_module.model.temporal_cfg.input_size == rn_dim,
+            f"the RN50 file builds {init_module.model.clip_cfg}")
+    # the CLIP on the card is the file's fp16 values upcast
+    for got, want in zip(tree_leaves(init_module.frozen["clip"]),
+                         tree_leaves(tree_map(lambda t: t.half().float(), rn_params)), strict=True):
+        require(got.device.type == "cuda" and torch.equal(got.cpu(), want),
+                "the RN50 tree on the card differs from the file")
+    init_state = init_module.init_state(1)
+    rn_run = init_module.save_dir
+    init_module.ckpt.save_epoch(0, {**init_module._boundary(init_state), "epoch": 0})
+    save_ncentroid(rn_run, (0.1 * np.random.default_rng(SEED + 6).standard_normal(rn_dim)).astype(np.float32))
+    del init_module, init_state
+    rn_setup_s = time.perf_counter() - rn_start
+
+    def score_paths(tag: str, args: list, dtype: str, image_k1: int) -> dict:
+        """The predict CLI, then a module built as the CLIs build it scoring the
+        video twice (cold, warm), then the same under the plain attention ->
+        the module, state, the warm scores and the seconds."""
+        args = args + [f"model.net.compute_dtype={dtype}", "extras.print_config=False"]
+        out = tmp / f"{tag}_{dtype}.json"
+        with seeded_decode(frames_video):
+            result, cli_s = counted(f"{tag} {dtype} predict.main", lambda: predict.main(
+                args + [f"input={video}", f"output={out}", f"paths.log_dir={tmp / 'cli'}"]),
+                scoring(text_k1 + image_k1, dtype))
+        require(json.loads(out.read_text()) == result, f"{out.name} is not the returned prediction")
+        cfg = to_dict(compose(default_config_dir(), "eval", args + [f"paths.log_dir={tmp / 'module'}"]))
+        (module, state), _ = counted(f"{tag} {dtype} load_module_and_state",
+                                     lambda: predict.load_module_and_state(cfg, "cuda"), {})
+        calls = []
+        for _ in range(2):  # cold: the scorer built (int8: the tower quantized), then warm
+            calls.append(counted(f"{tag} {dtype} score_input", lambda: predict.score_input(
+                module, state, frames_video, str(video)), scoring(text_k1 + image_k1, dtype)))
+        (vs, warm_result), warm_s = calls[-1]
+        check_video(vs, warm_result, SERVE_FRAME_VIDEO, len(module.model.classnames) - 1)
+        cli_gap = float(np.abs(np.asarray(result["frame_scores"]) - vs.scores).max())
+        require(cli_gap <= SERVE_TOL, f"{tag} {dtype}: predict CLI vs score_input max|diff| {cli_gap:.3e}")
+        with attention_impl("reference"):
+            ref_vs, _ = predict.score_input(module, state, frames_video, str(video))
+        readings[tag][dtype] = dict(cli_s=cli_s, cold_s=calls[0][1], warm_s=warm_s)
+        return SimpleNamespace(module=module, state=state, vs=vs, ref_vs=ref_vs)
+
+    text_k1 = CLIPConfig.vit_b16().transformer_layers
+    grid_frames = 32 * 16
+    chunks = -(-(-(-SERVE_FRAME_VIDEO // grid_frames) * grid_frames) // 256)
+    for dtype in ("float32", "bfloat16"):
+        # RN50: the image tower is convs and an einsum pool (no kernel); K1 is
+        # the text tower's, K2 the temporal model's
+        scored = score_paths("RN50", rn_args + [f"ckpt_path={rn_run / 'checkpoints' / 'last'}"], dtype, 0)
+        limit = FP32_SLICE_TOL if dtype == "float32" else BF16_SLICE_TOL
+        gap = assert_videos_close(scored.vs, scored.ref_vs, limit, f"RN50 {dtype} kernels vs plain")
+        readings["RN50"][dtype].update(gap=gap, limit=limit)
+        del scored
+
+    # ---- int8 ViT-B/16 on 4h's run: predict, the fp tower beside it, serve
+    int8_args = ["data=ucfcrime", "model=anomaly_clip_ucfcrime", f"model.net.clip_ckpt_path={clip_path}",
+                 f"ckpt_path={run / 'checkpoints' / 'last'}", "model.net.quantize=int8"]
+    image_k1 = CLIPConfig.vit_b16().vision_layers * chunks
+    serve_inputs = [tmp / "seeded_a.mp4", tmp / "seeded_b.mp4"]
+    for path in serve_inputs:
+        path.touch()
+    for dtype in ("float32", "bfloat16"):
+        scored = score_paths("int8", int8_args, dtype, image_k1)
+        module, state = scored.module, scored.state
+        encode = module._encode_fn()
+        require(getattr(encode, "int8", False), f"int8 {dtype}: the module serves the fp tower")
+        qvisual, quantize_s = counted(f"int8 {dtype} quantize_clip_visual",
+                                      lambda: quant.quantize_clip_visual(module.frozen["clip"]), {})
+        # phase 4's entry, the fp tower, on the same frames and module
+        predictor = predict.Predictor(module.model, module.frozen, state.trainable, state.bn_state,
+                                      module.ncentroid, sampling=module.datamodule.cfg, device="cuda")
+        fp_runs = [counted(f"fp {dtype} Predictor.score_frames", lambda: predictor.score_frames(frames_video),
+                           scoring(image_k1, dtype)) for _ in range(2)]
+        fp_vs, fp_s = fp_runs[-1][0][0], [run[1] for run in fp_runs]
+        # the checks, outside the windows: each layer's attention on 256 of
+        # the frames; end to end within the int8 tower's own rounding noise
+        part = torch.from_numpy(frames_video[0, :256]).cuda()
+        local = int8_local_gaps(qvisual, module.model.clip_cfg, part, module.model.cfg.dtype)
+        noise = max(float(np.abs(getattr(scored.vs, n) - getattr(fp_vs, n)).max())
+                    for n in ("scores", "similarity", "class_probs"))
+        gap = assert_videos_close(scored.vs, scored.ref_vs, INT8_NOISE_RATIO * noise,
+                                  f"int8 {dtype} kernels vs plain (int8 vs fp {noise:.3e})")
+        cos = cosines(encode(module.frozen, part), module.model.encode_frames(module.frozen, part))
+        require(bool((cos > INT8_COSINE).all()), f"int8 {dtype}: cosine to the fp tower {cos.min():.6f}")
+        # serve: two inputs through one warm service; the second is warm
+        real_finish, finish_s = serve._finish, []
+
+        def timed_finish(*args):
+            finish_s.append(timed(lambda: real_finish(*args))[1])
+
+        served = tmp / f"served_{dtype}"
+        real_stdin, serve._finish = sys.stdin, timed_finish
+        try:
+            sys.stdin = io.StringIO("".join(f"{path}\n" for path in serve_inputs))
+            with seeded_decode(frames_video):
+                counted(f"int8 {dtype} serve", lambda: serve.main(
+                    int8_args + [f"model.net.compute_dtype={dtype}", "extras.print_config=False",
+                                 f"output_dir={served}", f"paths.log_dir={tmp / 'serve'}"]),
+                        {k: 2 * v for k, v in scoring(text_k1 + image_k1, dtype).items()})
+        finally:
+            sys.stdin, serve._finish = real_stdin, real_finish
+        for path in serve_inputs:
+            out = served / f"{path.stem}.json"
+            require(out.is_file(), f"serve int8 {dtype} wrote no {out.name}")
+            got = json.loads(out.read_text())
+            served_gap = float(np.abs(np.asarray(got["frame_scores"]) - scored.vs.scores).max())
+            require(served_gap <= SERVE_TOL, f"serve int8 {dtype} {out.name} vs score_input max|diff| {served_gap:.3e}")
+        readings["int8"][dtype].update(quantize_s=quantize_s, fp_cold_s=fp_s[0], fp_warm_s=fp_s[1],
+                                       serve_s=finish_s, cosine=float(cos.min()), local=local, gap=gap,
+                                       noise=noise)
+        del scored, module, state, predictor, encode, part, qvisual, fp_runs, fp_vs
+        torch.cuda.empty_cache()
+
+    # ---- int8 ViT-L/14@336px: the core rung into K8 in fp32, the qtile rung
+    # into K6 (strided views of the packed qkv) in bf16
+    l14_cfg = CLIPConfig.vit_l14_336()
+    l14 = tree_to({"visual": init_clip_params(torch.Generator().manual_seed(SEED + 9), l14_cfg)["visual"]}, "cuda")
+    q14, q14_s = counted("ViT-L/14@336px quantize_clip_visual", lambda: quant.quantize_clip_visual(l14), {})
+    tower_frames = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
+        0, 256, (TOWER_FRAMES, 336, 336, 3), dtype=np.uint8)).cuda()
+    layers = l14_cfg.vision_layers
+    want14 = {"float32": {"flash_attention_heads": layers, "mha_tf32": layers},
+              "bfloat16": {"fused_mha_qtile": layers, "mha_tc": layers}}
+    for dtype in ("float32", "bfloat16"):
+        torch_dtype = getattr(torch, dtype)
+        runs = [counted(f"ViT-L/14@336px int8 {dtype}", lambda: quant.encode_image_int8(
+            q14, l14_cfg, tower_frames, torch_dtype), want14[dtype]) for _ in range(2)]
+        feats = runs[-1][0]
+        require(torch.equal(feats, runs[0][0]), f"ViT-L/14@336px int8 {dtype}: two calls differ")
+        local = int8_local_gaps(q14, l14_cfg, tower_frames, torch_dtype)
+        with attention_impl("reference"):
+            ref = quant.encode_image_int8(q14, l14_cfg, tower_frames, torch_dtype)
+        fp = encode_image(l14, l14_cfg, tower_frames, torch_dtype)
+        noise = float((feats.float() - fp.float()).abs().max())
+        gap = float((feats.float() - ref.float()).abs().max())
+        require(torch.isfinite(feats).all() and gap <= INT8_NOISE_RATIO * noise,
+                f"ViT-L/14@336px int8 {dtype} kernels vs plain max|diff| {gap:.3e} (int8 vs fp {noise:.3e})")
+        cos = np.minimum(cosines(feats, fp), cosines(ref, fp))
+        require(bool((cos > INT8_COSINE).all()), f"ViT-L/14@336px int8 {dtype}: cosine {cos.min():.6f}")
+        readings["L14 int8"][dtype] = dict(cold_s=runs[0][1], warm_s=runs[1][1], gap=gap, noise=noise,
+                                           local=local, cosine=float(cos.min()))
+    del l14, q14, tower_frames
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    print(f"[towers] launches, {len(counts)} main-path calls each held exactly {launches}", flush=True)
+    print(f"[towers] RN50: a seeded fp16 file of {rn_bytes} B at the full shapes and its run directory "
+          f"{rn_setup_s:.3f} s; from {SERVE_FRAME_VIDEO} uint8 frames: "
+          + "; ".join(f"{d} predict CLI {r['cli_s']:.3f} s, score_input cold {r['cold_s']:.4f} s, warm "
+                      f"{r['warm_s']:.4f} s, kernels vs plain max|diff| {r['gap']:.3e} (limit {r['limit']:g})"
+                      for d, r in readings["RN50"].items()) + f" ({smi})", flush=True)
+    print(f"[towers] int8 ViT-B/16 on 4h's run, from {SERVE_FRAME_VIDEO} uint8 frames: "
+          + "; ".join(f"{d} quantization {r['quantize_s']:.4f} s, predict CLI {r['cli_s']:.3f} s, score_input "
+                      f"cold {r['cold_s']:.4f} s, warm {r['warm_s']:.4f} s beside the fp tower's "
+                      f"(Predictor.score_frames) {r['fp_warm_s']:.4f} s (cold {r['fp_cold_s']:.4f} s), serve an "
+                      f"input {', '.join(f'{x:.4f}' for x in r['serve_s'])} s; each layer's attention, kernel "
+                      f"vs plain, max|diff| {r['local']:.3e}; end to end kernels vs plain {r['gap']:.3e}, int8 vs "
+                      f"fp {r['noise']:.3e} (limit {INT8_NOISE_RATIO:g}x); cosine to the fp tower >= "
+                      f"{r['cosine']:.6f}"
+                      for d, r in readings["int8"].items()) + f" ({smi})", flush=True)
+    print(f"[towers] int8 ViT-L/14@336px, {TOWER_FRAMES} uint8 frames: quantization {q14_s:.4f} s; "
+          + "; ".join(f"{d} cold {r['cold_s']:.4f} s, warm {r['warm_s']:.4f} s; each layer's attention, kernel vs "
+                      f"plain, max|diff| {r['local']:.3e}; end to end kernels vs plain {r['gap']:.3e}, int8 vs fp "
+                      f"{r['noise']:.3e} (limit {INT8_NOISE_RATIO:g}x); cosine to the fp tower >= {r['cosine']:.6f}"
+                      for d, r in readings["L14 int8"].items())
+          + f"; the phase {time.perf_counter() - phase_start:.1f} s ({smi})", flush=True)
+    return launches
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
@@ -3893,6 +4288,27 @@ def phase_profile(out: Path, smi: str) -> None:
         results[dtype] = profile_call(lambda: predictor.score_frames(frames))
         print_profile(f"{dtype} {CHECK_VIDEO} frames", results[dtype])
 
+    # one warm 256-frame encode chunk per dtype: the ViT-B/16 tower fp and
+    # int8 on the same weights, and RN50 from seeded weights
+    from anomalyclip_tpu_torch.convert import tree_to
+    from anomalyclip_tpu_torch.models.clip import quant
+    from anomalyclip_tpu_torch.models.clip.model import CLIPConfig, encode_image, init_clip_params
+
+    chunk = torch.from_numpy(frames[0, :256]).cuda()
+    qvisual = quant.quantize_clip_visual(frozen["clip"])
+    rn50 = tree_to({"visual": init_clip_params(torch.Generator().manual_seed(SEED + 7), CLIPConfig.rn50())["visual"]},
+                   "cuda")
+    towers = {"vit_b16": lambda dt: encode_image(frozen["clip"], model.clip_cfg, chunk, dt),
+              "int8_vit_b16": lambda dt: quant.encode_image_int8(qvisual, model.clip_cfg, chunk, dt),
+              "rn50": lambda dt: encode_image(rn50, CLIPConfig.rn50(), chunk, dt)}
+    for tower, fn in towers.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"{tower}_chunk_{str(dtype).split('.')[-1]}"
+            with torch.no_grad():
+                results[key] = profile_call(lambda: fn(dtype))
+            print_profile(f"{tower} {str(dtype).split('.')[-1]}, one 256-frame chunk", results[key])
+    del qvisual, rn50, chunk
+
     # one warm UCF-Crime training step from features, fp32, batch 64, with the
     # host-to-device copy of the batch
     train_model = AnomalyCLIP(dataclasses.replace(model.cfg, load_from_features=True),
@@ -3946,8 +4362,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", type=Path, metavar="OUT.json",
                         help="also profile one warm 700-frame call per dtype, one warm "
-                             "training step, one warm ViT-L/14@336px call per dtype and "
-                             "one warm step of its tower's gradient per dtype")
+                             "256-frame encode chunk of the ViT-B/16, int8 and RN50 towers "
+                             "per dtype, one warm training step, one warm ViT-L/14@336px call "
+                             "per dtype and one warm step of its tower's gradient per dtype")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -3970,6 +4387,7 @@ def main() -> int:
         fit_launches = phase_fit(smi, *feature_set)
         entry_launches = phase_entry(smi, *feature_set, Path(tmp))
         serving_launches = phase_serving(smi, *feature_set, Path(tmp))
+        tower_launches = phase_towers(smi, *feature_set, Path(tmp))
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -4025,8 +4443,13 @@ def main() -> int:
     require(all(serving_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_tf32", "mha_tc",
                                                   "bld_tf32")),
             f"a kernel of the serving path was never launched: {serving_launches}")
+    # the other two towers: RN50's text tower and temporal model, the int8
+    # towers' K1 (ViT-B/16), K8 (ViT-L/14@336px fp32) and K6 (bf16)
+    require(all(tower_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile",
+                                                "flash_attention_heads", "mha_tf32", "mha_tc", "bld_tf32")),
+            f"a kernel of the RN50 and int8 towers' path was never launched: {tower_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
-                *script_launches, data_launches, fit_launches, entry_launches, serving_launches]
+                *script_launches, data_launches, fit_launches, entry_launches, serving_launches, tower_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

@@ -539,8 +539,9 @@ def test_registry_tables_equal_the_jax_ones():
     for arch in jregistry._MODELS:
         assert registry._checkpoint_filename(arch) == jregistry._checkpoint_filename(arch)
         assert registry._cache_candidates(arch) == jregistry._cache_candidates(arch)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        registry.resolve_clip("RN50", "random-full")
+    params, cfg = registry.resolve_clip("RN50", "random-full")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jregistry._ARCH_CONFIGS["RN50"]())
+    assert cfg == CLIPConfig.rn50() and params["visual"]["attnpool"]["c_w"].shape == (2048, 1024)
     params, cfg = registry.resolve_clip("ViT-B/32", "random")
     assert cfg == CLIPConfig.tiny() and params["text"]["token_embedding"].shape == (49408, 64)
 

@@ -12,8 +12,8 @@
   no cache), ``overfit_batches`` (``set_epoch(0)`` every epoch), early
   stopping under ``check_val_every_n_epoch=2`` (stale metrics burn no
   patience), ``exception.log`` on a failing fit, ``train/lr``, a pretrained
-  CLIP read from ``clip_ckpt_path``, and what is not ported yet raising
-  ``NotImplementedError`` with its ROADMAP.md item.
+  CLIP read from ``clip_ckpt_path``, what is not ported yet raising
+  ``NotImplementedError`` with its ROADMAP.md item, and RN50 resolving.
 - ``chip_smoke.py``'s UCF-Crime run config against the composed
   ``experiment=ucfcrime`` on every key the port's module reads.
 """
@@ -242,7 +242,6 @@ def test_exception_log_on_a_failing_fit(tmp_path):
 
 
 @pytest.mark.parametrize("override, item", [
-    ("model.net.quantize=int8", "item 7"),
     ("trainer.model_parallel=2", "item 8"),
 ])
 def test_unported_options_raise_at_init(tmp_path, override, item):
@@ -272,8 +271,8 @@ def test_pretrained_clip_comes_from_clip_ckpt_path(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise_where_used(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmod.resolve_clip("RN50", "random-full")
+    params, clip_cfg = tmod.resolve_clip("RN50", "random-full")  # ported: the ModifiedResNet tower
+    assert clip_cfg == CLIPConfig.rn50() and clip_cfg.is_resnet and "stem" in params["visual"]
     module = _port(tmp_path, "run", "trainer.profiler=jax")
     with pytest.raises(NotImplementedError, match="profiler"):
         module.fit()

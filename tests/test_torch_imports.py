@@ -81,7 +81,9 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.models.anomaly_clip",
         "anomalyclip_tpu_torch.models.clip.convert",
         "anomalyclip_tpu_torch.models.clip.model",
+        "anomalyclip_tpu_torch.models.clip.quant",
         "anomalyclip_tpu_torch.models.clip.registry",
+        "anomalyclip_tpu_torch.models.clip.resnet",
         "anomalyclip_tpu_torch.models.clip.tokenizer",
         "anomalyclip_tpu_torch.models.losses",
         "anomalyclip_tpu_torch.models.prompt_learner",
@@ -99,6 +101,7 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.scripts.bench_mha_tc",
         "anomalyclip_tpu_torch.scripts.bench_train_step",
         "anomalyclip_tpu_torch.scripts.probe_bf16_drift",
+        "anomalyclip_tpu_torch.scripts.probe_int8_drift",
         "anomalyclip_tpu_torch.scripts.probe_qkv_gb",
         "anomalyclip_tpu_torch.scripts.probe_qtile_vmem",
         "anomalyclip_tpu_torch.scripts.validate_pickgb",

@@ -538,6 +538,8 @@ _SCRIPTS = [
     ("bench_mha_tc", ["text", "--sass"]),
     ("probe_bf16_drift", ["--seeds", "1"]),
     ("bench_attn_bwd", ["--flash", "--dtype", "bf16"]),
+    ("probe_int8_drift", []),
+    ("probe_int8_drift", ["--dtype", "bf16"]),
 ]
 
 
