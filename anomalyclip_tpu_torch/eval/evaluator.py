@@ -15,6 +15,7 @@ validation and test; ``eval/metrics.py`` turns its output into AUC and AP.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +33,7 @@ from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP
 from anomalyclip_tpu_torch.models.selector import BNState, selector_test
 from anomalyclip_tpu_torch.models.temporal import temporal_scores
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
+from anomalyclip_tpu_torch.parallel.mesh import allgather_host, distributed
 
 def _require_on(device: torch.device, name: str, tree) -> None:
     """Raise unless every tensor of ``tree`` lies on ``device``, both named."""
@@ -72,7 +74,8 @@ class GridScorer:
     ``encode_frames_np``, so a scorer of features needs no image tower on the
     device. ``encode`` is the frame encoder (frozen, frames) -> features,
     ``model.encode_frames`` unless the caller hands another (the module's
-    int8 serving tower, JAX evaluator.py:141, 207-209). ``score_grids`` runs
+    int8 serving tower or the tensor-parallel one, JAX evaluator.py:141,
+    207-209). ``score_grids`` runs
     the selector and the temporal model on a bucket-padded grid batch.
     ``encode_calls`` counts the image-tower calls of ``encode_frames_np``, one
     per chunk."""
@@ -118,8 +121,11 @@ class GridScorer:
                                     self._ncentroid, grids)
 
     def encode_frames_np(self, frames: np.ndarray) -> np.ndarray:
-        """CLIP-encode raw frames (N, H, W, 3) -> (N, D) in static-shape chunks."""
-        _require_on(self.device, "frozen visual", self._frozen["clip"]["visual"])
+        """CLIP-encode raw frames (N, H, W, 3) -> (N, D) in static-shape chunks.
+        The frozen image tower must be on the scorer's device when the model's
+        own encoder reads it; an encoder handed in holds its own tower."""
+        if self.encode == self.model.encode_frames:
+            _require_on(self.device, "frozen visual", self._frozen["clip"]["visual"])
 
         def encode(part: torch.Tensor) -> torch.Tensor:
             self.encode_calls += 1
@@ -186,6 +192,7 @@ def evaluate_videos(
     score_item: Optional[Callable[[TestItem], VideoScores]] = None,
     should_stop: Optional[Callable[[], bool]] = None,
     gather_processes: bool = False,
+    contribute: bool = True,
 ) -> Dict[str, np.ndarray]:
     """Concatenate per-video outputs over a test loader
     (anomalyclip_tpu/eval/evaluator.py:332-380) -> {"abnormal_scores",
@@ -194,26 +201,32 @@ def evaluate_videos(
     polled before each video, and a stopped pass returns {} so that partial
     numbers are never reported.
 
-    ``gather_processes=True`` in one process is the whole set, as without it.
-    Across processes (``torch.distributed`` initialized with more than one
-    rank) the gather of each rank's videos is not ported yet (ROADMAP.md
-    section 1, item 8) and raises: one rank's videos are not the whole set."""
-    if gather_processes and _world_size() > 1:
-        raise NotImplementedError(
-            "evaluate_videos(gather_processes=True) across "
-            f"{_world_size()} processes: the gather is not ported yet (ROADMAP.md section 1, item 8)"
-        )
+    ``gather_processes=True`` in a ``torch.distributed`` group: the loader
+    yields this rank's stride of the videos (``SequentialTestLoader``'s
+    ``shard``, whose ``global_indices`` it must have), and every rank returns
+    the whole set in global video order (``gather_outputs``). A rank with
+    ``contribute=False`` scores its videos and adds none of them: the ranks of
+    a tensor-parallel group after its first score the same videos as it. Outside
+    a group it is the whole set, as without it."""
     if score_item is None:
         score_item = lambda item: score_video(item, scorer, model)  # noqa: E731
+    gather = gather_processes and distributed()
+    indices = list(loader.global_indices()) if gather else None
     per_video: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    stopped = False
     for item in loader:
         if should_stop is not None and should_stop():
-            return {}
+            stopped = True
+            break
         vs = score_item(item)
         if on_video is not None:
             on_video(vs)
         per_video.append((vs.scores, np.asarray(vs.frame_labels), vs.class_probs))
-    if not per_video:
+    if gather:
+        if not contribute:
+            per_video, indices = [], []
+        return gather_outputs(per_video, indices[: len(per_video)], stopped)
+    if stopped or not per_video:
         return {}
     return {
         "abnormal_scores": np.concatenate([v[0] for v in per_video]),
@@ -222,6 +235,70 @@ def evaluate_videos(
     }
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+# frames each rank contributes to one gather round: the payload of a round is
+# P x GATHER_CHUNK_FRAMES x (C+2) float32 however long or skewed the shards
+# are (JAX evaluator.py:383-387); ANOMALYCLIP_GATHER_CHUNK overrides it, and the
+# ranks take the smallest value any of them has
+GATHER_CHUNK_FRAMES = 16384
+
+
+def gather_outputs(
+    per_video: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+    indices: List[int],
+    stopped: bool,
+) -> Dict[str, np.ndarray]:
+    """Every rank's per-video (scores, labels, class_probs) -> the whole set in
+    global video order, on every rank (JAX evaluator.py:390-470). Ranks own
+    different numbers and lengths of videos, so: (1) the stop flags, video and
+    frame counts, class count and chunk size are gathered, and one stopped
+    rank makes every rank return {}; (2) the (global index, length) tables;
+    (3) each rank's outputs packed into (frames, C+2) float32 rows
+    ``[score | label | class_probs]``, gathered in rounds of the ranks' smallest
+    chunk size, a rank past its end sending zeros; (4) each rank's videos cut
+    back out by its table and put in index order. Labels are small class ids,
+    exact in float32, and come back as int64. The gathers move host tensors
+    (``mesh.allgather_host``)."""
+    local_chunk = int(os.environ.get("ANOMALYCLIP_GATHER_CHUNK", GATHER_CHUNK_FRAMES))
+    local_frames = int(sum(len(v[0]) for v in per_video))
+    local_c = int(per_video[0][2].shape[1]) if per_video else 0
+    meta = allgather_host(np.array([int(stopped), len(per_video), local_frames, local_c, local_chunk], np.int64))
+    if bool(meta[:, 0].any()) or int(meta[:, 1].sum()) == 0:
+        return {}
+    max_videos, max_frames = int(meta[:, 1].max()), int(meta[:, 2].max())
+    cols, chunk = int(meta[:, 3].max()) + 2, max(1, int(meta[:, 4].min()))
+
+    table = np.full((max_videos, 2), -1, np.int64)  # (global index, length)
+    pack = np.zeros((local_frames, cols), np.float32)
+    off = 0
+    for k, (sc, lab, pr) in enumerate(per_video):
+        table[k] = (indices[k], len(sc))
+        pack[off : off + len(sc), 0] = sc
+        pack[off : off + len(sc), 1] = lab
+        pack[off : off + len(sc), 2:] = pr
+        off += len(sc)
+    tables = allgather_host(table)  # (P, max_videos, 2)
+    frames_of = meta[:, 2]
+    packs = [np.empty((int(f), cols), np.float32) for f in frames_of]
+    for lo in range(0, max_frames, chunk):
+        part = np.zeros((chunk, cols), np.float32)
+        mine = pack[lo : lo + chunk]
+        part[: len(mine)] = mine
+        rounds = allgather_host(part)  # (P, chunk, cols)
+        for p, frames in enumerate(frames_of):
+            valid = int(min(max(int(frames) - lo, 0), chunk))
+            packs[p][lo : lo + valid] = rounds[p, :valid]
+
+    by_index: Dict[int, np.ndarray] = {}
+    for p, rows in enumerate(tables):
+        off = 0
+        for gi, length in rows:
+            if gi < 0:
+                break
+            by_index[int(gi)] = packs[p][off : off + int(length)]
+            off += int(length)
+    order = sorted(by_index)
+    return {
+        "abnormal_scores": np.concatenate([by_index[i][:, 0] for i in order]),
+        "labels": np.concatenate([by_index[i][:, 1] for i in order]).astype(np.int64),
+        "class_probs": np.concatenate([by_index[i][:, 2:] for i in order]),
+    }

@@ -11,8 +11,9 @@ anomalyclip_tpu/eval_entry.py, with the reference's invocation contract
 
 ``ckpt_path`` is a checkpoint directory of the port (an epoch's, or ``last``;
 ``convert_ckpt`` writes one from a ``.ckpt``) or a reference Lightning ``.ckpt``,
-which is converted in place and scored with its own CLIP. The device is chosen
-as in ``train_entry``.
+which is converted in place and scored with its own CLIP. The device, and the
+ranks a run spawns or joins (``trainer.devices``, ``trainer=ddp``, ``WORLD_SIZE``),
+are chosen as in ``train_entry``; the ranks stride the test videos and gather.
 
 Artifact mode validates an exported serving artifact (export.py) against a
 labeled benchmark with no model code or checkpoint, the check before an
@@ -30,9 +31,7 @@ from pathlib import Path
 
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
-    from anomalyclip_tpu_torch.train_entry import _refuse_multi_process, choose_device
-
-    _refuse_multi_process(argv)
+    from anomalyclip_tpu_torch.train_entry import as_ranks, choose_device
 
     os.environ.setdefault("PROJECT_ROOT", str(Path(__file__).resolve().parents[1]))
 
@@ -47,8 +46,10 @@ def main(argv=None) -> dict:
                 "artifact=<dir> data=..."
             )
         device = choose_device(argv, cfg)
+        from anomalyclip_tpu_torch.parallel.mesh import init_distributed
         from anomalyclip_tpu_torch.utils.extras import apply_extras
 
+        init_distributed(device=device)
         apply_extras(cfg)
         return _eval_artifact(to_dict(cfg), device)
 
@@ -60,19 +61,32 @@ def main(argv=None) -> dict:
         )
 
     device = choose_device(argv, cfg)
-
-    from anomalyclip_tpu_torch.utils.extras import apply_extras
-
-    apply_extras(cfg)
-
     ckpt_path = cfg.get("ckpt_path")
     if not ckpt_path or ckpt_path == "???":
         raise SystemExit("eval_entry requires ckpt_path=...")
+    return as_ranks("anomalyclip_tpu_torch.eval_entry:_rank_test", argv, cfg, device,
+                    lambda: _test(cfg, device))
 
+
+def _rank_test(argv) -> dict:
+    """A spawned rank's test pass: the config composed from ``argv`` again."""
+    from anomalyclip_tpu_torch.config import compose, default_config_dir
+    from anomalyclip_tpu_torch.train_entry import choose_device
+
+    cfg = compose(default_config_dir(), "eval", argv)
+    return _test(cfg, choose_device(argv, cfg))
+
+
+def _test(cfg, device: str) -> dict:
+    """The test pass of ``cfg``'s checkpoint on ``device`` (this rank's, in a
+    group: the ranks stride the videos and gather) -> its metrics."""
+    from anomalyclip_tpu_torch.config import to_dict
     from anomalyclip_tpu_torch.train.module import AnomalyCLIPTrainModule
+    from anomalyclip_tpu_torch.utils.extras import apply_extras
 
+    apply_extras(cfg)
     module = AnomalyCLIPTrainModule(to_dict(cfg), device=device)
-    return module.test(ckpt_path=ckpt_path)
+    return module.test(ckpt_path=cfg.get("ckpt_path"))
 
 
 def _eval_artifact(cfg: dict, device: str) -> dict:

@@ -347,11 +347,10 @@ class ServingArtifact:
 
 
 def main(argv=None) -> Path:
-    from anomalyclip_tpu_torch.predict import load_module_and_state
-    from anomalyclip_tpu_torch.train_entry import _refuse_multi_process, choose_device
+    from anomalyclip_tpu_torch.predict import join_group, load_module_and_state
+    from anomalyclip_tpu_torch.train_entry import choose_device
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    _refuse_multi_process(argv)
     os.environ.setdefault("PROJECT_ROOT", str(Path(__file__).resolve().parents[1]))
 
     from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
@@ -370,7 +369,7 @@ def main(argv=None) -> Path:
 
     from anomalyclip_tpu_torch.models.anomaly_clip import read_classnames
 
-    module, state = load_module_and_state(to_dict(cfg), choose_device(argv, cfg))
+    module, state = load_module_and_state(to_dict(cfg), join_group(choose_device(argv, cfg)))
     include_encoder = str(cfg.get("include_encoder", True)).lower() not in ("false", "0")
     path = export_serving_artifact(
         module.model,

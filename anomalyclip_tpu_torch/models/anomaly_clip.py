@@ -218,13 +218,15 @@ class AnomalyCLIP:
         labels: torch.Tensor,
         ncentroid: torch.Tensor,
         gen: torch.Generator,
+        dp: Optional[Tuple[int, int]] = None,
     ) -> Tuple[TrainOutput, BNState]:
         """Training forward, differentiable in ``trainable``.
 
         image_features: (b, t=n*l, D) CLIP features, abnormal half first, or
         (b, t, H, W, 3) frames when load_from_features is False (encoded by the
         frozen tower, without gradient); labels: (b,). ``gen`` draws the
-        selector's segment-dropout masks."""
+        selector's segment-dropout masks. ``dp=(rank, ranks)``: the batch is
+        this rank's block of a data-parallel global batch (``selector_train``)."""
         with matmul_precision_for(self.cfg.dtype):
             if not self.cfg.load_from_features:
                 b, t = image_features.shape[:2]
@@ -234,7 +236,7 @@ class AnomalyCLIP:
             flat = image_features.reshape(-1, image_features.shape[-1])
             text_features = self.text_features(frozen, trainable)
             selection, new_bn = selector_train(
-                flat, text_features, labels, ncentroid, bn_state, gen, self.selector_cfg
+                flat, text_features, labels, ncentroid, bn_state, gen, self.selector_cfg, dp=dp
             )
             features = self._temporal_input(flat, selection.logits, ncentroid)
             scores = temporal_scores(

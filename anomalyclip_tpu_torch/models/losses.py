@@ -16,9 +16,11 @@ Batch convention: abnormal first half, normal second half.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from anomalyclip_tpu_torch.parallel.mesh import across_ranks, sum_over_ranks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +56,20 @@ def _smoothness(scores: torch.Tensor) -> torch.Tensor:
     return ((shifted - scores) ** 2).sum()
 
 
+def global_abnormal_scores(scores: torch.Tensor, dp: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """This rank's flat abnormal scores -> the global batch's, on every rank
+    (rank order, which is the global batch's order), through a sum over the
+    ranks that carries the gradient: each rank's block in its place, zeros
+    elsewhere. Under a data-parallel group the smoothness term is a sum over
+    the global flat array, so rank r's last score pairs with rank r+1's first
+    and only the last rank pairs its last score with itself. One rank's scores
+    are the global batch's as they are."""
+    if not across_ranks(dp):
+        return scores
+    (me, ranks), n = dp, scores.shape[0]
+    return sum_over_ranks(torch.cat([scores.new_zeros(me * n), scores, scores.new_zeros((ranks - 1 - me) * n)]))
+
+
 def _nll(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood."""
     return -torch.gather(log_probs, 1, targets[:, None])[:, 0].mean()
@@ -74,11 +90,18 @@ def compute_loss(
     idx_topk_nor: torch.Tensor,
     idx_bottomk_abn: torch.Tensor,
     cfg: LossConfig,
+    dp: Optional[Tuple[int, int]] = None,
 ) -> LossTerms:
     """similarity: (b*n*l, C-1) batch-normed direction logits;
     similarity_topk: (b*k*l, C-1), abnormal rows first; labels: (b,) video
     labels; scores: (b*n*l,) sigmoid frame scores; idx_*: (b/2, k) selected
-    segment indices."""
+    segment indices.
+
+    ``dp=(rank, ranks)``: the inputs are this rank's block of a data-parallel
+    global batch. Every term but the smoothness is a mean over an equal share
+    per rank; the smoothness is the global batch's (``global_abnormal_scores``),
+    the same on every rank. So the mean of the ranks' totals is the global
+    loss, and the mean of the ranks' gradients is its gradient."""
     b = labels.shape[0]
     half = b // 2
     n, l, k = cfg.num_segments, cfg.frames_per_segment, cfg.num_topk
@@ -123,7 +146,7 @@ def compute_loss(
 
     # smoothness and sparsity on the abnormal half's scores
     abn_scores = scores[: scores.shape[0] // 2]
-    lsmooth = cfg.lambda_smooth * _smoothness(abn_scores)
+    lsmooth = cfg.lambda_smooth * _smoothness(global_abnormal_scores(abn_scores, dp))
     lsparse = cfg.lambda_sparse * abn_scores.mean()
 
     total = ldir_abn + ldir_nor + ltopk_abn + lbottomk_abn + ltopk_nor + lsmooth + lsparse

@@ -10,11 +10,12 @@ tests feed both packages the same mask.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from anomalyclip_tpu_torch.numerics import full_fp32
+from anomalyclip_tpu_torch.parallel.mesh import across_ranks, sum_over_ranks
 
 MASK_FILL = 1e6  # dropped segments rank last (selector.py:29)
 
@@ -85,14 +86,28 @@ def batch_norm_apply(
     training: bool,
     momentum: float = 0.1,
     eps: float = 1e-5,
+    dp: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, BNState]:
     """Non-affine BatchNorm1d over channels -> (normed, new state). In training
     mode the batch statistics normalize (and carry the gradient); the running
-    state takes their detached values."""
+    state takes their detached values.
+
+    ``dp=(rank, ranks)`` is sync-BN over a data-parallel group: ``logits`` are
+    this rank's rows of the global batch, the mean and the biased variance are
+    taken over every rank's rows through sums that carry the gradient, and the
+    running variance's unbiased count is the global row count (JAX
+    selector.py:99-124 on a sharded batch). One rank's rows are the whole
+    batch (``across_ranks``)."""
     if training:
-        mean = logits.mean(dim=0)
-        var = logits.var(dim=0, unbiased=False)  # biased, used for normalization
-        count = logits.shape[0]
+        if across_ranks(dp):
+            count = logits.shape[0] * dp[1]
+            mean = sum_over_ranks(logits.sum(dim=0)) / count
+            centered = logits - mean
+            var = sum_over_ranks((centered * centered).sum(dim=0)) / count  # biased, normalizes
+        else:
+            mean = logits.mean(dim=0)
+            var = logits.var(dim=0, unbiased=False)  # biased, used for normalization
+            count = logits.shape[0]
         unbiased = var.detach() * (count / max(count - 1, 1))
         new_state = BNState(
             mean=(1 - momentum) * state.mean + momentum * mean.detach(),
@@ -195,18 +210,31 @@ def selector_train(
     bn_state: BNState,
     gen: torch.Generator,
     cfg: SelectorConfig,
+    dp: Optional[Tuple[int, int]] = None,
 ) -> Tuple[TopkSelection, BNState]:
     """Training-mode selector. image_features: (b*n*l, D) flattened, abnormal
     half first; labels: (b,). The dropout masks are drawn from ``gen`` and
-    moved to the features' device."""
+    moved to the features' device.
+
+    ``dp=(rank, ranks)``: this rank's block of a data-parallel global batch.
+    The BatchNorm is sync-BN over the group, and the masks are drawn for the
+    global batch, as one process draws them, and sliced to this rank's rows
+    (abnormal ``rank*b/2 ...``, normal ``ranks*b/2 + rank*b/2 ...``)."""
     raw = direction_logits(image_features, text_features, ncentroid, cfg.normal_id)
     normed, new_bn = batch_norm_apply(
-        raw, bn_state, training=True, momentum=cfg.bn_momentum, eps=cfg.bn_eps
+        raw, bn_state, training=True, momentum=cfg.bn_momentum, eps=cfg.bn_eps, dp=dp
     )
     b = labels.shape[0]
     per_video = normed.reshape(b, cfg.num_segments * cfg.seg_length, -1)
 
-    topk_mask, bottomk_mask = (m.to(normed.device) for m in generate_masks(gen, b, cfg))
+    if across_ranks(dp):
+        (me, ranks), half = dp, b // 2
+        rows = torch.cat([torch.arange(me * half, (me + 1) * half),
+                          torch.arange((ranks + me) * half, (ranks + me + 1) * half)])
+        masks = tuple(m[rows.to(m.device)] for m in generate_masks(gen, b * ranks, cfg))
+    else:
+        masks = generate_masks(gen, b, cfg)
+    topk_mask, bottomk_mask = (m.to(normed.device) for m in masks)
     logits_topk, idx_topk_abn, idx_topk_nor = select_topk(
         per_video, labels, topk_mask, cfg, largest=True
     )

@@ -187,13 +187,23 @@ def artifact_bootstrap(kv: dict, device: str):
     return ServingArtifact.load(kv["artifact"], device=device), artifact_data_cfg(kv)
 
 
+def join_group(device: str) -> str:
+    """Join the ``torch.distributed`` group that ``WORLD_SIZE`` describes, if
+    any (parallel/mesh.py; torchrun's ranks, or ranks started by hand) ->
+    ``device``. In a group every rank scores the input, through its shard of the
+    tensor-parallel tower under ``trainer.model_parallel``, and rank 0 writes."""
+    from anomalyclip_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(device=device)
+    return device
+
+
 def cli_device(argv) -> str:
     """The device of an entry point run without a composed config (artifact
     mode): the card unless ``trainer=cpu`` or ``trainer.accelerator=cpu``."""
-    from anomalyclip_tpu_torch.train_entry import _refuse_multi_process, choose_device
+    from anomalyclip_tpu_torch.train_entry import choose_device
 
-    _refuse_multi_process(argv)
-    return choose_device(argv, {})
+    return join_group(choose_device(argv, {}))
 
 
 def _emit_result(result: dict, out) -> None:
@@ -300,9 +310,8 @@ def main(argv=None) -> dict:
     kv = dict(a.split("=", 1) for a in argv if "=" in a)
     if "artifact" in kv:
         return predict_from_artifact(kv, cli_device(argv))
-    from anomalyclip_tpu_torch.train_entry import _refuse_multi_process, choose_device
+    from anomalyclip_tpu_torch.train_entry import choose_device
 
-    _refuse_multi_process(argv)
     os.environ.setdefault("PROJECT_ROOT", str(Path(__file__).resolve().parents[1]))
 
     from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
@@ -319,7 +328,7 @@ def main(argv=None) -> dict:
     if not ckpt_path or ckpt_path == "???" or not input_path:
         raise SystemExit("predict requires ckpt_path=... and input=...")
 
-    module, state = load_module_and_state(to_dict(cfg), choose_device(argv, cfg))
+    module, state = load_module_and_state(to_dict(cfg), join_group(choose_device(argv, cfg)))
     data_cfg = cfg["data"]
     raw = _load_input(Path(input_path), data_cfg, int(module.model.clip_cfg.image_resolution))
     t_raw = raw.shape[1]
@@ -339,7 +348,10 @@ def main(argv=None) -> dict:
         )
         viz.process_video(vs)
 
-    _emit_result(result, cfg.get("output"))
+    from anomalyclip_tpu_torch.utils.logging import is_host_zero
+
+    if is_host_zero():
+        _emit_result(result, cfg.get("output"))
     top_col = vs.class_probs.argmax(axis=1)
     print(
         f"{input_path}: {t_raw} frames, max score "

@@ -19,13 +19,21 @@ Inputs are anything predict.py takes (video file, frames dir, feature .npy);
 one ``<stem>.json`` per input lands in ``output_dir``, with predict.py's
 schema. An input that fails to load or score is logged to stderr and skipped:
 one bad input does not stop the service. On the card unless ``trainer=cpu``.
+
+Under ``torchrun`` (a group of ranks, ``trainer.model_parallel=mp`` scoring
+frames through the tensor-parallel tower) rank 0 alone reads the stdin or the
+watched directory and hands each path, in its order, to every rank; the ranks
+score each input together, skip it together when a rank cannot load it, and
+rank 0 writes its JSON.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -35,9 +43,16 @@ from anomalyclip_tpu_torch.predict import (
     _load_input,
     artifact_bootstrap,
     cli_device,
+    join_group,
     load_module_and_state,
     score_input,
 )
+from anomalyclip_tpu_torch.parallel.mesh import broadcast_object, every_rank, rank, world_size
+from anomalyclip_tpu_torch.utils.logging import is_host_zero
+
+# seconds rank 0 lets pass without a path before it tells the other ranks to
+# wait on: their wait for the next path stays far inside a collective's timeout
+HEARTBEAT_S = 5.0
 
 
 def _iter_stdin():
@@ -83,6 +98,40 @@ def _iter_watch(root: Path, poll_interval: float, stop_after: float):
         time.sleep(poll_interval)
 
 
+def _shared_stream(paths):
+    """The paths of rank 0's ``paths``, in its order, on every rank of the
+    group. Rank 0 reads ``paths`` on a thread and broadcasts each one, an empty
+    string after ``HEARTBEAT_S`` without one, and None at the end (re-raising
+    there what the reading raised)."""
+    feed: queue.Queue = queue.Queue()
+    if rank() == 0:
+
+        def read():
+            try:
+                for p in paths:
+                    feed.put(str(p))
+                feed.put(None)
+            except BaseException as exc:  # handed to the main thread
+                feed.put(exc)
+
+        threading.Thread(target=read, daemon=True).start()
+    while True:
+        item = None
+        if rank() == 0:
+            try:
+                item = feed.get(timeout=HEARTBEAT_S)
+            except queue.Empty:
+                item = ""
+        failed = item if isinstance(item, BaseException) else None
+        item = broadcast_object(None if failed else item)
+        if item is None:
+            if failed:
+                raise failed
+            return
+        if item:
+            yield Path(item)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     kv = dict(a.split("=", 1) for a in argv if "=" in a)
@@ -94,9 +143,8 @@ def main(argv=None) -> int:
         cfg = kv
         score_fn = art.predict
     else:
-        from anomalyclip_tpu_torch.train_entry import _refuse_multi_process, choose_device
+        from anomalyclip_tpu_torch.train_entry import choose_device
 
-        _refuse_multi_process(argv)
         os.environ.setdefault("PROJECT_ROOT", str(Path(__file__).resolve().parents[1]))
 
         from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
@@ -108,7 +156,7 @@ def main(argv=None) -> int:
                 "serve needs model=... data=... ckpt_path=... (or artifact=<dir>) "
                 "[watch=<dir> | paths on stdin] [output_dir=...]"
             )
-        module, state = load_module_and_state(to_dict(cfg), choose_device(argv, cfg))
+        module, state = load_module_and_state(to_dict(cfg), join_group(choose_device(argv, cfg)))
         data_cfg = cfg["data"]
         input_size = int(module.model.clip_cfg.image_resolution)
 
@@ -124,6 +172,8 @@ def main(argv=None) -> int:
         if watch
         else _iter_stdin()
     )
+    if world_size() > 1:
+        paths = _shared_stream(paths)
 
     n_done = 0
     t0 = time.time()
@@ -153,15 +203,24 @@ def main(argv=None) -> int:
 def _finish(score_fn, path: Path, fut, out_dir: Path) -> None:
     """Score one decoded input and write its JSON. score_fn: (raw, path) ->
     predictions dict (checkpoint- or artifact-backed). A failure is logged and
-    the input skipped: the service goes on (the JAX package's contract)."""
+    the input skipped: the service goes on (the JAX package's contract). In a
+    group, an input that a rank could not load is skipped on every rank."""
     try:
-        raw = fut.result()
-        result = score_fn(raw, str(path))
+        raw, error = fut.result(), None
     except Exception as e:  # one bad input must not stop the service
+        raw, error = None, e
+    if not every_rank(error is None):
+        error = error or RuntimeError("another rank could not load it")
+        print(f"ERROR {path}: {type(error).__name__}: {error}", file=sys.stderr)
+        return
+    try:
+        result = score_fn(raw, str(path))
+    except Exception as e:
         print(f"ERROR {path}: {type(e).__name__}: {e}", file=sys.stderr)
         return
     out = out_dir / (path.stem + ".json")
-    out.write_text(json.dumps(result))
+    if is_host_zero():  # in a group every rank scores, rank 0 writes
+        out.write_text(json.dumps(result))
     print(
         f"{path}: {result['num_frames']} frames, "
         f"score {result['video_anomaly_score']:.4f} -> {out}",

@@ -13,7 +13,8 @@ Each ``state.pt`` is one ``torch.save`` of {"trainable" (the tree of tensors),
 on the CPU; it is written to a temporary name and renamed into place, and read
 back with ``torch.load(..., weights_only=True)``. The normality centroid is a
 side-channel file ``ncentroid.npy`` in the run dir, mirroring the reference's
-``ncentroid.pt`` (anomaly_clip_module.py:140-171).
+``ncentroid.pt`` (anomaly_clip_module.py:140-171). In a ``torch.distributed``
+group rank 0 writes and every rank restores the same file onto its own device.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import numpy as np
 import torch
 
 from anomalyclip_tpu_torch.models.selector import BNState
+from anomalyclip_tpu_torch.parallel.mesh import any_rank
+from anomalyclip_tpu_torch.utils.logging import is_host_zero
 
 STATE_FILE = "state.pt"
 
@@ -89,8 +92,26 @@ class CheckpointManager:
         ``last`` is a symlink to the newest epoch directory, swapped atomically.
         ``save_top_k > 0`` keeps only the newest k epoch checkpoints (monitor:
         null in the reference default, so "top" = newest); it deletes only
-        directories whose names parse as epochs."""
-        path = write_state(self.ckpt_dir / f"epoch_{epoch:03d}", state)
+        directories whose names parse as epochs.
+
+        In a ``torch.distributed`` group every rank calls this: rank 0 writes,
+        then every rank meets in one collective that also tells them whether
+        the write failed, and all of them raise if it did."""
+        path = self.ckpt_dir / f"epoch_{epoch:03d}"
+        error: Optional[BaseException] = None
+        if is_host_zero():
+            try:
+                self._write_epoch(path, state)
+            except Exception as exc:  # noqa: BLE001 — raised below, on every rank
+                error = exc
+        if any_rank(error is not None):
+            if error is not None:
+                raise error
+            raise RuntimeError(f"rank 0 failed to write the checkpoint {path}")
+        return path
+
+    def _write_epoch(self, path: Path, state: Dict[str, Any]) -> None:
+        write_state(path, state)
         if self.save_last:
             last = self.ckpt_dir / "last"
             link = self.ckpt_dir / ".last.tmp"
@@ -102,7 +123,6 @@ class CheckpointManager:
             epochs = self._epoch_dirs()
             for old in epochs[: -self.save_top_k]:
                 shutil.rmtree(old, ignore_errors=True)
-        return path
 
     def _epoch_dirs(self) -> list:
         """The epoch_* directories whose basenames parse as epochs, in NUMERIC

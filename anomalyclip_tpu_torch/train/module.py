@@ -19,8 +19,18 @@ The step-level functions:
 dict) and runs it: the ncentroid pass and its cache, ``fit`` (epochs of
 ``fit_steps``, validation, early stopping, checkpoints, resume, preemption,
 metric loggers), ``validate``, ``test`` with its artifacts, ``load_state`` and
-``adopt_converted_state``. One process, on the card unless the caller passes
+``adopt_converted_state``. On the card unless the caller passes
 ``device="cpu"``.
+
+In a ``torch.distributed`` group (parallel/mesh.py) a run is data-parallel
+over its ranks and computes what one process computes on the global batch:
+each rank loads its block of each half, the selector's BatchNorm is sync-BN,
+the dropout masks are the global batch's, the smoothness term crosses ranks,
+the gradients are averaged in one all-reduce before AdamW, and the parameters
+start from rank 0's. Validation, test and the ncentroid pass stride the videos
+over the ranks and gather; rank 0 alone writes. ``trainer.model_parallel=mp``
+encodes frames through the tensor-parallel tower (parallel/tp.py) over model
+groups of ``mp`` ranks.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from anomalyclip_tpu_torch.data.datamodule import AnomalyCLIPDataModule, DataCon
 from anomalyclip_tpu_torch.data.loader import TrainBatch, limit_count
 from anomalyclip_tpu_torch.data.synthetic import generate_synthetic_dataset
 from anomalyclip_tpu_torch.eval.artifacts import write_metrics_json, write_test_artifacts
-from anomalyclip_tpu_torch.eval.evaluator import GridScorer, _world_size, evaluate_videos
+from anomalyclip_tpu_torch.eval.evaluator import GridScorer, evaluate_videos
 from anomalyclip_tpu_torch.eval.grids import encode_frames_chunked
 from anomalyclip_tpu_torch.eval.metrics import detection_metrics
 from anomalyclip_tpu_torch.models.anomaly_clip import AnomalyCLIP, AnomalyCLIPConfig, read_classnames
@@ -52,6 +62,20 @@ from anomalyclip_tpu_torch.models.clip.registry import resolve_clip
 from anomalyclip_tpu_torch.models.losses import LossConfig, LossTerms, compute_loss
 from anomalyclip_tpu_torch.models.selector import BNState
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
+from anomalyclip_tpu_torch.parallel.mesh import (
+    any_rank,
+    broadcast_,
+    distributed,
+    every_rank,
+    mean_gradients_,
+    mean_over_ranks,
+    rank,
+    rank_device,
+    sum_f64,
+    usable_data_devices,
+    world_size,
+)
+from anomalyclip_tpu_torch.parallel.tp import model_group, tp_image_encoder
 from anomalyclip_tpu_torch.train.checkpoint import (
     STATE_FILE,
     CheckpointManager,
@@ -130,11 +154,18 @@ def prepare_batch(batch: TrainBatch, device) -> TrainBatch:
     )
 
 
-def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig):
+def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig, dp: Optional[Tuple[int, int]] = None):
     """-> train_step(frozen, state, batch, ncentroid, gen, metric_sums) ->
     (state, metric_sums, terms). ``batch`` comes from ``prepare_batch``; ``gen``
     draws the selector's dropout masks. The trainable leaves are updated in
-    place; the returned state carries the new BN state and step count."""
+    place; the returned state carries the new BN state and step count.
+
+    ``dp=(rank, ranks)``: the batch is this rank's block of a data-parallel
+    global batch (JAX module.py:544-556). The forward and the loss compute the
+    global batch's (``forward_train``, ``compute_loss``), the gradients are
+    averaged over the ranks in one bucket before AdamW, so every rank's update
+    is the same, and ``terms`` are this rank's (their mean over the ranks is
+    the global loss)."""
 
     def train_step(
         frozen, state: TrainState, batch: TrainBatch, ncentroid, gen, metric_sums
@@ -145,7 +176,7 @@ def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig):
         # the backward's products and convolutions need the forward's precision
         with matmul_precision_for(model.cfg.dtype):
             out, new_bn = model.forward_train(
-                frozen, state.trainable, state.bn_state, features, labels, ncentroid, gen
+                frozen, state.trainable, state.bn_state, features, labels, ncentroid, gen, dp=dp
             )
             terms = compute_loss(
                 out.logits,
@@ -156,8 +187,11 @@ def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig):
                 out.idx_topk_nor,
                 out.idx_bottomk_abn,
                 loss_cfg,
+                dp=dp,
             )
             terms.total.backward()
+        if dp is not None:
+            mean_gradients_([p for group in state.optimizer.optimizer.param_groups for p in group["params"]])
         state.optimizer.step()
         # metrics accumulate on the device: one host transfer per epoch
         terms = LossTerms(*(t.detach() for t in terms))
@@ -168,15 +202,16 @@ def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig):
     return train_step
 
 
-def compute_ncentroid(
+def ncentroid_sums(
     videos: Iterable[Any], dim: int, encode: Optional[Callable[[np.ndarray], np.ndarray]] = None
 ) -> np.ndarray:
-    """Mean feature over every frame of ``videos`` -> (dim,) fp32.
+    """(dim + 1,) fp64: the sum of every frame's feature over ``videos``, then
+    the number of frames.
 
     Each video has ``features`` (ncrops, t, D), or frames (ncrops, t, H, W, 3)
     that ``encode`` turns into (n, D) features, and ``frame_labels`` (one per
     real frame), as the data package's test-mode items; frames past
-    ``len(frame_labels)`` are padding and dropped. The sum is taken in fp64."""
+    ``len(frame_labels)`` are padding and dropped."""
     total = np.zeros(dim, dtype=np.float64)
     count = 0
     for item in videos:
@@ -186,7 +221,20 @@ def compute_ncentroid(
             flat = encode(flat)
         total += flat.reshape(len(flat), -1).sum(axis=0, dtype=np.float64)
         count += len(flat)
-    return (total / max(count, 1)).astype(np.float32)
+    return np.concatenate([total, [np.float64(count)]])
+
+
+def centroid_of(sums: np.ndarray) -> np.ndarray:
+    """``ncentroid_sums``' output (or the sum of several) -> the mean, fp32."""
+    return (sums[:-1] / max(sums[-1], 1)).astype(np.float32)
+
+
+def compute_ncentroid(
+    videos: Iterable[Any], dim: int, encode: Optional[Callable[[np.ndarray], np.ndarray]] = None
+) -> np.ndarray:
+    """Mean feature over every frame of ``videos`` -> (dim,) fp32, the sum
+    taken in fp64 (``ncentroid_sums``)."""
+    return centroid_of(ncentroid_sums(videos, dim, encode))
 
 
 def fit_steps(
@@ -199,11 +247,14 @@ def fit_steps(
     epochs: int,
     steps_per_epoch: int,
     on_step: Optional[Callable[[TrainState, LossTerms], None]] = None,
+    dp: Optional[Tuple[int, int]] = None,
 ):
     """Take up to ``epochs * steps_per_epoch`` steps over ``batches`` (numpy
     ``TrainBatch``es, consumed in order; the loop ends early when they run out).
     ``on_step(state, terms)`` runs after every step. -> (state, one dict per
-    epoch of the loss terms' means over its steps, on the host)."""
+    epoch of the loss terms' means over its steps, on the host). With ``dp``
+    (a data-parallel ``train_step``'s) each epoch's sums are averaged over the
+    ranks once, at its end: the global batch's means."""
     device = ncentroid.device
     stream = iter(batches)
     history: List[Dict[str, float]] = []
@@ -218,6 +269,8 @@ def fit_steps(
                 on_step(state, terms)
         if count == 0:
             break
+        if dp is not None:
+            sums = dict(zip(sums, mean_over_ranks(torch.stack(list(sums.values())))))
         history.append({k: float(v) / count for k, v in sums.items()})
     return state, history
 
@@ -246,32 +299,29 @@ def _fields(cls, mapping: Dict[str, Any]) -> Dict[str, Any]:
 class AnomalyCLIPTrainModule:
     """Owns model, data, optimizer and the train and eval loops for one composed
     config: the JAX package's ``AnomalyCLIPTrainModule``
-    (anomalyclip_tpu/train/module.py:87-1208), one process on one device.
+    (anomalyclip_tpu/train/module.py:87-1208).
 
     ``cfg`` is the composed config as a plain nested dict (what
     ``to_dict(compose(...))`` of ``anomalyclip_tpu_torch.config`` gives).
-    ``device`` is the card unless the caller passes ``"cpu"``. The frozen CLIP
-    tree lives on ``device``."""
+    ``device`` is the card unless the caller passes ``"cpu"``; in a
+    ``torch.distributed`` group the card is the rank's own (``rank_device``).
+    The frozen CLIP tree lives on the device, but for the visual tower of a
+    tensor-parallel run, which stays on the host: its shards go to the
+    devices (``_tp_encode_fn``)."""
 
     def __init__(self, cfg: Dict[str, Any], device=None):
-        if _world_size() > 1:
-            raise NotImplementedError(
-                f"AnomalyCLIPTrainModule across {_world_size()} processes: more than one "
-                "process is not ported yet (ROADMAP.md section 1, item 8)"
-            )
         self.cfg = cfg
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = rank_device(device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+        # in a group (of any size) the run is data-parallel over its ranks
+        self.dp = (rank(), world_size()) if distributed() else None
         self.seed = int(cfg.get("seed") or 0)
         model_cfg = cfg["model"]
         self.save_dir = Path(model_cfg.get("save_dir") or cfg["paths"]["output_dir"])
         self.save_dir.mkdir(parents=True, exist_ok=True)
 
         trainer_cfg = cfg.get("trainer") or {}
-        if int(trainer_cfg.get("model_parallel") or 1) > 1:
-            raise NotImplementedError(
-                f"trainer.model_parallel={trainer_cfg['model_parallel']}: the tensor-parallel "
-                "tower is not ported yet (ROADMAP.md section 1, item 8)"
-            )
         if trainer_cfg.get("detect_anomaly"):
             torch.autograd.set_detect_anomaly(True)
 
@@ -301,10 +351,18 @@ class AnomalyCLIPTrainModule:
                 frame_size=int(data_cfg.get("input_size", 224)),
             )
         self.datamodule = AnomalyCLIPDataModule(DataConfig.from_dict(data_cfg), seed=self.seed)
+        if self.dp is not None:
+            # a joined group is the data mesh: the half-batch must divide over it
+            usable_data_devices(self.datamodule.cfg.batch_size // 2)
 
         self.net_cfg = AnomalyCLIPConfig(**_fields(AnomalyCLIPConfig, net_cfg))
         self.model, frozen = AnomalyCLIP.build(self.net_cfg, clip_params, clip_cfg)
-        self.frozen = tree_to(frozen, self.device)
+        # trainer.model_parallel: the tensor-parallel tower where it can run
+        # (JAX module.py:172-241, 342-409), its model groups made here, at one
+        # program point of every rank
+        self.model_parallel = int(trainer_cfg.get("model_parallel") or 1)
+        self._route_tp()
+        self.frozen = self._place_frozen(frozen)
         self.loss_cfg = LossConfig(**_fields(LossConfig, dict(model_cfg["loss"])))
 
         mc_cfg = (cfg.get("callbacks") or {}).get("model_checkpoint") or {}
@@ -325,17 +383,102 @@ class AnomalyCLIPTrainModule:
 
     # ------------------------------------------------------------------ data
 
+    def _tp_unavailable_reason(self, mp: int) -> Optional[str]:
+        """Why ``trainer.model_parallel=mp`` cannot run here (None: it can; JAX
+        module.py:342-364): too few ranks, a ModifiedResNet tower (no sharding,
+        it stays on the data-parallel path) or more ranks than heads."""
+        n = world_size()
+        if n < mp:
+            return f"only {n} device(s) (ranks) for model_parallel={mp}"
+        if self.model.clip_cfg.is_resnet:
+            return "ResNet towers have no TP sharding (stay on the DP path)"
+        if mp > self.model.clip_cfg.vision_heads:
+            return f"{self.model.clip_cfg.vision_heads} heads do not split over model_parallel={mp}"
+        return None
+
+    def _route_tp(self) -> None:
+        """Decide ``trainer.model_parallel`` for the current model: its reason
+        to fall back (``_tp_reason``), else the rank's ``model_group``, made here
+        at one program point of every rank (None: no tensor parallelism)."""
+        mp = self.model_parallel
+        self._tp_reason = self._tp_unavailable_reason(mp) if mp > 1 else None
+        self.model_group = model_group(mp) if mp > 1 and self._tp_reason is None else None
+
+    def _place_frozen(self, frozen) -> Dict[str, Any]:
+        """The frozen tree on the device; a tensor-parallel run's visual tower
+        on the host, from which each rank cuts and uploads only its shard."""
+        if self.model_group is None:
+            return tree_to(frozen, self.device)
+        clip = {k: (tree_to(v, "cpu") if k == "visual" else tree_to(v, self.device))
+                for k, v in frozen["clip"].items()}
+        return {**frozen, "clip": clip}
+
+    def _videos(self, loader_of: Callable, limit: Optional[int]):
+        """This rank's share of a pass over videos, ``loader_of(limit=...,
+        shard=...)`` -> (loader, whether its outputs count). Data parallel: the
+        ranks stride the videos. Tensor parallel: the model groups do, every
+        rank of a group scores the group's videos and only its first rank's
+        outputs count; a rank in no whole group scores none."""
+        mg = self.model_group
+        if mg is None:
+            return loader_of(limit=limit, shard=(rank(), world_size())), True
+        if not mg.active:
+            return loader_of(limit=0, shard=(0, mg.groups)), False
+        return loader_of(limit=limit, shard=(mg.index, mg.groups)), mg.member == 0
+
+    def _stop_poll(self, should_stop: Optional[Callable[[], bool]]) -> Optional[Callable[[], bool]]:
+        """A tensor-parallel group scores each video together, so a stop before
+        a video is the group's decision, or one rank would leave its peers in
+        the tower's all-reduce."""
+        if should_stop is None or self.model_group is None:
+            return should_stop
+        group = self.model_group.group
+        return lambda: any_rank(should_stop(), group=group)
+
     def _encode_fn(self) -> Callable:
         """The frame encoder (frozen, frames) -> features that the ncentroid
-        pass and the scorer share, chosen at its first use and kept: the int8
-        tower when ``_int8_serving_active``, else ``AnomalyCLIP.encode_frames``
-        (JAX module.py:172-241, one device)."""
+        pass and the scorer share, chosen at its first use and kept (JAX
+        module.py:172-241): the tensor-parallel tower under
+        ``trainer.model_parallel`` where ``_tp_unavailable_reason`` allows (an
+        int8 tower encodes on the fp tower there), else the int8 tower when
+        ``_int8_serving_active``, else ``AnomalyCLIP.encode_frames``. A
+        rejected ``model_parallel`` logs its reason and encodes on one device."""
         if self._encode_frames_fn is None:
-            if self._int8_serving_active():
-                self._encode_frames_fn = self._int8_encode_fn()
+            mp = self.model_parallel
+            # the quantize knob is validated on every route
+            int8 = self._int8_serving_active()
+            if self.model_group is not None:
+                if int8:
+                    log.warning(
+                        "model.net.quantize=int8 has no tensor-parallel path — "
+                        f"trainer.model_parallel={mp} encodes on the fp tower"
+                    )
+                self._encode_frames_fn = self._tp_encode_fn(mp)
             else:
-                self._encode_frames_fn = self.model.encode_frames
+                if mp > 1:
+                    log.warning(
+                        f"trainer.model_parallel={mp} requested but {self._tp_reason} — "
+                        "encoding on the single-device tower instead"
+                    )
+                self._encode_frames_fn = self._int8_encode_fn() if int8 else self.model.encode_frames
         return self._encode_frames_fn
+
+    def _tp_encode_fn(self, mp: int) -> Callable:
+        """(frozen, frames) -> (N, D) through this rank's shard of the visual
+        tower (parallel/tp.py), cut from the host copy of the tower and uploaded
+        alone; the ``frozen`` it is given is not read. ``_tp_placed`` keeps the
+        shard."""
+        mg = self.model_group
+        if mg.groups * mp < world_size():
+            log.warning(
+                f"model_parallel={mp}: using {mg.groups * mp} of {world_size()} ranks "
+                "(count does not divide evenly; remainder idles)"
+            )
+        encode = tp_image_encoder(self.frozen["clip"], self.model.clip_cfg, mp, self.device,
+                                  self.model.cfg.dtype, chunk=self.model.ENCODE_CHUNK)
+        log.info(f"TP encode: {mg.groups} model group(s) of {mp} ranks over {self.device.type}")
+        self._tp_placed = encode.shard
+        return encode
 
     def _int8_serving_active(self) -> bool:
         """Whether the W8A8 tower serves this encode (JAX module.py:243-267).
@@ -390,15 +533,21 @@ class AnomalyCLIPTrainModule:
         (anomaly_clip_module.py:134-171), cached as ncentroid.npy. A limited pass
         (fast_dev_run) neither trusts nor writes the cache."""
         cached = load_ncentroid(self.save_dir)
+        # in a group the cache-hit decision is global: the pass below ends in a
+        # collective (JAX module.py:417-470)
+        if not every_rank(cached is not None):
+            cached = None
         if cached is not None and limit is None:
             self.ncentroid = cached
             return cached
         log.info("computing ncentroid over normal training videos ...")
-        ncentroid = compute_ncentroid(
-            self.datamodule.train_dataloader_test_mode(limit=limit),
-            self.model.embedding_dim,
+        # each rank sums its stride of the videos in fp64, then one all-reduce
+        videos, contribute = self._videos(self.datamodule.train_dataloader_test_mode, limit)
+        sums = ncentroid_sums(
+            videos, self.model.embedding_dim,
             encode=None if self.net_cfg.load_from_features else self._frame_features,
         )
+        ncentroid = centroid_of(sum_f64(sums if contribute else np.zeros_like(sums)))
         if limit is None and is_host_zero():
             save_ncentroid(self.save_dir, ncentroid)
         self.ncentroid = ncentroid
@@ -407,7 +556,7 @@ class AnomalyCLIPTrainModule:
     # ----------------------------------------------------------------- train
 
     def _build_train_step(self):
-        return build_train_step(self.model, self.loss_cfg)
+        return build_train_step(self.model, self.loss_cfg, dp=self.dp)
 
     def _optimizer_cfgs(self) -> Tuple[Dict, Dict, Dict]:
         model_cfg = self.cfg["model"]
@@ -513,6 +662,16 @@ class AnomalyCLIPTrainModule:
             "step": state.step,
         })
 
+    def _train_frozen(self) -> Dict[str, Any]:
+        """The frozen tree the training forward reads: the visual tower on the
+        device when the forward encodes frames, even where a tensor-parallel
+        run keeps it on the host to serve (JAX trains on the replicated tower
+        under any model_parallel)."""
+        if self.net_cfg.load_from_features or self.model_group is None:
+            return self.frozen
+        clip = self.frozen["clip"]
+        return {**self.frozen, "clip": {**clip, "visual": tree_to(clip["visual"], self.device)}}
+
     def _resume(self, ckpt_path, steps_per_epoch: int) -> Tuple[TrainState, int]:
         """A checkpoint of the port -> (the state on the device, its epoch)."""
         restored = self.ckpt.restore(ckpt_path, device="cpu")
@@ -535,8 +694,10 @@ class AnomalyCLIPTrainModule:
         self.compute_ncentroid(limit=1 if fast_dev_run else None)
 
         # kept on self so _fit's finally can join the worker pool even when an
-        # epoch raises
-        train_loader = self._train_loader = self.datamodule.train_dataloader()
+        # epoch raises. In a group each rank loads its block of every global
+        # batch (the loader's length, and so the steps, are the global ones)
+        shard = {"shard": (rank(), world_size())} if self.dp is not None else {}
+        train_loader = self._train_loader = self.datamodule.train_dataloader(**shard)
         overfit_batches = int(trainer_cfg.get("overfit_batches") or 0)
         steps_per_epoch = limit_count(len(train_loader), trainer_cfg.get("limit_train_batches"))
         if overfit_batches:
@@ -558,7 +719,10 @@ class AnomalyCLIPTrainModule:
             state, epoch = self._resume(ckpt_path, steps_per_epoch)
             start_epoch = epoch + 1
             log.info(f"resumed from {ckpt_path} at epoch {start_epoch}")
+        # every rank starts from rank 0's parameters and BN state
+        broadcast_([*tree_leaves(state.trainable), *state.bn_state])
         ncentroid = torch.as_tensor(self.ncentroid, device=self.device)
+        frozen = self._train_frozen()
 
         callbacks_cfg = cfg.get("callbacks") or {}
         if callbacks_cfg.get("model_summary", True):
@@ -602,10 +766,14 @@ class AnomalyCLIPTrainModule:
         # _boundary); the one before the first epoch is never saved
         boundary_epoch, boundary_state = start_epoch - 1, None
         last_saved_epoch = start_epoch - 1  # skip re-serializing in the grace window
+        # in a group the stop decision is global and polled at one program point
+        # of every rank: each poll is a collective, so every K steps
+        # (JAX module.py:781-800, 865)
+        poll_steps = max(1, int(trainer_cfg.get("preempt_poll_every_n_steps", 8))) if self.dp else 1
 
         def _handle_preempt(during_epoch: int) -> None:
             nonlocal last_saved_epoch
-            if not preempt_flag["set"]:
+            if not any_rank(preempt_flag["set"]):
                 return
             log.warning("SIGTERM received: checkpointing the last epoch boundary")
             if boundary_epoch >= 0 and boundary_epoch != last_saved_epoch:
@@ -637,7 +805,8 @@ class AnomalyCLIPTrainModule:
             for batch_idx, batch in enumerate(train_loader):
                 if batch_idx >= steps_per_epoch:
                     return
-                _handle_preempt(epoch)
+                if batch_idx % poll_steps == 0:
+                    _handle_preempt(epoch)
                 yield batch
 
         for epoch in range(start_epoch, max_epochs):
@@ -645,14 +814,16 @@ class AnomalyCLIPTrainModule:
             t0 = time.time()
             # one epoch of fit_steps: its loss means reach the host once
             state, history = fit_steps(
-                train_step, self.frozen, state, polled(epoch), ncentroid, gen,
-                epochs=1, steps_per_epoch=steps_per_epoch,
+                train_step, frozen, state, polled(epoch), ncentroid, gen,
+                epochs=1, steps_per_epoch=steps_per_epoch, dp=self.dp,
             )
             # the epoch's steps all ran: this state is a resumable boundary,
             # copied to the host whenever preemption or a checkpoint may save it
+            # (in a group always: another rank's SIGTERM may save it)
             boundary_epoch = epoch
             ckpt_due = not fast_dev_run and (epoch + 1) % self._ckpt_every_n_epochs == 0
-            boundary_state = self._boundary(state) if preempt_armed or ckpt_due else None
+            keep = preempt_armed or ckpt_due or self.dp is not None
+            boundary_state = self._boundary(state) if keep else None
             _handle_preempt(epoch)
             epoch_metrics = dict(history[0]) if history else zero_metric_sums("cpu")
             epoch_metrics = {k: float(v) for k, v in epoch_metrics.items()}
@@ -755,9 +926,13 @@ class AnomalyCLIPTrainModule:
         videos) aborts with {} — the preemption path; no partial metrics are
         written or logged."""
         scorer = self._scorer(state)
+        # in a group each rank scores its share of the videos, and every rank
+        # gets the whole set back (JAX module.py:1040-1045); a stop on any rank
+        # stops them all before the gather
+        videos, contribute = self._videos(self.datamodule.val_dataloader, limit)
         outputs = evaluate_videos(
-            self.datamodule.val_dataloader(limit=limit), scorer, self.model,
-            should_stop=should_stop,
+            videos, scorer, self.model, should_stop=self._stop_poll(should_stop),
+            gather_processes=True, contribute=contribute,
         )
         if not outputs:
             return {}
@@ -835,7 +1010,8 @@ class AnomalyCLIPTrainModule:
         # indices) is derived from the token embedding
         self.net_cfg = dataclasses.replace(self.net_cfg, n_ctx=n_ctx)
         self.model, frozen = AnomalyCLIP.build(self.net_cfg, frozen["clip"], clip_cfg)
-        self.frozen = tree_to(frozen, self.device)
+        self._route_tp()
+        self.frozen = self._place_frozen(frozen)
         self._encode_frames_fn = self._scorer_cache = None
         return TrainState(
             trainable=tree_to(trainable, self.device),
@@ -862,11 +1038,11 @@ class AnomalyCLIPTrainModule:
 
         trainer_cfg = self.cfg.get("trainer") or {}
         limit = limit if limit is not None else trainer_cfg.get("limit_test_batches")
-        test_loader = self.datamodule.test_dataloader(
-            limit=limit_count(len(self.datamodule.test_dataloader()), limit)
+        test_loader, contribute = self._videos(
+            self.datamodule.test_dataloader, limit_count(len(self.datamodule.test_dataloader()), limit)
         )
         on_video = None
-        if self.datamodule.cfg.visualize:
+        if self.datamodule.cfg.visualize and contribute:
             from anomalyclip_tpu_torch.eval.visualizer import Visualizer
 
             viz = Visualizer(
@@ -878,7 +1054,8 @@ class AnomalyCLIPTrainModule:
             )
             on_video = viz.process_video
 
-        outputs = evaluate_videos(test_loader, self._scorer(state), self.model, on_video=on_video)
+        outputs = evaluate_videos(test_loader, self._scorer(state), self.model, on_video=on_video,
+                                  gather_processes=True, contribute=contribute)
         if not outputs:
             # empty test pass (limit_test_batches=0 / empty annotation file)
             log.warning("test pass scored zero videos — no metrics written")

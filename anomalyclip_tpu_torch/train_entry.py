@@ -17,9 +17,18 @@ the final weights when ``test: True``.
 The device: ``trainer=cpu``, ``trainer.accelerator=cpu`` or a composed
 ``accelerator: cpu`` (``debug/default.yaml``) run on the CPU; ``auto``,
 ``gpu`` and ``tpu`` (the published ``experiment/ucfcrime.yaml`` selects
-``trainer: tpu``) run on the card, and raise when torch sees none. More than
-one process or device (``trainer=dp_sim``, ``ddp_sim``, ``ddp``, a
-``trainer.devices`` count above 1, ``WORLD_SIZE`` > 1) is not ported yet.
+``trainer: tpu``) run on the card, and raise when torch sees none.
+
+More than one device (parallel/mesh.py): ``trainer.devices=N`` (or ``auto``,
+as ``trainer=ddp`` composes it: every visible card) spawns N ranks of
+``torch.distributed`` with ``torch.multiprocessing`` (the counterpart of
+Lightning's ddp_spawn), each on its own card over NCCL, or on the CPU over
+gloo (``trainer=dp_sim`` / ``ddp_sim``: two CPU ranks). N shrinks to the
+largest count that divides the half-batch. The kernels are built once, before
+the spawn; the ranks load them. A process already in a group, or started with
+``WORLD_SIZE`` (``torchrun``), runs as its rank and spawns nothing.
+``trainer.model_parallel=mp`` encodes frames through the tensor-parallel tower
+over model groups of ``mp`` ranks.
 """
 
 from __future__ import annotations
@@ -27,34 +36,13 @@ from __future__ import annotations
 import os
 import sys
 from pathlib import Path
-from typing import Any, Dict, List
-
-_MULTI_DEVICE = ("trainer=dp_sim", "trainer=ddp_sim", "trainer=ddp")
-
-
-def _not_ported_multi(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: more than one process or device is not ported yet (ROADMAP.md section 1, item 8)"
-    )
-
-
-def _refuse_multi_process(argv: List[str]) -> None:
-    """The counterpart of the JAX package's platform pre-pass and multi-host
-    bring-up: what would need more than one process or device raises."""
-    for a in argv:
-        if a in _MULTI_DEVICE:
-            raise _not_ported_multi(a)
-    if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
-        raise _not_ported_multi(f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
+from typing import Any, Callable, Dict, List, Optional
 
 
 def choose_device(argv: List[str], cfg: Any) -> str:
     """``"cpu"`` when the command line or the composed trainer asks for the
     CPU, else ``"cuda"``, which must be there."""
     trainer = cfg.get("trainer") or {}
-    devices = trainer.get("devices")
-    if isinstance(devices, int) and not isinstance(devices, bool) and devices > 1:
-        raise _not_ported_multi(f"trainer.devices={devices}")
     if any(a in ("trainer=cpu", "trainer.accelerator=cpu") for a in argv) or trainer.get("accelerator") == "cpu":
         return "cpu"
     import torch
@@ -65,6 +53,103 @@ def choose_device(argv: List[str], cfg: Any) -> str:
             "no CUDA device; pass trainer=cpu to run on the CPU"
         )
     return "cuda"
+
+
+def rank_count(cfg: Any, device: str) -> int:
+    """How many ranks a run of ``cfg`` spawns: ``trainer.devices`` (``auto``:
+    every visible card, one process on the CPU), shrunk to the largest count
+    that divides the half-batch (``usable_data_devices``); 1 in a process that
+    is a rank already (a group, or ``WORLD_SIZE`` in the environment)."""
+    import torch
+
+    from anomalyclip_tpu_torch.parallel.mesh import GLOO_ROUTE, distributed, usable_data_devices
+
+    if distributed() or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        return 1
+    trainer = cfg.get("trainer") or {}
+    devices = trainer.get("devices")
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if devices in (None, "auto"):
+        n = cards if device == "cuda" else 1
+    else:
+        n = int(devices)
+    if device == "cuda" and n > cards:
+        raise RuntimeError(f"trainer.devices={n}: torch sees {cards} card(s); {GLOO_ROUTE}")
+    half = int((cfg.get("data") or {}).get("batch_size") or 2) // 2
+    return len(usable_data_devices(half, list(range(max(n, 1)))))
+
+
+def _rank_main(local: int, entry: str, argv: List[str], world: int, init_method: str, device: str,
+               backend: Optional[str], result: str) -> None:
+    """One spawned rank: join the group, run ``entry`` ("module:function") on
+    ``argv``, and on rank 0 write its return value to ``result``. On cards,
+    ``LOCAL_RANK`` is the rank's card: its own under NCCL, one the ranks share
+    (rank modulo the cards) under a named gloo."""
+    import importlib
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from anomalyclip_tpu_torch.parallel.mesh import init_distributed
+
+    card = local % torch.cuda.device_count() if device == "cuda" else local
+    os.environ.update(RANK=str(local), WORLD_SIZE=str(world), LOCAL_RANK=str(card),
+                      LOCAL_WORLD_SIZE=str(world))
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    init_distributed(backend, device=device, init_method=init_method)
+    try:
+        module, name = entry.split(":")
+        out = getattr(importlib.import_module(module), name)(argv)
+        if local == 0:
+            with open(result, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(entry: str, argv: List[str], ranks: int, device: str, backend: Optional[str] = None) -> Any:
+    """``entry`` ("module:function") on ``argv`` in ``ranks`` spawned ranks on
+    ``device`` -> rank 0's return value. ``backend`` defaults to NCCL on cards
+    (a card for each rank) and gloo on the CPU; ``backend="gloo"`` on cards
+    lets the ranks share them. The kernels are built here first when the ranks
+    run on cards; a rank that raises ends the others and raises here."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if device == "cuda":
+        from anomalyclip_tpu_torch.ops.build import build
+
+        build()
+    tmp = tempfile.mkdtemp(prefix="anomalyclip_ranks_")
+    try:
+        result = os.path.join(tmp, "result.pkl")
+        mp.start_processes(_rank_main, nprocs=ranks, join=True, start_method="spawn",
+                           args=(entry, argv, ranks, f"file://{tmp}/rendezvous", device, backend, result))
+        with open(result, "rb") as f:
+            return pickle.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def as_ranks(entry: str, argv: List[str], cfg: Any, device: str,
+             run: Callable[[], Any]) -> Any:
+    """``run()`` in this process when it is the only rank or a rank already
+    (joining the group ``WORLD_SIZE`` describes, if any); else ``entry`` on
+    ``argv`` in the spawned ranks ``rank_count`` gives."""
+    from anomalyclip_tpu_torch.parallel.mesh import init_distributed
+    from anomalyclip_tpu_torch.utils.logging import get_logger
+
+    ranks = rank_count(cfg, device)
+    if ranks > 1:
+        get_logger("train").info(f"spawning {ranks} ranks on the {device.upper()}")
+        return run_ranks(entry, argv, ranks, device)
+    init_distributed(device=device)
+    return run()
 
 
 def _expand_multirun(overrides):
@@ -92,8 +177,6 @@ def _expand_multirun(overrides):
 
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
-    _refuse_multi_process(argv)
-
     os.environ.setdefault("PROJECT_ROOT", str(Path(__file__).resolve().parents[1]))
 
     if any(a.startswith("hparams_search=") and a != "hparams_search=null" for a in argv):
@@ -264,10 +347,8 @@ def _best_trial(results, direction: str):
 
 
 def _single_run(argv) -> Dict[str, Any]:
-    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
-    from anomalyclip_tpu_torch.utils.logging import get_logger
+    from anomalyclip_tpu_torch.config import compose, default_config_dir
 
-    log = get_logger("train")
     suffix = None
     kept = []
     for a in argv:
@@ -293,9 +374,26 @@ def _single_run(argv) -> Dict[str, Any]:
         )
 
     device = choose_device(argv, cfg)
+    return as_ranks("anomalyclip_tpu_torch.train_entry:_rank_run", argv + (
+        [f"exp_name={cfg.exp_name}"] if suffix else []), cfg, device, lambda: _run(cfg, device))
 
+
+def _rank_run(argv) -> Dict[str, Any]:
+    """A spawned rank's run: the config composed from ``argv`` again."""
+    from anomalyclip_tpu_torch.config import compose, default_config_dir
+
+    cfg = compose(default_config_dir(), "train", argv)
+    return _run(cfg, choose_device(argv, cfg))
+
+
+def _run(cfg, device: str) -> Dict[str, Any]:
+    """Train and test one composed config on ``device`` (this rank's, in a
+    group) -> the metrics, with the sweeper's ``optimized_metric_value``."""
+    from anomalyclip_tpu_torch.config import to_dict
     from anomalyclip_tpu_torch.utils.extras import apply_extras
+    from anomalyclip_tpu_torch.utils.logging import get_logger
 
+    log = get_logger("train")
     apply_extras(cfg)
 
     if cfg.get("seed") is not None:

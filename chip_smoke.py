@@ -338,6 +338,36 @@ script exits non-zero without printing a result:
    in a window of its own and must launch exactly its K1, K2, K6 or K8 on its
    route (RN50's image tower is convs and an einsum pool: no kernel); it prints
    the times with the card's name and power limit;
+4k. more than one device, on the one card: every rank is a process of its own
+   (``chip_smoke.py --rank ROLE SPEC``, started by ``launch_ranks``) that calls
+   ``parallel.mesh.init_distributed`` itself and then the port's entry points,
+   LOCAL_RANK 0 for all, so that the ranks share cuda:0 over gloo (NCCL refuses
+   two ranks on one card); each rank runs under ``deterministic_mode`` and
+   counts its own launches and routes around its main path; a rank that fails,
+   or does not end within RANK_TIMEOUT_S, fails the phase. (a) The published
+   UCF-Crime experiment, as 4h runs it (ENTRY_EPOCHS epochs on 4f's feature
+   set, dropout 0, seed 1024, the seeded fp16 ViT-B/16 file), through
+   ``train_entry.main`` then ``eval_entry.main`` on its ``last``, in one process
+   and in DP_RANKS gloo ranks (a half-batch of 16 videos each): every step's
+   loss (the mean of the ranks') within DP_LOSS_RTOL of one process's, each
+   scoring pass's per-frame scores (two validations, the test, the eval entry)
+   and the validation and test metrics within DP_TOL, a digest of the ranks'
+   trainable leaves and BN state at every epoch boundary equal between ranks,
+   each rank's launches exact (K1 12 a step and a scoring pass, K3 12 a step,
+   K2 two a step and a video the rank scores, K4 two a step, every one on its
+   fp32 route). (c) The same run in a one-rank NCCL group, through the same
+   data-parallel code: its losses, digests, scores and metrics equal to the
+   run without a group to the bit, its launches exact. (b) ``predict.main``
+   with ``trainer.model_parallel`` = TP_RANKS on TP_RANKS gloo ranks on phase
+   4i's seeded 700-frame uint8 video, in fp32 and bf16, from (a)'s one-process
+   ``last``: the module takes the tensor-parallel tower, each rank's K1 and K2
+   launches are exact (every K1 on ``mha_tf32``, bf16 ``mha_tc``) and every
+   image-tower K1 launch runs 6 local heads on (B, 197, 1152), and each rank's
+   scores sit within TP_TOL of the single tower's in this process. It prints
+   the seconds of an epoch on two ranks beside one process, and of a warm
+   scoring call on the tensor-parallel tower beside the single one, with the
+   card's name and power limit: two ranks on one card measure the collectives'
+   cost and time-slicing, not scaling;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one 256-frame encode chunk of the ViT-B/16 tower, of the int8 ViT-B/16
@@ -349,8 +379,8 @@ script exits non-zero without printing a result:
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
-gradient, script, data, training-run, command-line, serving and other-tower
-runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+gradient, script, data, training-run, command-line, serving, other-tower and
+every rank's multi-device runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -413,6 +443,7 @@ import time
 from collections import defaultdict
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -647,6 +678,19 @@ XD_GROWTH_MIB = 3072
 # independent roundings of one size: sqrt(2) expected)
 TOWER_FRAMES, INT8_COSINE, INT8_NOISE_RATIO = 32, 0.999, 2.0
 SEEDED_VIDEO = "seeded_video.mp4"
+# phase 4k: more than one device on the one card. Each rank is a process of its
+# own (``chip_smoke.py --rank ROLE SPEC``) on the shared cuda:0 over gloo; NCCL
+# runs as a one-rank group. DP_RANKS ranks train 4h's run (ENTRY_EPOCHS epochs,
+# dropout 0, seed 1024) and evaluate its ``last`` through the entries; TP_RANKS
+# ranks score 4i's video through the tensor-parallel tower. The limits: the
+# losses at DP_LOSS_RTOL and the metrics and scores within DP_TOL of one
+# process (its sums in another order), the parameters equal to the bit between
+# ranks, the one-rank NCCL run equal to the bit to the run without a group, the
+# TP scores within TP_TOL of the single tower. RANK_TIMEOUT_S: a rank that
+# crashes or hangs fails the phase; each collective's own limit is half of it
+DP_RANKS, TP_RANKS, RANK_TIMEOUT_S = 2, 2, 600
+DP_LOSS_RTOL, DP_TOL = 5e-4, 1e-4
+TP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def phase_device() -> str:
@@ -4180,6 +4224,334 @@ def run_towers(smi: str, tmp: Path, run: Path, clip_path: Path) -> dict:
     return launches
 
 
+def launch_ranks(role: str, spec: dict, ranks: int, tmp: Path, backend: Optional[str]) -> list:
+    """``ranks`` processes running ``rank_main(role, spec)``, each its own rank
+    on cuda:0 (a group over ``backend``; one process and no backend: no
+    group), joined within RANK_TIMEOUT_S; a rank that fails or hangs ends them
+    all and fails the phase -> each rank's result, in rank order."""
+    import os
+    import signal
+
+    tag = f"{role}_{ranks}_{backend or 'alone'}"
+    spec = dict(spec, out=str(tmp / tag), rendezvous=f"file://{tmp / (tag + '.rendezvous')}")
+    spec_path = tmp / f"{tag}.json"
+    spec_path.write_text(json.dumps(spec))
+    env = dict(os.environ, LOCAL_RANK="0", ANOMALYCLIP_DIST_TIMEOUT_S=str(RANK_TIMEOUT_S // 2))
+    if backend:
+        env.update(WORLD_SIZE=str(ranks), CHIP_SMOKE_BACKEND=backend)
+    procs, logs = [], []
+    for r in range(ranks):
+        log = open(tmp / f"{tag}.rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank", role, str(spec_path)],
+                                      cwd=ROOT, env=dict(env, RANK=str(r)), stdout=log, stderr=subprocess.STDOUT,
+                                      start_new_session=True))
+    deadline, failed = time.monotonic() + RANK_TIMEOUT_S, None
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                if proc.wait(timeout=max(1.0, deadline - time.monotonic())) != 0:
+                    failed = failed or f"rank {r} exited {proc.returncode}"
+            except subprocess.TimeoutExpired:
+                failed = failed or f"rank {r} did not end within {RANK_TIMEOUT_S} s"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        for log in logs:
+            log.close()
+    if failed:
+        for r in range(ranks):
+            print(f"[multi] {tag} rank {r} log tail:\n" + (tmp / f"{tag}.rank{r}.log").read_text()[-3000:], flush=True)
+        raise AssertionError(f"phase 4k {tag}: {failed}")
+    return [json.loads(Path(f"{spec['out']}.rank{r}.json").read_text()) for r in range(ranks)]
+
+
+def rank_main(role: str, spec_path: str) -> int:
+    """One rank of phase 4k (``--rank``): join the group the launcher
+    described, run ``role`` under ``deterministic_mode`` with the launch and
+    route counts taken in its own window, write the result beside ``out``."""
+    import os
+
+    from anomalyclip_tpu_torch.parallel import mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    backend = os.environ.get("CHIP_SMOKE_BACKEND")
+    if backend:
+        mesh.init_distributed(backend=backend, world_size=int(os.environ["WORLD_SIZE"]),
+                              rank=int(os.environ["RANK"]), init_method=spec["rendezvous"])
+    with deterministic_mode():
+        result = {"fit": rank_fit, "tp": rank_tp}[role](spec)
+    result.update(rank=mesh.rank(), ranks=mesh.world_size(),
+                  backend=torch.distributed.get_backend() if mesh.distributed() else None)
+    Path(f"{spec['out']}.rank{mesh.rank()}.json").write_text(
+        json.dumps(result, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+    if mesh.distributed():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def leaves_digest(tree) -> str:
+    import hashlib
+
+    from anomalyclip_tpu_torch.convert import tree_leaves
+
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        digest.update(leaf.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def rank_fit(spec: dict) -> dict:
+    """A rank's training run through ``train_entry.main`` and the eval entry on
+    its ``last``, with every step's loss (this rank's), a digest of the
+    trainable leaves and BN state at every epoch boundary, each scoring pass's
+    per-frame scores and each epoch's seconds recorded -> the readings and the
+    launch and route counts of both entries."""
+    import anomalyclip_tpu_torch.train.module as train_module
+    from anomalyclip_tpu_torch import eval_entry, train_entry
+
+    rec = {"losses": [], "digests": [], "scores": [], "epoch_s": []}
+    real_class, real_evaluate = train_module.AnomalyCLIPTrainModule, train_module.evaluate_videos
+
+    class Recorded(real_class):
+        def __init__(self, cfg, device=None):
+            super().__init__(cfg, device)
+            log_metrics = self.loggers.log_metrics
+
+            def logged(metrics, step):
+                if "train/epoch_time_s" in metrics:
+                    rec["epoch_s"].append(metrics["train/epoch_time_s"])
+                log_metrics(metrics, step)
+
+            self.loggers.log_metrics = logged
+
+        def _build_train_step(self):
+            step = super()._build_train_step()
+
+            def recorded(*args):
+                out = step(*args)
+                rec["losses"].append(float(out[2].total))
+                return out
+
+            return recorded
+
+        def _boundary(self, state):
+            boundary = super()._boundary(state)
+            rec["digests"].append(leaves_digest([boundary["trainable"], *boundary["bn_state"]]))
+            return boundary
+
+    def evaluated(*args, **kwargs):
+        out = real_evaluate(*args, **kwargs)
+        rec["scores"].append(out["abnormal_scores"].tolist())
+        return out
+
+    train_module.AnomalyCLIPTrainModule, train_module.evaluate_videos = Recorded, evaluated
+    try:
+        counts_taken()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        rec["test"] = train_entry.main(spec["train"])
+        rec["evaluated"] = eval_entry.main(spec["eval"]) if spec.get("eval") else None
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - start
+        rec["counts"] = counts_taken()
+    finally:
+        train_module.AnomalyCLIPTrainModule, train_module.evaluate_videos = real_class, real_evaluate
+    return rec
+
+
+def rank_tp(spec: dict) -> dict:
+    """A rank's ``predict.main`` on phase 4i's video, once a dtype, with the
+    launch and route counts and the (L, heads, width) of every K1 launch taken
+    in its own window, then one ``score_input`` of a module built as the CLI
+    builds it, timed in the process the CLI warmed -> the scores."""
+    from anomalyclip_tpu_torch import predict
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+    from anomalyclip_tpu_torch.models.clip import model as clip_model
+
+    frames = np.load(spec["frames"])
+    real_k1, k1_shapes = clip_model.fused_mha_qkv, []
+
+    def k1(qkv, num_heads, causal=False):
+        k1_shapes.append((qkv.shape[1], num_heads, qkv.shape[2]))
+        return real_k1(qkv, num_heads, causal)
+
+    out = {}
+    clip_model.fused_mha_qkv = k1
+    try:
+        for dtype in spec["dtypes"]:
+            args = spec["predict"] + [f"model.net.compute_dtype={dtype}", "extras.print_config=False"]
+            with seeded_decode(frames):
+                k1_shapes.clear()
+                counts_taken()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                result = predict.main(args + [f"input={spec['video']}"])
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - start
+                counts, shapes = counts_taken(), sorted(set(k1_shapes))
+            module, state = predict.load_module_and_state(to_dict(compose(default_config_dir(), "eval", args)), "cuda")
+            # one scoring call in the process predict.main warmed
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            predict.score_input(module, state, frames, spec["video"])
+            torch.cuda.synchronize()
+            out[dtype] = dict(scores=result["frame_scores"], counts=counts, k1_shapes=shapes, cli_s=cli_s,
+                              warm_s=time.perf_counter() - start, tp=bool(getattr(module._encode_fn(), "tp", False)))
+            del module, state
+    finally:
+        clip_model.fused_mha_qkv = real_k1
+    return out
+
+
+def phase_multi(smi: str, frames_root: Path, annotations: Path, kept: Path) -> dict:
+    """Phase 4k: more than one device, every rank a process on the one card
+    -> the kernel launch and route counts of each rank of its main path."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("UCFCRIME_ROOT", "ANOMALYCLIP_NO_DOWNLOAD")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="multi_", dir=ROOT / "build") as tmp:
+            tmp = Path(tmp)
+            ucf_data_root(tmp, frames_root, annotations)
+            return run_multi(smi, tmp, kept / "ViT-B-16.pt")
+    finally:
+        restore_env(saved)
+
+
+def run_multi(smi: str, tmp: Path, clip_path: Path) -> dict:
+    """Phase 4k's runs; see the module docstring."""
+    from anomalyclip_tpu_torch import predict
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+    from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
+
+    phase_start = time.perf_counter()
+    cfg = CLIPConfig.vit_b16()
+    common = [f"model.net.clip_ckpt_path={clip_path}", "extras.print_config=False"]
+
+    def fit_spec(name: str, epochs: int) -> dict:
+        log_dir = tmp / name
+        run = log_dir / "train" / "runs" / "ucfcrime"
+        return {"train": ["experiment=ucfcrime", *common, f"trainer.max_epochs={epochs}",
+                          "model.net.select_idx_dropout_topk=0.0", "model.net.select_idx_dropout_bottomk=0.0",
+                          "logger=csv", f"paths.log_dir={log_dir}"],
+                "eval": ["data=ucfcrime", "model=anomaly_clip_ucfcrime", *common,
+                         f"ckpt_path={run / 'checkpoints' / 'last'}", f"paths.log_dir={tmp / (name + '_eval')}"]}
+
+    # ---- (a) data parallel: one process, then DP_RANKS ranks over gloo
+    one = launch_ranks("fit", fit_spec("one", ENTRY_EPOCHS), 1, tmp, None)[0]
+    dp = launch_ranks("fit", fit_spec("dp", ENTRY_EPOCHS), DP_RANKS, tmp, "gloo")
+    steps = len(one["losses"])
+    videos = 16
+    require(steps == ENTRY_EPOCHS * 8 and len(one["scores"]) == ENTRY_EPOCHS + 2, f"one process: {steps} steps, "
+            f"{len(one['scores'])} scoring passes")
+
+    def expected(ranks: int) -> dict:
+        """A rank's launches: K1 12 a step and a scoring pass (the text
+        features), K3 12 a step, K2 two a step and a video it scores, K4 two a
+        step; every one on its fp32 route."""
+        k1, k3 = cfg.transformer_layers * (steps + ENTRY_EPOCHS + 2), cfg.transformer_layers * steps
+        k2, k4 = 2 * (steps + videos // ranks * (ENTRY_EPOCHS + 2)), 2 * steps
+        return {"fused_mha_qkv": k1, "mha_tf32": k1, "mha_qkv_bwd": k3, "whole_bwd_tf32": k3,
+                "fused_mha_bld": k2, "bld_tf32": k2, "mha_bld_bwd": k4, "bld_bwd_tf32": k4}
+
+    held("4k one process", one["counts"], expected(1))
+    for r, got in enumerate(dp):
+        require(got["rank"] == r and got["ranks"] == DP_RANKS and got["backend"] == "gloo", f"rank {r}: {got}")
+        held(f"4k data-parallel rank {r}", got["counts"], expected(DP_RANKS))
+        require(got["digests"] == dp[0]["digests"] and len(got["digests"]) == ENTRY_EPOCHS,
+                f"rank {r}'s parameters differ from rank 0's at an epoch boundary")
+    losses = np.mean([got["losses"] for got in dp], axis=0)  # the global loss: the ranks' mean
+    loss_gap = float(np.max(np.abs(losses - one["losses"]) / np.abs(one["losses"])))
+    require(loss_gap <= DP_LOSS_RTOL, f"data-parallel losses vs one process: relative gap {loss_gap:.3e}")
+    metric_gap = max(abs(got[part][k] - one[part][k]) for got in dp for part in ("test", "evaluated")
+                     for k in EVAL_METRICS[:4])
+    require(metric_gap <= DP_TOL, f"data-parallel metrics vs one process: max|diff| {metric_gap:.3e}")
+    score_gap = 0.0
+    for got in dp:
+        for want, mine in zip(one["scores"], got["scores"], strict=True):
+            score_gap = max(score_gap, float(np.max(np.abs(np.asarray(mine) - np.asarray(want)))))
+    require(score_gap <= DP_TOL, f"data-parallel per-video scores vs one process: max|diff| {score_gap:.3e}")
+    val_gap = 0.0
+    for epoch in range(ENTRY_EPOCHS):
+        with open(tmp / "one" / "train" / "runs" / "ucfcrime" / f"metrics_{epoch}.json") as f, \
+                open(tmp / "dp" / "train" / "runs" / "ucfcrime" / f"metrics_{epoch}.json") as g:
+            a, b = json.load(f), json.load(g)
+        val_gap = max(val_gap, max(abs(a[k] - b[k]) for k in EVAL_METRICS[:4]))
+    require(val_gap <= DP_TOL, f"data-parallel validation metrics vs one process: max|diff| {val_gap:.3e}")
+
+    # ---- (c) a one-rank NCCL group: the same DP code, to the bit
+    nccl = launch_ranks("fit", fit_spec("nccl", ENTRY_EPOCHS), 1, tmp, "nccl")[0]
+    require(nccl["backend"] == "nccl" and nccl["ranks"] == 1, f"the NCCL run: {nccl['backend']}, {nccl['ranks']}")
+    held("4k one-rank NCCL group", nccl["counts"], expected(1))
+    for key in ("losses", "digests", "scores", "test", "evaluated"):
+        first = next((i for i, (a, b) in enumerate(zip(nccl[key], one[key])) if a != b), None) \
+            if isinstance(one[key], list) else None
+        require(nccl[key] == one[key], f"the one-rank NCCL run's {key} differ from the run without a group "
+                                       f"(first at {first}: {nccl[key][first] if first is not None else ''} vs "
+                                       f"{one[key][first] if first is not None else ''})"[:2000])
+
+    # ---- (b) the tensor-parallel tower from frames, fp32 and bf16
+    frames = np.random.default_rng(SEED + 5).integers(0, 256, (1, SERVE_FRAME_VIDEO, 224, 224, 3), dtype=np.uint8)
+    np.save(tmp / "frames.npy", frames)
+    video = tmp / SEEDED_VIDEO
+    video.touch()
+    run = tmp / "one" / "train" / "runs" / "ucfcrime" / "checkpoints" / "last"
+    predict_args = ["data=ucfcrime", "model=anomaly_clip_ucfcrime", *common, f"ckpt_path={run}",
+                    f"paths.log_dir={tmp / 'predict'}"]
+    dtypes = ("float32", "bfloat16")
+    tp = launch_ranks("tp", {"frames": str(tmp / "frames.npy"), "video": str(video), "dtypes": dtypes,
+                             "predict": predict_args + [f"trainer.model_parallel={TP_RANKS}"]}, TP_RANKS, tmp, "gloo")
+    chunks = -(-(-(-SERVE_FRAME_VIDEO // (32 * 16)) * 32 * 16) // 256)
+    k1 = cfg.transformer_layers + cfg.vision_layers * chunks
+    heads = cfg.vision_heads // TP_RANKS
+    tp_lines = []
+    for dtype in dtypes:
+        # the single tower: this process, no group, out of every rank's window
+        args = predict_args + [f"model.net.compute_dtype={dtype}", "extras.print_config=False"]
+        with seeded_decode(frames):
+            want = np.asarray(predict.main(args + [f"input={video}"])["frame_scores"])
+        module, state = predict.load_module_and_state(to_dict(compose(default_config_dir(), "eval", args)), "cuda")
+        torch.cuda.synchronize()  # one scoring call, as on each rank
+        start = time.perf_counter()
+        predict.score_input(module, state, frames, str(video))
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - start
+        del module, state
+        route, gaps = ("mha_tf32" if dtype == "float32" else "mha_tc"), []
+        for r, got in enumerate(tp):
+            mine = got[dtype]
+            require(mine["tp"], f"rank {r} {dtype}: the module did not take the tensor-parallel tower")
+            held(f"4k tensor-parallel rank {r} {dtype}", mine["counts"],
+                 {"fused_mha_qkv": k1, route: k1, "fused_mha_bld": 2, "bld_tf32": 2})
+            image = [s for s in mine["k1_shapes"] if s[0] == cfg.grid_size ** 2 + 1]
+            require(image == [[cfg.grid_size ** 2 + 1, heads, 3 * heads * 64]],
+                    f"rank {r} {dtype}: the image tower's K1 launches ran {image}, not {heads} local heads")
+            gaps.append(float(np.max(np.abs(np.asarray(mine["scores"]) - want))))
+            require(gaps[-1] <= TP_TOL[dtype], f"rank {r} {dtype}: TP scores vs the single tower max|diff| "
+                                              f"{gaps[-1]:.3e}")
+        tp_lines.append(f"{dtype} score_input on the TP tower {tp[0][dtype]['warm_s']:.3f} s (the CLI with its "
+                        f"set-up {tp[0][dtype]['cli_s']:.3f} s) vs the single tower {single_s:.3f} s "
+                        f"(max|diff| {max(gaps):.3e})")
+
+    print(f"[multi] data parallel, {DP_RANKS} gloo ranks sharing the one card (time-slicing and the collectives, "
+          f"not scaling): epochs {', '.join(f'{x:.3f}' for x in dp[0]['epoch_s'])} s vs one process "
+          f"{', '.join(f'{x:.3f}' for x in one['epoch_s'])} s; both entries {dp[0]['seconds']:.2f} s vs "
+          f"{one['seconds']:.2f} s; losses within {loss_gap:.3e} relative, metrics {metric_gap:.3e}, "
+          f"validation {val_gap:.3e}, per-video scores {score_gap:.3e}; the ranks' parameters equal to the bit "
+          f"at every epoch ({smi})", flush=True)
+    print(f"[multi] a one-rank NCCL group: {ENTRY_EPOCHS} epochs and both entries equal to the run without a "
+          f"group to the bit (losses, parameters, scores, metrics); epochs "
+          f"{', '.join(f'{x:.3f}' for x in nccl['epoch_s'])} s ({smi})", flush=True)
+    print(f"[multi] tensor parallel, model_parallel={TP_RANKS} on {TP_RANKS} gloo ranks sharing the one card, "
+          f"{SERVE_FRAME_VIDEO} uint8 frames, {heads} heads a rank on K1: " + "; ".join(tp_lines)
+          + f"; the phase {time.perf_counter() - phase_start:.1f} s ({smi})", flush=True)
+    return {"one": one["counts"], **{f"dp{r}": got["counts"] for r, got in enumerate(dp)}, "nccl": nccl["counts"],
+            **{f"tp{r} {d}": got[d]["counts"] for r, got in enumerate(tp) for d in dtypes}}
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
@@ -4365,7 +4737,10 @@ def main() -> int:
                              "256-frame encode chunk of the ViT-B/16, int8 and RN50 towers "
                              "per dtype, one warm training step, one warm ViT-L/14@336px call "
                              "per dtype and one warm step of its tower's gradient per dtype")
+    parser.add_argument("--rank", nargs=2, metavar=("ROLE", "SPEC"), help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.rank:  # one rank of phase 4k, started by launch_ranks
+        return rank_main(*args.rank)
     smi = phase_device()
     phase_build()
     report = {}
@@ -4388,6 +4763,7 @@ def main() -> int:
         entry_launches = phase_entry(smi, *feature_set, Path(tmp))
         serving_launches = phase_serving(smi, *feature_set, Path(tmp))
         tower_launches = phase_towers(smi, *feature_set, Path(tmp))
+        multi_launches = phase_multi(smi, *feature_set, Path(tmp))
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -4448,8 +4824,16 @@ def main() -> int:
     require(all(tower_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "fused_mha_qtile",
                                                 "flash_attention_heads", "mha_tf32", "mha_tc", "bld_tf32")),
             f"a kernel of the RN50 and int8 towers' path was never launched: {tower_launches}")
+    # more than one device: every rank of the data-parallel runs launched K1-K4,
+    # every rank of the tensor-parallel tower K1 and K2
+    for run, counts in multi_launches.items():
+        names = ("fused_mha_qkv", "fused_mha_bld") if run.startswith("tp") else (
+            "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd")
+        require(all(counts[k] > 0 for k in names), f"a kernel of the multi-device path ({run}) was never launched: "
+                                                   f"{counts}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
-                *script_launches, data_launches, fit_launches, entry_launches, serving_launches, tower_launches]
+                *script_launches, data_launches, fit_launches, entry_launches, serving_launches, tower_launches,
+                *multi_launches.values()]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

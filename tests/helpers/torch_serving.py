@@ -52,10 +52,11 @@ def write_video(path: Path, n: int, rng: np.random.Generator) -> Path:
     return path
 
 
-def serving_setup(tmp: Path, monkeypatch) -> SimpleNamespace:
+def serving_setup(tmp: Path, monkeypatch, clip_cfg=None) -> SimpleNamespace:
     """Under ``tmp``: the synthetic set (``SYNTHETIC_ROOT``), a reference
     Lightning checkpoint ``run/checkpoints/released.ckpt`` with a tiny CLIP of
-    32-pixel frames, a seeded ncentroid file, and the inputs: a (70, 64)
+    32-pixel frames (``clip_cfg``, default test_torch_entry.py's
+    ``CKPT_CLIP``), a seeded ncentroid file, and the inputs: a (70, 64)
     feature ``.npy``, a 40-frame JPEG directory and a 24-frame video file.
     ``monkeypatch`` keeps the environment set for the compositions."""
     from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
@@ -76,7 +77,7 @@ def serving_setup(tmp: Path, monkeypatch) -> SimpleNamespace:
               "output": trainable["temporal"]["head"]["w"].shape[1]}
     ckpt = tmp / "run" / "checkpoints" / "released.ckpt"
     ckpt.parent.mkdir(parents=True)
-    torch.save({"state_dict": entry._lightning_state(shapes), "epoch": 7}, str(ckpt))
+    torch.save({"state_dict": entry._lightning_state(shapes, clip_cfg or entry.CKPT_CLIP), "epoch": 7}, str(ckpt))
 
     rng = np.random.default_rng(11)
     ncentroid = tmp / "ncentroid_explicit.npy"

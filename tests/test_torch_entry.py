@@ -5,9 +5,10 @@ against the JAX package's, on the CPU.
   to the bit, and the trial sequences of the random, grid and TPE searches
   with ``_single_run`` replaced in both packages by one function of the trial;
 - ``train_entry.main`` equal to the port's module run directly, a multirun's
-  and a random search's run directories, the refusals (no card without
-  ``trainer=cpu``, more than one device or process, an artifact's eval
-  included);
+  and a random search's run directories, the refusal of a run on the card
+  without one (an artifact's eval included), and what more than one device or
+  process resolves to (spawned CPU ranks, a joined group whose failed init
+  raises);
 - a Lightning ``.ckpt`` built here: its conversion equal to the JAX
   converter's to the bit after ``params_from_jax``, ``eval_entry`` on it
   within 1e-4 of the JAX ``eval_entry``'s AUC, AP, mAUC and mAP, and the
@@ -295,14 +296,35 @@ def test_entries_without_a_card_raise_rather_than_run_on_the_cpu(env, main, argv
     (eval_entry.main, ["artifact=/tmp/art", "data=synthetic", "trainer=ddp"], "item 8"),
 ])
 def test_unported_entry_options_raise(env, main, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(argv)
+    """The options that more than one device needs, refused until ROADMAP.md
+    section 1, item 8 landed, now resolve to ranks: the CPU ones to two spawned
+    CPU ranks (the spawn recorded, not run: tests/test_torch_multiprocess_fit.py
+    runs one), ``trainer=ddp`` to every card, which raises here, where torch
+    sees none, as any run on the card does."""
+    spawned = []
+    env.setattr(train_entry, "run_ranks", lambda *a: spawned.append(a) or {})
+    if "trainer=ddp" in argv:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        assert not spawned
+        return
+    main(argv)
+    assert len(spawned) == 1, item
+    entry, args, n_ranks, device = spawned[0]
+    assert (entry, n_ranks, device) == ("anomalyclip_tpu_torch.train_entry:_rank_run", 2, "cpu")
+    assert args == argv
 
 
 def test_world_size_above_one_raises(env):
+    """``WORLD_SIZE`` > 1 joins the group it describes (``env://``): without
+    ``MASTER_ADDR`` there is none to join, and the failed init raises rather
+    than running alone."""
     env.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    env.setenv("RANK", "0")
+    env.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         train_entry.main(["experiment=synthetic", "trainer=cpu"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_the_device_choice(env):
@@ -332,13 +354,14 @@ CKPT_CLIP = CLIPConfig(embed_dim=64, image_resolution=32, vision_layers=2, visio
                        vocab_size=49408, transformer_width=64, transformer_heads=1, transformer_layers=2)
 
 
-def _lightning_state(trainable_shapes: dict) -> dict:
-    """A reference Lightning ``state_dict``: the CLIP split as AnomalyCLIP
-    splits it, the prompt context, the selector's BN state and the lucidrains
-    temporal model (tests/helpers/axial_torch.py, the package's key layout)."""
+def _lightning_state(trainable_shapes: dict, clip_cfg: CLIPConfig = CKPT_CLIP) -> dict:
+    """A reference Lightning ``state_dict``: the CLIP (``clip_cfg``) split as
+    AnomalyCLIP splits it, the prompt context, the selector's BN state and the
+    lucidrains temporal model (tests/helpers/axial_torch.py, the package's key
+    layout)."""
     axial = _load_by_path("_test_torch_entry_axial", ROOT / "tests" / "helpers" / "axial_torch.py")
     gen = torch.Generator().manual_seed(3)
-    clip_sd = clip_convert.state_dict_from_params(init_clip_params(gen, CKPT_CLIP))
+    clip_sd = clip_convert.state_dict_from_params(init_clip_params(gen, clip_cfg))
     state = {}
     for k, v in clip_sd.items():
         if k.startswith("visual."):

@@ -240,18 +240,33 @@ def test_gather_processes_in_one_process_is_the_whole_set(tiny, evaluated, tmp_p
 
 _RANK = textwrap.dedent("""
     import sys
+    import numpy as np
     import torch.distributed as dist
-    from anomalyclip_tpu_torch.eval.evaluator import evaluate_videos
+    from anomalyclip_tpu_torch.eval.evaluator import VideoScores, evaluate_videos
 
     rank, path = int(sys.argv[1]), sys.argv[2]
     dist.init_process_group("gloo", init_method="file://" + path, world_size=2, rank=rank)
+
+    def video(k):
+        t = 3 + 2 * k
+        return VideoScores(np.zeros((t, 2), np.float32), np.full(t, k, np.float32),
+                           np.full((t, 2), k / 10, np.float32), np.full(t, k), k, f"v{k}")
+
+    class Strided(list):
+        def global_indices(self):
+            return range(rank, 5, 2)
+
     try:
-        try:
-            evaluate_videos([object()], score_item=lambda item: 1 / 0, gather_processes=True)
-        except NotImplementedError as exc:
+        try:  # a loader without global video indices cannot be put in order
+            evaluate_videos([0], score_item=video, gather_processes=True)
+        except AttributeError as exc:
             print("refused:", exc)
         else:
-            raise SystemExit("returned one rank's videos as the whole set")
+            raise SystemExit("gathered videos it could not order")
+        got = evaluate_videos(Strided(range(rank, 5, 2)), score_item=video, gather_processes=True)
+        want = evaluate_videos(range(5), score_item=video)
+        assert all(np.array_equal(got[k], want[k]) for k in want), (got, want)
+        print("gathered", got["abnormal_scores"].size, "frames in global order")
         assert evaluate_videos([], gather_processes=False) == {}
     finally:
         dist.destroy_process_group()
@@ -259,6 +274,9 @@ _RANK = textwrap.dedent("""
 
 
 def test_gather_processes_across_two_ranks_raises(tmp_path):
+    """Across two ranks (a gloo group) each rank's stride of the videos is
+    gathered into the whole set in global order on both; a loader without
+    ``global_indices`` raises, since its videos have no global place."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     procs = [
         subprocess.Popen([sys.executable, "-c", _RANK, str(rank), str(tmp_path / "rendezvous")],
@@ -271,4 +289,4 @@ def test_gather_processes_across_two_ranks_raises(tmp_path):
         finally:
             proc.kill()
         assert proc.returncode == 0, err
-        assert "across 2 processes" in out and "ROADMAP.md section 1, item 8" in out, out
+        assert "refused:" in out and "gathered 35 frames in global order" in out, out

@@ -12,8 +12,9 @@
   no cache), ``overfit_batches`` (``set_epoch(0)`` every epoch), early
   stopping under ``check_val_every_n_epoch=2`` (stale metrics burn no
   patience), ``exception.log`` on a failing fit, ``train/lr``, a pretrained
-  CLIP read from ``clip_ckpt_path``, what is not ported yet raising
-  ``NotImplementedError`` with its ROADMAP.md item, and RN50 resolving.
+  CLIP read from ``clip_ckpt_path``, ``trainer.model_parallel`` in one
+  process falling back to the single tower with a warning, and RN50
+  resolving.
 - ``chip_smoke.py``'s UCF-Crime run config against the composed
   ``experiment=ucfcrime`` on every key the port's module reads.
 """
@@ -244,9 +245,17 @@ def test_exception_log_on_a_failing_fit(tmp_path):
 @pytest.mark.parametrize("override, item", [
     ("trainer.model_parallel=2", "item 8"),
 ])
-def test_unported_options_raise_at_init(tmp_path, override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port(tmp_path, "run", override)
+def test_unported_options_raise_at_init(tmp_path, override, item, monkeypatch):
+    """``trainer.model_parallel=2`` raised here until ROADMAP.md section 1,
+    ``item`` landed. In one process it now builds, and its first encode warns
+    and runs on the single tower, as the JAX module does with too few devices
+    (anomalyclip_tpu/train/module.py:196-201); tests/test_torch_tensor_parallel.py
+    runs it on two ranks."""
+    module = _port(tmp_path, "run", override)
+    warned = []
+    monkeypatch.setattr(tmod.log, "warning", warned.append)
+    assert module.model_group is None and module._encode_fn() == module.model.encode_frames
+    assert any("model_parallel=2 requested but only 1 device(s)" in w for w in warned), warned
 
 
 def test_pretrained_clip_comes_from_clip_ckpt_path(tmp_path, monkeypatch):

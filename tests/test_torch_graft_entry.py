@@ -2,7 +2,8 @@
 on the CPU: the function ``entry()`` returns, built at ``_build_tiny``'s sizes
 on the JAX package's tiny weights converted, against the JAX
 ``model.forward_test`` at the tolerance of tests/test_golden.py, from features
-and from frames; the flagship's configuration; ``dryrun_multichip`` refusing."""
+and from frames; the flagship's configuration; ``dryrun_multichip`` raising when
+a rank's check fails."""
 
 from __future__ import annotations
 
@@ -82,5 +83,44 @@ def test_entry_is_the_flagship_on_the_card():
 
 
 def test_dryrun_multichip_raises_naming_item_8():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        graft_entry.dryrun_multichip(8)
+    """``dryrun_multichip`` raised, naming ROADMAP.md section 1, item 8, until
+    that item landed; it now runs over spawned ranks
+    (tests/test_torch_tensor_parallel.py runs it on two), and raises when a
+    rank's check fails: here two ranks told they are three."""
+    import torch.multiprocessing as mp
+
+    from anomalyclip_tpu_torch.train_entry import run_ranks
+
+    with pytest.raises(mp.ProcessRaisedException, match="AssertionError"):
+        run_ranks("anomalyclip_tpu_torch.graft_entry:_dryrun_rank", ["3", "cpu"], 2, "cpu")
+
+
+@pytest.mark.parametrize("cards, device, n, route", [
+    (0, None, 2, ("cpu", "gloo")),
+    (1, None, 2, ("cuda", "gloo")),
+    (2, None, 2, ("cuda", "nccl")),
+    (4, "cuda", 2, ("cuda", "nccl")),
+    (1, "cpu", 2, ("cpu", "gloo")),
+])
+def test_dryrun_route_takes_the_card_unless_asked_for_the_cpu(monkeypatch, cards, device, n, route):
+    """``dryrun_multichip``'s ranks: on the card whenever there is one (shared
+    over gloo when there are fewer cards than ranks), the CPU when asked for it
+    or when there is no card."""
+    import torch
+
+    from anomalyclip_tpu_torch.graft_entry import dryrun_route
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert dryrun_route(n, device) == route
+
+
+def test_dryrun_route_on_the_card_raises_without_one(monkeypatch):
+    import torch
+
+    from anomalyclip_tpu_torch.graft_entry import dryrun_route
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_route(2, "cuda")

@@ -92,6 +92,9 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.ops.attention",
         "anomalyclip_tpu_torch.ops.attention_probes",
         "anomalyclip_tpu_torch.ops.build",
+        "anomalyclip_tpu_torch.parallel",
+        "anomalyclip_tpu_torch.parallel.mesh",
+        "anomalyclip_tpu_torch.parallel.tp",
         "anomalyclip_tpu_torch.scripts._bench_models",
         "anomalyclip_tpu_torch.scripts._bench_util",
         "anomalyclip_tpu_torch.scripts.bench_attn_bwd",

@@ -15,8 +15,9 @@ routing of it, against the JAX package on the CPU.
   within cosine 0.999 of the fp32 tower (tests/test_quant.py's bound).
 - The routing tests of tests/test_quant.py on the port's module: int8 serving,
   fp inside ``fit`` with both caches dropped at both edges, an unknown value
-  raising ``ValueError`` at the first encode (``trainer.model_parallel=2``
-  still refused at construction), and an RN tower warned onto the fp tower.
+  raising ``ValueError`` at the first encode (under ``trainer.model_parallel=2``
+  too, which in one process leaves int8 on the int8 tower), and an RN tower
+  warned onto the fp tower.
 - ``scripts/probe_int8_drift.py``'s readings on the CPU.
 """
 
@@ -236,18 +237,16 @@ def test_int8_is_serving_only(tmp_path):
 @pytest.mark.parametrize("mp", [1, 2])
 def test_quantize_knob_validated(tmp_path, mp):
     """An unknown quantize value raises ValueError at the first encode, not at
-    construction; more than one model-parallel device is refused at
-    construction, with or without int8 (ROADMAP.md section 1, item 8)."""
+    construction, on every route, ``trainer.model_parallel`` included (JAX
+    module.py:180-182). In one process model_parallel=2 has too few ranks for
+    the tensor-parallel tower, so int8 serves on the int8 tower."""
     overrides = ("model.net.quantize=w8a8", f"+trainer.model_parallel={mp}")
-    if mp > 1:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            _module(tmp_path, *overrides)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            _module(tmp_path, "model.net.quantize=int8", f"+trainer.model_parallel={mp}")
-        return
     m = _module(tmp_path, *overrides)
     with pytest.raises(ValueError, match="quantize"):
         m._encode_fn()
+    if mp > 1:
+        m = _module(tmp_path, "model.net.quantize=int8", f"+trainer.model_parallel={mp}")
+        assert m.model_group is None and getattr(m._encode_fn(), "int8", False)
 
 
 def test_int8_on_a_resnet_tower_serves_fp(tmp_path, monkeypatch):
