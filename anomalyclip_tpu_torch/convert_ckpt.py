@@ -35,6 +35,15 @@ models are fp16, reference model.py:433-459).
 
 writes a checkpoint directory of the port (``out_dir/state.pt``, epoch -1,
 step 0) that ``eval_entry ckpt_path=out_dir`` reads.
+
+    python -m anomalyclip_tpu_torch.convert_ckpt <orbax dir> out_dir
+
+does the same for an Orbax checkpoint directory of the JAX package (a fit's
+``epoch_NNN`` or ``last``, or the JAX converter's output), read without orbax
+(``train/orbax_reader.py``): ``out_dir/state.pt`` holds its trainable tree, BN
+state, step and epoch and, from a fit, its optimizer state, so that a run
+trained by the JAX package evaluates and resumes from the port's own format
+and pays for the decode once.
 """
 
 from __future__ import annotations
@@ -232,25 +241,28 @@ def converted_clip_config(path_or_sd):
 
 
 def main(argv=None) -> None:
-    """CLI: convert a Lightning .ckpt into a checkpoint directory of the port
-    usable as ``eval_entry ckpt_path=<out_dir>`` (eval_entry also reads the
-    .ckpt directly, with the checkpoint's own CLIP)."""
+    """CLI: convert a Lightning .ckpt, or an Orbax checkpoint directory of the
+    JAX package, into a checkpoint directory of the port usable as
+    ``eval_entry ckpt_path=<out_dir>`` (and, from an Orbax fit, as a resume
+    point; eval_entry also reads both inputs directly)."""
     import argparse
 
     from anomalyclip_tpu_torch.convert import tree_leaves
-    from anomalyclip_tpu_torch.train.checkpoint import write_state
+    from anomalyclip_tpu_torch.train.checkpoint import restore_state, write_state
 
     ap = argparse.ArgumentParser(description=main.__doc__)
-    ap.add_argument("ckpt", help="reference Lightning .ckpt file")
+    ap.add_argument("ckpt", help="reference Lightning .ckpt file, or an Orbax checkpoint directory")
     ap.add_argument("out_dir", help="output checkpoint directory")
     args = ap.parse_args(argv)
 
-    _, trainable, bn_state = convert_lightning_checkpoint(args.ckpt)
-    write_state(Path(args.out_dir), {
-        "trainable": trainable, "optimizer": None, "count": 0, "bn_state": bn_state,
-        "step": 0, "epoch": -1,
-    })
-    n_params = sum(t.numel() for t in tree_leaves(trainable))
+    if Path(args.ckpt).is_dir():
+        state = restore_state(args.ckpt)
+    else:
+        _, trainable, bn_state = convert_lightning_checkpoint(args.ckpt)
+        state = {"trainable": trainable, "optimizer": None, "count": 0, "bn_state": bn_state,
+                 "step": 0, "epoch": -1}
+    write_state(Path(args.out_dir), state)
+    n_params = sum(t.numel() for t in tree_leaves(state["trainable"]))
     print(f"converted {args.ckpt} -> {args.out_dir} ({n_params:,} trainable params)")
 
 

@@ -77,7 +77,6 @@ from anomalyclip_tpu_torch.parallel.mesh import (
 )
 from anomalyclip_tpu_torch.parallel.tp import model_group, tp_image_encoder
 from anomalyclip_tpu_torch.train.checkpoint import (
-    STATE_FILE,
     CheckpointManager,
     host_copy,
     load_ncentroid,
@@ -673,15 +672,24 @@ class AnomalyCLIPTrainModule:
         return {**self.frozen, "clip": {**clip, "visual": tree_to(clip["visual"], self.device)}}
 
     def _resume(self, ckpt_path, steps_per_epoch: int) -> Tuple[TrainState, int]:
-        """A checkpoint of the port -> (the state on the device, its epoch)."""
+        """A checkpoint of the port, or an Orbax one of the JAX package's fit
+        -> (the state on the device, its epoch). The optimizer's moments and
+        steps come from the checkpoint, its hyperparameters from this
+        session's config, as the JAX package resumes."""
         restored = self.ckpt.restore(ckpt_path, device="cpu")
+        if restored["optimizer"] is None:
+            raise ValueError(
+                f"{ckpt_path} holds no optimizer state (a converted checkpoint): it restores for "
+                "evaluation (eval_entry, predict, serve, export), not to resume a fit")
         state = init_state(
             tree_to(restored["trainable"], self.device), restored["bn_state"].to(self.device),
             *self._optimizer_cfgs(), steps_per_epoch,
         )
         # the moments move to their parameters' device; AdamW's step counts stay
         # on the CPU, where an uninterrupted run keeps them
-        state.optimizer.optimizer.load_state_dict(restored["optimizer"])
+        optimizer = state.optimizer.optimizer
+        optimizer.load_state_dict({"state": restored["optimizer"]["state"],
+                                   "param_groups": optimizer.state_dict()["param_groups"]})
         state.optimizer.count = int(restored["count"])
         return dataclasses.replace(state, step=int(restored["step"])), int(restored["epoch"])
 
@@ -962,11 +970,13 @@ class AnomalyCLIPTrainModule:
         return metrics
 
     def load_state(self, ckpt_path) -> TrainState:
-        """A checkpoint directory of the port (or its ``last``), or a reference
-        Lightning ``.ckpt`` -> a TrainState on the device, without optimizer.
-        A ``.ckpt`` is converted in place and the model rebuilt around the
-        checkpoint's own CLIP, whatever the session's ``clip_init``. Orbax
-        directories of the JAX package are not read yet."""
+        """A checkpoint directory of the port or an Orbax one of the JAX
+        package (an epoch's, its ``last``, or ``convert_ckpt``'s output), or a
+        reference Lightning ``.ckpt`` -> a TrainState on the device, without
+        optimizer. A ``.ckpt`` is converted in place and the model rebuilt
+        around the checkpoint's own CLIP, whatever the session's
+        ``clip_init``; a directory carries only the trainable tree and is
+        scored with the session's CLIP."""
         path = Path(ckpt_path)
         if path.suffix == ".ckpt" and path.is_file():
             # released reference checkpoint (reference contract: src/eval.py:73,
@@ -980,12 +990,6 @@ class AnomalyCLIPTrainModule:
             sd = load_lightning_state_dict(path)  # one disk load, shared
             frozen, trainable, bn_state = convert_lightning_checkpoint(sd)
             return self.adopt_converted_state(frozen, trainable, bn_state, converted_clip_config(sd))
-        if path.is_dir() and not (path / STATE_FILE).is_file():
-            raise NotImplementedError(
-                f"{path} holds no {STATE_FILE}: reading a checkpoint directory other than "
-                "the port's own (an Orbax one of the JAX package) is not ported yet "
-                "(ROADMAP.md section 1, item 5, its one open part)"
-            )
         restored = self.ckpt.restore(path, device=self.device)
         ctx = restored["trainable"]["prompt_ctx"]
         if ctx.shape[-1] != self.model.prompt_spec.ctx_dim:

@@ -358,8 +358,8 @@ script exits non-zero without printing a result:
    fp32 route). (c) The same run in a one-rank NCCL group, through the same
    data-parallel code: its losses, digests, scores and metrics equal to the
    run without a group to the bit, its launches exact. (b) ``predict.main``
-   with ``trainer.model_parallel`` = TP_RANKS on TP_RANKS gloo ranks on phase
-   4i's seeded 700-frame uint8 video, in fp32 and bf16, from (a)'s one-process
+   with ``trainer.model_parallel`` = TP_RANKS on TP_RANKS gloo ranks on
+   TP_FRAMES seeded uint8 frames, in fp32 and bf16, from (a)'s one-process
    ``last``: the module takes the tensor-parallel tower, each rank's K1 and K2
    launches are exact (every K1 on ``mha_tf32``, bf16 ``mha_tc``) and every
    image-tower K1 launch runs 6 local heads on (B, 197, 1152), and each rank's
@@ -368,6 +368,24 @@ script exits non-zero without printing a result:
    scoring call on the tensor-parallel tower beside the single one, with the
    card's name and power limit: two ranks on one card measure the collectives'
    cost and time-slicing, not scaling;
+4l. the JAX package's Orbax checkpoints, with no JAX on the machine: the
+   committed fixture (ORBAX_FIXTURE: one epoch of the synthetic experiment at
+   ViT-B/16's text width with its optimizer state, and the JAX converter's
+   output; ``fixture.json`` beside them) copied with a ``last`` symlink. (a)
+   ``orbax_reader.read_leaves`` reads both directories through the port's
+   OCDBT store and zstd decoder, every leaf's sha256 equal to the JSON's, and
+   none of ORBAX_FORBIDDEN in ``sys.modules`` afterwards (it prints whether
+   ``zstandard`` is importable here at all, and the read rate); (b)
+   ``eval_entry.main`` on ``last`` with the seeded CLIP file the JSON names,
+   its AUC, AP, mAUC and mAP within ORBAX_METRIC_TOL of the JAX eval's; (c)
+   ``train_entry.main`` resumed from ``last`` for one epoch, dropout 0, under
+   ``deterministic_mode``, and again from the ``state.pt`` that (d)
+   ``convert_ckpt.main`` writes of ``last`` (timed, equal to the Orbax state
+   to the bit): the two runs' losses and final trainable leaves equal to the
+   bit, the losses within ORBAX_LOSS_RTOL of the JAX resume's. The eval and
+   each resume run in a window of their own, their K1-K4 launches exact, every
+   one on its fp32 route. It prints the read rate, the eval's, each resume's
+   and the conversion's seconds with the card's name and power limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one 256-frame encode chunk of the ViT-B/16 tower, of the int8 ViT-B/16
@@ -380,7 +398,7 @@ script exits non-zero without printing a result:
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
 gradient, script, data, training-run, command-line, serving, other-tower and
-every rank's multi-device runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+every rank's multi-device runs and the Orbax checkpoints' runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -689,8 +707,21 @@ SEEDED_VIDEO = "seeded_video.mp4"
 # TP scores within TP_TOL of the single tower. RANK_TIMEOUT_S: a rank that
 # crashes or hangs fails the phase; each collective's own limit is half of it
 DP_RANKS, TP_RANKS, RANK_TIMEOUT_S = 2, 2, 600
+# the TP ranks score TP_FRAMES seeded uint8 frames (a 512-frame grid once
+# padded, two encode chunks): their gloo all-reduces through host memory are
+# most of the phase's time, so not 4i's SERVE_FRAME_VIDEO (four chunks)
+TP_FRAMES = 256
 DP_LOSS_RTOL, DP_TOL = 5e-4, 1e-4
 TP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase 4l: the JAX package's Orbax checkpoints, committed under ORBAX_FIXTURE
+# by tests/helpers/make_orbax_fixture.py (the card's machine has no JAX to
+# write one), read by the port with none of ORBAX_FORBIDDEN loaded. The eval's
+# metrics are held to the JAX eval's within ORBAX_METRIC_TOL
+# (tests/test_golden.py's tolerance), a resumed epoch's losses to the JAX
+# resume's within ORBAX_LOSS_RTOL of each (the bound 4f holds a step's leaves to)
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "orbax"
+ORBAX_FORBIDDEN = ("jax", "orbax", "tensorstore", "zstandard")
+ORBAX_METRIC_TOL, ORBAX_LOSS_RTOL = 1e-4, 1e-4
 
 
 def phase_device() -> str:
@@ -2434,24 +2465,37 @@ def phase_probe_kernels(report: dict) -> None:
 @contextlib.contextmanager
 def silent_profiler_sessions():
     """While open, every torch.profiler session that records no device time
-    books the launches made inside it -> the Counter of those launches.
-    ``_bench_util.device_ms`` runs such a session again (the profiler now and
-    then hands one back empty), so a script that times by device time launches
-    one session's calls more than its own count says for each; those launches
-    are measured here, not assumed."""
+    and is run again books the launches made inside it -> the Counter of those
+    launches. ``_bench_util.device_ms`` runs such a session again (the profiler
+    now and then hands one back empty), up to its last session, after which it
+    gives up (``device_readings["not_measured"]``): so a script that times by
+    device time launches one session's calls more than its own count says for
+    each session run again, and none for the last one of a reading given up.
+    Those launches are measured here, not assumed."""
     import collections
 
     import torch.profiler
 
     from anomalyclip_tpu_torch.ops import attention as A
+    from anomalyclip_tpu_torch.scripts import _bench_util
 
     real, booked = torch.profiler.profile, collections.Counter()
+    silent = []  # the last silent session's launches, and the readings given up when it ended
 
     def counts():
         return collections.Counter({**A.launch_counts, **A.route_counts})
 
+    def settle():
+        """The silent session before this point was run again unless its
+        reading was given up since it ended."""
+        if silent:
+            launches, given_up = silent.pop()
+            if _bench_util.device_readings["not_measured"] == given_up:
+                booked.update(launches)
+
     class Profile(real):
         def __enter__(self):
+            settle()
             self.launches_before = counts()
             return super().__enter__()
 
@@ -2459,13 +2503,14 @@ def silent_profiler_sessions():
             done = super().__exit__(*exc)
             cuda = torch.autograd.DeviceType.CUDA
             if sum(e.time_range.elapsed_us() for e in self.events() if e.device_type == cuda) <= 0:
-                booked.update(counts() - self.launches_before)
+                silent.append((counts() - self.launches_before, _bench_util.device_readings["not_measured"]))
             return done
 
     torch.profiler.profile = Profile
     try:
         yield booked
     finally:
+        settle()
         torch.profiler.profile = real
 
 
@@ -4363,7 +4408,7 @@ def rank_fit(spec: dict) -> dict:
 
 
 def rank_tp(spec: dict) -> dict:
-    """A rank's ``predict.main`` on phase 4i's video, once a dtype, with the
+    """A rank's ``predict.main`` on TP_FRAMES seeded frames, once a dtype, with the
     launch and route counts and the (L, heads, width) of every K1 launch taken
     in its own window, then one ``score_input`` of a module built as the CLI
     builds it, timed in the process the CLI warmed -> the scores."""
@@ -4494,7 +4539,7 @@ def run_multi(smi: str, tmp: Path, clip_path: Path) -> dict:
                                        f"{one[key][first] if first is not None else ''})"[:2000])
 
     # ---- (b) the tensor-parallel tower from frames, fp32 and bf16
-    frames = np.random.default_rng(SEED + 5).integers(0, 256, (1, SERVE_FRAME_VIDEO, 224, 224, 3), dtype=np.uint8)
+    frames = np.random.default_rng(SEED + 5).integers(0, 256, (1, TP_FRAMES, 224, 224, 3), dtype=np.uint8)
     np.save(tmp / "frames.npy", frames)
     video = tmp / SEEDED_VIDEO
     video.touch()
@@ -4504,7 +4549,7 @@ def run_multi(smi: str, tmp: Path, clip_path: Path) -> dict:
     dtypes = ("float32", "bfloat16")
     tp = launch_ranks("tp", {"frames": str(tmp / "frames.npy"), "video": str(video), "dtypes": dtypes,
                              "predict": predict_args + [f"trainer.model_parallel={TP_RANKS}"]}, TP_RANKS, tmp, "gloo")
-    chunks = -(-(-(-SERVE_FRAME_VIDEO // (32 * 16)) * 32 * 16) // 256)
+    chunks = -(-(-(-TP_FRAMES // (32 * 16)) * 32 * 16) // 256)
     k1 = cfg.transformer_layers + cfg.vision_layers * chunks
     heads = cfg.vision_heads // TP_RANKS
     tp_lines = []
@@ -4546,10 +4591,152 @@ def run_multi(smi: str, tmp: Path, clip_path: Path) -> dict:
           f"group to the bit (losses, parameters, scores, metrics); epochs "
           f"{', '.join(f'{x:.3f}' for x in nccl['epoch_s'])} s ({smi})", flush=True)
     print(f"[multi] tensor parallel, model_parallel={TP_RANKS} on {TP_RANKS} gloo ranks sharing the one card, "
-          f"{SERVE_FRAME_VIDEO} uint8 frames, {heads} heads a rank on K1: " + "; ".join(tp_lines)
+          f"{TP_FRAMES} uint8 frames, {heads} heads a rank on K1: " + "; ".join(tp_lines)
           + f"; the phase {time.perf_counter() - phase_start:.1f} s ({smi})", flush=True)
     return {"one": one["counts"], **{f"dp{r}": got["counts"] for r, got in enumerate(dp)}, "nccl": nccl["counts"],
             **{f"tp{r} {d}": got[d]["counts"] for r, got in enumerate(tp) for d in dtypes}}
+
+
+def phase_orbax(smi: str) -> dict:
+    """Phase 4l: the committed Orbax checkpoints of the JAX package, read,
+    evaluated, resumed and converted -> the kernel launch and route counts of
+    its main path."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("SYNTHETIC_ROOT", "LOG_DIR", "ANOMALYCLIP_NO_DOWNLOAD")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="orbax_", dir=ROOT / "build") as tmp:
+            return run_orbax(smi, Path(tmp))
+    finally:
+        restore_env(saved)
+
+
+def run_orbax(smi: str, tmp: Path) -> dict:
+    """Phase 4l's runs; see the module docstring."""
+    import csv
+    import hashlib
+    import importlib.util
+    import os
+    import shutil
+
+    from anomalyclip_tpu_torch import eval_entry, train_entry
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+    from anomalyclip_tpu_torch.convert import tree_leaves
+    from anomalyclip_tpu_torch.convert_ckpt import main as convert_main
+    from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
+    from anomalyclip_tpu_torch.train import orbax_reader
+    from anomalyclip_tpu_torch.train.checkpoint import restore_state
+    from anomalyclip_tpu_torch.train.module import METRIC_NAMES
+
+    phase_start = time.perf_counter()
+    record = json.loads((ORBAX_FIXTURE / "fixture.json").read_text())
+    shutil.copytree(ORBAX_FIXTURE, tmp / "fixture")
+    last = tmp / "fixture" / "fit" / "checkpoints" / "last"
+    last.symlink_to("epoch_000")
+    dirs = {"fit": last, "converted": tmp / "fixture" / "converted"}
+
+    # (a) the reader, with no JAX, orbax or compression package
+    zstandard_importable = importlib.util.find_spec("zstandard") is not None
+    on_disk = sum(f.stat().st_size for d in dirs.values() for f in d.resolve().rglob("*") if f.is_file())
+    start = time.perf_counter()
+    leaves = {name: orbax_reader.read_leaves(path) for name, path in dirs.items()}
+    read_s = time.perf_counter() - start
+    loaded = [m for m in ORBAX_FORBIDDEN if m in sys.modules]
+    require(not loaded, f"reading the Orbax fixture loaded {loaded}")
+    decoded = 0
+    for name, got in leaves.items():
+        want = record["leaves"][name]
+        require(len(got) == len(want), f"{name}: {len(got)} leaves read, the JSON lists {len(want)}")
+        for keys, (array, dtype_name) in got.items():
+            entry = want["/".join(k for k, _ in keys)]
+            require(dtype_name == entry["dtype"], f"{name} {keys}: dtype {dtype_name}, the JSON says {entry}")
+            if array is not None:
+                digest = hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+                require(digest == entry["sha256"] and list(array.shape) == entry["shape"],
+                        f"{name} {keys}: its sha256 or shape differs from the JSON's")
+                decoded += array.nbytes
+    print(f"[4l] read {sum(len(g) for g in leaves.values())} leaves of the Orbax fixture in {read_s:.3f} s: "
+          f"{on_disk / read_s / 1e6:.2f} MB/s on disk, {decoded / read_s / 1e6:.2f} MB/s decoded "
+          f"({on_disk} B, {decoded} B); loaded afterwards of {ORBAX_FORBIDDEN}: none; zstandard importable "
+          f"here: {zstandard_importable} [{smi}]")
+
+    # the seeded CLIP the fixture was trained with, and the synthetic set
+    clip_cfg = CLIPConfig(**record["clip"]["config"])
+    clip_path = tmp / "clip.pt"
+    torch.save(seeded_clip_state_dict(clip_cfg, record["clip"]["seed"]), clip_path)
+    os.environ.update(SYNTHETIC_ROOT=str(tmp / "synthetic"), ANOMALYCLIP_NO_DOWNLOAD="1")
+    common = [*record["overrides"], f"model.net.clip_ckpt_path={clip_path}", "extras.print_config=False"]
+    data_cfg = to_dict(compose(default_config_dir(), "train", ["experiment=synthetic", *common]))["data"]
+    videos, depth = int(data_cfg["synthetic_num_test"]), 1
+    layers = clip_cfg.transformer_layers
+    counts = {}
+
+    def window(what: str, fn, steps: int, passes: int) -> float:
+        """``fn`` with the counts set to 0 just before and read just after,
+        held exactly: K1 a text-tower forward a step and a scoring pass, K3 a
+        step, K2 two a layer of the temporal model a step and a video scored,
+        K4 two a layer a step, each on its fp32 route -> its seconds."""
+        counts_taken()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - begin
+        k1, k3 = layers * (steps + passes), layers * steps
+        k2, k4 = 2 * depth * (steps + videos * passes), 2 * depth * steps
+        counts[what] = held(f"4l {what}", counts_taken(), {
+            "fused_mha_qkv": k1, "mha_tf32": k1, "mha_qkv_bwd": k3, "whole_bwd_tf32": k3,
+            "fused_mha_bld": k2, "bld_tf32": k2, "mha_bld_bwd": k4, "bld_bwd_tf32": k4})
+        return seconds
+
+    # (b) the eval entry on the JAX run's last
+    os.environ["LOG_DIR"] = str(tmp / "eval_logs")
+    metrics = {}
+    eval_s = window("eval_entry", lambda: metrics.update(eval_entry.main(
+        ["data=synthetic", "model=anomaly_clip_synthetic", "seed=1024", *common, f"ckpt_path={last}"])),
+        steps=0, passes=1)
+    gap = max(abs(float(metrics[k]) - record["jax_test_metrics"][k]) for k in EVAL_METRICS[:4])
+    require(gap <= ORBAX_METRIC_TOL, f"4l eval of the Orbax last vs the JAX eval: max|diff| {gap:.3e}")
+
+    # (d) the converter on last, then (c) one epoch resumed from each
+    start = time.perf_counter()
+    convert_main([str(last), str(tmp / "state")])
+    convert_s = time.perf_counter() - start
+    want, got = restore_state(last), restore_state(tmp / "state")
+    require(all(torch.equal(a, b) for a, b in zip(tree_leaves(want["trainable"]), tree_leaves(got["trainable"])))
+            and (got["step"], got["epoch"], got["count"]) == (want["step"], want["epoch"], want["count"]),
+            "4l: convert_ckpt's state.pt differs from the Orbax state")
+    steps_per_epoch = int(want["count"]) // (int(want["epoch"]) + 1)
+    resumed = {}
+    for name, ckpt in (("orbax", last), ("state_pt", tmp / "state")):
+        log_dir = tmp / f"resume_{name}"
+        os.environ["LOG_DIR"] = str(log_dir)
+        with deterministic_mode():
+            seconds = window(f"resume from {name}", lambda ckpt=ckpt: train_entry.main(
+                ["experiment=synthetic", *common, "trainer.max_epochs=2", f"ckpt_path={ckpt}"]),
+                steps=steps_per_epoch, passes=2)
+        run = log_dir / "train" / "runs" / "synthetic"
+        rows = [r for r in csv.DictReader(open(run / "csv" / "metrics.csv")) if r.get("train/loss")]
+        require([int(r["step"]) for r in rows] == [1], f"4l resume from {name}: epochs {[r['step'] for r in rows]}")
+        final = restore_state(run / "checkpoints" / "last")
+        resumed[name] = SimpleNamespace(losses={k: float(rows[0][k]) for k in METRIC_NAMES}, seconds=seconds,
+                                        trainable=tree_leaves(final["trainable"]), epoch=final["epoch"])
+    a, b = resumed["orbax"], resumed["state_pt"]
+    require(a.epoch == b.epoch == 1, f"4l: the resumed runs end at epochs {a.epoch}, {b.epoch}")
+    require(a.losses == b.losses and all(torch.equal(x, y) for x, y in zip(a.trainable, b.trainable)),
+            "4l: the resume from the Orbax directory and from its state.pt differ")
+    loss_gap = max(abs(a.losses[k] - v) / abs(v) for k, v in record["jax_resumed_losses"].items())
+    require(loss_gap <= ORBAX_LOSS_RTOL, f"4l resumed losses vs the JAX resume: relative gap {loss_gap:.3e}")
+    print(f"[4l] eval_entry on the Orbax last {eval_s:.2f} s (metrics vs JAX max|diff| {gap:.3e}); "
+          f"convert_ckpt {convert_s:.3f} s; one epoch resumed from the Orbax last {a.seconds:.2f} s, from its "
+          f"state.pt {b.seconds:.2f} s (equal to the bit; losses vs JAX relative gap {loss_gap:.3e}); "
+          f"phase {time.perf_counter() - phase_start:.1f} s [{smi}]")
+    totals = defaultdict(int)
+    for got in counts.values():
+        for k, v in got.items():
+            totals[k] += v
+    print(f"[4l] launches: {({w: {k: v for k, v in c.items() if v} for w, c in counts.items()})}")
+    return dict(totals)
 
 
 def kernel_class(name: str) -> str:
@@ -4764,6 +4951,7 @@ def main() -> int:
         serving_launches = phase_serving(smi, *feature_set, Path(tmp))
         tower_launches = phase_towers(smi, *feature_set, Path(tmp))
         multi_launches = phase_multi(smi, *feature_set, Path(tmp))
+    orbax_launches = phase_orbax(smi)
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -4831,9 +5019,14 @@ def main() -> int:
             "fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd")
         require(all(counts[k] > 0 for k in names), f"a kernel of the multi-device path ({run}) was never launched: "
                                                    f"{counts}")
+    # the JAX package's Orbax checkpoints: evaluated through K1 and K2, resumed
+    # through K1-K4
+    require(all(orbax_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                                                "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
+            f"a kernel of the Orbax checkpoints' path was never launched: {orbax_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
                 *script_launches, data_launches, fit_launches, entry_launches, serving_launches, tower_launches,
-                *multi_launches.values()]
+                *multi_launches.values(), orbax_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

@@ -186,7 +186,10 @@ def test_ncentroid_limit_never_cached(tmp_path):
 def test_load_state_refuses_lightning_and_orbax_inputs(tmp_path):
     """A Lightning ``.ckpt`` is read and converted since the converter was
     ported (tests/test_torch_entry.py): an empty one, or one without the
-    model's weights, is refused. Orbax directories are not read yet."""
+    model's weights, is refused. Orbax directories are read since the reader
+    was ported (tests/test_torch_orbax.py): a directory that is neither the
+    port's nor a whole Orbax one, or whose OCDBT manifest is damaged, is
+    refused, naming the file."""
     module = port_module(tmp_path, "run")
     ckpt = tmp_path / "released.ckpt"
     ckpt.write_bytes(b"")
@@ -198,7 +201,11 @@ def test_load_state_refuses_lightning_and_orbax_inputs(tmp_path):
     orbax_dir = tmp_path / "orbax_epoch_000"
     orbax_dir.mkdir()
     (orbax_dir / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(FileNotFoundError, match="neither state.pt nor an Orbax checkpoint"):
+        module.load_state(orbax_dir)
+    (orbax_dir / "_METADATA").write_text('{"tree_metadata": {}}')
+    (orbax_dir / "manifest.ocdbt").write_bytes(bytes.fromhex("0cdb3a2a") + bytes(20))
+    with pytest.raises(ValueError, match="manifest.ocdbt: length field 0 at byte 4"):
         module.load_state(orbax_dir)
 
 

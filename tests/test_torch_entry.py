@@ -455,8 +455,8 @@ def test_convert_ckpt_cli_writes_a_port_checkpoint(env, tmp_path, lightning_ckpt
                                                          f"ckpt_path={out}", "data.num_workers=0"]))
     state = AnomalyCLIPTrainModule(cfg, device="cpu").load_state(out)
     assert_trees_equal(state.trainable, trainable)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        AnomalyCLIPTrainModule(cfg, device="cpu").load_state(tmp_path)  # a directory without state.pt
+    with pytest.raises(FileNotFoundError, match="neither state.pt nor an Orbax checkpoint"):
+        AnomalyCLIPTrainModule(cfg, device="cpu").load_state(tmp_path)  # neither the port's nor an Orbax one
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Importing every module of the port, or ``chip_smoke``, loads none of jax, yaml,
-regex, cv2, PIL, optax, matplotlib, tensorflow or orbax, and nothing of the JAX
-package ``anomalyclip_tpu``: the machine with the card has none of them (or,
-for jax and optax, the port must not rely on them; matplotlib and tensorflow
-are imported where a plot or a TensorBoard logger is made), and the port keeps
-its own copy of what it needs from the JAX package, even from its modules that
-import no JAX. Checked in a fresh
+regex, cv2, PIL, optax, matplotlib, tensorflow, orbax, zstandard or
+tensorstore, and nothing of the JAX package ``anomalyclip_tpu``: the machine
+with the card has none of them (or, for jax and optax, the port must not rely
+on them; matplotlib and tensorflow are imported where a plot or a TensorBoard
+logger is made), and the port keeps its own copy of what it needs from the JAX
+package, even from its modules that import no JAX. Reading an Orbax checkpoint
+directory of the JAX package (tests/fixtures/orbax) loads none of them either:
+the port decodes its OCDBT store and zstd chunks itself. Checked in a fresh
 interpreter, since this test process has jax loaded already
 (tests/conftest.py)."""
 
@@ -18,7 +20,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # by exact module name: "anomalyclip_tpu" is a prefix of the port's own name
 FORBIDDEN = ("jax", "yaml", "regex", "cv2", "PIL", "optax", "matplotlib", "tensorflow", "orbax",
-             "anomalyclip_tpu")
+             "zstandard", "tensorstore", "anomalyclip_tpu")
 
 _REPORT = """
 print(json.dumps({"modules": names, "loaded": sorted(
@@ -37,6 +39,17 @@ _SMOKE_PROBE = """
 import json, sys
 import chip_smoke
 names = ["chip_smoke"]
+""" + _REPORT
+
+
+_READ_PROBE = """
+import json, sys
+from anomalyclip_tpu_torch.train import orbax_reader
+from anomalyclip_tpu_torch.train.checkpoint import restore_state
+names = []
+for path in ("tests/fixtures/orbax/fit/checkpoints/epoch_000", "tests/fixtures/orbax/converted"):
+    orbax_reader.read_tree(path)
+    names.append(sorted(restore_state(path)))
 """ + _REPORT
 
 
@@ -111,11 +124,14 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.scripts.validate_qtile_config",
         "anomalyclip_tpu_torch.train.checkpoint",
         "anomalyclip_tpu_torch.train.module",
+        "anomalyclip_tpu_torch.train.ocdbt",
         "anomalyclip_tpu_torch.train.optim",
+        "anomalyclip_tpu_torch.train.orbax_reader",
         "anomalyclip_tpu_torch.train.tpe",
         "anomalyclip_tpu_torch.utils.extras",
         "anomalyclip_tpu_torch.utils.logging",
         "anomalyclip_tpu_torch.utils.treeio",
+        "anomalyclip_tpu_torch.utils.zstd",
     }
     assert expected <= set(report["modules"])
     assert report["loaded"] == [], report["loaded"]
@@ -123,6 +139,12 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
 
 def test_chip_smoke_imports_no_jax_and_nothing_of_the_jax_package():
     report = _run(_SMOKE_PROBE)
+    assert report["loaded"] == [], report["loaded"]
+
+
+def test_reading_an_orbax_checkpoint_loads_no_jax_orbax_or_zstd_package():
+    report = _run(_READ_PROBE)
+    assert report["modules"] == [["bn_state", "count", "epoch", "optimizer", "step", "trainable"]] * 2
     assert report["loaded"] == [], report["loaded"]
 
 

@@ -187,11 +187,24 @@ def test_dp_ranks_hold_the_same_bits(stepped):
 # ---------------------------------------------------------------------------
 
 ENTRY_ARGS = ("experiment=synthetic", "model.net.select_idx_dropout_topk=0.0",
-              "model.net.select_idx_dropout_bottomk=0.0", "data.num_workers=0")
+              "model.net.select_idx_dropout_bottomk=0.0", "data.num_workers=0", "model.net.emb_size=32")
+
+
+def _without_plots(tmp: Path) -> Path:
+    """A directory that shadows ``matplotlib`` and ``seaborn`` with modules
+    that fail to import: put first on ``PYTHONPATH``, the entries' test pass
+    writes ``metrics.json`` and skips the PNGs, as it does where neither is
+    installed (importing both and plotting is about half of a run's time)."""
+    shim = tmp / "without_plots"
+    for name in ("matplotlib", "seaborn"):
+        (shim / name).mkdir(parents=True, exist_ok=True)
+        (shim / name / "__init__.py").write_text(f"raise ImportError('{name} is shadowed')\n")
+    return shim
 
 
 def _entry(tmp: Path, trainer: str, module: str = "train_entry", args=ENTRY_ARGS) -> subprocess.Popen:
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2",
+    path = os.pathsep.join([str(_without_plots(tmp)), str(ROOT)])
+    env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="2",
                ANOMALYCLIP_DIST_TIMEOUT_S=str(ranks.COLLECTIVE_TIMEOUT_S), **_env(tmp))
     return subprocess.Popen([sys.executable, "-m", f"anomalyclip_tpu_torch.{module}", *args,
                              f"trainer={trainer}"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -203,15 +216,19 @@ def _epoch_rows(run_dir: Path) -> dict:
     return {int(r["step"]): [float(r[k]) for k in LOSS_NAMES] for r in rows if r.get("train/loss")}
 
 
+# each join's limit: a loaded test run has taken these entries past 110 s
+ENTRY_TIMEOUT_S = 150
+
+
 @pytest.fixture(scope="module")
 def entries(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("entries")
-    ranks.join([_entry(tmp / "ddp", "ddp_sim"), _entry(tmp / "one", "cpu")], timeout=110)
+    ranks.join([_entry(tmp / "ddp", "ddp_sim"), _entry(tmp / "one", "cpu")], timeout=ENTRY_TIMEOUT_S)
     runs = [tmp / name / "logs" / "train" / "runs" / "synthetic" for name in ("ddp", "one")]
     # the eval entry on the one-process run's last checkpoint, over two spawned ranks
     eval_args = ("data=synthetic", "model=anomaly_clip_synthetic", "data.num_workers=0", "seed=1024",
-                 f"ckpt_path={runs[1] / 'checkpoints' / 'last'}")
-    ranks.join([_entry(tmp / "eval", "ddp_sim", "eval_entry", eval_args)], timeout=110)
+                 "model.net.emb_size=32", f"ckpt_path={runs[1] / 'checkpoints' / 'last'}")
+    ranks.join([_entry(tmp / "eval", "ddp_sim", "eval_entry", eval_args)], timeout=ENTRY_TIMEOUT_S)
     return runs + [tmp / "eval" / "logs"]
 
 

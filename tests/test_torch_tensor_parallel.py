@@ -124,14 +124,13 @@ ALIGNED = [g for g in GRIDS if 4 % g[1] == 0]  # the JAX aligned variant needs m
 
 @pytest.fixture(scope="module")
 def grids(towers, tmp_path_factory):
-    """Every grid's ranks, launched together, each grid its own group."""
-    launched = {}
+    """Every grid's ranks, each grid its own group, one grid after another:
+    the 13 ranks of all four at once would share the CPU with the rest of a
+    loaded test run, and each join would wait out the others' work too."""
+    results = {}
     for dp, mp in GRIDS:
         out = tmp_path_factory.mktemp(f"grid_{dp}x{mp}")
-        launched[dp, mp] = out, ranks.launch(_RANK, dp * mp, out, args=[towers[0], out, mp])
-    results = {}
-    for (dp, mp), (out, procs) in launched.items():
-        ranks.join(procs)
+        ranks.run(_RANK, dp * mp, out, args=[towers[0], out, mp])
         results[dp, mp] = [dict(np.load(out / f"rank{r}.npz")) for r in range(dp * mp)]
     return results
 
