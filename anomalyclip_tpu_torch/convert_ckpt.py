@@ -34,7 +34,9 @@ models are fp16, reference model.py:433-459).
     python -m anomalyclip_tpu_torch.convert_ckpt released.ckpt out_dir
 
 writes a checkpoint directory of the port (``out_dir/state.pt``, epoch -1,
-step 0) that ``eval_entry ckpt_path=out_dir`` reads.
+step 0) that ``eval_entry ckpt_path=out_dir`` reads. ``lightning_state_dict``
+is the inverse of the conversion: the port's trees -> the ``net.`` keys it
+reads, for writing a reference-layout ``.ckpt`` from weights of the port.
 
     python -m anomalyclip_tpu_torch.convert_ckpt <orbax dir> out_dir
 
@@ -56,6 +58,7 @@ import torch
 
 from anomalyclip_tpu_torch.models.clip.convert import (
     config_from_state_dict,
+    state_dict_from_params,
     torch_state_dict_to_params,
 )
 from anomalyclip_tpu_torch.models.selector import BNState
@@ -238,6 +241,65 @@ def converted_clip_config(path_or_sd):
         else load_lightning_state_dict(path_or_sd)
     )
     return config_from_state_dict(clip_state_dict_from_lightning(sd))
+
+
+def _c(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().float().cpu().contiguous().clone()
+
+
+def temporal_state_dict(temporal: Params, prefix: str = "temporal_model.") -> Dict[str, torch.Tensor]:
+    """The inverse of ``temporal_params_from_torch``: the port's temporal tree
+    -> the lucidrains package's keys under ``prefix``."""
+    p, sd = prefix, {}
+
+    def attn(key: str, a: Params) -> None:
+        sd[key + ".norm.weight"], sd[key + ".norm.bias"] = _c(a["ln"]["scale"]), _c(a["ln"]["bias"])
+        sd[key + ".fn.to_q.weight"], sd[key + ".fn.to_kv.weight"] = _c(a["to_q"].T), _c(a["to_kv"].T)
+        sd[key + ".fn.to_out.weight"], sd[key + ".fn.to_out.bias"] = _c(a["to_out_w"].T), _c(a["to_out_b"])
+
+    def conv_ff(key: str, f: Params) -> None:
+        sd[key + ".0.g"], sd[key + ".0.b"] = _c(f["ln_g"].reshape(1, -1, 1, 1)), _c(f["ln_b"].reshape(1, -1, 1, 1))
+        sd[key + ".1.weight"], sd[key + ".1.bias"] = _c(f["conv1_w"]), _c(f["conv1_b"])
+        sd[key + ".3.weight"], sd[key + ".3.bias"] = _c(f["conv2_w"]), _c(f["conv2_b"])
+
+    sd[p + "projection.weight"], sd[p + "projection.bias"] = (_c(temporal["projection"]["w"].T),
+                                                              _c(temporal["projection"]["b"]))
+    sd[p + "axial_attn.pos_emb.param_0"] = _c(temporal["pos_n"].T[None, :, :, None])
+    sd[p + "axial_attn.pos_emb.param_1"] = _c(temporal["pos_l"].T[None, :, None, :])
+    for i, layer in enumerate(temporal["layers"]):
+        blocks = f"{p}axial_attn.layers.blocks."
+        attn(f"{blocks}{2 * i}.f.net.fn", layer["attn_n"])
+        attn(f"{blocks}{2 * i}.g.net.fn", layer["attn_l"])
+        conv_ff(f"{blocks}{2 * i + 1}.f.net", layer["ff1"])
+        conv_ff(f"{blocks}{2 * i + 1}.g.net", layer["ff2"])
+    head = temporal["head"]
+    sd[p + "classifier.layer_norm.weight"] = _c(head["ln"]["scale"])
+    sd[p + "classifier.layer_norm.bias"] = _c(head["ln"]["bias"])
+    sd[p + "classifier.linear.weight"], sd[p + "classifier.linear.bias"] = _c(head["w"].T), _c(head["b"])
+    return sd
+
+
+def lightning_state_dict(frozen: Params, trainable: Params, bn_state: BNState) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_lightning_checkpoint``: the port's trees -> a
+    reference Lightning ``state_dict`` holding the ``net.`` keys the
+    conversion reads, fp32 tensors on the CPU. A reference checkpoint holds
+    one text projection, which both trees read: it is the trainable one."""
+    sd = {}
+    for k, v in state_dict_from_params(frozen["clip"]).items():
+        if k.startswith("visual."):
+            sd["image_encoder." + k[len("visual."):]] = v
+        elif k.startswith(("transformer.", "ln_final.")) or k == "positional_embedding":
+            sd["text_encoder." + k] = v
+        elif k == "token_embedding.weight":
+            sd[k] = v
+        elif k == "logit_scale":
+            sd["selector_model.logit_scale"] = v
+    sd["text_encoder.text_projection"] = _c(trainable["text_projection"])
+    sd["prompt_learner.ctx"] = _c(trainable["prompt_ctx"])
+    sd["selector_model.bn_layer.running_mean"] = _c(bn_state.mean)
+    sd["selector_model.bn_layer.running_var"] = _c(bn_state.var)
+    sd.update(temporal_state_dict(trainable["temporal"]))
+    return {"net." + k: v for k, v in sd.items()}
 
 
 def main(argv=None) -> None:

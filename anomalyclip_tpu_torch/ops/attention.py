@@ -587,6 +587,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # 64 and 32 are the CLIP towers and the temporal model, 16 and 8 the temporal
 # model at emb 128 with 8 heads and at emb 32 with 4 (the reference's tiny model)
 _HEAD_DIMS = (8, 16, 32, 64)
+# K2's and K4's whole-head CUDA-core kernels (acl_mha_bld_fwd of mha.cu,
+# acl_mha_bld_bwd of mha_bwd.cu) take head dim 4 besides: the temporal model of
+# the golden tiny fixture (tests/golden/tiny_state.npz: emb 32 over 8 heads).
+# The head dims each entry's kernels take, where they are not _HEAD_DIMS
+BLD_HEAD_DIMS = (4,) + _HEAD_DIMS
+_ENTRY_HEAD_DIMS = {"fused_mha_bld": BLD_HEAD_DIMS, "mha_bld_bwd": BLD_HEAD_DIMS}
 _KERNEL_WARPS = 8
 _KERNEL_ROWS = 64  # query rows per block of the forward kernels
 # what an H100 gives one block (cudaDevAttrMaxSharedMemoryPerBlockOptin); the
@@ -759,18 +765,20 @@ def blocked_bwd_tf32_smem_bytes(dh: int = MHA_TF32_HEAD_DIM, kernel: str = "dkv"
     return tiles + (4 * 2 * _MHA_TC_STAGES * BWD_BLOCK_KV if BWD_TC_PASSES[kernel] else 0)
 
 
-def kernel_refusal(dtype: torch.dtype, d: int, num_heads: int, smem_need, smem: int):
+def kernel_refusal(dtype: torch.dtype, d: int, num_heads: int, smem_need, smem: int,
+                   head_dims: tuple = _HEAD_DIMS):
     """Why a kernel whose block needs ``smem_need(dh)`` bytes of shared memory
-    does not take ``num_heads`` heads over ``d`` columns of ``dtype`` on a card
-    that gives a block ``smem`` bytes: the rest of a sentence, or None where it
-    does. The one statement of the card's limits (an operand type and a head dim
-    that are instantiated, the block's shared memory): the eligibility
-    functions ask whether it is None, the wrappers raise it."""
+    and that is instantiated at ``head_dims`` does not take ``num_heads`` heads
+    over ``d`` columns of ``dtype`` on a card that gives a block ``smem`` bytes:
+    the rest of a sentence, or None where it does. The one statement of the
+    card's limits (an operand type and a head dim that are instantiated, the
+    block's shared memory): the eligibility functions ask whether it is None,
+    the wrappers raise it."""
     if dtype not in _DTYPE_CODES:
         return f"has dtype {dtype}; the kernels take float32 and bfloat16"
-    if d % num_heads or d // num_heads not in _HEAD_DIMS:
+    if d % num_heads or d // num_heads not in head_dims:
         return (f"with {num_heads} heads gives head dim {d / num_heads:g}; the kernels take "
-                f"{_HEAD_DIMS}")
+                f"{head_dims}")
     need = smem_need(d // num_heads)
     if need > smem:
         return f"needs {need} B of shared memory per block, the card gives {smem}"
@@ -850,12 +858,13 @@ def _use_reference(t: torch.Tensor) -> bool:
 
 
 def _check_kernel_shape(name: str, t: torch.Tensor, d: int, num_heads: int, smem_need) -> int:
-    """Raise, with the shape, on what the CUDA kernel does not take
-    (``kernel_refusal``) -> head dim. ``smem_need(dh)`` is the shared memory one
-    block needs at this shape."""
+    """Raise, with the shape, on what the CUDA kernel of entry ``name`` does not
+    take (``kernel_refusal`` at the entry's head dims) -> head dim.
+    ``smem_need(dh)`` is the shared memory one block needs at this shape."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, not {t.device}")
-    refusal = kernel_refusal(t.dtype, d, num_heads, smem_need, smem_limit(t.device))
+    refusal = kernel_refusal(t.dtype, d, num_heads, smem_need, smem_limit(t.device),
+                             _ENTRY_HEAD_DIMS.get(name, _HEAD_DIMS))
     if refusal is not None:
         raise ValueError(f"{name}: shape {tuple(t.shape)} {refusal}")
     return d // num_heads
@@ -1178,9 +1187,14 @@ def _blocked_bwd_recompute(name: str, q, k, v, g, dq, dk, dv, causal: bool = Fal
 
 def _bwd_route(name: str, t: torch.Tensor, l: int, d: int, num_heads: int) -> str:
     """``attention_bwd_route`` for a kernel launch, after the dtype and head-dim
-    checks every backward kernel shares; raises where it has no kernel."""
+    checks every backward kernel shares (the entry's whole-head kernel's head
+    dims; the KV-blocked pair takes ``_HEAD_DIMS``); raises where it has no
+    kernel."""
     dh = _check_kernel_shape(name, t, d, num_heads, lambda dh: 0)
     route = attention_bwd_route(l, dh, t.element_size(), smem_limit(t.device))
+    if route == "blocked" and dh not in _HEAD_DIMS:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} needs the KV-blocked backward, which takes "
+                         f"head dims {_HEAD_DIMS}, not {dh}")
     if route is None:
         raise ValueError(
             f"{name}: shape {tuple(t.shape)} needs {mha_bwd_smem_bytes(l, dh)} B of shared memory "

@@ -173,13 +173,18 @@ cudaError_t launch_typed(Operand q, Operand k, Operand v, void* out, int B, int 
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dh: 8, 16, 32 or 64. K and V are staged as fp32
-// (kStageFp32) or in the operand type.
+// dtype: 0 = float32, 1 = bfloat16. dh: 4, 8, 16, 32 or 64 (4: the golden tiny
+// fixture's temporal model, which the wrappers admit for acl_mha_bld_fwd only). K and
+// V are staged as fp32 (kStageFp32) or in the operand type.
 template <bool kStageFp32>
 cudaError_t launch(int dtype, Operand q, Operand k, Operand v, void* out, int B, int L,
                    int H, int dh, int causal, float scale, cudaStream_t stream) {
   using BF = __nv_bfloat16;
   using SB = std::conditional_t<kStageFp32, float, BF>;
+  if (dtype == 0 && dh == 4)
+    return launch_typed<float, float, 4>(q, k, v, out, B, L, H, causal, scale, stream);
+  if (dtype == 1 && dh == 4)
+    return launch_typed<BF, SB, 4>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 0 && dh == 8)
     return launch_typed<float, float, 8>(q, k, v, out, B, L, H, causal, scale, stream);
   if (dtype == 1 && dh == 8)

@@ -182,10 +182,16 @@ cudaError_t launch_typed(Operand q, Operand k, Operand v, Operand g, Output dq, 
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. dh: 8, 16, 32 or 64.
+// dtype: 0 = float32, 1 = bfloat16. dh: 4, 8, 16, 32 or 64 (4: the golden tiny
+// fixture's temporal model, which the wrappers admit for acl_mha_bld_bwd only).
 cudaError_t launch(int dtype, Operand q, Operand k, Operand v, Operand g, Output dq, Output dk,
                    Output dv, int B, int L, int H, int dh, int causal, float scale,
                    cudaStream_t stream) {
+  if (dtype == 0 && dh == 4)
+    return launch_typed<float, 4>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale, stream);
+  if (dtype == 1 && dh == 4)
+    return launch_typed<__nv_bfloat16, 4>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale,
+                                          stream);
   if (dtype == 0 && dh == 8)
     return launch_typed<float, 8>(q, k, v, g, dq, dk, dv, B, L, H, causal, scale, stream);
   if (dtype == 1 && dh == 8)

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +41,22 @@ GLOO_ROUTE = (
     "ranks that share a card take the gloo route: "
     "parallel.mesh.init_distributed(backend='gloo')"
 )
+
+
+_STARTED = time.monotonic()
+
+
+def log_stage(what: str) -> None:
+    """One line on stderr naming the stage a rank has reached, on every rank
+    of a group (the console logger speaks only on rank 0): where a run of
+    ranks hangs or dies, the last such line of each rank says how far it got.
+    Outside a group it says nothing unless ``RANK`` is set (a spawned rank
+    before its rendezvous)."""
+    if not distributed() and "RANK" not in os.environ:
+        return
+    me = rank() if distributed() else os.environ["RANK"]
+    print(f"[rank {me}/{os.environ.get('WORLD_SIZE', '?')} +{time.monotonic() - _STARTED:.1f}s] {what}",
+          file=sys.stderr, flush=True)
 
 
 def distributed() -> bool:

@@ -67,6 +67,7 @@ from anomalyclip_tpu_torch.parallel.mesh import (
     broadcast_,
     distributed,
     every_rank,
+    log_stage,
     mean_gradients_,
     mean_over_ranks,
     rank,
@@ -845,6 +846,7 @@ class AnomalyCLIPTrainModule:
                 f"({state.step} steps so far, {epoch_metrics['train/epoch_time_s']:.1f}s)"
             )
             self.loggers.log_metrics(epoch_metrics, step=epoch)
+            log_stage(f"epoch {epoch} trained ({state.step} steps)")
 
             # ---- validation (every epoch, like the reference) ----
             check_every = int(trainer_cfg.get("check_val_every_n_epoch", 1) or 1)
@@ -889,9 +891,12 @@ class AnomalyCLIPTrainModule:
                     else:
                         es_bad_epochs += 1
 
+            if validated_this_epoch:
+                log_stage(f"epoch {epoch} validated")
             if ckpt_due:
                 self.ckpt.save_epoch(epoch, {**boundary_state, "epoch": epoch})
                 last_saved_epoch = epoch
+                log_stage(f"epoch {epoch} checkpoint written")
 
             _handle_preempt(epoch)  # a SIGTERM during validation lands here
 
@@ -1064,6 +1069,7 @@ class AnomalyCLIPTrainModule:
             # empty test pass (limit_test_batches=0 / empty annotation file)
             log.warning("test pass scored zero videos — no metrics written")
             return {}
+        log_stage(f"test scored {len(outputs['labels'])} frames")
         metrics = write_test_artifacts(
             self.save_dir,
             outputs["abnormal_scores"],

@@ -79,6 +79,20 @@ def rank_count(cfg: Any, device: str) -> int:
     return len(usable_data_devices(half, list(range(max(n, 1)))))
 
 
+def cpu_rank_threads(world: int) -> int:
+    """The intra-op threads of one of ``world`` ranks spawned on this host's
+    CPU: ``OMP_NUM_THREADS`` where the caller set it (each rank takes what a
+    process started alone would), else the CPUs this process may run on (its
+    affinity, not the host's count) shared among the ranks. Ranks step in
+    lockstep through their collectives, so more threads than CPUs stall every
+    rank behind the slowest thread of any parallel region."""
+    wanted = os.environ.get("OMP_NUM_THREADS", "")
+    if wanted.isdigit() and int(wanted) > 0:
+        return int(wanted)
+    usable = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else (os.cpu_count() or 1)
+    return max(1, usable // world)
+
+
 def _rank_main(local: int, entry: str, argv: List[str], world: int, init_method: str, device: str,
                backend: Optional[str], result: str) -> None:
     """One spawned rank: join the group, run ``entry`` ("module:function") on
@@ -91,20 +105,24 @@ def _rank_main(local: int, entry: str, argv: List[str], world: int, init_method:
     import torch
     import torch.distributed as dist
 
-    from anomalyclip_tpu_torch.parallel.mesh import init_distributed
+    from anomalyclip_tpu_torch.parallel.mesh import init_distributed, log_stage
 
     card = local % torch.cuda.device_count() if device == "cuda" else local
     os.environ.update(RANK=str(local), WORLD_SIZE=str(world), LOCAL_RANK=str(card),
                       LOCAL_WORLD_SIZE=str(world))
     if device == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(cpu_rank_threads(world))
+    log_stage(f"spawned; rendezvous at {init_method}")
     init_distributed(backend, device=device, init_method=init_method)
+    log_stage(f"joined the {dist.get_backend()} group")
     try:
         module, name = entry.split(":")
         out = getattr(importlib.import_module(module), name)(argv)
+        log_stage(f"{name} returned")
         if local == 0:
             with open(result, "wb") as f:
                 pickle.dump(out, f)
+            log_stage("result written")
     finally:
         dist.destroy_process_group()
 
@@ -404,15 +422,18 @@ def _run(cfg, device: str) -> Dict[str, Any]:
         random.seed(int(cfg.seed))
         np.random.seed(int(cfg.seed))
 
+    from anomalyclip_tpu_torch.parallel.mesh import log_stage
     from anomalyclip_tpu_torch.train.module import AnomalyCLIPTrainModule
 
     module = AnomalyCLIPTrainModule(to_dict(cfg), device=device)
 
     metrics: dict = {}
     if cfg.get("train", True):
+        log_stage("fit")
         metrics = module.fit()
 
     if cfg.get("test", True) and not cfg.get("trainer", {}).get("fast_dev_run"):
+        log_stage("test")
         state = getattr(module, "_final_state", None)
         if state is not None:
             metrics = module.test(state=state)

@@ -386,6 +386,26 @@ script exits non-zero without printing a result:
    each resume run in a window of their own, their K1-K4 launches exact, every
    one on its fp32 route. It prints the read rate, the eval's, each resume's
    and the conversion's seconds with the card's name and power limit;
+4m. the last four scripts of ``anomalyclip_tpu_torch/scripts/``, each through
+   its ``main`` in a window of its own with its K1-K4 launches and routes
+   exact (the golden tiny state's temporal model, at head dim 4, on K2's and
+   K4's CUDA-core kernels, which phase 3 holds at that head dim): (a) ``perf_sweep`` (ViT-B/16 in bf16 at PERF_SWEEP_BATCHES
+   frames, the plain attention and the kernels, K1 on the tensor-core kernel,
+   the two encodings held within its AGREE_TOL at the first batch); (b)
+   ``bench_artifact`` (the UCF-Crime score graph native and from its exported
+   artifact at 1 and 8 videos, equal within its SCORE_TOL; K1 on the
+   tensor-core kernel for the text tower, K2 on the split-TF32 whole-head
+   kernel); (c) ``verify_released_ckpts``: ``--dry-run`` exits 0,
+   ``--dry-run-perturb 0.005`` exits 1, a missing checkpoint exits 2, and a
+   real run over 4h's run written as a reference ``.ckpt`` (the seeded CLIP
+   file's weights and the run's last trainables) on 4f's feature set under
+   UCFCRIME_ROOT exits 0, its table in a scratch file and its AUC within
+   EVAL_METRIC_TOL of the run's own test, and 1 under ``--strict-paper``; (d)
+   ``gen_golden`` into scratch directories, held by the script against
+   ``tests/golden/``: tokenizer, tiny (from ``tiny_state.npz`` and from a
+   ``.ckpt`` written from it) and metrics; then ``clip_b16`` on the port's
+   seeded weights, held kernel against plain attention. It prints each
+   script's seconds and times with the card's name and power limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one 256-frame encode chunk of the ViT-B/16 tower, of the int8 ViT-B/16
@@ -398,7 +418,8 @@ script exits non-zero without printing a result:
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
 gradient, script, data, training-run, command-line, serving, other-tower and
-every rank's multi-device runs and the Orbax checkpoints' runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
+every rank's multi-device runs, the Orbax checkpoints' runs and the last
+scripts' runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
 its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -722,6 +743,11 @@ TP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "orbax"
 ORBAX_FORBIDDEN = ("jax", "orbax", "tensorstore", "zstandard")
 ORBAX_METRIC_TOL, ORBAX_LOSS_RTOL = 1e-4, 1e-4
+# phase 4m: the last four scripts of the port through their mains. perf_sweep
+# at PERF_SWEEP_BATCHES frames a call; verify_released_ckpts' real run scores
+# 4h's run, written as a reference .ckpt, over 4f's feature set, its AUC held
+# to that run's own test within EVAL_METRIC_TOL
+PERF_SWEEP_BATCHES = (256, 512, 1024)
 
 
 def phase_device() -> str:
@@ -761,7 +787,7 @@ def phase_build() -> None:
                         == A.blocked_bwd_smem_bytes(dh, itemsize),
                         f"blocked backward smem at {dh, itemsize}")
             checked += 1
-    for dh in (8, 16):  # the small head dims: every formula at the tiny models' lengths
+    for dh in (4, 8, 16):  # the small head dims: every formula at the tiny models' lengths
         for l in (4, 16, 200):
             require(lib.acl_mha_smem_bytes(l, dh) == A.mha_smem_bytes(l, dh), f"mha smem at {l, dh}")
             require(lib.acl_mha_bwd_smem_bytes(l, dh) == A.mha_bwd_smem_bytes(l, dh),
@@ -1276,6 +1302,7 @@ def phase_kernels(report: dict) -> None:
     check_tc_flash()
     check_tf32_kernel()
     check_bld_tf32()
+    check_bld_head_dim_4()
 
 
 def check_tc_flash() -> None:
@@ -1394,6 +1421,39 @@ def check_bld_tf32() -> None:
               f"from the fp32 plain versions (tol {tol:g})")
         del q, kv, g, k, v, out, again, grads, grads_again, want, want_grads
     torch.cuda.empty_cache()
+
+
+def check_bld_head_dim_4() -> None:
+    """K2 and K4 at head dim 4 (the golden tiny fixture's temporal model: emb 32
+    over 8 heads, which phase 4m's dry run and tiny pipelines score and train)
+    on the CUDA-core kernels of mha.cu and mha_bwd.cu, at the fixture's shapes
+    and causal at a ragged length, in fp32 and bf16, each within TOLERANCE (of
+    max|ref| backward) of the plain versions, one launch each way."""
+    from anomalyclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for dtype in BOTH:
+        tol = TOLERANCE[dtype]
+        for b, l, causal in ((64, 32, False), (128, 16, False), (8, 23, True)):
+            q, kv, g = (torch.randn(b, l, w, device="cuda", generator=gen).to(dtype) for w in (32, 64, 32))
+            k, v = kv[..., :32], kv[..., 32:]
+            A.reset_launch_counts()
+            out = A.mha_bld_fwd_kernel(q, k, v, 8, causal)
+            grads = A.mha_bld_bwd_kernel(q, k, v, g, 8, causal)
+            torch.cuda.synchronize()
+            require(A.launch_counts["fused_mha_bld"] == 1 and A.launch_counts["mha_bld_bwd"] == 1
+                    and not any(A.route_counts.values()), f"K2, K4 at head dim 4: {A.launch_counts}")
+            want = A.mha_bld_reference(q, k, v, 8, causal)
+            want_grads = A.mha_bld_bwd_reference(q, k, v, g, 8, causal)
+            top = max(t.float().abs().max().item() for t in want_grads)
+            gap = (out.float() - want.float()).abs().max().item()
+            bwd_gap = max((a.float() - c.float()).abs().max().item() for a, c in zip(grads, want_grads)) / top
+            require(gap <= tol and bwd_gap <= tol, f"K2, K4 at head dim 4 ({b}, {l}, 32) {dtype}: {gap:.3e}, "
+                                                   f"{bwd_gap:.3e} (tol {tol:g})")
+            print(f"[kernels] K2 and K4 at head dim 4 ({b}, {l}, 32) 8 heads {dtype} causal={causal}, mha.cu "
+                  f"and mha_bwd.cu: forward {gap:.3e}, backward {bwd_gap:.3e} of max|ref| from the plain "
+                  f"versions (tol {tol:g})")
+    A.reset_launch_counts()
 
 
 def phase_bwd_kernels(report: dict) -> None:
@@ -4739,6 +4799,161 @@ def run_orbax(smi: str, tmp: Path) -> dict:
     return dict(totals)
 
 
+def phase_last_scripts(smi: str, frames_root: Path, annotations: Path, kept: Path) -> dict:
+    """Phase 4m: perf_sweep, bench_artifact, verify_released_ckpts and
+    gen_golden on the card -> the kernel launch and route counts of their
+    runs. 4h's run and CLIP file are in ``kept``."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("UCFCRIME_ROOT", "ANOMALYCLIP_NO_DOWNLOAD")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="last_scripts_", dir=ROOT / "build") as tmp:
+            ucf_data_root(Path(tmp), frames_root, annotations)
+            return run_last_scripts(smi, Path(tmp), kept / "run", kept / "ViT-B-16.pt")
+    finally:
+        restore_env(saved)
+
+
+def exit_status(fn):
+    """``fn()`` -> (its value, its exit status): the code of the SystemExit it
+    raised, else the value where it is an int (a main that returns its code),
+    else 0."""
+    try:
+        value = fn()
+    except SystemExit as exc:
+        return None, exc.code if isinstance(exc.code, int) else (0 if exc.code is None else 1)
+    return value, value if isinstance(value, int) else 0
+
+
+def run_last_scripts(smi: str, tmp: Path, run: Path, clip_path: Path) -> dict:
+    """Phase 4m's runs; see the module docstring."""
+    import io
+
+    from anomalyclip_tpu_torch import convert
+    from anomalyclip_tpu_torch.convert_ckpt import lightning_state_dict
+    from anomalyclip_tpu_torch.models.clip.convert import load_torch_clip_checkpoint
+    from anomalyclip_tpu_torch.scripts import bench_artifact, gen_golden, perf_sweep, verify_released_ckpts
+    from anomalyclip_tpu_torch.train.checkpoint import restore_state
+
+    phase_start = time.perf_counter()
+    n = SCRIPT_ITERS
+    counts, seconds = {}, {}
+
+    def window(what: str, fn, want: dict, code: int = 0):
+        """``fn`` with the counts set to 0 just before and read just after,
+        held to ``want`` exactly, and its exit status to ``code`` -> its value."""
+        print(f"[4m] {what}", flush=True)
+        counts_taken()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        value, status = exit_status(fn)
+        torch.cuda.synchronize()
+        seconds[what] = time.perf_counter() - begin
+        counts[what] = held(f"4m {what}", counts_taken(), want)
+        require(status == code, f"4m {what} exited with {status}, expected {code}")
+        return value
+
+    # (a) perf_sweep: 12 K1 a call on the tensor-core kernel, each batch checked
+    # once, warmed once and timed n times under the kernels
+    k1 = 12 * (n + 2) * len(PERF_SWEEP_BATCHES)
+    sweep = window("perf_sweep", lambda: perf_sweep.main(
+        ["--iters", str(n), "--batches", ",".join(map(str, PERF_SWEEP_BATCHES))]),
+        {"fused_mha_qkv": k1, "mha_tc": k1})
+    require(sweep["gaps"]["kernel"] <= perf_sweep.AGREE_TOL, f"4m perf_sweep gap {sweep['gaps']}")
+    for (impl, batch), (ms, fps) in sweep["times"].items():
+        print(f"[4m] perf_sweep impl={impl} batch={batch}: {ms:.3f} ms/iter, {fps:.1f} frames/s [{smi}]", flush=True)
+    print(f"[4m] perf_sweep kernel vs plain attention at batch {PERF_SWEEP_BATCHES[0]}: max|diff| "
+          f"{sweep['gaps']['kernel']:.3e} of max|ref|", flush=True)
+
+    # (b) bench_artifact: the text tower once when the scorer is built and once
+    # at export (12 K1 each, bf16: tensor-core kernel), the graphs traced on fake
+    # tensors; two K2 a scoring call, 2 (n + 2) calls a graph at each of 1 and 8 videos
+    k2 = 2 * 2 * 2 * (n + 2)
+    rows = window("bench_artifact", lambda: bench_artifact.main(["--iters", str(n)]),
+                  {"fused_mha_qkv": 24, "mha_tc": 24, "fused_mha_bld": k2, "bld_tf32": k2})
+    for s, row in rows.items():
+        require(row["max_abs_diff"] <= bench_artifact.SCORE_TOL, f"4m bench_artifact at {s} videos: {row}")
+        print(f"[4m] bench_artifact {s} video(s), {row['frames']} frames (bucket {row['bucket']}): native "
+              f"{row['native_ms']:.4f} ms, artifact {row['artifact_ms']:.4f} ms "
+              f"({row['artifact_ms'] / row['native_ms']:.4f}x), scores max|diff| {row['max_abs_diff']:.3e} "
+              f"[{smi}]", flush=True)
+
+    # (c) verify_released_ckpts. The dry run: the golden tiny state's text tower
+    # (2 layers of head dim 64, fp32) once for the test pass's scorer, and its
+    # temporal model (head dim 4, on mha.cu) twice a scoring call, one call for
+    # each of the synthetic set's 4 test videos
+    tiny_text = {"fused_mha_qkv": 2, "mha_tf32": 2, "fused_mha_bld": 8}
+    window("verify --dry-run", lambda: verify_released_ckpts.main(
+        ["--dry-run", "--baseline-md", str(tmp / "dry.md")]), tiny_text, code=0)
+    window("verify --dry-run --dry-run-perturb 0.005", lambda: verify_released_ckpts.main(
+        ["--dry-run", "--dry-run-perturb", "0.005", "--baseline-md", str(tmp / "perturbed.md")]), tiny_text,
+        code=1)
+    window("verify, a missing checkpoint", lambda: verify_released_ckpts.main(
+        ["--ckpt-dir", str(tmp / "none"), "--datasets", "ucfcrime"]), {}, code=2)
+    # the real run: 4h's last as a reference .ckpt with the seeded CLIP file's weights
+    state = restore_state(run / "checkpoints" / "last")
+    clip_params, _ = load_torch_clip_checkpoint(clip_path)
+    released = tmp / "released"
+    released.mkdir()
+    torch.save({"state_dict": lightning_state_dict({"clip": clip_params}, state["trainable"], state["bn_state"]),
+                "epoch": int(state["epoch"])}, released / "AnomalyCLIP_ucfcrime.ckpt")
+    test_videos = FEATURE_SET["num_test"]
+    real_run = {"fused_mha_qkv": 12, "mha_tf32": 12, "fused_mha_bld": 2 * test_videos, "bld_tf32": 2 * test_videos}
+    rows = {}
+    for name, extra, code in (("ucfcrime", [], 0), ("ucfcrime_strict_paper", ["--strict-paper"], 1)):
+        printed = io.StringIO()
+
+        def verify(extra=extra, name=name, printed=printed):
+            with contextlib.redirect_stdout(printed):
+                return verify_released_ckpts.main(
+                    ["--ckpt-dir", str(released), "--datasets", "ucfcrime", *extra, "--baseline-md",
+                     str(tmp / f"{name}.md"), f"model.net.clip_ckpt_path={clip_path}", "extras.print_config=False",
+                     f"paths.log_dir={tmp / name}"])
+
+        window(f"verify {' '.join(['--datasets ucfcrime', *extra])}", verify, real_run, code=code)
+        print(printed.getvalue(), end="", flush=True)
+        rows[name] = [json.loads(line) for line in printed.getvalue().splitlines() if line.startswith("{")]
+        require((tmp / f"{name}.md").read_text().count("| ucfcrime | auc_roc |") == 1, f"4m {name}: no table row")
+    require(rows["ucfcrime"] == rows["ucfcrime_strict_paper"] and len(rows["ucfcrime"]) == 1,
+            f"4m verify rows {rows}")
+    ours = rows["ucfcrime"][0]["ours"]
+    own = json.loads((run / "metrics.json").read_text())["auc_roc"]
+    require(abs(ours - own) <= EVAL_METRIC_TOL, f"4m verify's AUC {ours} vs the run's own test {own}")
+    print(f"[4m] verify_released_ckpts: dry run 0, perturbed 1, missing 2, ucfcrime 0 and with --strict-paper 1; "
+          f"its AUC {ours:.6f} vs the run's own test {own:.6f} [{smi}]", flush=True)
+
+    # (d) gen_golden: the tiny pipeline's text tower once for the training
+    # forward, once for the scorer and once a step (2 K1 each), its backward
+    # once a step (2 K3 each, on the split-TF32 whole-head backward); its
+    # temporal model (head dim 4, on mha.cu and mha_bwd.cu) twice for the
+    # training forward, twice for each of the 4 test videos and twice a step
+    # (K2), and twice a step backward (K4); clip_b16's two towers once each
+    # under the kernels (12 + 12 K1), and under the plain attention, which
+    # launches nothing
+    tiny = {"fused_mha_qkv": 10, "mha_tf32": 10, "mha_qkv_bwd": 6, "whole_bwd_tf32": 6, "fused_mha_bld": 16,
+            "mha_bld_bwd": 6}
+    window("gen_golden tokenizer tiny metrics", lambda: gen_golden.main(
+        ["--out", str(tmp / "golden"), "--only", "tokenizer", "tiny", "metrics"]), tiny)
+    with np.load(gen_golden.GOLDEN_DIR / "tiny_state.npz") as data:
+        frozen, trainable, bn_state, _ = convert.state_from_flat({k: data[k] for k in data.files}, device="cpu")
+    torch.save({"state_dict": lightning_state_dict(frozen, trainable, bn_state), "epoch": 0}, tmp / "tiny.ckpt")
+    window("gen_golden tiny --tiny-ckpt", lambda: gen_golden.main(
+        ["--out", str(tmp / "golden_ckpt"), "--only", "tiny", "--tiny-ckpt", str(tmp / "tiny.ckpt")]), tiny)
+    window("gen_golden clip_b16", lambda: gen_golden.main(["--out", str(tmp / "golden_clip"), "--only", "clip_b16"]),
+           {"fused_mha_qkv": 24, "mha_tf32": 24})
+    written = sorted(p.name for d in ("golden", "golden_ckpt", "golden_clip") for p in (tmp / d).iterdir())
+    require(written == ["clip_b16.npz", "metrics.npz", "tiny_pipeline.npz", "tiny_pipeline.npz", "tiny_state.npz",
+                        "tokenizer.npz"], f"4m gen_golden wrote {written}")
+    print(f"[4m] seconds: {({k: round(v, 3) for k, v in seconds.items()})}; phase "
+          f"{time.perf_counter() - phase_start:.1f} s [{smi}]", flush=True)
+    totals = defaultdict(int)
+    for got in counts.values():
+        for k, v in got.items():
+            totals[k] += v
+    print(f"[4m] launches: {({w: {k: v for k, v in c.items() if v} for w, c in counts.items()})}", flush=True)
+    return dict(totals)
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
@@ -4941,7 +5156,7 @@ def main() -> int:
     l14_launches = phase_l14()
     grad_launches = phase_tower_gradient()
     script_launches = phase_scripts()
-    # one feature set on disk for phases 4f, 4g and 4h, removed at the end
+    # one feature set on disk for phases 4f-4k and 4m, removed at the end
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="feature_set_", dir=ROOT / "build") as tmp:
         feature_set = make_feature_set(Path(tmp))
@@ -4951,7 +5166,8 @@ def main() -> int:
         serving_launches = phase_serving(smi, *feature_set, Path(tmp))
         tower_launches = phase_towers(smi, *feature_set, Path(tmp))
         multi_launches = phase_multi(smi, *feature_set, Path(tmp))
-    orbax_launches = phase_orbax(smi)
+        orbax_launches = phase_orbax(smi)
+        last_launches = phase_last_scripts(smi, *feature_set, Path(tmp))
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -5024,9 +5240,13 @@ def main() -> int:
     require(all(orbax_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                                                 "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
             f"a kernel of the Orbax checkpoints' path was never launched: {orbax_launches}")
+    # the last four scripts: K1 (bf16 and fp32), K2, K3 and K4
+    require(all(last_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                                               "mha_tc", "mha_tf32", "bld_tf32", "whole_bwd_tf32")),
+            f"a kernel of the last scripts' path was never launched: {last_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
                 *script_launches, data_launches, fit_launches, entry_launches, serving_launches, tower_launches,
-                *multi_launches.values(), orbax_launches]
+                *multi_launches.values(), orbax_launches, last_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

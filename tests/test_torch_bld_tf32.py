@@ -358,8 +358,9 @@ def test_repeated_shapes_are_checked_once(numpy_bld):
 @pytest.mark.parametrize(
     "dtype,l,d,heads,backward",
     [(torch.bfloat16, 32, 256, 8, "bld_bwd"), (torch.float32, 33, 256, 8, "bld_bwd"),
-     (torch.float32, 16, 32, 4, "bld_bwd"), (torch.float32, 16, 128, 2, "bld_whole_bwd")],
-    ids=["bf16", "L=33", "head dim 8", "head dim 64"],
+     (torch.float32, 16, 32, 4, "bld_bwd"), (torch.float32, 16, 128, 2, "bld_whole_bwd"),
+     (torch.float32, 32, 32, 8, "bld_bwd"), (torch.bfloat16, 16, 32, 8, "bld_bwd")],
+    ids=["bf16", "L=33", "head dim 8", "head dim 64", "head dim 4", "head dim 4 bf16"],
 )
 def test_other_shapes_keep_todays_kernels(numpy_bld, dtype, l, d, heads, backward):
     """bf16, L past 32 and the other head dims launch mha.cu forward and
@@ -373,6 +374,27 @@ def test_other_shapes_keep_todays_kernels(numpy_bld, dtype, l, d, heads, backwar
     assert [c[0] for c in numpy_bld.calls] == ["bld_fwd", backward]
     assert tattn.launch_counts == _counts(fused_mha_bld=1, mha_bld_bwd=1)
     assert tattn.route_counts == _routes(whole_bwd=int(backward == "bld_whole_bwd"))
+
+
+@pytest.mark.parametrize("l,causal", [(32, False), (16, False), (23, True)])
+def test_head_dim_4_runs_k2_and_k4_on_mha_cu_as_the_plain_versions(numpy_bld, l, causal):
+    """The golden tiny fixture's temporal model (emb 32 over 8 heads): K2 and
+    K4 launch mha.cu's and mha_bwd.cu's entries at head dim 4, k and v read in
+    place, and give the plain versions' numbers; the other entries keep their
+    head dims and refuse it."""
+    q, k, v, g = _operands(np.random.default_rng(74), 3, l, 32)
+    out = tattn.mha_bld_fwd_kernel(q, k, v, 8, causal)
+    grads = tattn.mha_bld_bwd_kernel(q, k, v, g, 8, causal)
+    assert [c[0] for c in numpy_bld.calls] == ["bld_fwd", "bld_bwd"]
+    assert [a for a, _, _ in numpy_bld.calls[0][1]][1:] == [k.data_ptr(), v.data_ptr()]
+    assert float((out - tattn.mha_bld_reference(q, k, v, 8, causal)).abs().max()) <= FP32_TOL
+    assert _gap(grads, tattn.mha_bld_bwd_reference(q, k, v, g, 8, causal)) <= FP32_TOL
+    assert tattn.launch_counts == _counts(fused_mha_bld=1, mha_bld_bwd=1) and tattn.route_counts == _routes()
+    with pytest.raises(ValueError, match=r"gives head dim 4; the kernels take \(8, 16, 32, 64\)"):
+        tattn.mha_qkv_fwd_kernel(torch.randn(2, l, 96), 8, causal)
+    assert tattn.kernel_refusal(torch.float32, 32, 8, lambda dh: 0, tattn.H100_SMEM_OPTIN) is not None
+    assert tattn.kernel_refusal(torch.float32, 32, 8, lambda dh: 0, tattn.H100_SMEM_OPTIN,
+                                tattn.BLD_HEAD_DIMS) is None
 
 
 def test_fused_attention_whole_block_branch_keeps_mha_cu(numpy_bld):

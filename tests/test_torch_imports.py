@@ -110,18 +110,22 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.parallel.tp",
         "anomalyclip_tpu_torch.scripts._bench_models",
         "anomalyclip_tpu_torch.scripts._bench_util",
+        "anomalyclip_tpu_torch.scripts.bench_artifact",
         "anomalyclip_tpu_torch.scripts.bench_attn_bwd",
         "anomalyclip_tpu_torch.scripts.bench_attn_l14",
         "anomalyclip_tpu_torch.scripts.bench_eval",
         "anomalyclip_tpu_torch.scripts.bench_latency",
         "anomalyclip_tpu_torch.scripts.bench_mha_tc",
         "anomalyclip_tpu_torch.scripts.bench_train_step",
+        "anomalyclip_tpu_torch.scripts.gen_golden",
+        "anomalyclip_tpu_torch.scripts.perf_sweep",
         "anomalyclip_tpu_torch.scripts.probe_bf16_drift",
         "anomalyclip_tpu_torch.scripts.probe_int8_drift",
         "anomalyclip_tpu_torch.scripts.probe_qkv_gb",
         "anomalyclip_tpu_torch.scripts.probe_qtile_vmem",
         "anomalyclip_tpu_torch.scripts.validate_pickgb",
         "anomalyclip_tpu_torch.scripts.validate_qtile_config",
+        "anomalyclip_tpu_torch.scripts.verify_released_ckpts",
         "anomalyclip_tpu_torch.train.checkpoint",
         "anomalyclip_tpu_torch.train.module",
         "anomalyclip_tpu_torch.train.ocdbt",

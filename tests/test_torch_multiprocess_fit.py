@@ -203,12 +203,19 @@ def _without_plots(tmp: Path) -> Path:
 
 
 def _entry(tmp: Path, trainer: str, module: str = "train_entry", args=ENTRY_ARGS) -> subprocess.Popen:
+    """The entry in a process of its own, two intra-op threads in all: one a
+    rank under ``ddp_sim`` (its spawned ranks take ``OMP_NUM_THREADS``), two
+    in one process. The ranks step in lockstep, so a rank with more threads
+    than the CPUs a loaded test run leaves it waits at every parallel region
+    for its slowest thread: on a host of 8 CPUs, four threads a rank took the
+    ``ddp_sim`` entry from 6 s alone to 115 s beside six busy torch processes,
+    one thread to 35 s."""
     path = os.pathsep.join([str(_without_plots(tmp)), str(ROOT)])
-    env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="2",
+    env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1" if trainer == "ddp_sim" else "2",
                ANOMALYCLIP_DIST_TIMEOUT_S=str(ranks.COLLECTIVE_TIMEOUT_S), **_env(tmp))
-    return subprocess.Popen([sys.executable, "-m", f"anomalyclip_tpu_torch.{module}", *args,
-                             f"trainer={trainer}"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    return ranks.started(subprocess.Popen([sys.executable, "-m", f"anomalyclip_tpu_torch.{module}", *args,
+                                           f"trainer={trainer}"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True, start_new_session=True))
 
 
 def _epoch_rows(run_dir: Path) -> dict:
@@ -216,7 +223,8 @@ def _epoch_rows(run_dir: Path) -> dict:
     return {int(r["step"]): [float(r[k]) for k in LOSS_NAMES] for r in rows if r.get("train/loss")}
 
 
-# each join's limit: a loaded test run has taken these entries past 110 s
+# each join's limit: a loaded test run has taken these entries past 110 s (with
+# four threads a rank; see _entry)
 ENTRY_TIMEOUT_S = 150
 
 
@@ -367,3 +375,42 @@ def test_a_one_rank_group_gives_the_bits_of_no_group(tmp_path):
         np.testing.assert_array_equal(flatten_tree(_jax_layout(group["trainable"]))[key], value, err_msg=key)
     assert all(torch.equal(a, b) for a, b in zip(alone["bn"], group["bn"]))
     assert {k: alone["test"][k] for k in METRICS} == {k: group["test"][k] for k in METRICS}
+
+
+# ---------------------------------------------------------------------------
+# the ranks' threads, and what a killed rank leaves in the failure
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("omp, affinity, world, want", [("3", 8, 2, 3), ("", 8, 2, 4), ("", 8, 16, 1),
+                                                          ("0", 6, 2, 3), ("x", 1, 2, 1)])
+def test_cpu_ranks_take_omp_num_threads_else_their_share_of_the_affinity(monkeypatch, omp, affinity, world, want):
+    from anomalyclip_tpu_torch.train_entry import cpu_rank_threads
+
+    monkeypatch.setenv("OMP_NUM_THREADS", omp)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(affinity)), raising=False)
+    monkeypatch.setattr(os, "cpu_count", lambda: 192)  # the host's count is not the process's
+    assert cpu_rank_threads(world) == want
+
+
+def test_a_killed_rank_leaves_its_output_and_its_time_in_the_failure(tmp_path):
+    import time
+
+    script = textwrap.dedent('''
+        import sys, time
+        from pathlib import Path
+        print("reached the loop", flush=True)
+        print("stderr before the kill", file=sys.stderr, flush=True)
+        Path(sys.argv[1]).touch()
+        time.sleep(600)
+    ''')
+    procs = ranks.launch(script, 1, tmp_path, args=[tmp_path / "ready"])
+    for _ in range(600):  # until the rank has written both lines
+        if (tmp_path / "ready").exists():
+            break
+        time.sleep(0.1)
+    with pytest.raises(AssertionError) as exc:
+        ranks.join(procs, timeout=1)
+    text = str(exc.value)
+    assert "rank 0 rc=-9 after" in text and "(timed out: 1 s)" in text
+    assert "reached the loop" in text and "stderr before the kill" in text
