@@ -18,9 +18,10 @@ The step-level functions:
 ``AnomalyCLIPTrainModule`` builds a run from a composed config (a plain nested
 dict) and runs it: the ncentroid pass and its cache, ``fit`` (epochs of
 ``fit_steps``, validation, early stopping, checkpoints, resume, preemption,
-metric loggers), ``validate``, ``test`` with its artifacts, ``load_state`` and
-``adopt_converted_state``. On the card unless the caller passes
-``device="cpu"``.
+metric loggers; under ``trainer.profiler=jax`` a ``torch.profiler`` trace of
+the whole fit in ``<run>/profile/``), ``validate``, ``test`` with its
+artifacts, ``load_state`` and ``adopt_converted_state``. On the card unless
+the caller passes ``device="cpu"``.
 
 In a ``torch.distributed`` group (parallel/mesh.py) a run is data-parallel
 over its ranks and computes what one process computes on the global batch:
@@ -278,6 +279,38 @@ def fit_steps(
 # ---------------------------------------------------------------------------
 # the module: a run from a composed config
 # ---------------------------------------------------------------------------
+
+
+TRACE_DIR = "profile"  # a profiled fit's trace, under its run directory
+
+
+def start_fit_trace(device: torch.device):
+    """A ``torch.profiler`` session, started: the host's operators always, the
+    card's kernels, copies and sets too when ``device`` is the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    session = profile(activities=activities)
+    session.start()
+    return session
+
+
+def stop_fit_trace(session, out_dir: Path, device: torch.device) -> Path:
+    """Stop ``session`` once the card has drained, and write its trace as
+    Chrome/Perfetto JSON under ``out_dir`` -> the file (open it in
+    ui.perfetto.dev or chrome://tracing). Raises if the file is not written."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    session.stop()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"fit.{time.time_ns()}.pt.trace.json"
+    session.export_chrome_trace(str(path))
+    if not path.is_file() or path.stat().st_size == 0:
+        raise RuntimeError(f"the profiler wrote no trace to {path}")
+    log.info(f"profiler trace written to {path}")
+    return path
 
 
 class TrainingPreempted(RuntimeError):
@@ -621,11 +654,7 @@ class AnomalyCLIPTrainModule:
         return self._run_task(self._fit)
 
     def _fit(self) -> Dict[str, Any]:
-        if (self.cfg.get("trainer") or {}).get("profiler"):
-            raise NotImplementedError(
-                f"trainer.profiler={self.cfg['trainer']['profiler']!r}: the JAX package's value "
-                "is a JAX trace, and the port has no counterpart"
-            )
+        trace = None
         # quantize=int8 is serving-only (_int8_serving_active): the encoder is
         # kept, directly and inside the cached scorer, so the fp routing of the
         # fit must not leak into a later test() or predict(), nor a pre-fit
@@ -634,19 +663,30 @@ class AnomalyCLIPTrainModule:
         if self.net_cfg.quantize != "none":
             self._encode_frames_fn = self._scorer_cache = None
         try:
+            # trainer.profiler "jax" (configs/debug/profiler.yaml; the config
+            # tree is the JAX package's) traces the whole fit on rank 0; any
+            # other value traces nothing
+            if (self.cfg.get("trainer") or {}).get("profiler") == "jax" and is_host_zero():
+                trace = start_fit_trace(self.device)
             return self._fit_body()
         finally:
-            self._in_fit = False
-            if self.net_cfg.quantize != "none":
-                self._encode_frames_fn = self._scorer_cache = None
-            if self._train_loader is not None:
-                self._train_loader.close()
-                self._train_loader = None
-            # restore even when the previous handler was None (installed from C)
-            if self._sigterm_installed:
-                signal.signal(signal.SIGTERM, self._old_sigterm)
-                self._sigterm_installed = False
-                self._old_sigterm = None
+            try:
+                # stopped on the exception path too: a crashed profiled run
+                # keeps its trace (the crashing step is the one to read)
+                if trace is not None:
+                    stop_fit_trace(trace, self.save_dir / TRACE_DIR, self.device)
+            finally:
+                self._in_fit = False
+                if self.net_cfg.quantize != "none":
+                    self._encode_frames_fn = self._scorer_cache = None
+                if self._train_loader is not None:
+                    self._train_loader.close()
+                    self._train_loader = None
+                # restore even when the previous handler was None (installed from C)
+                if self._sigterm_installed:
+                    signal.signal(signal.SIGTERM, self._old_sigterm)
+                    self._sigterm_installed = False
+                    self._old_sigterm = None
 
     def _boundary(self, state: TrainState) -> Dict[str, Any]:
         """A resumable epoch boundary: a deep copy on the CPU of the trainable

@@ -52,7 +52,8 @@ script exits non-zero without printing a result:
    In fp32 at head dims 16 and 32 with L <= 32 K2 launches the split-TF32
    whole-head kernel (ops/csrc/mha_bld_tf32.cu), held within 1e-5 of the fp32
    plain version and of ``mha_bld_tf32x3_reference`` at the temporal model's
-   scoring shapes, at (1024, 32, 128) and at L = 1, 7, 16, 31, 32 at batch 3,
+   scoring shapes, at XD-Violence's training shapes at head dim 16, (2048, 16,
+   128) and (1024, 32, 128), and at L = 1, 7, 16, 31, 32 at batch 3,
    causal and not, at head dims 32 and 16; L=33 stays on mha.cu; its launches
    are counted exactly, and two launches of it and of K4's give the same bits
    at the training shapes, causal at L=23, at head dim 16 and at a batch of
@@ -61,7 +62,8 @@ script exits non-zero without printing a result:
    step's shapes, fp32 within 1e-5 and bf16 within 5e-2 of max|ref|, with
    median times; in fp32 K4 launches the split-TF32 whole-head kernel
    (mha_bld_tf32.cu), held within 1e-5 of max|ref| of the plain backward and
-   of ``mha_bld_bwd_tf32x3_reference`` there and at L = 1, 7, 16, 31, 32 at
+   of ``mha_bld_bwd_tf32x3_reference`` there, at XD-Violence's training
+   shapes at head dim 16 and at L = 1, 7, 16, 31, 32 at
    batch 3, causal and not, at head dims 32 and 16 (L=33 on mha_bwd.cu), its
    launches counted exactly; in fp32 at head dim 64 K3 launches the
    split-TF32 whole-head backward (mha_whole_tf32_bwd.cu), held within 1e-5 of
@@ -406,6 +408,30 @@ script exits non-zero without printing a result:
    ``.ckpt`` written from it) and metrics; then ``clip_b16`` on the port's
    seeded weights, held kernel against plain attention. It prints each
    script's seconds and times with the card's name and power limit;
+4n. the ShanghaiTech and XD-Violence experiments and profiled fits, under
+   ``deterministic_mode``: for each of the two, a seeded feature set of
+   EXPERIMENT_SET at ViT-B/16's width, with its config's classes (18, normal
+   8; 7, normal 4), laid out where ``configs/data/<name>.yaml`` reads it under
+   SHANGHAITECH_ROOT or XDVIOLENCE_ROOT; then, with 4h's CLIP file,
+   ``train_entry.main`` on ``experiment=<name>`` (EXPERIMENT_EPOCHS epochs,
+   dropout 0, the csv logger), ``eval_entry.main`` on its ``last`` and, for
+   XD-Violence, ``hparams_search=xdviolence_tpe`` with EXPERIMENT_TRIALS
+   one-epoch trials, each in a window of its own with its K1-K4 launches exact
+   and every one on its fp32 route (ShanghaiTech's depth 2 launches K2 and K4
+   twice as often a step); the same runs again under
+   ``ANOMALYCLIP_ATTN_IMPL=reference``, which launch nothing: every module's
+   losses by epoch within TRAIN_LOSS_RTOL, its validation and test AUC, AP,
+   mAUC and mAP and the evals' within EVAL_METRIC_TOL, each eval within
+   RELOAD_TOL of its run's test, each trial's value its own test ``auc_pr``.
+   Then profiled fits of UCF-Crime on 4f's feature set: ``experiment=ucfcrime
+   debug=profiler trainer.accelerator=gpu`` and ``experiment=ucfcrime
+   trainer.profiler=jax`` for one epoch through ``train_entry.main``, and two
+   ``fit()``s stopped after PROFILE_STOP_AFTER steps by SIGTERM and by an
+   exception; each trace (``<run>/profile/*.pt.trace.json``) read back: the
+   device's busy share, its top operations, its longest idle gaps with the
+   host operation over each, each step's host span and device share, and each
+   port kernel's device events equal to its wrapper's launches in ``fit``
+   times the kernels it launches (TRACE_KERNELS);
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one 256-frame encode chunk of the ViT-B/16 tower, of the int8 ViT-B/16
@@ -418,9 +444,9 @@ script exits non-zero without printing a result:
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
 gradient, script, data, training-run, command-line, serving, other-tower and
-every rank's multi-device runs, the Orbax checkpoints' runs and the last
-scripts' runs together), errors and times: ``ms`` the kernel's, ``plain_ms``
-its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
+every rank's multi-device runs, the Orbax checkpoints' runs, the last
+scripts' runs and the experiments' and profiled fits' runs together), errors
+and times: ``ms`` the kernel's, ``plain_ms`` its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
 backward kernel, with ``library_fwd_ms`` beside it), timed here and used
@@ -645,6 +671,9 @@ DATA_START_EPOCH, DATA_EPOCHS, LOADER_EPOCHS, DATA_CHECK_STEPS = 1, 2, 3, 3
 EVAL_METRICS = ("auc_roc", "auc_pr", "mean_mc_auroc", "mean_mc_aupr", "optimal_threshold")
 EVAL_METRIC_TOL = 1e-4  # AUC, AP, mAUC and mAP, kernels vs plain attention (absolute)
 CASE_CALLS = 32  # of a kernel in run_cases: one checked, one to warm, 30 timed
+# the temporal model's (B, L) at emb 128 (XD-Violence) at its training batch of
+# 64: along frames (64 x 32 segments, 16) and along segments (64 x 16 frames, 32)
+XD_BLD_SHAPES = ((2048, 16), (1024, 32))
 SCRIPT_ITERS = 10  # timed calls per variant or shape in the scripts of phase 4e
 # phase 4g: the UCF-Crime training run (configs/experiment/ucfcrime.yaml, seed
 # 1024) on FEATURE_SET, FIT_EPOCHS epochs; the preempted fit takes SIGTERM after
@@ -748,6 +777,25 @@ ORBAX_METRIC_TOL, ORBAX_LOSS_RTOL = 1e-4, 1e-4
 # 4h's run, written as a reference .ckpt, over 4f's feature set, its AUC held
 # to that run's own test within EVAL_METRIC_TOL
 PERF_SWEEP_BATCHES = (256, 512, 1024)
+# phase 4n: the ShanghaiTech and XD-Violence experiments through the command
+# line, each on a seeded feature set laid out as its data config reads it under
+# its root variable: EXPERIMENT_SET at ViT-B/16's width (64 + 64 training
+# videos: two steps an epoch at the configs' batch of 64), with the classes
+# and the normal class of its config; EXPERIMENT_EPOCHS epochs a run, and for
+# XD-Violence a TPE search of EXPERIMENT_TRIALS one-epoch trials, all of them
+# random startup draws from the search's seed, so that the search under the
+# plain attention tries the same values
+EXPERIMENT_ROOTS = {"shanghaitech": "SHANGHAITECH_ROOT", "xdviolence": "XDVIOLENCE_ROOT"}
+EXPERIMENT_SET = dict(num_normal=64, num_abnormal=64, num_test=8, min_frames=300, max_frames=1000)
+EXPERIMENT_EPOCHS, EXPERIMENT_TRIALS = 2, 2
+# the profiled fits of phase 4n: every K1-K4 launch of an fp32 run is one
+# device kernel of its route, named so in the trace (ops/csrc/mha_tf32.cu,
+# mha_whole_tf32_bwd.cu, mha_bld_tf32.cu); a stopped fit stops after
+# PROFILE_STOP_AFTER steps; the summary prints TRACE_TOP device operations and
+# the TRACE_GAPS longest idle gaps
+TRACE_KERNELS = {"fused_mha_qkv": {"mha_tf32_kernel": 1}, "mha_qkv_bwd": {"mha_whole_tf32_bwd_kernel": 1},
+                 "fused_mha_bld": {"mha_bld_tf32_fwd_kernel": 1}, "mha_bld_bwd": {"mha_bld_tf32_bwd_kernel": 1}}
+PROFILE_STOP_AFTER, TRACE_TOP, TRACE_GAPS = 3, 10, 5
 
 
 def phase_device() -> str:
@@ -1265,15 +1313,17 @@ def phase_kernels(report: dict) -> None:
             lambda t: mha_qtile_reference(t[..., :128], t[..., 128:], 2),
             lambda t: packed_heads(t, 3, 2), dtypes=FP32, path=(), tf32=True,
         ))
-    # K2 at head dim 16, the temporal model at emb 128 with 8 heads (bench_eval's
-    # size; on no model path: printed, not in the kernels line)
-    cases.append(Case(
-        "fused_mha_bld at dh 16", (1024, 32, 128), (1024, 32, 3 * 128),
-        lambda t: fused_mha_bld(t[..., :128], t[..., 128:256], t[..., 256:], 8),
-        lambda t: mha_bld_reference(t[..., :128], t[..., 128:256], t[..., 256:], 8),
-        lambda t: packed_heads(t, 3, 8), path=(), bld_tf32=True,
-        emulated=lambda t: A.mha_bld_tf32x3_reference(t[..., :128], t[..., 128:256], t[..., 256:], 8),
-    ))
+    # K2 at head dim 16, the temporal model at emb 128 with 8 heads: XD-Violence's
+    # training shapes at batch 64, along segments and along frames (phase 4n;
+    # printed, not in the kernels line, which sums the UCF-Crime path's shapes)
+    for b, l in XD_BLD_SHAPES:
+        cases.append(Case(
+            "fused_mha_bld at dh 16", (b, l, 128), (b, l, 3 * 128),
+            lambda t: fused_mha_bld(t[..., :128], t[..., 128:256], t[..., 256:], 8),
+            lambda t: mha_bld_reference(t[..., :128], t[..., 128:256], t[..., 256:], 8),
+            lambda t: packed_heads(t, 3, 8), path=(), bld_tf32=True,
+            emulated=lambda t: A.mha_bld_tf32x3_reference(t[..., :128], t[..., 128:256], t[..., 256:], 8),
+        ))
     scratch = {}
     reset_launch_counts()
     run_cases("kernels", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED))
@@ -1502,6 +1552,16 @@ def phase_bwd_kernels(report: dict) -> None:
             lambda t: (*packed_heads(t[0], 3, 8), *packed_heads(t[1], 1, 8)),
             kind="bwd", relative=True, bld_tf32=True,
             emulated=lambda t: A.mha_bld_bwd_tf32x3_reference(*t[0].split(256, dim=-1), t[1], 8),
+        ))
+    # at head dim 16, XD-Violence's training shapes (printed only)
+    for b, l in XD_BLD_SHAPES:
+        cases.append(Case(
+            "mha_bld_bwd at dh 16", (b, l, 128), [(b, l, 3 * 128), (b, l, 128)],
+            lambda t: mha_bld_bwd_kernel(*t[0].split(128, dim=-1), t[1], 8, False),
+            lambda t: mha_bld_bwd_reference(*t[0].split(128, dim=-1), t[1], 8),
+            lambda t: (*packed_heads(t[0], 3, 8), *packed_heads(t[1], 1, 8)),
+            kind="bwd", dtypes=FP32, path=(), relative=True, bld_tf32=True,
+            emulated=lambda t: A.mha_bld_bwd_tf32x3_reference(*t[0].split(128, dim=-1), t[1], 8),
         ))
     # and at the ragged lengths at batch 3, causal and not, at head dims 32 and
     # 16 (printed only); L=33 is past it: mha_bwd.cu takes it
@@ -3510,7 +3570,6 @@ def run_entries(smi: str, tmp: Path, caught: list) -> dict:
     from anomalyclip_tpu_torch.convert import tree_leaves
     from anomalyclip_tpu_torch.models.clip.convert import load_torch_clip_checkpoint, state_dict_from_params
     from anomalyclip_tpu_torch.models.clip.model import CLIPConfig
-    from anomalyclip_tpu_torch.ops.attention import launch_counts, reset_launch_counts, route_counts
     from anomalyclip_tpu_torch.train.module import METRIC_NAMES
 
     phase_start = time.perf_counter()
@@ -3547,7 +3606,7 @@ def run_entries(smi: str, tmp: Path, caught: list) -> dict:
         trial_s.append(time.perf_counter() - begin)
         return out
 
-    reset_launch_counts()
+    counts_taken()
     train_module.AnomalyCLIPTrainModule = entry_module_class(made)
     try:
         entry_test = train_entry.main(args + [f"paths.log_dir={tmp / 'entry'}"])
@@ -3576,23 +3635,11 @@ def run_entries(smi: str, tmp: Path, caught: list) -> dict:
         train_module.AnomalyCLIPTrainModule = real_class
         train_entry._single_run = real_single_run
     torch.cuda.synchronize()
-    launches, routes = dict(launch_counts), dict(route_counts)
 
-    # exactly what the entries ran: the text tower once a step and once a
-    # validation or test pass, its backward once a step, the temporal model
-    # once a step and once a video scored, its backward once a step
+    # exactly what the entries ran, every launch on its fp32 route
     require(len(made) == 2 + SWEEP_TRIALS + len(ENTRY_LRS), f"{len(made)} modules built")
-    steps = sum(m.module._final_state.step for m in made if hasattr(m.module, "_final_state"))
-    passes = sum(len(m.validate_s) + len(m.test_s) for m in made)
-    videos = len(entry.module.datamodule.test_dataloader())
-    text_layers = entry.module.model.clip_cfg.transformer_layers
-    expected = dict.fromkeys(launch_counts, 0)
-    expected.update({"fused_mha_qkv": text_layers * (steps + passes), "mha_qkv_bwd": text_layers * steps,
-                     "fused_mha_bld": 2 * (steps + videos * passes), "mha_bld_bwd": 2 * steps})
-    print(f"[entry] launches {launches}, expected {expected}", flush=True)
-    require(launches == expected, f"launches {launches}, expected {expected}")
-    launches.update(require_routes("entry runs", 0, 0, expected["fused_mha_qkv"], 0, expected["fused_mha_bld"],
-                                   expected["mha_bld_bwd"], expected["mha_qkv_bwd"]))
+    launches = held("entry runs", counts_taken(), expected_launches(made))
+    print(f"[entry] launches {({k: v for k, v in launches.items() if v})}, as expected", flush=True)
 
     # the CLIP on the card is the file's fp16 values upcast, to the bit
     clip_tree = entry.module.frozen["clip"]
@@ -4954,6 +5001,388 @@ def run_last_scripts(smi: str, tmp: Path, run: Path, clip_path: Path) -> dict:
     return dict(totals)
 
 
+def phase_experiments(smi: str, frames_root: Path, annotations: Path, kept: Path) -> dict:
+    """Phase 4n: the ShanghaiTech and XD-Violence experiments through the
+    command line against the plain attention, and profiled fits of UCF-Crime on
+    4f's feature set -> the kernel launch and route counts of their runs. 4h's
+    CLIP file is in ``kept``."""
+    import os
+
+    from anomalyclip_tpu_torch.ops.attention import IMPL_ENV
+
+    names = ("UCFCRIME_ROOT", "ANOMALYCLIP_NO_DOWNLOAD", IMPL_ENV, *EXPERIMENT_ROOTS.values())
+    saved = {k: os.environ.get(k) for k in names}
+    try:
+        with tempfile.TemporaryDirectory(prefix="experiments_", dir=ROOT / "build") as tmp, \
+                deterministic_mode() as caught:
+            tmp = Path(tmp)
+            phase_start = time.perf_counter()
+            ucf_data_root(tmp, frames_root, annotations)
+            counts = run_experiments(smi, tmp, kept / "ViT-B-16.pt", caught)
+            counts.update(run_profiled_fits(smi, tmp, frames_root, annotations, kept / "ViT-B-16.pt"))
+            print(f"[4n] launches: {({w: {k: v for k, v in c.items() if v} for w, c in counts.items()})}; phase "
+                  f"{time.perf_counter() - phase_start:.1f} s [{smi}]", flush=True)
+    finally:
+        restore_env(saved)
+    totals = defaultdict(int)
+    for got in counts.values():
+        for k, v in got.items():
+            totals[k] += v
+    return dict(totals)
+
+
+def experiment_data_root(tmp: Path, name: str) -> dict:
+    """The seeded feature set of ``experiment=<name>`` (EXPERIMENT_SET, its
+    config's classes and normal class) laid out where its data config reads it
+    with the root variable set to ``tmp / name``, which stays set -> the
+    composed data config."""
+    import os
+
+    from anomalyclip_tpu_torch.config import compose, default_config_dir, to_dict
+    from anomalyclip_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    os.environ[EXPERIMENT_ROOTS[name]] = str(tmp / name)
+    data = to_dict(compose(default_config_dir(), "train", [f"experiment={name}"]))["data"]
+    generated = tmp / f"{name}_annotations"
+    start = time.perf_counter()
+    generate_synthetic_dataset(data["frames_root"], generated, num_classes=data["num_classes"],
+                               normal_id=data["normal_id"], feature_dim=FEATURE_DIM, seed=SEED, make_frames=False,
+                               **EXPERIMENT_SET)
+    for key in ("annotation_file_anomaly", "annotation_file_normal", "annotation_file_test",
+                "annotation_file_temporal_test"):
+        target = Path(data[key])
+        target.parent.mkdir(parents=True, exist_ok=True)
+        target.symlink_to((generated / target.name).resolve())
+    size = sum(f.stat().st_size for f in Path(data["frames_root"]).iterdir())
+    print(f"[4n] {name}: {size / 1e9:.3f} GB of .npy under {EXPERIMENT_ROOTS[name]} in "
+          f"{time.perf_counter() - start:.1f} s: {data['num_classes']} classes (normal {data['normal_id']}, "
+          f"{Path(data['labels_file']).name})", flush=True)
+    return data
+
+
+def expected_launches(made: list) -> dict:
+    """The K1-K4 launches, every one on its fp32 route, of the entry runs whose
+    modules are ``made``: the text tower once a step and once a validation or
+    test pass, its backward once a step, each temporal layer twice a step and
+    twice a video scored, and twice backward a step."""
+    steps = sum(m.module._final_state.step for m in made if hasattr(m.module, "_final_state"))
+    text = made[0].module.model.clip_cfg.transformer_layers
+    k2 = k4 = 0
+    for m in made:
+        depth, mine = m.module.model.temporal_cfg.depth, getattr(m.module, "_final_state", None)
+        videos = len(m.module.datamodule.test_dataloader())
+        k2 += 2 * depth * ((mine.step if mine else 0) + videos * (len(m.validate_s) + len(m.test_s)))
+        k4 += 2 * depth * (mine.step if mine else 0)
+    k1 = text * (steps + sum(len(m.validate_s) + len(m.test_s) for m in made))
+    return {"fused_mha_qkv": k1, "mha_tf32": k1, "mha_qkv_bwd": text * steps, "whole_bwd_tf32": text * steps,
+            "fused_mha_bld": k2, "bld_tf32": k2, "mha_bld_bwd": k4, "bld_bwd_tf32": k4}
+
+
+def held_close(what: str, got: dict, want: dict, keys, rtol: float = 0.0, atol: float = 0.0) -> float:
+    """``got[k]`` within ``atol + rtol * |want[k]|`` of ``want[k]`` for each of
+    ``keys`` -> the largest gap (relative where ``rtol``)."""
+    worst = 0.0
+    for k in keys:
+        gap = abs(got[k] - want[k])
+        require(np.isfinite(got[k]) and gap <= atol + rtol * abs(want[k]),
+                f"{what} {k}: {got[k]!r} vs {want[k]!r}")
+        worst = max(worst, gap / abs(want[k]) if rtol and want[k] else gap)
+    return worst
+
+
+def run_experiments(smi: str, tmp: Path, clip_path: Path, caught: list) -> dict:
+    """Phase 4n's runs of the two experiments; see the module docstring."""
+    import os
+
+    import anomalyclip_tpu_torch.train.module as train_module
+    from anomalyclip_tpu_torch import eval_entry, train_entry
+    from anomalyclip_tpu_torch.ops.attention import IMPL_ENV
+    from anomalyclip_tpu_torch.train.module import METRIC_NAMES
+
+    counts, readings = {}, {}
+    real_class = train_module.AnomalyCLIPTrainModule
+    for name in EXPERIMENT_ROOTS:
+        data = experiment_data_root(tmp, name)
+        clip = f"model.net.clip_ckpt_path={clip_path}"
+        fit_args = [f"experiment={name}", clip, f"trainer.max_epochs={EXPERIMENT_EPOCHS}",
+                    "model.net.select_idx_dropout_topk=0.0", "model.net.select_idx_dropout_bottomk=0.0", "logger=csv"]
+        runs = {}
+        for impl in ("kernel", "reference"):
+            out, made = tmp / f"{name}_{impl}", []
+            if impl == "reference":
+                os.environ[IMPL_ENV] = "reference"
+            train_module.AnomalyCLIPTrainModule = entry_module_class(made)
+            try:
+                def window(what: str, fn, first: int, impl=impl, made=made):
+                    """``fn`` with the counts set to 0 just before and read just
+                    after; a kernel run's launches exact -> its value."""
+                    counts_taken()
+                    torch.cuda.synchronize()
+                    begin = time.perf_counter()
+                    value = fn()
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - begin
+                    got = counts_taken()
+                    want = expected_launches(made[first:]) if impl == "kernel" else {}
+                    counts[f"{name} {what} {impl}"] = held(f"4n {name} {what} ({impl})", got, want)
+                    return value, seconds
+
+                test, fit_s = window("fit", lambda: train_entry.main(fit_args + [f"paths.log_dir={out / 'fit'}"]), 0)
+                fit = made[-1]
+                last = fit.module.save_dir / "checkpoints" / "last"
+                evaluated, eval_s = window("eval", lambda: eval_entry.main(
+                    [f"data={name}", f"model=anomaly_clip_{name}", clip, f"ckpt_path={last}",
+                     f"paths.log_dir={out / 'eval'}"]), len(made))
+                search = None
+                if name == "xdviolence":
+                    search, _ = window("search", lambda: train_entry.main(
+                        [f"experiment={name}", clip, f"hparams_search={name}_tpe",
+                         f"hparams_search.n_trials={EXPERIMENT_TRIALS}",
+                         f"hparams_search.n_startup_trials={EXPERIMENT_TRIALS}", "trainer.max_epochs=1",
+                         f"paths.log_dir={out / 'search'}"]), len(made))
+            finally:
+                train_module.AnomalyCLIPTrainModule = real_class
+                os.environ.pop(IMPL_ENV, None)
+            runs[impl] = SimpleNamespace(test=test, fit=fit, evaluated=evaluated, search=search, made=made,
+                                         fit_s=fit_s, eval_s=eval_s, out=out)
+        kernel, plain = runs["kernel"], runs["reference"]
+        require(len(kernel.made) == len(plain.made) == 2 + (EXPERIMENT_TRIALS if name == "xdviolence" else 0),
+                f"4n {name}: {len(kernel.made)} and {len(plain.made)} modules built")
+        module = kernel.fit.module
+        require(len(module.model.classnames) == data["num_classes"]
+                and module.model.selector_cfg.normal_id == data["normal_id"], f"4n {name}: the classes")
+        steps = module._final_state.step
+        require(steps == 2 * EXPERIMENT_EPOCHS, f"4n {name}: {steps} steps")
+
+        # the kernel runs against the plain-attention runs: each module's losses
+        # by epoch, its validation metrics by epoch, its test metrics
+        loss_gap = metric_gap = 0.0
+        for a, b in zip(kernel.made, plain.made, strict=True):
+            for epoch in sorted(b.logged):
+                if "train/loss" in b.logged[epoch]:
+                    loss_gap = max(loss_gap, held_close(f"4n {name} epoch {epoch}", a.losses(epoch),
+                                                        b.losses(epoch), METRIC_NAMES, rtol=TRAIN_LOSS_RTOL))
+                    with open(a.module.save_dir / f"metrics_{epoch}.json") as f, \
+                            open(b.module.save_dir / f"metrics_{epoch}.json") as g:
+                        metric_gap = max(metric_gap, held_close(f"4n {name} validation {epoch}", json.load(f),
+                                                                json.load(g), EVAL_METRICS[:4], atol=EVAL_METRIC_TOL))
+        metric_gap = max(metric_gap, held_close(f"4n {name} test", kernel.test, plain.test, EVAL_METRICS[:4],
+                                                atol=EVAL_METRIC_TOL),
+                         held_close(f"4n {name} eval", kernel.evaluated, plain.evaluated, EVAL_METRICS[:4],
+                                    atol=EVAL_METRIC_TOL))
+        # each eval entry on its run's last against that run's own test
+        reload_gap = max(held_close(f"4n {name} {impl} eval vs its test", r.evaluated, r.test, EVAL_METRICS[:4],
+                                    atol=RELOAD_TOL) for impl, r in runs.items())
+        sweep = ""
+        if name == "xdviolence":
+            for impl, r in runs.items():
+                values = [t["value"] for t in r.search["trials"]]
+                require(len(values) == EXPERIMENT_TRIALS and r.search["best"] is not None,
+                        f"4n {name} {impl} search: {r.search}")
+                for i, value in enumerate(values):
+                    trial_dir = r.out / "search" / "train" / "runs" / name / f"trial_{i}"
+                    with open(trial_dir / "metrics.json") as f:
+                        want = json.load(f)["auc_pr"]
+                    require(value == want and np.isfinite(value),
+                            f"4n {name} {impl} trial {i}: the search's value {value!r}, the trial's auc_pr {want!r}")
+            kernel_values = [t["value"] for t in kernel.search["trials"]]
+            plain_values = [t["value"] for t in plain.search["trials"]]
+            require(all(abs(x - y) <= EVAL_METRIC_TOL for x, y in zip(kernel_values, plain_values)),
+                    f"4n {name} search values {kernel_values} vs plain {plain_values}")
+            require([t["params"] for t in kernel.search["trials"]] == [t["params"] for t in plain.search["trials"]],
+                    f"4n {name}: the two searches tried different values")
+            optimized = {m.module.cfg.get("optimized_metric") for m in kernel.made[2:]}
+            require(optimized == {"auc_pr"}, f"4n {name}: the search optimized {optimized}")
+            sweep = (f"; the search returned each trial's auc_pr: {', '.join(f'{v:.6f}' for v in kernel_values)} "
+                     f"(plain {', '.join(f'{v:.6f}' for v in plain_values)}), best trial "
+                     f"{kernel.search['best']['trial']}")
+        # the training steps' K2 and K4: the fit's launches less its scoring
+        # passes' (two validations and the test, each the eval's)
+        fit_k, eval_k = counts[f"{name} fit kernel"], counts[f"{name} eval kernel"]
+        readings[name] = ((fit_k["fused_mha_bld"] - (EXPERIMENT_EPOCHS + 1) * eval_k["fused_mha_bld"]) / steps,
+                          fit_k["mha_bld_bwd"] / steps)
+        print(f"[4n] {name}: {data['num_classes']} classes, temporal input {module.model.temporal_cfg.input_size}, "
+              f"emb {module.model.temporal_cfg.emb_size} (head dim {module.model.temporal_cfg.head_dim}), depth "
+              f"{module.model.temporal_cfg.depth}; epochs {', '.join(f'{x:.3f}' for x in kernel.fit.epoch_s())} s "
+              f"(plain {', '.join(f'{x:.3f}' for x in plain.fit.epoch_s())}); the fit entry {kernel.fit_s:.2f} s, "
+              f"the eval entry {kernel.eval_s:.2f} s; kernel vs plain: losses {loss_gap:.3e} relative (limit "
+              f"{TRAIN_LOSS_RTOL:g}), AUC, AP, mAUC, mAP {metric_gap:.3e} (limit {EVAL_METRIC_TOL:g}); eval vs its "
+              f"run's test {reload_gap:.3e} (limit {RELOAD_TOL:g}); test AUC {kernel.test['auc_roc']:.6f} AP "
+              f"{kernel.test['auc_pr']:.6f}{sweep} [{smi}]", flush=True)
+    nondeterministic = sorted({str(w.message) for w in caught if "deterministic" in str(w.message)})
+    require(not nondeterministic, f"4n not deterministic: {nondeterministic}")
+    # depth 2: ShanghaiTech's temporal model launches K2 and K4 twice as often a
+    # step as XD-Violence's
+    sht, xd = readings["shanghaitech"], readings["xdviolence"]
+    require(sht == (2 * xd[0], 2 * xd[1]) and xd == (2, 2), f"4n K2 and K4 a step: ShanghaiTech {sht}, "
+                                                            f"XD-Violence {xd}")
+    print(f"[4n] K2 and K4 a training step: ShanghaiTech {sht[0]:g} and {sht[1]:g}, XD-Violence {xd[0]:g} and "
+          f"{xd[1]:g}", flush=True)
+    return counts
+
+
+def trace_summary(path: Path, what: str, smi: str) -> dict:
+    """A profiled fit's Chrome trace read back: the device's busy share over the
+    traced window, its operations by total time, the longest idle gaps with the
+    host operation that overlaps each most, each training step's host span
+    (``Optimizer.zero_grad`` to the end of ``Optimizer.step``) and the device
+    time inside it, and each port kernel's device events, printed -> the busy
+    share, the gaps (ms, how much of each host operators cover, the one over
+    the most of it or None), the steps (host ms, period ms, device share) and
+    the kernel events by function name."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime", "user_annotation")]
+    require(bool(device) and bool(host), f"{what}: {len(device)} device and {len(host)} host events in {path}")
+    start, end = min(e["ts"] for e in events), max(e["ts"] + e["dur"] for e in events)
+    merged = []
+    for s, t in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t)
+        else:
+            merged.append([s, t])
+
+    def busy_in(a: float, b: float) -> float:
+        return sum(max(0.0, min(t, b) - max(s, a)) for s, t in merged)
+
+    busy = busy_in(start, end)
+    print(f"[4n] {what}: {path.stat().st_size / 1e6:.1f} MB, {len(events)} events; the device busy "
+          f"{busy / 1e6:.4f} s of the traced {(end - start) / 1e6:.4f} s ({100 * busy / (end - start):.1f}%) "
+          f"[{smi}]", flush=True)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]:
+        print(f"[4n] {what}   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% n={n:6d} {kernel_class(name):32s} "
+              f"{name[:90]}", flush=True)
+    edges = [start, *(x for span in merged for x in span), end]
+    gaps = sorted(((b - a, a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a), reverse=True)[:TRACE_GAPS]
+    read_gaps = []
+    for length, a, b in gaps:
+        spans = sorted(((max(e["ts"], a), min(e["ts"] + e["dur"], b), e) for e in host
+                        if e["ts"] < b and e["ts"] + e["dur"] > a), key=lambda x: x[:2])
+        covered, reach = 0.0, a
+        for s, t, _ in spans:  # the part of the gap some host operator runs in
+            covered += max(0.0, t - max(s, reach))
+            reach = max(reach, t)
+        if spans:
+            s, t, e = max(spans, key=lambda x: (x[1] - x[0], -x[2]["dur"]))
+            by = (f"host operators over {100 * covered / length:.0f}% of it, the most {e['name'][:60]} ({e['cat']}, "
+                  f"thread {e['tid']}, {e['dur'] / 1e3:.3f} ms, over {100 * (t - s) / length:.0f}%)")
+        else:
+            by = "no host operator (Python)"
+        read_gaps.append((length / 1e3, covered / length, e["name"] if spans else None))
+        print(f"[4n] {what}   idle {length / 1e3:9.3f} ms at +{(a - start) / 1e6:.4f} s: {by}", flush=True)
+    zero = sorted(e["ts"] for e in host if e["name"].startswith("Optimizer.zero_grad"))
+    ends = sorted(e["ts"] + e["dur"] for e in host if e["name"].startswith("Optimizer.step"))
+    steps = []
+    if zero and len(zero) == len(ends):
+        for i, (a, b) in enumerate(zip(zero, ends)):
+            period_end = zero[i + 1] if i + 1 < len(zero) else b
+            steps.append(((b - a) / 1e3, (period_end - a) / 1e3, busy_in(a, period_end) / (period_end - a)))
+        print(f"[4n] {what}   steps (zero_grad to the optimizer's end; the device's share to the next step): "
+              f"{'; '.join(f'{h:.1f} ms host, device {100 * d:.0f}% of {p:.1f} ms' for h, p, d in steps)}",
+              flush=True)
+    kernels = defaultdict(int)
+    for e in device:
+        if e.get("cat") == "kernel":
+            for per in TRACE_KERNELS.values():
+                for kernel in per:
+                    if re.search(rf"\b{kernel}\b", e["name"]):
+                        kernels[kernel] += 1
+    return {"busy_share": busy / (end - start), "gaps": read_gaps, "steps": steps, "kernels": dict(kernels)}
+
+
+def held_trace(what: str, kernels: dict, launches: dict) -> None:
+    """Each port kernel's device events in a trace equal to the launches of its
+    wrapper times the kernels that wrapper launches (TRACE_KERNELS)."""
+    want = defaultdict(int)
+    for wrapper, per in TRACE_KERNELS.items():
+        for kernel, n in per.items():
+            want[kernel] += n * launches.get(wrapper, 0)
+    require(dict(kernels) == {k: v for k, v in want.items() if v},
+            f"{what}: device events {dict(kernels)}, launches {launches} want {dict(want)}")
+    print(f"[4n] {what}: device events of the port's kernels {dict(kernels)} equal the launches times the "
+          f"kernels each wrapper launches", flush=True)
+
+
+def run_profiled_fits(smi: str, tmp: Path, frames_root: Path, annotations: Path, clip_path: Path) -> dict:
+    """Phase 4n's profiled fits of UCF-Crime on 4f's feature set; see the
+    module docstring."""
+    import signal
+
+    import anomalyclip_tpu_torch.train.module as train_module
+    from anomalyclip_tpu_torch import train_entry
+    from anomalyclip_tpu_torch.train.module import TRACE_DIR, TrainingPreempted
+
+    counts = {}
+    real_class = train_module.AnomalyCLIPTrainModule
+    clip = f"model.net.clip_ckpt_path={clip_path}"
+    # (a) the debug config's profiled epoch on the card, as a user runs it; (b)
+    # one epoch of the published experiment traced, its loader and trainer as
+    # phases 4g and 4h run them
+    for what, args in (("debug=profiler", ["experiment=ucfcrime", "debug=profiler", "trainer.accelerator=gpu"]),
+                       ("trainer.profiler=jax", ["experiment=ucfcrime", "trainer.profiler=jax",
+                                                 "trainer.max_epochs=1", "logger=csv"])):
+        made = []
+        train_module.AnomalyCLIPTrainModule = entry_module_class(made)
+        counts_taken()
+        try:
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            train_entry.main(args + [clip, f"paths.log_dir={tmp / what.replace('=', '_')}"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - begin
+        finally:
+            train_module.AnomalyCLIPTrainModule = real_class
+            # debug/default.yaml's detect_anomaly, which the module turns on
+            torch.autograd.set_detect_anomaly(False)
+        (run,) = made
+        counts[f"profiled {what}"] = held(f"4n {what}", counts_taken(), expected_launches(made))
+        # the trace covers fit, not the test pass after it
+        fit_only = dict(counts[f"profiled {what}"])
+        fit_only["fused_mha_qkv"] -= run.module.model.clip_cfg.transformer_layers
+        fit_only["fused_mha_bld"] -= 2 * run.module.model.temporal_cfg.depth * len(
+            run.module.datamodule.test_dataloader())
+        (trace,) = sorted((run.module.save_dir / TRACE_DIR).glob("*.pt.trace.json"))
+        print(f"[4n] {what}: the entry {seconds:.2f} s, its epoch {run.epoch_s()[0]:.3f} s, the trace "
+              f"{trace.relative_to(tmp)} [{smi}]", flush=True)
+        held_trace(f"4n {what}", trace_summary(trace, what, smi)["kernels"], fit_only)
+
+    # (c) a profiled fit stopped mid-epoch, by SIGTERM and by an exception,
+    # still writes a trace that reads back whole
+    for what, stop, raised in (("SIGTERM", lambda: signal.raise_signal(signal.SIGTERM), TrainingPreempted),
+                               ("an exception", None, RuntimeError)):
+        def after_step(n, stop=stop, what=what):
+            if n == PROFILE_STOP_AFTER:
+                if stop is None:
+                    raise RuntimeError(f"{what} after step {n}, on purpose")
+                stop()
+
+        cfg = ucf_fit_config(frames_root, annotations, tmp / f"stopped_{what.split()[-1]}")
+        cfg["trainer"]["profiler"], cfg["trainer"]["max_epochs"] = "jax", 1
+        counts_taken()
+        fit = InstrumentedFit(cfg, after_step=after_step)
+        try:
+            fit.module.fit()
+        except raised as exc:
+            print(f"[4n] the profiled fit stopped by {what}: {exc!r}", flush=True)
+        else:
+            raise AssertionError(f"4n: the profiled fit ran on through {what}")
+        text = fit.module.model.clip_cfg.transformer_layers
+        k2 = 2 * fit.module.model.temporal_cfg.depth * PROFILE_STOP_AFTER
+        steps = {"fused_mha_qkv": text * PROFILE_STOP_AFTER, "mha_qkv_bwd": text * PROFILE_STOP_AFTER,
+                 "fused_mha_bld": k2, "mha_bld_bwd": k2}
+        counts[f"stopped by {what}"] = held(f"4n stopped by {what}", counts_taken(), {
+            **steps, "mha_tf32": steps["fused_mha_qkv"], "whole_bwd_tf32": steps["mha_qkv_bwd"], "bld_tf32": k2,
+            "bld_bwd_tf32": k2})
+        (trace,) = sorted((fit.module.save_dir / TRACE_DIR).glob("*.pt.trace.json"))
+        held_trace(f"4n stopped by {what}", trace_summary(trace, f"stopped by {what}", smi)["kernels"], steps)
+    return counts
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
@@ -5156,7 +5585,7 @@ def main() -> int:
     l14_launches = phase_l14()
     grad_launches = phase_tower_gradient()
     script_launches = phase_scripts()
-    # one feature set on disk for phases 4f-4k and 4m, removed at the end
+    # one feature set on disk for phases 4f-4k, 4m and 4n, removed at the end
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="feature_set_", dir=ROOT / "build") as tmp:
         feature_set = make_feature_set(Path(tmp))
@@ -5168,6 +5597,7 @@ def main() -> int:
         multi_launches = phase_multi(smi, *feature_set, Path(tmp))
         orbax_launches = phase_orbax(smi)
         last_launches = phase_last_scripts(smi, *feature_set, Path(tmp))
+        experiments_launches = phase_experiments(smi, *feature_set, Path(tmp))
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -5244,9 +5674,13 @@ def main() -> int:
     require(all(last_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                                                "mha_tc", "mha_tf32", "bld_tf32", "whole_bwd_tf32")),
             f"a kernel of the last scripts' path was never launched: {last_launches}")
+    # the ShanghaiTech and XD-Violence experiments and the profiled fits: K1-K4
+    require(all(experiments_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
+                                                      "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
+            f"a kernel of the experiments' path was never launched: {experiments_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
                 *script_launches, data_launches, fit_launches, entry_launches, serving_launches, tower_launches,
-                *multi_launches.values(), orbax_launches, last_launches]
+                *multi_launches.values(), orbax_launches, last_launches, experiments_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

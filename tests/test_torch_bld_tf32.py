@@ -20,9 +20,9 @@ On the CPU:
   mha.cu and mha_bwd.cu, and the refusals, which raise before any launch.
 
 The ``gpu`` cases hold both kernels against the fp32 plain versions and the
-emulations on the card, at the temporal model's shapes, at ragged and causal
-lengths and at a batch past 65,535, and to the bit between two launches; they
-import no JAX.
+emulations on the card, at the temporal model's shapes (XD-Violence's at head
+dim 16 too), at ragged and causal lengths and at a batch past 65,535, and to
+the bit between two launches; they import no JAX.
 """
 
 from __future__ import annotations
@@ -493,6 +493,26 @@ def test_tf32_backward_matches_plain_and_emulation_and_repeats_to_the_bit(cuda, 
     for want in (tattn.mha_bld_bwd_reference(q, k, v, g, heads, causal),
                  tattn.mha_bld_bwd_tf32x3_reference(q, k, v, g, heads, causal)):
         assert _gap(got, [t.cpu() for t in want]) <= FP32_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l", [(2048, 16), (1024, 32)])
+def test_k2_and_k4_at_head_dim_16_at_xdviolences_training_shapes(cuda, b, l):
+    """XD-Violence's temporal model (emb 128, 8 heads of 16) at its training
+    batch of 64: along frames (64 x 32, 16, 128) and along segments
+    (64 x 16, 32, 128), forward and backward on the split-TF32 whole-head
+    kernels, against the fp32 plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, kv, g = (torch.randn(b, l, w, device=cuda, generator=gen) for w in (128, 256, 128))
+    k, v = kv[..., :128], kv[..., 128:]
+    tattn.reset_launch_counts()
+    out = tattn.mha_bld_fwd_kernel(q, k, v, 8, False)
+    grads = tattn.mha_bld_bwd_kernel(q, k, v, g, 8, False)
+    torch.cuda.synchronize()
+    assert tattn.route_counts["bld_tf32"] == 1 and tattn.route_counts["bld_bwd_tf32"] == 1
+    assert float((out - tattn.mha_bld_reference(q, k, v, 8, False)).abs().max()) <= FP32_TOL
+    want = tattn.mha_bld_bwd_reference(q, k, v, g, 8, False)
+    assert _gap([t.cpu() for t in grads], [t.cpu() for t in want]) <= FP32_TOL
 
 
 @pytest.mark.gpu

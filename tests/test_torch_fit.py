@@ -13,8 +13,8 @@
   stopping under ``check_val_every_n_epoch=2`` (stale metrics burn no
   patience), ``exception.log`` on a failing fit, ``train/lr``, a pretrained
   CLIP read from ``clip_ckpt_path``, ``trainer.model_parallel`` in one
-  process falling back to the single tower with a warning, and RN50
-  resolving.
+  process falling back to the single tower with a warning, RN50
+  resolving and ``trainer.profiler=jax`` fitting with a trace.
 - ``chip_smoke.py``'s UCF-Crime run config against the composed
   ``experiment=ucfcrime`` on every key the port's module reads.
 """
@@ -280,11 +280,15 @@ def test_pretrained_clip_comes_from_clip_ckpt_path(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise_where_used(tmp_path):
+    """RN50 and ``trainer.profiler=jax`` raised where used until they were
+    ported (ROADMAP.md section 1). RN50 now resolves to the ModifiedResNet
+    tower, and a profiled fit runs and writes one trace."""
     params, clip_cfg = tmod.resolve_clip("RN50", "random-full")  # ported: the ModifiedResNet tower
     assert clip_cfg == CLIPConfig.rn50() and clip_cfg.is_resnet and "stem" in params["visual"]
-    module = _port(tmp_path, "run", "trainer.profiler=jax")
-    with pytest.raises(NotImplementedError, match="profiler"):
-        module.fit()
+    # ported: a torch.profiler trace of the fit (tests/test_torch_profiler.py)
+    module = _port(tmp_path, "run", "trainer.profiler=jax", "trainer.max_epochs=1")
+    assert "auc_roc" in module.fit()
+    assert len(list((module.save_dir / tmod.TRACE_DIR).glob("*.pt.trace.json"))) == 1
 
 
 # ---------------------------------------------------------------------------
