@@ -32,10 +32,10 @@ script exits non-zero without printing a result:
    1.5e-2 (twice the largest gap measured) of the KV-blocked plain version that
    rounds where it rounds: K1 at (256, 197, 2304) 12 heads, the causal
    (14, 77, 1536) 8 heads and (14, 77, 2304) 12 heads, (64, 257, 3072) 16
-   heads, K6 at q (256, 577, 1024) with kv (256, 577, 2048) 16 heads, K8 at
-   (4096, 577, 64) with the log-sum-exp, (512, 1024, 64) and the causal
-   (512, 500, 64) and through K5's flash branch at (256, 16, 577, 64), and
-   through all three entries at L = 1, 63, 64, 65, 129 at batch 3, causal and
+   heads, (512, 50, 2304) 12 heads (ViT-B/32 at phase 4o's batch), K6 at q
+   (256, 577, 1024) with kv (256, 577, 2048) 16 heads, K8 at (4096, 577, 64)
+   with the log-sum-exp, (512, 1024, 64) and the causal (512, 500, 64) and
+   through K5's flash branch at (256, 16, 577, 64), and through all three entries at L = 1, 63, 64, 65, 129 at batch 3, causal and
    not (K6 not causal); the launches that took it are counted exactly, K8's
    log-sum-exp must sit within 1e-4 of the plain one and two K8 launches must
    give the same bits. In fp32 at head dim 64 K1, K6 and K8 launch the
@@ -362,8 +362,10 @@ script exits non-zero without printing a result:
    run without a group to the bit, its launches exact. (b) ``predict.main``
    with ``trainer.model_parallel`` = TP_RANKS on TP_RANKS gloo ranks on
    TP_FRAMES seeded uint8 frames, in fp32 and bf16, from (a)'s one-process
-   ``last``: the module takes the tensor-parallel tower, each rank's K1 and K2
-   launches are exact (every K1 on ``mha_tf32``, bf16 ``mha_tc``) and every
+   ``last``, the image tower cut to TP_LAYERS of its 12 layers at full width
+   (the same CLIP file with the later blocks dropped: the per-layer gloo
+   all-reduces were most of the phase): the module takes the tensor-parallel
+   tower, each rank's K1 and K2 launches are exact (every K1 on ``mha_tf32``, bf16 ``mha_tc``) and every
    image-tower K1 launch runs 6 local heads on (B, 197, 1152), and each rank's
    scores sit within TP_TOL of the single tower's in this process. It prints
    the seconds of an epoch on two ranks beside one process, and of a warm
@@ -432,6 +434,25 @@ script exits non-zero without printing a result:
    host operation over each, each step's host span and device share, and each
    port kernel's device events equal to its wrapper's launches in ``fit``
    times the kernels it launches (TRACE_KERNELS);
+4o. bench.py's counterpart (``anomalyclip_tpu_torch/bench.py``): (a)
+   ``python -m anomalyclip_tpu_torch.bench`` bare in a process of its own, as
+   a user runs it, its last line the ViT-B/16 headline (a positive value,
+   ``vs_baseline`` null); (b) in this process ``bench.run`` for each tower of
+   BENCH_RUNS (ViT-B/16, ViT-B/32, ViT-L/14 and ViT-L/14@336px at their bench
+   batches, and the int8 ViT-B/16 tower), each run in a window of its own with
+   its launches exact (the warm chain and ``REPEATS`` timed ones of
+   ``INNER_ITERS`` calls, every layer's K1, or K6 at 336 px, on the
+   tensor-core kernel), then one encode of the bench's frames held against
+   the same encode under the plain attention: within BF16_SLICE_TOL of max|ref|
+   (phase 4c's bf16 limit), or for int8 as phase 4j holds that tower (each
+   layer's attention within TC_TOLERANCE, end to end within INT8_NOISE_RATIO
+   times its gap to the fp tower, cosine to it over INT8_COSINE); (c) the e2e
+   stage that needs no decoder, ``bench.dispatch_rates`` (a warm 256-frame
+   ViT-B/16 dispatch from host memory, uint8 against fp32), its launches exact;
+   (d) ``--e2e``: where cv2 or PIL does not import, its non-zero exit naming
+   them, else its run (the JAX script's corpus) and its JSON line. It
+   prints each tower's frames/s and ms a call with the card's name and power
+   limit;
 5. profile (only with --profile): for fp32 and bf16, three warm calls of the
    700-frame video on the host clock, then one under torch.profiler, the same
    for one 256-frame encode chunk of the ViT-B/16 tower, of the int8 ViT-B/16
@@ -445,7 +466,8 @@ The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launch counts (the scoring, training, ViT-L/14@336px,
 gradient, script, data, training-run, command-line, serving, other-tower and
 every rank's multi-device runs, the Orbax checkpoints' runs, the last
-scripts' runs and the experiments' and profiled fits' runs together), errors
+scripts' runs, the experiments' and profiled fits' runs and the bench's
+in-process runs together), errors
 and times: ``ms`` the kernel's, ``plain_ms`` its plain version's, ``library_ms`` (also ``sdpa_ms``) that of
 ``torch.nn.functional.scaled_dot_product_attention`` for the same function
 (forward for a forward kernel; forward and backward through autograd for a
@@ -759,8 +781,12 @@ SEEDED_VIDEO = "seeded_video.mp4"
 DP_RANKS, TP_RANKS, RANK_TIMEOUT_S = 2, 2, 600
 # the TP ranks score TP_FRAMES seeded uint8 frames (a 512-frame grid once
 # padded, two encode chunks): their gloo all-reduces through host memory are
-# most of the phase's time, so not 4i's SERVE_FRAME_VIDEO (four chunks)
-TP_FRAMES = 256
+# most of the phase's time, so not 4i's SERVE_FRAME_VIDEO (four chunks). For
+# the same reason their image tower is cut in depth: ViT-B/16 at its full width
+# with TP_LAYERS of its 12 layers (4h's CLIP file with the later blocks
+# dropped), two all-reduces a layer; the single tower they are held against
+# is the same cut tower, and the data-parallel runs keep all 12
+TP_FRAMES, TP_LAYERS = 256, 2
 DP_LOSS_RTOL, DP_TOL = 5e-4, 1e-4
 TP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # phase 4l: the JAX package's Orbax checkpoints, committed under ORBAX_FIXTURE
@@ -796,6 +822,12 @@ EXPERIMENT_EPOCHS, EXPERIMENT_TRIALS = 2, 2
 TRACE_KERNELS = {"fused_mha_qkv": {"mha_tf32_kernel": 1}, "mha_qkv_bwd": {"mha_whole_tf32_bwd_kernel": 1},
                  "fused_mha_bld": {"mha_bld_tf32_fwd_kernel": 1}, "mha_bld_bwd": {"mha_bld_tf32_bwd_kernel": 1}}
 PROFILE_STOP_AFTER, TRACE_TOP, TRACE_GAPS = 3, 10, 5
+# phase 4o: bench.py's counterpart (anomalyclip_tpu_torch/bench.py), each tower
+# of BENCH_RUNS at its bench batch, (arch, --quant); BENCH_SUBPROCESS_S: the
+# bare run's limit
+BENCH_RUNS = (("ViT-B/16", "none"), ("ViT-B/32", "none"), ("ViT-L/14", "none"), ("ViT-L/14@336px", "none"),
+              ("ViT-B/16", "int8"))
+BENCH_SUBPROCESS_S = 600
 
 
 def phase_device() -> str:
@@ -1143,13 +1175,13 @@ def phase_kernels(report: dict) -> None:
             lambda t, h=h: packed_heads(t, 3, h), causal=causal, tensor_cores=True, tf32=True,
         ))
     # the tensor-core kernel in bf16 through both entries: the image towers
-    # (ViT-B/16, ViT-L/14), the causal text towers, the ViT-L/14@336px tower's q
-    # and k|v; its own line of the kernels list sums the four shapes of the
-    # scoring paths (ViT-L/14 at 224 px is printed only); then the ragged edges
-    # at a small batch, causal and not
+    # (ViT-B/16, ViT-L/14, ViT-B/32), the causal text towers, the ViT-L/14@336px
+    # tower's q and k|v; its own line of the kernels list sums the four shapes of
+    # the scoring paths (ViT-L/14 and ViT-B/32 at 224 px, phase 4o's, are printed
+    # only); then the ragged edges at a small batch, causal and not
     for b, l, d, h, causal, path in (
         (256, 197, 768, 12, False, BF16), (14, 77, 512, 8, True, BF16),
-        (14, 77, 768, 12, True, BF16), (64, 257, 1024, 16, False, ()),
+        (14, 77, 768, 12, True, BF16), (64, 257, 1024, 16, False, ()), (512, 50, 768, 12, False, ()),
     ):
         cases.append(Case(
             "mha_tc", (b, l, 3 * d), (b, l, 3 * d),
@@ -4078,14 +4110,15 @@ def held(what: str, got: dict, want: dict) -> dict:
 
 
 def int8_local_gaps(qvisual, cfg, frames: torch.Tensor, dtype: torch.dtype) -> float:
-    """Every layer's attention in the int8 tower on uint8 ``frames``, the
-    kernel against the plain version on that layer's own qkv
-    (``scripts.probe_int8_drift``), held at the kernels' limit -> the largest
-    gap. Outside any counted window."""
+    """Every layer's attention in the int8 tower on ``frames`` (uint8, or
+    already normalized), the kernel against the plain version on that layer's
+    own qkv (``scripts.probe_int8_drift``), held at the kernels' limit -> the
+    largest gap. Outside any counted window."""
     from anomalyclip_tpu_torch.models.clip.model import normalize_frames_on_device
     from anomalyclip_tpu_torch.scripts import probe_int8_drift as drift
 
-    _, layers = drift.run_int8(qvisual, cfg, normalize_frames_on_device(frames), dtype, "kernel")
+    images = normalize_frames_on_device(frames) if frames.dtype == torch.uint8 else frames
+    _, layers = drift.run_int8(qvisual, cfg, images, dtype, "kernel")
     gaps = drift.local_gaps(layers, cfg.vision_heads)
     del layers
     limit = TOLERANCE[torch.float32] if dtype == torch.float32 else TC_TOLERANCE
@@ -4645,19 +4678,25 @@ def run_multi(smi: str, tmp: Path, clip_path: Path) -> dict:
                                        f"(first at {first}: {nccl[key][first] if first is not None else ''} vs "
                                        f"{one[key][first] if first is not None else ''})"[:2000])
 
-    # ---- (b) the tensor-parallel tower from frames, fp32 and bf16
+    # ---- (b) the tensor-parallel tower from frames, fp32 and bf16, cut to
+    # TP_LAYERS image-tower layers
     frames = np.random.default_rng(SEED + 5).integers(0, 256, (1, TP_FRAMES, 224, 224, 3), dtype=np.uint8)
     np.save(tmp / "frames.npy", frames)
     video = tmp / SEEDED_VIDEO
     video.touch()
+    cut = {k: v for k, v in torch.load(clip_path, map_location="cpu").items()
+           if not k.startswith("visual.transformer.resblocks.")
+           or int(k.split(".")[3]) < TP_LAYERS}
+    tp_clip = tmp / f"ViT-B-16-{TP_LAYERS}-layers.pt"
+    torch.save(cut, tp_clip)
     run = tmp / "one" / "train" / "runs" / "ucfcrime" / "checkpoints" / "last"
-    predict_args = ["data=ucfcrime", "model=anomaly_clip_ucfcrime", *common, f"ckpt_path={run}",
-                    f"paths.log_dir={tmp / 'predict'}"]
+    predict_args = ["data=ucfcrime", "model=anomaly_clip_ucfcrime", f"model.net.clip_ckpt_path={tp_clip}",
+                    "extras.print_config=False", f"ckpt_path={run}", f"paths.log_dir={tmp / 'predict'}"]
     dtypes = ("float32", "bfloat16")
     tp = launch_ranks("tp", {"frames": str(tmp / "frames.npy"), "video": str(video), "dtypes": dtypes,
                              "predict": predict_args + [f"trainer.model_parallel={TP_RANKS}"]}, TP_RANKS, tmp, "gloo")
     chunks = -(-(-(-TP_FRAMES // (32 * 16)) * 32 * 16) // 256)
-    k1 = cfg.transformer_layers + cfg.vision_layers * chunks
+    k1 = cfg.transformer_layers + TP_LAYERS * chunks
     heads = cfg.vision_heads // TP_RANKS
     tp_lines = []
     for dtype in dtypes:
@@ -4698,7 +4737,8 @@ def run_multi(smi: str, tmp: Path, clip_path: Path) -> dict:
           f"group to the bit (losses, parameters, scores, metrics); epochs "
           f"{', '.join(f'{x:.3f}' for x in nccl['epoch_s'])} s ({smi})", flush=True)
     print(f"[multi] tensor parallel, model_parallel={TP_RANKS} on {TP_RANKS} gloo ranks sharing the one card, "
-          f"{TP_FRAMES} uint8 frames, {heads} heads a rank on K1: " + "; ".join(tp_lines)
+          f"{TP_FRAMES} uint8 frames, the image tower cut to {TP_LAYERS} of its {cfg.vision_layers} layers, "
+          f"{heads} heads a rank on K1: " + "; ".join(tp_lines)
           + f"; the phase {time.perf_counter() - phase_start:.1f} s ({smi})", flush=True)
     return {"one": one["counts"], **{f"dp{r}": got["counts"] for r, got in enumerate(dp)}, "nccl": nccl["counts"],
             **{f"tp{r} {d}": got[d]["counts"] for r, got in enumerate(tp) for d in dtypes}}
@@ -5383,6 +5423,124 @@ def run_profiled_fits(smi: str, tmp: Path, frames_root: Path, annotations: Path,
     return counts
 
 
+def phase_bench(smi: str) -> dict:
+    """Phase 4o: ``python -m anomalyclip_tpu_torch.bench`` bare in a process of
+    its own, then each of BENCH_RUNS in this one, the e2e dispatch stage, and
+    ``--e2e`` refused or run -> the kernel launch and route counts of its
+    in-process runs."""
+    from anomalyclip_tpu_torch import bench
+    from anomalyclip_tpu_torch.models.clip.model import encode_image
+    from anomalyclip_tpu_torch.ops.attention import attention_impl
+
+    phase_start = time.perf_counter()
+    counts = {}
+
+    # (a) the bare command, as a user runs it: its last line is the headline
+    proc = subprocess.run([sys.executable, "-m", "anomalyclip_tpu_torch.bench"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=BENCH_SUBPROCESS_S)
+    require(proc.returncode == 0, f"4o bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(line["metric"] == "vit_b16_encode_throughput" and line["value"] > 0 and line["vs_baseline"] is None
+            and line["unit"] == "frames/sec/chip" and len(line) == 4, f"4o bench's last line {line}")
+    print(f"[4o] python -m anomalyclip_tpu_torch.bench: {proc.stderr.strip()}", flush=True)
+    print(f"[4o] its last line: {json.dumps(line)} [{smi}]", flush=True)
+
+    # (b) each tower: the run's launches exact, all on the tensor-core kernel
+    # (K1 at 224 px, K6 at 336 px), INNER_ITERS calls a chain, the warm chain
+    # and REPEATS timed ones; one encode of the bench's frames against the same
+    # encode under the plain attention, at phase 4c's bf16 limit (of max|ref|,
+    # as 4m's perf_sweep) or, int8, at 4j's: each layer's attention at the
+    # kernel's limit and end to end within INT8_NOISE_RATIO times the int8
+    # tower's own gap to the fp tower
+    lines = []
+    for arch, quant in BENCH_RUNS:
+        tag = f"{arch}{' --quant int8' if quant == 'int8' else ''}"
+        counts_taken()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        r = bench.run(arch, quant=quant)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - start
+        calls = (1 + bench.REPEATS) * bench.INNER_ITERS * r.cfg.vision_layers
+        kernel = "fused_mha_qtile" if arch == "ViT-L/14@336px" else "fused_mha_qkv"
+        counts[tag] = held(f"4o {tag}", counts_taken(), {kernel: calls, "mha_tc": calls})
+        with torch.inference_mode():
+            feats = r.encode(r.frames)
+            with attention_impl("reference"):
+                ref = r.encode(r.frames)
+            require(bool(torch.isfinite(feats).all()) and feats.shape == (r.batch, r.cfg.embed_dim),
+                    f"4o {tag}: features {tuple(feats.shape)}")
+            gap = float((feats.float() - ref.float()).abs().max())
+            if quant == "int8":
+                local = int8_local_gaps(r.weights, r.cfg, r.frames, torch.bfloat16)
+                fp = encode_image(bench.bench_weights(r.cfg, "none", "cuda"), r.cfg, r.frames, torch.bfloat16)
+                noise = float((feats.float() - fp.float()).abs().max())
+                cos = np.minimum(cosines(feats, fp), cosines(ref, fp))
+                require(gap <= INT8_NOISE_RATIO * noise and bool((cos > INT8_COSINE).all()),
+                        f"4o {tag}: kernels vs plain max|diff| {gap:.3e} (int8 vs fp {noise:.3e}), cosine to the "
+                        f"fp tower {cos.min():.6f}")
+                held_to = (f"each layer's attention kernel vs plain {local:.3e} (limit {TC_TOLERANCE:g}); end to end "
+                           f"{gap:.3e}, int8 vs fp {noise:.3e} (limit {INT8_NOISE_RATIO:g}x); cosine to the fp "
+                           f"tower >= {cos.min():.6f}")
+                del fp
+            else:
+                scale = float(ref.float().abs().max())
+                require(gap <= BF16_SLICE_TOL * scale, f"4o {tag}: kernels vs plain max|diff| {gap:.3e} of max|ref| "
+                                                       f"{scale:.3e} (limit {BF16_SLICE_TOL:g} of it)")
+                held_to = f"kernels vs plain max|diff| {gap / scale:.3e} of max|ref| (limit {BF16_SLICE_TOL:g})"
+        lines.append(f"{bench.metric_name(arch)}{' int8' if quant == 'int8' else ''} {r.fps:.1f} frames/s, "
+                     f"{r.best_s * 1e3:.3f} ms/iter at batch {r.batch}")
+        print(f"[4o] {tag}, batch {r.batch}, {r.cfg.vision_layers} layers: {r.fps:.1f} frames/s, "
+              f"{r.best_s * 1e3:.3f} ms/iter (the run with its weights {run_s:.2f} s); {held_to}; launches "
+              f"{({k: v for k, v in counts[tag].items() if v})} [{smi}]", flush=True)
+        del r, feats, ref
+        torch.cuda.empty_cache()
+
+    # (c) --e2e's stage that needs no decoder: a warm 256-frame dispatch from
+    # host memory, uint8 against fp32, ViT-B/16 in bf16 (a warm call and 3
+    # timed for each input type)
+    cfg = bench.ARCHS["ViT-B/16"]()
+    weights = bench.bench_weights(cfg, "none", "cuda")
+    counts_taken()
+    rates = bench.dispatch_rates(weights, cfg, "cuda")
+    calls = 2 * 4 * cfg.vision_layers
+    counts["dispatch"] = held("4o dispatch", counts_taken(), {"fused_mha_qkv": calls, "mha_tc": calls})
+    require(min(rates.values()) > 0, f"4o dispatch rates {rates}")
+    print(f"[4o] warm {bench.E2E_FRAMES}-frame encode dispatch from host memory (pageable), ViT-B/16 bf16: uint8 "
+          f"{rates['uint8']:.1f} frames/s vs float32 {rates['float32']:.1f} frames/s [{smi}]", flush=True)
+    del weights
+    torch.cuda.empty_cache()
+
+    # (d) --e2e: refused before any timing where cv2 or PIL does not import,
+    # naming them; run where both do
+    missing = bench.missing_decoders()
+    if missing:
+        try:
+            bench.main(["--e2e"])
+        except SystemExit as exc:
+            said = exc.code
+        else:
+            said = None
+        require(isinstance(said, str) and all(name in said for name in missing),
+                f"4o --e2e without {missing}: {said!r}")
+        print(f"[4o] --e2e without {', '.join(missing)}: exits non-zero, {said!r}", flush=True)
+    else:
+        counts_taken()
+        e2e = bench.main(["--e2e"])
+        counts["e2e"] = counts_taken()
+        require(e2e["value"] > 0 and e2e["vs_baseline"] is None and len(e2e) == 9
+                and counts["e2e"]["fused_mha_qkv"] == counts["e2e"]["mha_tc"] > 0, f"4o --e2e: {e2e}, "
+                f"{counts['e2e']}")
+        print(f"[4o] --e2e: {json.dumps(e2e)} [{smi}]", flush=True)
+    print(f"[4o] headline: {'; '.join(lines)}; the phase {time.perf_counter() - phase_start:.1f} s [{smi}]",
+          flush=True)
+    totals = defaultdict(int)
+    for got in counts.values():
+        for k, v in got.items():
+            totals[k] += v
+    return dict(totals)
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "mha_tc_kernel" in low:
@@ -5598,6 +5756,7 @@ def main() -> int:
         orbax_launches = phase_orbax(smi)
         last_launches = phase_last_scripts(smi, *feature_set, Path(tmp))
         experiments_launches = phase_experiments(smi, *feature_set, Path(tmp))
+    bench_launches = phase_bench(smi)
     if args.profile:
         phase_profile(args.profile, smi)
     # each path ran its kernels: the forwards on both, the backwards on training,
@@ -5678,9 +5837,12 @@ def main() -> int:
     require(all(experiments_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_bld", "mha_qkv_bwd", "mha_bld_bwd",
                                                       "mha_tf32", "bld_tf32", "bld_bwd_tf32", "whole_bwd_tf32")),
             f"a kernel of the experiments' path was never launched: {experiments_launches}")
+    # bench.py's counterpart: K1 and K6 on the tensor-core kernel
+    require(all(bench_launches[k] > 0 for k in ("fused_mha_qkv", "fused_mha_qtile", "mha_tc")),
+            f"a kernel of the bench's path was never launched: {bench_launches}")
     all_runs = [slice_launches, slice16_launches, train_launches, *l14_launches.values(), *grad_launches.values(),
                 *script_launches, data_launches, fit_launches, entry_launches, serving_launches, tower_launches,
-                *multi_launches.values(), orbax_launches, last_launches, experiments_launches]
+                *multi_launches.values(), orbax_launches, last_launches, experiments_launches, bench_launches]
     sources = {**KERNEL_SOURCE, **dict.fromkeys(PROBE_REPLACES, PROBE_SOURCE)}
     replaces = {**REPLACES, **{k: sites[0] for k, sites in PROBE_REPLACES.items()}}
     kernels = [

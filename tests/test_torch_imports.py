@@ -70,6 +70,7 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.convert",
         "anomalyclip_tpu_torch.convert_ckpt",
         "anomalyclip_tpu_torch.eval_entry",
+        "anomalyclip_tpu_torch.bench",
         "anomalyclip_tpu_torch.export",
         "anomalyclip_tpu_torch.extract_features",
         "anomalyclip_tpu_torch.graft_entry",
