@@ -115,9 +115,9 @@ a CUDA tensor launches or raises: no route computes the plain version on the
 card unless the caller chose it, and no failure is ever caught to choose a
 route.
 
-The kernels that the measurement scripts launch themselves (other tilings of
-the whole-row kernel, KV parts, head pairs, no softmax) are in
-ops/attention_probes.py.
+The kernels that the measurement scripts launch themselves (the tensor-core
+kernels' arithmetic at other tilings and residencies, KV parts, head pairs, no
+softmax) are in ops/attention_probes.py.
 """
 
 from __future__ import annotations
@@ -348,6 +348,15 @@ def _online_softmax(q, k, v, causal: bool, block: int, product=torch.einsum) -> 
     = exp(s - m_new) summed unrounded and cast to v's type before P.V; causal
     entries at NEG_INF before the max. ``product(spec, a, b)`` forms the two
     products (fp32 einsum; the split-TF32 emulation for ``tf32x3_reference``)."""
+    l = q.shape[-2]
+    return online_softmax_steps(q, k, v, causal, [(s, min(s + block, l)) for s in range(0, l, block)],
+                                product)
+
+
+def online_softmax_steps(q, k, v, causal: bool, steps: list, product=torch.einsum) -> tuple:
+    """``_online_softmax`` over the KV steps (start, end) given, in order: the
+    probes' KV parts (ops/attention_probes.py) restart their 64-key steps at each
+    part."""
     l, dh = q.shape[-2:]
     scale = 1.0 / math.sqrt(dh)
     qf = q.float()
@@ -355,11 +364,11 @@ def _online_softmax(q, k, v, causal: bool, block: int, product=torch.einsum) -> 
     denom = torch.zeros_like(m)
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     rows = torch.arange(l, device=q.device)[:, None]
-    for start in range(0, l, block):
-        kb, vb = k[..., start : start + block, :], v[..., start : start + block, :]
+    for start, end in steps:
+        kb, vb = k[..., start:end, :], v[..., start:end, :]
         s = product("...qd,...kd->...qk", qf, kb.float()) * scale
         if causal:
-            keys = torch.arange(start, start + kb.shape[-2], device=q.device)[None, :]
+            keys = torch.arange(start, end, device=q.device)[None, :]
             s = s.masked_fill(keys > rows, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -601,13 +610,12 @@ _KERNEL_ROWS = 64  # query rows per block of the forward kernels
 H100_SMEM_OPTIN = 232_448
 
 
-def mha_smem_bytes(l: int, dh: int, itemsize: int = 4, warps: int = _KERNEL_WARPS) -> int:
+def mha_smem_bytes(l: int, dh: int, itemsize: int = 4) -> int:
     """The whole-row kernel (mha.cu): K (padded by one 32-bit word) and V of the
     head staged in ``itemsize``-byte elements, the warps' fp32 exponent rows and
-    query rows. K1 and K2 stage as fp32 (the default); K6 in the operand type.
-    ``warps`` other than the kernels' eight: the probes (ops/attention_probes.py)."""
+    query rows. K1 and K2 stage as fp32 (the default); K6 in the operand type."""
     kv = itemsize * (l * (dh + 4 // itemsize) + l * dh)
-    return kv + 4 * warps * (l + dh)
+    return kv + 4 * _KERNEL_WARPS * (l + dh)
 
 
 def mha_bwd_smem_bytes(l: int, dh: int) -> int:

@@ -191,9 +191,9 @@ def load_library() -> ctypes.CDLL:
     lib.acl_mha_qkv_whole_tf32_bwd.restype = i
     lib.acl_mha_bld_whole_tf32_bwd.argtypes = lib.acl_mha_bld_tf32_bwd.argtypes
     lib.acl_mha_bld_whole_tf32_bwd.restype = i
-    # the probes (mha_probe.cu): dtype, staging, rows and warps, then per operand a
-    # pointer and 64-bit batch and row strides
-    lib.acl_probe_smem_bytes.argtypes = [i, i, i, i]
+    # the probes (mha_probe.cu): dtype, residency, rows and warps, then per operand
+    # a pointer and 64-bit batch and row strides
+    lib.acl_probe_smem_bytes.argtypes = [i, i, i, i, i]
     lib.acl_probe_smem_bytes.restype = z
     lib.acl_probe_blocks_per_sm.argtypes = [i, i, i, i, i, z]
     lib.acl_probe_blocks_per_sm.restype = i

@@ -73,6 +73,18 @@ def format_ms(ms: Optional[float]) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def versus(ms: Optional[float], base_ms: Optional[float]) -> str:
+    """Two times of ``device_ms`` as the first's ratio to the second, or "not
+    measured" where either is None."""
+    return "not measured" if ms is None or base_ms is None else f"{ms / base_ms:.3f}x"
+
+
+def both_clocks(fn, iters: int) -> tuple:
+    """(``median_ms``, ``device_ms``) of ``fn`` over ``iters`` calls each: 2
+    (iters + 1) calls."""
+    return median_ms(fn, iters), device_ms(fn, iters)
+
+
 def host_ms(fn, calls: int = 200) -> float:
     """Host time of one enqueue of ``fn``: ``calls`` calls on the host clock with
     no synchronisation between them, over ``calls``, after one warm call."""

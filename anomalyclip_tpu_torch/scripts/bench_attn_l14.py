@@ -7,45 +7,50 @@
 
 The counterpart of the JAX package's scripts/bench_attn_l14.py, variant names
 kept. On the card ``fused_mha_qtile`` (K6) launches, in bf16, the tensor-core
-kernel of ops/csrc/mha_tc.cu (K and V in 64-key blocks, shared memory
-independent of L). Every other variant is a tiling of the whole-row CUDA-core
-kernel that K6 launched before it and that fp32 still runs (ops/csrc/mha.cu):
-one block per batch entry, head and 64-row q tile, 8 warps, K and V of the head
-resident in shared memory as bf16 (150 KB at L=577, so one block on an SM); 577
-is prime, so the tenth q tile of a head holds one row and stages the whole head
-all the same. What the TPU's
-axes became: ``lq<N>`` is N query rows per block (64 where not given); ``gb<g>``,
-the batch group, is 4 g warps per block (g 1, 2 or 4; 8 warps where not given):
-on the TPU it sets how many query rows a program holds at a time, which here is
-one per warp.
+kernel of ops/csrc/mha_tc.cu: one block per batch entry, head and 64-row q tile,
+4 warps of 16 rows each, K and V in 64-key blocks through two cp.async stages
+(shared memory independent of L). Every other variant is a probe
+(ops/csrc/mha_probe.cu) that runs that kernel's arithmetic with one of its
+choices made free, so each is a measured departure from the kernel the paths
+run; at K6's own block the tile probe gives its bits. What the TPU's axes
+became: ``lq<N>`` is N query rows per block (64 where not given), cut into
+16-row mma tiles (577 is prime: the last tile of a head is masked);
+``gb<g>``, the batch group, is 4 g warps per block (g 1, 2 or 4; 4 warps where
+not given, 8 for ``pair``): on the TPU it sets how many query rows a program
+holds at a time, which here is one 16-row tile per warp; ``resident`` stages K
+and V of the head once a block, as the TPU keeps them in VMEM (a longer q tile
+reuses them more; shared memory grows with L), ``streamed`` brings them in
+64-key blocks as K6 does.
 
 Variants:
   qtile                       the shipped fused_mha_qtile (baseline)
-  qtile-lq<N>                 the same kernel body at N rows per block
+  qtile-lq<N>                 the tile probe at N rows per block
   qtilegb<g>[-lq<N>]          ... and 4 g warps per block
-  twopass[-gb<g>[-lq<N>]]     K and V staged in two halves of ceil(L/2) keys, fp32
-                              row state (max, sum, accumulator) carried across
-                              them: half the resident K|V, two blocks on an SM
+  ...-resident, ...-streamed  ... with K and V of the head resident (the TPU's
+                              form) or streamed (K6's, the default)
+  twopass[-gb<g>[-lq<N>]]     K and V staged in two halves of ceil(L/2) keys, each
+                              swept in 64-key steps, fp32 row state (max, sum,
+                              accumulator) carried across them
   pair[-gb<g>[-lq<N>]]        two neighbouring heads per block, half the warps on
-                              each, K and V rows read as 16-byte vectors; the
-                              pair's K and V are streamed in the fewest KV parts
-                              that fit a block (2 at L=577 in bf16), with
-                              twopass's row state
-  whole[-gb<g>]               no q tiling: one block per batch entry and head, K
-                              and V staged as fp32 as K2 stages them; at L=577
-                              that is 311 KB and does not fit; it runs at a
-                              ``--seq`` that does (L <= 420)
-  nosoftmax[gb<g>][-lq<N>]    the baseline body with the softmax compiled out:
+                              each, their 128 contiguous columns of a K or V row
+                              staged together, in the fewest KV parts that fit a
+                              block (2 at L=577 in bf16), with twopass's row state
+  whole[-gb<g>][-streamed]    no q tiling: one block per batch entry and head, K
+                              and V resident unless asked otherwise
+  nosoftmax[gb<g>][-lq<N>]    the tile probe with the softmax compiled out:
                               staging and the two products alone
   plain                       the plain PyTorch formulation
 
-Each line gives the median time (CUDA events) and, for a probe, the shared
-memory of a block and the blocks one SM holds. ``--check`` first holds each
-variant within 0.05 (absolute) of the plain version on fp32 inputs (nosoftmax:
-of its own plain version). A variant whose shared memory does not fit is
-reported with the bytes it needs and was given and the sweep goes on; any other
-failure ends the script. ``--seq`` runs the same B, D and heads at another L
-(576 and 640 split what the ragged last tile costs from the rest).
+Each line gives the median time (CUDA events), the device time
+(``_bench_util.device_ms``) and the ratio of the device time to the shipped
+kernel's at the same shape, timed first (at 0.2-0.5 ms a call the event time is
+the host's enqueue, which moves 20% between runs of one kernel), and, for a
+probe, the shared memory of a block and the blocks one SM holds. ``--check`` first holds each variant within
+0.05 (absolute) of the plain version on fp32 inputs (nosoftmax: of its own plain
+version). A variant whose shared memory does not fit is reported with the bytes
+it needs and was given and the sweep goes on; any other failure ends the
+script. ``--seq`` runs the same B, D and heads at another L (576 and 640 split
+what the ragged last tile costs from the rest).
 
 ``--tower`` times the whole image tower in bf16 under three attentions: the
 fused kernels, identity attention (``out = v``, both projections kept: what the
@@ -72,13 +77,12 @@ from anomalyclip_tpu_torch.convert import tree_to
 from anomalyclip_tpu_torch.models.clip import model as clip_model
 from anomalyclip_tpu_torch.ops import attention as A
 from anomalyclip_tpu_torch.ops import attention_probes as P
-from anomalyclip_tpu_torch.scripts._bench_util import announce_device, median_ms
+from anomalyclip_tpu_torch.scripts._bench_util import announce_device, both_clocks, format_ms, median_ms, versus
 from anomalyclip_tpu_torch.scripts.probe_qtile_vmem import B, D, H, L, inputs
 
-DEFAULT_VARIANTS = "qtile,qtile-lq120,twopass,nosoftmax"
+DEFAULT_VARIANTS = "qtile,qtile-lq120,qtile-lq120-resident,twopass,nosoftmax"
 CHECK_LIMIT = 0.05  # absolute, against the plain version on fp32 inputs
 H100_BF16_PEAK = 989e12  # dense FLOP/s: what the tower's dot floor is taken against
-DEFAULT_ROWS, DEFAULT_WARPS = 64, 8  # K6's own tiling
 
 
 @dataclasses.dataclass
@@ -96,17 +100,20 @@ def _warps(group: str, name: str) -> int:
     return 4 * g
 
 
-def _tiling(name: str, parts: list) -> tuple:
-    """[..., "gb<g>", "lq<N>"] after a variant's stem -> (rows, warps)."""
-    rows, warps = DEFAULT_ROWS, DEFAULT_WARPS
+def _tiling(name: str, parts: list, warps: int, residency: str) -> tuple:
+    """[..., "gb<g>", "lq<N>", "resident" | "streamed"] after a variant's stem ->
+    (rows, warps, residency), from the shipped block and the stem's defaults."""
+    rows = P.SHIPPED["rows"]
     for part in parts:
         if part.startswith("gb"):
             warps = _warps(part[2:], name)
         elif part.startswith("lq"):
             rows = int(part[2:])
+        elif part in P.RESIDENCIES:
+            residency = part
         else:
             raise SystemExit(f"unknown variant {name}")
-    return rows, warps
+    return rows, warps, residency
 
 
 def make_variant(name: str) -> Variant:
@@ -122,31 +129,34 @@ def make_variant(name: str) -> Variant:
         stem, rest = "nosoftmax", [stem[len("nosoftmax"):], *rest]
     if stem not in ("qtile", "twopass", "pair", "whole", "nosoftmax"):
         raise SystemExit(f"unknown variant {name}")
-    rows, warps = _tiling(name, rest)
+    warps = 8 if stem == "pair" else P.SHIPPED["warps"]
+    residency = "resident" if stem == "whole" else P.SHIPPED["residency"]
+    rows, warps, residency = _tiling(name, rest, warps, residency)
+    if stem in ("twopass", "pair") and any(p in P.RESIDENCIES for p in rest):
+        raise SystemExit(f"{name}: {stem} stages K and V in KV parts, not resident or streamed")
+    if stem == "whole" and any(p.startswith("lq") for p in rest):
+        raise SystemExit(f"{name}: whole has no q tiling")
 
-    def tile_smem(stage_fp32):
-        return lambda q: A.mha_smem_bytes(
-            q.shape[1], P.PROBE_HEAD_DIM, 4 if stage_fp32 else q.element_size(), warps)
+    def tile_smem(q):
+        return P.tile_smem_bytes(q.shape[1], P.PROBE_HEAD_DIM, q.element_size(), warps, residency)
 
     if stem == "qtile":
         return Variant(
-            lambda q, kv: P.probe_mha_qtile(q, kv, H, rows=rows, warps=warps),
-            smem=tile_smem(False),
-            blocks=lambda q: P.probe_blocks_per_sm(q.dtype, q.shape[1], warps, False),
+            lambda q, kv: P.probe_mha_qtile(q, kv, H, rows=rows, warps=warps, residency=residency),
+            smem=tile_smem,
+            blocks=lambda q: P.probe_blocks_per_sm(q.dtype, q.shape[1], warps, residency),
         )
     if stem == "nosoftmax":
         return Variant(
-            lambda q, kv: P.nosoftmax_mha(q, kv, H, rows=rows, warps=warps),
-            plain=P.nosoftmax_reference, smem=tile_smem(False),
-            blocks=lambda q: P.probe_blocks_per_sm(q.dtype, q.shape[1], warps, False, softmax=False),
+            lambda q, kv: P.nosoftmax_mha(q, kv, H, rows=rows, warps=warps, residency=residency),
+            plain=P.nosoftmax_reference, smem=tile_smem,
+            blocks=lambda q: P.probe_blocks_per_sm(q.dtype, q.shape[1], warps, residency, softmax=False),
         )
     if stem == "whole":
-        if any(p.startswith("lq") for p in rest):
-            raise SystemExit(f"{name}: whole has no q tiling")
         return Variant(
-            lambda q, kv: P.probe_mha_whole(q, kv[..., :D], kv[..., D:], H, warps=warps),
-            smem=tile_smem(True),
-            blocks=lambda q: P.probe_blocks_per_sm(q.dtype, q.shape[1], warps, True),
+            lambda q, kv: P.probe_mha_whole(q, kv[..., :D], kv[..., D:], H, warps=warps, residency=residency),
+            smem=tile_smem,
+            blocks=lambda q: P.probe_blocks_per_sm(q.dtype, q.shape[1], warps, residency),
         )
 
     heads = 1 if stem == "twopass" else 2
@@ -171,6 +181,11 @@ def make_variant(name: str) -> Variant:
 def bench_variants(names, seq: int, iters: int, check: bool, device: str, on_card: bool) -> None:
     q, kv = inputs(B if on_card else 2, seq, device)
     q32, kv32 = q.float(), kv.float()
+    shipped_ms = None
+    if on_card:
+        event_ms, shipped_ms = both_clocks(lambda: A.fused_mha_qtile(q, kv, H), iters)
+        print(f"{'shipped':18s} {event_ms:7.3f} ms/layer, device {format_ms(shipped_ms)} (fused_mha_qtile, "
+              f"K6's block)", flush=True)
     for name in names:
         variant = make_variant(name)
         try:
@@ -186,7 +201,8 @@ def bench_variants(names, seq: int, iters: int, check: bool, device: str, on_car
                 raise AssertionError(f"{name}: max err {err} against the plain version")
             line += f" max|diff| {err:.2e}"
         if on_card:
-            line += f" {median_ms(lambda: variant.run(q, kv), iters):7.3f} ms/layer"
+            event_ms, ms = both_clocks(lambda: variant.run(q, kv), iters)
+            line += f" {event_ms:7.3f} ms/layer, device {format_ms(ms)}, {versus(ms, shipped_ms)} the shipped"
             if variant.smem is not None:
                 line += f"  [{variant.smem(q)} B/block, {variant.blocks(q)} blocks/SM]"
         print(line, flush=True)

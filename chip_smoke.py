@@ -104,13 +104,19 @@ script exits non-zero without printing a result:
    whole-block branch, the split-TF32 kernel); forward and backward, the
    launches counted exactly, each within 1e-5 of the same call with the plain
    versions chosen;
-3d. probe kernels (ops/csrc/mha_probe.cu), fp32 within 1e-5 and bf16 within 5e-2
-   of max|ref|, with median times: the tile probe at the ViT-L/14@336px layer's
-   shape (32, 577, 1024), 16 heads, on its three layouts and at K6's own and two
-   other tilings (fp32, whose K and V do not fit at 577 keys, at L=360; the
-   whole-row layout at L=400), ``twopass``, ``pair`` and ``nosoftmax`` there,
-   ``probe_qkv_gb``'s four shapes, and a refusal that must raise (``whole`` at
-   L=577 with fp32 staging);
+3d. probe kernels (ops/csrc/mha_probe.cu: mha_tc.cu's and mha_tf32.cu's
+   arithmetic on the tensor cores at other tilings), fp32 within 1e-5 and bf16
+   within 5e-2 of max|ref| of the plain versions that round where they round
+   (64-key blocks in bf16, split-TF32 products in fp32), with median times: the
+   tile probe at the ViT-L/14@336px layer's shape (32, 577, 1024), 16 heads, on
+   its three layouts, at K6's shipped block (64 rows, 4 warps, K and V streamed)
+   and at two others, one of each residency (fp32 K and V of 577 keys do not
+   fit resident: that one at L=360; the whole-row layout at L=400 and, causal,
+   at 360), ``twopass``, ``pair`` and ``nosoftmax`` there, ``probe_qkv_gb``'s
+   four shapes; at the shipped block the tile probe must equal
+   ``fused_mha_qtile`` (fp32 at L=400, where K6 admits it) and
+   ``fused_mha_qkv`` at those four shapes to the bit, in both types, and is
+   timed beside them; a refusal must raise (fp32 K and V resident at L=577);
 4. slice: the UCF-Crime ViT-B/16 model at full width from seeded weights scores
    three synthetic uint8 videos (about 200, 700 and 1600 frames) through
    ``Predictor.score_frames`` in fp32; the kernel launch counts of that run are
@@ -164,7 +170,9 @@ script exits non-zero without printing a result:
    counts of its run checked exactly: ``bench_attn_l14 --check`` with its default
    variants at (32, 577, 1024) in bf16 and at ``--seq 576``, and ``whole`` and
    ``pair`` at ``--seq 400``; ``probe_qkv_gb`` and ``probe_qtile_vmem`` at a few
-   configurations; ``bench_attn_l14 --tower`` at full ViT-L/14@336px width and
+   configurations, both residencies among them (each of these times by CUDA
+   events and by device time, first the shipped kernel at its shape);
+   ``bench_attn_l14 --tower`` at full ViT-L/14@336px width and
    depth, batch 32, bf16 (24 K6 launches a forward under the fused kernels, none
    under identity and plain attention); ``validate_pickgb`` and
    ``validate_qtile_config`` to their exit codes (the latter's core rung at
@@ -508,10 +516,10 @@ split-TF32 kernel that K1, K6 and K8 launch in fp32 at head dim 64: its count is
 fp32 scoring paths' four shapes (phase 3); on their fp32 paths
 ``fused_mha_qkv``'s and ``flash_attention_heads``' numbers are that kernel's
 too. The six probe wrappers'
-numbers are phase 3d's at (32, 577, 1024) in
-bf16 (``probe_mha_qkv``: its four shapes summed; ``probe_mha_whole``: L=400) and
-their counts phase 4e's; ``nosoftmax_mha`` computes no function the library has,
-so its ``library_ms`` is null.
+numbers are phase 3d's at (32, 577, 1024) in bf16 at the shipped block
+(``probe_mha_qkv``: its four shapes summed; ``probe_mha_whole``: L=400,
+resident) and their counts phase 4e's; ``nosoftmax_mha`` computes no function
+the library has, so its ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -897,19 +905,22 @@ def phase_build() -> None:
     checked += 1
     from anomalyclip_tpu_torch.ops import attention_probes as P
 
-    for l, rows, parts in ((577, 64, 2), (577, 120, 4), (400, 128, 1), (77, 32, 3)):
+    for l, rows, parts in ((577, 64, 2), (577, 120, 4), (400, 128, 1), (77, 32, 3), (360, 16, 5)):
         part = P.kv_part_length(l, parts)
         for warps in P.PROBE_WARPS:
             for code, itemsize in ((0, 4), (1, 2)):
-                for stage in {4, itemsize}:
-                    require(lib.acl_probe_smem_bytes(l, 64, stage, warps)
-                            == A.mha_smem_bytes(l, 64, stage, warps),
-                            f"probe smem at {l, stage, warps}")
+                for residency in P.RESIDENCIES:
+                    require(lib.acl_probe_smem_bytes(code, l, 64, int(residency == "resident"), warps)
+                            == P.tile_smem_bytes(l, 64, itemsize, warps, residency),
+                            f"probe smem at {l, itemsize, warps, residency}")
                 for heads in (1, 2):
                     require(lib.acl_parts_smem_bytes(rows, part, 64, code, warps, heads)
                             == P.parts_smem_bytes(rows, part, 64, itemsize, warps, heads),
                             f"parts smem at {rows, part, itemsize, warps, heads}")
         checked += 1
+    for code, itemsize, shipped in ((1, 2, A.mha_tc_smem_bytes(dh)), (0, 4, A.mha_tf32_smem_bytes(dh))):
+        require(P.tile_smem_bytes(577, dh, itemsize, P.SHIPPED["warps"], P.SHIPPED["residency"]) == shipped,
+                f"the tile probe at the shipped block, dtype {code}: not the shipped kernel's shared memory")
     require(lib.acl_mha_tf32_smem_bytes(dh) == A.mha_tf32_smem_bytes(dh), "split-TF32 kernel smem")
     blocks = lib.acl_mha_tf32_blocks_per_sm(dh)
     require(blocks >= 2, f"split-TF32 kernel: {blocks} blocks an SM")
@@ -961,7 +972,7 @@ def phase_build() -> None:
 
 # the sources whose kernels' registers and spills phase_build prints
 TENSOR_CORE_SOURCES = ("mha_tc.cu", "mha_tc_bwd.cu", "mha_tf32.cu", "mha_tf32_bwd.cu", "mha_bld_tf32.cu",
-                       "mha_whole_tf32_bwd.cu")
+                       "mha_whole_tf32_bwd.cu", "mha_probe.cu")
 
 
 def ptxas_usage(log: str, source: str) -> list:
@@ -978,6 +989,14 @@ def ptxas_usage(log: str, source: str) -> list:
         layout = layout.group() if layout else None
         if "mha_bld_tf32" in mangled:  # instantiated at head dims 16 and 32
             layout = "dh " + re.search(r"ILi(\d+)E", mangled).group(1)
+        probe = re.search(r"probe_(?:tile|parts)_kernel", mangled)
+        if probe:  # its type, warps, and the tile probe's softmax and residency or the parts' heads
+            name = probe
+            args = [m.group(1) or m.group(2) for m in re.finditer(r"Li(\d+)E|Lb([01])E", mangled)]
+            what = [f"{args[0]} warps"] + (
+                [("softmax" if args[1] == "1" else "nosoftmax"), ("resident" if args[2] == "1" else "streamed")]
+                if "tile" in probe.group() else [f"{args[1]} head(s)"])
+            layout = ", ".join(["bf16" if "bfloat16" in mangled else "fp32", *what])
         kernel = (name.group() if name else mangled) + (f" ({layout})" if layout else "")
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         regs = re.search(r"Used (\d+) registers", entry)
@@ -2535,13 +2554,18 @@ def phase_tower_gradient() -> dict:
 
 def phase_probe_kernels(report: dict) -> None:
     """The probe kernels against their plain versions: the tile probe on its
-    three layouts and at three tilings, twopass, pair and nosoftmax at the
-    ViT-L/14@336px layer's shape, and probe_qkv_gb's four shapes."""
+    three layouts at K6's shipped block and two others (both residencies),
+    twopass, pair, whole and nosoftmax at the ViT-L/14@336px layer's shape, and
+    probe_qkv_gb's four shapes; at the shipped block the tile probe equal to
+    fused_mha_qtile and fused_mha_qkv to the bit and timed beside them; the
+    refusal of fp32 K and V resident at L=577."""
     from anomalyclip_tpu_torch.ops import attention as A
     from anomalyclip_tpu_torch.ops import attention_probes as P
+    from anomalyclip_tpu_torch.scripts._bench_util import device_ms, format_ms, median_ms, versus
     from anomalyclip_tpu_torch.scripts.probe_qkv_gb import SHAPES as QKV_SHAPES
 
     d, h = 1024, 16
+    shipped = tuple(P.SHIPPED.values())  # rows, warps, residency
 
     def qkv_views(t):
         return t[..., :d], t[..., d:]
@@ -2553,64 +2577,113 @@ def phase_probe_kernels(report: dict) -> None:
                     dtypes=dtypes, path=path, relative=True, **extra)
 
     cases = []
-    # the tile probe on K6's layout: K6's own tiling, an even cut of 577 and more
-    # warps; K and V of 577 keys fit as bf16 only, so fp32 runs at L=360, which
-    # fits at 16 warps too
-    for rows, warps in ((64, 8), (145, 8), (128, 16)):
-        path = BF16 if (rows, warps) == (64, 8) else ()
-        for l, dtypes in ((577, BF16), (360, FP32)):
+    # the tile probe on K6's layout: K6's shipped block, a resident even cut of
+    # 577 on 8 warps and a streamed 128-row tile on 16; fp32 K and V of 577 keys
+    # do not fit resident, so that one runs at L=360
+    for rows, warps, residency in (shipped, (145, 8, "resident"), (128, 16, "streamed")):
+        path = BF16 if (rows, warps, residency) == shipped else ()
+        fp32_l = 360 if residency == "resident" else 577
+        for l, dtypes in ((577, BF16), (fp32_l, FP32)):
             cases.append(l14_case(
                 "probe_mha_qtile", l,
-                lambda q, kv, r=rows, w=warps: P.probe_mha_qtile(q, kv, h, rows=r, warps=w),
-                lambda q, kv: A.mha_qtile_reference(q, kv, h), dtypes, path))
+                lambda q, kv, r=rows, w=warps, s=residency: P.probe_mha_qtile(
+                    q, kv, h, rows=r, warps=w, residency=s),
+                lambda q, kv: P.tile_reference(q, kv[..., :d], kv[..., d:], h), dtypes, path))
             cases.append(l14_case(
                 "nosoftmax_mha", l,
-                lambda q, kv, r=rows, w=warps: P.nosoftmax_mha(q, kv, h, rows=r, warps=w),
+                lambda q, kv, r=rows, w=warps, s=residency: P.nosoftmax_mha(
+                    q, kv, h, rows=r, warps=w, residency=s),
                 lambda q, kv: P.nosoftmax_reference(q, kv, h), dtypes, path, library=False))
-    # the whole-row layout, no q tiling, K and V as fp32: the longest it runs at
-    cases.append(l14_case(
-        "probe_mha_whole", 400,
-        lambda q, kv: P.probe_mha_whole(q, kv[..., :d], kv[..., d:], h),
-        lambda q, kv: A.mha_bld_reference(q, kv[..., :d], kv[..., d:], h), BOTH, BF16))
+    # the whole-row layout, no q tiling: resident in bf16 at L=400, streamed in
+    # fp32 there (resident it would need 250,880 B), both resident and causal at 360
+    for l, residency, dtypes, causal, path in ((400, "resident", BF16, False, BF16),
+                                               (400, "streamed", FP32, False, ()),
+                                               (360, "resident", BOTH, True, ())):
+        cases.append(l14_case(
+            "probe_mha_whole", l,
+            lambda q, kv, s=residency, c=causal: P.probe_mha_whole(
+                q, kv[..., :d], kv[..., d:], h, c, residency=s),
+            lambda q, kv, c=causal: P.tile_reference(q, kv[..., :d], kv[..., d:], h, c), dtypes, path,
+            causal=causal))
     cases.append(l14_case(
         "twopass_mha", 577, lambda q, kv: P.twopass_mha(q, kv, h),
         lambda q, kv: P.parts_reference(q, kv, h, 2), BOTH, BF16))
     cases.append(l14_case(
         "pair_mha", 577, lambda q, kv: P.pair_mha(q, kv, h),
         lambda q, kv: P.parts_reference(q, kv, h, P.pair_parts(q)), BOTH, BF16))
-    # the packed layout at probe_qkv_gb's shapes, K1's own tiling and another
+    # the packed layout at probe_qkv_gb's shapes, K1's shipped block and another
     for b, l, width, heads, causal in QKV_SHAPES.values():
-        for rows, warps, stage_fp32 in ((64, 8, True), (128, 16, False)):
+        for rows, warps, residency in (shipped, (128, 16, "resident")):
             cases.append(Case(
                 "probe_mha_qkv", (b, l, 3 * width), (b, l, 3 * width),
-                lambda t, n=heads, c=causal, r=rows, w=warps, f=stage_fp32: P.probe_mha_qkv(
-                    t, n, c, rows=r, warps=w, stage_fp32=f),
-                lambda t, n=heads, c=causal: A.mha_qkv_reference(t, n, c),
+                lambda t, n=heads, c=causal, r=rows, w=warps, s=residency: P.probe_mha_qkv(
+                    t, n, c, rows=r, warps=w, residency=s),
+                lambda t, n=heads, c=causal: P.tile_reference(*A._unpack_qkv(t), n, c),
                 lambda t, n=heads: packed_heads(t, 3, n), causal=causal,
-                path=BF16 if stage_fp32 else (), relative=True,
+                path=BF16 if (rows, warps, residency) == shipped else (), relative=True,
             ))
     scratch = {}
-    run_cases("probe kernels", cases, scratch, torch.Generator(device="cuda").manual_seed(SEED + 6))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    run_cases("probe kernels", cases, scratch, gen)
     report.update({k: v for k, v in scratch.items() if k in PROBE_REPLACES})
 
-    # the one failure that is a probe's result: K and V of 577 keys as fp32 do
-    # not fit a block, and the wrapper says so with the sizes before any launch
-    q = torch.zeros(1, 577, 3 * d, device="cuda", dtype=torch.bfloat16)
+    # at the shipped block the tile probe is the shipped kernel (mha_tc.cu in
+    # bf16, mha_tf32.cu in fp32): the same bits, and its time beside theirs, by
+    # device time too (under 0.3 ms the event time is the host's enqueue), at
+    # K6's path shapes (its fp32 path's is (64, 400, 1024): K6 admits fp32 up
+    # to L=420) and K1's
+    for dtype, route, (b6, l6) in ((torch.bfloat16, "mha_tc", (256, 577)),
+                                   (torch.float32, "mha_tf32", (64, 400))):
+        x = torch.randn(b6, l6, 3 * d, device="cuda", generator=gen).to(dtype)
+        pairs = [(f"qtile ({b6},{l6},1024) 16 h", lambda x=x: P.probe_mha_qtile(*qkv_views(x), h),
+                  lambda x=x: A.fused_mha_qtile(*qkv_views(x), h))]
+        for b, l, width, heads, causal in QKV_SHAPES.values():
+            t = torch.randn(b, l, 3 * width, device="cuda", generator=gen).to(dtype)
+            pairs.append((f"qkv {(b, l, 3 * width)} {heads} h causal={causal}",
+                          lambda t=t, n=heads, c=causal: P.probe_mha_qkv(t, n, c),
+                          lambda t=t, n=heads, c=causal: A.fused_mha_qkv(t, n, c)))
+        for what, probe, kernel in pairs:
+            A.reset_launch_counts()
+            ours, theirs = probe(), kernel()
+            torch.cuda.synchronize()
+            require(A.route_counts[route] == 1, f"{what} {dtype}: the shipped call took {A.route_counts}")
+            require(torch.equal(ours, theirs),
+                    f"the tile probe at the shipped block, {what} {dtype}: not the shipped kernel's bits "
+                    f"(max|diff| {(ours.float() - theirs.float()).abs().max().item():.3e})")
+            probe_ms, kernel_ms, again_ms = median_ms(probe), median_ms(kernel), median_ms(probe)
+            probe_dev, kernel_dev = device_ms(probe), device_ms(kernel)
+            print(f"[probe kernels] shipped block, {what} {str(dtype).split('.')[-1]}: equal to the bit; "
+                  f"by event time probe {probe_ms:.4f} ms ({again_ms:.4f} again), shipped kernel ({route}) "
+                  f"{kernel_ms:.4f} ms: {probe_ms / kernel_ms:.3f}x, {again_ms / kernel_ms:.3f}x; by device "
+                  f"time probe {format_ms(probe_dev)}, shipped {format_ms(kernel_dev)}: "
+                  f"{versus(probe_dev, kernel_dev)}")
+        del x, pairs
+
+    # the one failure that is a probe's result: fp32 K and V of 577 keys do not
+    # fit a block resident, and the wrapper says so with the sizes before any launch
+    q = torch.zeros(1, 577, 3 * d, device="cuda")
     P.reset_launch_counts()
     try:
-        P.probe_mha_whole(q[..., :d], q[..., d:2 * d], q[..., 2 * d:], h)
+        P.probe_mha_qtile(*qkv_views(q), h, residency="resident")
     except P.ProbeDoesNotFit as exc:
-        print(f"[probe kernels] whole at L=577 with fp32 staging: raises: {exc}")
-        require(exc.need == A.mha_smem_bytes(577, 64) and not any(P.launch_counts.values()),
+        print(f"[probe kernels] fp32 resident at L=577: raises: {exc}")
+        require(exc.need == P.tile_smem_bytes(577, 64, 4, 4, "resident") and not any(P.launch_counts.values()),
                 f"refusal sizes {exc.need}, launches {P.launch_counts}")
     else:
-        raise AssertionError("whole at L=577 with fp32 staging did not raise")
+        raise AssertionError("fp32 resident at L=577 did not raise")
+    from anomalyclip_tpu_torch.ops.build import load_library
+
+    lib_blocks = load_library().acl_mha_tc_blocks_per_sm(64, 0)
     for what, blocks in (
-        ("K6's tiling", P.probe_blocks_per_sm(torch.bfloat16, 577, 8, False)),
-        ("twopass", P.parts_blocks_per_sm(torch.bfloat16, 64, P.kv_part_length(577, 2), 8, 1)),
+        ("K6's block", P.probe_blocks_per_sm(torch.bfloat16, 577, 4)),
+        ("145 rows, 8 warps, resident", P.probe_blocks_per_sm(torch.bfloat16, 577, 8, "resident")),
+        ("twopass", P.parts_blocks_per_sm(torch.bfloat16, 64, P.kv_part_length(577, 2), 4, 1)),
         ("pair", P.parts_blocks_per_sm(torch.bfloat16, 64, P.kv_part_length(577, 2), 8, 2)),
     ):
         print(f"[probe kernels] blocks one SM holds at L=577 in bf16, {what}: {blocks}")
+    require(P.probe_blocks_per_sm(torch.bfloat16, 577, 4) == lib_blocks,
+            f"the tile probe at K6's block holds {P.probe_blocks_per_sm(torch.bfloat16, 577, 4)} blocks an SM, "
+            f"mha_tc.cu {lib_blocks}")
     torch.cuda.synchronize()
 
 
@@ -2712,17 +2785,24 @@ def phase_scripts() -> list:
     readings = dict(_bench_util.device_readings)
     runs = []
     # the isolated variants at the ViT-L/14@336px layer's shape and its aligned
-    # neighbour, then the two that need a length whose K and V fit otherwise
-    defaults = {"fused_mha_qtile": calls, "mha_tc": calls, "probe_mha_qtile": calls,
-                "twopass_mha": calls, "nosoftmax_mha": calls}
+    # neighbour, then the two of another length. The probe scripts time by two
+    # clocks (``_bench_util.both_clocks``: 2 (n + 1) launches), each first the
+    # shipped kernel at its shape, then each configuration after one checked call
+    timed = 2 * (n + 1)
+    probe = 1 + timed
+    defaults = {"fused_mha_qtile": probe + timed, "mha_tc": probe + timed, "probe_mha_qtile": 2 * probe,
+                "twopass_mha": probe, "nosoftmax_mha": probe}
     runs.append(run_script("bench_attn_l14", ["--check", *it], defaults))
     runs.append(run_script("bench_attn_l14", ["--check", "--seq", "576", *it], defaults))
     runs.append(run_script("bench_attn_l14", ["--check", "--seq", "400", "--variants", "whole,pair", *it],
-                           {"probe_mha_whole": calls, "pair_mha": calls}))
-    runs.append(run_script("probe_qkv_gb", ["b16", "bf16", "64,8", "128,16", "64,8,op", *it],
-                           {"probe_mha_qkv": 3 * calls}))
-    runs.append(run_script("probe_qkv_gb", ["text", "bf16", "64,8", *it], {"probe_mha_qkv": calls}))
-    runs.append(run_script("probe_qtile_vmem", ["145,8", "128,16", *it], {"probe_mha_qtile": 2 * calls}))
+                           {"fused_mha_qtile": timed, "mha_tc": timed, "probe_mha_whole": probe,
+                            "pair_mha": probe}))
+    runs.append(run_script("probe_qkv_gb", ["b16", "bf16", "64,4", "128,16", "64,4,resident", *it],
+                           {"fused_mha_qkv": timed, "mha_tc": timed, "probe_mha_qkv": 3 * probe}))
+    runs.append(run_script("probe_qkv_gb", ["text", "bf16", "64,4", *it],
+                           {"fused_mha_qkv": timed, "mha_tc": timed, "probe_mha_qkv": probe}))
+    runs.append(run_script("probe_qtile_vmem", ["145,8,resident", "128,16", *it],
+                           {"fused_mha_qtile": timed, "mha_tc": timed, "probe_mha_qtile": 2 * probe}))
     # the whole tower: --iters 15 gives 5 timed forwards after a checked and a
     # warm one; 24 layers each under the fused kernels, no launch under the
     # identity and the plain attention
@@ -5553,7 +5633,7 @@ def kernel_class(name: str) -> str:
         return "attention backward (mha_whole_tf32_bwd.cu)"
     if "mha_fwd_kernel" in low:
         return "attention (mha.cu)"
-    if "probe_kernel" in low or "parts_kernel" in low:
+    if "probe_tile_kernel" in low or "probe_parts_kernel" in low:
         return "attention (mha_probe.cu)"
     if "flash_fwd_kernel" in low:
         return "attention (mha_long.cu)"

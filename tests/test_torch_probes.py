@@ -10,6 +10,8 @@ On the CPU the probe wrappers run their plain PyTorch versions. Held here:
   compiler parameters and run in interpret mode. fp32 within 1e-5 and bf16
   within 5e-2, absolute (anomalyclip_tpu/ops/pallas/attention.py:22-25);
 - the KV-part plain version against the whole-row one, and its short last part;
+  the plain versions against the shipped kernels' plain versions at their
+  rounding blocks (bf16 64-key blocks, fp32 split-TF32 products);
 - the Python of each wrapper (shape checks, views and strides, counters, the
   refusals with their sizes) with the library replaced by a numpy version of
   its entries that reads and writes through the pointers it is given;
@@ -20,8 +22,10 @@ On the CPU the probe wrappers run their plain PyTorch versions. Held here:
 - every script with ``--device cpu``: it runs to the end and prints no times;
 - the entry points' device defaults.
 
-The ``gpu`` cases hold each new kernel against its plain version on the card
-and import no JAX.
+The ``gpu`` cases hold each kernel against its plain version on the card, at
+each knob (rows, warps, residency, parts, heads a block, the softmax), hold the
+tile probe at the shipped block equal to ``fused_mha_qtile`` and
+``fused_mha_qkv`` to the bit, and import no JAX.
 """
 
 from __future__ import annotations
@@ -114,15 +118,20 @@ def _close(got, want, dtype_name, what=""):
 # the plain versions against the JAX scripts' Pallas bodies in interpret mode
 # ---------------------------------------------------------------------------
 
+def _tile_plain(q, kv):
+    return probes.tile_reference(q, kv[..., :D], kv[..., D:], H)
+
+
 # variant -> its plain version as f(q, kv), and whether a block's shared memory
 # fits at L=577 in (fp32, bf16): K and V of a head resident in fp32 do not
 VARIANTS = {
-    "qtile-lq120": (lambda q, kv: tattn.mha_qtile_reference(q, kv, H), (False, True)),
-    "qtilegb2-lq128": (lambda q, kv: tattn.mha_qtile_reference(q, kv, H), (False, True)),
+    "qtile-lq120": (_tile_plain, (True, True)),
+    "qtile-lq120-resident": (_tile_plain, (False, True)),
+    "qtilegb2-lq128": (_tile_plain, (True, True)),
     "twopass-gb2": (lambda q, kv: probes.parts_reference(q, kv, H, 2), (True, True)),
-    "whole-gb1": (lambda q, kv: tattn.mha_bld_reference(q, kv[..., :D], kv[..., D:], H), (False, False)),
+    "whole-gb1": (_tile_plain, (False, True)),
     "pair-gb2": (lambda q, kv: probes.parts_reference(q, kv, H, probes.pair_parts(q)), (True, True)),
-    "nosoftmax": (lambda q, kv: probes.nosoftmax_reference(q, kv, H), (False, True)),
+    "nosoftmax": (lambda q, kv: probes.nosoftmax_reference(q, kv, H), (True, True)),
 }
 
 
@@ -142,7 +151,8 @@ def test_variant_plain_matches_the_jax_scripts_pallas_body(
     plain, fits = VARIANTS[variant]
     got = plain(q, kv)
     assert got.dtype == q.dtype
-    _close(got, jbench.make_variant(variant)(jq, jkv), dtype_name, variant)
+    # the port's residency suffix is not in the JAX grammar: its q tile keeps K and V resident
+    _close(got, jbench.make_variant(variant.removesuffix("-resident"))(jq, jkv), dtype_name, variant)
     # the port's variant of that name: on the CPU its plain version, or, where a
     # block would not fit the card, the refusal with the sizes (as the TPU
     # variant fails in its compiler)
@@ -156,8 +166,8 @@ def test_variant_plain_matches_the_jax_scripts_pallas_body(
 
 @pytest.mark.parametrize("dtype_name", list(TOL))
 def test_whole_variant_runs_where_it_fits(jax_side, interpret_mode, monkeypatch, dtype_name):
-    """``whole`` at a ``--seq`` whose K and V fit as fp32."""
-    l = 400
+    """``whole`` at a ``--seq`` whose K and V fit resident as fp32."""
+    l = 360
     jbench = _small(_load_script("bench_attn_l14"), l)
     monkeypatch.setattr(tbench, "H", H)
     monkeypatch.setattr(tbench, "D", D)
@@ -182,14 +192,14 @@ def test_probe_qkv_plain_matches_the_jax_probe(jax_side, interpret_mode, l, caus
 def test_probe_qtile_plain_matches_the_jax_probe(jax_side, interpret_mode, gb, lq, dtype_name):
     jprobe = _small(_load_script("probe_qtile_vmem"), 577)
     (jq, jkv), (q, kv) = _inputs(np.random.default_rng(33), [(B, 577, D), (B, 577, 2 * D)], dtype_name)
-    if dtype_name == "float32":
-        # K and V of 577 keys in the operand type fit as bf16 only
-        with pytest.raises(probes.ProbeDoesNotFit, match="staged in 4 B"):
-            probes.probe_mha_qtile(q, kv, H, rows=lq, warps=4 * gb)
-        got = tattn.mha_qtile_reference(q, kv, H)
-    else:
-        got = probes.probe_mha_qtile(q, kv, H, rows=lq, warps=4 * gb)
+    got = probes.probe_mha_qtile(q, kv, H, rows=lq, warps=4 * gb)
     _close(got, jprobe.make(gb, lq)(jq, jkv), dtype_name)
+    if dtype_name == "float32":
+        # K and V of 577 keys resident fit as bf16 only
+        with pytest.raises(probes.ProbeDoesNotFit, match="K and V resident"):
+            probes.probe_mha_qtile(q, kv, H, rows=lq, warps=4 * gb, residency="resident")
+    else:  # the residency moves no rounding
+        assert torch.equal(probes.probe_mha_qtile(q, kv, H, rows=lq, warps=4 * gb, residency="resident"), got)
 
 
 @pytest.mark.parametrize("l,parts", [(577, 2), (100, 3), (64, 1), (130, 4)])
@@ -217,6 +227,39 @@ def test_parts_plain_rounds_like_the_kernel_in_bf16():
     whole, parts = tattn.mha_qtile_reference(q, kv, H), probes.parts_reference(q, kv, H, 2)
     assert not torch.equal(whole, parts)
     torch.testing.assert_close(parts.float(), whole.float(), rtol=0, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype_name", list(TOL))
+@pytest.mark.parametrize("causal", [False, True])
+def test_tile_plain_rounds_like_the_shipped_kernels_plain_versions(dtype_name, causal):
+    """The tile probe's plain version is the one the shipped kernels are held
+    to, to the bit: in bf16 the 64-key blocks of mha_tc.cu
+    (``attention_blocked_reference``), in fp32 the split-TF32 products of
+    mha_tf32.cu (``tf32x3_reference``)."""
+    rng = np.random.default_rng(36)
+    qkv = torch.from_numpy(rng.standard_normal((2, 150, 3 * D)).astype(np.float32)).to(TDTYPE[dtype_name])
+    got = probes.probe_mha_qkv(qkv, H, causal, rows=48, warps=8, residency="resident")
+    if dtype_name == "bfloat16":
+        want = tattn.mha_qkv_reference(qkv, H, causal, block=tattn.MHA_TC_BLOCK_KV)
+    else:
+        want = tattn.mha_qkv_tf32x3_reference(qkv, H, causal)
+    assert torch.equal(got, want)
+    # and the whole-row plain version within the limit
+    _close(got, tattn.mha_qkv_reference(qkv.float(), H, causal), dtype_name)
+
+
+@pytest.mark.parametrize("l,parts,steps", [
+    (577, 2, [(0, 64), (64, 128), (128, 192), (192, 256), (256, 289), (289, 353), (353, 417),
+              (417, 481), (481, 545), (545, 577)]),
+    (100, 3, [(0, 34), (34, 68), (68, 100)]),
+    (130, 1, [(0, 64), (64, 128), (128, 130)]),
+    (200, 2, [(0, 64), (64, 100), (100, 164), (164, 200)]),
+])
+def test_parts_steps_restart_at_each_part(l, parts, steps):
+    """The parts probe sweeps each part in 64-key steps from its start, the last
+    step of a part short: where bf16 rounds p."""
+    assert probes.parts_steps(l, parts) == steps
+    assert probes.tile_steps(l) == [(s, min(s + 64, l)) for s in range(0, l, 64)]
 
 
 # ---------------------------------------------------------------------------
@@ -255,20 +298,20 @@ class NumpyProbeKernels:
     def _out(self, out, shape):
         return self._view(out, shape[1] * shape[2], shape[2], shape)
 
-    def acl_probe_qkv_fwd(self, dtype, stage, rows, warps, qkv, bs, rs, out, b, l, h, dh, causal,
+    def acl_probe_qkv_fwd(self, dtype, resident, rows, warps, qkv, bs, rs, out, b, l, h, dh, causal,
                           scale, stream):
         assert dtype == 0
-        self.calls.append(("qkv", stage, rows, warps))
+        self.calls.append(("qkv", resident, rows, warps))
         d = h * dh
         x = self._view(qkv, bs, rs, (b, l, 3 * d))
         self._out(out, (b, l, d))[...] = self._attend(
             x[..., :d], x[..., d:2 * d], x[..., 2 * d:], h, causal, scale)
         return 0
 
-    def _qtile(self, tag, softmax, dtype, stage, rows, warps, q, q_bs, q_rs, kv, kv_bs, kv_rs, out,
+    def _qtile(self, tag, softmax, dtype, resident, rows, warps, q, q_bs, q_rs, kv, kv_bs, kv_rs, out,
                b, l, h, dh, scale, stream):
         assert dtype == 0
-        self.calls.append((tag, stage, rows, warps))
+        self.calls.append((tag, resident, rows, warps))
         d = h * dh
         qv, kvv = self._view(q, q_bs, q_rs, (b, l, d)), self._view(kv, kv_bs, kv_rs, (b, l, 2 * d))
         self._out(out, (b, l, d))[...] = self._attend(
@@ -281,10 +324,10 @@ class NumpyProbeKernels:
     def acl_probe_nosoftmax_fwd(self, *args):
         return self._qtile("nosoftmax", False, *args)
 
-    def acl_probe_bld_fwd(self, dtype, stage, rows, warps, q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs,
+    def acl_probe_bld_fwd(self, dtype, resident, rows, warps, q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs,
                           v_rs, out, b, l, h, dh, causal, scale, stream):
         assert dtype == 0
-        self.calls.append(("bld", stage, rows, warps))
+        self.calls.append(("bld", resident, rows, warps))
         d = h * dh
         views = [self._view(p, bs, rs, (b, l, d))
                  for p, bs, rs in ((q, q_bs, q_rs), (k, k_bs, k_rs), (v, v_bs, v_rs))]
@@ -349,10 +392,12 @@ def test_tile_probe_wrappers_read_views_in_place_and_count(numpy_kernels):
     got = probes.probe_mha_whole(q, kv[..., :D], kv[..., D:], H, warps=4)
     torch.testing.assert_close(got, tattn.mha_bld_reference(q, kv[..., :D], kv[..., D:], H),
                                rtol=0, atol=FP32_TOL)
-    # staging: K1 and K2 as fp32, K6 and nosoftmax in the operand type; whole: L rows
-    assert numpy_kernels.calls == [("qkv", 1, 32, 16), ("qtile", 0, 73, 4), ("nosoftmax", 0, 128, 8),
+    # K and V streamed by default, resident for whole; whole: L rows
+    assert numpy_kernels.calls == [("qkv", 0, 32, 16), ("qtile", 0, 73, 4), ("nosoftmax", 0, 128, 4),
                                    ("bld", 1, 150, 4)]
-    assert probes.launch_counts == _counts(probe_mha_qkv=1, probe_mha_qtile=1, nosoftmax_mha=1,
+    probes.probe_mha_qtile(q, kv, H, warps=8, residency="resident")
+    assert numpy_kernels.calls[-1] == ("qtile", 1, 64, 8)
+    assert probes.launch_counts == _counts(probe_mha_qkv=1, probe_mha_qtile=2, nosoftmax_mha=1,
                                            probe_mha_whole=1)
 
 
@@ -367,18 +412,18 @@ def test_parts_wrappers_cut_the_keys_and_count(numpy_kernels):
     torch.testing.assert_close(probes.pair_mha(q, kv, H), want, rtol=0, atol=FP32_TOL)
     # twopass: ceil(577 / 2) and ceil(577 / 3) keys a part, one head a block; pair
     # in fp32: four parts of 145 keys are the fewest that fit two heads
-    assert numpy_kernels.calls == [("parts", 1, 64, 8, 289), ("parts", 1, 32, 16, 193),
+    assert numpy_kernels.calls == [("parts", 1, 64, 4, 289), ("parts", 1, 32, 16, 193),
                                    ("parts", 2, 64, 8, 145)]
     assert probes.launch_counts == _counts(twopass_mha=2, pair_mha=1)
 
 
 def test_probe_refusals_name_the_sizes(numpy_kernels):
     q, kv = torch.zeros(2, 577, D), torch.zeros(2, 577, 2 * D)
-    with pytest.raises(probes.ProbeDoesNotFit, match="needs 318244 B of shared memory per block, given 232448 B"):
+    with pytest.raises(probes.ProbeDoesNotFit, match="needs 358400 B of shared memory per block, given 232448 B"):
         probes.probe_mha_whole(q, kv[..., :D], kv[..., D:], H)
     with pytest.raises(probes.ProbeDoesNotFit, match="given 49152 B") as info:
         probes.probe_mha_qkv(torch.zeros(2, 197, 3 * D), H, smem_cap=probes.SMEM_DEFAULT)
-    assert (info.value.need, info.value.have) == (tattn.mha_smem_bytes(197, 64), 49152)
+    assert (info.value.need, info.value.have) == (tattn.mha_tf32_smem_bytes(64), 49152)
     with pytest.raises(probes.ProbeDoesNotFit, match="2 KV parts of 289 keys"):
         probes.twopass_mha(q, kv, H, rows=512)
     with pytest.raises(probes.ProbeDoesNotFit):
@@ -396,13 +441,20 @@ def test_probe_refusals_name_the_sizes(numpy_kernels):
         probes.twopass_mha(torch.zeros(2, 50, D), base[..., 1:-1], H)
     with pytest.raises(ValueError, match="do not split into groups of 2"):
         probes.pair_mha(torch.zeros(2, 50, 3 * 64), torch.zeros(2, 50, 6 * 64), 3)
+    with pytest.raises(ValueError, match="residency 'vmem' is not one of"):
+        probes.probe_mha_qtile(torch.zeros(2, 50, D), torch.zeros(2, 50, 2 * D), H, residency="vmem")
+    with pytest.raises(ValueError, match="qkv .*: every row must start at a 16-byte boundary"):
+        base = torch.zeros(2, 50, 3 * D + 1)
+        probes.probe_mha_qkv(base[..., 1:], H)
+    assert numpy_kernels.calls == [] and probes.launch_counts == _counts()
 
 
 def test_probes_on_the_cpu_run_the_plain_versions_and_count_nothing():
     probes.reset_launch_counts()
     rng = np.random.default_rng(42)
     q, kv = _randn(rng, 2, 90, D), _randn(rng, 2, 90, 2 * D)
-    assert torch.equal(probes.probe_mha_qtile(q, kv, H, rows=32, warps=16), tattn.mha_qtile_reference(q, kv, H))
+    assert torch.equal(probes.probe_mha_qtile(q, kv, H, rows=32, warps=16),
+                       tattn.mha_qtile_tf32x3_reference(q, kv, H))
     assert torch.equal(probes.nosoftmax_mha(q, kv, H), probes.nosoftmax_reference(q, kv, H))
     assert torch.equal(probes.pair_mha(q, kv, H), probes.parts_reference(q, kv, H, 1))
     assert probes.launch_counts == _counts()
@@ -414,22 +466,50 @@ def test_probes_on_the_cpu_run_the_plain_versions_and_count_nothing():
 
 
 def test_shared_memory_formulas_at_the_scripts_shapes():
-    # the whole-row kernel at K6's shape: 150 KB of K and V as bf16, fp32 rows per warp
-    assert tattn.mha_smem_bytes(577, 64, 2, 8) == 170_532
-    assert tattn.mha_smem_bytes(577, 64, 2, 16) == 170_532 + 8 * 4 * (577 + 64)
-    assert tattn.mha_smem_bytes(577, 64, 4, 8) == 318_244  # whole: does not fit
-    assert tattn.mha_smem_bytes(197, 64, 4, 4) == tattn.mha_smem_bytes(197, 64) - 4 * 4 * (197 + 64)
-    # twopass at L=577 in bf16: two blocks fit an SM's 227 KB where K6 fits one
+    tile = probes.tile_smem_bytes
+    # streamed, the shipped block's shared memory whatever L: mha_tc.cu's and mha_tf32.cu's
+    for l in (50, 197, 577, 1024):
+        assert tile(l, 64, 2, 4, "streamed") == tattn.mha_tc_smem_bytes(64) == 46_080
+        assert tile(l, 64, 4, 4, "streamed") == tattn.mha_tf32_smem_bytes(64) == 71_680
+    assert tile(577, 64, 2, 16, "streamed") == 46_080 + 12 * 16 * 72 * 2  # the warps' q rows
+    # resident: K and V of 640 rows at L=577 in bf16 (the TPU's form) fit; in fp32 not
+    assert tile(577, 64, 2, 4, "resident") == 193_536 <= tattn.H100_SMEM_OPTIN
+    assert tile(577, 64, 2, 16, "resident") == 221_184 <= tattn.H100_SMEM_OPTIN
+    assert tile(577, 64, 4, 4, "resident") == 358_400 > tattn.H100_SMEM_OPTIN
+    assert tile(360, 64, 4, 4, "resident") == 215_040 <= tattn.H100_SMEM_OPTIN < tile(400, 64, 4, 4, "resident")
+    # 577 keys stage a tenth 64-row block for one key: 576 do not
+    assert tile(576, 64, 2, 4, "resident") == 175_104 == tile(577, 64, 2, 4, "resident") - 64 * 2 * 72 * 2
+    # twopass at L=577 in bf16: two blocks fit an SM's 227 KB
     assert probes.kv_part_length(577, 2) == 289
-    twopass = probes.parts_smem_bytes(64, 289, 64, 2, 8, 1)
-    assert twopass == 103_332 and 2 * twopass <= tattn.H100_SMEM_OPTIN < 2 * 170_532
+    twopass = probes.parts_smem_bytes(64, 289, 64, 2, 4, 1)
+    assert twopass == 101_376 and 2 * twopass <= tattn.H100_SMEM_OPTIN
+    # a warp that sweeps several tiles keeps their state in shared memory: 36
+    # floats a lane a tile
+    assert probes.tiles_per_warp(64, 4, 1) == 1 and probes.tiles_per_warp(64, 4, 2) == 2
+    assert probes.parts_smem_bytes(64, 289, 64, 2, 4, 2) == 192_512 - 4 * 16 * 72 * 2 + 4 * 4 * 2 * 36 * 32
     # pair: both heads' halves in bf16 fit one block; in fp32 four parts are needed
-    assert probes.parts_smem_bytes(64, 289, 64, 2, 8, 2) == 194_212
+    assert probes.parts_smem_bytes(64, 289, 64, 2, 8, 2) == 192_512
     assert probes.fewest_parts(577, 64, 64, 2, 8, 2, tattn.H100_SMEM_OPTIN) == 2
     assert probes.fewest_parts(577, 64, 64, 4, 8, 2, tattn.H100_SMEM_OPTIN) == 4
     assert probes.fewest_parts(197, 64, 64, 2, 8, 2, tattn.H100_SMEM_OPTIN) == 1
     with pytest.raises(probes.ProbeDoesNotFit):
         probes.fewest_parts(577, 64, 64, 2, 8, 2, 20_000)
+
+
+@pytest.mark.parametrize("dtype_name", list(TOL))
+@pytest.mark.parametrize("residency", ["streamed", "resident"])
+def test_refusal_sizes_of_each_residency(dtype_name, residency):
+    """The size a refusal names is the formula's at the wrapper's tiling, for
+    each residency; under a cap the streamed block fits, the same call refuses."""
+    q = torch.zeros(1, 577, D, dtype=TDTYPE[dtype_name])
+    kv = torch.zeros(1, 577, 2 * D, dtype=TDTYPE[dtype_name])
+    need = probes.tile_smem_bytes(577, 64, q.element_size(), 8, residency)
+    have = min(need - 1, tattn.H100_SMEM_OPTIN)  # a cap above the card's limit is the limit
+    with pytest.raises(probes.ProbeDoesNotFit, match=f"K and V {residency}") as info:
+        probes.probe_mha_qtile(q, kv, H, warps=8, residency=residency, smem_cap=need - 1)
+    assert (info.value.need, info.value.have) == (need, have)
+    if need <= tattn.H100_SMEM_OPTIN:
+        assert probes.probe_mha_qtile(q, kv, H, warps=8, residency=residency, smem_cap=need).shape == q.shape
 
 
 def test_the_rung_each_validate_shape_takes():
@@ -525,12 +605,13 @@ _SCRIPTS = [
     ("bench_latency", ["--path", "both"]),
     ("bench_train_step", []),
     ("bench_attn_l14", ["--check", "--variants",
-                        "qtile,qtile-lq120,twopass,nosoftmax,plain,whole,pair-gb2,qtilegb4-lq73"]),
+                        "qtile,qtile-lq120,twopass,nosoftmax,plain,whole,pair-gb2,qtilegb4-lq73-resident,"
+                        "twopass-lq512"]),
     ("bench_attn_l14", ["--check", "--seq", "400", "--variants", "whole-gb1,pair,nosoftmaxgb1-lq32"]),
     ("bench_attn_l14", ["--tower"]),
     ("probe_qkv_gb", ["text", "fp32"]),
-    ("probe_qkv_gb", ["b16", "bf16", "32,4", "64,16,op"]),
-    ("probe_qtile_vmem", ["73,8", "145,16"]),
+    ("probe_qkv_gb", ["b16", "bf16", "32,4", "64,16,resident"]),
+    ("probe_qtile_vmem", ["73,8", "145,16,resident"]),
     ("validate_pickgb", []),
     ("validate_qtile_config", []),
     ("bench_attn_bwd", ["--qtile"]),
@@ -553,8 +634,11 @@ def test_script_runs_to_the_end_on_the_cpu_and_prints_no_times(script, argv, cap
     out = capsys.readouterr().out
     assert out.startswith("# device: cpu")
     assert " ms" not in out and "fps" not in out and "FAIL" not in out
-    if script == "bench_attn_l14" and "whole" in " ".join(argv) and "--seq" not in argv:
-        assert "whole              does not fit: needs 318244 B" in out
+    if script == "bench_attn_l14" and "twopass-lq512" in " ".join(argv):
+        # whole at L=577 in bf16 fits resident; 32 tiles of a head over 4 warps keep
+        # their state in shared memory, which does not fit
+        assert "whole              max|diff|" in out
+        assert "twopass-lq512      does not fit: needs 248832 B" in out
 
 
 def test_probe_bf16_drift_returns_its_readings(capsys):
@@ -707,36 +791,57 @@ def _gpu_close(got, want, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
-@pytest.mark.parametrize("rows,warps,stage_fp32", [(64, 8, True), (32, 4, True), (128, 16, False), (73, 8, False)])
+@pytest.mark.parametrize("rows,warps,residency", [(64, 4, "streamed"), (32, 4, "resident"), (128, 16, "streamed"),
+                                                  (73, 8, "resident")])
 @pytest.mark.parametrize("b,l,d,heads,causal", [(8, 197, 768, 12, False), (8, 77, 512, 8, True)])
-def test_probe_qkv_kernel_matches_plain(cuda, dtype, tol, rows, warps, stage_fp32, b, l, d, heads, causal):
+def test_probe_qkv_kernel_matches_plain(cuda, dtype, tol, rows, warps, residency, b, l, d, heads, causal):
     x, _, _ = _gpu_inputs(cuda, b, l, d, dtype)
     probes.reset_launch_counts()
-    got = probes.probe_mha_qkv(x, heads, causal, rows=rows, warps=warps, stage_fp32=stage_fp32)
+    got = probes.probe_mha_qkv(x, heads, causal, rows=rows, warps=warps, residency=residency)
     assert probes.launch_counts == _counts(probe_mha_qkv=1)
-    _gpu_close(got, tattn.mha_qkv_reference(x, heads, causal), tol)
-    assert probes.probe_blocks_per_sm(dtype, l, warps, stage_fp32) >= 1
+    _gpu_close(got, probes.tile_reference(*tattn._unpack_qkv(x), heads, causal), tol)
+    assert probes.probe_blocks_per_sm(dtype, l, warps, residency) >= 1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,warps", [(64, 8), (73, 4), (145, 16), (577, 8)])
-def test_probe_qtile_and_nosoftmax_kernels_match_plain_at_the_l14_shape(cuda, rows, warps):
-    """bf16 at L=577 (fp32 does not fit there), the tiling free; fp32 at L=360,
-    which fits at 16 warps too."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,heads,causal", [(8, 197, 768, 12, False), (8, 77, 512, 8, True), (3, 65, 1024, 16, False),
+                                                (4, 400, 1024, 16, False)])
+def test_tile_probe_at_the_shipped_block_is_the_shipped_kernel(cuda, dtype, b, l, d, heads, causal):
+    """At 64 rows, 4 warps, K and V streamed, the tile probe gives the bits of
+    ``fused_mha_qkv`` and ``fused_mha_qtile`` (mha_tc.cu in bf16, mha_tf32.cu in
+    fp32)."""
+    x, q, kv = _gpu_inputs(cuda, b, l, d, dtype, seed=3)
+    tattn.reset_launch_counts()
+    assert torch.equal(probes.probe_mha_qkv(x, heads, causal), tattn.fused_mha_qkv(x, heads, causal))
+    if not causal:
+        assert torch.equal(probes.probe_mha_qtile(q, kv, heads), tattn.fused_mha_qtile(q, kv, heads))
+    route = "mha_tc" if dtype == torch.bfloat16 else "mha_tf32"
+    assert tattn.route_counts[route] == 1 + (not causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,warps,residency", [(64, 4, "streamed"), (73, 4, "resident"), (145, 16, "streamed"),
+                                                  (577, 8, "resident"), (1, 4, "streamed")])
+def test_probe_qtile_and_nosoftmax_kernels_match_plain_at_the_l14_shape(cuda, rows, warps, residency):
+    """bf16 at L=577, the tiling free; fp32 at L=577 streamed and at L=360
+    resident, where K and V fit."""
     _, q, kv = _gpu_inputs(cuda, 4, 577, 1024, torch.bfloat16)
     probes.reset_launch_counts()
-    _gpu_close(probes.probe_mha_qtile(q, kv, 16, rows=rows, warps=warps),
-               tattn.mha_qtile_reference(q, kv, 16), BF16_TOL)
-    _gpu_close(probes.nosoftmax_mha(q, kv, 16, rows=rows, warps=warps),
-               probes.nosoftmax_reference(q, kv, 16), BF16_TOL)
-    _, q, kv = _gpu_inputs(cuda, 4, 360, 1024, torch.float32)
-    _gpu_close(probes.probe_mha_qtile(q, kv, 16, rows=rows, warps=warps),
-               tattn.mha_qtile_reference(q, kv, 16), FP32_TOL)
-    _gpu_close(probes.nosoftmax_mha(q, kv, 16, rows=rows, warps=warps),
-               probes.nosoftmax_reference(q, kv, 16), FP32_TOL)
+    knobs = {"rows": rows, "warps": warps, "residency": residency}
+    _gpu_close(probes.probe_mha_qtile(q, kv, 16, **knobs), _qtile_plain(q, kv, 16), BF16_TOL)
+    _gpu_close(probes.nosoftmax_mha(q, kv, 16, **knobs), probes.nosoftmax_reference(q, kv, 16), BF16_TOL)
+    _, q, kv = _gpu_inputs(cuda, 4, 360 if residency == "resident" else 577, 1024, torch.float32)
+    _gpu_close(probes.probe_mha_qtile(q, kv, 16, **knobs), _qtile_plain(q, kv, 16), FP32_TOL)
+    _gpu_close(probes.nosoftmax_mha(q, kv, 16, **knobs), probes.nosoftmax_reference(q, kv, 16), FP32_TOL)
     assert probes.launch_counts == _counts(probe_mha_qtile=2, nosoftmax_mha=2)
     with pytest.raises(probes.ProbeDoesNotFit):
-        probes.probe_mha_qtile(*_gpu_inputs(cuda, 1, 577, 1024, torch.float32)[1:], 16)
+        probes.probe_mha_qtile(*_gpu_inputs(cuda, 1, 577, 1024, torch.float32)[1:], 16, residency="resident")
+
+
+def _qtile_plain(q, kv, heads):
+    d = q.shape[-1]
+    return probes.tile_reference(q, kv[..., :d], kv[..., d:], heads)
 
 
 @pytest.mark.gpu
@@ -746,18 +851,24 @@ def test_probe_whole_kernel_matches_plain(cuda, dtype, tol, warps):
     _, q, kv = _gpu_inputs(cuda, 4, 360, 1024, dtype)
     k, v = kv[..., :1024], kv[..., 1024:]
     probes.reset_launch_counts()
-    _gpu_close(probes.probe_mha_whole(q, k, v, 16, warps=warps), tattn.mha_bld_reference(q, k, v, 16), tol)
-    _gpu_close(probes.probe_mha_whole(q, k, v, 16, True, warps=warps),
-               tattn.mha_bld_reference(q, k, v, 16, True), tol)
-    assert probes.launch_counts == _counts(probe_mha_whole=2)
-    with pytest.raises(probes.ProbeDoesNotFit, match="given 232448 B"):
-        _, q, kv = _gpu_inputs(cuda, 1, 577, 1024, dtype)
-        probes.probe_mha_whole(q, kv[..., :1024], kv[..., 1024:], 16)
+    for residency in probes.RESIDENCIES:
+        for causal in (False, True):
+            _gpu_close(probes.probe_mha_whole(q, k, v, 16, causal, warps=warps, residency=residency),
+                       probes.tile_reference(q, k, v, 16, causal), tol)
+    assert probes.launch_counts == _counts(probe_mha_whole=4)
+    # at L=577 K and V resident fit in bf16 only
+    _, q, kv = _gpu_inputs(cuda, 1, 577, 1024, dtype)
+    k, v = kv[..., :1024], kv[..., 1024:]
+    if dtype == torch.bfloat16:
+        _gpu_close(probes.probe_mha_whole(q, k, v, 16, warps=warps), probes.tile_reference(q, k, v, 16), tol)
+    else:
+        with pytest.raises(probes.ProbeDoesNotFit, match="needs 358400 B .* given 232448 B"):
+            probes.probe_mha_whole(q, k, v, 16, warps=warps)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", _GPU_DTYPES)
-@pytest.mark.parametrize("l,parts,rows,warps", [(577, 2, 64, 8), (577, 3, 32, 16), (130, 4, 128, 4), (64, 1, 64, 8)])
+@pytest.mark.parametrize("l,parts,rows,warps", [(577, 2, 64, 4), (577, 3, 32, 16), (130, 4, 128, 4), (64, 1, 64, 8)])
 def test_twopass_kernel_matches_plain(cuda, dtype, tol, l, parts, rows, warps):
     _, q, kv = _gpu_inputs(cuda, 4, l, 1024, dtype, seed=1)
     probes.reset_launch_counts()
@@ -785,5 +896,5 @@ def test_probes_under_the_reference_impl_launch_nothing_on_the_card(cuda):
     probes.reset_launch_counts()
     with tattn.attention_impl("reference"):
         assert torch.equal(probes.twopass_mha(q, kv, 2), probes.parts_reference(q, kv, 2, 2))
-        assert torch.equal(probes.probe_mha_qtile(q, kv, 2), tattn.mha_qtile_reference(q, kv, 2))
+        assert torch.equal(probes.probe_mha_qtile(q, kv, 2), _qtile_plain(q, kv, 2))
     assert probes.launch_counts == _counts()
