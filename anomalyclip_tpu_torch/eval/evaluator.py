@@ -34,6 +34,7 @@ from anomalyclip_tpu_torch.models.selector import BNState, selector_test
 from anomalyclip_tpu_torch.models.temporal import temporal_scores
 from anomalyclip_tpu_torch.numerics import matmul_precision_for
 from anomalyclip_tpu_torch.parallel.mesh import allgather_host, distributed
+from anomalyclip_tpu_torch.utils.trace import span
 
 def _require_on(device: torch.device, name: str, tree) -> None:
     """Raise unless every tensor of ``tree`` lies on ``device``, both named."""
@@ -136,7 +137,9 @@ class GridScorer:
     def score_grids(self, grids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Pad the grid batch to a bucket, score, trim."""
         grids, g = pad_to_bucket(grids, self.buckets)
-        similarity, scores = self._score(torch.from_numpy(grids).to(self.device))
+        uploaded = torch.from_numpy(grids).to(self.device)
+        with span("anomalyclip.model.score"):
+            similarity, scores = self._score(uploaded)
         n_l = grids.shape[1] * grids.shape[2]
         return (
             similarity.cpu().numpy()[: g * n_l],
@@ -160,19 +163,21 @@ def score_video(item: TestItem, scorer: GridScorer, model: AnomalyCLIP) -> Video
     cfg = model.cfg
     feats = item.features  # (ncrops, n*s*l, D) or frames (ncrops, n*s*l, H, W, 3)
     if feats.ndim == 5:
-        ncrops, t = feats.shape[:2]
-        flat = feats.reshape((-1,) + feats.shape[2:])
-        feats = scorer.encode_frames_np(flat).reshape(ncrops, t, -1)
+        with span("anomalyclip.evaluator.encode"):
+            ncrops, t = feats.shape[:2]
+            flat = feats.reshape((-1,) + feats.shape[2:])
+            feats = scorer.encode_frames_np(flat).reshape(ncrops, t, -1)
 
-    sim, sc, class_probs = score_sampled_features(
-        feats,
-        item.segment_size,
-        cfg.num_segments,
-        cfg.seg_length,
-        cfg.stride,
-        len(item.frame_labels),
-        scorer.score_grids,
-    )
+    with span("anomalyclip.evaluator.grids"):
+        sim, sc, class_probs = score_sampled_features(
+            feats,
+            item.segment_size,
+            cfg.num_segments,
+            cfg.seg_length,
+            cfg.stride,
+            len(item.frame_labels),
+            scorer.score_grids,
+        )
     return VideoScores(
         similarity=sim,
         scores=sc,

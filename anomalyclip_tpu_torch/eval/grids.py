@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from anomalyclip_tpu_torch.data.sources import normalize_frames
+from anomalyclip_tpu_torch.utils.trace import span
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
@@ -98,17 +99,25 @@ def encode_frames_chunked(
     go to the device as uint8 and are normalized there, or, with
     ``host_normalize``, on the host (``normalize_frames``, the same fp32
     arithmetic) for an encoder that takes float32 frames only, as the exported
-    encode graph does (export.py). bf16 features widen to float32 exactly."""
+    encode graph does (export.py). bf16 features widen to float32 exactly.
+    Each chunk's staging, upload, encode and fetch (the sync) are spans of
+    their own (utils/trace.py)."""
     outs = []
     for i in range(0, len(frames), chunk):
-        part = frames[i : i + chunk]
-        if host_normalize and part.dtype == np.uint8:
-            part = normalize_frames(part)
-        pad = chunk - len(part)
-        if pad:
-            part = np.concatenate([part, np.repeat(part[:1], pad, axis=0)])
-        out = encode(torch.from_numpy(np.ascontiguousarray(part)).to(device))
-        out = out.float().cpu().numpy()
+        with span("anomalyclip.evaluator.stage"):
+            part = frames[i : i + chunk]
+            if host_normalize and part.dtype == np.uint8:
+                part = normalize_frames(part)
+            pad = chunk - len(part)
+            if pad:
+                part = np.concatenate([part, np.repeat(part[:1], pad, axis=0)])
+            part = np.ascontiguousarray(part)
+        with span("anomalyclip.evaluator.upload"):
+            uploaded = torch.from_numpy(part).to(device)
+        with span("anomalyclip.model.encode"):
+            out = encode(uploaded)
+        with span("anomalyclip.evaluator.fetch"):
+            out = out.float().cpu().numpy()
         outs.append(out[: len(out) - pad] if pad else out)
     return np.concatenate(outs)
 

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from anomalyclip_tpu_torch.eval.grids import prediction_result
+from anomalyclip_tpu_torch.utils.trace import span
 
 VIDEO_EXTS = {".mp4", ".avi", ".mkv", ".mov", ".webm"}
 
@@ -254,13 +255,15 @@ def score_sampled_input(scorer, model, sampling, classnames, raw: np.ndarray, pa
     from anomalyclip_tpu_torch.eval.evaluator import score_video
 
     t_raw = raw.shape[1]
-    starts, segment_size = test_start_indices(
-        t_raw, sampling.num_segments, sampling.seg_length, sampling.stride
-    )
-    indices = gather_frame_indices(starts, sampling.seg_length, sampling.stride, t_raw)
+    with span("anomalyclip.predict.cover"):
+        starts, segment_size = test_start_indices(
+            t_raw, sampling.num_segments, sampling.seg_length, sampling.stride
+        )
+        indices = gather_frame_indices(starts, sampling.seg_length, sampling.stride, t_raw)
+        covered = raw[:, indices]
     normal_fill = int(model.cfg.normal_id)
     item = TestItem(
-        features=raw[:, indices],
+        features=covered,
         frame_labels=np.full(t_raw, normal_fill, dtype=np.int64),
         video_label=normal_fill,
         segment_size=segment_size,
@@ -301,8 +304,9 @@ class Predictor:
         ``path`` names the input (a frames directory sets the start frame, as
         in ``score_input``); None for frames that came from no file."""
         start_frame = input_start_frame(path) if path else 0
-        return score_sampled_input(self.scorer, self.model, self.sampling, self.model.classnames,
-                                   raw, path, start_frame)
+        with span("anomalyclip.predict.video"):
+            return score_sampled_input(self.scorer, self.model, self.sampling, self.model.classnames,
+                                       raw, path, start_frame)
 
 
 def main(argv=None) -> dict:

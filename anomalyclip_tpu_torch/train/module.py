@@ -19,7 +19,8 @@ The step-level functions:
 dict) and runs it: the ncentroid pass and its cache, ``fit`` (epochs of
 ``fit_steps``, validation, early stopping, checkpoints, resume, preemption,
 metric loggers; under ``trainer.profiler=jax`` a ``torch.profiler`` trace of
-the whole fit in ``<run>/profile/``), ``validate``, ``test`` with its
+the whole fit in ``<run>/profile/``, its phases and steps named by the port's
+spans, ``utils/trace.py``), ``validate``, ``test`` with its
 artifacts, ``load_state`` and ``adopt_converted_state``. On the card unless
 the caller passes ``device="cpu"``.
 
@@ -37,7 +38,6 @@ groups of ``mp`` ranks.
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import signal
 import threading
 import time
@@ -86,8 +86,11 @@ from anomalyclip_tpu_torch.train.checkpoint import (
 )
 from anomalyclip_tpu_torch.train.optim import GroupedAdamW, base_lr_schedule, build_optimizer
 from anomalyclip_tpu_torch.utils.logging import MetricLoggerSet, get_logger, is_host_zero
+from anomalyclip_tpu_torch.utils.trace import span
 
 log = get_logger(__name__)
+
+_END = object()  # what fit_steps draws from a stream that has run out
 
 # metric name -> LossTerms field
 METRIC_NAMES = {
@@ -147,12 +150,13 @@ def prepare_batch(batch: TrainBatch, device) -> TrainBatch:
     def labels(y):
         return torch.as_tensor(np.asarray(y), dtype=torch.long).to(device)
 
-    return TrainBatch(
-        abnormal_features=features(batch.abnormal_features),
-        abnormal_labels=labels(batch.abnormal_labels),
-        normal_features=features(batch.normal_features),
-        normal_labels=labels(batch.normal_labels),
-    )
+    with span("anomalyclip.trainer.prepare"):
+        return TrainBatch(
+            abnormal_features=features(batch.abnormal_features),
+            abnormal_labels=labels(batch.abnormal_labels),
+            normal_features=features(batch.normal_features),
+            normal_labels=labels(batch.normal_labels),
+        )
 
 
 def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig, dp: Optional[Tuple[int, int]] = None):
@@ -174,8 +178,7 @@ def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig, dp: Optional[Tupl
         features = torch.cat([batch.abnormal_features, batch.normal_features])
         labels = torch.cat([batch.abnormal_labels, batch.normal_labels])
         state.optimizer.zero_grad()
-        # the backward's products and convolutions need the forward's precision
-        with matmul_precision_for(model.cfg.dtype):
+        with span("anomalyclip.model.forward"), matmul_precision_for(model.cfg.dtype):
             out, new_bn = model.forward_train(
                 frozen, state.trainable, state.bn_state, features, labels, ncentroid, gen, dp=dp
             )
@@ -190,10 +193,14 @@ def build_train_step(model: AnomalyCLIP, loss_cfg: LossConfig, dp: Optional[Tupl
                 loss_cfg,
                 dp=dp,
             )
-            terms.total.backward()
-        if dp is not None:
-            mean_gradients_([p for group in state.optimizer.optimizer.param_groups for p in group["params"]])
-        state.optimizer.step()
+        with span("anomalyclip.model.backward"):
+            # the backward's products and convolutions need the forward's precision
+            with matmul_precision_for(model.cfg.dtype):
+                terms.total.backward()
+            if dp is not None:
+                mean_gradients_([p for group in state.optimizer.optimizer.param_groups for p in group["params"]])
+        with span("anomalyclip.trainer.optimizer"):
+            state.optimizer.step()
         # metrics accumulate on the device: one host transfer per epoch
         terms = LossTerms(*(t.detach() for t in terms))
         sums = {k: metric_sums[k] + getattr(terms, f) for k, f in METRIC_NAMES.items()}
@@ -255,24 +262,38 @@ def fit_steps(
     ``on_step(state, terms)`` runs after every step. -> (state, one dict per
     epoch of the loss terms' means over its steps, on the host). With ``dp``
     (a data-parallel ``train_step``'s) each epoch's sums are averaged over the
-    ranks once, at its end: the global batch's means."""
+    ranks once, at its end: the global batch's means.
+
+    Each step, the draw of its batch included, is an
+    ``anomalyclip.trainer.step`` span (utils/trace.py); a stream that runs out
+    leaves one last step span that holds only the draw that found it empty."""
     device = ncentroid.device
     stream = iter(batches)
     history: List[Dict[str, float]] = []
+    ended = False
     for _ in range(epochs):
         sums, count = zero_metric_sums(device), 0
-        for batch in itertools.islice(stream, steps_per_epoch):
-            state, sums, terms = train_step(
-                frozen, state, prepare_batch(batch, device), ncentroid, gen, sums
-            )
-            count += 1
-            if on_step is not None:
-                on_step(state, terms)
+        for _ in range(steps_per_epoch):
+            with span("anomalyclip.trainer.step"):
+                with span("anomalyclip.trainer.next_batch"):
+                    batch = next(stream, _END)
+                if batch is _END:
+                    ended = True
+                    break
+                state, sums, terms = train_step(
+                    frozen, state, prepare_batch(batch, device), ncentroid, gen, sums
+                )
+                count += 1
+                if on_step is not None:
+                    on_step(state, terms)
         if count == 0:
             break
-        if dp is not None:
-            sums = dict(zip(sums, mean_over_ranks(torch.stack(list(sums.values())))))
-        history.append({k: float(v) / count for k, v in sums.items()})
+        with span("anomalyclip.trainer.epoch_end"):
+            if dp is not None:
+                sums = dict(zip(sums, mean_over_ranks(torch.stack(list(sums.values())))))
+            history.append({k: float(v) / count for k, v in sums.items()})
+        if ended:
+            break
     return state, history
 
 
@@ -740,7 +761,8 @@ class AnomalyCLIPTrainModule:
         fast_dev_run = bool(trainer_cfg.get("fast_dev_run"))
         max_epochs = 1 if fast_dev_run else int(trainer_cfg.get("max_epochs", 50))
 
-        self.compute_ncentroid(limit=1 if fast_dev_run else None)
+        with span("anomalyclip.trainer.ncentroid"):
+            self.compute_ncentroid(limit=1 if fast_dev_run else None)
 
         # kept on self so _fit's finally can join the worker pool even when an
         # epoch raises. In a group each rank loads its block of every global
@@ -899,9 +921,10 @@ class AnomalyCLIPTrainModule:
                 # a SIGTERM mid-validation must not burn the grace period on
                 # scoring: bail between videos; _handle_preempt below then
                 # checkpoints the epoch boundary
-                last_val = self.validate(
-                    state, epoch, limit=val_limit, should_stop=lambda: preempt_flag["set"],
-                )
+                with span("anomalyclip.trainer.validate"):
+                    last_val = self.validate(
+                        state, epoch, limit=val_limit, should_stop=lambda: preempt_flag["set"],
+                    )
                 self.loggers.log_metrics(
                     {
                         f"test/{k}": last_val[j]
@@ -934,7 +957,8 @@ class AnomalyCLIPTrainModule:
             if validated_this_epoch:
                 log_stage(f"epoch {epoch} validated")
             if ckpt_due:
-                self.ckpt.save_epoch(epoch, {**boundary_state, "epoch": epoch})
+                with span("anomalyclip.trainer.checkpoint"):
+                    self.ckpt.save_epoch(epoch, {**boundary_state, "epoch": epoch})
                 last_saved_epoch = epoch
                 log_stage(f"epoch {epoch} checkpoint written")
 

@@ -135,6 +135,7 @@ def test_port_imports_no_jax_yaml_regex_cv2_pil():
         "anomalyclip_tpu_torch.train.tpe",
         "anomalyclip_tpu_torch.utils.extras",
         "anomalyclip_tpu_torch.utils.logging",
+        "anomalyclip_tpu_torch.utils.trace",
         "anomalyclip_tpu_torch.utils.treeio",
         "anomalyclip_tpu_torch.utils.zstd",
     }

@@ -105,6 +105,26 @@ def test_a_profiled_fit_writes_a_trace_of_the_fit(tmp_path):
     assert all(e["dur"] >= 0 for e in ops)
 
 
+def test_a_profiled_fit_names_its_phases_by_span(tmp_path):
+    """The trace of a fit holds the port's spans (utils/trace.py): the ncentroid
+    pass, one step span a step, the validation pass and the checkpoint, each
+    phase's spans inside it."""
+    module = _port(tmp_path, "trainer.profiler=jax")
+    module.fit()
+    (trace,) = _traces(module)
+    spans = [e for e in _events(trace) if e.get("ph") == "X" and e["name"].startswith("anomalyclip.")]
+    names = Counter(e["name"] for e in spans)
+    steps = module._final_state.step
+    assert names["anomalyclip.trainer.step"] == steps > 0
+    assert names["anomalyclip.trainer.prepare"] == names["anomalyclip.model.backward"] == steps
+    for phase in ("ncentroid", "validate", "checkpoint", "epoch_end"):
+        assert names[f"anomalyclip.trainer.{phase}"] == 1, phase
+    (validate,) = [e for e in spans if e["name"] == "anomalyclip.trainer.validate"]
+    grids = [e for e in spans if e["name"] == "anomalyclip.evaluator.grids"]
+    assert grids and all(validate["ts"] <= e["ts"] and e["ts"] + e["dur"] <= validate["ts"] + validate["dur"]
+                         for e in grids)
+
+
 def test_a_fit_that_raises_mid_epoch_writes_its_trace_and_reraises(tmp_path):
     module = _port(tmp_path, "trainer.profiler=jax")
 
